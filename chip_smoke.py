@@ -9,20 +9,31 @@ exits non-zero:
 2. build: every ``rovit_kan_tpu_torch/csrc/*.cu`` compiled from a clean
    build directory, one ``nvcc`` per source, all started together;
 3. kernels: each ported kernel against its plain PyTorch version on the
-   card at the serving shape, with the stated tolerance, and timed (CUDA
-   events, warm-up, median) beside its bound, the plain version and one
-   PyTorch library call computing the same function;
+   card at the main path's shapes, with the stated tolerance, and timed
+   (CUDA events, warm-up, median) beside its bound, the plain version and
+   one PyTorch library call computing the same function: the block forward
+   (#1) and backward (#2) at (64, 197, 192), 3 heads, and the augment (#7)
+   at (64, 224, 224, 3), each in bf16 and fp32;
 4. serve: the full-width DeiT-Tiny RoViT-KAN (seeded random weights) built
    with ``build_model`` and served through ``InferenceEngine`` and
    ``MicroBatcher``; the launch counters are set to 0 just before and read
    just after, and the served outputs are held against the same model run
-   with the plain block.
+   with the plain block;
+5. train: the same model built for training, ten flat-AdamW steps at batch
+   64 through ``make_train_step`` (stage 4, mixing on) between a counter
+   reset and a read, which must show 12 launches of #1 and of #2 and one of
+   #7 per step; finite losses; a falling loss on one repeated batch; one
+   step held against the same step through the plain versions and the fp32
+   model (``hold_train_step``: #2 per parameter, each image's loss, the
+   stage-3 gradient by parameter group); training images/s and one
+   profiled step.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 is ``{"ok": true, "device": {...}}``. Imports torch and the port only.
 """
 from __future__ import annotations
 
+import functools
 import json
 import shutil
 import statistics
@@ -168,6 +179,133 @@ def check_block(dtype, seed: int):
             "bound_by": "operations"}
 
 
+def bwd_tol(ref: torch.Tensor, dtype) -> float:
+    """Backward tolerance, relative to the largest magnitude of each output:
+    fp32 1e-4 (sums in another order, up to B*N rows); bf16 1e-2 (a rounding
+    boundary that an fp32 sum in another order crosses moves one rounded
+    intermediate by one bf16 ulp, 2^-8 of it, before the sums over rows)."""
+    top = max(float(ref.float().abs().max()), 1e-6)
+    return (1e-4 if dtype == torch.float32 else 1e-2) * top
+
+
+def check_block_bwd(dtype, seed: int):
+    """Kernel #2 against ``block_backward_reference``: dx and all 12 grads,
+    each against its own tolerance."""
+    from rovit_kan_tpu_torch.ops import block_kernel as bk
+    x, params = block_inputs(dtype, seed)
+    g = torch.tensor(np.random.RandomState(seed + 10).normal(
+        0, 1, x.shape), dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        dx, grads = bk._launch_bwd(x, g, params, HEADS)
+        want_dx, want = bk.block_backward_reference(x, g, params, HEADS)
+        torch.cuda.synchronize()
+    errs, failed = {}, []
+    for name, got, ref in [("dx", dx, want_dx)] + [
+            (k, grads[k], want[k]) for k in bk.PKEYS]:
+        if not torch.isfinite(got.float()).all():
+            raise RuntimeError(f"backward kernel ({dtype}) {name}: "
+                               f"non-finite values")
+        err = float((got.float() - ref.float()).abs().max())
+        tol = bwd_tol(ref, dtype)
+        errs[name] = {"max_abs_err": err, "tolerance": tol,
+                      "rel_err": err / max(float(ref.float().abs().max()),
+                                           1e-6)}
+        if not err <= tol:
+            failed.append(name)
+    if failed:
+        raise RuntimeError(f"backward kernel ({dtype}) out of tolerance: "
+                           f"{ {k: errs[k] for k in failed} }")
+
+    with torch.no_grad():
+        ms = time_ms(lambda: bk._launch_bwd(x, g, params, HEADS), reps=9)
+        plain_ms = time_ms(lambda: bk.block_backward_reference(
+            x, g, params, HEADS), reps=5, inner=3)
+    # Forward plus backward: the port's #1 + #2 through autograd, and the
+    # same pre-LN block as nn.TransformerEncoderLayer (the library yardstick).
+    raw = {k: v.float().detach().clone().requires_grad_()
+           for k, v in params.items()}
+    xg = x.detach().clone().requires_grad_()
+    gx = g.to(dtype)
+
+    def port_fwd_bwd():
+        bk.fused_vit_block(xg, raw, HEADS, kernel_params=params).backward(gx)
+
+    layer = library_layer(params, dtype).train()
+
+    def library_fwd_bwd():
+        layer(xg).backward(gx)
+
+    port_ms = time_ms(port_fwd_bwd, reps=9)
+    library_ms = time_ms(library_fwd_bwd, reps=9)
+    # The needed work: the forward recomputed without fc2 (no gradient
+    # reads the block's output), then two products per forward product.
+    B, N, D = x.shape
+    flops = 3 * (2 * B * N * D * (4 * D + 2 * HIDDEN)
+                 + 4 * B * HEADS * N * N * (D // HEADS)) \
+        - 2 * B * N * D * HIDDEN
+    nbytes = (2 * x.numel() * x.element_size() + g.numel() * 4
+              + sum(p.numel() * p.element_size() for p in params.values())
+              + sum(p.numel() * 4 for p in params.values()))
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    return {"replaces": "rovit_kan_tpu/ops/block_kernel.py::"
+                        "_vit_block_bwd_kernel",
+            "dtype": str(dtype).replace("torch.", ""),
+            "shape": list(x.shape), "heads": HEADS,
+            "launches_per_step": "12 (one per block; counted in 'train')",
+            "outputs": errs,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "max_rel_err": max(e["rel_err"] for e in errs.values()),
+            "kernel_ms": ms, "plain_ms": plain_ms,
+            "port_fwd_bwd_ms": port_ms, "library_ms": library_ms,
+            "library": "nn.TransformerEncoderLayer forward + backward",
+            "bound_ms": 1e3 * max(flops / peak, nbytes / PEAK_BYTES_PER_S),
+            "bound_by": "operations"}
+
+
+def augment_tol(compute) -> float:
+    """Both sides round at the same points; the pivot sums H*W*3 terms in
+    another order, and a rounding boundary it crosses moves each of the
+    three rounded blends by at most one ulp of [0, 1] (2^-8 in bf16), scaled
+    by 1/std (<= 1/0.224) in the normalization. fp32: sum order only."""
+    return 3 * 2.0 ** -8 / 0.224 if compute == torch.bfloat16 else 1e-5
+
+
+def check_augment(compute, seed: int):
+    """Kernel #7 against ``augment_reference`` at the training batch."""
+    from rovit_kan_tpu_torch.ops import augment_kernel as ak
+    rng = np.random.RandomState(seed)
+    imgs = torch.from_numpy(rng.randint(0, 256, (BATCH, 224, 224, 3))
+                            .astype(np.uint8)).cuda()
+    factors = ak.draw_factors(torch.Generator("cuda").manual_seed(seed),
+                              BATCH)
+    got = ak.fused_augment_batch(imgs, factors, compute)
+    want = ak.augment_reference(imgs, factors, compute)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"augment kernel ({compute}) non-finite values")
+    err = float((got - want).abs().max())
+    tol = augment_tol(compute)
+    if not err <= tol:
+        raise RuntimeError(f"augment kernel ({compute}) max |err| {err} > "
+                           f"tolerance {tol}")
+    ms = time_ms(lambda: ak.fused_augment_batch(imgs, factors, compute))
+    plain_ms = time_ms(lambda: ak.augment_reference(imgs, factors, compute),
+                       reps=9, inner=3)
+    nbytes = imgs.numel() * (1 + got.element_size()) + factors.numel() * 4
+    return {"replaces": "rovit_kan_tpu/ops/augment_kernel.py::"
+                        "_augment_kernel",
+            "compute_dtype": str(compute).replace("torch.", ""),
+            "out_dtype": "float32", "shape": list(imgs.shape),
+            "launches_per_step": "1 (counted in 'train')",
+            "max_abs_err": err, "tolerance": tol, "kernel_ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "library": "none: no single PyTorch call computes the flips, "
+                       "jitter and normalization, and the card has no "
+                       "torchvision",
+            "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
+            "bound_by": "bytes"}
+
+
 def features(model, images_u8: np.ndarray) -> np.ndarray:
     """The backbone's fp32 CLS features for a uint8 batch."""
     from rovit_kan_tpu_torch.ops.preprocess import eval_batch
@@ -275,7 +413,7 @@ def serve(smi: str):
     # block, and the fp32 model (the port's unfused fp32 path, held against
     # the JAX model at 2e-5 on the CPU) with the same seeded weights.
     for b in blocks:
-        b.block_fn = bk.block_reference
+        b.block_fn = bk.plain_vit_block
     plain = engine.predict(full[0])
     plain["features"] = features(model, full[0])
     for b in blocks:
@@ -335,6 +473,315 @@ def serve(smi: str):
             "card": smi}
 
 
+def train_batch(cfg, seed: int):
+    rng = np.random.RandomState(seed)
+    size = cfg.data.image_size
+    labels = torch.from_numpy(rng.randint(0, 4, BATCH)).long().cuda()
+    return {"images": torch.from_numpy(rng.randint(
+                0, 256, (BATCH, size, size, 3)).astype(np.uint8)).cuda(),
+            "labels": labels, "severity": labels.float()}
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_backward_block():
+    from rovit_kan_tpu_torch.ops import block_kernel as bk
+
+    class PlainBackward(bk.FusedViTBlock):
+        @staticmethod
+        def backward(ctx, g):
+            ctx.plain = True
+            return bk.FusedViTBlock.backward(ctx, g)
+
+    return PlainBackward
+
+
+def _kernel_fwd_plain_bwd(x, params, heads=HEADS, kernel_params=None):
+    """A block ``block_fn``: #1 in the forward, #2's plain version in the
+    backward, so a step through it differs from the kernel step only in the
+    backward."""
+    from rovit_kan_tpu_torch.ops.block_kernel import PKEYS
+    return _plain_backward_block().apply(x, heads, kernel_params, False,
+                                         *(params[k] for k in PKEYS))
+
+
+def one_step(cfg, kind: str, batch, draws, stage: int):
+    """One step at ``stage`` from the seed-0 weights with fixed draws:
+    ``kernels`` (bf16, #1, #2 and #7), ``kernel_fwd`` (as ``kernels``, but
+    the block backward is #2's plain version), ``plain`` (bf16 through the
+    kernels' plain versions), ``fp32`` (the fp32 model, unfused, fp32
+    augment chain) or ``fp32_rounded`` (as ``fp32``, its input images
+    rounded to bf16). Returns the loss, each image's loss alone and the
+    gradient of every parameter."""
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.ops import augment_kernel as ak
+    from rovit_kan_tpu_torch.ops import block_kernel as bk
+    from rovit_kan_tpu_torch.ops.mixing import cutmix_or_mixup
+    from rovit_kan_tpu_torch.ops.preprocess import augment_batch
+    from rovit_kan_tpu_torch.training.losses import joint_loss
+    from rovit_kan_tpu_torch.training.optimizer import build_optimizer
+    from rovit_kan_tpu_torch.training.trainer import make_train_step
+    fp32 = kind.startswith("fp32")
+    model = build_model(cfg, dtype=torch.float32 if fp32 else torch.bfloat16,
+                        device="cuda", seed=0)
+    blocks = model.backbone.model.blocks
+    for b in blocks:
+        b.block_fn = {"plain": bk.plain_vit_block,
+                      "kernel_fwd": _kernel_fwd_plain_bwd}.get(kind,
+                                                               b.block_fn)
+    opt = build_optimizer(model, cfg)
+    step = make_train_step(model, opt, cfg,
+                           generator=torch.Generator("cuda").manual_seed(1))
+    if kind == "plain":
+        step.augment = ak.augment_reference
+    if kind == "fp32_rounded":
+        step.augment = lambda images, factors: augment_batch(
+            images, factors).to(torch.bfloat16).float()
+    if fp32 == (step.fused_augment and all(b.use_fused_block
+                                           for b in blocks)):
+        raise RuntimeError(f"{kind} step: unexpected kernel policy")
+    outputs = {}
+    model.register_forward_hook(lambda mod, args, out: outputs.update(out))
+    m = step(batch, stage, 1.0, 1, draws=dict(
+        draws, dropout=torch.Generator("cuda").manual_seed(2)))
+    # Each image's loss alone: the step's joint loss over one valid row.
+    labels = batch["labels"]
+    _, la, lb, lam = cutmix_or_mixup(torch.zeros(batch["images"].shape,
+                                                 device="cuda"),
+                                     labels, draws["mix"])
+    lc, eye = cfg.loss, torch.eye(BATCH, device="cuda")
+    per_image = np.array([float(joint_loss(
+        {k: v.detach() for k, v in outputs.items()}, labels,
+        batch["severity"], stage, lambda_ord=lc.lambda_ord, mu_unc=lc.mu_unc,
+        nu_kan=lc.nu_kan, focal_gamma=lc.focal_gamma,
+        head_mask=model.head_mask,
+        mixup={"labels_a": la, "labels_b": lb, "lam": lam},
+        valid=eye[i])["total_loss"]) for i in range(BATCH)])
+    return {"loss": float(m["total_loss"]), "per_image": per_image,
+            "outputs": {k: outputs[k].detach().float()
+                        for k in ("features", "kan_severity")},
+            "grads": {k: p.grad.detach().clone()
+                      for k, p in zip(opt.names, opt.params)}}
+
+
+GROUPS = ("backbone.", "classification_head.", "ordinal_head.",
+          "uncertainty_head.", "kan_module.")
+
+
+def grad_gaps(a, b, leaves=None):
+    """The L2 distance ``|a - b|`` and the norm ``|b|`` of the gradient of
+    each parameter group (and of all of them), from two ``one_step``
+    results."""
+    def cat(r, keys):
+        return torch.cat([r["grads"][k].reshape(-1) for k in keys])
+
+    out = {}
+    for group in GROUPS + ("all",):
+        keys = [k for k in (leaves or a["grads"])
+                if group == "all" or k.startswith(group)]
+        if not keys:
+            continue
+        ga, gb = cat(a, keys), cat(b, keys)
+        out[group.rstrip(".")] = {"dist": float((ga - gb).norm()),
+                                  "norm": float(gb.norm())}
+    return out
+
+
+def hold_train_step(cfg, batch, draws):
+    """One step held against its plain versions; raises on a miss.
+
+    1. Backward (#2), stage 4: the kernel step against the same step with
+       #2's plain version. The forwards are the same launches, so the loss
+       and the heads' grads agree exactly, and each parameter's gradient
+       may differ only by #2's own rounding, summed over 12 blocks: it must
+       lie within 5e-2 of its L2 norm (the card test's limit).
+    2. Loss, stage 4: each image's loss in the kernel step within twice the
+       plain bf16 step's largest distance from fp32 (the serve phase's
+       triangle rule, floor 1e-3). Per image, because the batch mean
+       cancels: the two means may land far closer than any image's loss.
+    3. Gradient, stage 3: per parameter group and in all, the kernel step's
+       distances from the plain step and from fp32 within twice the plain
+       step's distance from fp32 (floor 1e-3 of the fp32 norm). Stage 3,
+       because stage 4's KAN loss makes the gradient ill-conditioned at
+       these weights: rounding the fp32 step's input images to bf16 alone
+       moves it by the ``conditioning`` readings, so there no bf16 step can
+       be told apart from a wrong one (readings in ``stage4_readings``).
+    """
+    runs = {(kind, stage): one_step(cfg, kind, batch, draws, stage)
+            for stage, kinds in ((4, ("kernels", "kernel_fwd", "plain",
+                                      "fp32", "fp32_rounded")),
+                                 (3, ("kernels", "plain", "fp32",
+                                      "fp32_rounded")))
+            for kind in kinds}
+    failed = []
+
+    k4, kf4 = runs["kernels", 4], runs["kernel_fwd", 4]
+    leaf = {}
+    for name, g in k4["grads"].items():
+        ref = kf4["grads"][name]
+        leaf[name] = float((g - ref).norm()) / max(float(ref.norm()), 1e-30)
+    worst = max(leaf, key=leaf.get)
+    backward = {"tolerance": 5e-2, "worst_leaf": worst,
+                "worst_rel": leaf[worst],
+                "median_leaf_rel": float(np.median(list(leaf.values()))),
+                "all_rel": grad_gaps(k4, kf4)["all"],
+                "loss_diff": k4["loss"] - kf4["loss"]}
+    if not leaf[worst] <= 5e-2:
+        failed.append("backward")
+
+    p4, f4 = runs["plain", 4], runs["fp32", 4]
+    ref = max(float(np.abs(p4["per_image"] - f4["per_image"]).max()), 1e-3)
+    loss = {"kernels": k4["loss"], "plain": p4["loss"], "fp32": f4["loss"],
+            "per_image_vs_plain": float(np.abs(k4["per_image"]
+                                               - p4["per_image"]).max()),
+            "per_image_vs_fp32": float(np.abs(k4["per_image"]
+                                              - f4["per_image"]).max()),
+            "per_image_plain_vs_fp32": ref, "tolerance": 2 * ref}
+    if not max(loss["per_image_vs_plain"],
+               loss["per_image_vs_fp32"]) <= loss["tolerance"]:
+        failed.append("loss")
+
+    k3, p3, f3 = runs["kernels", 3], runs["plain", 3], runs["fp32", 3]
+    live = [k for k, g in f3["grads"].items() if float(g.norm()) > 0]
+    vs_p, vs_f, p_f = (grad_gaps(a, b, live)
+                       for a, b in ((k3, p3), (k3, f3), (p3, f3)))
+    grad = {}
+    for group, pf in p_f.items():
+        if pf["norm"] == 0:
+            continue
+        tol = 2 * max(pf["dist"], 1e-3 * pf["norm"])
+        grad[group] = {"vs_plain": vs_p[group]["dist"] / pf["norm"],
+                       "vs_fp32": vs_f[group]["dist"] / pf["norm"],
+                       "plain_vs_fp32": pf["dist"] / pf["norm"],
+                       "tolerance": tol / pf["norm"]}
+        if not max(vs_p[group]["dist"], vs_f[group]["dist"]) <= tol:
+            failed.append(f"stage-3 grad {group}")
+
+    def rel(gaps):
+        return {g: v["dist"] / v["norm"] for g, v in gaps.items()
+                if v["norm"] > 0}
+
+    def moved(a, b):
+        return {f"{k}_max_abs": float((a["outputs"][k]
+                                       - b["outputs"][k]).abs().max())
+                for k in a["outputs"]}
+
+    held = {"backward_stage4": backward, "loss_stage4": loss,
+            "grad_stage3": grad,
+            "stage4_readings": {
+                "kernels_vs_plain": rel(grad_gaps(k4, p4)),
+                "plain_vs_fp32": rel(grad_gaps(p4, f4)),
+                "kernels_vs_fp32": rel(grad_gaps(k4, f4))},
+            "conditioning": {
+                **moved(runs["fp32_rounded", 4], f4),
+                "stage4": rel(grad_gaps(runs["fp32_rounded", 4], f4)),
+                "stage3": rel(grad_gaps(runs["fp32_rounded", 3], f3,
+                                        live))}}
+    if failed:
+        emit({"phase": "train", "held": held})
+        raise RuntimeError(f"train step out of tolerance: {failed}")
+    return held
+
+
+def profile_step(step, batch):
+    """torch.profiler over one train step: device time by kernel and the
+    device's busy share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch, 4, 1.0, 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:14]
+    return {"wall_ms": wall_ms, "device_kernel_ms": total,
+            "device_busy_share": total / wall_ms,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def train(smi: str):
+    from rovit_kan_tpu_torch.config import Config
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.ops import augment_kernel as ak
+    from rovit_kan_tpu_torch.ops import block_kernel as bk
+    from rovit_kan_tpu_torch.ops.mixing import draw_mix
+    from rovit_kan_tpu_torch.training.optimizer import (
+        build_optimizer,
+        set_hyperparams,
+    )
+    from rovit_kan_tpu_torch.training.trainer import make_train_step
+
+    cfg = Config()
+    model = build_model(cfg, device="cuda", seed=0)
+    blocks = model.backbone.model.blocks
+    if not model.training or not all(b.use_fused_block for b in blocks):
+        raise RuntimeError("the 'auto' policy did not pick the block kernel "
+                           "for training")
+    opt = build_optimizer(model, cfg)
+    step = make_train_step(model, opt, cfg,
+                           generator=torch.Generator("cuda").manual_seed(0))
+    if not step.fused_augment:
+        raise RuntimeError("the 'auto' policy did not pick the augment kernel")
+    batches = [train_batch(cfg, 100 + i) for i in range(10)]
+    torch.cuda.synchronize()
+
+    # The main path, between the counter reset and the read.
+    bk.LAUNCHES = bk.BWD_LAUNCHES = ak.LAUNCHES = 0
+    metrics = []
+    for i, batch in enumerate(batches):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        metrics.append(step(batch, 4, 1.0, 1))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"vit_block_fwd": bk.LAUNCHES, "vit_block_bwd":
+                bk.BWD_LAUNCHES, "augment": ak.LAUNCHES}
+    steps = len(batches)
+    want = {"vit_block_fwd": 12 * steps, "vit_block_bwd": 12 * steps,
+            "augment": steps}
+    if launches != want:
+        raise RuntimeError(f"train launches {launches}, want {want}")
+    losses = [float(m["total_loss"]) for m in metrics]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite train losses {losses}")
+
+    prof = profile_step(step, batches[0])
+
+    # One repeated batch, mixing off, at lr 1e-3: the loss must fall.
+    set_hyperparams(opt, 1e-3, 0.1)
+    repeat = [float(step(batches[0], 4, 1.0, 0)["total_loss"])
+              for _ in range(8)]
+    if not repeat[-1] < repeat[0]:
+        raise RuntimeError(f"loss did not fall on a repeated batch: "
+                           f"{repeat}")
+
+    # One step with the kernels, with their plain versions and with the
+    # fp32 model, on the same weights and draws (see hold_train_step).
+    held = hold_train_step(cfg, batches[0], {
+        "factors": ak.draw_factors(torch.Generator("cuda").manual_seed(3),
+                                   BATCH),
+        "mix": draw_mix(torch.Generator().manual_seed(4), BATCH,
+                        cfg.data.image_size, cfg.data.image_size)})
+
+    emit({"phase": "train_profile", "batch_size": BATCH, **prof,
+          "card": smi})
+    return {"phase": "train", "model": "DeiT-Tiny RoViT-KAN d=192 depth=12 "
+            "heads=3 224px bf16, stage 4, CutMix/MixUp, flat AdamW",
+            "batch_size": BATCH, "steps": steps, "launches": launches,
+            "launches_per_step": {k: v / steps for k, v in launches.items()},
+            "losses": losses, "repeated_batch_losses": repeat,
+            "images_per_sec": BATCH * (steps - 2) / elapsed,
+            "step_ms": 1e3 * elapsed / (steps - 2), "held": held,
+            "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -360,21 +807,42 @@ def main() -> int:
 
     bf16 = check_block(torch.bfloat16, seed=0)
     fp32 = check_block(torch.float32, seed=1)
-    emit({"phase": "kernels", "vit_block_fwd": [bf16, fp32], "card": smi})
+    bwd16 = check_block_bwd(torch.bfloat16, seed=2)
+    bwd32 = check_block_bwd(torch.float32, seed=3)
+    aug16 = check_augment(torch.bfloat16, seed=4)
+    aug32 = check_augment(torch.float32, seed=5)
+    emit({"phase": "kernels", "vit_block_fwd": [bf16, fp32],
+          "vit_block_bwd": [bwd16, bwd32], "augment": [aug16, aug32],
+          "card": smi})
 
     result = serve(smi)
     emit(result)
+    trained = train(smi)
+    emit(trained)
 
-    emit({"kernels": [{
-        "name": "vit_block_fwd", "route": "cuda",
-        "source": "rovit_kan_tpu_torch/csrc/vit_block_fwd.cu",
-        "replaces": "rovit_kan_tpu/ops/block_kernel.py:92",
-        "launches": result["block_launches"],
-        "max_abs_err": bf16["max_abs_err"], "ms": bf16["kernel_ms"],
-        "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
-        "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
-        "fp32": {k: fp32[k] for k in ("max_abs_err", "kernel_ms", "plain_ms",
-                                      "bound_ms", "library_ms")}}]})
+    def entry(name, source, replaces, launches, lo, hi, **extra):
+        keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+                "library_ms")
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": lo["max_abs_err"], "ms": lo["kernel_ms"],
+                "plain_ms": lo["plain_ms"], "bound_ms": lo["bound_ms"],
+                "bound_by": lo["bound_by"], "library_ms": lo["library_ms"],
+                **extra, "fp32": {k: hi[k] for k in keys}}
+
+    csrc = "rovit_kan_tpu_torch/csrc/"
+    emit({"kernels": [
+        entry("vit_block_fwd", csrc + "vit_block_fwd.cu",
+              "rovit_kan_tpu/ops/block_kernel.py:92",
+              result["block_launches"], bf16, fp32,
+              train_launches=trained["launches"]["vit_block_fwd"]),
+        entry("vit_block_bwd", csrc + "vit_block_bwd.cu",
+              "rovit_kan_tpu/ops/block_kernel.py:399",
+              trained["launches"]["vit_block_bwd"], bwd16, bwd32,
+              port_fwd_bwd_ms=bwd16["port_fwd_bwd_ms"]),
+        entry("augment", csrc + "augment.cu",
+              "rovit_kan_tpu/ops/augment_kernel.py:73",
+              trained["launches"]["augment"], aug16, aug32)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

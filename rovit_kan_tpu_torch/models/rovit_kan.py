@@ -67,8 +67,11 @@ class RoViTKAN(nn.Module):
             self.kan_module = KANSeverityModule(tuple(kan_layers),
                                                 kan_num_knots, kan_degree)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """x: ``(B, H, W, 3)`` normalized images (NHWC)."""
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """x: ``(B, H, W, 3)`` normalized images (NHWC). ``generator``
+        draws the heads' dropout masks in training mode."""
         feats = self.backbone(x)                       # (B, D) fp32
         B = feats.shape[0]
 
@@ -76,11 +79,13 @@ class RoViTKAN(nn.Module):
             return feats.new_zeros((B, width))
 
         out = {"features": feats,
-               "cls_logits": self.classification_head(feats)}
-        out["ordinal_logits"] = (self.ordinal_head(feats) if self.with_ordinal
+               "cls_logits": self.classification_head(feats, generator)}
+        out["ordinal_logits"] = (self.ordinal_head(feats, generator)
+                                 if self.with_ordinal
                                  else zeros(self.num_classes - 1))
         if self.with_uncertainty:
-            out["mu"], out["log_var"] = self.uncertainty_head(feats)
+            out["mu"], out["log_var"] = self.uncertainty_head(feats,
+                                                              generator)
         else:
             out["mu"], out["log_var"] = zeros(1), zeros(1)
         out["kan_severity"] = (self.kan_module(feats) if self.with_kan
@@ -99,8 +104,8 @@ def _resolve_fused_block(setting, *, inference: bool, dtype: torch.dtype,
                          embed_dim: int, device: torch.device) -> bool:
     """Block-kernel policy: ``rovit_kan_tpu``'s ``_resolve_pallas_block``
     with "tpu" read as "cuda" (bf16 on the card, for inference, or for
-    training at d <= 512). The kernel has no backward yet, so a training
-    forward through it raises; True/False force one implementation."""
+    training at d <= 512, where the backward kernel runs too); True/False
+    force one implementation."""
     if setting == "auto":
         return (dtype == torch.bfloat16 and device.type == "cuda"
                 and (bool(inference) or embed_dim <= 512))

@@ -12,9 +12,12 @@ the CLS and position embeddings are cast to it before the add, and the final
 norm and the features are fp32.
 
 With ``use_fused_block`` every block goes through
-``ops.block_kernel.fused_vit_block`` (the CUDA kernel on the card, its plain
-version on the CPU), with the block's weights cast once per weight version.
-Attention maps and the Grad-CAM tap come with the explainability slice.
+``ops.block_kernel.fused_vit_block`` (the CUDA kernels on the card, their
+plain versions on the CPU), with the block's weights cast once per weight
+version. In training that call is ``FusedViTBlock``, whose backward is the
+fused recompute backward, and the grads reach the fp32 parameters; the
+unfused path is plain autograd. Attention maps and the Grad-CAM tap come
+with the explainability slice.
 """
 from __future__ import annotations
 
@@ -108,7 +111,8 @@ class Block(nn.Module):
     """Pre-LN transformer block: x += MHA(LN(x)); x += MLP(LN(x)).
 
     ``use_fused_block`` routes the whole block through ``block_fn``
-    (``fused_vit_block``); the parameters are the same either way."""
+    (``fused_vit_block``, or ``plain_vit_block`` to hold it against the
+    plain versions); the parameters are the same either way."""
 
     def __init__(self, dim: int = 192, num_heads: int = 3,
                  mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32,
@@ -125,15 +129,19 @@ class Block(nn.Module):
         self._kernel_params: Optional[Dict[str, torch.Tensor]] = None
         self._kernel_key: Optional[Tuple] = None
 
+    def block_params(self) -> Dict[str, torch.Tensor]:
+        """The block's fp32 parameters under the kernel's names."""
+        return {"ln1_scale": self.norm1.weight, "ln1_bias": self.norm1.bias,
+                "wqkv": self.attn.qkv.weight, "bqkv": self.attn.qkv.bias,
+                "wproj": self.attn.proj.weight, "bproj": self.attn.proj.bias,
+                "ln2_scale": self.norm2.weight, "ln2_bias": self.norm2.bias,
+                "w1": self.mlp.fc1.weight, "b1": self.mlp.fc1.bias,
+                "w2": self.mlp.fc2.weight, "b2": self.mlp.fc2.bias}
+
     def kernel_params(self) -> Dict[str, torch.Tensor]:
         """The block's tensors in the kernel's layout, cast once and reused
         until a parameter is replaced or modified in place."""
-        raw = {"ln1_scale": self.norm1.weight, "ln1_bias": self.norm1.bias,
-               "wqkv": self.attn.qkv.weight, "bqkv": self.attn.qkv.bias,
-               "wproj": self.attn.proj.weight, "bproj": self.attn.proj.bias,
-               "ln2_scale": self.norm2.weight, "ln2_bias": self.norm2.bias,
-               "w1": self.mlp.fc1.weight, "b1": self.mlp.fc1.bias,
-               "w2": self.mlp.fc2.weight, "b2": self.mlp.fc2.bias}
+        raw = self.block_params()
         key = (self.dtype,) + tuple((t.data_ptr(), t._version)
                                     for t in raw.values())
         if key != self._kernel_key:
@@ -146,8 +154,9 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_fused_block:
-            return self.block_fn(x.to(self.dtype), self.kernel_params(),
-                                 self.num_heads)
+            return self.block_fn(x.to(self.dtype), self.block_params(),
+                                 self.num_heads,
+                                 kernel_params=self.kernel_params())
         y = _layer_norm(x, self.norm1).to(self.dtype)
         x = x + self.attn(y)
         z = _layer_norm(x, self.norm2)

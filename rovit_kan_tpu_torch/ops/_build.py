@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds), and
 loads with ``ctypes``. The library lands in ``rovit_kan_tpu_torch/_build/``
-(listed in ``.gitignore``) under a name keyed on a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one is reused. The build
+(listed in ``.gitignore``) under a name keyed on a hash of the source, of
+every ``csrc/*.cuh`` header it includes (directly or through another header)
+and of the flags, so an edited source or header rebuilds and an unchanged one
+is reused. The build
 runs at first use, never at import: the CPU tests import every module on a
 machine with no ``nvcc``.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -41,11 +44,26 @@ def nvcc_path() -> str:
                        "the CUDA toolkit is installed")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _headers(path: Path, seen: List[Path]) -> List[Path]:
+    """The ``csrc`` headers ``path`` includes, in first-seen order."""
+    for name in _INCLUDE.findall(path.read_text()):
+        header = CSRC / name
+        if header.exists() and header not in seen:
+            seen.append(header)
+            _headers(header, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in _headers(src, []):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

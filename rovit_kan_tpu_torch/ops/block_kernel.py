@@ -1,9 +1,11 @@
-"""Whole-ViT-block forward: the CUDA kernel's wrapper and its plain version.
+"""Whole-ViT-block forward and backward: the CUDA kernels' wrappers and
+their plain versions.
 
-Counterpart of ``rovit_kan_tpu/ops/block_kernel.py::fused_vit_block``, whose
-TPU kernel ``_vit_block_kernel`` is replaced on Hopper by
-``csrc/vit_block_fwd.cu`` (the source note there says what bounds it and how
-it is tiled). One pre-LN block:
+Counterpart of ``rovit_kan_tpu/ops/block_kernel.py::fused_vit_block`` and its
+custom VJP. The TPU kernel ``_vit_block_kernel`` is replaced on Hopper by
+``csrc/vit_block_fwd.cu`` and the recompute backward ``_vit_block_bwd_kernel``
+by ``csrc/vit_block_bwd.cu`` (the source notes there say what bounds them
+and how they are tiled). One pre-LN block:
 
     x1 = x + proj(MHA(LN1(x)));  out = x1 + fc2(GELU(fc1(LN2(x1))))
 
@@ -11,18 +13,24 @@ with the TPU kernel's rounding points: LN in fp32, matmul operands in the
 compute dtype (bf16, or fp32 for fp32 input) with fp32 accumulation and fp32
 bias adds, qkv / softmax probabilities / the attention output / the GELU
 output rounded to the compute dtype, both residual adds in fp32, and one
-rounding to ``x.dtype`` at the store.
+rounding to ``x.dtype`` at the store. The backward recomputes that forward
+and rounds where ``_vit_block_bwd_kernel`` does (see
+``block_backward_reference``).
 
 ``params`` carries the 12 tensors under the JAX names (``ln1_scale``,
 ``wqkv``, ...), but every weight is in ``nn.Linear`` layout ``(out, in)``,
 not the JAX ``(in, out)``. ``prepare_block_params`` casts the weights to the
-compute dtype once, which the kernel requires.
+compute dtype once, which the kernels require.
+
+Under autograd the block is ``FusedViTBlock``: the forward saves only ``x``
+and the parameters (the recompute contract of the JAX custom VJP), and the
+backward gives ``dx`` and the 12 parameter grads, summed over the batch.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,29 +40,34 @@ PKEYS = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wproj", "bproj",
 WEIGHT_KEYS = ("wqkv", "wproj", "w1", "w2")
 LN_EPS = 1e-6
 
-#: Launches of the CUDA block kernel since import (one per wrapper call on a
-#: CUDA tensor). The CPU path never touches it.
+#: Launches of the CUDA block forward since import (one per wrapper call on
+#: a CUDA tensor). The CPU path never touches it.
 LAUNCHES = 0
+#: Launches of the CUDA block backward, counted the same way.
+BWD_LAUNCHES = 0
 
 
 def prepare_block_params(params: Dict[str, torch.Tensor],
                          dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     """Weights cast to the compute ``dtype``, LN parameters and biases fp32,
-    all detached and contiguous: the layout the kernel takes."""
+    all detached and contiguous: the layout the kernels take."""
     return {k: v.detach().to(dtype if k in WEIGHT_KEYS else torch.float32)
             .contiguous() for k, v in params.items()}
 
 
-def _ln(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Two-pass fp32 LayerNorm, ``(x - mu) * rsqrt(var + eps) * g + b``."""
+def _ln_stats(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
+    """Two-pass fp32 LayerNorm ``(x - mu) * rsqrt(var + eps) * g + b``, with
+    its normalized input and inverse std."""
     mu = x.mean(dim=-1, keepdim=True)
     var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
-    return (x - mu) * torch.rsqrt(var + LN_EPS) * g + b
+    inv = torch.rsqrt(var + LN_EPS)
+    xhat = (x - mu) * inv
+    return xhat * g + b, xhat, inv
 
 
 def block_reference(x: torch.Tensor, params: Dict[str, torch.Tensor],
                     heads: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, with its rounding points.
+    """Plain PyTorch version of the forward kernel, with its rounding points.
 
     Products take operands rounded to the compute dtype and accumulate in
     fp32 (the operands are upcast, so no product is TF32 or bf16-output)."""
@@ -67,7 +80,8 @@ def block_reference(x: torch.Tensor, params: Dict[str, torch.Tensor],
         return torch.matmul(a.to(cd).to(f32), w.to(cd).to(f32).t())
 
     xf = x.to(f32)
-    y = _ln(xf, params["ln1_scale"].float(), params["ln1_bias"].float())
+    y = _ln_stats(xf, params["ln1_scale"].float(),
+                  params["ln1_bias"].float())[0]
     qkv = (mm(y, params["wqkv"]) + params["bqkv"].float()).to(cd)
     q, k, v = qkv.reshape(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
     s = torch.matmul(q.to(f32), k.to(f32).transpose(-1, -2)) * hd ** -0.5
@@ -76,10 +90,117 @@ def block_reference(x: torch.Tensor, params: Dict[str, torch.Tensor],
     o = torch.matmul(p.to(f32), v.to(f32))                 # (B, h, N, hd)
     attn = o.transpose(1, 2).reshape(B, N, D).to(cd)
     x1 = xf + (mm(attn, params["wproj"]) + params["bproj"].float())
-    z = _ln(x1, params["ln2_scale"].float(), params["ln2_bias"].float())
+    z = _ln_stats(x1, params["ln2_scale"].float(),
+                  params["ln2_bias"].float())[0]
     h1 = F.gelu(mm(z, params["w1"]) + params["b1"].float()).to(cd)
     out = x1 + (mm(h1, params["w2"]) + params["b2"].float())
     return out.to(x.dtype)
+
+
+def _ln_grad(dz: torch.Tensor, xhat: torch.Tensor, inv: torch.Tensor,
+             g: torch.Tensor) -> torch.Tensor:
+    """Input gradient of LayerNorm for the upstream gradient ``dz``."""
+    dxhat = dz * g
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    return inv * (dxhat - m1 - xhat * m2)
+
+
+def _gelu_grad(a: torch.Tensor) -> torch.Tensor:
+    """d/da of the exact (erf) GELU: Phi(a) + a * phi(a)."""
+    return (0.5 * (1.0 + torch.erf(a * 2.0 ** -0.5))
+            + a * 0.3989422804014327 * torch.exp(-0.5 * a * a))
+
+
+def block_backward_reference(x: torch.Tensor, g: torch.Tensor,
+                             params: Dict[str, torch.Tensor], heads: int
+                             ) -> Tuple[torch.Tensor,
+                                        Dict[str, torch.Tensor]]:
+    """Plain PyTorch version of the backward kernel.
+
+    Recomputes the forward, then walks MLP -> LN2 -> proj -> attention ->
+    qkv -> LN1, rounding where ``_vit_block_bwd_kernel`` does: ``g``, ``dx1``
+    and ``dz`` stay fp32; ``da1``, ``dx1``, the attention-output gradient,
+    ``dqkv`` and ``ds`` are rounded to the compute dtype before their
+    products; ``p`` is fp32 in ``ds = p * (dp - rowsum(p * dp)) * scale`` and
+    rounded in ``dV = p^T gO``. Bias and LayerNorm grads sum fp32 values.
+
+    Returns ``dx`` in ``x.dtype`` and the 12 grads in fp32, weights in the
+    ``(out, in)`` layout of their parameters."""
+    cd = x.dtype
+    f32 = torch.float32
+    B, N, D = x.shape
+    hd = D // heads
+    M = B * N
+    scale = hd ** -0.5
+    P = {k: v.float() for k, v in params.items()}
+
+    def mm(a, b):                       # operands rounded to cd, fp32 acc
+        return torch.matmul(a.to(cd).to(f32), b.to(cd).to(f32))
+
+    def heads_of(t):                    # (M, D) -> (B, h, N, hd)
+        return t.reshape(B, N, heads, hd).transpose(1, 2)
+
+    def rows_of(t):                     # (B, h, N, hd) -> (M, D)
+        return t.transpose(1, 2).reshape(M, D)
+
+    # Forward recompute.
+    xf = x.to(f32).reshape(M, D)
+    y, yhat1, inv1 = _ln_stats(xf, P["ln1_scale"], P["ln1_bias"])
+    yb = y.to(cd)
+    qkv = (mm(yb, P["wqkv"].t()) + P["bqkv"]).to(cd)
+    q, k, v = (heads_of(qkv[:, i * D:(i + 1) * D]) for i in range(3))
+    s = mm(q, k.transpose(-1, -2)) * scale
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)                   # fp32
+    p_lo = p.to(cd)
+    attn = rows_of(mm(p_lo, v)).to(cd)
+    x1 = xf + (mm(attn, P["wproj"].t()) + P["bproj"])
+    z, xhat2, inv2 = _ln_stats(x1, P["ln2_scale"], P["ln2_bias"])
+    zb = z.to(cd)
+    a1 = mm(zb, P["w1"].t()) + P["b1"]
+    h1 = F.gelu(a1).to(cd)
+
+    # Backward.
+    gf = g.to(f32).reshape(M, D)
+    gb = gf.to(cd)
+    grads = {"w2": mm(gb.t(), h1), "b2": gf.sum(0)}
+    da1 = mm(gb, P["w2"]) * _gelu_grad(a1)
+    da1b = da1.to(cd)
+    grads["w1"] = mm(da1b.t(), zb)
+    grads["b1"] = da1.sum(0)
+    dz = mm(da1b, P["w1"])
+    grads["ln2_scale"] = (dz * xhat2).sum(0)
+    grads["ln2_bias"] = dz.sum(0)
+    dx1 = gf + _ln_grad(dz, xhat2, inv2, P["ln2_scale"])
+    dx1b = dx1.to(cd)
+    grads["wproj"] = mm(dx1b.t(), attn)
+    grads["bproj"] = dx1.sum(0)
+    go = heads_of(mm(dx1b, P["wproj"]).to(cd))
+
+    dv = mm(p_lo.transpose(-1, -2), go)
+    dp = mm(go, v.transpose(-1, -2))
+    ds = (p * (dp - (p * dp).sum(dim=-1, keepdim=True)) * scale).to(cd)
+    dq = mm(ds, k)
+    dk = mm(ds.transpose(-1, -2), q)
+    dqkv = torch.cat([rows_of(dq), rows_of(dk), rows_of(dv)], dim=1)
+    dqkvb = dqkv.to(cd)
+    grads["bqkv"] = dqkv.sum(0)
+    grads["wqkv"] = mm(dqkvb.t(), yb)
+    dy = mm(dqkvb, P["wqkv"])
+    grads["ln1_scale"] = (dy * yhat1).sum(0)
+    grads["ln1_bias"] = dy.sum(0)
+    dx = dx1 + _ln_grad(dy, yhat1, inv1, P["ln1_scale"])
+    return dx.reshape(B, N, D).to(x.dtype), {k: grads[k] for k in PKEYS}
+
+
+def param_shapes(D: int, hidden: int) -> Dict[str, Tuple[int, ...]]:
+    """Shapes of the 12 block tensors (and of their grads), in ``PKEYS``
+    order: the order the backward kernel packs the grads in one buffer."""
+    return {"ln1_scale": (D,), "ln1_bias": (D,), "wqkv": (3 * D, D),
+            "bqkv": (3 * D,), "wproj": (D, D), "bproj": (D,),
+            "ln2_scale": (D,), "ln2_bias": (D,), "w1": (hidden, D),
+            "b1": (hidden,), "w2": (D, hidden), "b2": (D,)}
 
 
 def _check_cuda_args(x: torch.Tensor, params: Dict[str, torch.Tensor],
@@ -97,11 +218,7 @@ def _check_cuda_args(x: torch.Tensor, params: Dict[str, torch.Tensor],
             f"unsupported block shape B={B} N={N} D={D} heads={heads} "
             f"hidden={hidden}: the kernel needs D % 64 == 0, a head width "
             f"that is a multiple of 16, and hidden % D == 0")
-    want = {"ln1_scale": (D,), "ln1_bias": (D,), "wqkv": (3 * D, D),
-            "bqkv": (3 * D,), "wproj": (D, D), "bproj": (D,),
-            "ln2_scale": (D,), "ln2_bias": (D,), "w1": (hidden, D),
-            "b1": (hidden,), "w2": (D, hidden), "b2": (D,)}
-    for k, shape in want.items():
+    for k, shape in param_shapes(D, hidden).items():
         t = params[k]
         dtype = x.dtype if k in WEIGHT_KEYS else torch.float32
         if tuple(t.shape) != shape or t.dtype != dtype \
@@ -111,14 +228,23 @@ def _check_cuda_args(x: torch.Tensor, params: Dict[str, torch.Tensor],
                 f"got {tuple(t.shape)} {t.dtype} on {t.device} "
                 f"(contiguous={t.is_contiguous()}); "
                 f"use prepare_block_params")
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            params[k].requires_grad for k in PKEYS)):
-        raise NotImplementedError(
-            "the CUDA block kernel has no backward yet; run it under "
-            "torch.no_grad() or torch.inference_mode()")
 
 
-_FN_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+def _check_bwd_args(x: torch.Tensor, g: torch.Tensor,
+                    params: Dict[str, torch.Tensor], heads: int) -> None:
+    """What the backward kernel takes: the forward's arguments, plus an fp32
+    contiguous gradient of x's shape on x's device."""
+    _check_cuda_args(x, params, heads)
+    if g.dtype != torch.float32 or g.shape != x.shape \
+            or g.device != x.device or not g.is_contiguous():
+        raise ValueError(
+            f"g must be a contiguous fp32 {tuple(x.shape)} tensor on "
+            f"{x.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
+
+
+_FWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_WS_ARGTYPES = [ctypes.c_int] * 5
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,10 +253,26 @@ def _library():
     lib = _build.load("vit_block_fwd")
     for name in ("vit_block_fwd_bf16", "vit_block_fwd_f32"):
         fn = getattr(lib, name)
-        fn.argtypes = _FN_ARGTYPES
+        fn.argtypes = _FWD_ARGTYPES
         fn.restype = ctypes.c_int
     lib.vit_block_error_string.argtypes = [ctypes.c_int]
     lib.vit_block_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library():
+    from rovit_kan_tpu_torch.ops import _build
+    lib = _build.load("vit_block_bwd")
+    for suffix in ("bf16", "f32"):
+        fn = getattr(lib, f"vit_block_bwd_{suffix}")
+        fn.argtypes = _BWD_ARGTYPES
+        fn.restype = ctypes.c_int
+        ws = getattr(lib, f"vit_block_bwd_workspace_{suffix}")
+        ws.argtypes = _WS_ARGTYPES
+        ws.restype = ctypes.c_size_t
+    lib.vit_block_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.vit_block_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -159,23 +301,124 @@ def _launch(x: torch.Tensor, params: Dict[str, torch.Tensor],
     return out
 
 
-def fused_vit_block(x: torch.Tensor, params: Dict[str, torch.Tensor],
-                    heads: int = 3) -> torch.Tensor:
-    """One pre-LN ViT block, fused.
+def _launch_bwd(x: torch.Tensor, g: torch.Tensor,
+                params: Dict[str, torch.Tensor], heads: int
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    global BWD_LAUNCHES
+    _check_bwd_args(x, g, params, heads)
+    B, N, D = x.shape
+    hidden = params["w1"].shape[0]
+    lib = _bwd_library()
+    suffix = "bf16" if x.dtype == torch.bfloat16 else "f32"
+    shapes = param_shapes(D, hidden)
+    sizes = [int(torch.Size(s).numel()) for s in shapes.values()]
+    with torch.cuda.device(x.device):
+        dx = torch.empty_like(x)
+        flat = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+        nbytes = getattr(lib, f"vit_block_bwd_workspace_{suffix}")(
+            B, N, D, heads, hidden)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = getattr(lib, f"vit_block_bwd_{suffix}")(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), flat.data_ptr(),
+            work.data_ptr(), *(params[k].data_ptr() for k in PKEYS),
+            B, N, D, heads, hidden, stream)
+    if rc != 0:
+        msg = lib.vit_block_bwd_error_string(rc).decode()
+        raise RuntimeError(f"vit_block_bwd launch failed: CUDA error {rc} "
+                           f"({msg}) at B={B} N={N} D={D} heads={heads}")
+    BWD_LAUNCHES += 1
+    grads = {k: t.view(s) for (k, s), t in
+             zip(shapes.items(), torch.split(flat, sizes))}
+    return dx, grads
 
-    Args:
-        x: ``(B, N, D)`` tokens, bf16 or fp32.
-        params: the 12 block tensors (``PKEYS``), weights ``(out, in)``.
-            On the card they must come from ``prepare_block_params``.
-        heads: attention head count.
 
-    Returns:
-        ``(B, N, D)`` in ``x.dtype``. A CPU tensor runs ``block_reference``;
-        a CUDA tensor launches the kernel or raises.
-    """
-    if x.device.type == "cpu":
+def _forward(x, params, heads, plain: bool):
+    if x.device.type == "cpu" or plain:
         return block_reference(x, params, heads)
     if x.device.type != "cuda":
         raise ValueError(f"fused_vit_block runs on cpu or cuda, got "
                          f"{x.device}")
     return _launch(x, params, heads)
+
+
+def _backward(x, g, params, heads, plain: bool):
+    if x.device.type == "cpu" or plain:
+        return block_backward_reference(x, g, params, heads)
+    return _launch_bwd(x, g.to(torch.float32).contiguous(), params, heads)
+
+
+class FusedViTBlock(torch.autograd.Function):
+    """The block under autograd: ``apply(x, heads, kernel_params, plain,
+    *params)`` with the 12 parameters in ``PKEYS`` order.
+
+    The forward saves ``x`` and the parameters and nothing else; the
+    backward recomputes the forward (kernel #2 on the card, its plain
+    version on the CPU or when ``plain``). ``kernel_params`` is the
+    parameters already cast by ``prepare_block_params`` (a cache the caller
+    keeps), or None to cast them here; the grads go to ``params``, each in
+    its own dtype."""
+
+    @staticmethod
+    def forward(ctx, x, heads, kernel_params, plain, *params):
+        kp = kernel_params
+        if kp is None:
+            raw = dict(zip(PKEYS, params))
+            kp = (raw if x.device.type == "cpu" or plain
+                  else prepare_block_params(raw, x.dtype))
+        ctx.save_for_backward(x, *params)
+        ctx.heads, ctx.kernel_params, ctx.plain = heads, kp, plain
+        return _forward(x, kp, heads, plain)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        dx, grads = _backward(x, g, ctx.kernel_params, ctx.heads, ctx.plain)
+        return (dx.to(x.dtype), None, None, None,
+                *(grads[k].to(p.dtype) for k, p in zip(PKEYS, params)))
+
+
+def _needs_grad(x: torch.Tensor, params: Dict[str, torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(params[k].requires_grad for k in PKEYS))
+
+
+def fused_vit_block(x: torch.Tensor, params: Dict[str, torch.Tensor],
+                    heads: int = 3,
+                    kernel_params: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> torch.Tensor:
+    """One pre-LN ViT block, fused.
+
+    Args:
+        x: ``(B, N, D)`` tokens, bf16 or fp32.
+        params: the 12 block tensors (``PKEYS``), weights ``(out, in)``.
+            Without autograd on the card they must come from
+            ``prepare_block_params``, unless ``kernel_params`` does.
+        heads: attention head count.
+        kernel_params: ``params`` already cast by ``prepare_block_params``
+            (a cache); the kernels read these when given.
+
+    Returns:
+        ``(B, N, D)`` in ``x.dtype``. A CPU tensor runs the plain versions;
+        a CUDA tensor launches the kernels or raises. When grad is enabled
+        and ``x`` or a parameter needs it, the call goes through
+        ``FusedViTBlock`` and the grads reach ``params``.
+    """
+    if _needs_grad(x, params):
+        return FusedViTBlock.apply(x, heads, kernel_params, False,
+                                   *(params[k] for k in PKEYS))
+    return _forward(x, kernel_params if kernel_params is not None else params,
+                    heads, plain=False)
+
+
+def plain_vit_block(x: torch.Tensor, params: Dict[str, torch.Tensor],
+                    heads: int = 3,
+                    kernel_params: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> torch.Tensor:
+    """``fused_vit_block`` through the plain versions on any device, forward
+    and backward: the yardstick that the kernels are held against."""
+    if _needs_grad(x, params):
+        return FusedViTBlock.apply(x, heads, kernel_params, True,
+                                   *(params[k] for k in PKEYS))
+    return _forward(x, kernel_params if kernel_params is not None else params,
+                    heads, plain=True)

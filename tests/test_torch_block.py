@@ -85,7 +85,16 @@ def test_launch_checks_reject_what_the_kernel_does_not_take():
         bk._check_cuda_args(x.half(), p, 2)
     with pytest.raises(ValueError, match="contiguous"):
         bk._check_cuda_args(x.transpose(0, 1), p, 2)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        bk._check_cuda_args(x.float().requires_grad_(),
-                            _torch_params(_jax_params(rng, 64, 256),
-                                          torch.float32), 2)
+    # Under autograd the block runs and its grads come from the backward's
+    # plain version (the kernel's counterpart on the card).
+    p32 = {k: v.clone().requires_grad_() for k, v in
+           _torch_params(_jax_params(rng, 64, 256), torch.float32).items()}
+    x32 = torch.from_numpy(rng.normal(0, 1, (2, 5, 64)).astype(
+        np.float32)).requires_grad_()
+    bk._check_cuda_args(x32, p32, 2)                     # accepted too
+    g = torch.from_numpy(rng.normal(0, 1, (2, 5, 64)).astype(np.float32))
+    bk.fused_vit_block(x32, p32, 2).backward(g)
+    dx, grads = bk.block_backward_reference(x32.detach(), g, p32, 2)
+    assert torch.equal(x32.grad, dx)
+    for k in bk.PKEYS:
+        assert torch.equal(p32[k].grad, grads[k]), k

@@ -1,5 +1,7 @@
-"""Port tests that need an NVIDIA GPU: the CUDA block kernel against its
-plain version, and the served model through the kernel. They skip where
+"""Port tests that need an NVIDIA GPU: the CUDA kernels (block forward #1,
+block backward #2, augment #7) against their plain versions, the served model
+through the block kernel, and a small train step through all three. They
+skip where
 ``torch.cuda.is_available()`` is False. This file imports neither jax nor
 the JAX package, so it runs on a GPU machine without JAX:
 
@@ -7,15 +9,21 @@ the JAX package, so it runs on a GPU machine without JAX:
 
 Tolerances: fp32 1e-4 (sums in another order); bf16 two bf16 ulps at the
 largest output magnitude (both sides round at the same points, so they
-differ only where an fp32 sum crosses a rounding boundary).
+differ only where an fp32 sum crosses a rounding boundary). The backward's
+and the augment's tolerances are stated beside their tests.
 """
 import numpy as np
 import pytest
 import torch
 
+from rovit_kan_tpu_torch.config import Config
 from rovit_kan_tpu_torch.models.rovit_kan import RoViTKAN, init_weights
+from rovit_kan_tpu_torch.ops import augment_kernel as ak
 from rovit_kan_tpu_torch.ops import block_kernel as bk
+from rovit_kan_tpu_torch.ops.mixing import draw_mix
 from rovit_kan_tpu_torch.serving import InferenceEngine
+from rovit_kan_tpu_torch.training.optimizer import build_optimizer
+from rovit_kan_tpu_torch.training.trainer import make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -84,9 +92,101 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
             bk.fused_vit_block(x, p, 3)                  # 64 % 3
         with pytest.raises(ValueError):
             bk.fused_vit_block(x.float(), p, 2)          # bf16 weights
-    with pytest.raises(NotImplementedError):
-        bk.fused_vit_block(x.float().requires_grad_(),
-                           _params(rng, 64, 256, torch.float32, cuda), 2)
+    # Under autograd the block runs both kernels and the grads reach the
+    # fp32 parameters.
+    p32 = {k: v.clone().requires_grad_()
+           for k, v in _params(rng, 64, 256, torch.float32, cuda).items()}
+    x32 = torch.tensor(rng.normal(0, 1, (2, 5, 64)), dtype=torch.float32,
+                       device=cuda, requires_grad=True)
+    g = torch.tensor(rng.normal(0, 1, (2, 5, 64)), dtype=torch.float32,
+                     device=cuda)
+    fwd, bwd = bk.LAUNCHES, bk.BWD_LAUNCHES
+    bk.fused_vit_block(x32, p32, 2).backward(g)
+    torch.cuda.synchronize()
+    assert (bk.LAUNCHES, bk.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    with torch.no_grad():
+        dx, grads = bk.block_backward_reference(x32.detach(), g, p32, 2)
+    _assert_grads(x32.grad, {k: p32[k].grad for k in bk.PKEYS}, dx, grads,
+                  torch.float32)
+
+
+def _bwd_tol(ref, dtype):
+    """Backward tolerance relative to the largest magnitude of each output:
+    fp32 1e-4 (sums in another order, over up to B*N rows); bf16 1e-2, since
+    a rounding boundary crossed by an fp32 sum in another order moves one
+    rounded intermediate (da1, dx1, dO, dS, dqkv) by one bf16 ulp (2^-8 of
+    it), and that ulp then enters the sums over rows."""
+    top = float(ref.float().abs().max())
+    return (1e-4 if dtype == torch.float32 else 1e-2) * max(top, 1e-6)
+
+
+def _assert_grads(dx, grads, want_dx, want_grads, dtype):
+    pairs = [("dx", dx, want_dx)] + [(k, grads[k], want_grads[k])
+                                     for k in bk.PKEYS]
+    for name, got, want in pairs:
+        assert got.shape == want.shape, name
+        assert torch.isfinite(got.float()).all(), name
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= _bwd_tol(want, dtype), (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [(3, 37, 64, 2), (2, 197, 192, 3),
+                                   (1, 5, 128, 4)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_backward_kernel_matches_plain(cuda, shape, dtype):
+    B, N, D, heads = shape
+    rng = np.random.RandomState(sum(shape) + 1)
+    p = _params(rng, D, 4 * D, dtype, cuda)
+    x = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32)
+    x = x.to(cuda, dtype)
+    g = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32,
+                     device=cuda)
+    before = bk.BWD_LAUNCHES
+    dx, grads = bk._launch_bwd(x, g, p, heads)
+    torch.cuda.synchronize()
+    assert bk.BWD_LAUNCHES == before + 1
+    assert dx.dtype == dtype
+    want_dx, want = bk.block_backward_reference(x, g, p, heads)
+    _assert_grads(dx, grads, want_dx, want, dtype)
+    again = bk._launch_bwd(x, g, p, heads)[1]        # no atomics: same bits
+    for k in bk.PKEYS:
+        assert torch.equal(again[k], grads[k]), k
+
+
+def _augment_tol(compute_dtype):
+    """Both sides round at the same points; the pivot is a sum of H*W*3
+    terms in another order, and a rounding boundary it crosses moves each of
+    the three rounded blends by at most one ulp of [0, 1] (2^-8 in bf16),
+    scaled by 1/std (<= 1/0.224) in the normalization. fp32: sum order."""
+    return 3 * 2.0 ** -8 / 0.224 if compute_dtype == torch.bfloat16 else 1e-5
+
+
+@pytest.mark.parametrize("compute", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [(3, 32, 32), (2, 224, 224)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_augment_kernel_matches_plain(cuda, shape, compute):
+    B, H, W = shape
+    rng = np.random.RandomState(B * H)
+    imgs = torch.tensor(rng.randint(0, 256, (B, H, W, 3)), dtype=torch.uint8,
+                        device=cuda)
+    factors = ak.draw_factors(torch.Generator(cuda).manual_seed(B), B)
+    factors[:, :2] = torch.tensor([[1.0, 0.0], [0.0, 1.0], [1.0, 1.0]][:B],
+                                  device=cuda)        # every flip case
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = ak.LAUNCHES
+        got = ak.fused_augment_batch(imgs, factors, compute, out_dtype)
+        torch.cuda.synchronize()
+        assert ak.LAUNCHES == before + 1
+        want = ak.augment_reference(imgs, factors, compute, out_dtype)
+        assert got.dtype == out_dtype and got.shape == (B, H, W, 3)
+        tol = _augment_tol(compute)
+        if out_dtype == torch.bfloat16:
+            tol += 2.0 ** -6                # one ulp of the bf16 store at |v| < 4
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol, err
 
 
 def test_served_model_through_the_kernel(cuda):
@@ -102,7 +202,7 @@ def test_served_model_through_the_kernel(cuda):
     served = engine.predict(imgs)
     assert bk.LAUNCHES == before + 2                    # one per block
     for blk in model.backbone.model.blocks:
-        blk.block_fn = bk.block_reference
+        blk.block_fn = bk.plain_vit_block
     plain = engine.predict(imgs)
     for k, v in served.items():
         assert v.shape == plain[k].shape and np.isfinite(v).all()
@@ -110,3 +210,49 @@ def test_served_model_through_the_kernel(cuda):
     # Two blocks of bf16 noise at d=64; the outputs stay close.
     np.testing.assert_allclose(served["cls_probs"], plain["cls_probs"],
                                atol=2e-2)
+
+
+def test_train_step_through_the_kernels(cuda):
+    """One small bf16 train step through #1, #2 and #7 against the same step
+    through their plain versions (same weights, same draws). Both round at
+    the same points, so they differ where an fp32 sum in another order
+    crosses a bf16 rounding boundary, carried through two blocks and the
+    heads: loss within 1e-2 relative, gradient within 5e-2 in L2."""
+    kw = dict(embed_dim=64, depth=2, num_heads=2, image_size=32,
+              kan_layers=(64, 8, 1), hidden_dim=16, dropout=0.0,
+              dtype=torch.bfloat16, use_pallas_block=True)
+    cfg = Config()
+    rng = np.random.RandomState(3)
+    labels = torch.tensor(rng.randint(0, 4, 8), device=cuda)
+    batch = {"images": torch.tensor(rng.randint(0, 256, (8, 32, 32, 3)),
+                                    dtype=torch.uint8, device=cuda),
+             "labels": labels, "severity": labels.float()}
+    draws = {"factors": ak.draw_factors(
+                 torch.Generator(cuda).manual_seed(0), 8),
+             "mix": draw_mix(torch.Generator().manual_seed(1), 8, 32, 32),
+             "dropout": None}
+
+    def run(plain):
+        model = RoViTKAN(**kw)
+        init_weights(model, seed=0)
+        model.to(cuda)
+        if plain:
+            for blk in model.backbone.model.blocks:
+                blk.block_fn = bk.plain_vit_block
+        opt = build_optimizer(model, cfg)
+        step = make_train_step(model, opt, cfg)
+        assert step.fused_augment
+        if plain:
+            step.augment = ak.augment_reference
+        before = (bk.LAUNCHES, bk.BWD_LAUNCHES, ak.LAUNCHES)
+        loss = float(step(batch, 4, 1.0, 1, draws=draws)["total_loss"])
+        torch.cuda.synchronize()
+        after = (bk.LAUNCHES, bk.BWD_LAUNCHES, ak.LAUNCHES)
+        return loss, opt.grad.clone(), tuple(
+            a - b for a, b in zip(after, before))
+
+    lk, gk, nk = run(False)
+    lp, gp, npl = run(True)
+    assert nk == (2, 2, 1) and npl == (0, 0, 0)
+    assert np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)
+    assert float((gk - gp).norm()) <= 5e-2 * float(gp.norm())

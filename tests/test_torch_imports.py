@@ -24,7 +24,12 @@ def test_port_has_modules():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for want in ("rovit_kan_tpu_torch/models/rovit_kan.py",
                  "rovit_kan_tpu_torch/ops/block_kernel.py",
-                 "rovit_kan_tpu_torch/serving.py", "chip_smoke.py"):
+                 "rovit_kan_tpu_torch/serving.py",
+                 "rovit_kan_tpu_torch/ops/augment_kernel.py",
+                 "rovit_kan_tpu_torch/ops/mixing.py",
+                 "rovit_kan_tpu_torch/training/losses.py",
+                 "rovit_kan_tpu_torch/training/optimizer.py",
+                 "rovit_kan_tpu_torch/training/trainer.py", "chip_smoke.py"):
         assert want in names
 
 

@@ -1,5 +1,7 @@
 """Port's plain ops against the JAX package's: spline basis, KAN layer,
 ordinal math and preprocessing, fp32 at 1e-6, on the same seeded inputs."""
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -86,3 +88,23 @@ def test_preprocess_matches_jax():
     np.testing.assert_allclose(
         t_pre.normalize(torch.from_numpy(f)).numpy(),
         np.asarray(j_pre.normalize(jnp.asarray(f))), atol=TOL, rtol=0)
+
+
+def test_library_path_follows_included_headers(tmp_path, monkeypatch):
+    """A built kernel library is keyed on its source and on every header
+    it includes, so an edited header rebuilds instead of loading a stale
+    library."""
+    from rovit_kan_tpu_torch.ops import _build
+    (tmp_path / "a.cu").write_text('#include "b.cuh"\nint a;\n')
+    (tmp_path / "b.cuh").write_text('#include "c.cuh"\nint b;\n')
+    (tmp_path / "c.cuh").write_text("int c;\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("a")
+    (tmp_path / "c.cuh").write_text("int c2;\n")       # nested header edit
+    second = _build.library_path("a")
+    assert first != second and second.name.startswith("a-")
+    assert _build.library_path("a") == second          # stable
+    real = Path(_build.__file__).resolve().parent.parent / "csrc"
+    monkeypatch.setattr(_build, "CSRC", real)
+    assert [h.name for h in _build._headers(real / "vit_block_bwd.cu", [])] \
+        == ["vit_block_common.cuh"]

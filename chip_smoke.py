@@ -13,7 +13,13 @@ exits non-zero:
    (CUDA events, warm-up, median) beside its bound, the plain version and
    one PyTorch library call computing the same function: the block forward
    (#1) and backward (#2) at (64, 197, 192), 3 heads, and the augment (#7)
-   at (64, 224, 224, 3), each in bf16 and fp32;
+   at (64, 224, 224, 3), each in bf16 and fp32; the KAN head's forward
+   (#10) and backward (#11) at (64, [192, 64, 16, 1]) and one KAN layer's
+   (#8, #9) at (64, 192 -> 64), fp32, each output within 1e-4 of its
+   largest magnitude and the same bits on a repeated call, their ``ms`` and
+   their plain versions' ``plain_ms`` the device time per call from
+   torch.profiler (CUDA events around back-to-back calls time the host
+   work there, kept as ``call_ms`` and ``plain_call_ms``);
 4. serve: the full-width DeiT-Tiny RoViT-KAN (seeded random weights) built
    with ``build_model`` and served through ``InferenceEngine`` and
    ``MicroBatcher``; the launch counters are set to 0 just before and read
@@ -26,7 +32,17 @@ exits non-zero:
    step held against the same step through the plain versions and the fp32
    model (``hold_train_step``: #2 per parameter, each image's loss, the
    stage-3 gradient by parameter group); training images/s and one
-   profiled step.
+   profiled step;
+6. kan: the flagship with ``tpu.use_pallas_kan=True``: four served batches
+   (12 x #1 and 1 x #10 each; every output but the severity the same bits
+   as with the plain KAN head, the severity within 1e-5), the KAN
+   trajectory and its gradient to the features (3 x #8, 3 x #9, held
+   against the plain layers), five train steps at stage 4 (12 x #1,
+   12 x #2, 1 x #7, 1 x #10, 1 x #11 each; finite losses), the same three
+   steps of that step object timed with the KAN kernels on and off in
+   turns, one step held against the plain KAN head (``hold_kan_step``),
+   and the device operations per served batch and per train step with the
+   flag on and off, from profiles.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 is ``{"ok": true, "device": {...}}``. Imports torch and the port only.
@@ -304,6 +320,203 @@ def check_augment(compute, seed: int):
                        "torchvision",
             "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
             "bound_by": "bytes"}
+
+
+KAN_DIMS = (192, 64, 16, 1)
+KAN_BASES = 7
+KAN_LIBRARY = ("none: no PyTorch call computes a KAN layer (a B-spline "
+               "basis of tanh x contracted with per-edge coefficients)")
+
+
+def kan_inputs(seed: int, dims=KAN_DIMS):
+    """Seeded fp32 inputs on the card: features ``(64, dims[0])``, the
+    head's parameters in the port's layouts (spline N(0, 0.1^2), linear
+    N(0, 1/in), bias N(0, 0.1^2)) and an upstream gradient."""
+    rng = np.random.RandomState(seed)
+
+    def t(v):
+        return torch.tensor(v, dtype=torch.float32, device="cuda")
+
+    params = []
+    for a, b in zip(dims[:-1], dims[1:]):
+        params += [t(rng.normal(0, 0.1, (a, b, KAN_BASES))),
+                   t(rng.normal(0, a ** -0.5, (b, a))),
+                   t(rng.normal(0, 0.1, (b,)))]
+    return (t(rng.normal(0, 1.5, (BATCH, dims[0]))), params,
+            t(rng.normal(0, 1, (BATCH, dims[-1]))))
+
+
+def kan_flops(dims, module: bool) -> tuple:
+    """FLOP of the KAN head (``module``) or one layer at batch 64, unpadded:
+    each layer is ``KAN_BASES + 1`` products of ``(64, in) x (in, out)``.
+    Each backward does two products per forward product (the weight
+    gradients and dx); the head's (#11) also recomputes the forward, one
+    layer's (#9) only the bases."""
+    fwd = sum(2 * (KAN_BASES + 1) * BATCH * a * b
+              for a, b in zip(dims[:-1], dims[1:]))
+    return fwd, (3 if module else 2) * fwd
+
+
+def hold_kan(what: str, pairs):
+    """Each output within 1e-4 of its largest magnitude (fp32 sums in
+    another order); raises on a miss."""
+    errs, failed = {}, []
+    for name, got, ref in pairs:
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"{what} {name}: non-finite values")
+        err = float((got - ref).abs().max())
+        tol = 1e-4 * max(float(ref.abs().max()), 1e-6)
+        errs[name] = {"max_abs_err": err, "tolerance": tol}
+        if not err <= tol:
+            failed.append(name)
+    if failed:
+        raise RuntimeError(f"{what} out of tolerance: "
+                           f"{ {k: errs[k] for k in failed} }")
+    return errs
+
+
+def same_bits(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def kan_result(replaces, shape, errs, ms, plain_ms, flops, nbytes,
+               launches):
+    bound = {"operations": flops / PEAK_FP32_FLOPS,
+             "bytes": nbytes / PEAK_BYTES_PER_S}
+    by = max(bound, key=bound.get)
+    return {"replaces": "rovit_kan_tpu/ops/kan_kernel.py::" + replaces,
+            "dtype": "float32", "shape": shape,
+            "launches_per_use": launches, "outputs": errs,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "identical_bits_on_repeat": True, "kernel_ms": ms,
+            "kernel_ms_source": "torch.profiler device time per call",
+            "plain_ms": plain_ms,
+            "plain_ms_source": "torch.profiler device time per call, all "
+                               "device operations",
+            "library_ms": None,
+            "library": KAN_LIBRARY, "flops": flops, "bytes": nbytes,
+            "bound_ms": 1e3 * bound[by], "bound_by": by}
+
+
+def device_ms(fn, kernels=None, calls: int = 50) -> float:
+    """Device time per call of ``fn``, from torch.profiler over ``calls``
+    calls after a warm-up: the time of the named kernels, or of every device
+    operation when ``kernels`` is None. A wrapper call's host time exceeds
+    these kernels' device time, so CUDA events around back-to-back calls
+    would time the host. Raises if a named kernel, or any device operation,
+    is missing from the profile."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if kernels is not None:
+        missing = [k for k in kernels if not any(k in e.key for e in events)]
+        if missing:
+            raise RuntimeError(f"no device time recorded for {missing}")
+        events = [e for e in events if any(k in e.key for k in kernels)]
+    us = sum(e.self_device_time_total for e in events)
+    if not us > 0:
+        raise RuntimeError("the profile recorded no device time")
+    return us / 1e3 / calls
+
+
+def check_kan(seed: int):
+    """Kernels #10/#11 at (64, [192, 64, 16, 1]) and #8/#9 at (64, 192->64)
+    against their plain versions, identical bits on a repeated call, and
+    timed. Bytes: each input read once, each output written once."""
+    from rovit_kan_tpu_torch.ops import kan_kernel as kk
+    from rovit_kan_tpu_torch.ops.spline import make_knots
+    knots = make_knots()
+    out = {}
+    for dims, fwd_name, bwd_name in ((KAN_DIMS, "kan_module_fwd",
+                                      "kan_module_bwd"),
+                                     (KAN_DIMS[:2], "kan_layer_fwd",
+                                      "kan_layer_bwd")):
+        x, params, g = kan_inputs(seed, dims)
+        module = len(dims) > 2
+        if module:
+            def fwd():
+                return [kk._launch_module(x, params, knots, 3)]
+
+            def bwd():
+                dx, grads = kk._launch_module_bwd(x, g, params, knots, 3)
+                return [dx, *grads]
+
+            def plain_fwd():
+                return [kk.kan_module_reference(x, params, knots)]
+
+            def plain_bwd():
+                dx, grads = kk.kan_module_backward_reference(x, g, params,
+                                                             knots)
+                return [dx, *grads]
+        else:
+            def fwd():
+                return [kk._launch_layer(x, *params, knots, 3)]
+
+            def bwd():
+                return list(kk._launch_layer_bwd(x, g, *params[:2], knots,
+                                                 3))
+
+            def plain_fwd():
+                return [kk.kan_layer_reference(x, *params, knots)]
+
+            def plain_bwd():
+                return list(kk.kan_layer_backward_reference(
+                    x, g, *params[:2], knots))
+        names = ["dx"] + [f"d{k}{layer}" for layer in range(len(dims) - 1)
+                          for k in ("spline", "weight", "bias")]
+        with torch.no_grad():
+            got_f, got_b = fwd(), bwd()
+            want_f, want_b = plain_fwd(), plain_bwd()
+            torch.cuda.synchronize()
+            errs_f = hold_kan(fwd_name, [("y", got_f[0], want_f[0])])
+            errs_b = hold_kan(bwd_name, list(zip(names, got_b, want_b)))
+            if not (same_bits(fwd(), got_f) and same_bits(bwd(), got_b)):
+                raise RuntimeError(f"{fwd_name}/{bwd_name}: a repeated call "
+                                   f"gave other bits")
+            call_f, call_b = time_ms(fwd), time_ms(bwd)
+            tag = "module" if module else "layer"
+            ms_f = device_ms(fwd, [f"kan_{tag}_fwd_kernel"])
+            ms_b = device_ms(bwd, ["kan_layer_bwd_kernel"] if not module
+                             else ["kan_module_bwd_rows_kernel",
+                                   "kan_module_wgrad_kernel"])
+            # The plain versions on the kernels' clock: the device time of
+            # all their operations; CUDA events keep their call time.
+            plain_f = device_ms(plain_fwd, calls=10)
+            plain_b = device_ms(plain_bwd, calls=10)
+            plain_call_f = time_ms(plain_fwd, reps=9, inner=3)
+            plain_call_b = time_ms(plain_bwd, reps=9, inner=3)
+        flops_f, flops_b = kan_flops(dims, module)
+        wbytes = 4 * sum(p.numel() for p in params)
+        # y has the shape of g.
+        xbytes, gbytes = 4 * x.numel(), 4 * g.numel()
+        shape = [BATCH, list(dims)]
+        out[fwd_name] = kan_result(
+            "_kan_module_kernel" if module else "_kan_kernel", shape, errs_f,
+            ms_f, plain_f, flops_f, xbytes + wbytes + gbytes,
+            "1 per served batch and per train step (counted in 'kan')"
+            if module else "1 per layer of a trajectory (counted in 'kan')")
+        out[bwd_name] = kan_result(
+            "_kan_module_bwd_kernel" if module else "_kan_layer_bwd_kernel",
+            shape, errs_b, ms_b, plain_b, flops_b,
+            2 * xbytes + gbytes + 2 * wbytes,
+            "1 per train step, two passes (counted in 'kan')" if module
+            else "1 per layer of a trajectory's gradient (counted in 'kan')")
+        out[fwd_name].update(call_ms=call_f, plain_call_ms=plain_call_f)
+        out[bwd_name].update(call_ms=call_b, plain_call_ms=plain_call_b)
+        if module:
+            with torch.no_grad():
+                out[bwd_name]["ms_by_launch"] = {
+                    k: device_ms(bwd, [k]) for k in (
+                        "kan_module_bwd_rows_kernel",
+                        "kan_module_wgrad_kernel")}
+    return out
 
 
 def features(model, images_u8: np.ndarray) -> np.ndarray:
@@ -782,6 +995,247 @@ def train(smi: str):
             "card": smi}
 
 
+def count_device_ops(fn) -> int:
+    """Device operations (kernels, copies) that one call of ``fn`` enqueues,
+    from torch.profiler, after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def set_kan_fused(kan, fused: bool) -> None:
+    """The KAN head through the kernels (``fused``) or plain PyTorch: the
+    module (#10/#11) and each layer called alone (#8/#9)."""
+    kan.use_fused = fused
+    for layer in kan.kan_layers:
+        layer.use_fused = fused
+
+
+def kan_step(cfg, fused: bool, batch, draws):
+    """One stage-4 step from the seed-0 weights with fixed draws and dropout
+    masks, the KAN head through the kernels (``fused``) or plain PyTorch.
+    Returns the loss, the features' gradient and every parameter's."""
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.training.optimizer import build_optimizer
+    from rovit_kan_tpu_torch.training.trainer import make_train_step
+    model = build_model(cfg, device="cuda", seed=0)
+    set_kan_fused(model.kan_module, fused)
+    opt = build_optimizer(model, cfg)
+    step = make_train_step(model, opt, cfg,
+                           generator=torch.Generator("cuda").manual_seed(1))
+    feats = {}
+
+    def keep_features(mod, args, out):
+        out["features"].retain_grad()
+        feats["t"] = out["features"]
+
+    model.register_forward_hook(keep_features)
+    m = step(batch, 4, 1.0, 1, draws=dict(
+        draws, dropout=torch.Generator("cuda").manual_seed(2)))
+    return {"loss": float(m["total_loss"]),
+            "features": feats["t"].grad.detach().clone(),
+            "grads": {k: p.grad.detach().clone()
+                      for k, p in zip(opt.names, opt.params)}}
+
+
+def hold_kan_step(cfg, batch, draws):
+    """One stage-4 step through #10/#11 against the same step with the plain
+    KAN head (same weights, draws and dropout masks; the trunk's launches
+    are the same, so the features agree to the bit): the loss within 1e-5
+    relative; each KAN parameter's gradient and the features' gradient
+    within 1e-4 of its L2 norm (fp32 sums in another order); every other
+    parameter's within 5e-2, the limit hold_train_step sets for #2, since
+    the KAN head's fp32 differences enter the bf16 block backward."""
+    k, p = (kan_step(cfg, fused, batch, draws) for fused in (True, False))
+
+    def rel(a, b):
+        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+    loss_rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    leaves = {name: rel(g, p["grads"][name]) for name, g in k["grads"].items()}
+    kan = {n: v for n, v in leaves.items() if n.startswith("kan_module.")}
+    rest = {n: v for n, v in leaves.items() if n not in kan}
+    worst = max(rest, key=rest.get)
+    held = {"loss_kernels": k["loss"], "loss_plain": p["loss"],
+            "loss_rel": loss_rel, "loss_tolerance": 1e-5,
+            "features_grad_rel": rel(k["features"], p["features"]),
+            "kan_grad_rel": kan, "kan_tolerance": 1e-4,
+            "other_worst_leaf": worst, "other_worst_rel": rest[worst],
+            "other_median_rel": float(np.median(list(rest.values()))),
+            "other_tolerance": 5e-2}
+    failed = [n for n, ok in (
+        ("loss", loss_rel <= 1e-5),
+        ("features", held["features_grad_rel"] <= 1e-4),
+        ("kan", max(kan.values()) <= 1e-4),
+        ("other", rest[worst] <= 5e-2)) if not ok]
+    if failed:
+        emit({"phase": "kan", "held_step": held})
+        raise RuntimeError(f"KAN train step out of tolerance: {failed}")
+    return held
+
+
+def kan_phase(smi: str):
+    """The flagship with ``tpu.use_pallas_kan=True``: served, its KAN
+    trajectory and the trajectory's gradient, and trained; each between a
+    counter reset and a read."""
+    from rovit_kan_tpu_torch.config import Config
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.ops import augment_kernel as ak
+    from rovit_kan_tpu_torch.ops import block_kernel as bk
+    from rovit_kan_tpu_torch.ops import kan_kernel as kk
+    from rovit_kan_tpu_torch.ops.mixing import draw_mix
+    from rovit_kan_tpu_torch.serving import InferenceEngine
+    from rovit_kan_tpu_torch.training.optimizer import build_optimizer
+    from rovit_kan_tpu_torch.training.trainer import make_train_step
+
+    def reset():
+        bk.LAUNCHES = bk.BWD_LAUNCHES = ak.LAUNCHES = 0
+        kk.LAUNCHES = kk.BWD_LAUNCHES = 0
+        kk.LAYER_LAUNCHES = kk.LAYER_BWD_LAUNCHES = 0
+
+    def read():
+        return {"vit_block_fwd": bk.LAUNCHES, "vit_block_bwd": bk.BWD_LAUNCHES,
+                "augment": ak.LAUNCHES, "kan_module_fwd": kk.LAUNCHES,
+                "kan_module_bwd": kk.BWD_LAUNCHES,
+                "kan_layer_fwd": kk.LAYER_LAUNCHES,
+                "kan_layer_bwd": kk.LAYER_BWD_LAUNCHES}
+
+    def zeros(**want):
+        return {k: want.get(k, 0) for k in read()}
+
+    cfg = Config()
+    cfg.tpu.use_pallas_kan = True
+    size = cfg.data.image_size
+    model = build_model(cfg, inference=True, device="cuda", seed=0)
+    kan = model.kan_module
+    if not kan.use_fused:
+        raise RuntimeError("use_pallas_kan did not reach the KAN module")
+    engine = InferenceEngine(model, batch_size=BATCH, device="cuda")
+    engine.warmup()
+    rng = np.random.RandomState(7)
+    batches = [rng.randint(0, 256, (BATCH, size, size, 3)).astype(np.uint8)
+               for _ in range(4)]
+
+    # Serving: the main path between a reset and a read.
+    reset()
+    served = [engine.predict(b) for b in batches]
+    serve_launches = read()
+    n = len(batches)
+    if serve_launches != zeros(vit_block_fwd=12 * n, kan_module_fwd=n):
+        raise RuntimeError(f"served launches {serve_launches}")
+    # The same model with the plain KAN head: every other output the same
+    # bits, the severity within 1e-5.
+    set_kan_fused(kan, False)
+    plain = [engine.predict(b) for b in batches]
+    serve_ops_off = count_device_ops(lambda: engine.predict(batches[0]))
+    set_kan_fused(kan, True)
+    serve_ops_on = count_device_ops(lambda: engine.predict(batches[0]))
+    sev_err = max(float(np.abs(a["kan_severity"] - b["kan_severity"]).max())
+                  for a, b in zip(served, plain))
+    differ = sorted({k for a, b in zip(served, plain) for k in a
+                     if k != "kan_severity" and not np.array_equal(a[k],
+                                                                   b[k])})
+    if differ or not sev_err <= 1e-5:
+        raise RuntimeError(f"served with #10: outputs {differ} differ, "
+                           f"severity by {sev_err}")
+
+    # The trajectory (#8 per layer) and its gradient to the features (#9
+    # per layer), against the plain layers.
+    feats = torch.from_numpy(features(model, batches[0])).cuda()
+
+    def trajectory(fused):
+        set_kan_fused(kan, fused)
+        x = feats.clone().requires_grad_()
+        acts = kan.activation_trajectory(x)
+        acts[-1].sum().backward()
+        return [a.detach() for a in acts] + [x.grad]
+
+    reset()
+    traj = trajectory(True)
+    torch.cuda.synchronize()
+    traj_launches = read()
+    if traj_launches != zeros(kan_layer_fwd=3, kan_layer_bwd=3):
+        raise RuntimeError(f"trajectory launches {traj_launches}")
+    traj_errs = hold_kan("trajectory", list(zip(
+        ["features", "layer1", "layer2", "score", "d_features"], traj,
+        trajectory(False))))
+    set_kan_fused(kan, True)
+    score_err = float(np.abs(traj[3][:, 0].cpu().numpy()
+                             - served[0]["kan_severity"]).max())
+    if not score_err <= 1e-5:
+        raise RuntimeError(f"trajectory score differs from the served "
+                           f"severity by {score_err}")
+
+    # Training: five stage-4 steps between a reset and a read.
+    train_model = build_model(cfg, device="cuda", seed=0)
+    opt = build_optimizer(train_model, cfg)
+    step = make_train_step(train_model, opt, cfg,
+                           generator=torch.Generator("cuda").manual_seed(0))
+    tb = [train_batch(cfg, 200 + i) for i in range(5)]
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    losses = [float(step(b, 4, 1.0, 1)["total_loss"]) for b in tb]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    train_launches = read()
+    s = len(tb)
+    want = zeros(vit_block_fwd=12 * s, vit_block_bwd=12 * s, augment=s,
+                 kan_module_fwd=s, kan_module_bwd=s)
+    if train_launches != want:
+        raise RuntimeError(f"train launches {train_launches}, want {want}")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite train losses {losses}")
+    # Flag on against off, like for like: the same steps of this step
+    # object, on and off in turns (the host's speed drifts within a call).
+    step_ms = {"kan_kernels": [], "plain_kan": []}
+    for fused in (True, False, True, False):
+        set_kan_fused(train_model.kan_module, fused)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for b in tb[2:]:
+            step(b, 4, 1.0, 1)
+        torch.cuda.synchronize()
+        step_ms["kan_kernels" if fused else "plain_kan"].append(
+            1e3 * (time.perf_counter() - t1) / len(tb[2:]))
+    set_kan_fused(train_model.kan_module, True)
+    prof_on = profile_step(step, tb[0])
+    set_kan_fused(train_model.kan_module, False)
+    prof_off = profile_step(step, tb[0])
+    set_kan_fused(train_model.kan_module, True)
+
+    held = hold_kan_step(cfg, tb[0], {
+        "factors": ak.draw_factors(torch.Generator("cuda").manual_seed(3),
+                                   BATCH),
+        "mix": draw_mix(torch.Generator().manual_seed(4), BATCH, size,
+                        size)})
+    return {"phase": "kan", "model": "DeiT-Tiny RoViT-KAN d=192 depth=12 "
+            "heads=3 224px bf16, KAN [192,64,16,1] through #10/#11",
+            "batch_size": BATCH, "served_batches": n,
+            "serve_launches": serve_launches,
+            "serve_severity_vs_plain_head": sev_err,
+            "device_ops_per_served_batch": {"kan_kernels": serve_ops_on,
+                                            "plain_kan": serve_ops_off},
+            "trajectory_launches": traj_launches,
+            "trajectory": traj_errs,
+            "trajectory_score_vs_served": score_err,
+            "train_steps": s, "train_launches": train_launches,
+            "train_losses": losses,
+            "train_step_ms": 1e3 * elapsed / s,
+            "step_ms_same_steps": step_ms,
+            "device_ops_per_train_step": {
+                "kan_kernels": prof_on["kernel_launches"],
+                "plain_kan": prof_off["kernel_launches"]},
+            "train_profile": {"kan_kernels": prof_on, "plain_kan": prof_off},
+            "held_step": held, "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -811,14 +1265,17 @@ def main() -> int:
     bwd32 = check_block_bwd(torch.float32, seed=3)
     aug16 = check_augment(torch.bfloat16, seed=4)
     aug32 = check_augment(torch.float32, seed=5)
+    kan = check_kan(seed=6)
     emit({"phase": "kernels", "vit_block_fwd": [bf16, fp32],
-          "vit_block_bwd": [bwd16, bwd32], "augment": [aug16, aug32],
+          "vit_block_bwd": [bwd16, bwd32], "augment": [aug16, aug32], **kan,
           "card": smi})
 
     result = serve(smi)
     emit(result)
     trained = train(smi)
     emit(trained)
+    kanned = kan_phase(smi)
+    emit(kanned)
 
     def entry(name, source, replaces, launches, lo, hi, **extra):
         keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
@@ -831,6 +1288,20 @@ def main() -> int:
                 **extra, "fp32": {k: hi[k] for k in keys}}
 
     csrc = "rovit_kan_tpu_torch/csrc/"
+
+    def kan_entry(name, line, r, phase):
+        by_path = {"serve": phase["serve_launches"][name],
+                   "trajectory": phase["trajectory_launches"][name],
+                   "train": phase["train_launches"][name]}
+        return {"name": name, "route": "cuda", "source": csrc + "kan.cu",
+                "replaces": f"rovit_kan_tpu/ops/kan_kernel.py:{line}",
+                "launches": sum(by_path.values()),
+                "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None,
+                "call_ms": r["call_ms"], "plain_call_ms": r["plain_call_ms"],
+                "launches_by_path": by_path}
+
     emit({"kernels": [
         entry("vit_block_fwd", csrc + "vit_block_fwd.cu",
               "rovit_kan_tpu/ops/block_kernel.py:92",
@@ -842,7 +1313,11 @@ def main() -> int:
               port_fwd_bwd_ms=bwd16["port_fwd_bwd_ms"]),
         entry("augment", csrc + "augment.cu",
               "rovit_kan_tpu/ops/augment_kernel.py:73",
-              trained["launches"]["augment"], aug16, aug32)]})
+              trained["launches"]["augment"], aug16, aug32)] + [
+        kan_entry(name, line, kan[name], kanned)
+        for name, line in (("kan_layer_fwd", 48), ("kan_layer_bwd", 129),
+                           ("kan_module_fwd", 252),
+                           ("kan_module_bwd", 367))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -153,8 +153,8 @@ class TPUConfig:
     # kernel yet: "auto" resolves to off, and True is refused by
     # build_model.
     use_pallas_attention: "bool | str" = "auto"
-    # Fused KAN kernel (JAX: ops/kan_kernel.py); not ported yet, so True
-    # is refused by build_model.
+    # Fused KAN kernels (JAX: ops/kan_kernel.py; in the port, the
+    # hand-written CUDA kernels of csrc/kan.cu). Off by default, as in JAX.
     use_pallas_kan: bool = False
     # Whole-transformer-block fused kernel (ops/block_kernel.py; in the
     # port, the hand-written CUDA block kernel). "auto" applies the policy

@@ -43,7 +43,8 @@ class RoViTKAN(nn.Module):
                  kan_num_knots: int = 5, kan_degree: int = 3,
                  with_ordinal: bool = True, with_uncertainty: bool = True,
                  with_kan: bool = True, dtype: torch.dtype = torch.float32,
-                 use_pallas_block: bool = False):
+                 use_pallas_block: bool = False,
+                 use_pallas_kan: bool = False):
         super().__init__()
         self.image_size = image_size
         self.num_classes = num_classes
@@ -65,7 +66,8 @@ class RoViTKAN(nn.Module):
                                                     dropout)
         if with_kan:
             self.kan_module = KANSeverityModule(tuple(kan_layers),
-                                                kan_num_knots, kan_degree)
+                                                kan_num_knots, kan_degree,
+                                                use_fused=use_pallas_kan)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None
@@ -163,16 +165,17 @@ def build_model(config: Config, *, with_ordinal: Optional[bool] = None,
     """RoViTKAN from a Config, with weights drawn from ``seed``, in eval mode
     when ``inference``. Head toggles default to ``config.model.with_*``.
     Runs on the card unless ``device="cpu"``; raises when CUDA is asked for
-    and absent, and for options whose kernels are not ported yet."""
+    and absent, and for options whose kernels are not ported yet.
+    ``tpu.use_pallas_kan`` passes through as it is (no "auto"), as in the
+    JAX ``build_model``: the KAN kernels when true."""
     dev = resolve_device(device)
     m, tpu = config.model, config.tpu
-    if tpu.use_pallas_attention is True or tpu.use_pallas_kan \
-            or tpu.remat_backbone or m.moe_experts > 1:
+    if tpu.use_pallas_attention is True or tpu.remat_backbone \
+            or m.moe_experts > 1:
         raise NotImplementedError(
-            "the port has no attention-only kernel, KAN kernel, remat or MoE "
-            "yet: set tpu.use_pallas_attention to 'auto' or False, "
-            "tpu.use_pallas_kan and tpu.remat_backbone to False and "
-            "model.moe_experts to 0")
+            "the port has no attention-only kernel, remat or MoE yet: set "
+            "tpu.use_pallas_attention to 'auto' or False, "
+            "tpu.remat_backbone to False and model.moe_experts to 0")
     if dtype is None:
         dtype = (torch.bfloat16 if config.flags.mixed_precision
                  else torch.float32)
@@ -190,7 +193,8 @@ def build_model(config: Config, *, with_ordinal: Optional[bool] = None,
         dtype=dtype,
         use_pallas_block=_resolve_fused_block(
             tpu.use_pallas_block, inference=inference, dtype=dtype,
-            embed_dim=m.embed_dim, device=dev))
+            embed_dim=m.embed_dim, device=dev),
+        use_pallas_kan=tpu.use_pallas_kan)
     init_weights(model, seed)
     model.train(not inference)
     return model.to(dev)

@@ -1,0 +1,416 @@
+"""KAN layer and whole KAN head: the CUDA kernels' wrappers and their plain
+versions.
+
+Counterpart of ``rovit_kan_tpu/ops/kan_kernel.py``. Its four TPU kernels are
+replaced on Hopper by ``csrc/kan.cu`` (the source note there says what bounds
+them and how they are tiled):
+
+- ``_kan_kernel`` (#8) and ``_kan_layer_bwd_kernel`` (#9): one KAN layer
+  ``x W_lin^T + b + sum_k basis_k(tanh x) S[:, :, k]`` and its gradient;
+- ``_kan_module_kernel`` (#10) and ``_kan_module_bwd_kernel`` (#11): the
+  whole stack, ReLU between layers and ``3 * sigmoid`` at the end, and its
+  recompute backward.
+
+Everything is fp32 and every product true fp32 (the TPU kernels run at
+``Precision.HIGHEST``). The functions take the port's parameter layouts as
+they are: ``spline_weights`` ``(in, out, K)``, the ``nn.Linear`` weight
+``(out, in)`` and the bias ``(out,)``; the gradients come back in those
+layouts. A CPU tensor runs the plain versions (the backward is the
+hand-written gradient, not autograd); a CUDA tensor launches the kernels or
+raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from rovit_kan_tpu_torch.ops.spline import (
+    bspline_basis_and_deriv_list,
+    bspline_basis_list,
+    matmul_fp32,
+)
+
+#: Launches of the whole-module forward (#10) since import (one per wrapper
+#: call on a CUDA tensor). The CPU path never touches it.
+LAUNCHES = 0
+#: Launches of the whole-module backward (#11), counted the same way (one per
+#: call, which runs the kernel's two passes).
+BWD_LAUNCHES = 0
+#: Launches of the one-layer forward (#8).
+LAYER_LAUNCHES = 0
+#: Launches of the one-layer backward (#9).
+LAYER_BWD_LAUNCHES = 0
+
+# What csrc/kan.cu holds (its kMax* constants).
+MAX_LAYERS, MAX_BASIS, MAX_IN, MAX_OUT = 4, 10, 1024, 256
+
+
+# ------------------------------------------------------------------ plain
+
+def kan_layer_reference(x: torch.Tensor, spline_weights: torch.Tensor,
+                        weight: torch.Tensor, bias: torch.Tensor,
+                        knots: np.ndarray, degree: int = 3) -> torch.Tensor:
+    """Plain version of #8, in the shape of ``_kan_kernel``: the dense
+    product plus the bias, then one product per basis, all fp32."""
+    basis = bspline_basis_list(torch.tanh(x), knots, degree)
+    acc = matmul_fp32(x, weight.t()) + bias
+    for k, bk in enumerate(basis):
+        acc = acc + matmul_fp32(bk, spline_weights[:, :, k])
+    return acc
+
+
+def kan_layer_backward_reference(x: torch.Tensor, g: torch.Tensor,
+                                 spline_weights: torch.Tensor,
+                                 weight: torch.Tensor, knots: np.ndarray,
+                                 degree: int = 3):
+    """Plain version of #9, in the shape of ``_kan_layer_bwd_kernel``:
+    ``dS[:, :, k] = basis_k^T g``, ``dW = g^T x``, ``db = sum g``,
+    ``dx = g W + (sum_k (g S_k^T) basis'_k(t)) (1 - t^2)``.
+
+    Returns ``(dx, d_spline_weights, d_weight, d_bias)``."""
+    t = torch.tanh(x)
+    basis, dbasis = bspline_basis_and_deriv_list(t, knots, degree)
+    d_bias = g.sum(0)
+    d_weight = matmul_fp32(g.t(), x)
+    d_spline = torch.stack([matmul_fp32(bk.t(), g) for bk in basis], dim=-1)
+    dspl = torch.zeros_like(x)
+    for k in range(len(basis)):
+        dspl = dspl + matmul_fp32(g, spline_weights[:, :, k].t()) * dbasis[k]
+    dx = matmul_fp32(g, weight) + dspl * (1.0 - t * t)
+    return dx, d_spline, d_weight, d_bias
+
+
+def kan_module_reference(x: torch.Tensor, params: Sequence[torch.Tensor],
+                         knots: np.ndarray, degree: int = 3) -> torch.Tensor:
+    """Plain version of #10: the layers of ``params`` (flat
+    ``(spline_weights, weight, bias)`` per layer), ReLU between them,
+    ``3 * sigmoid`` at the end."""
+    n = len(params) // 3
+    for layer in range(n):
+        x = kan_layer_reference(x, *params[3 * layer:3 * layer + 3], knots,
+                                degree)
+        if layer < n - 1:
+            x = torch.relu(x)
+    return 3.0 * torch.sigmoid(x)
+
+
+def kan_module_backward_reference(x: torch.Tensor, g: torch.Tensor,
+                                  params: Sequence[torch.Tensor],
+                                  knots: np.ndarray, degree: int = 3):
+    """Plain version of #11, in the shape of ``_kan_module_bwd_kernel``:
+    recompute the forward keeping each layer's input and pre-activation,
+    then walk back through ``3 * sigmoid'``, each layer's gradient and
+    ``relu'`` (0 at 0).
+
+    Returns ``(dx, grads)`` with ``grads`` flat like ``params``."""
+    n = len(params) // 3
+    hs, accs = [x], []
+    for layer in range(n):
+        acc = kan_layer_reference(hs[-1], *params[3 * layer:3 * layer + 3],
+                                  knots, degree)
+        accs.append(acc)
+        hs.append(torch.relu(acc) if layer < n - 1 else acc)
+    sig = torch.sigmoid(accs[-1])
+    gcur = g * 3.0 * sig * (1.0 - sig)
+    grads: List[torch.Tensor] = [None] * (3 * n)
+    for layer in range(n - 1, -1, -1):
+        dh, ds, dw, db = kan_layer_backward_reference(
+            hs[layer], gcur, params[3 * layer], params[3 * layer + 1], knots,
+            degree)
+        grads[3 * layer:3 * layer + 3] = [ds, dw, db]
+        # relu'(0) = 0 for the ReLU that made this layer's input.
+        gcur = dh * (accs[layer - 1] > 0).to(dh.dtype) if layer else dh
+    return gcur, grads
+
+
+# --------------------------------------------------------------- kernels
+
+def _layer_dims(params: Sequence[torch.Tensor]) -> List[int]:
+    dims = [int(params[0].shape[0])]
+    for layer in range(len(params) // 3):
+        dims.append(int(params[3 * layer].shape[1]))
+    return dims
+
+
+def _check_cuda_args(x: torch.Tensor, params: Sequence[torch.Tensor],
+                     knots: np.ndarray, degree: int) -> List[int]:
+    """What the kernels take; returns the layer widths."""
+    if x.dim() != 2 or not x.is_contiguous() or x.shape[0] < 1:
+        raise ValueError(f"x must be a contiguous non-empty (B, in) tensor, "
+                         f"got shape {tuple(x.shape)}")
+    n = len(params) // 3
+    nb = len(knots) - degree - 1
+    if len(params) % 3 or not 1 <= n <= MAX_LAYERS or degree != 3 \
+            or not 1 <= nb <= MAX_BASIS:
+        raise ValueError(
+            f"unsupported KAN stack: {n} layers, degree {degree}, {nb} "
+            f"bases; the kernels take 1-{MAX_LAYERS} layers of cubic splines "
+            f"with at most {MAX_BASIS} bases")
+    dims = _layer_dims(params)
+    if dims[0] != x.shape[1] or max(dims) > MAX_IN \
+            or max(dims[1:]) > MAX_OUT:
+        raise ValueError(
+            f"unsupported KAN widths {dims} for x {tuple(x.shape)}: inputs up "
+            f"to {MAX_IN} wide, outputs up to {MAX_OUT}")
+    for layer in range(n):
+        din, dout = dims[layer], dims[layer + 1]
+        for name, t, shape in zip(
+                ("spline_weights", "weight", "bias"),
+                params[3 * layer:3 * layer + 3],
+                ((din, dout, nb), (dout, din), (dout,))):
+            if tuple(t.shape) != shape or t.dtype != torch.float32 \
+                    or t.device != x.device or not t.is_contiguous():
+                raise ValueError(
+                    f"layer {layer} {name}: want contiguous {shape} fp32 on "
+                    f"{x.device}, got {tuple(t.shape)} {t.dtype} on "
+                    f"{t.device}")
+    return dims
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_FLOATS = ctypes.POINTER(ctypes.c_float)
+_INTS = ctypes.POINTER(ctypes.c_int)
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    from rovit_kan_tpu_torch.ops import _build
+    lib = _build.load("kan")
+    sigs = {
+        "kan_layer_fwd": [_P] * 5 + [_I] * 3 + [_FLOATS, _I, _P],
+        "kan_layer_bwd": [_P] * 8 + [_I] * 3 + [_FLOATS, _I, _P],
+        "kan_module_fwd": [_P, _PTRS, _P, _I, _INTS, _I, _FLOATS, _I, _P],
+        "kan_module_bwd": [_P, _P, _PTRS, _P, _PTRS, _P, _I, _INTS, _I,
+                           _FLOATS, _I, _P],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.kan_module_bwd_scratch.argtypes = [_I, _INTS, _I]
+    lib.kan_module_bwd_scratch.restype = ctypes.c_longlong
+    lib.kan_error_string.argtypes = [_I]
+    lib.kan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _c_array(ctype, values):
+    return (ctype * len(values))(*values)
+
+
+def _raise_on(rc: int, lib, what: str, x: torch.Tensor, dims) -> None:
+    if rc != 0:
+        msg = lib.kan_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg}) "
+                           f"at B={x.shape[0]} dims={list(dims)}")
+
+
+def _launch_layer(x, spline_weights, weight, bias, knots, degree):
+    global LAYER_LAUNCHES
+    dims = _check_cuda_args(x, (spline_weights, weight, bias), knots, degree)
+    lib = _library()
+    kn = _c_array(ctypes.c_float, [float(v) for v in knots])
+    with torch.cuda.device(x.device):
+        y = torch.empty((x.shape[0], dims[1]), dtype=torch.float32,
+                        device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.kan_layer_fwd(x.data_ptr(), spline_weights.data_ptr(),
+                               weight.data_ptr(), bias.data_ptr(),
+                               y.data_ptr(), x.shape[0], dims[0], dims[1],
+                               kn, len(kn), stream)
+    _raise_on(rc, lib, "kan_layer_fwd", x, dims)
+    LAYER_LAUNCHES += 1
+    return y
+
+
+def _launch_layer_bwd(x, g, spline_weights, weight, knots, degree):
+    global LAYER_BWD_LAUNCHES
+    # The bias gradient's buffer stands in for the bias in the shape check.
+    db = torch.empty(weight.shape[0], dtype=torch.float32, device=x.device)
+    dims = _check_cuda_args(x, (spline_weights, weight, db), knots, degree)
+    _check_grad(x, g, dims)
+    lib = _library()
+    kn = _c_array(ctypes.c_float, [float(v) for v in knots])
+    with torch.cuda.device(x.device):
+        dx = torch.empty_like(x)
+        ds = torch.empty_like(spline_weights)
+        dw = torch.empty_like(weight)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.kan_layer_bwd(x.data_ptr(), g.data_ptr(),
+                               spline_weights.data_ptr(), weight.data_ptr(),
+                               dx.data_ptr(), ds.data_ptr(), dw.data_ptr(),
+                               db.data_ptr(), x.shape[0], dims[0], dims[1],
+                               kn, len(kn), stream)
+    _raise_on(rc, lib, "kan_layer_bwd", x, dims)
+    LAYER_BWD_LAUNCHES += 1
+    return dx, ds, dw, db
+
+
+def _check_grad(x: torch.Tensor, g: torch.Tensor, dims) -> None:
+    want = (x.shape[0], dims[-1])
+    if g.dtype != torch.float32 or tuple(g.shape) != want \
+            or g.device != x.device or not g.is_contiguous():
+        raise ValueError(f"g must be a contiguous fp32 {want} tensor on "
+                         f"{x.device}, got {g.dtype} {tuple(g.shape)} on "
+                         f"{g.device}")
+
+
+def _launch_module(x, params, knots, degree):
+    global LAUNCHES
+    dims = _check_cuda_args(x, params, knots, degree)
+    lib = _library()
+    kn = _c_array(ctypes.c_float, [float(v) for v in knots])
+    ptrs = _c_array(ctypes.c_void_p, [p.data_ptr() for p in params])
+    with torch.cuda.device(x.device):
+        y = torch.empty((x.shape[0], dims[-1]), dtype=torch.float32,
+                        device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.kan_module_fwd(x.data_ptr(), ptrs, y.data_ptr(), x.shape[0],
+                                _c_array(ctypes.c_int, dims), len(dims) - 1,
+                                kn, len(kn), stream)
+    _raise_on(rc, lib, "kan_module_fwd", x, dims)
+    LAUNCHES += 1
+    return y
+
+
+def _launch_module_bwd(x, g, params, knots, degree):
+    global BWD_LAUNCHES
+    dims = _check_cuda_args(x, params, knots, degree)
+    _check_grad(x, g, dims)
+    lib = _library()
+    kn = _c_array(ctypes.c_float, [float(v) for v in knots])
+    cdims = _c_array(ctypes.c_int, dims)
+    with torch.cuda.device(x.device):
+        dx = torch.empty_like(x)
+        grads = [torch.empty_like(p) for p in params]
+        scratch = torch.empty(
+            int(lib.kan_module_bwd_scratch(x.shape[0], cdims, len(dims) - 1)),
+            dtype=torch.float32, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.kan_module_bwd(
+            x.data_ptr(), g.data_ptr(),
+            _c_array(ctypes.c_void_p, [p.data_ptr() for p in params]),
+            dx.data_ptr(),
+            _c_array(ctypes.c_void_p, [t.data_ptr() for t in grads]),
+            scratch.data_ptr(), x.shape[0], cdims, len(dims) - 1, kn,
+            len(kn), stream)
+    _raise_on(rc, lib, "kan_module_bwd", x, dims)
+    BWD_LAUNCHES += 1
+    return dx, grads
+
+
+def _route(x: torch.Tensor, name: str) -> bool:
+    """True for the kernels (a CUDA tensor), False for the plain versions (a
+    CPU tensor); raises for any other device or a non-fp32 input."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} takes fp32, got {x.dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, got {x.device}")
+    return x.device.type == "cuda"
+
+
+def _layer_forward(x, spline_weights, weight, bias, knots, degree):
+    if _route(x, "fused_kan_layer"):
+        return _launch_layer(x, spline_weights, weight, bias, knots, degree)
+    return kan_layer_reference(x, spline_weights, weight, bias, knots, degree)
+
+
+def _layer_backward(x, g, spline_weights, weight, knots, degree):
+    if _route(x, "fused_kan_layer"):
+        return _launch_layer_bwd(x, g, spline_weights, weight, knots, degree)
+    return kan_layer_backward_reference(x, g, spline_weights, weight, knots,
+                                        degree)
+
+
+def _module_forward(x, params, knots, degree):
+    if _route(x, "fused_kan_module"):
+        return _launch_module(x, params, knots, degree)
+    return kan_module_reference(x, params, knots, degree)
+
+
+def _module_backward(x, g, params, knots, degree):
+    if _route(x, "fused_kan_module"):
+        return _launch_module_bwd(x, g, params, knots, degree)
+    return kan_module_backward_reference(x, g, params, knots, degree)
+
+
+class FusedKANLayer(torch.autograd.Function):
+    """One KAN layer under autograd: ``apply(x, knots, degree,
+    spline_weights, weight, bias)``. Saves ``x`` and the weights; the
+    backward is #9 on the card, its plain version on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, knots, degree, spline_weights, weight, bias):
+        ctx.save_for_backward(x, spline_weights, weight)
+        ctx.knots, ctx.degree = knots, degree
+        return _layer_forward(x, spline_weights, weight, bias, knots, degree)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, spline_weights, weight = ctx.saved_tensors
+        dx, ds, dw, db = _layer_backward(x, g.contiguous(), spline_weights,
+                                         weight, ctx.knots, ctx.degree)
+        return dx, None, None, ds, dw, db
+
+
+class FusedKANModule(torch.autograd.Function):
+    """The whole KAN head under autograd: ``apply(x, knots, degree,
+    *params)``. Saves ``x`` and the parameters and nothing else; the
+    backward recomputes the forward (#11 on the card, its plain version on
+    the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, knots, degree, *params):
+        ctx.save_for_backward(x, *params)
+        ctx.knots, ctx.degree = knots, degree
+        return _module_forward(x, params, knots, degree)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        dx, grads = _module_backward(x, g.contiguous(), params, ctx.knots,
+                                     ctx.degree)
+        return (dx, None, None, *grads)
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def fused_kan_layer(x: torch.Tensor, spline_weights: torch.Tensor,
+                    weight: torch.Tensor, bias: torch.Tensor,
+                    knots: np.ndarray, degree: int = 3) -> torch.Tensor:
+    """One KAN layer, fused: ``(B, in)`` fp32 -> ``(B, out)``.
+
+    ``spline_weights`` ``(in, out, K)``, ``weight`` ``(out, in)`` (an
+    ``nn.Linear`` weight), ``bias`` ``(out,)``, ``knots`` the static knot
+    vector. When grad is enabled and an input needs it, the call goes
+    through ``FusedKANLayer``."""
+    knots = np.asarray(knots, np.float32)
+    x = x.contiguous()
+    if _needs_grad(x, spline_weights, weight, bias):
+        return FusedKANLayer.apply(x, knots, degree, spline_weights, weight,
+                                   bias)
+    return _layer_forward(x, spline_weights, weight, bias, knots, degree)
+
+
+def fused_kan_module(x: torch.Tensor, params: Sequence[torch.Tensor],
+                     knots: np.ndarray, degree: int = 3) -> torch.Tensor:
+    """The whole KAN head in one kernel: ``(B, dims[0])`` fp32 -> ``(B,
+    dims[-1])`` severity in [0, 3].
+
+    ``params`` is flat: ``(spline_weights, weight, bias)`` per layer, in the
+    layouts of ``fused_kan_layer``. When grad is enabled and an input needs
+    it, the call goes through ``FusedKANModule``."""
+    knots = np.asarray(knots, np.float32)
+    x = x.contiguous()
+    if _needs_grad(x, *params):
+        return FusedKANModule.apply(x, knots, degree, *params)
+    return _module_forward(x, tuple(params), knots, degree)
+

@@ -1,7 +1,7 @@
 """Port tests that need an NVIDIA GPU: the CUDA kernels (block forward #1,
-block backward #2, augment #7) against their plain versions, the served model
-through the block kernel, and a small train step through all three. They
-skip where
+block backward #2, augment #7, the KAN kernels #8-#11) against their plain
+versions, the served model through the block kernel, and a small train step
+through #1, #2 and #7. They skip where
 ``torch.cuda.is_available()`` is False. This file imports neither jax nor
 the JAX package, so it runs on a GPU machine without JAX:
 
@@ -20,7 +20,9 @@ from rovit_kan_tpu_torch.config import Config
 from rovit_kan_tpu_torch.models.rovit_kan import RoViTKAN, init_weights
 from rovit_kan_tpu_torch.ops import augment_kernel as ak
 from rovit_kan_tpu_torch.ops import block_kernel as bk
+from rovit_kan_tpu_torch.ops import kan_kernel as kk
 from rovit_kan_tpu_torch.ops.mixing import draw_mix
+from rovit_kan_tpu_torch.ops.spline import make_knots
 from rovit_kan_tpu_torch.serving import InferenceEngine
 from rovit_kan_tpu_torch.training.optimizer import build_optimizer
 from rovit_kan_tpu_torch.training.trainer import make_train_step
@@ -256,3 +258,116 @@ def test_train_step_through_the_kernels(cuda):
     assert nk == (2, 2, 1) and npl == (0, 0, 0)
     assert np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)
     assert float((gk - gp).norm()) <= 5e-2 * float(gp.norm())
+
+
+def _kan_params(rng, dims, device):
+    """Flat (spline_weights, weight, bias) per layer, fp32 on ``device``."""
+    out = []
+    for a, b in zip(dims[:-1], dims[1:]):
+        out += [rng.normal(0, 0.1, (a, b, 7)), rng.normal(0, a ** -0.5,
+                                                          (b, a)),
+                rng.normal(0, 0.1, (b,))]
+    return [torch.tensor(t, dtype=torch.float32, device=device) for t in out]
+
+
+def _kan_x(rng, B, width, device):
+    """Normal inputs with the edge cases: |x| >= 10 (tanh exactly +-1) and
+    x at the knots' atanh (t on a knot)."""
+    x = rng.normal(0, 1.5, (B, width))
+    x.flat[:4] = [10.0, -10.0, 12.0, -30.0]
+    knots = make_knots().astype(np.float64)[1:-1]
+    x.flat[4:4 + knots.size] = np.arctanh(knots)
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def _kan_tol(ref):
+    """1e-4 of the largest magnitude: fp32 sums in another order."""
+    return 1e-4 * max(float(ref.abs().max()), 1e-6)
+
+
+KAN_DIMS = [(192, 64, 16, 1), (24, 8, 1), (32, 16, 4, 1)]
+
+
+@pytest.mark.parametrize("B", [1, 37, 64, 300])
+@pytest.mark.parametrize("dims", KAN_DIMS, ids=lambda d: "-".join(map(str, d)))
+def test_kan_module_kernels_match_plain(cuda, dims, B):
+    rng = np.random.RandomState(B + sum(dims))
+    params = _kan_params(rng, dims, cuda)
+    x = _kan_x(rng, B, dims[0], cuda)
+    g = torch.tensor(rng.normal(0, 1, (B, dims[-1])), dtype=torch.float32,
+                     device=cuda)
+    knots = make_knots()
+    fwd, bwd = kk.LAUNCHES, kk.BWD_LAUNCHES
+    y = kk._launch_module(x, params, knots, 3)
+    dx, grads = kk._launch_module_bwd(x, g, params, knots, 3)
+    torch.cuda.synchronize()
+    assert (kk.LAUNCHES, kk.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    want_y = kk.kan_module_reference(x, params, knots)
+    want_dx, want = kk.kan_module_backward_reference(x, g, params, knots)
+    for name, got, ref in [("y", y, want_y), ("dx", dx, want_dx)] + [
+            (f"grad{i}", a, b) for i, (a, b) in enumerate(zip(grads, want))]:
+        assert got.shape == ref.shape and torch.isfinite(got).all(), name
+        err = float((got - ref).abs().max())
+        assert err <= _kan_tol(ref), (name, err)
+    dx2, grads2 = kk._launch_module_bwd(x, g, params, knots, 3)
+    assert torch.equal(dx2, dx)                       # no atomics: same bits
+    for a, b in zip(grads2, grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B", [1, 37, 64, 300])
+@pytest.mark.parametrize("shape", [(192, 64), (16, 1), (64, 16)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_kan_layer_kernels_match_plain(cuda, shape, B):
+    rng = np.random.RandomState(B * 7 + shape[0])
+    s, w, b = _kan_params(rng, shape, cuda)
+    x = _kan_x(rng, B, shape[0], cuda)
+    g = torch.tensor(rng.normal(0, 1, (B, shape[1])), dtype=torch.float32,
+                     device=cuda)
+    knots = make_knots()
+    fwd, bwd = kk.LAYER_LAUNCHES, kk.LAYER_BWD_LAUNCHES
+    y = kk._launch_layer(x, s, w, b, knots, 3)
+    got = kk._launch_layer_bwd(x, g, s, w, knots, 3)
+    torch.cuda.synchronize()
+    assert (kk.LAYER_LAUNCHES, kk.LAYER_BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    want_y = kk.kan_layer_reference(x, s, w, b, knots)
+    want = kk.kan_layer_backward_reference(x, g, s, w, knots)
+    assert float((y - want_y).abs().max()) <= _kan_tol(want_y)
+    for name, a, ref in zip(("dx", "ds", "dw", "db"), got, want):
+        assert a.shape == ref.shape and torch.isfinite(a).all(), name
+        assert float((a - ref).abs().max()) <= _kan_tol(ref), name
+    again = kk._launch_layer_bwd(x, g, s, w, knots, 3)
+    for a, b in zip(again, got):
+        assert torch.equal(a, b)
+
+
+def test_kan_kernels_refuse_what_they_do_not_take(cuda):
+    rng = np.random.RandomState(0)
+    params = _kan_params(rng, (24, 8, 1), cuda)
+    knots = make_knots()
+    x = torch.zeros(3, 24, device=cuda)
+    with pytest.raises(TypeError):
+        kk.fused_kan_module(x.bfloat16(), params, knots)
+    with pytest.raises(TypeError):
+        kk.fused_kan_layer(x.bfloat16(), *params[:3], knots)
+    with pytest.raises(ValueError):                      # degree 2
+        kk.fused_kan_module(x, params, make_knots(6, 2), degree=2)
+    with pytest.raises(ValueError):                      # five layers
+        kk.fused_kan_module(torch.zeros(3, 8, device=cuda),
+                            _kan_params(rng, (8,) * 6, cuda), knots)
+    with pytest.raises(ValueError):                      # too wide an output
+        kk.fused_kan_module(x, _kan_params(rng, (24, 300, 1), cuda), knots)
+    # Under autograd the module runs #10 and #11 and the grads reach the
+    # parameters.
+    leaves = [p.clone().requires_grad_() for p in params]
+    xg = torch.tensor(rng.normal(0, 1, (5, 24)), dtype=torch.float32,
+                      device=cuda, requires_grad=True)
+    fwd, bwd = kk.LAUNCHES, kk.BWD_LAUNCHES
+    kk.fused_kan_module(xg, leaves, knots).sum().backward()
+    torch.cuda.synchronize()
+    assert (kk.LAUNCHES, kk.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    want_dx, want = kk.kan_module_backward_reference(
+        xg.detach(), torch.ones(5, 1, device=cuda), params, knots)
+    assert float((xg.grad - want_dx).abs().max()) <= _kan_tol(want_dx)
+    for p, ref in zip(leaves, want):
+        assert float((p.grad - ref).abs().max()) <= _kan_tol(ref)

@@ -177,7 +177,7 @@ def test_block_policy_and_unported_options():
     assert _resolve_fused_block(True, inference=False, dtype=bf16,
                                 embed_dim=768, device=cpu)
     cfg = Config()
-    cfg.tpu.use_pallas_kan = True
+    cfg.tpu.use_pallas_attention = True          # no attention-only kernel
     with pytest.raises(NotImplementedError):
         build_model(cfg, device="cpu")
 

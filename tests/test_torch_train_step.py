@@ -38,6 +38,7 @@ from rovit_kan_tpu_torch.models.convert import (
 from rovit_kan_tpu_torch.models.rovit_kan import RoViTKAN
 from rovit_kan_tpu_torch.ops import augment_kernel as ak
 from rovit_kan_tpu_torch.ops import block_kernel as bk
+from rovit_kan_tpu_torch.ops import kan_kernel as kk
 from rovit_kan_tpu_torch.training import optimizer as topt
 from rovit_kan_tpu_torch.training.trainer import (
     make_eval_step,
@@ -88,13 +89,14 @@ def assert_grads_match(model, jgrads, step):
             err_msg=f"step {step}: {name}")
 
 
-def run_pair(n_steps, fused):
+def run_pair(n_steps, fused, kan=False):
     """Take ``n_steps`` on both sides, holding every step's gradients;
-    returns (jax losses, port losses, jax params, port model)."""
+    ``fused`` routes both through the block kernel, ``kan`` through the KAN
+    kernels. Returns (jax losses, port losses, jax params, port model)."""
     jcfg = JaxConfig()
     jcfg.flags.mixed_precision = False
     jcfg.train.learning_rate = LR
-    jmodel = JaxRoViTKAN(**KW, use_pallas_block=fused)
+    jmodel = JaxRoViTKAN(**KW, use_pallas_block=fused, use_pallas_kan=kan)
     params = jmodel.init(jax.random.PRNGKey(0),
                          np.zeros((1, IMG, IMG, 3), np.float32))["params"]
     pert = np.random.RandomState(0)
@@ -109,7 +111,8 @@ def run_pair(n_steps, fused):
     cfg = Config()
     cfg.flags.mixed_precision = False
     cfg.train.learning_rate = LR
-    model = load_jax_params(RoViTKAN(**KW, use_pallas_block=fused), params,
+    model = load_jax_params(RoViTKAN(**KW, use_pallas_block=fused,
+                                     use_pallas_kan=kan), params,
                             device="cpu")
     opt = topt.build_optimizer(model, cfg)
     step = make_train_step(model, opt, cfg, focal_alpha=ALPHA)
@@ -143,6 +146,7 @@ def run_pair(n_steps, fused):
                                    float(jm["accuracy"]), atol=1e-6)
         assert_grads_match(model, state.opt_state[1], i)
     assert ak.LAUNCHES == 0 and bk.LAUNCHES == 0 and bk.BWD_LAUNCHES == 0
+    assert kk.LAUNCHES == 0 and kk.BWD_LAUNCHES == 0
     return np.asarray(jlosses), np.asarray(tlosses), state.params, model
 
 

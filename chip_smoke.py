@@ -42,7 +42,19 @@ exits non-zero:
    steps of that step object timed with the KAN kernels on and off in
    turns, one step held against the plain KAN head (``hold_kan_step``),
    and the device operations per served batch and per train step with the
-   flag on and off, from profiles.
+   flag on and off, from profiles;
+7. long: the flagship at 384 px (577 tokens), batch 32, its weights the
+   seed-0 224-px model's carried over by ``transfer_resolution``: the
+   attention-only kernels #5/#6 at (32, 3, 577, 64) and (64, 3, 197, 64)
+   and #1/#2 at (32, 577, 192), bf16 and fp32, against their plain versions
+   (same bits on repeat for #5/#6) and timed beside their bounds, the plain
+   versions and SDPA; served through ``InferenceEngine`` with "auto" (12 x
+   #1 per batch, no #5) and with ``use_pallas_block=False`` (12 x #5 per
+   batch, no #1), each held against its plain versions and the fp32 model
+   as in "serve"; three train steps with ``use_pallas_block=False,
+   use_pallas_attention=True`` (12 x #5, 12 x #6, 1 x #7 each), two with
+   "auto" (12 x #1, 12 x #2, 1 x #7 each), finite losses; one step held per
+   parameter against the same step with #6's plain version.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 is ``{"ok": true, "device": {...}}``. Imports torch and the port only.
@@ -109,7 +121,7 @@ def time_ms(fn, reps: int = 15, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def block_inputs(dtype, seed: int):
+def block_inputs(dtype, seed: int, batch: int = BATCH, tokens: int = TOKENS):
     from rovit_kan_tpu_torch.ops.block_kernel import prepare_block_params
     rng = np.random.RandomState(seed)
 
@@ -125,7 +137,7 @@ def block_inputs(dtype, seed: int):
            "ln2_bias": t(DIM, scale=0.02),
            "w1": t(HIDDEN, DIM), "b1": t(HIDDEN, scale=0.02),
            "w2": t(DIM, HIDDEN), "b2": t(DIM, scale=0.02)}
-    x = t(BATCH, TOKENS, DIM, scale=1.0).to("cuda", dtype)
+    x = t(batch, tokens, DIM, scale=1.0).to("cuda", dtype)
     params = prepare_block_params({k: v.cuda() for k, v in raw.items()},
                                   dtype)
     return x, params
@@ -163,9 +175,9 @@ def block_bound_ms(x, params, dtype) -> float:
     return 1e3 * max(flops / peak, nbytes / PEAK_BYTES_PER_S)
 
 
-def check_block(dtype, seed: int):
+def check_block(dtype, seed: int, batch: int = BATCH, tokens: int = TOKENS):
     from rovit_kan_tpu_torch.ops import block_kernel as bk
-    x, params = block_inputs(dtype, seed)
+    x, params = block_inputs(dtype, seed, batch, tokens)
     with torch.inference_mode():
         got = bk.fused_vit_block(x, params, HEADS)
         ref = bk.block_reference(x, params, HEADS)
@@ -204,11 +216,12 @@ def bwd_tol(ref: torch.Tensor, dtype) -> float:
     return (1e-4 if dtype == torch.float32 else 1e-2) * top
 
 
-def check_block_bwd(dtype, seed: int):
+def check_block_bwd(dtype, seed: int, batch: int = BATCH,
+                    tokens: int = TOKENS):
     """Kernel #2 against ``block_backward_reference``: dx and all 12 grads,
     each against its own tolerance."""
     from rovit_kan_tpu_torch.ops import block_kernel as bk
-    x, params = block_inputs(dtype, seed)
+    x, params = block_inputs(dtype, seed, batch, tokens)
     g = torch.tensor(np.random.RandomState(seed + 10).normal(
         0, 1, x.shape), dtype=torch.float32, device="cuda")
     with torch.no_grad():
@@ -552,6 +565,44 @@ def profile_serving(engine, images_u8: np.ndarray, smi: str):
                             for e in top], "card": smi}
 
 
+def hold_served(served, plain, exact):
+    """Served outputs of a kernel path against the same model through the
+    plain versions (``plain``) and the fp32 model (``exact``). The kernel
+    and the plain path round at the same points; where an fp32 sum in
+    another order crosses a bf16 rounding boundary, the one-ulp difference
+    spreads through the 12 blocks like any other bf16 rounding error. So
+    the kernel path must be as accurate as the plain bf16 path: by the
+    triangle inequality both its distance from the plain model and its
+    distance from fp32 then stay within twice the plain model's own distance
+    from fp32 (floor 1e-3 for outputs bf16 barely moves). Returns the
+    readings and the names of the outputs that failed."""
+    checks, failed = {}, []
+    for k in ("features", "cls_probs", "ordinal_probs", "ordinal_severity",
+              "uncertainty_std", "kan_severity"):
+        ref_err = float(np.abs(plain[k] - exact[k]).max())
+        checks[k] = {"vs_plain_block": float(np.abs(served[k]
+                                                    - plain[k]).max()),
+                     "vs_fp32": float(np.abs(served[k] - exact[k]).max()),
+                     "plain_block_vs_fp32": ref_err,
+                     "tolerance": 2 * max(ref_err, 1e-3)}
+        c = checks[k]
+        if not max(c["vs_plain_block"], c["vs_fp32"]) <= c["tolerance"]:
+            failed.append(k)
+    # An argmax may flip only where the top two probabilities are closer
+    # than the probabilities moved.
+    flips = np.nonzero(served["cls_pred"] != plain["cls_pred"])[0]
+    top2 = np.sort(plain["cls_probs"], axis=-1)[:, -2:]
+    gaps = top2[flips, 1] - top2[flips, 0]
+    checks["cls_pred"] = {
+        "flips_vs_plain_block": int(flips.size),
+        "flips_vs_fp32": int(np.sum(served["cls_pred"]
+                                    != exact["cls_pred"])),
+        "max_flip_gap": float(gaps.max()) if flips.size else 0.0}
+    if np.any(gaps > 2 * checks["cls_probs"]["vs_plain_block"]):
+        failed.append("cls_pred")
+    return checks, failed
+
+
 def serve(smi: str):
     from rovit_kan_tpu_torch.config import Config
     from rovit_kan_tpu_torch.models.rovit_kan import build_model
@@ -637,38 +688,7 @@ def serve(smi: str):
     exact = InferenceEngine(model32, batch_size=BATCH,
                             device="cuda").predict(full[0])
     exact["features"] = features(model32, full[0])
-    # The kernel and the plain block round at the same points; where an fp32
-    # sum in another order crosses a bf16 rounding boundary, the one-ulp
-    # difference spreads through the 12 blocks like any other bf16 rounding
-    # error. So the kernel path must be as accurate as the plain bf16 path:
-    # by the triangle inequality both its distance from the plain-block
-    # model and its distance from fp32 then stay within twice the plain
-    # model's own distance from fp32 (floor 1e-3 for outputs bf16 barely
-    # moves).
-    checks, failed = {}, []
-    for k in ("features", "cls_probs", "ordinal_probs", "ordinal_severity",
-              "uncertainty_std", "kan_severity"):
-        ref_err = float(np.abs(plain[k] - exact[k]).max())
-        checks[k] = {"vs_plain_block": float(np.abs(served[k]
-                                                    - plain[k]).max()),
-                     "vs_fp32": float(np.abs(served[k] - exact[k]).max()),
-                     "plain_block_vs_fp32": ref_err,
-                     "tolerance": 2 * max(ref_err, 1e-3)}
-        c = checks[k]
-        if not max(c["vs_plain_block"], c["vs_fp32"]) <= c["tolerance"]:
-            failed.append(k)
-    # An argmax may flip only where the top two probabilities are closer
-    # than the probabilities moved.
-    flips = np.nonzero(served["cls_pred"] != plain["cls_pred"])[0]
-    top2 = np.sort(plain["cls_probs"], axis=-1)[:, -2:]
-    gaps = top2[flips, 1] - top2[flips, 0]
-    checks["cls_pred"] = {
-        "flips_vs_plain_block": int(flips.size),
-        "flips_vs_fp32": int(np.sum(served["cls_pred"]
-                                    != exact["cls_pred"])),
-        "max_flip_gap": float(gaps.max()) if flips.size else 0.0}
-    if np.any(gaps > 2 * checks["cls_probs"]["vs_plain_block"]):
-        failed.append("cls_pred")
+    checks, failed = hold_served(served, plain, exact)
     if failed:
         emit({"phase": "serve", "outputs": checks})
         raise RuntimeError(f"served outputs out of tolerance: {failed}")
@@ -686,12 +706,12 @@ def serve(smi: str):
             "card": smi}
 
 
-def train_batch(cfg, seed: int):
+def train_batch(cfg, seed: int, batch: int = BATCH):
     rng = np.random.RandomState(seed)
     size = cfg.data.image_size
-    labels = torch.from_numpy(rng.randint(0, 4, BATCH)).long().cuda()
+    labels = torch.from_numpy(rng.randint(0, 4, batch)).long().cuda()
     return {"images": torch.from_numpy(rng.randint(
-                0, 256, (BATCH, size, size, 3)).astype(np.uint8)).cuda(),
+                0, 256, (batch, size, size, 3)).astype(np.uint8)).cuda(),
             "labels": labels, "severity": labels.float()}
 
 
@@ -1236,6 +1256,361 @@ def kan_phase(smi: str):
             "held_step": held, "card": smi}
 
 
+LONG_BATCH, LONG_SIZE = 32, 384
+LONG_TOKENS = (LONG_SIZE // 16) ** 2 + 1            # 577
+SDPA = "F.scaled_dot_product_attention(q, k, v, scale=1.0)"
+
+
+def attention_bounds(shape, dtype) -> dict:
+    """Least times of #5 and #6 on the card: FLOP of their products (#5 two
+    N x N x hd products, #6 five: S again, dV, dP, dQ, dK) over the peak of
+    the input type, and bytes (q, k, v in and an fp32 out; q, k, v and the
+    fp32 g in and dq, dk, dv out in the input type) over the HBM rate."""
+    B, h, N, hd = shape
+    size = 2 if dtype == torch.bfloat16 else 4
+    numel = B * h * N * hd
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    out = {}
+    for name, products, nbytes in (
+            ("fwd", 2, numel * (3 * size + 4)),
+            ("bwd", 5, numel * (6 * size + 4))):
+        bound = {"operations": 2 * products * B * h * N * N * hd / peak,
+                 "bytes": nbytes / PEAK_BYTES_PER_S}
+        by = max(bound, key=bound.get)
+        out[name] = {"bound_ms": 1e3 * bound[by], "bound_by": by,
+                     "flops": 2 * products * B * h * N * N * hd,
+                     "bytes": nbytes}
+    return out
+
+
+def check_attention(shape, dtype, seed: int):
+    """#5 and #6 against ``attention_reference`` and
+    ``attention_backward_reference`` on seeded inputs (q pre-scaled), the
+    same bits on a repeated call, and timed (CUDA events) beside their
+    bounds, the plain versions and SDPA (forward, and forward + backward,
+    the library yardstick; never on the port's path). Tolerances: the
+    forward's fp32 output within 1e-4 in fp32 and two bf16 ulps at its
+    largest magnitude in bf16 (both round P at the same point; they differ
+    where an fp32 sum in another order crosses a rounding boundary); the
+    backward's outputs as #2's (``bwd_tol``)."""
+    import torch.nn.functional as F
+    from rovit_kan_tpu_torch.ops import attention as at
+    rng = np.random.RandomState(seed)
+    hd = shape[-1]
+
+    def t(scale=1.0, dt=dtype):
+        return torch.tensor(rng.normal(0, scale, shape), dtype=torch.float32,
+                            device="cuda").to(dt)
+
+    q, k, v = t(hd ** -0.5), t(), t()
+    g = t(dt=torch.float32)
+    with torch.no_grad():
+        out = at._launch(q, k, v)
+        grads = at._launch_bwd(q, k, v, g)
+        ref = at.attention_reference(q, k, v)
+        want = at.attention_backward_reference(q, k, v, g)
+        torch.cuda.synchronize()
+        same = (torch.equal(at._launch(q, k, v), out)
+                and all(torch.equal(a, b) for a, b in
+                        zip(at._launch_bwd(q, k, v, g), grads)))
+    what = f"attention {list(shape)} {dtype}"
+    if not same:
+        raise RuntimeError(f"{what}: a repeated call gave other bits")
+    errs, failed = {}, []
+    for name, got, w in [("out", out, ref)] + list(zip(("dq", "dk", "dv"),
+                                                       grads, want)):
+        if not torch.isfinite(got.float()).all():
+            raise RuntimeError(f"{what} {name}: non-finite values")
+        if got.dtype != (torch.float32 if name == "out" else dtype):
+            raise RuntimeError(f"{what} {name}: dtype {got.dtype}")
+        err = float((got.float() - w.float()).abs().max())
+        tol = (bwd_tol(w, dtype) if name != "out" else
+               FP32_TOL if dtype == torch.float32 else bf16_tol(w))
+        errs[name] = {"max_abs_err": err, "tolerance": tol}
+        if not err <= tol:
+            failed.append(name)
+    if failed:
+        raise RuntimeError(f"{what} out of tolerance: "
+                           f"{ {k: errs[k] for k in failed} }")
+
+    with torch.no_grad():
+        ms_f = time_ms(lambda: at._launch(q, k, v))
+        ms_b = time_ms(lambda: at._launch_bwd(q, k, v, g))
+        plain_f = time_ms(lambda: at.attention_reference(q, k, v), reps=9,
+                          inner=3)
+        plain_b = time_ms(lambda: at.attention_backward_reference(
+            q, k, v, g), reps=9, inner=3)
+        sdpa_f = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=1.0))
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    gx = g.to(dtype)
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(*leaves, scale=1.0).backward(gx)
+
+    def port_fwd_bwd():
+        at.fused_attention(*leaves).backward(g)
+
+    sdpa_fb = time_ms(sdpa_fwd_bwd, reps=9)
+    port_fb = time_ms(port_fwd_bwd, reps=9)
+    bounds = attention_bounds(shape, dtype)
+    common = {"dtype": str(dtype).replace("torch.", ""), "shape": list(shape),
+              "identical_bits_on_repeat": True}
+    fwd = {"replaces": "rovit_kan_tpu/ops/attention.py::_attention_kernel",
+           **common, "outputs": {"out": errs["out"]},
+           "max_abs_err": errs["out"]["max_abs_err"], "kernel_ms": ms_f,
+           "plain_ms": plain_f, "library_ms": sdpa_f, "library": SDPA,
+           **bounds["fwd"]}
+    bwd = {"replaces": "rovit_kan_tpu/ops/attention.py::"
+                       "_attention_bwd_kernel",
+           **common, "outputs": {k: errs[k] for k in ("dq", "dk", "dv")},
+           "max_abs_err": max(errs[k]["max_abs_err"]
+                              for k in ("dq", "dk", "dv")),
+           "kernel_ms": ms_b, "plain_ms": plain_b, "library_ms": sdpa_fb,
+           "library": SDPA + " forward + backward",
+           "port_fwd_bwd_ms": port_fb, **bounds["bwd"]}
+    return fwd, bwd
+
+
+def long_model(cfg, inference: bool, dtype=None):
+    """The flagship built at ``cfg.data.image_size`` (in ``dtype``, by
+    default the config's) with the seed-0 224-px weights carried over by
+    ``transfer_resolution`` (the resolution-transfer recipe: the position
+    embedding resampled, every other weight as it is)."""
+    import copy
+
+    from rovit_kan_tpu_torch.models.convert import transfer_resolution
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    base = copy.deepcopy(cfg)
+    base.data.image_size = 224
+    src = build_model(base, dtype=torch.float32, inference=True,
+                      device="cpu", seed=0)
+    model = build_model(cfg, dtype=dtype, inference=inference, device="cuda",
+                        seed=1)
+    model.load_state_dict(transfer_resolution(
+        src.state_dict(), cfg.data.image_size, cfg.model.patch_size))
+    return model
+
+
+def long_config(**tpu):
+    from rovit_kan_tpu_torch.config import Config
+    cfg = Config()
+    cfg.data.image_size = LONG_SIZE
+    for k, v in tpu.items():
+        setattr(cfg.tpu, k, v)
+    return cfg
+
+
+def long_counters():
+    from rovit_kan_tpu_torch.ops import attention as at
+    from rovit_kan_tpu_torch.ops import augment_kernel as ak
+    from rovit_kan_tpu_torch.ops import block_kernel as bk
+
+    def reset():
+        bk.LAUNCHES = bk.BWD_LAUNCHES = ak.LAUNCHES = 0
+        at.LAUNCHES = at.BWD_LAUNCHES = 0
+
+    def read():
+        return {"vit_block_fwd": bk.LAUNCHES, "vit_block_bwd": bk.BWD_LAUNCHES,
+                "augment": ak.LAUNCHES, "attention_fwd": at.LAUNCHES,
+                "attention_bwd": at.BWD_LAUNCHES}
+
+    return reset, read
+
+
+def long_serve(smi: str, label: str, **tpu):
+    """The 384-px flagship served through ``InferenceEngine`` (3 batches of
+    32) between a counter reset and a read, held against the same model
+    through the plain versions and the fp32 model (``hold_served``)."""
+    from rovit_kan_tpu_torch.ops import attention as at
+    from rovit_kan_tpu_torch.ops import block_kernel as bk
+    from rovit_kan_tpu_torch.serving import InferenceEngine
+    reset, read = long_counters()
+    cfg = long_config(**tpu)
+    model = long_model(cfg, inference=True)
+    blocks = model.backbone.model.blocks
+    engine = InferenceEngine(model, batch_size=LONG_BATCH, device="cuda")
+    engine.warmup()
+    rng = np.random.RandomState(11)
+    batches = [rng.randint(0, 256, (LONG_BATCH, LONG_SIZE, LONG_SIZE, 3))
+               .astype(np.uint8) for _ in range(3)]
+    torch.cuda.synchronize()
+    reset()
+    outs = [engine.predict(b) for b in batches]
+    launches = read()
+    for out in outs:
+        for k, v in out.items():
+            if v.shape[0] != LONG_BATCH or not np.isfinite(v).all():
+                raise RuntimeError(f"{label} {k}: shape {v.shape} or "
+                                   f"non-finite")
+    served = dict(outs[0], features=features(model, batches[0]))
+    for b in blocks:
+        b.block_fn, b.attn.attn_fn = bk.plain_vit_block, at.plain_attention
+    plain = engine.predict(batches[0])
+    plain["features"] = features(model, batches[0])
+    for b in blocks:
+        b.block_fn, b.attn.attn_fn = bk.fused_vit_block, at.fused_attention
+    # The fp32 model: the unfused fp32 path under "auto" on these weights.
+    model32 = long_model(cfg, inference=True, dtype=torch.float32)
+    exact = InferenceEngine(model32, batch_size=LONG_BATCH,
+                            device="cuda").predict(batches[0])
+    exact["features"] = features(model32, batches[0])
+    checks, failed = hold_served(served, plain, exact)
+    if failed:
+        emit({"phase": "long", "serve": label, "outputs": checks})
+        raise RuntimeError(f"{label}: served outputs out of tolerance: "
+                           f"{failed}")
+    prof = profile_serving(engine, np.concatenate(batches), smi)
+    return {"tpu": tpu, "batches": len(batches), "launches": launches,
+            "block_path": all(b.use_fused_block for b in blocks),
+            "attention_path": all(b.attn.use_fused and not b.use_fused_block
+                                  for b in blocks),
+            "outputs": checks, "images_per_sec":
+                engine.stats()["images_per_sec"], "profile": prof}
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_backward_attention():
+    from rovit_kan_tpu_torch.ops import attention as at
+
+    class PlainBackward(at.FusedAttention):
+        @staticmethod
+        def backward(ctx, g):
+            ctx.plain = True
+            return at.FusedAttention.backward(ctx, g)
+
+    return PlainBackward
+
+
+def _kernel_fwd_plain_bwd_attention(q, k, v):
+    """An ``attn_fn``: #5 in the forward, #6's plain version in the
+    backward."""
+    return _plain_backward_attention().apply(q, k, v, False)
+
+
+def long_step(cfg, batch, draws, attn_fn=None):
+    """One stage-4 step of the 384-px flagship from the transferred weights
+    with fixed draws; ``attn_fn`` replaces every block's attention core.
+    Returns the loss and every parameter's gradient."""
+    from rovit_kan_tpu_torch.training.optimizer import build_optimizer
+    from rovit_kan_tpu_torch.training.trainer import make_train_step
+    model = long_model(cfg, inference=False)
+    if attn_fn is not None:
+        for b in model.backbone.model.blocks:
+            b.attn.attn_fn = attn_fn
+    opt = build_optimizer(model, cfg)
+    step = make_train_step(model, opt, cfg,
+                           generator=torch.Generator("cuda").manual_seed(1))
+    m = step(batch, 4, 1.0, 1, draws=dict(
+        draws, dropout=torch.Generator("cuda").manual_seed(2)))
+    return {"loss": float(m["total_loss"]),
+            "grads": {k: p.grad.detach().clone()
+                      for k, p in zip(opt.names, opt.params)}}
+
+
+def long_train(smi: str, label: str, steps: int, want_per_step: dict,
+               **tpu):
+    """``steps`` stage-4 steps (mixing on) of the 384-px flagship between a
+    counter reset and a read, which must show ``want_per_step`` per step;
+    finite losses; one profiled step."""
+    from rovit_kan_tpu_torch.training.optimizer import build_optimizer
+    from rovit_kan_tpu_torch.training.trainer import make_train_step
+    reset, read = long_counters()
+    cfg = long_config(**tpu)
+    model = long_model(cfg, inference=False)
+    opt = build_optimizer(model, cfg)
+    step = make_train_step(model, opt, cfg,
+                           generator=torch.Generator("cuda").manual_seed(0))
+    batches = [train_batch(cfg, 300 + i, LONG_BATCH) for i in range(steps)]
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    losses = [float(step(b, 4, 1.0, 1)["total_loss"]) for b in batches]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read()
+    want = {k: want_per_step.get(k, 0) * steps for k in launches}
+    if launches != want:
+        raise RuntimeError(f"{label} train launches {launches}, want {want}")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"{label}: non-finite train losses {losses}")
+    return {"tpu": tpu, "steps": steps, "launches": launches,
+            "losses": losses, "step_ms": 1e3 * elapsed / steps,
+            "profile": profile_step(step, batches[0]), "card": smi}
+
+
+def hold_attention_step(cfg, batch, draws):
+    """One stage-4 step through #5 and #6 against the same step with #6's
+    plain version (same weights, draws and dropout masks; the forwards are
+    the same launches, so the losses agree to the bit): each parameter's
+    gradient within 5e-2 of its L2 norm, hold_train_step's limit for #2."""
+    k = long_step(cfg, batch, draws)
+    p = long_step(cfg, batch, draws, _kernel_fwd_plain_bwd_attention)
+    leaf = {n: float((g - p["grads"][n]).norm())
+            / max(float(p["grads"][n].norm()), 1e-30)
+            for n, g in k["grads"].items()}
+    worst = max(leaf, key=leaf.get)
+    held = {"loss_kernels": k["loss"], "loss_plain_bwd": p["loss"],
+            "tolerance": 5e-2, "worst_leaf": worst,
+            "worst_rel": leaf[worst],
+            "median_leaf_rel": float(np.median(list(leaf.values())))}
+    if k["loss"] != p["loss"] or not leaf[worst] <= 5e-2:
+        emit({"phase": "long", "held_step": held})
+        raise RuntimeError("attention train step out of tolerance")
+    return held
+
+
+def long_phase(smi: str):
+    """The 384-px (577-token) flagship, batch 32, with the seed-0 224-px
+    weights carried over: #5/#6 and #1/#2 at the long path's shapes against
+    their plain versions, served and trained through the block kernels
+    ("auto") and through the attention-only kernels."""
+    from rovit_kan_tpu_torch.ops import augment_kernel as ak
+    from rovit_kan_tpu_torch.ops.mixing import draw_mix
+    attention = {}
+    for seed, (shape, dtype) in enumerate(
+            (((LONG_BATCH, HEADS, LONG_TOKENS, DIM // HEADS), torch.bfloat16),
+             ((LONG_BATCH, HEADS, LONG_TOKENS, DIM // HEADS), torch.float32),
+             ((BATCH, HEADS, TOKENS, DIM // HEADS), torch.bfloat16),
+             ((BATCH, HEADS, TOKENS, DIM // HEADS), torch.float32))):
+        attention[shape[2], dtype] = check_attention(shape, dtype, 20 + seed)
+    blocks577 = {dtype: (check_block(dtype, 30 + i, LONG_BATCH, LONG_TOKENS),
+                         check_block_bwd(dtype, 32 + i, LONG_BATCH,
+                                         LONG_TOKENS))
+                 for i, dtype in enumerate((torch.bfloat16, torch.float32))}
+
+    serve_auto = long_serve(smi, "serve auto")
+    serve_attn = long_serve(smi, "serve attention", use_pallas_block=False)
+    for got, want in ((serve_auto, {"vit_block_fwd": 12}),
+                      (serve_attn, {"attention_fwd": 12})):
+        per_batch = {k: v / got["batches"] for k, v in got["launches"].items()}
+        if per_batch != {k: want.get(k, 0) for k in per_batch}:
+            raise RuntimeError(f"long serve launches {got['launches']} for "
+                               f"{got['batches']} batches, want {want} each")
+
+    train_attn = long_train(smi, "attention", 3, {
+        "attention_fwd": 12, "attention_bwd": 12, "augment": 1},
+        use_pallas_block=False, use_pallas_attention=True)
+    train_auto = long_train(smi, "auto", 2, {
+        "vit_block_fwd": 12, "vit_block_bwd": 12, "augment": 1})
+    cfg = long_config(use_pallas_block=False, use_pallas_attention=True)
+    held = hold_attention_step(cfg, train_batch(cfg, 400, LONG_BATCH), {
+        "factors": ak.draw_factors(torch.Generator("cuda").manual_seed(5),
+                                   LONG_BATCH),
+        "mix": draw_mix(torch.Generator().manual_seed(6), LONG_BATCH,
+                        LONG_SIZE, LONG_SIZE)})
+    return {"phase": "long", "model": "DeiT-Tiny RoViT-KAN d=192 depth=12 "
+            "heads=3 384px (577 tokens) bf16, seed-0 224-px weights through "
+            "transfer_resolution", "batch_size": LONG_BATCH,
+            "attention_kernels": {f"{n}_{str(d).replace('torch.', '')}": r
+                                  for (n, d), r in attention.items()},
+            "block_kernels_577": {str(d).replace("torch.", ""): r
+                                  for d, r in blocks577.items()},
+            "serve_auto": serve_auto, "serve_attention": serve_attn,
+            "train_attention": train_attn, "train_auto": train_auto,
+            "held_attention_step": held, "card": smi}, attention, blocks577
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1276,10 +1651,12 @@ def main() -> int:
     emit(trained)
     kanned = kan_phase(smi)
     emit(kanned)
+    longed, attn, blocks577 = long_phase(smi)
+    emit(longed)
+
+    keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "library_ms")
 
     def entry(name, source, replaces, launches, lo, hi, **extra):
-        keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
-                "library_ms")
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": lo["max_abs_err"], "ms": lo["kernel_ms"],
@@ -1302,22 +1679,48 @@ def main() -> int:
                 "call_ms": r["call_ms"], "plain_call_ms": r["plain_call_ms"],
                 "launches_by_path": by_path}
 
+    def n577(i):
+        return {str(d).replace("torch.", ""): {k: r[i][k] for k in keys}
+                for d, r in blocks577.items()}
+
+    def long_launches(name):
+        return {path: longed[path]["launches"][name] for path in (
+            "serve_auto", "serve_attention", "train_attention",
+            "train_auto")}
+
+    def attn_entry(name, line, i):
+        by_path = long_launches(name)
+        lo = attn[LONG_TOKENS, torch.bfloat16][i]
+        return {**entry(name, csrc + "attention.cu",
+                        f"rovit_kan_tpu/ops/attention.py:{line}",
+                        sum(by_path.values()), lo,
+                        attn[LONG_TOKENS, torch.float32][i],
+                        launches_by_path=by_path, library=lo["library"],
+                        n197={str(d).replace("torch.", ""):
+                              {k: attn[TOKENS, d][i][k] for k in keys}
+                              for d in (torch.bfloat16, torch.float32)}),
+                **({"port_fwd_bwd_ms": lo["port_fwd_bwd_ms"]} if i else {})}
+
     emit({"kernels": [
         entry("vit_block_fwd", csrc + "vit_block_fwd.cu",
               "rovit_kan_tpu/ops/block_kernel.py:92",
               result["block_launches"], bf16, fp32,
-              train_launches=trained["launches"]["vit_block_fwd"]),
+              train_launches=trained["launches"]["vit_block_fwd"],
+              long_launches=long_launches("vit_block_fwd"), n577=n577(0)),
         entry("vit_block_bwd", csrc + "vit_block_bwd.cu",
               "rovit_kan_tpu/ops/block_kernel.py:399",
               trained["launches"]["vit_block_bwd"], bwd16, bwd32,
-              port_fwd_bwd_ms=bwd16["port_fwd_bwd_ms"]),
+              port_fwd_bwd_ms=bwd16["port_fwd_bwd_ms"],
+              long_launches=long_launches("vit_block_bwd"), n577=n577(1)),
         entry("augment", csrc + "augment.cu",
               "rovit_kan_tpu/ops/augment_kernel.py:73",
               trained["launches"]["augment"], aug16, aug32)] + [
         kan_entry(name, line, kan[name], kanned)
         for name, line in (("kan_layer_fwd", 48), ("kan_layer_bwd", 129),
                            ("kan_module_fwd", 252),
-                           ("kan_module_bwd", 367))]})
+                           ("kan_module_bwd", 367))] + [
+        attn_entry("attention_fwd", 36, 0),
+        attn_entry("attention_bwd", 120, 1)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

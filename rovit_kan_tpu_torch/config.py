@@ -149,9 +149,10 @@ class TPUConfig:
     # Data-parallel axis size; -1 = all visible devices.
     data_parallel: int = -1
     mesh_axis_name: str = "data"
-    # Attention-only kernel (JAX: ops/attention.py). The port has no such
-    # kernel yet: "auto" resolves to off, and True is refused by
-    # build_model.
+    # Attention-only kernels (JAX: ops/attention.py; in the port, the
+    # hand-written CUDA kernels of csrc/attention.cu). "auto" applies the
+    # policy in models/rovit_kan.py: bf16 inference at >= 512 tokens on the
+    # card. The fused block takes precedence where both are on.
     use_pallas_attention: "bool | str" = "auto"
     # Fused KAN kernels (JAX: ops/kan_kernel.py; in the port, the
     # hand-written CUDA kernels of csrc/kan.cu). Off by default, as in JAX.

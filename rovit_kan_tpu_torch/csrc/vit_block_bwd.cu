@@ -22,8 +22,9 @@
 // First design, right before fast. The TPU kernel keeps every intermediate
 // of a chunk of images in VMEM and adds its weight grads with += over a grid
 // that runs in sequence. Here CTAs run concurrently, so nothing is carried
-// between them: intermediates go through device memory (about 180 MB of
-// scratch at B=64 in bf16, mostly L2-resident in turn), every cross-row sum
+// between them: intermediates go through device memory (about 150 MB of
+// scratch at B=64 in bf16, mostly L2-resident in turn, and nothing of size
+// N x N), every cross-row sum
 // is written as per-CTA fp32 partials, and one last launch adds the
 // partials in a fixed order. There are no atomics, so two runs give the
 // same bits. Eight launches:
@@ -33,19 +34,22 @@
 //      then fc1/GELU and dh = g . W2 in 64-column steps of the hidden
 //      dimension (da1 kept on chip), dz = da1 . W1, the LN2 backward,
 //      dattn = dx1 . Wproj; stores the operands of the weight grads;
-//   4. attn_bwd_q, per (32-query tile, head, image), with the image's whole
-//      K and V on chip: recomputes S and the fp32 P, dP = dO . V^T, dS, and
-//      dQ = dS . K; stores P (rounded) and dS for the next launch. This is
-//      FlashAttention-2's split: the query side owns dQ,
-//   5. attn_bwd_kv, per (32-key tile, head, image), over all queries:
-//      dK = dS^T . Q and dV = P^T . dO, the key side owning dK and dV;
+//   4. attn_bwd_q, per (64-query tile, head, image; 32 in fp32), streaming
+//      key tiles: recomputes S and the fp32 P, dP = dO . V^T, dS, and
+//      dQ = dS . K; stores each row's softmax statistics and rowsum(P * dP).
+//      This is FlashAttention-2's split: the query side owns dQ,
+//   5. attn_bwd_kv, per (64-key tile, head, image), streaming query tiles:
+//      P and dS again from those statistics, dK = dS^T . Q and
+//      dV = P^T . dO, the key side owning dK and dV
+//      (4-5 in attention_common.cuh, shared with the attention-only
+//      backward #6 in attention.cu);
 //   6. qkv_bwd, a row tile: dy = dqkv . Wqkv, the LN1 backward, dx;
 //   7. wgrad: the four weight grads dW = A^T . B as 64x64 output tiles over
 //      row splits (split-K), fp32 partial tiles;
 //   8. reduce: every partial summed in order into the 12 grads.
-// Keys are padded to a multiple of 32: pad rows of K, V, Q and dO are zero
-// in shared memory and pad probabilities are exactly zero, so pad rows and
-// columns add nothing to any grad.
+// Pad rows of every attention tile are zero in shared memory and pad
+// probabilities and dS are exactly zero, so ragged N adds nothing to any
+// grad.
 //
 // Interface: plain C, loaded with ctypes, as vit_block_fwd.cu. The caller
 // allocates the scratch (vit_block_bwd_workspace_* bytes); every launch is
@@ -55,12 +59,11 @@
 
 namespace {
 
-// Rows per CTA of the backward's row tiles and attention tiles.
+// Rows per CTA of the backward's row tiles.
 template <typename T> struct BwdTile;
 template <> struct BwdTile<bf16> { static constexpr int kRows = 32; };
 template <> struct BwdTile<float> { static constexpr int kRows = 16; };
 
-constexpr int kKeyPad = 32;      // keys padded to a multiple of this
 constexpr int kWgTile = 64;      // weight-grad output tile (square)
 constexpr int kWgRows = 32;      // rows per weight-grad step
 constexpr int kSplitRows = 512;  // about this many rows per weight-grad split
@@ -72,17 +75,6 @@ __host__ __device__ constexpr int round_up(int v, int m) {
 __device__ __forceinline__ float gelu_grad(float a) {
   return 0.5f * (1.0f + erff(a * 0.70710678118654752f)) +
          a * 0.3989422804014327f * expf(-0.5f * a * a);
-}
-
-// Column sums over the first `rows` rows of a shared fp32 tile, one thread
-// per column, rows added in order.
-__device__ void column_sums(const float* __restrict__ src, int ld, int rows,
-                            int cols, float* __restrict__ dst) {
-  for (int c = threadIdx.x; c < cols; c += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < rows; ++r) s += src[r * ld + c];
-    dst[c] = s;
-  }
 }
 
 // ---- 3. MLP, LN2 and proj backward by row tiles ----------------------------
@@ -290,199 +282,6 @@ mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ attn,
           from_f<T>(sC1[r * ldc + c]);
     }
   }
-}
-
-// ---- 4. attention backward, query side ------------------------------------
-
-struct AttnQLayout {
-  size_t q, k, v, g, s, d, ds, total;
-  int np, ldh, lds, ldp, ldo;
-};
-template <typename T>
-__host__ __device__ AttnQLayout attn_q_layout(int N, int hd) {
-  constexpr int AR = BwdTile<T>::kRows;
-  AttnQLayout L;
-  L.np = round_up(N, kKeyPad);
-  L.ldh = ld_of<T>(hd);
-  L.lds = L.np + 4;
-  L.ldp = ld_of<T>(L.np);
-  L.ldo = hd + 4;
-  const int d_cols = L.lds > L.ldo ? L.lds : L.ldo;   // dP, then dQ
-  L.q = 0;
-  L.k = L.q + align128(sizeof(T) * AR * L.ldh);
-  L.v = L.k + align128(sizeof(T) * L.np * L.ldh);
-  L.g = L.v + align128(sizeof(T) * L.np * L.ldh);
-  L.s = L.g + align128(sizeof(T) * AR * L.ldh);
-  L.d = L.s + align128(sizeof(float) * AR * L.lds);
-  L.ds = L.d + align128(sizeof(float) * AR * d_cols);
-  L.total = L.ds + align128(sizeof(T) * AR * L.ldp);
-  return L;
-}
-
-// ds_out, plo_out: [B][heads][np][np], rows q < N written (pad columns 0).
-// part: per (image, tile), [dq | dk | dv] column sums (3D); this kernel
-// fills the dq slice of its head.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_q_kernel(const T* __restrict__ qkv, const T* __restrict__ go,
-                  T* __restrict__ ds_out, T* __restrict__ plo_out,
-                  T* __restrict__ dqkv, float* __restrict__ part, int N,
-                  int D, int heads, float scale) {
-  constexpr int AR = BwdTile<T>::kRows;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int hd = D / heads;
-  const AttnQLayout L = attn_q_layout<T>(N, hd);
-  T* sQ = reinterpret_cast<T*>(smem + L.q);
-  T* sK = reinterpret_cast<T*>(smem + L.k);
-  T* sV = reinterpret_cast<T*>(smem + L.v);
-  T* sG = reinterpret_cast<T*>(smem + L.g);
-  float* sS = reinterpret_cast<float*>(smem + L.s);
-  float* sD = reinterpret_cast<float*>(smem + L.d);
-  T* sDS = reinterpret_cast<T*>(smem + L.ds);
-
-  const int qt = blockIdx.x;
-  const int q0 = qt * AR;
-  const int h = blockIdx.y;
-  const int img = blockIdx.z;
-  const size_t row3 = 3 * static_cast<size_t>(D);
-  const T* base = qkv + static_cast<size_t>(img) * N * row3;
-  const int qvalid = min(AR, N - q0);
-  const int np = L.np;
-
-  load_tile<T>(sQ, L.ldh, base + q0 * row3 + h * hd, row3, AR, qvalid, hd);
-  load_tile<T>(sK, L.ldh, base + D + h * hd, row3, np, N, hd);
-  load_tile<T>(sV, L.ldh, base + 2 * D + h * hd, row3, np, N, hd);
-  load_tile<T>(sG, L.ldh,
-               go + (static_cast<size_t>(img) * N + q0) * D + h * hd, D, AR,
-               qvalid, hd);
-  __syncthreads();
-  block_gemm<T, true>(sQ, L.ldh, sK, L.ldh, sS, L.lds, AR, np, hd, false);
-  block_gemm<T, true>(sG, L.ldh, sV, L.ldh, sD, L.lds, AR, np, hd, false);
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const size_t pbase = (static_cast<size_t>(img) * heads + h) * np * np;
-  for (int r = warp; r < AR; r += kWarps) {
-    float* s = sS + r * L.lds;
-    const float* dp = sD + r * L.lds;
-    float m = -FLT_MAX;
-    for (int c = lane; c < N; c += 32) m = fmaxf(m, s[c] * scale);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int c = lane; c < N; c += 32) {
-      const float e = expf(s[c] * scale - m);
-      s[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    float dot = 0.f;
-    for (int c = lane; c < N; c += 32) {
-      const float p = s[c] / sum;
-      s[c] = p;
-      dot += p * dp[c];
-    }
-    dot = warp_sum(dot);
-    T* dsr = sDS + r * L.ldp;
-    const bool store = r < qvalid;
-    const size_t o = pbase + static_cast<size_t>(q0 + r) * np;
-    for (int c = lane; c < np; c += 32) {
-      const float p = c < N ? s[c] : 0.f;
-      const T dsv = from_f<T>(c < N ? p * (dp[c] - dot) * scale : 0.f);
-      dsr[c] = dsv;
-      if (store) {
-        ds_out[o + c] = dsv;
-        plo_out[o + c] = from_f<T>(p);
-      }
-    }
-  }
-  __syncthreads();
-  block_gemm<T, false>(sDS, L.ldp, sK, L.ldh, sD, L.ldo, AR, hd, np, false);
-  __syncthreads();
-  for (int i = threadIdx.x; i < qvalid * hd; i += kThreads) {
-    const int r = i / hd;
-    const int c = i - r * hd;
-    dqkv[(static_cast<size_t>(img) * N + q0 + r) * row3 + h * hd + c] =
-        from_f<T>(sD[r * L.ldo + c]);
-  }
-  column_sums(sD, L.ldo, qvalid, hd,
-              part + (static_cast<size_t>(img) * gridDim.x + qt) * row3 +
-                  h * hd);
-}
-
-// ---- 5. attention backward, key side --------------------------------------
-
-struct AttnKvLayout {
-  size_t ds, p, q, g, ck, cv, total;
-  int np, ldt, ldh, ldo;
-};
-template <typename T>
-__host__ __device__ AttnKvLayout attn_kv_layout(int N, int hd) {
-  constexpr int AR = BwdTile<T>::kRows;
-  AttnKvLayout L;
-  L.np = round_up(N, kKeyPad);
-  L.ldt = ld_of<T>(AR);
-  L.ldh = ld_of<T>(hd);
-  L.ldo = hd + 4;
-  L.ds = 0;
-  L.p = L.ds + align128(sizeof(T) * L.np * L.ldt);
-  L.q = L.p + align128(sizeof(T) * L.np * L.ldt);
-  L.g = L.q + align128(sizeof(T) * L.np * L.ldh);
-  L.ck = L.g + align128(sizeof(T) * L.np * L.ldh);
-  L.cv = L.ck + align128(sizeof(float) * AR * L.ldo);
-  L.total = L.cv + align128(sizeof(float) * AR * L.ldo);
-  return L;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_kv_kernel(const T* __restrict__ qkv, const T* __restrict__ go,
-                   const T* __restrict__ ds, const T* __restrict__ plo,
-                   T* __restrict__ dqkv, float* __restrict__ part, int N,
-                   int D, int heads) {
-  constexpr int AR = BwdTile<T>::kRows;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int hd = D / heads;
-  const AttnKvLayout L = attn_kv_layout<T>(N, hd);
-  T* sDS = reinterpret_cast<T*>(smem + L.ds);   // [query][key in tile]
-  T* sP = reinterpret_cast<T*>(smem + L.p);
-  T* sQ = reinterpret_cast<T*>(smem + L.q);
-  T* sG = reinterpret_cast<T*>(smem + L.g);
-  float* sCK = reinterpret_cast<float*>(smem + L.ck);
-  float* sCV = reinterpret_cast<float*>(smem + L.cv);
-
-  const int kt = blockIdx.x;
-  const int k0 = kt * AR;
-  const int h = blockIdx.y;
-  const int img = blockIdx.z;
-  const size_t row3 = 3 * static_cast<size_t>(D);
-  const int kvalid = min(AR, N - k0);
-  const int np = L.np;
-  const size_t pbase = (static_cast<size_t>(img) * heads + h) * np * np;
-
-  load_tile<T>(sDS, L.ldt, ds + pbase + k0, np, np, N, AR);
-  load_tile<T>(sP, L.ldt, plo + pbase + k0, np, np, N, AR);
-  load_tile<T>(sQ, L.ldh, qkv + static_cast<size_t>(img) * N * row3 + h * hd,
-               row3, np, N, hd);
-  load_tile<T>(sG, L.ldh, go + static_cast<size_t>(img) * N * D + h * hd, D,
-               np, N, hd);
-  __syncthreads();
-  block_gemm<T, false, true>(sDS, L.ldt, sQ, L.ldh, sCK, L.ldo, AR, hd, np,
-                             false);
-  block_gemm<T, false, true>(sP, L.ldt, sG, L.ldh, sCV, L.ldo, AR, hd, np,
-                             false);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kvalid * hd; i += kThreads) {
-    const int r = i / hd;
-    const int c = i - r * hd;
-    T* row = dqkv + (static_cast<size_t>(img) * N + k0 + r) * row3 + h * hd;
-    row[D + c] = from_f<T>(sCK[r * L.ldo + c]);
-    row[2 * D + c] = from_f<T>(sCV[r * L.ldo + c]);
-  }
-  float* pt = part + (static_cast<size_t>(img) * gridDim.x + kt) * row3 +
-              h * hd;
-  column_sums(sCK, L.ldo, kvalid, hd, pt + D);
-  column_sums(sCV, L.ldo, kvalid, hd, pt + 2 * D);
 }
 
 // ---- 6. qkv and LN1 backward by row tiles ---------------------------------
@@ -721,17 +520,18 @@ __global__ void __launch_bounds__(kThreads) reduce_kernel(RedSegs segs) {
 // ---- scratch and launches ---------------------------------------------------
 
 struct Sizes {
-  int B, N, D, heads, H, M, hd, row_tiles, attn_tiles, np, splits,
+  int B, N, D, heads, H, M, hd, row_tiles, attn_tiles, splits,
       rows_per_split;
 };
-Sizes sizes_of(int B, int N, int D, int heads, int H, int rows) {
+// rows: the row tile; attn_rows: the attention backward's tile.
+Sizes sizes_of(int B, int N, int D, int heads, int H, int rows,
+               int attn_rows) {
   Sizes s;
   s.B = B; s.N = N; s.D = D; s.heads = heads; s.H = H;
   s.M = B * N;
   s.hd = D / heads;
   s.row_tiles = (s.M + rows - 1) / rows;
-  s.attn_tiles = (N + rows - 1) / rows;
-  s.np = round_up(N, kKeyPad);
+  s.attn_tiles = (N + attn_rows - 1) / attn_rows;
   int splits = (s.M + kSplitRows - 1) / kSplitRows;
   splits = splits < 1 ? 1 : (splits > 64 ? 64 : splits);
   s.rows_per_split = round_up((s.M + splits - 1) / splits, kWgRows);
@@ -741,8 +541,8 @@ Sizes sizes_of(int B, int N, int D, int heads, int H, int rows) {
 
 template <typename T>
 struct Work {
-  T *qkv, *attn, *y, *z, *h1, *gb, *da1, *dx1b, *go, *dqkv, *ds, *plo;
-  float *dx1, *part_mlp, *part_qkv, *part_attn, *part_w;
+  T *qkv, *attn, *y, *z, *h1, *gb, *da1, *dx1b, *go, *dqkv;
+  float *dx1, *stats, *part_mlp, *part_qkv, *part_attn, *part_w;
   size_t total;
 };
 
@@ -757,7 +557,6 @@ Work<T> carve(char* base, const Sizes& s) {
     return p;
   };
   const size_t M = s.M, D = s.D, H = s.H;
-  const size_t pp = static_cast<size_t>(s.B) * s.heads * s.np * s.np;
   w.qkv = reinterpret_cast<T*>(take(sizeof(T) * M * 3 * D));
   w.attn = reinterpret_cast<T*>(take(sizeof(T) * M * D));
   w.y = reinterpret_cast<T*>(take(sizeof(T) * M * D));
@@ -768,9 +567,8 @@ Work<T> carve(char* base, const Sizes& s) {
   w.dx1b = reinterpret_cast<T*>(take(sizeof(T) * M * D));
   w.go = reinterpret_cast<T*>(take(sizeof(T) * M * D));
   w.dqkv = reinterpret_cast<T*>(take(sizeof(T) * M * 3 * D));
-  w.ds = reinterpret_cast<T*>(take(sizeof(T) * pp));
-  w.plo = reinterpret_cast<T*>(take(sizeof(T) * pp));
   w.dx1 = reinterpret_cast<float*>(take(sizeof(float) * M * D));
+  w.stats = reinterpret_cast<float*>(take(sizeof(float) * 3 * M * s.heads));
   w.part_mlp = reinterpret_cast<float*>(
       take(sizeof(float) * s.row_tiles * (4 * D + H)));
   w.part_qkv =
@@ -786,7 +584,8 @@ Work<T> carve(char* base, const Sizes& s) {
 template <typename T>
 size_t workspace_bytes(int B, int N, int D, int heads, int H) {
   if (!block_shape_ok(B, N, D, heads, H)) return 0;
-  return carve<T>(nullptr, sizes_of(B, N, D, heads, H, BwdTile<T>::kRows))
+  return carve<T>(nullptr, sizes_of(B, N, D, heads, H, BwdTile<T>::kRows,
+                                    Tile<T>::kRows))
       .total;
 }
 
@@ -804,7 +603,7 @@ int run_bwd(const void* x_, const void* g_, void* dx_, float* grads,
   }
   constexpr int R = BwdTile<T>::kRows;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const Sizes s = sizes_of(B, N, D, heads, H, R);
+  const Sizes s = sizes_of(B, N, D, heads, H, R, Tile<T>::kRows);
   const Work<T> w = carve<T>(static_cast<char*>(work_), s);
   const T* x = static_cast<const T*>(x_);
   const float* g = static_cast<const float*>(g_);
@@ -836,18 +635,17 @@ int run_bwd(const void* x_, const void* g_, void* dx_, float* grads,
       w.da1, w.dx1, w.dx1b, w.go, w.part_mlp, s.M, D, H);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
-  // 4-5. attention.
-  const dim3 grid_attn(s.attn_tiles, heads, B);
-  const size_t sm4 = attn_q_layout<T>(N, s.hd).total;
-  if ((e = set_smem(attn_bwd_q_kernel<T>, sm4)) != cudaSuccess) return e;
-  attn_bwd_q_kernel<T><<<grid_attn, kThreads, sm4, stream>>>(
-      w.qkv, w.go, w.ds, w.plo, w.dqkv, w.part_attn, N, D, heads, scale);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const size_t sm5 = attn_kv_layout<T>(N, s.hd).total;
-  if ((e = set_smem(attn_bwd_kv_kernel<T>, sm5)) != cudaSuccess) return e;
-  attn_bwd_kv_kernel<T><<<grid_attn, kThreads, sm5, stream>>>(
-      w.qkv, w.go, w.ds, w.plo, w.dqkv, w.part_attn, N, D, heads);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  // 4-5. attention, query side then key side (attention_common.cuh).
+  const int hd = s.hd;
+  const T* cqkv = w.qkv;
+  const T* cgo = w.go;
+  e = launch_attention_bwd<T>(
+      block_heads(cqkv, N, D, hd, 0), block_heads(cqkv, N, D, hd, 1),
+      block_heads(cqkv, N, D, hd, 2), block_heads(cgo, N, D, hd, -1),
+      block_heads(w.dqkv, N, D, hd, 0), block_heads(w.dqkv, N, D, hd, 1),
+      block_heads(w.dqkv, N, D, hd, 2), w.stats, w.part_attn, B, heads, N,
+      hd, scale, stream);
+  if (e != cudaSuccess) return e;
 
   // 6. qkv, LN1 and dx.
   const size_t sm6 = qkv_bwd_layout<T>(D).total;

@@ -32,9 +32,11 @@
 // grid of independent CTAs of 256 threads:
 //   1. ln_qkv:    a tile of 64 rows (32 in fp32): LN1 into shared memory,
 //                 then the qkv product in 64-column steps;
-//   2. attention: one CTA per (64-query tile, head, image); q, the image's
-//                 whole K and V (197 x 64, 25 KB each in bf16) and the
-//                 64 x 208 score tile all sit in shared memory;
+//   2. attention: one CTA per (64-query tile, head, image), streaming
+//                 64-key tiles of K and V through shared memory in two
+//                 passes (row statistics, then P . V), so any sequence
+//                 length fits (attention_common.cuh, shared with the
+//                 attention-only kernel #5 in attention.cu);
 //   3. proj_mlp:  a tile of 64 rows (32 in fp32): proj, the fp32 residual,
 //                 LN2, fc1, GELU (the 64 x 768 hidden tile stays in shared
 //                 memory), fc2 and the second residual.

@@ -14,18 +14,26 @@ the reference's state_dict names, so the mapping is mechanical:
 - a KAN layer's ``linear.{weight,bias}`` <-> ``kernel`` / ``bias``;
   ``spline_weights (in, out, K)``, ``cls_token`` and ``pos_embed`` are
   copied as they are.
+
+``transfer_resolution`` carries a state_dict to another image size (the
+JAX package's resolution-transfer recipe): the position embedding's patch
+grid is resampled bilinearly; every other weight is independent of the
+token count.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from rovit_kan_tpu_torch import resolve_device
 
 _HEADS = ("classification_head", "ordinal_head", "uncertainty_head")
+POS_EMBED_KEY = "backbone.model.pos_embed"
 
 
 def _jax_path(key: str, ndim: int) -> Tuple[Tuple[str, ...], bool]:
@@ -101,3 +109,36 @@ def to_jax_params(model: nn.Module) -> Dict:
         node[path[-1]] = np.ascontiguousarray(value.T if transpose
                                               else value)
     return tree
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor,
+                          target_tokens: int) -> torch.Tensor:
+    """Bilinearly resample a ViT position embedding ``(1, 1 + N, D)`` to
+    ``target_tokens`` (JAX ``convert.interpolate_pos_embed``): the CLS
+    position is kept; the N patch positions reshape to their sqrt(N) x
+    sqrt(N) grid and resample to the target grid, at half-pixel centres and
+    antialiased when the grid shrinks, as ``jax.image.resize(...,
+    "bilinear")`` does."""
+    cls_pos, patch_pos = pos_embed[:, :1], pos_embed[:, 1:]
+    n_src, n_dst = patch_pos.shape[1], target_tokens - 1
+    if n_src == n_dst:
+        return pos_embed
+    gs, gd = math.isqrt(n_src), math.isqrt(n_dst)
+    d = patch_pos.shape[-1]
+    grid = patch_pos.reshape(1, gs, gs, d).permute(0, 3, 1, 2).float()
+    resized = F.interpolate(grid, size=(gd, gd), mode="bilinear",
+                            align_corners=False, antialias=True)
+    resized = resized.permute(0, 2, 3, 1).reshape(1, gd * gd, d)
+    return torch.cat([cls_pos, resized.to(pos_embed.dtype)], dim=1)
+
+
+def transfer_resolution(state: Mapping[str, torch.Tensor], image_size: int,
+                        patch_size: int) -> Dict[str, torch.Tensor]:
+    """A copy of a RoViTKAN state_dict with the backbone's position
+    embedding resampled for ``image_size`` (JAX
+    ``convert.transfer_resolution``); the input is untouched. Load it into
+    a model built at ``image_size``."""
+    out = dict(state)
+    out[POS_EMBED_KEY] = interpolate_pos_embed(
+        state[POS_EMBED_KEY], (image_size // patch_size) ** 2 + 1)
+    return out

@@ -43,6 +43,7 @@ class RoViTKAN(nn.Module):
                  kan_num_knots: int = 5, kan_degree: int = 3,
                  with_ordinal: bool = True, with_uncertainty: bool = True,
                  with_kan: bool = True, dtype: torch.dtype = torch.float32,
+                 use_pallas_attention: bool = False,
                  use_pallas_block: bool = False,
                  use_pallas_kan: bool = False):
         super().__init__()
@@ -54,7 +55,7 @@ class RoViTKAN(nn.Module):
         self.backbone = DeiTTinyBackbone(
             image_size=image_size, patch_size=patch_size,
             embed_dim=embed_dim, depth=depth, num_heads=num_heads,
-            mlp_ratio=mlp_ratio, dtype=dtype,
+            mlp_ratio=mlp_ratio, dtype=dtype, use_pallas=use_pallas_attention,
             use_fused_block=use_pallas_block)
         self.classification_head = ClassificationHead(
             embed_dim, hidden_dim, num_classes, dropout)
@@ -100,6 +101,21 @@ class RoViTKAN(nn.Module):
         return {"ordinal": self.with_ordinal,
                 "uncertainty": self.with_uncertainty,
                 "kan": self.with_kan}
+
+
+def _resolve_fused_attention(setting, *, image_size: int, patch_size: int,
+                             inference: bool, dtype: torch.dtype,
+                             device: torch.device) -> bool:
+    """Attention-kernel policy: ``rovit_kan_tpu``'s
+    ``_resolve_pallas_attention`` with "tpu" read as "cuda" (bf16 inference
+    at >= 512 tokens on the card). The 512-token threshold is the crossover
+    measured on the TPU; the port keeps it until a benchmark on the H100
+    moves it. True/False force one implementation."""
+    if setting == "auto":
+        n_tokens = (image_size // patch_size) ** 2 + 1
+        return (bool(inference) and n_tokens >= 512
+                and dtype == torch.bfloat16 and device.type == "cuda")
+    return bool(setting)
 
 
 def _resolve_fused_block(setting, *, inference: bool, dtype: torch.dtype,
@@ -165,17 +181,15 @@ def build_model(config: Config, *, with_ordinal: Optional[bool] = None,
     """RoViTKAN from a Config, with weights drawn from ``seed``, in eval mode
     when ``inference``. Head toggles default to ``config.model.with_*``.
     Runs on the card unless ``device="cpu"``; raises when CUDA is asked for
-    and absent, and for options whose kernels are not ported yet.
+    and absent, and for remat and MoE, which are not ported yet.
     ``tpu.use_pallas_kan`` passes through as it is (no "auto"), as in the
     JAX ``build_model``: the KAN kernels when true."""
     dev = resolve_device(device)
     m, tpu = config.model, config.tpu
-    if tpu.use_pallas_attention is True or tpu.remat_backbone \
-            or m.moe_experts > 1:
+    if tpu.remat_backbone or m.moe_experts > 1:
         raise NotImplementedError(
-            "the port has no attention-only kernel, remat or MoE yet: set "
-            "tpu.use_pallas_attention to 'auto' or False, "
-            "tpu.remat_backbone to False and model.moe_experts to 0")
+            "the port has no remat or MoE yet: set tpu.remat_backbone to "
+            "False and model.moe_experts to 0")
     if dtype is None:
         dtype = (torch.bfloat16 if config.flags.mixed_precision
                  else torch.float32)
@@ -191,6 +205,10 @@ def build_model(config: Config, *, with_ordinal: Optional[bool] = None,
                           else with_uncertainty),
         with_kan=m.with_kan if with_kan is None else with_kan,
         dtype=dtype,
+        use_pallas_attention=_resolve_fused_attention(
+            tpu.use_pallas_attention, image_size=config.data.image_size,
+            patch_size=m.patch_size, inference=inference, dtype=dtype,
+            device=dev),
         use_pallas_block=_resolve_fused_block(
             tpu.use_pallas_block, inference=inference, dtype=dtype,
             embed_dim=m.embed_dim, device=dev),

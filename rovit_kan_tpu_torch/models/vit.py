@@ -15,8 +15,11 @@ With ``use_fused_block`` every block goes through
 ``ops.block_kernel.fused_vit_block`` (the CUDA kernels on the card, their
 plain versions on the CPU), with the block's weights cast once per weight
 version. In training that call is ``FusedViTBlock``, whose backward is the
-fused recompute backward, and the grads reach the fp32 parameters; the
-unfused path is plain autograd. Attention maps and the Grad-CAM tap come
+fused recompute backward, and the grads reach the fp32 parameters. With
+``use_pallas`` (and the block unfused) each attention's ``softmax(q k^T) v``
+goes through ``ops.attention.fused_attention`` (kernels #5/#6 on the card);
+the fused block wins where both are on, as in the JAX ``Block``. The rest of
+the unfused path is plain autograd. Attention maps and the Grad-CAM tap come
 with the explainability slice.
 """
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from rovit_kan_tpu_torch.ops.attention import fused_attention
 from rovit_kan_tpu_torch.ops.block_kernel import (
     fused_vit_block,
     prepare_block_params,
@@ -70,13 +74,20 @@ class PatchEmbed(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention (the unfused path)."""
+    """Multi-head self-attention (the block's unfused path).
+
+    ``use_fused`` routes ``softmax(q k^T) v`` through ``attn_fn``
+    (``fused_attention``, or ``plain_attention`` to hold it against the
+    plain versions) on the pre-scaled q; both give fp32, cast to ``dtype``
+    after."""
 
     def __init__(self, dim: int = 192, num_heads: int = 3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_fused: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.use_fused = use_fused
+        self.attn_fn = fused_attention
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
@@ -86,10 +97,13 @@ class Attention(nn.Module):
         hd = D // h
         qkv = _linear(x, self.qkv, self.dtype)
         q, k, v = qkv.reshape(B, N, 3, h, hd).permute(2, 0, 3, 1, 4)
-        logits = torch.matmul((q * hd ** -0.5).float(),
-                              k.float().transpose(-1, -2))
-        weights = torch.softmax(logits, dim=-1)
-        out = torch.matmul(weights.to(v.dtype).float(), v.float())
+        if self.use_fused:
+            out = self.attn_fn(q * hd ** -0.5, k, v)
+        else:
+            logits = torch.matmul((q * hd ** -0.5).float(),
+                                  k.float().transpose(-1, -2))
+            weights = torch.softmax(logits, dim=-1)
+            out = torch.matmul(weights.to(v.dtype).float(), v.float())
         out = out.to(self.dtype).transpose(1, 2).reshape(B, N, D)
         return _linear(out, self.proj, self.dtype)
 
@@ -112,18 +126,19 @@ class Block(nn.Module):
 
     ``use_fused_block`` routes the whole block through ``block_fn``
     (``fused_vit_block``, or ``plain_vit_block`` to hold it against the
-    plain versions); the parameters are the same either way."""
+    plain versions); otherwise ``use_pallas`` routes the attention core
+    through ``fused_attention``. The parameters are the same either way."""
 
     def __init__(self, dim: int = 192, num_heads: int = 3,
                  mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32,
-                 use_fused_block: bool = False):
+                 use_fused_block: bool = False, use_pallas: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
         self.use_fused_block = use_fused_block
         self.block_fn = fused_vit_block
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = Attention(dim, num_heads, dtype)
+        self.attn = Attention(dim, num_heads, dtype, use_fused=use_pallas)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
         self._kernel_params: Optional[Dict[str, torch.Tensor]] = None
@@ -169,7 +184,7 @@ class VisionTransformer(nn.Module):
     def __init__(self, image_size: int = 224, patch_size: int = 16,
                  embed_dim: int = 192, depth: int = 12, num_heads: int = 3,
                  mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32,
-                 use_fused_block: bool = False):
+                 use_fused_block: bool = False, use_pallas: bool = False):
         super().__init__()
         n_patches = (image_size // patch_size) ** 2
         self.image_size = image_size
@@ -178,7 +193,8 @@ class VisionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, n_patches + 1,
                                                   embed_dim))
         self.blocks = nn.ModuleList([
-            Block(embed_dim, num_heads, mlp_ratio, dtype, use_fused_block)
+            Block(embed_dim, num_heads, mlp_ratio, dtype, use_fused_block,
+                  use_pallas)
             for _ in range(depth)])
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
 

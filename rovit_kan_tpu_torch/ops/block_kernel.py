@@ -213,11 +213,11 @@ def _check_cuda_args(x: torch.Tensor, params: Dict[str, torch.Tensor],
     B, N, D = x.shape
     hidden = params["w1"].shape[0]
     if heads < 1 or D % heads or D % 64 or (D // heads) % 16 \
-            or hidden % D or min(B, N) < 1:
+            or D // heads > 128 or hidden % D or min(B, N) < 1:
         raise ValueError(
             f"unsupported block shape B={B} N={N} D={D} heads={heads} "
             f"hidden={hidden}: the kernel needs D % 64 == 0, a head width "
-            f"that is a multiple of 16, and hidden % D == 0")
+            f"that is a multiple of 16 up to 128, and hidden % D == 0")
     for k, shape in param_shapes(D, hidden).items():
         t = params[k]
         dtype = x.dtype if k in WEIGHT_KEYS else torch.float32

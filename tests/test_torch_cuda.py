@@ -1,7 +1,8 @@
 """Port tests that need an NVIDIA GPU: the CUDA kernels (block forward #1,
-block backward #2, augment #7, the KAN kernels #8-#11) against their plain
-versions, the served model through the block kernel, and a small train step
-through #1, #2 and #7. They skip where
+block backward #2, attention forward #5 and backward #6, augment #7, the KAN
+kernels #8-#11) against their plain versions, the served model through the
+block kernel, and small train steps through #1, #2 and #7 and through #5,
+#6 and #7. They skip where
 ``torch.cuda.is_available()`` is False. This file imports neither jax nor
 the JAX package, so it runs on a GPU machine without JAX:
 
@@ -18,6 +19,7 @@ import torch
 
 from rovit_kan_tpu_torch.config import Config
 from rovit_kan_tpu_torch.models.rovit_kan import RoViTKAN, init_weights
+from rovit_kan_tpu_torch.ops import attention as at
 from rovit_kan_tpu_torch.ops import augment_kernel as ak
 from rovit_kan_tpu_torch.ops import block_kernel as bk
 from rovit_kan_tpu_torch.ops import kan_kernel as kk
@@ -65,7 +67,8 @@ def _tol(ref, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
 @pytest.mark.parametrize("shape", [(3, 37, 64, 2), (2, 197, 192, 3),
-                                   (1, 5, 128, 4)],
+                                   (1, 5, 128, 4), (2, 577, 192, 3),
+                                   (1, 1024, 128, 2)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_plain(cuda, shape, dtype):
     B, N, D, heads = shape
@@ -135,7 +138,8 @@ def _assert_grads(dx, grads, want_dx, want_grads, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
 @pytest.mark.parametrize("shape", [(3, 37, 64, 2), (2, 197, 192, 3),
-                                   (1, 5, 128, 4)],
+                                   (1, 5, 128, 4), (2, 577, 192, 3),
+                                   (1, 1024, 128, 2)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_backward_kernel_matches_plain(cuda, shape, dtype):
     B, N, D, heads = shape
@@ -155,6 +159,122 @@ def test_backward_kernel_matches_plain(cuda, shape, dtype):
     again = bk._launch_bwd(x, g, p, heads)[1]        # no atomics: same bits
     for k in bk.PKEYS:
         assert torch.equal(again[k], grads[k]), k
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [(2, 3, 197, 64), (2, 3, 577, 64),
+                                   (3, 2, 37, 32), (1, 2, 77, 128),
+                                   (1, 2, 1024, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_attention_kernels_match_plain(cuda, shape, dtype):
+    """#5 and #6 against their plain versions: the forward's fp32 output
+    within 1e-4 (fp32) or two bf16 ulps at its largest magnitude (bf16:
+    both round P at the same point); dq, dk, dv within ``_bwd_tol``; the
+    same bits on a repeated call."""
+    rng = np.random.RandomState(sum(shape))
+
+    def t(scale=1.0, dt=dtype):
+        return torch.tensor(rng.normal(0, scale, shape), dtype=torch.float32,
+                            device=cuda).to(dt)
+
+    q, k, v, g = t(shape[-1] ** -0.5), t(), t(), t(dt=torch.float32)
+    fwd, bwd = at.LAUNCHES, at.BWD_LAUNCHES
+    out = at._launch(q, k, v)
+    grads = at._launch_bwd(q, k, v, g)
+    torch.cuda.synchronize()
+    assert (at.LAUNCHES, at.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    ref = at.attention_reference(q, k, v)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) <= _tol(ref, dtype)
+    want = at.attention_backward_reference(q, k, v, g)
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+        assert got.dtype == dtype and got.shape == q.shape, name
+        assert torch.isfinite(got.float()).all(), name
+        err = float((got.float() - w.float()).abs().max())
+        assert err <= _bwd_tol(w, dtype), (name, err)
+    assert torch.equal(at._launch(q, k, v), out)
+    for a, b in zip(at._launch_bwd(q, k, v, g), grads):
+        assert torch.equal(a, b)
+
+
+def test_attention_refuses_what_it_does_not_take(cuda):
+    def z(*shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype, device=cuda)
+
+    for hd in (24, 8, 256):                          # not a multiple of 16
+        x = z(1, 2, 5, hd)                           # or above 128
+        with pytest.raises(ValueError):
+            at.fused_attention(x, x, x)
+    with pytest.raises(TypeError):
+        x = z(1, 2, 5, 32, dtype=torch.float16)
+        at.fused_attention(x, x, x)
+    with pytest.raises(ValueError):
+        at.fused_attention(z(1, 2, 5, 32), z(1, 2, 6, 32), z(1, 2, 5, 32))
+    # The kernels read the model's qkv buffer through strides: the same bits
+    # as on contiguous copies. Under autograd #5 and #6 each launch once.
+    rng = np.random.RandomState(5)
+    qkv = torch.tensor(rng.normal(0, 1, (2, 9, 3, 2, 32)),
+                       dtype=torch.bfloat16, device=cuda)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    assert not k.is_contiguous()
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fwd, bwd = at.LAUNCHES, at.BWD_LAUNCHES
+    out = at.fused_attention(*leaves)
+    g = torch.ones_like(out)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (at.LAUNCHES, at.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    assert torch.equal(at._launch(q, k, v), at._launch(
+        *(x.contiguous() for x in (q, k, v))))
+    for leaf, want in zip(leaves, at._launch_bwd(
+            *(x.contiguous() for x in (q, k, v)), g)):
+        assert torch.equal(leaf.grad, want)
+
+
+def test_train_step_through_the_attention_kernels(cuda):
+    """One small bf16 step with ``use_pallas_attention=True`` and the block
+    unfused, through #5, #6 and #7, against the same step through their
+    plain versions: loss within 1e-2 relative, gradient within 5e-2 in L2,
+    as the block's step above."""
+    kw = dict(embed_dim=64, depth=2, num_heads=2, image_size=32,
+              kan_layers=(64, 8, 1), hidden_dim=16, dropout=0.0,
+              dtype=torch.bfloat16, use_pallas_attention=True)
+    cfg = Config()
+    rng = np.random.RandomState(4)
+    labels = torch.tensor(rng.randint(0, 4, 8), device=cuda)
+    batch = {"images": torch.tensor(rng.randint(0, 256, (8, 32, 32, 3)),
+                                    dtype=torch.uint8, device=cuda),
+             "labels": labels, "severity": labels.float()}
+    draws = {"factors": ak.draw_factors(
+                 torch.Generator(cuda).manual_seed(0), 8),
+             "mix": draw_mix(torch.Generator().manual_seed(1), 8, 32, 32),
+             "dropout": None}
+
+    def run(plain):
+        model = RoViTKAN(**kw)
+        init_weights(model, seed=0)
+        model.to(cuda)
+        for blk in model.backbone.model.blocks:
+            assert blk.attn.use_fused and not blk.use_fused_block
+            if plain:
+                blk.attn.attn_fn = at.plain_attention
+        opt = build_optimizer(model, cfg)
+        step = make_train_step(model, opt, cfg)
+        if plain:
+            step.augment = ak.augment_reference
+        before = (at.LAUNCHES, at.BWD_LAUNCHES, ak.LAUNCHES, bk.LAUNCHES)
+        loss = float(step(batch, 4, 1.0, 1, draws=draws)["total_loss"])
+        torch.cuda.synchronize()
+        after = (at.LAUNCHES, at.BWD_LAUNCHES, ak.LAUNCHES, bk.LAUNCHES)
+        return loss, opt.grad.clone(), tuple(
+            a - b for a, b in zip(after, before))
+
+    lk, gk, nk = run(False)
+    lp, gp, npl = run(True)
+    assert nk == (2, 2, 1, 0) and npl == (0, 0, 0, 0)
+    assert np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)
+    assert float((gk - gp).norm()) <= 5e-2 * float(gp.norm())
 
 
 def _augment_tol(compute_dtype):

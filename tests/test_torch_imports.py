@@ -31,6 +31,7 @@ def test_port_has_modules():
                  "rovit_kan_tpu_torch/training/optimizer.py",
                  "rovit_kan_tpu_torch/training/trainer.py",
                  "rovit_kan_tpu_torch/ops/kan_kernel.py",
+                 "rovit_kan_tpu_torch/ops/attention.py",
                  "rovit_kan_tpu_torch/explainability/kan_viz.py",
                  "chip_smoke.py"):
         assert want in names

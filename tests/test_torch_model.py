@@ -26,6 +26,7 @@ from rovit_kan_tpu_torch.models.rovit_kan import (
     predict,
 )
 from rovit_kan_tpu_torch.ops import block_kernel as bk
+from rovit_kan_tpu_torch.ops.attention import fused_attention
 
 KW = dict(embed_dim=32, depth=2, num_heads=2, image_size=32, patch_size=16,
           kan_layers=(32, 8, 1), hidden_dim=16)
@@ -177,9 +178,17 @@ def test_block_policy_and_unported_options():
     assert _resolve_fused_block(True, inference=False, dtype=bf16,
                                 embed_dim=768, device=cpu)
     cfg = Config()
-    cfg.tpu.use_pallas_attention = True          # no attention-only kernel
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, device="cpu")
+    cfg.tpu.use_pallas_attention = True          # kernels #5/#6
+    cfg.tpu.use_pallas_block = False
+    for blk in build_model(cfg, device="cpu").backbone.model.blocks:
+        assert blk.attn.use_fused and not blk.use_fused_block
+        assert blk.attn.attn_fn is fused_attention
+    for section, field, value in (("tpu", "remat_backbone", True),
+                                  ("model", "moe_experts", 4)):
+        cfg = Config()
+        setattr(getattr(cfg, section), field, value)   # not ported yet
+        with pytest.raises(NotImplementedError):
+            build_model(cfg, device="cpu")
 
 
 def test_config_dict_saved_by_jax_loads():

@@ -107,4 +107,6 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
     real = Path(_build.__file__).resolve().parent.parent / "csrc"
     monkeypatch.setattr(_build, "CSRC", real)
     assert [h.name for h in _build._headers(real / "vit_block_bwd.cu", [])] \
-        == ["vit_block_common.cuh"]
+        == ["vit_block_common.cuh", "attention_common.cuh", "tile_common.cuh"]
+    assert [h.name for h in _build._headers(real / "attention.cu", [])] \
+        == ["attention_common.cuh", "tile_common.cuh"]

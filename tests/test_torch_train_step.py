@@ -89,14 +89,17 @@ def assert_grads_match(model, jgrads, step):
             err_msg=f"step {step}: {name}")
 
 
-def run_pair(n_steps, fused, kan=False):
+def run_pair(n_steps, fused, kan=False, attention=False):
     """Take ``n_steps`` on both sides, holding every step's gradients;
     ``fused`` routes both through the block kernel, ``kan`` through the KAN
-    kernels. Returns (jax losses, port losses, jax params, port model)."""
+    kernels, ``attention`` through the attention-only kernels. Returns (jax
+    losses, port losses, jax params, port model)."""
     jcfg = JaxConfig()
     jcfg.flags.mixed_precision = False
     jcfg.train.learning_rate = LR
-    jmodel = JaxRoViTKAN(**KW, use_pallas_block=fused, use_pallas_kan=kan)
+    flags = dict(use_pallas_block=fused, use_pallas_kan=kan,
+                 use_pallas_attention=attention)
+    jmodel = JaxRoViTKAN(**KW, **flags)
     params = jmodel.init(jax.random.PRNGKey(0),
                          np.zeros((1, IMG, IMG, 3), np.float32))["params"]
     pert = np.random.RandomState(0)
@@ -111,9 +114,7 @@ def run_pair(n_steps, fused, kan=False):
     cfg = Config()
     cfg.flags.mixed_precision = False
     cfg.train.learning_rate = LR
-    model = load_jax_params(RoViTKAN(**KW, use_pallas_block=fused,
-                                     use_pallas_kan=kan), params,
-                            device="cpu")
+    model = load_jax_params(RoViTKAN(**KW, **flags), params, device="cpu")
     opt = topt.build_optimizer(model, cfg)
     step = make_train_step(model, opt, cfg, focal_alpha=ALPHA)
     assert not step.fused_augment            # fp32 on the CPU: plain chain

@@ -54,19 +54,39 @@ exits non-zero:
    as in "serve"; three train steps with ``use_pallas_block=False,
    use_pallas_attention=True`` (12 x #5, 12 x #6, 1 x #7 each), two with
    "auto" (12 x #1, 12 x #2, 1 x #7 each), finite losses; one step held per
-   parameter against the same step with #6's plain version.
+   parameter against the same step with #6's plain version;
+8. fit: the saved-residual pair. #3 and #4 at (64, 197, 192) and
+   (32, 577, 192), bf16 and fp32, against their plain versions (#3's output
+   the bits of #1's, the same bits on a repeated #4 call), timed beside their
+   bounds, the plain versions and ``TransformerEncoderLayer``; one flagship
+   train step with ``ROVIT_BLOCK_RESIDUAL_BWD=1`` held against the same step
+   through #1/#2 and through #4's plain version (``hold_residual_step``);
+   then ``Trainer.fit`` at the flagship's full width over a device-resident
+   synthetic set (``make_leaf_image``, 4 classes x 100 images, 80/20 split:
+   5 train steps and 2 validation batches, the second padded, per epoch)
+   for 4 epochs across curriculum stages 1-4 and the backbone's unfreeze
+   with the opt-in (12 x #3 and 12 x #4 and no #1/#2 per train step, 12 x
+   #1 per validation batch, finite losses, the epoch CSV and the best
+   checkpoint written), ``resume`` and one more epoch, ``load_engine`` on
+   the best checkpoint serving two batches (its outputs the bits of the
+   trainer's best weights through the same kernels); the same fit with the
+   opt-in off and on in turns for the epoch img/s of both arms.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 is ``{"ok": true, "device": {...}}``. Imports torch and the port only.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import functools
 import json
+import os
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1611,6 +1631,418 @@ def long_phase(smi: str):
             "held_attention_step": held, "card": smi}, attention, blocks577
 
 
+RES_ENV = "ROVIT_BLOCK_RESIDUAL_BWD"
+
+
+@contextlib.contextmanager
+def residual_opt_in(on: bool):
+    """``ROVIT_BLOCK_RESIDUAL_BWD`` set to 1 (or 0) inside the block."""
+    old = os.environ.get(RES_ENV)
+    os.environ[RES_ENV] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(RES_ENV, None)
+        else:
+            os.environ[RES_ENV] = old
+
+
+def res_bounds(x, params, dtype) -> dict:
+    """Least times of #3 and #4. #3: #1's FLOP; its bytes x, out, the
+    returned qkv, attention output and a1 (8D per row in the compute type)
+    and the weights. #4: two products per forward product, the proj
+    recompute and one S rebuild; its bytes x, the fp32 g, dx, the three
+    residuals, the weights and the fp32 grads."""
+    B, N, D = x.shape
+    M, hd = B * N, D // HEADS
+    size = x.element_size()
+    fwd = 2 * M * D * (4 * D + 2 * HIDDEN) + 4 * B * HEADS * N * N * hd
+    bwd = 2 * fwd + 2 * M * D * D + 2 * B * HEADS * N * N * hd
+    wbytes = sum(p.numel() * p.element_size() for p in params.values())
+    wcount = sum(p.numel() for p in params.values())
+    res = M * (4 * D + HIDDEN) * size
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    out = {}
+    for name, flops, nbytes in (
+            ("fwd", fwd, 2 * x.numel() * size + res + wbytes),
+            ("bwd", bwd, 2 * x.numel() * size + 4 * x.numel() + res + wbytes
+             + 4 * wcount)):
+        bound = {"operations": flops / peak,
+                 "bytes": nbytes / PEAK_BYTES_PER_S}
+        by = max(bound, key=bound.get)
+        out[name] = {"bound_ms": 1e3 * bound[by], "bound_by": by,
+                     "flops": flops, "bytes": nbytes}
+    return out
+
+
+def check_block_res(dtype, seed: int, batch: int = BATCH,
+                    tokens: int = TOKENS):
+    """#3 against ``block_residual_reference`` (its output also against
+    #1's, bit for bit; qkv, attn and a1 within the forward's tolerance) and
+    #4 against ``block_backward_residual_reference`` on #3's residuals (each
+    output within ``bwd_tol``; the same bits on a repeated call); timed
+    beside their bounds, the plain versions and ``TransformerEncoderLayer``
+    (forward, and forward + backward); one block's forward + backward
+    through the port with the opt-in on (#3 + #4) and off (#1 + #2), in
+    turns."""
+    from rovit_kan_tpu_torch.ops import block_kernel as bk
+    x, params = block_inputs(dtype, seed, batch, tokens)
+    g = torch.tensor(np.random.RandomState(seed + 10).normal(
+        0, 1, x.shape), dtype=torch.float32, device="cuda")
+    what = f"residual pair {list(x.shape)} {dtype}"
+    with torch.no_grad():
+        got = bk._launch_res(x, params, HEADS)
+        out1 = bk._launch(x, params, HEADS)
+        want = bk.block_residual_reference(x, params, HEADS)
+        res = got[1:]
+        dx, grads = bk._launch_bwd_res(x, g, *res, params, HEADS)
+        want_dx, want_g = bk.block_backward_residual_reference(
+            x, g, *res, params, HEADS)
+        again = bk._launch_bwd_res(x, g, *res, params, HEADS)
+        torch.cuda.synchronize()
+    if not torch.equal(got[0], out1):
+        raise RuntimeError(f"{what}: #3's output is not #1's bits")
+    if not (torch.equal(again[0], dx) and all(
+            torch.equal(again[1][k], grads[k]) for k in bk.PKEYS)):
+        raise RuntimeError(f"{what}: a repeated #4 call gave other bits")
+    errs, failed = {}, []
+    pairs = ([(n, a, b, "fwd") for n, a, b in
+              zip(("out", "qkv", "attn", "a1"), got, want)]
+             + [("dx", dx, want_dx, "bwd")]
+             + [(k, grads[k], want_g[k], "bwd") for k in bk.PKEYS])
+    for name, a, b, side in pairs:
+        if not torch.isfinite(a.float()).all():
+            raise RuntimeError(f"{what} {name}: non-finite values")
+        err = float((a.float() - b.float()).abs().max())
+        tol = (bwd_tol(b, dtype) if side == "bwd" else
+               bf16_tol(b) if dtype == torch.bfloat16 else FP32_TOL)
+        errs[name] = {"max_abs_err": err, "tolerance": tol}
+        if not err <= tol:
+            failed.append(name)
+    if failed:
+        raise RuntimeError(f"{what} out of tolerance: "
+                           f"{ {k: errs[k] for k in failed} }")
+
+    with torch.no_grad():
+        ms3 = time_ms(lambda: bk._launch_res(x, params, HEADS))
+        ms4 = time_ms(lambda: bk._launch_bwd_res(x, g, *res, params, HEADS),
+                      reps=9)
+        plain3 = time_ms(lambda: bk.block_residual_reference(
+            x, params, HEADS), reps=9, inner=3)
+        plain4 = time_ms(lambda: bk.block_backward_residual_reference(
+            x, g, *res, params, HEADS), reps=5, inner=3)
+        layer = library_layer(params, dtype)
+        lib3 = time_ms(lambda: layer(x))
+    raw = {k: v.float().detach().clone().requires_grad_()
+           for k, v in params.items()}
+    xg = x.detach().clone().requires_grad_()
+    gx = g.to(dtype)
+
+    def port_fwd_bwd():
+        bk.fused_vit_block(xg, raw, HEADS, kernel_params=params).backward(gx)
+
+    layer.train()
+
+    def library_fwd_bwd():
+        layer(xg).backward(gx)
+
+    lib4 = time_ms(library_fwd_bwd, reps=9)
+    pair_ms = {"residual": [], "recompute": []}
+    for on in (True, False, True, False):
+        with residual_opt_in(on):
+            pair_ms["residual" if on else "recompute"].append(
+                time_ms(port_fwd_bwd, reps=9))
+    bounds = res_bounds(x, params, dtype)
+    common = {"dtype": str(dtype).replace("torch.", ""),
+              "shape": list(x.shape), "heads": HEADS,
+              "launches_per_step": "12 with the opt-in (counted in 'fit')"}
+    fwd = {"replaces": "rovit_kan_tpu/ops/block_kernel.py::"
+                       "_vit_block_res_kernel", **common,
+           "outputs": {k: errs[k] for k in ("out", "qkv", "attn", "a1")},
+           "out_bits_equal_to_vit_block_fwd": True,
+           "max_abs_err": max(errs[k]["max_abs_err"]
+                              for k in ("out", "qkv", "attn", "a1")),
+           "kernel_ms": ms3, "plain_ms": plain3, "library_ms": lib3,
+           "library": "nn.TransformerEncoderLayer forward",
+           **bounds["fwd"]}
+    bwd = {"replaces": "rovit_kan_tpu/ops/block_kernel.py::"
+                       "_vit_block_bwd_res_kernel", **common,
+           "outputs": {k: errs[k] for k in ("dx",) + bk.PKEYS},
+           "identical_bits_on_repeat": True,
+           "max_abs_err": max(errs[k]["max_abs_err"]
+                              for k in ("dx",) + bk.PKEYS),
+           "kernel_ms": ms4, "plain_ms": plain4, "library_ms": lib4,
+           "library": "nn.TransformerEncoderLayer forward + backward",
+           "port_fwd_bwd_ms": pair_ms, **bounds["bwd"]}
+    return fwd, bwd
+
+
+def hold_residual_step(cfg, batch, draws):
+    """One stage-4 flagship step with the opt-in (#3, #4, #7) against the
+    same step through #1/#2 and against the same step with #4's plain
+    version (same weights, draws and dropout masks). #3's output has #1's
+    bits, so the three losses must be the same bits; each parameter's
+    gradient within 5e-2 of its L2 norm of the other step's (the limit
+    ``hold_train_step`` sets for a bf16 block backward; against #2, a1 is
+    rounded to bf16 before GELU and GELU')."""
+    from rovit_kan_tpu_torch.ops import block_kernel as bk
+    with residual_opt_in(True):
+        bk.RES_LAUNCHES = bk.BWD_RES_LAUNCHES = 0
+        k = one_step(cfg, "kernels", batch, draws, 4)
+        launches = (bk.RES_LAUNCHES, bk.BWD_RES_LAUNCHES)
+        p = one_step(cfg, "kernel_fwd", batch, draws, 4)
+    with residual_opt_in(False):
+        r = one_step(cfg, "kernels", batch, draws, 4)
+    if launches != (12, 12):
+        raise RuntimeError(f"residual step launched {launches} of #3/#4")
+    held = {"loss_residual": k["loss"], "loss_recompute": r["loss"],
+            "loss_plain_bwd": p["loss"], "tolerance": 5e-2}
+    failed = []
+    for name, ref in (("vs_recompute", r), ("vs_plain_bwd", p)):
+        leaf = {n: float((g - ref["grads"][n]).norm())
+                / max(float(ref["grads"][n].norm()), 1e-30)
+                for n, g in k["grads"].items()}
+        worst = max(leaf, key=leaf.get)
+        held[name] = {"worst_leaf": worst, "worst_rel": leaf[worst],
+                      "median_leaf_rel": float(np.median(list(
+                          leaf.values()))),
+                      "all": grad_gaps(k, ref)["all"]}
+        if not leaf[worst] <= 5e-2:
+            failed.append(name)
+    if not k["loss"] == r["loss"] == p["loss"]:
+        failed.append("loss bits")
+    if failed:
+        emit({"phase": "fit", "held_step": held})
+        raise RuntimeError(f"residual train step out of tolerance: {failed}")
+    return held
+
+
+FIT_PER_CLASS = 100
+
+
+class LeafSet:
+    """An in-memory synthetic rose-leaf set: ``per_class`` images of each of
+    the four classes from ``make_leaf_image`` (numpy only), severity the
+    class index, as the JAX package's severity map gives it."""
+
+    def __init__(self, per_class: int, size: int, seed: int):
+        from rovit_kan_tpu_torch.data.synthetic import make_leaf_image
+        rng = np.random.RandomState(seed)
+        self.labels = np.repeat(np.arange(4), per_class)
+        self.images = np.stack([make_leaf_image(int(c), rng, size)
+                                for c in self.labels])
+
+    def __len__(self):
+        return len(self.labels)
+
+    def __getitem__(self, i):
+        return self.images[i], int(self.labels[i]), float(self.labels[i])
+
+
+def fit_counters():
+    from rovit_kan_tpu_torch.ops import augment_kernel as ak
+    from rovit_kan_tpu_torch.ops import block_kernel as bk
+
+    def reset():
+        bk.LAUNCHES = bk.BWD_LAUNCHES = ak.LAUNCHES = 0
+        bk.RES_LAUNCHES = bk.BWD_RES_LAUNCHES = 0
+
+    def read():
+        return {"vit_block_fwd": bk.LAUNCHES, "vit_block_bwd": bk.BWD_LAUNCHES,
+                "vit_block_res_fwd": bk.RES_LAUNCHES,
+                "vit_block_bwd_res": bk.BWD_RES_LAUNCHES,
+                "augment": ak.LAUNCHES}
+
+    return reset, read
+
+
+def fit_config(root):
+    """The flagship ``Config()`` (224 px, d=192, 12 blocks, bf16, batch 64)
+    for four epochs across curriculum stages 1-4, the backbone frozen in
+    epoch 1."""
+    from rovit_kan_tpu_torch.config import Config
+    cfg = Config()
+    cfg.train.batch_size = BATCH
+    cfg.train.epochs = 4
+    cfg.train.stage_1_epochs, cfg.train.stage_2_epochs = 1, 2
+    cfg.train.stage_3_epochs = 3
+    cfg.flags.freeze_backbone_epochs = 1
+    cfg.paths.checkpoints_dir = root / "ckpt"
+    return cfg
+
+
+def run_fit(cfg, loaders, residual: bool, logger=None, resume=False):
+    """``Trainer.fit`` between a counter reset and a read, with the opt-in
+    on or off; ``resume`` continues from best_model for one more epoch.
+    Returns the trainer, fit's result and the launches, with the launches
+    each train step and validation batch should have made."""
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.training.trainer import Trainer
+    reset, read = fit_counters()
+    train, val = loaders
+    tr = Trainer(build_model(cfg, device="cuda", seed=1), train, val, cfg,
+                 logger=logger, seed=0)
+    if not all(b.use_fused_block for b in tr.model.backbone.model.blocks):
+        raise RuntimeError("the 'auto' policy did not pick the block kernel")
+    args = {}
+    if resume:
+        state, nxt = tr.resume()
+        cfg.train.epochs = nxt
+        if logger is not None:
+            logger.truncate_from(nxt)
+        args = {"state": state, "start_epoch": nxt}
+    else:
+        train.set_epoch(0)
+    torch.cuda.synchronize()
+    with residual_opt_in(residual):
+        reset()
+        res = tr.fit(**args)
+        torch.cuda.synchronize()
+        launches = read()
+    epochs = len(res["history"]["train"])
+    steps, vals = epochs * len(train), epochs * len(val)
+    want = {"vit_block_fwd": 12 * vals, "vit_block_bwd": 0,
+            "vit_block_res_fwd": 0, "vit_block_bwd_res": 0,
+            "augment": steps}
+    if residual:
+        want.update(vit_block_res_fwd=12 * steps, vit_block_bwd_res=12 * steps)
+    else:
+        want.update(vit_block_fwd=12 * (steps + vals),
+                    vit_block_bwd=12 * steps)
+    if launches != want:
+        raise RuntimeError(f"fit (opt-in {residual}) launches {launches}, "
+                           f"want {want}")
+    for part in ("train", "val"):
+        for m in res["history"][part]:
+            if not np.isfinite(m["total_loss"]):
+                raise RuntimeError(f"fit: non-finite {part} loss {m}")
+    return tr, res, launches
+
+
+def fit_phase(smi: str):
+    """The saved-residual pair's kernels, a train step held through it, and
+    ``Trainer.fit`` with its data, checkpoints and logger (module
+    docstring, phase 8)."""
+    from pathlib import Path
+
+    from rovit_kan_tpu_torch.data.dataset import Subset
+    from rovit_kan_tpu_torch.data.device_cache import DeviceLoader
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.ops import augment_kernel as ak
+    from rovit_kan_tpu_torch.ops.mixing import draw_mix
+    from rovit_kan_tpu_torch.results.logger import CSV_COLUMNS, \
+        ExperimentLogger
+    from rovit_kan_tpu_torch.serving import InferenceEngine, load_engine
+    from rovit_kan_tpu_torch.training.trainer import Trainer
+    from rovit_kan_tpu_torch.utils.checkpoint import is_finalized
+
+    kernels = {}
+    for seed, (batch, tokens, dtype) in enumerate(
+            ((BATCH, TOKENS, torch.bfloat16), (BATCH, TOKENS, torch.float32),
+             (LONG_BATCH, LONG_TOKENS, torch.bfloat16),
+             (LONG_BATCH, LONG_TOKENS, torch.float32))):
+        kernels[tokens, dtype] = check_block_res(dtype, 40 + seed, batch,
+                                                 tokens)
+
+    cfg = fit_config(Path("."))
+    held = hold_residual_step(cfg, train_batch(cfg, 500), {
+        "factors": ak.draw_factors(torch.Generator("cuda").manual_seed(7),
+                                   BATCH),
+        "mix": draw_mix(torch.Generator().manual_seed(8), BATCH,
+                        cfg.data.image_size, cfg.data.image_size)})
+
+    t0 = time.perf_counter()
+    ds = LeafSet(FIT_PER_CLASS, cfg.data.image_size, seed=0)
+    order = np.random.RandomState(42).permutation(len(ds))
+    n_train = int(round(len(ds) * cfg.data.train_val_split))
+    loaders = (DeviceLoader(Subset(ds, order[:n_train]), BATCH, shuffle=True,
+                            drop_last=True, seed=42, device="cuda"),
+               DeviceLoader(Subset(ds, order[n_train:]), BATCH,
+                            device="cuda"))
+    data_s = time.perf_counter() - t0
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_fit_"))
+    try:
+        # The main path: fit with the opt-in, resume, serve.
+        cfg = fit_config(root / "residual")
+        logger = ExperimentLogger(root / "residual" / "logs", "fit")
+        tr, res, launches = run_fit(cfg, loaders, True, logger)
+        with open(logger.csv_path) as f:
+            header, *rows = [ln.strip().split(",") for ln in f]
+        best = cfg.paths.checkpoints_dir / "best_model"
+        if header != CSV_COLUMNS or len(rows) != 4 or not is_finalized(best):
+            raise RuntimeError(f"fit wrote {len(rows)} CSV rows under "
+                               f"{header}; best_model finalized: "
+                               f"{is_finalized(best)}")
+        tr2, res2, resume_launches = run_fit(cfg, loaders, True, logger,
+                                             resume=True)
+        reset, read = fit_counters()
+        engine = load_engine(best, batch_size=BATCH, device="cuda")
+        images = ds.images[order[n_train:]]
+        reset()
+        served = [engine.predict(images[i * BATCH:(i + 1) * BATCH])
+                  for i in range(2)]
+        serve_launches = read()
+        if serve_launches["vit_block_fwd"] != 24 or sum(
+                serve_launches.values()) != 24:
+            raise RuntimeError(f"load_engine served with {serve_launches}")
+        ref_model = build_model(cfg, inference=True, device="cuda", seed=2)
+        ref_model.load_state_dict(Trainer.eval_params(res2["best_state"]))
+        ref = InferenceEngine(ref_model, batch_size=BATCH, device="cuda")
+        expect = [ref.predict(images[i * BATCH:(i + 1) * BATCH])
+                  for i in range(2)]
+        differ = sorted({k for a, b in zip(served, expect) for k in a
+                         if not np.array_equal(a[k], b[k])})
+        if differ:
+            raise RuntimeError(f"load_engine outputs {differ} differ from "
+                               f"the trainer's best weights")
+
+        # The epoch img/s of both arms, in turns.
+        arms = {"residual": [], "recompute": []}
+        for i, on in enumerate((False, True, False, True)):
+            arm_cfg = fit_config(root / f"arm{i}")
+            _, arm, arm_launches = run_fit(arm_cfg, loaders, on)
+            arms["residual" if on else "recompute"].append(
+                {"epoch_images_per_sec": [m["images_per_sec"] for m in
+                                          arm["history"]["train"]],
+                 "launches": arm_launches})
+        # One profiled step of the fit's train step on each arm.
+        batch = loaders[0].gather(torch.arange(BATCH, device="cuda"))
+        step_profiles = {}
+        for on in (True, False):
+            with residual_opt_in(on):
+                step_profiles["residual" if on else "recompute"] = \
+                    profile_step(tr.train_step, batch)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def hist(r):
+        return [{"stage": t["stage"], "lr": t["lr"],
+                 "train_loss": t["total_loss"], "val_loss": v["total_loss"],
+                 "val_accuracy": v["accuracy"],
+                 "images_per_sec": t["images_per_sec"]}
+                for t, v in zip(r["history"]["train"], r["history"]["val"])]
+
+    return {"phase": "fit", "model": "DeiT-Tiny RoViT-KAN d=192 depth=12 "
+            "heads=3 224px bf16, batch 64, Trainer.fit over a "
+            "device-resident synthetic set", "images": len(ds),
+            "train_images": n_train, "val_images": len(ds) - n_train,
+            "data_seconds": data_s,
+            "steps_per_epoch": len(loaders[0]),
+            "val_batches_per_epoch": len(loaders[1]),
+            "residual_kernels": {
+                f"{n}_{str(d).replace('torch.', '')}": r
+                for (n, d), r in kernels.items()},
+            "held_step": held, "fit_launches": launches,
+            "fit_history": hist(res), "best_val_loss": res["best_val_loss"],
+            "resume_launches": resume_launches,
+            "resume_history": hist(res2),
+            "serve_launches": serve_launches,
+            "served_equals_best_weights": True,
+            "arms_in_turns": arms, "step_profiles": step_profiles,
+            "card": smi}, kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1653,6 +2085,8 @@ def main() -> int:
     emit(kanned)
     longed, attn, blocks577 = long_phase(smi)
     emit(longed)
+    fitted, res_kernels = fit_phase(smi)
+    emit(fitted)
 
     keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "library_ms")
 
@@ -1701,6 +2135,22 @@ def main() -> int:
                               for d in (torch.bfloat16, torch.float32)}),
                 **({"port_fwd_bwd_ms": lo["port_fwd_bwd_ms"]} if i else {})}
 
+    def res_entry(name, source, line, i):
+        by_path = {"fit": fitted["fit_launches"][name],
+                   "resume": fitted["resume_launches"][name]}
+        lo = res_kernels[TOKENS, torch.bfloat16][i]
+        return entry(name, csrc + source,
+                     f"rovit_kan_tpu/ops/block_kernel.py:{line}",
+                     sum(by_path.values()), lo,
+                     res_kernels[TOKENS, torch.float32][i],
+                     launches_by_path=by_path,
+                     n577={str(d).replace("torch.", ""):
+                           {k: res_kernels[LONG_TOKENS, d][i][k]
+                            for k in keys}
+                           for d in (torch.bfloat16, torch.float32)},
+                     **({"port_fwd_bwd_ms": lo["port_fwd_bwd_ms"]}
+                        if i else {}))
+
     emit({"kernels": [
         entry("vit_block_fwd", csrc + "vit_block_fwd.cu",
               "rovit_kan_tpu/ops/block_kernel.py:92",
@@ -1720,7 +2170,9 @@ def main() -> int:
                            ("kan_module_fwd", 252),
                            ("kan_module_bwd", 367))] + [
         attn_entry("attention_fwd", 36, 0),
-        attn_entry("attention_bwd", 120, 1)]})
+        attn_entry("attention_bwd", 120, 1)] + [
+        res_entry("vit_block_res_fwd", "vit_block_fwd.cu", 227, 0),
+        res_entry("vit_block_bwd_res", "vit_block_bwd.cu", 549, 1)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

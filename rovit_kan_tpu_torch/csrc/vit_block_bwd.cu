@@ -51,6 +51,23 @@
 // probabilities and dS are exactly zero, so ragged N adds nothing to any
 // grad.
 //
+// The saved-residual backward (#4). vit_block_bwd_res_* replaces
+// rovit_kan_tpu/ops/block_kernel.py::_vit_block_bwd_res_kernel, which reads
+// qkv, the attention output and the fc1 pre-activation a1 that #3 stored (in
+// T) instead of recomputing them. The same stages with three changes: no
+// ln_qkv or attention-forward launch (the attention backward streams q, k
+// and v from the saved qkv); mlp_bwd recomputes proj and LN2 from x and the
+// saved attention output but reads a1 in place of the fc1 product, so
+// h1 = GELU(a1) and GELU'(a1) see a1 rounded to T, as the TPU kernel's do;
+// and qkv_bwd, which recomputes the LN1 statistics anyway, also stores the
+// rounded LN1 output for the qkv weight grad. Six launches; the same
+// partial sums and ordered reduce, so a repeated call gives the same bits.
+// Its needed work is two products per forward product (2 x 1.306e10 FLOP),
+// the proj recompute (2*M*D^2) and one S rebuild (2*B*heads*N^2*hd):
+// 2.80e10 FLOP, 0.0283 ms at the bf16 peak, 0.418 ms at fp32's; its bytes
+// (x, g, dx, the saved 8D per row, weights, grads: 61 MB in bf16) take
+// 0.018 ms, so it is compute-bound.
+//
 // Interface: plain C, loaded with ctypes, as vit_block_fwd.cu. The caller
 // allocates the scratch (vit_block_bwd_workspace_* bytes); every launch is
 // followed by cudaGetLastError and the first error is returned.
@@ -102,14 +119,17 @@ __host__ __device__ MlpBwdLayout mlp_bwd_layout(int D, int H) {
 }
 
 // part: per tile, [b2 (D) | b1 (H) | ln2 scale (D) | ln2 bias (D) | bproj (D)]
-template <typename T>
+// kResidual (#4): read the saved fc1 pre-activation a1_in in place of
+// z . W1^T + b1 (the recompute backward #2 passes null).
+template <typename T, bool kResidual>
 __global__ void __launch_bounds__(kThreads)
 mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ attn,
                const float* __restrict__ g, const T* __restrict__ wproj,
                const float* __restrict__ bproj,
                const float* __restrict__ ln2g, const float* __restrict__ ln2b,
                const T* __restrict__ w1, const float* __restrict__ b1,
-               const T* __restrict__ w2, T* __restrict__ z_out,
+               const T* __restrict__ w2, const T* __restrict__ a1_in,
+               T* __restrict__ z_out,
                T* __restrict__ h1_out, T* __restrict__ gb_out,
                T* __restrict__ da1_out, float* __restrict__ dx1_out,
                T* __restrict__ dx1b_out, T* __restrict__ go_out,
@@ -179,15 +199,17 @@ mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ attn,
   }
 
   // fc1 + GELU and the MLP backward in 64-column steps of the hidden
-  // dimension: a1 = z . W1^T + b1, h1 = GELU(a1), dh = g . W2[:, step],
-  // da1 = dh * GELU'(a1).
+  // dimension: a1 = z . W1^T + b1 (or the saved a1), h1 = GELU(a1),
+  // dh = g . W2[:, step], da1 = dh * GELU'(a1).
   for (int n0 = 0; n0 < H; n0 += kChunk) {
     __syncthreads();
-    load_tile<T>(sW, ld, w1 + static_cast<size_t>(n0) * D, D, kChunk, kChunk,
-                 D);
-    __syncthreads();
-    block_gemm<T, true>(sA, ld, sW, ld, sC1, ldc, R, kChunk, D, false);
-    __syncthreads();
+    if constexpr (!kResidual) {
+      load_tile<T>(sW, ld, w1 + static_cast<size_t>(n0) * D, D, kChunk,
+                   kChunk, D);
+      __syncthreads();
+      block_gemm<T, true>(sA, ld, sW, ld, sC1, ldc, R, kChunk, D, false);
+      __syncthreads();
+    }
     load_tile<T>(sW, ldk, w2 + n0, H, D, D, kChunk);
     __syncthreads();
     block_gemm<T, false>(sG, ld, sW, ldk, sC2, ldc, R, kChunk, D, false);
@@ -195,7 +217,14 @@ mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ attn,
     for (int i = threadIdx.x; i < R * kChunk; i += kThreads) {
       const int r = i / kChunk;
       const int c = i - r * kChunk;
-      const float a = sC1[r * ldc + c] + b1[n0 + c];
+      float a;
+      if constexpr (kResidual) {
+        a = r < valid
+                ? to_f(a1_in[hrow0 + static_cast<size_t>(r) * H + n0 + c])
+                : 0.f;
+      } else {
+        a = sC1[r * ldc + c] + b1[n0 + c];
+      }
       const float da = r < valid ? sC2[r * ldc + c] * gelu_grad(a) : 0.f;
       sC2[r * ldc + c] = da;
       const T dab = from_f<T>(da);
@@ -303,11 +332,14 @@ __host__ __device__ QkvBwdLayout qkv_bwd_layout(int D) {
 }
 
 // part: per tile, [ln1 scale (D) | ln1 bias (D)]
-template <typename T>
+// kResidual (#4): also store the LN1 output, rounded to T, to y_out for the
+// qkv weight grad (#2 has it from its forward recompute).
+template <typename T, bool kResidual>
 __global__ void __launch_bounds__(kThreads)
 qkv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dqkv,
                const float* __restrict__ dx1, const float* __restrict__ ln1g,
-               const T* __restrict__ wqkv, T* __restrict__ dx,
+               const float* __restrict__ ln1b, const T* __restrict__ wqkv,
+               T* __restrict__ dx, T* __restrict__ y_out,
                float* __restrict__ part, int M, int D) {
   constexpr int R = BwdTile<T>::kRows;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -356,7 +388,13 @@ qkv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dqkv,
       v += d * d;
     }
     const float rstd = rsqrtf(warp_sum(v) / D + kLnEps);
-    for (int c = lane; c < D; c += 32) xr[c] = (xr[c] - mean) * rstd;
+    for (int c = lane; c < D; c += 32) {
+      xr[c] = (xr[c] - mean) * rstd;
+      if constexpr (kResidual) {
+        y_out[row0 + static_cast<size_t>(r) * D + c] =
+            from_f<T>(xr[c] * ln1g[c] + ln1b[c]);
+      }
+    }
     if (lane == 0) sRs[r] = rstd;
   }
   __syncthreads();
@@ -547,8 +585,10 @@ struct Work {
 };
 
 // Carves the scratch out of `base` (or only sizes it when base is null).
+// The residual backward (#4) reads qkv and attn from the caller and carves
+// neither.
 template <typename T>
-Work<T> carve(char* base, const Sizes& s) {
+Work<T> carve(char* base, const Sizes& s, bool residual) {
   Work<T> w;
   size_t off = 0;
   auto take = [&](size_t bytes) {
@@ -557,8 +597,9 @@ Work<T> carve(char* base, const Sizes& s) {
     return p;
   };
   const size_t M = s.M, D = s.D, H = s.H;
-  w.qkv = reinterpret_cast<T*>(take(sizeof(T) * M * 3 * D));
-  w.attn = reinterpret_cast<T*>(take(sizeof(T) * M * D));
+  w.qkv = residual ? nullptr
+                   : reinterpret_cast<T*>(take(sizeof(T) * M * 3 * D));
+  w.attn = residual ? nullptr : reinterpret_cast<T*>(take(sizeof(T) * M * D));
   w.y = reinterpret_cast<T*>(take(sizeof(T) * M * D));
   w.z = reinterpret_cast<T*>(take(sizeof(T) * M * D));
   w.h1 = reinterpret_cast<T*>(take(sizeof(T) * M * H));
@@ -582,15 +623,18 @@ Work<T> carve(char* base, const Sizes& s) {
 }
 
 template <typename T>
-size_t workspace_bytes(int B, int N, int D, int heads, int H) {
+size_t workspace_bytes(int B, int N, int D, int heads, int H, bool residual) {
   if (!block_shape_ok(B, N, D, heads, H)) return 0;
   return carve<T>(nullptr, sizes_of(B, N, D, heads, H, BwdTile<T>::kRows,
-                                    Tile<T>::kRows))
+                                    Tile<T>::kRows), residual)
       .total;
 }
 
+// qkv_in, attn_in, a1_in: the residuals #3 saved (#4), or all null to
+// recompute them (#2).
 template <typename T>
-int run_bwd(const void* x_, const void* g_, void* dx_, float* grads,
+int run_bwd(const void* x_, const void* g_, const void* qkv_in,
+            const void* attn_in, const void* a1_in, void* dx_, float* grads,
             void* work_, const void* ln1g_, const void* ln1b_,
             const void* wqkv_, const void* bqkv_, const void* wproj_,
             const void* bproj_, const void* ln2g_, const void* ln2b_,
@@ -604,7 +648,10 @@ int run_bwd(const void* x_, const void* g_, void* dx_, float* grads,
   constexpr int R = BwdTile<T>::kRows;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const Sizes s = sizes_of(B, N, D, heads, H, R, Tile<T>::kRows);
-  const Work<T> w = carve<T>(static_cast<char*>(work_), s);
+  const bool residual = qkv_in != nullptr;
+  const Work<T> w = carve<T>(static_cast<char*>(work_), s, residual);
+  const T* qkv = residual ? static_cast<const T*>(qkv_in) : w.qkv;
+  const T* attn = residual ? static_cast<const T*>(attn_in) : w.attn;
   const T* x = static_cast<const T*>(x_);
   const float* g = static_cast<const float*>(g_);
   const float* ln1g = static_cast<const float*>(ln1g_);
@@ -622,37 +669,43 @@ int run_bwd(const void* x_, const void* g_, void* dx_, float* grads,
       static_cast<float>(std::pow(static_cast<double>(s.hd), -0.5));
   cudaError_t e;
 
-  // 1-2. the forward's first two stages, keeping the LN1 output.
-  e = launch_qkv_attention<T>(x, ln1g, ln1b, wqkv, bqkv, w.qkv, w.attn, w.y,
-                              B, N, D, heads, stream);
-  if (e != cudaSuccess) return e;
+  // 1-2. the forward's first two stages, keeping the LN1 output (#2 only).
+  if (!residual) {
+    e = launch_qkv_attention<T>(x, ln1g, ln1b, wqkv, bqkv, w.qkv, w.attn,
+                                w.y, B, N, D, heads, stream);
+    if (e != cudaSuccess) return e;
+  }
 
   // 3. MLP, LN2 and proj.
   const size_t sm3 = mlp_bwd_layout<T>(D, H).total;
-  if ((e = set_smem(mlp_bwd_kernel<T>, sm3)) != cudaSuccess) return e;
-  mlp_bwd_kernel<T><<<s.row_tiles, kThreads, sm3, stream>>>(
-      x, w.attn, g, wproj, bproj, ln2g, ln2b, w1, b1, w2, w.z, w.h1, w.gb,
-      w.da1, w.dx1, w.dx1b, w.go, w.part_mlp, s.M, D, H);
+  const auto mlp_bwd = residual ? mlp_bwd_kernel<T, true>
+                                : mlp_bwd_kernel<T, false>;
+  if ((e = set_smem(mlp_bwd, sm3)) != cudaSuccess) return e;
+  mlp_bwd<<<s.row_tiles, kThreads, sm3, stream>>>(
+      x, attn, g, wproj, bproj, ln2g, ln2b, w1, b1, w2,
+      static_cast<const T*>(a1_in), w.z, w.h1, w.gb, w.da1, w.dx1, w.dx1b,
+      w.go, w.part_mlp, s.M, D, H);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   // 4-5. attention, query side then key side (attention_common.cuh).
   const int hd = s.hd;
-  const T* cqkv = w.qkv;
   const T* cgo = w.go;
   e = launch_attention_bwd<T>(
-      block_heads(cqkv, N, D, hd, 0), block_heads(cqkv, N, D, hd, 1),
-      block_heads(cqkv, N, D, hd, 2), block_heads(cgo, N, D, hd, -1),
+      block_heads(qkv, N, D, hd, 0), block_heads(qkv, N, D, hd, 1),
+      block_heads(qkv, N, D, hd, 2), block_heads(cgo, N, D, hd, -1),
       block_heads(w.dqkv, N, D, hd, 0), block_heads(w.dqkv, N, D, hd, 1),
       block_heads(w.dqkv, N, D, hd, 2), w.stats, w.part_attn, B, heads, N,
       hd, scale, stream);
   if (e != cudaSuccess) return e;
 
-  // 6. qkv, LN1 and dx.
+  // 6. qkv, LN1 and dx (and, for #4, the LN1 output).
   const size_t sm6 = qkv_bwd_layout<T>(D).total;
-  if ((e = set_smem(qkv_bwd_kernel<T>, sm6)) != cudaSuccess) return e;
-  qkv_bwd_kernel<T><<<s.row_tiles, kThreads, sm6, stream>>>(
-      x, w.dqkv, w.dx1, ln1g, wqkv, static_cast<T*>(dx_), w.part_qkv, s.M,
-      D);
+  const auto qkv_bwd = residual ? qkv_bwd_kernel<T, true>
+                                : qkv_bwd_kernel<T, false>;
+  if ((e = set_smem(qkv_bwd, sm6)) != cudaSuccess) return e;
+  qkv_bwd<<<s.row_tiles, kThreads, sm6, stream>>>(
+      x, w.dqkv, w.dx1, ln1g, ln1b, wqkv, static_cast<T*>(dx_),
+      residual ? w.y : nullptr, w.part_qkv, s.M, D);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   // Grad offsets in the flat output, in the wrapper's PKEYS order.
@@ -681,7 +734,7 @@ int run_bwd(const void* x_, const void* g_, void* dx_, float* grads,
   jobs.M = s.M;
   jobs.rows_per_split = s.rows_per_split;
   const WgJob list[4] = {{w.dqkv, w.y, pw_qkv, 3 * D, D, 0},
-                         {w.dx1b, w.attn, pw_proj, D, D, 0},
+                         {w.dx1b, attn, pw_proj, D, D, 0},
                          {w.da1, w.z, pw_w1, H, D, 0},
                          {w.gb, w.h1, pw_w2, D, H, 0}};
   int tiles = 0;
@@ -730,25 +783,46 @@ int run_bwd(const void* x_, const void* g_, void* dx_, float* grads,
       const void *w2, const void *b2, int B, int N, int D, int heads,       \
       int H, void *stream
 #define VIT_BLOCK_BWD_PASS                                                  \
-  x, g, dx, static_cast<float*>(grads), work, ln1g, ln1b, wqkv, bqkv,       \
-      wproj, bproj, ln2g, ln2b, w1, b1, w2, b2, B, N, D, heads, H, stream
+  dx, static_cast<float*>(grads), work, ln1g, ln1b, wqkv, bqkv, wproj,      \
+      bproj, ln2g, ln2b, w1, b1, w2, b2, B, N, D, heads, H, stream
 
 extern "C" int vit_block_bwd_bf16(VIT_BLOCK_BWD_ARGS) {
-  return run_bwd<bf16>(VIT_BLOCK_BWD_PASS);
+  return run_bwd<bf16>(x, g, nullptr, nullptr, nullptr, VIT_BLOCK_BWD_PASS);
 }
 
 extern "C" int vit_block_bwd_f32(VIT_BLOCK_BWD_ARGS) {
-  return run_bwd<float>(VIT_BLOCK_BWD_PASS);
+  return run_bwd<float>(x, g, nullptr, nullptr, nullptr, VIT_BLOCK_BWD_PASS);
 }
 
 extern "C" size_t vit_block_bwd_workspace_bf16(int B, int N, int D,
                                                int heads, int H) {
-  return workspace_bytes<bf16>(B, N, D, heads, H);
+  return workspace_bytes<bf16>(B, N, D, heads, H, false);
 }
 
 extern "C" size_t vit_block_bwd_workspace_f32(int B, int N, int D,
                                               int heads, int H) {
-  return workspace_bytes<float>(B, N, D, heads, H);
+  return workspace_bytes<float>(B, N, D, heads, H, false);
+}
+
+// #4: qkv (B*N, 3D), attn (B*N, D) and a1 (B*N, H) in T, as #3 stored them.
+extern "C" int vit_block_bwd_res_bf16(const void* qkv, const void* attn,
+                                      const void* a1, VIT_BLOCK_BWD_ARGS) {
+  return run_bwd<bf16>(x, g, qkv, attn, a1, VIT_BLOCK_BWD_PASS);
+}
+
+extern "C" int vit_block_bwd_res_f32(const void* qkv, const void* attn,
+                                     const void* a1, VIT_BLOCK_BWD_ARGS) {
+  return run_bwd<float>(x, g, qkv, attn, a1, VIT_BLOCK_BWD_PASS);
+}
+
+extern "C" size_t vit_block_bwd_res_workspace_bf16(int B, int N, int D,
+                                                   int heads, int H) {
+  return workspace_bytes<bf16>(B, N, D, heads, H, true);
+}
+
+extern "C" size_t vit_block_bwd_res_workspace_f32(int B, int N, int D,
+                                                  int heads, int H) {
+  return workspace_bytes<float>(B, N, D, heads, H, true);
 }
 
 extern "C" const char* vit_block_bwd_error_string(int code) {

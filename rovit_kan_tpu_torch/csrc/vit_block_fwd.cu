@@ -51,6 +51,20 @@
 // The helpers and the first two stages live in vit_block_common.cuh, which
 // the backward (vit_block_bwd.cu) shares.
 //
+// The residual-saving forward (#3). vit_block_res_fwd_* replaces
+// rovit_kan_tpu/ops/block_kernel.py::_vit_block_res_kernel, the forward that
+// runs under differentiation with ROVIT_BLOCK_RESIDUAL_BWD=1: the same three
+// launches, with qkv (rows, 3D) and the attention output (rows, D), which
+// already pass through device memory, returned to the caller, and proj_mlp
+// also storing the fc1 pre-activation a1 (rows, H) in T, rounded after the
+// fp32 bias add, from the same registers the GELU reads. The output is
+// computed by the same instructions, so it has #1's bits. On the TPU the
+// spills shrank the VMEM image chunk; here they are one extra (rows, 4D)
+// store on top of #1 (19.4 MB at B=64 in bf16). The work stays #1's
+// 1.306e10 FLOP (0.0132 ms at the bf16 peak), but x, out and the 38.7 MB of
+// returned intermediates (49 MB in bf16) take 0.0147 ms at the HBM rate, so
+// bytes bound it in bf16 by a hair; in fp32 operations do (0.195 ms).
+//
 // Interface: plain C, loaded with ctypes. Each entry returns the first
 // CUDA error (0 = success), checked with cudaGetLastError after every
 // launch, so a launch refused for its resources is reported and never
@@ -78,14 +92,16 @@ __host__ __device__ MlpLayout proj_mlp_layout(int D, int H) {
   return L;
 }
 
-template <typename T>
+// kStoreA1 (#3): also store the fc1 pre-activation to a1_out.
+template <typename T, bool kStoreA1>
 __global__ void __launch_bounds__(kThreads)
 proj_mlp_kernel(const T* __restrict__ x, const T* __restrict__ attn,
                 const T* __restrict__ wproj, const float* __restrict__ bproj,
                 const float* __restrict__ g2, const float* __restrict__ bn2,
                 const T* __restrict__ w1, const float* __restrict__ b1,
                 const T* __restrict__ w2, const float* __restrict__ b2,
-                T* __restrict__ out, int M, int D, int H) {
+                T* __restrict__ out, T* __restrict__ a1_out, int M, int D,
+                int H) {
   constexpr int R = Tile<T>::kRows;
   extern __shared__ __align__(128) unsigned char smem[];
   const MlpLayout L = proj_mlp_layout<T>(D, H);
@@ -124,7 +140,8 @@ proj_mlp_kernel(const T* __restrict__ x, const T* __restrict__ attn,
   __syncthreads();
   layernorm_rows<float, T>(sX, D, R, R, g2, bn2, sA, ld, D);
 
-  // fc1 + GELU; the hidden tile stays in shared memory.
+  // fc1 + GELU; the hidden tile stays in shared memory. With kStoreA1
+  // the pre-activation is stored too, rounded to T.
   for (int n0 = 0; n0 < H; n0 += kChunk) {
     __syncthreads();
     load_tile<T>(sW, ld, w1 + static_cast<size_t>(n0) * D, D, kChunk, kChunk,
@@ -135,8 +152,11 @@ proj_mlp_kernel(const T* __restrict__ x, const T* __restrict__ attn,
     for (int i = threadIdx.x; i < R * kChunk; i += kThreads) {
       const int r = i / kChunk;
       const int c = i - r * kChunk;
-      sH[r * ldh + n0 + c] =
-          from_f<T>(gelu_erf(sC[r * ldc + c] + b1[n0 + c]));
+      const float a = sC[r * ldc + c] + b1[n0 + c];
+      sH[r * ldh + n0 + c] = from_f<T>(gelu_erf(a));
+      if (kStoreA1 && r < valid) {
+        a1_out[static_cast<size_t>(r0 + r) * H + n0 + c] = from_f<T>(a);
+      }
     }
   }
 
@@ -160,8 +180,10 @@ proj_mlp_kernel(const T* __restrict__ x, const T* __restrict__ attn,
   }
 }
 
+// qkv, attn: the first two stages' outputs (scratch for #1, returned by
+// #3); a1: the fc1 pre-activation, stored only when given (#3).
 template <typename T>
-int run_block(const void* x, void* out, void* qkv, void* attn,
+int run_block(const void* x, void* out, void* qkv, void* attn, void* a1,
               const void* ln1g, const void* ln1b, const void* wqkv,
               const void* bqkv, const void* wproj, const void* bproj,
               const void* ln2g, const void* ln2b, const void* w1,
@@ -182,14 +204,16 @@ int run_block(const void* x, void* out, void* qkv, void* attn,
   if (e != cudaSuccess) return e;
 
   const size_t sm3 = proj_mlp_layout<T>(D, H).total;
-  if ((e = set_smem(proj_mlp_kernel<T>, sm3)) != cudaSuccess) return e;
-  proj_mlp_kernel<T><<<row_tiles, kThreads, sm3, stream>>>(
+  const auto proj_mlp = a1 != nullptr ? proj_mlp_kernel<T, true>
+                                      : proj_mlp_kernel<T, false>;
+  if ((e = set_smem(proj_mlp, sm3)) != cudaSuccess) return e;
+  proj_mlp<<<row_tiles, kThreads, sm3, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(attn),
       static_cast<const T*>(wproj), static_cast<const float*>(bproj),
       static_cast<const float*>(ln2g), static_cast<const float*>(ln2b),
       static_cast<const T*>(w1), static_cast<const float*>(b1),
       static_cast<const T*>(w2), static_cast<const float*>(b2),
-      static_cast<T*>(out), M, D, H);
+      static_cast<T*>(out), static_cast<T*>(a1), M, D, H);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -201,16 +225,25 @@ int run_block(const void* x, void* out, void* qkv, void* attn,
       const void *wproj, const void *bproj, const void *ln2g,               \
       const void *ln2b, const void *w1, const void *b1, const void *w2,     \
       const void *b2, int B, int N, int D, int heads, int H, void *stream
-#define VIT_BLOCK_PASS                                                      \
-  x, out, qkv, attn, ln1g, ln1b, wqkv, bqkv, wproj, bproj, ln2g, ln2b, w1,  \
-      b1, w2, b2, B, N, D, heads, H, stream
+#define VIT_BLOCK_PARAMS                                                    \
+  ln1g, ln1b, wqkv, bqkv, wproj, bproj, ln2g, ln2b, w1, b1, w2, b2, B, N, D, \
+      heads, H, stream
 
 extern "C" int vit_block_fwd_bf16(VIT_BLOCK_ARGS) {
-  return run_block<bf16>(VIT_BLOCK_PASS);
+  return run_block<bf16>(x, out, qkv, attn, nullptr, VIT_BLOCK_PARAMS);
 }
 
 extern "C" int vit_block_fwd_f32(VIT_BLOCK_ARGS) {
-  return run_block<float>(VIT_BLOCK_PASS);
+  return run_block<float>(x, out, qkv, attn, nullptr, VIT_BLOCK_PARAMS);
+}
+
+// #3: as vit_block_fwd_*, plus the fc1 pre-activation a1 (B*N, H) in T.
+extern "C" int vit_block_res_fwd_bf16(void* a1, VIT_BLOCK_ARGS) {
+  return run_block<bf16>(x, out, qkv, attn, a1, VIT_BLOCK_PARAMS);
+}
+
+extern "C" int vit_block_res_fwd_f32(void* a1, VIT_BLOCK_ARGS) {
+  return run_block<float>(x, out, qkv, attn, a1, VIT_BLOCK_PARAMS);
 }
 
 extern "C" const char* vit_block_error_string(int code) {

@@ -4,8 +4,11 @@ their plain versions.
 Counterpart of ``rovit_kan_tpu/ops/block_kernel.py::fused_vit_block`` and its
 custom VJP. The TPU kernel ``_vit_block_kernel`` is replaced on Hopper by
 ``csrc/vit_block_fwd.cu`` and the recompute backward ``_vit_block_bwd_kernel``
-by ``csrc/vit_block_bwd.cu`` (the source notes there say what bounds them
-and how they are tiled). One pre-LN block:
+by ``csrc/vit_block_bwd.cu``; the saved-residual pair
+``_vit_block_res_kernel`` / ``_vit_block_bwd_res_kernel`` by the
+``vit_block_res_fwd_*`` and ``vit_block_bwd_res_*`` entries of the same two
+sources (the source notes there say what bounds them and how they are
+tiled). One pre-LN block:
 
     x1 = x + proj(MHA(LN1(x)));  out = x1 + fc2(GELU(fc1(LN2(x1))))
 
@@ -25,11 +28,18 @@ compute dtype once, which the kernels require.
 Under autograd the block is ``FusedViTBlock``: the forward saves only ``x``
 and the parameters (the recompute contract of the JAX custom VJP), and the
 backward gives ``dx`` and the 12 parameter grads, summed over the batch.
+With ``ROVIT_BLOCK_RESIDUAL_BWD=1`` (read each time the forward runs, the
+counterpart of the JAX package reading it at trace time) the forward is the
+residual kernel #3, which also returns qkv, the attention output and the fc1
+pre-activation a1 in the compute dtype; they are saved, and the backward is
+#4, which reads them instead of recomputing the forward. Inference never
+takes #3.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -45,6 +55,17 @@ LN_EPS = 1e-6
 LAUNCHES = 0
 #: Launches of the CUDA block backward, counted the same way.
 BWD_LAUNCHES = 0
+#: Launches of the residual-saving forward (#3) and of the backward that
+#: reads its residuals (#4), counted the same way.
+RES_LAUNCHES = 0
+BWD_RES_LAUNCHES = 0
+
+
+def _residual_bwd() -> bool:
+    """``ROVIT_BLOCK_RESIDUAL_BWD=1`` selects the saved-residual pair (#3 and
+    #4) under autograd; the recompute backward (#2) is the default, as in the
+    JAX package."""
+    return os.environ.get("ROVIT_BLOCK_RESIDUAL_BWD", "0") == "1"
 
 
 def prepare_block_params(params: Dict[str, torch.Tensor],
@@ -65,9 +86,11 @@ def _ln_stats(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
     return xhat * g + b, xhat, inv
 
 
-def block_reference(x: torch.Tensor, params: Dict[str, torch.Tensor],
-                    heads: int) -> torch.Tensor:
-    """Plain PyTorch version of the forward kernel, with its rounding points.
+def _forward_parts(x: torch.Tensor, params: Dict[str, torch.Tensor],
+                   heads: int):
+    """The forward with the kernels' rounding points: the fp32 output, qkv
+    ``(B, N, 3D)`` and the attention output ``(B, N, D)`` in the compute
+    dtype, and the fc1 pre-activation a1 ``(B, N, H)`` in fp32.
 
     Products take operands rounded to the compute dtype and accumulate in
     fp32 (the operands are upcast, so no product is TF32 or bf16-output)."""
@@ -92,9 +115,26 @@ def block_reference(x: torch.Tensor, params: Dict[str, torch.Tensor],
     x1 = xf + (mm(attn, params["wproj"]) + params["bproj"].float())
     z = _ln_stats(x1, params["ln2_scale"].float(),
                   params["ln2_bias"].float())[0]
-    h1 = F.gelu(mm(z, params["w1"]) + params["b1"].float()).to(cd)
+    a1 = mm(z, params["w1"]) + params["b1"].float()
+    h1 = F.gelu(a1).to(cd)
     out = x1 + (mm(h1, params["w2"]) + params["b2"].float())
-    return out.to(x.dtype)
+    return out, qkv, attn, a1
+
+
+def block_reference(x: torch.Tensor, params: Dict[str, torch.Tensor],
+                    heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the forward kernel (#1), with its rounding
+    points (``_forward_parts``)."""
+    return _forward_parts(x, params, heads)[0].to(x.dtype)
+
+
+def block_residual_reference(x: torch.Tensor, params: Dict[str, torch.Tensor],
+                             heads: int):
+    """Plain version of the residual-saving forward (#3): ``(out, qkv, attn,
+    a1)``, the last three in the compute dtype, a1 rounded after its fp32
+    bias add; ``out`` is ``block_reference``'s."""
+    out, qkv, attn, a1 = _forward_parts(x, params, heads)
+    return out.to(x.dtype), qkv, attn, a1.to(x.dtype)
 
 
 def _ln_grad(dz: torch.Tensor, xhat: torch.Tensor, inv: torch.Tensor,
@@ -112,21 +152,14 @@ def _gelu_grad(a: torch.Tensor) -> torch.Tensor:
             + a * 0.3989422804014327 * torch.exp(-0.5 * a * a))
 
 
-def block_backward_reference(x: torch.Tensor, g: torch.Tensor,
-                             params: Dict[str, torch.Tensor], heads: int
-                             ) -> Tuple[torch.Tensor,
-                                        Dict[str, torch.Tensor]]:
-    """Plain PyTorch version of the backward kernel.
-
-    Recomputes the forward, then walks MLP -> LN2 -> proj -> attention ->
-    qkv -> LN1, rounding where ``_vit_block_bwd_kernel`` does: ``g``, ``dx1``
-    and ``dz`` stay fp32; ``da1``, ``dx1``, the attention-output gradient,
-    ``dqkv`` and ``ds`` are rounded to the compute dtype before their
-    products; ``p`` is fp32 in ``ds = p * (dp - rowsum(p * dp)) * scale`` and
-    rounded in ``dV = p^T gO``. Bias and LayerNorm grads sum fp32 values.
-
-    Returns ``dx`` in ``x.dtype`` and the 12 grads in fp32, weights in the
-    ``(out, in)`` layout of their parameters."""
+def _backward_from(x: torch.Tensor, g: torch.Tensor, qkv: torch.Tensor,
+                   attn: torch.Tensor, a1: torch.Tensor,
+                   params: Dict[str, torch.Tensor], heads: int
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The backward both kernels share, from the forward's qkv and attention
+    output (compute dtype) and its fc1 pre-activation ``a1`` (fp32, as the
+    backward reads it). Rebuilds both LayerNorms from ``x``, x1 from ``x``
+    and ``attn`` (one proj product), and S and the fp32 P from q and k."""
     cd = x.dtype
     f32 = torch.float32
     B, N, D = x.shape
@@ -144,21 +177,21 @@ def block_backward_reference(x: torch.Tensor, g: torch.Tensor,
     def rows_of(t):                     # (B, h, N, hd) -> (M, D)
         return t.transpose(1, 2).reshape(M, D)
 
-    # Forward recompute.
+    # What the forward leaves, and what is rebuilt from x.
     xf = x.to(f32).reshape(M, D)
     y, yhat1, inv1 = _ln_stats(xf, P["ln1_scale"], P["ln1_bias"])
     yb = y.to(cd)
-    qkv = (mm(yb, P["wqkv"].t()) + P["bqkv"]).to(cd)
+    qkv = qkv.reshape(M, 3 * D)
+    attn = attn.reshape(M, D)
+    a1 = a1.reshape(M, -1)
     q, k, v = (heads_of(qkv[:, i * D:(i + 1) * D]) for i in range(3))
     s = mm(q, k.transpose(-1, -2)) * scale
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = e / e.sum(dim=-1, keepdim=True)                   # fp32
     p_lo = p.to(cd)
-    attn = rows_of(mm(p_lo, v)).to(cd)
     x1 = xf + (mm(attn, P["wproj"].t()) + P["bproj"])
     z, xhat2, inv2 = _ln_stats(x1, P["ln2_scale"], P["ln2_bias"])
     zb = z.to(cd)
-    a1 = mm(zb, P["w1"].t()) + P["b1"]
     h1 = F.gelu(a1).to(cd)
 
     # Backward.
@@ -192,6 +225,38 @@ def block_backward_reference(x: torch.Tensor, g: torch.Tensor,
     grads["ln1_bias"] = dy.sum(0)
     dx = dx1 + _ln_grad(dy, yhat1, inv1, P["ln1_scale"])
     return dx.reshape(B, N, D).to(x.dtype), {k: grads[k] for k in PKEYS}
+
+
+def block_backward_reference(x: torch.Tensor, g: torch.Tensor,
+                             params: Dict[str, torch.Tensor], heads: int
+                             ) -> Tuple[torch.Tensor,
+                                        Dict[str, torch.Tensor]]:
+    """Plain PyTorch version of the recompute backward kernel (#2).
+
+    Recomputes the forward, then walks MLP -> LN2 -> proj -> attention ->
+    qkv -> LN1, rounding where ``_vit_block_bwd_kernel`` does: ``g``, ``dx1``
+    and ``dz`` stay fp32; ``da1``, ``dx1``, the attention-output gradient,
+    ``dqkv`` and ``ds`` are rounded to the compute dtype before their
+    products; ``p`` is fp32 in ``ds = p * (dp - rowsum(p * dp)) * scale`` and
+    rounded in ``dV = p^T gO``; a1 stays fp32 into GELU and GELU'. Bias and
+    LayerNorm grads sum fp32 values.
+
+    Returns ``dx`` in ``x.dtype`` and the 12 grads in fp32, weights in the
+    ``(out, in)`` layout of their parameters."""
+    _, qkv, attn, a1 = _forward_parts(x, params, heads)
+    return _backward_from(x, g, qkv, attn, a1, params, heads)
+
+
+def block_backward_residual_reference(
+        x: torch.Tensor, g: torch.Tensor, qkv: torch.Tensor,
+        attn: torch.Tensor, a1: torch.Tensor, params: Dict[str, torch.Tensor],
+        heads: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Plain version of the saved-residual backward (#4): the recompute
+    backward's walk and rounding, from the residuals #3 saved (``qkv``,
+    ``attn``, ``a1`` in the compute dtype). GELU and GELU' read a1 as it was
+    stored, so in bf16 the grads are not #2's bits; in fp32 they are the
+    same math."""
+    return _backward_from(x, g, qkv, attn, a1.float(), params, heads)
 
 
 def param_shapes(D: int, hidden: int) -> Dict[str, Tuple[int, ...]]:
@@ -242,6 +307,21 @@ def _check_bwd_args(x: torch.Tensor, g: torch.Tensor,
             f"{x.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
 
 
+def _check_residuals(x: torch.Tensor, qkv: torch.Tensor, attn: torch.Tensor,
+                     a1: torch.Tensor, hidden: int) -> None:
+    """What #4 takes besides #2's arguments: the three residuals #3 returns,
+    contiguous, in x's dtype, on x's device."""
+    B, N, D = x.shape
+    for name, t, width in (("qkv", qkv, 3 * D), ("attn", attn, D),
+                           ("a1", a1, hidden)):
+        if tuple(t.shape) != (B, N, width) or t.dtype != x.dtype \
+                or t.device != x.device or not t.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous {(B, N, width)} {x.dtype} "
+                f"tensor on {x.device}, got {tuple(t.shape)} {t.dtype} on "
+                f"{t.device}")
+
+
 _FWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _WS_ARGTYPES = [ctypes.c_int] * 5
@@ -251,10 +331,11 @@ _WS_ARGTYPES = [ctypes.c_int] * 5
 def _library():
     from rovit_kan_tpu_torch.ops import _build
     lib = _build.load("vit_block_fwd")
-    for name in ("vit_block_fwd_bf16", "vit_block_fwd_f32"):
-        fn = getattr(lib, name)
-        fn.argtypes = _FWD_ARGTYPES
-        fn.restype = ctypes.c_int
+    for name, extra in (("vit_block_fwd", 0), ("vit_block_res_fwd", 1)):
+        for suffix in ("bf16", "f32"):
+            fn = getattr(lib, f"{name}_{suffix}")
+            fn.argtypes = [ctypes.c_void_p] * extra + _FWD_ARGTYPES
+            fn.restype = ctypes.c_int
     lib.vit_block_error_string.argtypes = [ctypes.c_int]
     lib.vit_block_error_string.restype = ctypes.c_char_p
     return lib
@@ -264,97 +345,166 @@ def _library():
 def _bwd_library():
     from rovit_kan_tpu_torch.ops import _build
     lib = _build.load("vit_block_bwd")
-    for suffix in ("bf16", "f32"):
-        fn = getattr(lib, f"vit_block_bwd_{suffix}")
-        fn.argtypes = _BWD_ARGTYPES
-        fn.restype = ctypes.c_int
-        ws = getattr(lib, f"vit_block_bwd_workspace_{suffix}")
-        ws.argtypes = _WS_ARGTYPES
-        ws.restype = ctypes.c_size_t
+    for name, extra in (("vit_block_bwd", 0), ("vit_block_bwd_res", 3)):
+        for suffix in ("bf16", "f32"):
+            fn = getattr(lib, f"{name}_{suffix}")
+            fn.argtypes = [ctypes.c_void_p] * extra + _BWD_ARGTYPES
+            fn.restype = ctypes.c_int
+            ws = getattr(lib, f"{name}_workspace_{suffix}")
+            ws.argtypes = _WS_ARGTYPES
+            ws.restype = ctypes.c_size_t
     lib.vit_block_bwd_error_string.argtypes = [ctypes.c_int]
     lib.vit_block_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(x: torch.Tensor, params: Dict[str, torch.Tensor],
-            heads: int) -> torch.Tensor:
-    global LAUNCHES
+def _run_fwd(x: torch.Tensor, params: Dict[str, torch.Tensor], heads: int,
+             residual: bool):
+    """Launches #1, or #3 when ``residual``; returns ``(out, qkv, attn,
+    a1)``, the last three ``(B * N, width)`` (a1 None for #1)."""
     _check_cuda_args(x, params, heads)
     B, N, D = x.shape
     hidden = params["w1"].shape[0]
     lib = _library()
+    suffix = "bf16" if x.dtype == torch.bfloat16 else "f32"
     with torch.cuda.device(x.device):
         out = torch.empty_like(x)
         qkv = torch.empty((B * N, 3 * D), dtype=x.dtype, device=x.device)
         attn = torch.empty((B * N, D), dtype=x.dtype, device=x.device)
-        fn = (lib.vit_block_fwd_bf16 if x.dtype == torch.bfloat16
-              else lib.vit_block_fwd_f32)
+        a1 = (torch.empty((B * N, hidden), dtype=x.dtype, device=x.device)
+              if residual else None)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), out.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
+        args = (x.data_ptr(), out.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
                 *(params[k].data_ptr() for k in PKEYS),
                 B, N, D, heads, hidden, stream)
+        rc = (getattr(lib, f"vit_block_res_fwd_{suffix}")(a1.data_ptr(), *args)
+              if residual else getattr(lib, f"vit_block_fwd_{suffix}")(*args))
     if rc != 0:
         msg = lib.vit_block_error_string(rc).decode()
-        raise RuntimeError(f"vit_block_fwd launch failed: CUDA error {rc} "
+        name = "vit_block_res_fwd" if residual else "vit_block_fwd"
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
                            f"({msg}) at B={B} N={N} D={D} heads={heads}")
+    return out, qkv, attn, a1
+
+
+def _launch(x: torch.Tensor, params: Dict[str, torch.Tensor],
+            heads: int) -> torch.Tensor:
+    """Kernel #1: the block's output."""
+    global LAUNCHES
+    out = _run_fwd(x, params, heads, residual=False)[0]
     LAUNCHES += 1
     return out
 
 
-def _launch_bwd(x: torch.Tensor, g: torch.Tensor,
-                params: Dict[str, torch.Tensor], heads: int
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    global BWD_LAUNCHES
+def _launch_res(x: torch.Tensor, params: Dict[str, torch.Tensor],
+                heads: int):
+    """Kernel #3: ``(out, qkv, attn, a1)``, the residuals ``(B, N, .)`` in
+    x's dtype; ``out`` has #1's bits."""
+    global RES_LAUNCHES
+    out, qkv, attn, a1 = _run_fwd(x, params, heads, residual=True)
+    RES_LAUNCHES += 1
+    B, N, _ = x.shape
+    return out, qkv.view(B, N, -1), attn.view(B, N, -1), a1.view(B, N, -1)
+
+
+def _run_bwd(x: torch.Tensor, g: torch.Tensor,
+             params: Dict[str, torch.Tensor], heads: int, saved=None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Launches #2, or #4 from ``saved`` = ``(qkv, attn, a1)``."""
     _check_bwd_args(x, g, params, heads)
     B, N, D = x.shape
     hidden = params["w1"].shape[0]
+    if saved is not None:
+        _check_residuals(x, *saved, hidden)
     lib = _bwd_library()
+    name = "vit_block_bwd" if saved is None else "vit_block_bwd_res"
     suffix = "bf16" if x.dtype == torch.bfloat16 else "f32"
     shapes = param_shapes(D, hidden)
     sizes = [int(torch.Size(s).numel()) for s in shapes.values()]
     with torch.cuda.device(x.device):
         dx = torch.empty_like(x)
         flat = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
-        nbytes = getattr(lib, f"vit_block_bwd_workspace_{suffix}")(
+        nbytes = getattr(lib, f"{name}_workspace_{suffix}")(
             B, N, D, heads, hidden)
         work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, f"vit_block_bwd_{suffix}")(
+        rc = getattr(lib, f"{name}_{suffix}")(
+            *(t.data_ptr() for t in saved or ()),
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), flat.data_ptr(),
             work.data_ptr(), *(params[k].data_ptr() for k in PKEYS),
             B, N, D, heads, hidden, stream)
     if rc != 0:
         msg = lib.vit_block_bwd_error_string(rc).decode()
-        raise RuntimeError(f"vit_block_bwd launch failed: CUDA error {rc} "
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
                            f"({msg}) at B={B} N={N} D={D} heads={heads}")
-    BWD_LAUNCHES += 1
     grads = {k: t.view(s) for (k, s), t in
              zip(shapes.items(), torch.split(flat, sizes))}
     return dx, grads
 
 
-def _forward(x, params, heads, plain: bool):
+def _launch_bwd(x: torch.Tensor, g: torch.Tensor,
+                params: Dict[str, torch.Tensor], heads: int
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Kernel #2: dx and the 12 grads."""
+    global BWD_LAUNCHES
+    out = _run_bwd(x, g, params, heads)
+    BWD_LAUNCHES += 1
+    return out
+
+
+def _launch_bwd_res(x: torch.Tensor, g: torch.Tensor, qkv: torch.Tensor,
+                    attn: torch.Tensor, a1: torch.Tensor,
+                    params: Dict[str, torch.Tensor], heads: int
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Kernel #4: dx and the 12 grads from #3's residuals."""
+    global BWD_RES_LAUNCHES
+    out = _run_bwd(x, g, params, heads, (qkv, attn, a1))
+    BWD_RES_LAUNCHES += 1
+    return out
+
+
+def _runs_plain(x: torch.Tensor, plain: bool) -> bool:
+    """True where the plain versions run: a CPU tensor, or ``plain``."""
     if x.device.type == "cpu" or plain:
-        return block_reference(x, params, heads)
+        return True
     if x.device.type != "cuda":
         raise ValueError(f"fused_vit_block runs on cpu or cuda, got "
                          f"{x.device}")
+    return False
+
+
+def _forward(x, params, heads, plain: bool):
+    if _runs_plain(x, plain):
+        return block_reference(x, params, heads)
     return _launch(x, params, heads)
 
 
-def _backward(x, g, params, heads, plain: bool):
-    if x.device.type == "cpu" or plain:
-        return block_backward_reference(x, g, params, heads)
-    return _launch_bwd(x, g.to(torch.float32).contiguous(), params, heads)
+def _forward_res(x, params, heads, plain: bool):
+    if _runs_plain(x, plain):
+        return block_residual_reference(x, params, heads)
+    return _launch_res(x, params, heads)
+
+
+def _backward(x, g, params, heads, plain: bool, saved=None):
+    if _runs_plain(x, plain):
+        if saved is None:
+            return block_backward_reference(x, g, params, heads)
+        return block_backward_residual_reference(x, g, *saved, params, heads)
+    g = g.to(torch.float32).contiguous()
+    if saved is None:
+        return _launch_bwd(x, g, params, heads)
+    return _launch_bwd_res(x, g, *saved, params, heads)
 
 
 class FusedViTBlock(torch.autograd.Function):
     """The block under autograd: ``apply(x, heads, kernel_params, plain,
     *params)`` with the 12 parameters in ``PKEYS`` order.
 
-    The forward saves ``x`` and the parameters and nothing else; the
-    backward recomputes the forward (kernel #2 on the card, its plain
-    version on the CPU or when ``plain``). ``kernel_params`` is the
+    By default the forward saves ``x`` and the parameters and nothing else,
+    and the backward recomputes the forward (kernel #2 on the card, its plain
+    version on the CPU or when ``plain``). With ``ROVIT_BLOCK_RESIDUAL_BWD=1``
+    the forward is #3 and also saves its qkv, attention output and a1, and
+    the backward is #4 (or their plain versions). ``kernel_params`` is the
     parameters already cast by ``prepare_block_params`` (a cache the caller
     keeps), or None to cast them here; the grads go to ``params``, each in
     its own dtype."""
@@ -366,14 +516,22 @@ class FusedViTBlock(torch.autograd.Function):
             raw = dict(zip(PKEYS, params))
             kp = (raw if x.device.type == "cpu" or plain
                   else prepare_block_params(raw, x.dtype))
-        ctx.save_for_backward(x, *params)
         ctx.heads, ctx.kernel_params, ctx.plain = heads, kp, plain
+        ctx.residual = _residual_bwd()
+        if ctx.residual:
+            out, *saved = _forward_res(x, kp, heads, plain)
+            ctx.save_for_backward(x, *saved, *params)
+            return out
+        ctx.save_for_backward(x, *params)
         return _forward(x, kp, heads, plain)
 
     @staticmethod
     def backward(ctx, g):
-        x, *params = ctx.saved_tensors
-        dx, grads = _backward(x, g, ctx.kernel_params, ctx.heads, ctx.plain)
+        x, *rest = ctx.saved_tensors
+        saved, params = ((rest[:3], rest[3:]) if ctx.residual
+                         else (None, rest))
+        dx, grads = _backward(x, g, ctx.kernel_params, ctx.heads, ctx.plain,
+                              saved)
         return (dx.to(x.dtype), None, None, None,
                 *(grads[k].to(p.dtype) for k, p in zip(PKEYS, params)))
 

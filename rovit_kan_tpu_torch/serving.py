@@ -17,7 +17,8 @@ Counterpart of ``rovit_kan_tpu/serving.py``, with the same semantics:
 - busy-span throughput stats.
 
 ``MicroBatcher`` is copied from the JAX package (it is NumPy and threads
-only). ``load_engine`` reads orbax checkpoints and comes later.
+only). ``load_engine`` builds an engine from a checkpoint of the port's
+``Trainer`` (``utils/checkpoint.py``).
 """
 from __future__ import annotations
 
@@ -402,3 +403,24 @@ class MicroBatcher:
             pending = new_pending
             if stop and pending is None:
                 return
+
+
+def load_engine(checkpoint_path, batch_size: int = 64, config=None,
+                image_size: int = None, temperature: float = None,
+                device="cuda") -> InferenceEngine:
+    """Checkpoint -> engine on ``device``. ``image_size`` serves at another
+    resolution than trained (``transfer_resolution``; at >= 512 tokens in
+    bf16 on the card the "auto" policy picks the attention kernels for an
+    unfused block). ``temperature=None`` adopts the calibration temperature
+    recorded in the checkpoint's sidecar, when there is one; pass a float to
+    override it, or 1.0 to serve raw confidences."""
+    from rovit_kan_tpu_torch.evaluation.evaluator import \
+        load_model_for_evaluation
+    from rovit_kan_tpu_torch.utils.checkpoint import load_meta
+    model, _ = load_model_for_evaluation(checkpoint_path, config,
+                                         image_size=image_size, device=device)
+    if temperature is None:
+        temperature = float(load_meta(checkpoint_path).get("temperature",
+                                                           1.0))
+    return InferenceEngine(model, batch_size=batch_size,
+                           temperature=temperature, device=device)

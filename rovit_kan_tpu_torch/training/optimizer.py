@@ -20,11 +20,16 @@ The update itself is applied to each parameter in place (one
 steps (``set_hyperparams``): 0 freezes the backbone (its update is exactly
 zero, decay included) and ``zero_backbone_grads`` keeps its Adam moments
 cold meanwhile, as ``requires_grad=False`` would.
+
+With ``accum_steps = k > 1`` a step is ``optax.MultiSteps``: the gradients of
+k micro-batches are averaged (the running mean ``acc + (g - acc) / (n + 1)``)
+and only every k-th call updates the parameters and moves the step count;
+``applied`` says whether the last call did.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -38,7 +43,7 @@ class FlatAdamW:
     def __init__(self, model: nn.Module, learning_rate: float,
                  backbone_scale: float = 0.1, *, weight_decay: float = 1e-4,
                  clip: float = 1.0, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, accum_steps: int = 1):
         named: List[Tuple[str, nn.Parameter]] = [
             (k, p) for k, p in model.named_parameters() if p.requires_grad]
         # Backbone first, so its grads are one leading slice.
@@ -68,6 +73,49 @@ class FlatAdamW:
         self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
         self._factors = torch.ones_like(self.flat)
         self._factor_scale = None
+        self.accum_steps = int(accum_steps)
+        self.acc = (torch.zeros_like(self.flat) if self.accum_steps > 1
+                    else None)
+        self.mini_step = 0
+
+    @property
+    def applied(self) -> bool:
+        """Whether the last ``step`` updated the parameters (always, unless
+        it was an accumulation micro-step)."""
+        return self.mini_step == 0
+
+    def reset(self) -> None:
+        """Fresh moments, step count and accumulator."""
+        self.mu.zero_()
+        self.nu.zero_()
+        self.count = 0
+        self.mini_step = 0
+        if self.acc is not None:
+            self.acc.zero_()
+
+    def state_dict(self) -> Dict:
+        """The optimizer's state: the parameter names in flat order, the
+        moments, the step count and, with accumulation, the running mean
+        and the micro-step. The tensors are the live buffers."""
+        return {"names": list(self.names), "mu": self.mu, "nu": self.nu,
+                "count": self.count, "accum_steps": self.accum_steps,
+                "acc": self.acc, "mini_step": self.mini_step}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        """Copies ``state`` in; raises ValueError where it was written for
+        other parameters or another ``accum_steps``."""
+        if list(state["names"]) != self.names \
+                or state["mu"].numel() != self.mu.numel() \
+                or int(state.get("accum_steps", 1)) != self.accum_steps:
+            raise ValueError("optimizer state of another structure: other "
+                             "parameters or another accum_steps")
+        self.mu.copy_(state["mu"])
+        self.nu.copy_(state["nu"])
+        self.count = int(state["count"])
+        self.mini_step = int(state.get("mini_step", 0))
+        if self.acc is not None:
+            self.acc.copy_(state["acc"])
 
     def zero_grad(self) -> None:
         self.grad.zero_()
@@ -79,10 +127,18 @@ class FlatAdamW:
         return self._factors
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
-        """One update from the accumulated grads; returns the global grad
-        norm before clipping (a 0-dim tensor, not synchronised)."""
+    def step(self) -> Optional[torch.Tensor]:
+        """One update from the grads; returns the global grad norm before
+        clipping (a 0-dim tensor, not synchronised), or None on an
+        accumulation micro-step, which only adds the grads to the mean."""
         g = self.grad
+        if self.acc is not None:
+            self.acc.add_((g - self.acc) / (self.mini_step + 1))
+            self.mini_step = (self.mini_step + 1) % self.accum_steps
+            if self.mini_step:
+                return None
+            g = self.acc.clone()
+            self.acc.zero_()
         gnorm = torch.sqrt(torch.sum(g * g))
         g = g * (self.clip / torch.clamp(gnorm, min=self.clip))
         self.count += 1
@@ -105,17 +161,18 @@ class FlatAdamW:
 
 def build_optimizer(model: nn.Module, config: Config) -> FlatAdamW:
     """The flat AdamW with the config's learning rate, weight decay and
-    clip, and the backbone at 0.1 of the learning rate. Gradient
-    accumulation (``train.accum_steps > 1``) comes with the trainer."""
-    if getattr(config.train, "accum_steps", 1) > 1:
-        raise NotImplementedError("accum_steps > 1 is not ported yet")
+    clip, the backbone at 0.1 of the learning rate, and gradient
+    accumulation over ``train.accum_steps`` micro-batches."""
     return FlatAdamW(model, config.train.learning_rate, 0.1,
                      weight_decay=config.train.weight_decay,
-                     clip=config.flags.gradient_clip)
+                     clip=config.flags.gradient_clip,
+                     accum_steps=getattr(config.train, "accum_steps", 1))
 
 
 def set_hyperparams(optimizer: FlatAdamW, learning_rate: float,
                     backbone_scale: float) -> FlatAdamW:
+    """Sets the head learning rate and the backbone's factor (0 frozen, 0.1
+    live); under accumulation they apply from the next update on."""
     optimizer.learning_rate = float(learning_rate)
     optimizer.backbone_scale = float(backbone_scale)
     return optimizer

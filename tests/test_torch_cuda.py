@@ -1,6 +1,7 @@
 """Port tests that need an NVIDIA GPU: the CUDA kernels (block forward #1,
-block backward #2, attention forward #5 and backward #6, augment #7, the KAN
-kernels #8-#11) against their plain versions, the served model through the
+block backward #2, the saved-residual pair #3/#4, attention forward #5 and
+backward #6, augment #7, the KAN kernels #8-#11) against their plain
+versions, the served model through the
 block kernel, and small train steps through #1, #2 and #7 and through #5,
 #6 and #7. They skip where
 ``torch.cuda.is_available()`` is False. This file imports neither jax nor
@@ -159,6 +160,98 @@ def test_backward_kernel_matches_plain(cuda, shape, dtype):
     again = bk._launch_bwd(x, g, p, heads)[1]        # no atomics: same bits
     for k in bk.PKEYS:
         assert torch.equal(again[k], grads[k]), k
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [(3, 37, 64, 2), (2, 197, 192, 3),
+                                   (1, 5, 128, 4), (2, 577, 192, 3),
+                                   (1, 1024, 128, 2)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_residual_forward_kernel_matches_plain(cuda, shape, dtype):
+    """#3: the output has #1's bits; qkv, attn and a1 within ``_tol`` of
+    ``block_residual_reference``'s."""
+    B, N, D, heads = shape
+    rng = np.random.RandomState(sum(shape) + 2)
+    p = _params(rng, D, 4 * D, dtype, cuda)
+    x = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32)
+    x = x.to(cuda, dtype)
+    before = (bk.LAUNCHES, bk.RES_LAUNCHES)
+    with torch.no_grad():
+        got = bk._launch_res(x, p, heads)
+        plain_out = bk._launch(x, p, heads)
+        want = bk.block_residual_reference(x, p, heads)
+    torch.cuda.synchronize()
+    assert (bk.LAUNCHES, bk.RES_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got[0], plain_out)
+    for name, g, w, width in zip(("out", "qkv", "attn", "a1"), got, want,
+                                 (D, 3 * D, D, 4 * D)):
+        assert g.dtype == dtype and g.shape == (B, N, width), name
+        assert torch.isfinite(g.float()).all(), name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= _tol(w, dtype), (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [(3, 37, 64, 2), (2, 197, 192, 3),
+                                   (1, 5, 128, 4), (2, 577, 192, 3),
+                                   (1, 1024, 128, 2)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_residual_backward_kernel_matches_plain(cuda, shape, dtype):
+    """#4 from #3's residuals against ``block_backward_residual_reference``
+    on the same residuals, within ``_bwd_tol``; the same bits on repeat."""
+    B, N, D, heads = shape
+    rng = np.random.RandomState(sum(shape) + 3)
+    p = _params(rng, D, 4 * D, dtype, cuda)
+    x = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32)
+    x = x.to(cuda, dtype)
+    g = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32,
+                     device=cuda)
+    with torch.no_grad():
+        _, qkv, attn, a1 = bk._launch_res(x, p, heads)
+        before = (bk.BWD_LAUNCHES, bk.BWD_RES_LAUNCHES)
+        dx, grads = bk._launch_bwd_res(x, g, qkv, attn, a1, p, heads)
+        torch.cuda.synchronize()
+        assert (bk.BWD_LAUNCHES, bk.BWD_RES_LAUNCHES) == (before[0],
+                                                          before[1] + 1)
+        assert dx.dtype == dtype
+        want_dx, want = bk.block_backward_residual_reference(
+            x, g, qkv, attn, a1, p, heads)
+        _assert_grads(dx, grads, want_dx, want, dtype)
+        again = bk._launch_bwd_res(x, g, qkv, attn, a1, p, heads)
+    assert torch.equal(again[0], dx)
+    for k in bk.PKEYS:
+        assert torch.equal(again[1][k], grads[k]), k
+
+
+def test_residual_block_under_autograd(cuda, monkeypatch):
+    """With ``ROVIT_BLOCK_RESIDUAL_BWD=1`` the block under autograd runs #3
+    and #4 (no #1 or #2) and its grads match the plain residual pair's;
+    without grad it still runs #1."""
+    monkeypatch.setenv("ROVIT_BLOCK_RESIDUAL_BWD", "1")
+    rng = np.random.RandomState(4)
+    p32 = {k: v.clone().requires_grad_()
+           for k, v in _params(rng, 64, 256, torch.float32, cuda).items()}
+    x = torch.tensor(rng.normal(0, 1, (2, 5, 64)), dtype=torch.float32,
+                     device=cuda, requires_grad=True)
+    g = torch.tensor(rng.normal(0, 1, (2, 5, 64)), dtype=torch.float32,
+                     device=cuda)
+    counts = (bk.LAUNCHES, bk.BWD_LAUNCHES, bk.RES_LAUNCHES,
+              bk.BWD_RES_LAUNCHES)
+    bk.fused_vit_block(x, p32, 2).backward(g)
+    with torch.no_grad():
+        bk.fused_vit_block(x, p32, 2)
+    torch.cuda.synchronize()
+    assert (bk.LAUNCHES, bk.BWD_LAUNCHES, bk.RES_LAUNCHES,
+            bk.BWD_RES_LAUNCHES) == (counts[0] + 1, counts[1],
+                                     counts[2] + 1, counts[3] + 1)
+    with torch.no_grad():
+        _, *saved = bk.block_residual_reference(x, p32, 2)
+        dx, grads = bk.block_backward_residual_reference(x.detach(), g,
+                                                         *saved, p32, 2)
+    _assert_grads(x.grad, {k: p32[k].grad for k in bk.PKEYS}, dx, grads,
+                  torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -376,6 +469,54 @@ def test_train_step_through_the_kernels(cuda):
     lk, gk, nk = run(False)
     lp, gp, npl = run(True)
     assert nk == (2, 2, 1) and npl == (0, 0, 0)
+    assert np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)
+    assert float((gk - gp).norm()) <= 5e-2 * float(gp.norm())
+
+
+def test_train_step_through_the_residual_kernels(cuda, monkeypatch):
+    """One small bf16 train step with ``ROVIT_BLOCK_RESIDUAL_BWD=1``: #3 and
+    #4 per block (no #1 or #2) and #7, against the same step through the
+    plain residual pair and the plain augment; the tolerances of
+    ``test_train_step_through_the_kernels``."""
+    monkeypatch.setenv("ROVIT_BLOCK_RESIDUAL_BWD", "1")
+    kw = dict(embed_dim=64, depth=2, num_heads=2, image_size=32,
+              kan_layers=(64, 8, 1), hidden_dim=16, dropout=0.0,
+              dtype=torch.bfloat16, use_pallas_block=True)
+    cfg = Config()
+    rng = np.random.RandomState(5)
+    labels = torch.tensor(rng.randint(0, 4, 8), device=cuda)
+    batch = {"images": torch.tensor(rng.randint(0, 256, (8, 32, 32, 3)),
+                                    dtype=torch.uint8, device=cuda),
+             "labels": labels, "severity": labels.float()}
+    draws = {"factors": ak.draw_factors(
+                 torch.Generator(cuda).manual_seed(0), 8),
+             "mix": draw_mix(torch.Generator().manual_seed(1), 8, 32, 32),
+             "dropout": None}
+
+    def counts():
+        return (bk.LAUNCHES, bk.BWD_LAUNCHES, bk.RES_LAUNCHES,
+                bk.BWD_RES_LAUNCHES, ak.LAUNCHES)
+
+    def run(plain):
+        model = RoViTKAN(**kw)
+        init_weights(model, seed=0)
+        model.to(cuda)
+        if plain:
+            for blk in model.backbone.model.blocks:
+                blk.block_fn = bk.plain_vit_block
+        opt = build_optimizer(model, cfg)
+        step = make_train_step(model, opt, cfg)
+        if plain:
+            step.augment = ak.augment_reference
+        before = counts()
+        loss = float(step(batch, 4, 1.0, 1, draws=draws)["total_loss"])
+        torch.cuda.synchronize()
+        return loss, opt.grad.clone(), tuple(
+            a - b for a, b in zip(counts(), before))
+
+    lk, gk, nk = run(False)
+    lp, gp, npl = run(True)
+    assert nk == (0, 0, 2, 2, 1) and npl == (0, 0, 0, 0, 0)
     assert np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)
     assert float((gk - gp).norm()) <= 5e-2 * float(gp.norm())
 

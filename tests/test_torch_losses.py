@@ -163,9 +163,14 @@ def test_optimizer_schedule_and_refusals():
     assert topt.cosine_lr(cfg, cfg.train.epochs + 1) == pytest.approx(1e-6)
     assert topt.cosine_schedule(1.0, 2, 4, 0.0) == pytest.approx(
         jopt.cosine_schedule(1.0, 2, 4, 0.0))
+    # Gradient accumulation is built (optax.MultiSteps semantics, held in
+    # tests/test_torch_trainer.py); a state of another structure is refused.
     cfg.train.accum_steps = 2
-    with pytest.raises(NotImplementedError):
-        topt.build_optimizer(RoViTKAN(**KW), cfg)
+    opt = topt.build_optimizer(RoViTKAN(**KW), cfg)
+    assert opt.accum_steps == 2 and opt.applied
+    one = topt.build_optimizer(RoViTKAN(**KW), Config())
+    with pytest.raises(ValueError, match="another structure"):
+        opt.load_state_dict(one.state_dict())
 
 
 def test_frozen_backbone_does_not_move():

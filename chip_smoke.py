@@ -46,14 +46,17 @@ exits non-zero:
 7. long: the flagship at 384 px (577 tokens), batch 32, its weights the
    seed-0 224-px model's carried over by ``transfer_resolution``: the
    attention-only kernels #5/#6 at (32, 3, 577, 64) and (64, 3, 197, 64)
-   and #1/#2 at (32, 577, 192), bf16 and fp32, against their plain versions
-   (same bits on repeat for #5/#6) and timed beside their bounds, the plain
-   versions and SDPA; served through ``InferenceEngine`` with "auto" (12 x
-   #1 per batch, no #5) and with ``use_pallas_block=False`` (12 x #5 per
-   batch, no #1), each held against its plain versions and the fp32 model
-   as in "serve"; three train steps with ``use_pallas_block=False,
-   use_pallas_attention=True`` (12 x #5, 12 x #6, 1 x #7 each), two with
-   "auto" (12 x #1, 12 x #2, 1 x #7 each), finite losses; one step held per
+   (bf16: the mma.sync kernels of ``attention_mma.cuh``; fp32: the streamed
+   stages) and #1/#2 at (32, 577, 192), bf16 and fp32, against their plain
+   versions (same bits on repeat for #5/#6) and timed beside their bounds,
+   the plain versions and SDPA (#5/#6 and SDPA's forward also by CUDA-graph
+   replay); served through ``InferenceEngine``
+   with "auto" (12 x #1 per batch, no #5) and with
+   ``use_pallas_block=False`` (12 x #5 per batch, no #1), each held
+   against its plain versions and the fp32 model as in "serve"; three
+   train steps with ``use_pallas_block=False, use_pallas_attention=True``
+   (12 x #5, 12 x #6, 1 x #7 each), two with "auto" (12 x #1, 12 x #2,
+   1 x #7 each), finite losses; one step held per
    parameter against the same step with #6's plain version;
 8. fit: the saved-residual pair. #3 and #4 at (64, 197, 192) and
    (32, 577, 192), bf16 and fp32, against their plain versions (#3's output
@@ -457,6 +460,24 @@ def device_ms(fn, kernels=None, calls: int = 50) -> float:
     if not us > 0:
         raise RuntimeError("the profile recorded no device time")
     return us / 1e3 / calls
+
+
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device time per call of ``fn``: CUDA events around replays of one
+    CUDA graph that captured ``calls`` calls, so the host enqueues one graph
+    launch per replay and a call whose host work exceeds its device time is
+    still timed by the device."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, reps=10, inner=3) / calls
 
 
 def check_kan(seed: int):
@@ -1303,12 +1324,18 @@ def attention_bounds(shape, dtype) -> dict:
     return out
 
 
+# The route of #5/#6 by dtype (csrc/attention.cu).
+ATTN_DESIGN = {torch.bfloat16: "mma.sync two-pass, registers",
+               torch.float32: "streamed stages, FMA from shared memory"}
+
+
 def check_attention(shape, dtype, seed: int):
     """#5 and #6 against ``attention_reference`` and
     ``attention_backward_reference`` on seeded inputs (q pre-scaled), the
     same bits on a repeated call, and timed (CUDA events) beside their
     bounds, the plain versions and SDPA (forward, and forward + backward,
-    the library yardstick; never on the port's path). Tolerances: the
+    the library yardstick; never on the port's path), and the kernels' and
+    SDPA's forward device time from CUDA-graph replays. Tolerances: the
     forward's fp32 output within 1e-4 in fp32 and two bf16 ulps at its
     largest magnitude in bf16 (both round P at the same point; they differ
     where an fp32 sum in another order crosses a rounding boundary); the
@@ -1373,21 +1400,36 @@ def check_attention(shape, dtype, seed: int):
 
     sdpa_fb = time_ms(sdpa_fwd_bwd, reps=9)
     port_fb = time_ms(port_fwd_bwd, reps=9)
+    # Device time beside the event times (once a call's host work exceeds
+    # its kernel's device time, events time the host): replays of a CUDA
+    # graph of the wrapper calls (the backward's includes the wrapper's cast
+    # of g).
+    with torch.no_grad():
+        graph_f = graph_ms(lambda: at._launch(q, k, v))
+        graph_b = graph_ms(lambda: at._launch_bwd(q, k, v, g))
+        sdpa_graph_f = graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=1.0))
     bounds = attention_bounds(shape, dtype)
     common = {"dtype": str(dtype).replace("torch.", ""), "shape": list(shape),
-              "identical_bits_on_repeat": True}
+              "design": ATTN_DESIGN[dtype],
+              "identical_bits_on_repeat": True,
+              "kernel_ms_source": "CUDA events around 10 back-to-back calls",
+              "kernel_graph_ms_source": "CUDA events around replays of a "
+                                        "CUDA graph of 20 calls, per call"}
     fwd = {"replaces": "rovit_kan_tpu/ops/attention.py::_attention_kernel",
            **common, "outputs": {"out": errs["out"]},
            "max_abs_err": errs["out"]["max_abs_err"], "kernel_ms": ms_f,
-           "plain_ms": plain_f, "library_ms": sdpa_f, "library": SDPA,
+           "kernel_graph_ms": graph_f, "plain_ms": plain_f,
+           "library_ms": sdpa_f, "library_graph_ms": sdpa_graph_f,
+           "library": SDPA,
            **bounds["fwd"]}
     bwd = {"replaces": "rovit_kan_tpu/ops/attention.py::"
                        "_attention_bwd_kernel",
            **common, "outputs": {k: errs[k] for k in ("dq", "dk", "dv")},
            "max_abs_err": max(errs[k]["max_abs_err"]
                               for k in ("dq", "dk", "dv")),
-           "kernel_ms": ms_b, "plain_ms": plain_b, "library_ms": sdpa_fb,
-           "library": SDPA + " forward + backward",
+           "kernel_ms": ms_b, "kernel_graph_ms": graph_b, "plain_ms": plain_b,
+           "library_ms": sdpa_fb, "library": SDPA + " forward + backward",
            "port_fwd_bwd_ms": port_fb, **bounds["bwd"]}
     return fwd, bwd
 
@@ -2125,13 +2167,18 @@ def main() -> int:
     def attn_entry(name, line, i):
         by_path = long_launches(name)
         lo = attn[LONG_TOKENS, torch.bfloat16][i]
+        graph = ("kernel_graph_ms",) + (() if i else ("library_graph_ms",))
+        akeys = keys + graph + ("design",)
         return {**entry(name, csrc + "attention.cu",
                         f"rovit_kan_tpu/ops/attention.py:{line}",
                         sum(by_path.values()), lo,
                         attn[LONG_TOKENS, torch.float32][i],
                         launches_by_path=by_path, library=lo["library"],
+                        design=lo["design"],
+                        device_source=csrc + "attention_mma.cuh",
+                        **{k: lo[k] for k in graph},
                         n197={str(d).replace("torch.", ""):
-                              {k: attn[TOKENS, d][i][k] for k in keys}
+                              {k: attn[TOKENS, d][i][k] for k in akeys}
                               for d in (torch.bfloat16, torch.float32)}),
                 **({"port_fwd_bwd_ms": lo["port_fwd_bwd_ms"]} if i else {})}
 

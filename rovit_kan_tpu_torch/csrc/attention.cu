@@ -3,11 +3,14 @@
 //
 // Replaces rovit_kan_tpu/ops/attention.py::_attention_kernel (#5, the
 // forward of fused_attention) and ::_attention_bwd_kernel (#6, its custom-VJP
-// backward). Both run the streamed attention stages of
-// attention_common.cuh, the same device code that the ViT-block kernels run
-// inside a block, here with scale 1 (q comes pre-scaled, and the scale's own
-// gradient comes from autograd of q * scale outside) and over strided
-// (B, heads, N, hd) views. Rounding points are the TPU kernels':
+// backward), with scale 1 (q comes pre-scaled, and the scale's own gradient
+// comes from autograd of q * scale outside), over strided (B, heads, N, hd)
+// views. The route is chosen by dtype:
+//   bf16: attention_mma.cuh, mma.sync two-pass kernels with S, P, dS and the
+//         accumulators in registers and a cp.async ring (its note says how);
+//   fp32: the streamed stages of attention_common.cuh (FMA products from
+//         shared memory), the device code #1/#2 run inside a block.
+// Rounding points are the TPU kernels':
 //   forward:  S = q . k^T in fp32, softmax in fp32, P rounded to the input
 //             type T, O = P . v accumulated and returned in fp32;
 //   backward: g (fp32) is cast to T by the wrapper; dV = P^T . g with P
@@ -20,7 +23,7 @@
 // not the dO . O identity, so it does not depend on O's rounding.
 // The TPU kernels pad N to a multiple of 128 lanes and carry G heads per
 // program for the TPU's layout; here the grid is (query or key tile, head,
-// image) and the ragged edge is masked in the loops.
+// image) and the ragged edge is masked.
 //
 // What bounds them on an H100 SXM (989 TFLOP/s dense bf16, 67 TFLOP/s fp32,
 // 3.35 TB/s HBM), at (B, heads, N, hd) = (32, 3, 577, 64) in bf16:
@@ -31,10 +34,9 @@
 //       10 * B * heads * N^2 * hd = 2.05e10 FLOP, 20.7 us; q, k, v (bf16)
 //       and g (fp32) in, dq, dk, dv out in bf16, 56.7 MB, 16.9 us:
 //       operations-bound, about 20.7 us.
-// First design, right before fast: the forward computes S twice (statistics,
-// then P . V), the backward's query side S and dP twice and its key side
-// once more, with WMMA and FMA products from shared memory and no overlap of
-// loads and math. wgmma and TMA come later.
+// Both recompute S (the forward twice, the backward three times) to keep
+// P normalized in fp32 before it is rounded; the bf16 kernels keep the rest
+// out of shared memory. wgmma and TMA come later.
 //
 // Interface: plain C, loaded with ctypes. q, k, v are read through strides
 // (elements; the last dimension contiguous); out, g, dq, dk, dv are
@@ -44,6 +46,7 @@
 // launch. Nothing is allocated here and nothing synchronises.
 
 #include "attention_common.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -73,12 +76,21 @@ int run_fwd(const void* q, const void* k, const void* v, void* out, int B,
   if (!attention_shape_ok(B, heads, N, hd)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(launch_attention_fwd<T, float>(
-      strided(static_cast<const T*>(q), sq),
-      strided(static_cast<const T*>(k), sk),
-      strided(static_cast<const T*>(v), sv),
-      dense(static_cast<float*>(out), heads, N, hd), B, heads, N, hd, 1.0f,
-      static_cast<cudaStream_t>(stream)));
+  if constexpr (std::is_same<T, bf16>::value) {
+    return static_cast<int>(launch_attention_fwd_mma(
+        strided(static_cast<const T*>(q), sq),
+        strided(static_cast<const T*>(k), sk),
+        strided(static_cast<const T*>(v), sv),
+        dense(static_cast<float*>(out), heads, N, hd), B, heads, N, hd,
+        static_cast<cudaStream_t>(stream)));
+  } else {
+    return static_cast<int>(launch_attention_fwd<T, float>(
+        strided(static_cast<const T*>(q), sq),
+        strided(static_cast<const T*>(k), sk),
+        strided(static_cast<const T*>(v), sv),
+        dense(static_cast<float*>(out), heads, N, hd), B, heads, N, hd, 1.0f,
+        static_cast<cudaStream_t>(stream)));
+  }
 }
 
 template <typename T>
@@ -88,15 +100,27 @@ int run_bwd(const void* q, const void* k, const void* v, const void* g,
   if (!attention_shape_ok(B, heads, N, hd)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(launch_attention_bwd<T>(
-      strided(static_cast<const T*>(q), sq),
-      strided(static_cast<const T*>(k), sk),
-      strided(static_cast<const T*>(v), sv),
-      dense(static_cast<const T*>(g), heads, N, hd),
-      dense(static_cast<T*>(dq), heads, N, hd),
-      dense(static_cast<T*>(dk), heads, N, hd),
-      dense(static_cast<T*>(dv), heads, N, hd), static_cast<float*>(stats),
-      nullptr, B, heads, N, hd, 1.0f, static_cast<cudaStream_t>(stream)));
+  if constexpr (std::is_same<T, bf16>::value) {
+    return static_cast<int>(launch_attention_bwd_mma(
+        strided(static_cast<const T*>(q), sq),
+        strided(static_cast<const T*>(k), sk),
+        strided(static_cast<const T*>(v), sv),
+        dense(static_cast<const T*>(g), heads, N, hd),
+        dense(static_cast<T*>(dq), heads, N, hd),
+        dense(static_cast<T*>(dk), heads, N, hd),
+        dense(static_cast<T*>(dv), heads, N, hd), static_cast<float*>(stats),
+        B, heads, N, hd, static_cast<cudaStream_t>(stream)));
+  } else {
+    return static_cast<int>(launch_attention_bwd<T>(
+        strided(static_cast<const T*>(q), sq),
+        strided(static_cast<const T*>(k), sk),
+        strided(static_cast<const T*>(v), sv),
+        dense(static_cast<const T*>(g), heads, N, hd),
+        dense(static_cast<T*>(dq), heads, N, hd),
+        dense(static_cast<T*>(dk), heads, N, hd),
+        dense(static_cast<T*>(dv), heads, N, hd), static_cast<float*>(stats),
+        nullptr, B, heads, N, hd, 1.0f, static_cast<cudaStream_t>(stream)));
+  }
 }
 
 }  // namespace

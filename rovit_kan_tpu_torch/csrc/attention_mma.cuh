@@ -1,0 +1,767 @@
+// Softmax attention in bf16 on Hopper (sm_90a) with mma.sync: the forward
+// and the two backward stages of the attention-only kernels #5 and #6
+// (attention.cu), with S, P, dS and every accumulator in registers.
+//
+// Replaces the streamed stages of attention_common.cuh for the bf16 entries
+// of attention.cu (rovit_kan_tpu/ops/attention.py::_attention_kernel and
+// ::_attention_bwd_kernel). Those stages kept S, P and the output
+// accumulator in shared memory, ran WMMA from shared memory and loaded tiles
+// synchronously, and reached 1.5-2.4% of their bounds; #1/#2 still run them.
+//
+// What bounds #5/#6 (attention.cu's note): at (32, 3, 577, 64) #5 moves
+// 35.5 MB (10.6 us at 3.35 TB/s) for 8.2 GFLOP (8.3 us at 989 TFLOP/s), #6
+// does 20.5 GFLOP (20.7 us). Both are near the machine balance, so neither
+// shared-memory round trips of S nor load stalls can be afforded. The design:
+//   - a CTA owns 64 rows (queries; keys on the backward's key side), four
+//     warps of 16 rows each, 128 threads; at (32, 3, 577, 64) 960 CTAs;
+//   - its own rows' operands go once through shared memory into registers
+//     as mma A fragments (ldmatrix); a head width above 64 keeps them in
+//     shared memory and reloads them per product, to leave registers for the
+//     accumulators;
+//   - the other side streams in 64-row tiles through a two-stage cp.async
+//     ring: the copy of tile j + 1 runs under the products of tile j, one
+//     __syncthreads per tile; rows past N are zero-filled by cp.async's
+//     source size 0 and masked in registers;
+//   - products are mma.sync.m16n8k16 bf16 -> fp32; S (and dP) come out as C
+//     fragments in registers, P (and dS) are formed there in fp32, rounded
+//     to bf16 and repacked as the A fragments of the next product
+//     (FlashAttention-2's register reuse: a C fragment pair of two 8-column
+//     blocks is the A fragment of one 16-deep block), so nothing N x N or
+//     16 x 64 touches shared memory;
+//   - the row max and sums live in registers, reduced across the quad of
+//     threads that shares a row with two shuffles.
+// Shared memory: four 64-row tiles (the ring) and, on the key side, two
+// 64-float stat rows per stage: 36 KB (forward, query side) and 38 KB (key
+// side) at head width 64, so up to six CTAs fit an SM.
+//
+// Rounding points are the TPU kernels' and the streamed stages': P is
+// normalized in fp32 (exp(S - m) times 1 / l) before it is rounded, so the
+// forward makes two passes over the keys (statistics, then P . V) and the
+// backward's query side two (m, l and a = sum of exp(S - m) * dP, then
+// dS = P (dP - a / l) rounded and dQ += dS . K). The key side reads m, 1 / l
+// and D = a / l from `stats` and forms P^T and dS^T itself, dV += P^T . dO
+// and dK += dS^T . Q over the query tiles in order. exp(S - m) is
+// exp2f(S log2(e) - m log2(e)), one FMA with the prescaled row max before
+// the ex2 (the plain versions' torch.exp differs by fp32 rounding, well
+// inside the tolerances). Every output element has one owner that sums in a
+// fixed order: no atomics, the same bits on every call.
+
+#pragma once
+
+#include "attention_common.cuh"
+
+namespace {
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaRows = 16 * kMmaWarps;   // own rows per CTA, and tile rows
+constexpr float kLog2e = 1.4426950408889634f;
+
+// A 64-row tile of head width HD in shared memory: rows padded by 16 bytes,
+// so the eight row addresses of an ldmatrix fall in distinct bank groups.
+template <int HD>
+struct MmaTile {
+  static constexpr int kLd = HD + 8;
+  static constexpr int kElems = kMmaRows * kLd;
+  static constexpr size_t kBytes = sizeof(bf16) * kElems;
+};
+
+// A head width above 64 keeps the own rows' A fragments in shared memory.
+template <int HD>
+__host__ __device__ constexpr bool resident() { return HD <= 64; }
+
+// ---- PTX wrappers --------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid (src
+// must still be a mapped address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// d += a . b, one m16n8k16 bf16 product with fp32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 g + t. A C fragment
+// c[4] holds rows g, g, g + 8, g + 8 and columns 2t, 2t + 1, 2t, 2t + 1 of
+// its 16 x 8 block; an A fragment a[4] holds (row g, k 2t..2t+1),
+// (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..); a B fragment (b0, b1)
+// holds (k 2t..2t+1, column g) and (k 2t + 8.., g).
+
+// The lane's ldmatrix row address for the A fragment of rows row0..+15,
+// depth k0..+15, of a row-major tile.
+template <int LD>
+__device__ __forceinline__ const bf16* a_addr(const bf16* t, int row0,
+                                              int k0, int lane) {
+  return t + (row0 + (lane & 15)) * LD + k0 + (lane >> 4) * 8;
+}
+// B fragments of two 8-column blocks n0..n0+15 at depth k0..+15, from a
+// tile stored [n][k] (K in q . k^T): r[0..1] block n0, r[2..3] block n0 + 8.
+template <int LD>
+__device__ __forceinline__ const bf16* bnk_addr(const bf16* t, int n0,
+                                                int k0, int lane) {
+  return t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + k0 +
+         ((lane >> 3) & 1) * 8;
+}
+// The same from a tile stored [k][n] (V in P . V), through ldmatrix.trans.
+template <int LD>
+__device__ __forceinline__ const bf16* bkn_addr(const bf16* t, int k0,
+                                                int n0, int lane) {
+  return t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 +
+         (lane >> 4) * 8;
+}
+
+// acc[NB] = A . B^T over depth HD: A the warp's 16 own rows (a_frag(kk, a)
+// gives depth block kk), B rows n0..n0 + 8 NB - 1 of a streamed [n][HD]
+// tile.
+template <int HD, int NB, typename AFrag>
+__device__ __forceinline__ void mma_abt(float (&acc)[NB][4], AFrag a_frag,
+                                        const bf16* tile, int n0, int lane) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4];
+    a_frag(kk, a);
+#pragma unroll
+    for (int p = 0; p < NB / 2; ++p) {
+      uint32_t b[4];
+      ldsm_x4(b, bnk_addr<MmaTile<HD>::kLd>(tile, n0 + 16 * p, 16 * kk,
+                                            lane));
+      mma_bf16(acc[2 * p], a, b[0], b[1]);
+      mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc[HD / 8] += P . T: P the warp's 16 rows over the depth rows k0..k0 +
+// 16 KB - 1 of a streamed [k][HD] tile, as A fragments p[KB].
+template <int HD, int KB>
+__device__ __forceinline__ void mma_pv(float (&acc)[HD / 8][4],
+                                       const uint32_t (&p)[KB][4],
+                                       const bf16* tile, int k0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KB; ++kk) {
+#pragma unroll
+    for (int n = 0; n < HD / 16; ++n) {
+      uint32_t b[4];
+      ldsm_x4_t(b, bkn_addr<MmaTile<HD>::kLd>(tile, k0 + 16 * kk, 16 * n,
+                                              lane));
+      mma_bf16(acc[2 * n], p[kk], b[0], b[1]);
+      mma_bf16(acc[2 * n + 1], p[kk], b[2], b[3]);
+    }
+  }
+}
+
+// C fragments of NB 8-column blocks (fp32) rounded to bf16 as the A
+// fragments of NB / 2 16-deep blocks.
+template <int NB>
+__device__ __forceinline__ void c_to_a(const float (&c)[NB][4],
+                                       uint32_t (&a)[NB / 2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NB / 2; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Copies 64 rows of HD bf16 (row stride sr elements) into a tile, rows from
+// `valid` on zero-filled, without waiting.
+template <int HD>
+__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
+                                                long long sr, int valid) {
+  constexpr int kVecs = HD / 8;                       // 16 bytes each
+#pragma unroll
+  for (int it = 0; it < kMmaRows * kVecs / kMmaThreads; ++it) {
+    const int i = it * kMmaThreads + threadIdx.x;
+    const int r = i / kVecs;
+    const int c = (i - r * kVecs) * 8;
+    const bool ok = r < valid;
+    cp_async16(dst + r * MmaTile<HD>::kLd + c, ok ? src + r * sr + c : src,
+               ok);
+  }
+}
+
+// Sets the columns of C fragments at or past `valid` (local to the tile) to
+// -inf, so exp gives 0 there.
+template <int NB>
+__device__ __forceinline__ void mask_columns(float (&s)[NB][4], int col0,
+                                             int valid, int t) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const int c = col0 + 8 * j + 2 * t;
+    if (c >= valid) s[j][0] = s[j][2] = -INFINITY;
+    if (c + 1 >= valid) s[j][1] = s[j][3] = -INFINITY;
+  }
+}
+
+// Stores the warp's 16 rows of C fragments acc[HD / 8] as E (fp32 or bf16)
+// to rows row0.. of a dense (B, heads, N, HD) view, rows past N skipped.
+template <int HD, typename E>
+__device__ __forceinline__ void store_rows(HeadView<E> out, int b, int h,
+                                           int row0, int N,
+                                           const float (&acc)[HD / 8][4],
+                                           int g, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + g + 8 * half;
+    if (r >= N) continue;
+    E* dst = out.row(b, h, r) + 2 * t;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const float x = acc[j][2 * half], y = acc[j][2 * half + 1];
+      if constexpr (std::is_same<E, float>::value) {
+        *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(x, y);
+      } else {
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(x, y);
+      }
+    }
+  }
+}
+
+// ---- forward (#5) ----------------------------------------------------------
+
+template <int HD>
+constexpr size_t fwd_mma_smem() { return 4 * MmaTile<HD>::kBytes; }
+
+// out (fp32) = softmax(q k^T) v for one (64-query tile, head, image).
+// Steps 0..nt-1 stream K for the statistics, steps nt..2nt-1 K and V.
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+attn_fwd_mma_kernel(HeadView<const bf16> q, HeadView<const bf16> k,
+                    HeadView<const bf16> v, HeadView<float> out, int N) {
+  using TL = MmaTile<HD>;
+  constexpr int LD = TL::kLd;
+  constexpr int KB = HD / 16;
+  constexpr int NB = kMmaRows / 8;                    // S blocks per tile
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);         // [stage][K, V]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kMmaRows, h = blockIdx.y, b = blockIdx.z;
+  const int nt = (N + kMmaRows - 1) / kMmaRows;
+  auto sK = [&](int s) { return ring + (2 * (s & 1)) * TL::kElems; };
+  auto sV = [&](int s) { return ring + (2 * (s & 1) + 1) * TL::kElems; };
+  auto load_step = [&](int s) {
+    const int k0 = (s < nt ? s : s - nt) * kMmaRows;
+    const int kv = min(kMmaRows, N - k0);
+    load_rows_async<HD>(sK(s), k.row(b, h, k0), k.sr, kv);
+    if (s >= nt) load_rows_async<HD>(sV(s), v.row(b, h, k0), v.sr, kv);
+    cp_async_commit();
+  };
+
+  // Q through stage 1's K buffer into registers, beside step 0's K.
+  load_rows_async<HD>(sK(1), q.row(b, h, q0), q.sr, min(kMmaRows, N - q0));
+  load_step(0);
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qa[KB][4];
+#pragma unroll
+  for (int kk = 0; kk < KB; ++kk) {
+    ldsm_x4(qa[kk], a_addr<LD>(sK(1), 16 * warp, 16 * kk, lane));
+  }
+  auto q_frag = [&](int kk, uint32_t (&a)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = qa[kk][i];
+  };
+
+  float m[2] = {-INFINITY, -INFINITY};    // rows g, g + 8
+  float l[2] = {0.f, 0.f};                // this thread's columns only
+  float inv_l[2] = {0.f, 0.f};
+  float o[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int s = 0; s < 2 * nt; ++s) {
+    cp_async_wait_all();
+    __syncthreads();             // step s landed; step s - 1's stage is free
+    if (s + 1 < 2 * nt) load_step(s + 1);
+    const int kv = min(kMmaRows, N - (s < nt ? s : s - nt) * kMmaRows);
+    float sc[NB][4];
+    mma_abt<HD, NB>(sc, q_frag, sK(s), 0, lane);
+    if (kv < kMmaRows) mask_columns<NB>(sc, 0, kv, t);
+    if (s < nt) {
+      // 1. Online row max and sum.
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          mx = fmaxf(mx, fmaxf(sc[j][2 * half], sc[j][2 * half + 1]));
+        }
+        const float mn = fmaxf(m[half], quad_max(mx));
+        const float mn2 = mn * kLog2e;
+        float e = 0.f;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          e += exp2f(fmaf(sc[j][2 * half], kLog2e, -mn2)) +
+               exp2f(fmaf(sc[j][2 * half + 1], kLog2e, -mn2));
+        }
+        l[half] = l[half] * exp2f((m[half] - mn) * kLog2e) + e;
+        m[half] = mn;
+      }
+      if (s == nt - 1) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          inv_l[half] = 1.f / quad_sum(l[half]);
+          m[half] *= kLog2e;                  // pass 2 reads m log2(e)
+        }
+      }
+    } else {
+      // 2. P = exp(S - m) / l in fp32, rounded, and O += P . V.
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] = exp2f(fmaf(sc[j][e], kLog2e, -m[e >> 1])) *
+                     inv_l[e >> 1];
+        }
+      }
+      uint32_t pa[NB / 2][4];
+      c_to_a<NB>(sc, pa);
+      mma_pv<HD, NB / 2>(o, pa, sV(s), 0, lane);
+    }
+  }
+  store_rows<HD, float>(out, b, h, q0 + 16 * warp, N, o, g, t);
+}
+
+// ---- backward (#6) ---------------------------------------------------------
+
+// Keys (queries on the key side) per chunk of a streamed tile: the products
+// of a 64-row tile run in 64 / (8 * kChunkNB) chunks, which bounds the live
+// S and dP fragments.
+template <int HD>
+__host__ __device__ constexpr int chunk_nb() { return HD <= 64 ? 4 : 2; }
+
+// Query side: ring [stage][K, V], then (head width above 64) Q and dO.
+template <int HD>
+constexpr size_t bwd_q_mma_smem() {
+  return (resident<HD>() ? 4 : 6) * MmaTile<HD>::kBytes;
+}
+// Key side: ring [stage][Q, dO], the stage's m, l and D rows, then (head
+// width above 64) K and V.
+template <int HD>
+constexpr size_t bwd_kv_mma_smem() {
+  return (resident<HD>() ? 4 : 6) * MmaTile<HD>::kBytes +
+         2 * 3 * kMmaRows * sizeof(float);
+}
+
+// stats: three planes of [B][heads][N] fp32: m log2(e) (m the row max of
+// S), 1 / l and D = rowsum(P * dP).
+__device__ __forceinline__ size_t mma_stat_index(int b, int h, int n, int N) {
+  return (static_cast<size_t>(b) * gridDim.y + h) * N + n;
+}
+
+// dQ and the row statistics for one (64-query tile, head, image). Steps
+// 0..nt-1 give m, l and a = sum of exp(S - m) * dP; steps nt..2nt-1 give
+// dS = P (dP - a / l), rounded, and dQ += dS . K.
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+attn_bwd_q_mma_kernel(HeadView<const bf16> q, HeadView<const bf16> k,
+                      HeadView<const bf16> v, HeadView<const bf16> g_in,
+                      HeadView<bf16> dq, float* __restrict__ stats, int N) {
+  using TL = MmaTile<HD>;
+  constexpr int LD = TL::kLd;
+  constexpr int KB = HD / 16;
+  constexpr int CN = chunk_nb<HD>();
+  constexpr bool kRes = resident<HD>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);         // [stage][K, V]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kMmaRows, h = blockIdx.y, b = blockIdx.z;
+  const int nt = (N + kMmaRows - 1) / kMmaRows;
+  auto sK = [&](int s) { return ring + (2 * (s & 1)) * TL::kElems; };
+  auto sV = [&](int s) { return ring + (2 * (s & 1) + 1) * TL::kElems; };
+  auto load_step = [&](int s) {
+    const int k0 = (s < nt ? s : s - nt) * kMmaRows;
+    const int kv = min(kMmaRows, N - k0);
+    load_rows_async<HD>(sK(s), k.row(b, h, k0), k.sr, kv);
+    load_rows_async<HD>(sV(s), v.row(b, h, k0), v.sr, kv);
+    cp_async_commit();
+  };
+
+  // Q and dO: through stage 1 into registers, or kept past the ring.
+  bf16* sQ = kRes ? sK(1) : ring + 4 * TL::kElems;
+  bf16* sG = kRes ? sV(1) : ring + 5 * TL::kElems;
+  const int qv = min(kMmaRows, N - q0);
+  load_rows_async<HD>(sQ, q.row(b, h, q0), q.sr, qv);
+  load_rows_async<HD>(sG, g_in.row(b, h, q0), g_in.sr, qv);
+  load_step(0);
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qa[kRes ? KB : 1][4], ga[kRes ? KB : 1][4];
+  if constexpr (kRes) {
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) {
+      ldsm_x4(qa[kk], a_addr<LD>(sQ, 16 * warp, 16 * kk, lane));
+      ldsm_x4(ga[kk], a_addr<LD>(sG, 16 * warp, 16 * kk, lane));
+    }
+  }
+  auto q_frag = [&](int kk, uint32_t (&a)[4]) {
+    if constexpr (kRes) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = qa[kk][i];
+    } else {
+      ldsm_x4(a, a_addr<LD>(sQ, 16 * warp, 16 * kk, lane));
+    }
+  };
+  auto g_frag = [&](int kk, uint32_t (&a)[4]) {
+    if constexpr (kRes) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = ga[kk][i];
+    } else {
+      ldsm_x4(a, a_addr<LD>(sG, 16 * warp, 16 * kk, lane));
+    }
+  };
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f}, a_sum[2] = {0.f, 0.f};
+  float inv_l[2] = {0.f, 0.f}, dsum[2] = {0.f, 0.f};
+  float dqa[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
+  }
+
+  for (int s = 0; s < 2 * nt; ++s) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (s + 1 < 2 * nt) load_step(s + 1);
+    const int kv = min(kMmaRows, N - (s < nt ? s : s - nt) * kMmaRows);
+#pragma unroll 1
+    for (int c0 = 0; c0 < kMmaRows; c0 += 8 * CN) {
+      float sc[CN][4], dp[CN][4];
+      mma_abt<HD, CN>(sc, q_frag, sK(s), c0, lane);
+      mma_abt<HD, CN>(dp, g_frag, sV(s), c0, lane);
+      if (kv < kMmaRows) mask_columns<CN>(sc, c0, kv, t);
+      if (s < nt) {
+        // 1. m, l and a, rescaled as m grows.
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < CN; ++j) {
+            mx = fmaxf(mx, fmaxf(sc[j][2 * half], sc[j][2 * half + 1]));
+          }
+          const float mn = fmaxf(m[half], quad_max(mx));
+          const float mn2 = mn * kLog2e;
+          float e = 0.f, a = 0.f;
+#pragma unroll
+          for (int j = 0; j < CN; ++j) {
+#pragma unroll
+            for (int w = 0; w < 2; ++w) {
+              const float x = exp2f(fmaf(sc[j][2 * half + w], kLog2e, -mn2));
+              e += x;
+              a += x * dp[j][2 * half + w];
+            }
+          }
+          const float corr = exp2f((m[half] - mn) * kLog2e);
+          l[half] = l[half] * corr + e;
+          a_sum[half] = a_sum[half] * corr + a;
+          m[half] = mn;
+        }
+      } else {
+        // 2. dS = P (dP - D), rounded, and dQ += dS . K.
+#pragma unroll
+        for (int j = 0; j < CN; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p =
+                exp2f(fmaf(sc[j][e], kLog2e, -m[e >> 1])) * inv_l[e >> 1];
+            sc[j][e] = p * (dp[j][e] - dsum[e >> 1]);
+          }
+        }
+        uint32_t da[CN / 2][4];
+        c_to_a<CN>(sc, da);
+        mma_pv<HD, CN / 2>(dqa, da, sK(s), c0, lane);
+      }
+    }
+    if (s == nt - 1) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float lt = quad_sum(l[half]);
+        inv_l[half] = 1.f / lt;
+        dsum[half] = quad_sum(a_sum[half]) / lt;
+        m[half] *= kLog2e;                    // pass 2 reads m log2(e)
+      }
+      const size_t plane = static_cast<size_t>(gridDim.z) * gridDim.y * N;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = q0 + 16 * warp + g + 8 * half;
+        if (t == 0 && r < N) {
+          const size_t i = mma_stat_index(b, h, r, N);
+          stats[i] = m[half];
+          stats[plane + i] = inv_l[half];
+          stats[2 * plane + i] = dsum[half];
+        }
+      }
+    }
+  }
+  store_rows<HD, bf16>(dq, b, h, q0 + 16 * warp, N, dqa, g, t);
+}
+
+// dK and dV for one (64-key tile, head, image), over the query tiles in
+// order: S^T = K . Q^T and dP^T = V . dO^T, P^T and dS^T from the stored
+// m log2(e), 1 / l and D, dV += P^T (rounded) . dO and dK += dS^T
+// (rounded) . Q.
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+attn_bwd_kv_mma_kernel(HeadView<const bf16> q, HeadView<const bf16> k,
+                       HeadView<const bf16> v, HeadView<const bf16> g_in,
+                       HeadView<bf16> dk, HeadView<bf16> dv,
+                       const float* __restrict__ stats, int N) {
+  using TL = MmaTile<HD>;
+  constexpr int LD = TL::kLd;
+  constexpr int KB = HD / 16;
+  constexpr int CN = chunk_nb<HD>();
+  constexpr bool kRes = resident<HD>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);         // [stage][Q, dO]
+  float* sStat = reinterpret_cast<float*>(smem + 4 * TL::kBytes);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * kMmaRows, h = blockIdx.y, b = blockIdx.z;
+  const int nt = (N + kMmaRows - 1) / kMmaRows;
+  const size_t plane = static_cast<size_t>(gridDim.z) * gridDim.y * N;
+  auto sQ = [&](int s) { return ring + (2 * (s & 1)) * TL::kElems; };
+  auto sG = [&](int s) { return ring + (2 * (s & 1) + 1) * TL::kElems; };
+  auto sSt = [&](int s) { return sStat + (s & 1) * 3 * kMmaRows; };
+  auto load_step = [&](int s) {
+    const int r0 = s * kMmaRows;
+    const int qv = min(kMmaRows, N - r0);
+    load_rows_async<HD>(sQ(s), q.row(b, h, r0), q.sr, qv);
+    load_rows_async<HD>(sG(s), g_in.row(b, h, r0), g_in.sr, qv);
+    const float* src = stats + mma_stat_index(b, h, r0, N);
+    for (int i = threadIdx.x; i < 3 * kMmaRows; i += kMmaThreads) {
+      const int p = i / kMmaRows, r = i - p * kMmaRows;
+      const bool ok = r < qv;
+      cp_async4(sSt(s) + i, ok ? src + p * plane + r : src, ok);
+    }
+    cp_async_commit();
+  };
+
+  // K and V: through stage 1 into registers, or kept past the stat rows.
+  bf16* sKo = kRes ? sQ(1)
+                   : reinterpret_cast<bf16*>(smem + 4 * TL::kBytes +
+                                             2 * 3 * kMmaRows *
+                                                 sizeof(float));
+  bf16* sVo = kRes ? sG(1) : sKo + TL::kElems;
+  const int kvalid = min(kMmaRows, N - k0);
+  load_rows_async<HD>(sKo, k.row(b, h, k0), k.sr, kvalid);
+  load_rows_async<HD>(sVo, v.row(b, h, k0), v.sr, kvalid);
+  load_step(0);
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t ka[kRes ? KB : 1][4], va[kRes ? KB : 1][4];
+  if constexpr (kRes) {
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) {
+      ldsm_x4(ka[kk], a_addr<LD>(sKo, 16 * warp, 16 * kk, lane));
+      ldsm_x4(va[kk], a_addr<LD>(sVo, 16 * warp, 16 * kk, lane));
+    }
+  }
+  auto k_frag = [&](int kk, uint32_t (&a)[4]) {
+    if constexpr (kRes) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = ka[kk][i];
+    } else {
+      ldsm_x4(a, a_addr<LD>(sKo, 16 * warp, 16 * kk, lane));
+    }
+  };
+  auto v_frag = [&](int kk, uint32_t (&a)[4]) {
+    if constexpr (kRes) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = va[kk][i];
+    } else {
+      ldsm_x4(a, a_addr<LD>(sVo, 16 * warp, 16 * kk, lane));
+    }
+  };
+
+  float dka[HD / 8][4], dva[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    dka[j][0] = dka[j][1] = dka[j][2] = dka[j][3] = 0.f;
+    dva[j][0] = dva[j][1] = dva[j][2] = dva[j][3] = 0.f;
+  }
+  const bool key_ok[2] = {k0 + 16 * warp + g < N, k0 + 16 * warp + g + 8 < N};
+
+  for (int s = 0; s < nt; ++s) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (s + 1 < nt) load_step(s + 1);
+    const int qv = min(kMmaRows, N - s * kMmaRows);
+    const float* sM = sSt(s);
+    const float* sL = sM + kMmaRows;
+    const float* sD = sL + kMmaRows;
+#pragma unroll 1
+    for (int c0 = 0; c0 < kMmaRows; c0 += 8 * CN) {
+      float st[CN][4], dpt[CN][4];
+      mma_abt<HD, CN>(st, k_frag, sQ(s), c0, lane);
+      mma_abt<HD, CN>(dpt, v_frag, sG(s), c0, lane);
+#pragma unroll
+      for (int j = 0; j < CN; ++j) {
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          const int c = c0 + 8 * j + 2 * t + w;     // query within the tile
+          const bool q_ok = c < qv;
+          const float mq = sM[c], il = sL[c], dq_ = sD[c];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int e = 2 * half + w;
+            const bool ok = q_ok && key_ok[half];
+            const float p =
+                ok ? exp2f(fmaf(st[j][e], kLog2e, -mq)) * il : 0.f;
+            st[j][e] = p;
+            dpt[j][e] = ok ? p * (dpt[j][e] - dq_) : 0.f;
+          }
+        }
+      }
+      uint32_t pa[CN / 2][4], da[CN / 2][4];
+      c_to_a<CN>(st, pa);
+      c_to_a<CN>(dpt, da);
+      mma_pv<HD, CN / 2>(dva, pa, sG(s), c0, lane);
+      mma_pv<HD, CN / 2>(dka, da, sQ(s), c0, lane);
+    }
+  }
+  store_rows<HD, bf16>(dk, b, h, k0 + 16 * warp, N, dka, g, t);
+  store_rows<HD, bf16>(dv, b, h, k0 + 16 * warp, N, dva, g, t);
+}
+
+// ---- launches --------------------------------------------------------------
+
+template <int HD>
+cudaError_t launch_fwd_mma_hd(HeadView<const bf16> q, HeadView<const bf16> k,
+                              HeadView<const bf16> v, HeadView<float> out,
+                              int B, int heads, int N, cudaStream_t stream) {
+  constexpr size_t sm = fwd_mma_smem<HD>();
+  cudaError_t e;
+  if ((e = set_smem(attn_fwd_mma_kernel<HD>, sm)) != cudaSuccess) return e;
+  const dim3 grid((N + kMmaRows - 1) / kMmaRows, heads, B);
+  attn_fwd_mma_kernel<HD><<<grid, kMmaThreads, sm, stream>>>(q, k, v, out, N);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_bwd_mma_hd(HeadView<const bf16> q, HeadView<const bf16> k,
+                              HeadView<const bf16> v, HeadView<const bf16> g,
+                              HeadView<bf16> dq, HeadView<bf16> dk,
+                              HeadView<bf16> dv, float* stats, int B,
+                              int heads, int N, cudaStream_t stream) {
+  const dim3 grid((N + kMmaRows - 1) / kMmaRows, heads, B);
+  constexpr size_t smq = bwd_q_mma_smem<HD>();
+  constexpr size_t smk = bwd_kv_mma_smem<HD>();
+  cudaError_t e;
+  if ((e = set_smem(attn_bwd_q_mma_kernel<HD>, smq)) != cudaSuccess) return e;
+  attn_bwd_q_mma_kernel<HD><<<grid, kMmaThreads, smq, stream>>>(
+      q, k, v, g, dq, stats, N);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = set_smem(attn_bwd_kv_mma_kernel<HD>, smk)) != cudaSuccess) return e;
+  attn_bwd_kv_mma_kernel<HD><<<grid, kMmaThreads, smk, stream>>>(
+      q, k, v, g, dk, dv, stats, N);
+  return cudaGetLastError();
+}
+
+// The head widths attention_head_ok takes: every multiple of 16 to 128.
+#define ATTN_MMA_DISPATCH(HD_VAR, CALL)                                     \
+  switch (HD_VAR) {                                                         \
+    case 16: return CALL(16);                                               \
+    case 32: return CALL(32);                                               \
+    case 48: return CALL(48);                                               \
+    case 64: return CALL(64);                                               \
+    case 80: return CALL(80);                                               \
+    case 96: return CALL(96);                                               \
+    case 112: return CALL(112);                                             \
+    case 128: return CALL(128);                                             \
+    default: return cudaErrorInvalidValue;                                  \
+  }
+
+cudaError_t launch_attention_fwd_mma(HeadView<const bf16> q,
+                                     HeadView<const bf16> k,
+                                     HeadView<const bf16> v,
+                                     HeadView<float> out, int B, int heads,
+                                     int N, int hd, cudaStream_t stream) {
+#define ATTN_FWD_CALL(HD) \
+  launch_fwd_mma_hd<HD>(q, k, v, out, B, heads, N, stream)
+  ATTN_MMA_DISPATCH(hd, ATTN_FWD_CALL)
+#undef ATTN_FWD_CALL
+}
+
+cudaError_t launch_attention_bwd_mma(HeadView<const bf16> q,
+                                     HeadView<const bf16> k,
+                                     HeadView<const bf16> v,
+                                     HeadView<const bf16> g,
+                                     HeadView<bf16> dq, HeadView<bf16> dk,
+                                     HeadView<bf16> dv, float* stats, int B,
+                                     int heads, int N, int hd,
+                                     cudaStream_t stream) {
+#define ATTN_BWD_CALL(HD) \
+  launch_bwd_mma_hd<HD>(q, k, v, g, dq, dk, dv, stats, B, heads, N, stream)
+  ATTN_MMA_DISPATCH(hd, ATTN_BWD_CALL)
+#undef ATTN_BWD_CALL
+}
+
+#undef ATTN_MMA_DISPATCH
+
+}  // namespace

@@ -9,6 +9,7 @@ from rovit_kan_tpu_torch.data.device_cache import (  # noqa: F401
     DeviceLoader,
     device_cache_loaders,
 )
+from rovit_kan_tpu_torch.data.resize import resize_image  # noqa: F401
 from rovit_kan_tpu_torch.data.synthetic import (  # noqa: F401
     generate_synthetic_dataset,
     make_leaf_image,

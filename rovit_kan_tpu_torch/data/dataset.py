@@ -11,10 +11,11 @@ library only (the port keeps its own copy):
 
 Batches always have one shape (drop_last for training; a zero-padded tail
 and a ``valid`` mask for evaluation), as in the JAX package. Images are
-decoded and resized once on the host with PIL (bilinear; the JAX package's
-native threaded resize is not ported) and cached as uint8; the random
-augmentations run on the device inside the train step. A background thread
-prefetches batches. The trainer moves each batch to the card.
+decoded once on the host with PIL, resized by ``data/resize.py`` (the JAX
+package's native half-pixel bilinear resize, copied in numpy, so the pixels
+are the reference's) and cached as uint8; the random augmentations run on
+the device inside the train step. A background thread prefetches batches.
+The trainer moves each batch to the card.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from rovit_kan_tpu_torch.data.resize import resize_image
 
 IMG_EXTENSIONS = {".jpg", ".jpeg", ".png", ".bmp", ".webp", ".ppm"}
 
@@ -80,13 +83,9 @@ class RoseLeafDataset:
         from PIL import Image
         s = self.samples[idx]
         with Image.open(s["path"]) as im:
-            im = im.convert("RGB")
-            if im.size == (self.image_size, self.image_size):
-                arr = np.asarray(im, dtype=np.uint8)
-            else:
-                arr = np.asarray(im.resize(
-                    (self.image_size, self.image_size), Image.BILINEAR),
-                    dtype=np.uint8)
+            arr = np.asarray(im.convert("RGB"), dtype=np.uint8)
+        if arr.shape[:2] != (self.image_size, self.image_size):
+            arr = resize_image(arr, self.image_size)
         if self._cache is not None:
             self._cache[idx] = arr
         return arr
@@ -195,8 +194,8 @@ class Loader:
             valid[j] = 1.0
 
         if self.num_workers > 1 and len(idxs) > 1:
-            # PIL's decode and resize release the GIL, so plain threads
-            # parallelize the batch assembly.
+            # PIL's decode and numpy's resize release the GIL for most of
+            # their work, so plain threads parallelize the batch assembly.
             list(self._pool().map(fill, range(len(idxs)), idxs))
         else:
             for j, i in enumerate(idxs):

@@ -46,7 +46,8 @@ class DeviceLoader:
             images[i], labels[i], severity[i] = img, lab, sev
 
         if num_workers > 1 and n > 1:
-            # PIL's decode and resize release the GIL.
+            # PIL's decode and numpy's resize release the GIL for most of
+            # their work.
             with ThreadPoolExecutor(num_workers) as ex:
                 list(ex.map(fill, range(n)))
         else:

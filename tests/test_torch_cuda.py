@@ -1,9 +1,9 @@
 """Port tests that need an NVIDIA GPU: the CUDA kernels (block forward #1,
 block backward #2, the saved-residual pair #3/#4, attention forward #5 and
-backward #6, augment #7, the KAN kernels #8-#11) against their plain
-versions, the served model through the
-block kernel, and small train steps through #1, #2 and #7 and through #5,
-#6 and #7. They skip where
+backward #6 at every head width they take and on the model's strided qkv
+views, augment #7, the KAN kernels #8-#11) against their plain versions,
+the served model through the block kernel, and small train steps through
+#1, #2 and #7 and through #5, #6 and #7. They skip where
 ``torch.cuda.is_available()`` is False. This file imports neither jax nor
 the JAX package, so it runs on a GPU machine without JAX:
 
@@ -254,17 +254,24 @@ def test_residual_block_under_autograd(cuda, monkeypatch):
                   torch.float32)
 
 
+# Every head width the kernels take at every edge of the 64-row tiles
+# (one row, one ragged tile, exactly one tile, one past it, the model's 197
+# and 577 tokens, 16 tiles), beside the shapes of earlier slices.
+ATTN_SHAPES = [(2, 3, 197, 64), (2, 3, 577, 64), (3, 2, 37, 32),
+               (1, 2, 77, 128), (1, 2, 1024, 128)] + [
+    (2, 2, n, hd) for hd in range(16, 129, 16)
+    for n in (1, 15, 64, 65, 197, 577, 1024)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
-@pytest.mark.parametrize("shape", [(2, 3, 197, 64), (2, 3, 577, 64),
-                                   (3, 2, 37, 32), (1, 2, 77, 128),
-                                   (1, 2, 1024, 128)],
+@pytest.mark.parametrize("shape", ATTN_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
 def test_attention_kernels_match_plain(cuda, shape, dtype):
     """#5 and #6 against their plain versions: the forward's fp32 output
     within 1e-4 (fp32) or two bf16 ulps at its largest magnitude (bf16:
     both round P at the same point); dq, dk, dv within ``_bwd_tol``; the
-    same bits on a repeated call."""
+    same bits on a repeated call; one launch each per call."""
     rng = np.random.RandomState(sum(shape))
 
     def t(scale=1.0, dt=dtype):
@@ -289,6 +296,46 @@ def test_attention_kernels_match_plain(cuda, shape, dtype):
     assert torch.equal(at._launch(q, k, v), out)
     for a, b in zip(at._launch_bwd(q, k, v, g), grads):
         assert torch.equal(a, b)
+    assert (at.LAUNCHES, at.BWD_LAUNCHES) == (fwd + 2, bwd + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [(4, 197, 3, 64), (2, 577, 3, 64),
+                                   (2, 65, 2, 128), (3, 15, 4, 16)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_attention_kernels_read_the_qkv_buffer(cuda, shape, dtype):
+    """q, k, v as the model passes them: strided views of one
+    ``(B, N, 3, heads, hd)`` qkv buffer, read in place (no copy). The same
+    bits as on contiguous copies, within the plain versions' tolerance, the
+    same bits on repeat, one launch each per call."""
+    B, N, heads, hd = shape
+    rng = np.random.RandomState(N + hd)
+    qkv = torch.tensor(rng.normal(0, 1, (B, N, 3, heads, hd)),
+                       dtype=torch.float32, device=cuda)
+    qkv[:, :, 0] *= hd ** -0.5
+    qkv = qkv.to(dtype)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    assert not q.is_contiguous() and at._kernel_view(q) is q
+    g = torch.tensor(rng.normal(0, 1, (B, heads, N, hd)),
+                     dtype=torch.float32, device=cuda)
+    dense = [x.contiguous() for x in (q, k, v)]
+    fwd, bwd = at.LAUNCHES, at.BWD_LAUNCHES
+    out = at._launch(q, k, v)
+    grads = at._launch_bwd(q, k, v, g)
+    torch.cuda.synchronize()
+    assert (at.LAUNCHES, at.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    assert torch.equal(out, at._launch(*dense))
+    assert torch.equal(out, at._launch(q, k, v))
+    ref = at.attention_reference(*dense)
+    assert float((out - ref).abs().max()) <= _tol(ref, dtype)
+    want = at.attention_backward_reference(*dense, g)
+    for name, got, again, d, w in zip(("dq", "dk", "dv"), grads,
+                                      at._launch_bwd(q, k, v, g),
+                                      at._launch_bwd(*dense, g), want):
+        assert torch.equal(got, again) and torch.equal(got, d), name
+        err = float((got.float() - w.float()).abs().max())
+        assert err <= _bwd_tol(w, dtype), (name, err)
 
 
 def test_attention_refuses_what_it_does_not_take(cuda):

@@ -1,11 +1,13 @@
 """The port's data pipeline, logger and timers against the JAX package's.
 
 ``Loader`` and ``DeviceLoader`` must give the JAX loaders' batches in the
-same order, with the same padding and ``valid`` masks, epoch after epoch
-(images already at the target size, so no resize enters); the synthetic
-images, the datasets over a JPEG tree and the train/val split must be the
-same; the logger must write the JAX logger's CSV byte for byte; the
-transforms must normalize as the JAX ones (fp32, 1e-6).
+same order, with the same padding and ``valid`` masks, epoch after epoch;
+the synthetic images, the datasets over a JPEG tree and the train/val split
+must be the same; images at other sizes than the target must load with the
+JAX dataset's uint8 bits (its native resize, which ``data/resize.py``
+copies), down and up, square or not; the logger must write the JAX logger's
+CSV byte for byte; the transforms must normalize as the JAX ones (fp32,
+1e-6).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,10 +17,12 @@ import torch
 from rovit_kan_tpu.data import dataset as jds
 from rovit_kan_tpu.data import device_cache as jdc
 from rovit_kan_tpu.data import synthetic as jsyn
+from rovit_kan_tpu import native
 from rovit_kan_tpu.ops.preprocess import eval_batch as jax_eval_batch
 from rovit_kan_tpu.results import logger as jlog
 from rovit_kan_tpu_torch.data import dataset as tds
 from rovit_kan_tpu_torch.data import device_cache as tdc
+from rovit_kan_tpu_torch.data.resize import resize_image
 from rovit_kan_tpu_torch.data import synthetic as tsyn
 from rovit_kan_tpu_torch.data import transforms as ttr
 from rovit_kan_tpu_torch.ops.augment_kernel import draw_factors
@@ -115,12 +119,20 @@ def test_synthetic_images_and_dataset_tree_match_jax(tmp_path):
         assert a[1:] == b[1:]
     np.testing.assert_array_equal(t.get_class_weights(),
                                   j.get_class_weights())
-    # Resized on load with PIL's bilinear filter.
-    from PIL import Image
+    # Resized on load: the JAX dataset's bits where its native resize
+    # builds (the port's copy of it otherwise, as the JAX dataset would
+    # then fall back to PIL).
     small = tds.RoseLeafDataset(root_t, CLASSES, SEVERITY, image_size=16)
-    with Image.open(small.samples[0]["path"]) as im:
-        want = np.asarray(im.convert("RGB").resize((16, 16), Image.BILINEAR))
-    np.testing.assert_array_equal(small[0][0], want)
+    if native.available():
+        ref = jds.RoseLeafDataset(root_t, CLASSES, SEVERITY, image_size=16)
+        for i in range(len(small)):
+            np.testing.assert_array_equal(small[i][0], ref[i][0])
+    else:
+        from PIL import Image
+        with Image.open(small.samples[0]["path"]) as im:
+            src = np.asarray(im.convert("RGB"))
+        np.testing.assert_array_equal(small[0][0], resize_image(src, 16))
+    assert small[0][0].shape == (16, 16, 3)
 
 
 def test_create_dataloaders_split_matches_jax(tmp_path):
@@ -137,6 +149,90 @@ def test_create_dataloaders_split_matches_jax(tmp_path):
     for a, b in zip(t, j):
         assert (a.shuffle, a.drop_last) == (b.shuffle, b.drop_last)
         _assert_same_batches(list(a), list(b))
+
+
+def _png_tree(root, hw, n_per_class=2, seed=0):
+    """A class-per-folder tree of smooth RGB PNGs of height x width ``hw``
+    (noise on a gradient, so every resize weight matters)."""
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    ramp = (np.arange(h)[:, None, None] * 3 + np.arange(w)[None, :, None] * 5
+            + np.array([0, 85, 170]))
+    for c in CLASSES:
+        (root / c).mkdir(parents=True)
+        for i in range(n_per_class):
+            img = (ramp + rng.randint(0, 64, (h, w, 3))) % 256
+            Image.fromarray(img.astype(np.uint8)).save(root / c / f"{i}.png")
+    return root
+
+
+def _need_native():
+    if not native.available():
+        pytest.skip("the JAX dataset resizes through its native library, "
+                    "which did not build here (no g++): its PIL fallback is "
+                    "not the reference the port copies")
+
+
+# (height, width) -> target: down and up, non-square, one side at the target.
+RESIZES = [((100, 90), 64), ((480, 640), 224), ((777, 1000), 384),
+           ((200, 150), 224), ((300, 224), 224)]
+
+
+@pytest.mark.parametrize("hw,size", RESIZES,
+                         ids=[f"{h}x{w}to{s}" for (h, w), s in RESIZES])
+def test_dataset_resize_matches_jax_bits(tmp_path, hw, size):
+    _need_native()
+    root = _png_tree(tmp_path / "tree", hw, n_per_class=1, seed=sum(hw))
+    t = tds.RoseLeafDataset(root, CLASSES, SEVERITY, image_size=size)
+    j = jds.RoseLeafDataset(root, CLASSES, SEVERITY, image_size=size)
+    assert len(t) == len(j) == len(CLASSES)
+    for i in range(len(t)):
+        a, b = t[i], j[i]
+        assert a[0].shape == (size, size, 3) and a[0].dtype == np.uint8
+        np.testing.assert_array_equal(a[0], b[0])
+        assert a[1:] == b[1:]
+
+
+def test_create_dataloaders_resized_match_jax(tmp_path):
+    """Train and val order, padding and ``valid`` over PNGs resized on
+    load (100 x 90 to 64), and the DeviceLoader cache built from them."""
+    _need_native()
+    root = _png_tree(tmp_path / "aug", (100, 90), n_per_class=5, seed=3)
+    kw = dict(batch_size=3, seed=5, image_size=64, prefetch=0,
+              num_workers=2)
+    t = tds.create_dataloaders(root, root, CLASSES, SEVERITY, **kw)
+    j = jds.create_dataloaders(root, root, CLASSES, SEVERITY, **kw)
+    for a, b in zip(t, j):
+        got, want = list(a), list(b)
+        assert got[0]["images"].shape == (3, 64, 64, 3)
+        _assert_same_batches(got, want)
+    # 16 train images in 5 full batches; 4 val images, the second batch
+    # padded with two zero rows.
+    assert [len(list(x)) for x in t] == [5, 2, 7]
+    assert list(t[1])[-1]["valid"].tolist() == [1.0, 0.0, 0.0]
+    cached = tdc.DeviceLoader(t[1].dataset, 3, device="cpu", num_workers=2)
+    _assert_same_batches(list(cached), list(jdc.DeviceLoader(
+        j[1].dataset, 3, num_workers=2)))
+
+
+def test_resize_image_by_hand():
+    """3 x 5 to 2 x 2: rows sample at 0.25 and 1.75, columns at 0.75 and
+    3.25 (half-pixel centres, scales 1.5 and 2.5). Channel 0 is
+    30 * row + 40 * col, so bilinear gives 37.5, 137.5, 82.5, 182.5 exactly,
+    and +0.5 then truncation rounds each half up; channel 1 is 255 minus
+    it; channel 2 is constant."""
+    r, c = np.meshgrid(np.arange(3), np.arange(5), indexing="ij")
+    lin = 30 * r + 40 * c
+    src = np.stack([lin, 255 - lin, np.full_like(lin, 7)], -1).astype(
+        np.uint8)
+    got = resize_image(src, 2)
+    assert got.dtype == np.uint8 and got.shape == (2, 2, 3)
+    np.testing.assert_array_equal(got[..., 0], [[38, 138], [83, 183]])
+    np.testing.assert_array_equal(got[..., 1], [[218, 118], [173, 73]])
+    np.testing.assert_array_equal(got[..., 2], [[7, 7], [7, 7]])
+    with pytest.raises(ValueError):
+        resize_image(src.astype(np.float32), 2)
 
 
 def test_transforms_match_jax():

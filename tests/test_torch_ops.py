@@ -109,4 +109,4 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
     assert [h.name for h in _build._headers(real / "vit_block_bwd.cu", [])] \
         == ["vit_block_common.cuh", "attention_common.cuh", "tile_common.cuh"]
     assert [h.name for h in _build._headers(real / "attention.cu", [])] \
-        == ["attention_common.cuh", "tile_common.cuh"]
+        == ["attention_common.cuh", "tile_common.cuh", "attention_mma.cuh"]

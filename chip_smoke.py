@@ -13,7 +13,10 @@ exits non-zero:
    (CUDA events, warm-up, median) beside its bound, the plain version and
    one PyTorch library call computing the same function: the block forward
    (#1) and backward (#2) at (64, 197, 192), 3 heads, and the augment (#7)
-   at (64, 224, 224, 3), each in bf16 and fp32; the KAN head's forward
+   at (64, 224, 224, 3), each in bf16 and fp32 (#1 also the same bits on a
+   repeated call; #1, #2 and ``TransformerEncoderLayer``'s forward also by
+   CUDA-graph replay, the device time; #1's three stages and #2's two
+   recomputed ones by torch.profiler); the KAN head's forward
    (#10) and backward (#11) at (64, [192, 64, 16, 1]) and one KAN layer's
    (#8, #9) at (64, 192 -> 64), fp32, each output within 1e-4 of its
    largest magnitude and the same bits on a repeated call, their ``ms`` and
@@ -48,9 +51,10 @@ exits non-zero:
    attention-only kernels #5/#6 at (32, 3, 577, 64) and (64, 3, 197, 64)
    (bf16: the mma.sync kernels of ``attention_mma.cuh``; fp32: the streamed
    stages) and #1/#2 at (32, 577, 192), bf16 and fp32, against their plain
-   versions (same bits on repeat for #5/#6) and timed beside their bounds,
-   the plain versions and SDPA (#5/#6 and SDPA's forward also by CUDA-graph
-   replay); served through ``InferenceEngine``
+   versions (same bits on repeat for #1, #5 and #6) and timed beside their
+   bounds, the plain versions and SDPA or ``TransformerEncoderLayer``
+   (#1, #2, #5, #6 and the library forwards also by CUDA-graph replay, #1's
+   stages by torch.profiler); served through ``InferenceEngine``
    with "auto" (12 x #1 per batch, no #5) and with
    ``use_pallas_block=False`` (12 x #5 per batch, no #1), each held
    against its plain versions and the fp32 model as in "serve"; three
@@ -60,8 +64,9 @@ exits non-zero:
    parameter against the same step with #6's plain version;
 8. fit: the saved-residual pair. #3 and #4 at (64, 197, 192) and
    (32, 577, 192), bf16 and fp32, against their plain versions (#3's output
-   the bits of #1's, the same bits on a repeated #4 call), timed beside their
-   bounds, the plain versions and ``TransformerEncoderLayer``; one flagship
+   the bits of #1's, the same bits on a repeated #3 and #4 call), timed
+   beside their bounds, the plain versions and ``TransformerEncoderLayer``
+   (#3 and the layer's forward also by CUDA-graph replay); one flagship
    train step with ``ROVIT_BLOCK_RESIDUAL_BWD=1`` held against the same step
    through #1/#2 and through #4's plain version (``hold_residual_step``);
    then ``Trainer.fit`` at the flagship's full width over a device-resident
@@ -198,16 +203,51 @@ def block_bound_ms(x, params, dtype) -> float:
     return 1e3 * max(flops / peak, nbytes / PEAK_BYTES_PER_S)
 
 
+# The kernels of #1's three launches in a profile, by stage and route.
+BLOCK_STAGES = {
+    torch.bfloat16: {"ln_qkv": "ln_qkv_mma_kernel",
+                     "attention": "attn_fwd_mma_kernel",
+                     "proj_mlp": "proj_mlp_mma_kernel"},
+    torch.float32: {"ln_qkv": "ln_qkv_kernel<",
+                    "attention": "attn_fwd_kernel<",
+                    "proj_mlp": "proj_mlp_kernel<"}}
+
+
+def stage_bounds_ms(x, dtype) -> dict:
+    """Each of #1's stages' least time: the larger of its FLOP over the
+    peak and its bytes (inputs read once, outputs written once; qkv and the
+    attention output pass through device memory between the stages) over
+    the HBM rate."""
+    B, N, D = x.shape
+    M, size = B * N, x.element_size()
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    work = {"ln_qkv": (2 * M * D * 3 * D, (M * 4 * D + 3 * D * D) * size),
+            "attention": (4 * B * N * N * D, M * 4 * D * size),
+            "proj_mlp": (2 * M * D * (D + 2 * HIDDEN),
+                         (3 * M * D + D * (D + 2 * HIDDEN)) * size)}
+    return {k: 1e3 * max(f / peak, b / PEAK_BYTES_PER_S)
+            for k, (f, b) in work.items()}
+
+
 def check_block(dtype, seed: int, batch: int = BATCH, tokens: int = TOKENS):
+    """#1 against ``block_reference`` (and the same bits on a repeated
+    call), timed by CUDA events around back-to-back calls and by CUDA-graph
+    replay (device time) beside its bound, the plain version and
+    ``TransformerEncoderLayer``'s forward; its three stages' device time
+    from torch.profiler."""
     from rovit_kan_tpu_torch.ops import block_kernel as bk
     x, params = block_inputs(dtype, seed, batch, tokens)
     with torch.inference_mode():
         got = bk.fused_vit_block(x, params, HEADS)
         ref = bk.block_reference(x, params, HEADS)
+        again = bk.fused_vit_block(x, params, HEADS)
         torch.cuda.synchronize()
         if not torch.isfinite(got.float()).all():
             raise RuntimeError(f"block kernel ({dtype}) gave non-finite "
                                f"values")
+        if not torch.equal(again, got):
+            raise RuntimeError(f"block kernel ({dtype}) gave other bits on "
+                               f"a repeated call")
         err = float((got.float() - ref.float()).abs().max())
         tol = bf16_tol(ref) if dtype == torch.bfloat16 else FP32_TOL
         if not err <= tol:
@@ -218,13 +258,23 @@ def check_block(dtype, seed: int, batch: int = BATCH, tokens: int = TOKENS):
         ms = time_ms(lambda: bk.fused_vit_block(x, params, HEADS))
         plain_ms = time_ms(lambda: bk.block_reference(x, params, HEADS))
         library_ms = time_ms(lambda: layer(x))
+        graph = graph_ms(lambda: bk.fused_vit_block(x, params, HEADS))
+        library_graph = graph_ms(lambda: layer(x))
+        stages = device_ms_by(lambda: bk.fused_vit_block(x, params, HEADS),
+                              BLOCK_STAGES[dtype])
     return {"replaces": "rovit_kan_tpu/ops/block_kernel.py::"
                         "_vit_block_kernel",
             "dtype": str(dtype).replace("torch.", ""),
             "shape": list(x.shape), "heads": HEADS,
             "launches_per_batch": "12 (one per block; counted in 'serve')",
-            "max_abs_err": err, "tolerance": tol, "kernel_ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
+            "max_abs_err": err, "tolerance": tol,
+            "identical_bits_on_repeat": True, "kernel_ms": ms,
+            "kernel_graph_ms": graph, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_graph_ms": library_graph,
+            "graph_ms_source": "CUDA events around replays of a CUDA graph "
+                               "of 20 calls (device time)",
+            "stages_device_ms": stages,
+            "stages_bound_ms": stage_bounds_ms(x, dtype),
             "library_max_abs_err": lib_err,
             "bound_ms": block_bound_ms(x, params, dtype),
             "bound_by": "operations"}
@@ -270,6 +320,12 @@ def check_block_bwd(dtype, seed: int, batch: int = BATCH,
 
     with torch.no_grad():
         ms = time_ms(lambda: bk._launch_bwd(x, g, params, HEADS), reps=9)
+        graph = graph_ms(lambda: bk._launch_bwd(x, g, params, HEADS),
+                         calls=5)
+        stages = BLOCK_STAGES[dtype]
+        recompute = device_ms_by(
+            lambda: bk._launch_bwd(x, g, params, HEADS),
+            {k: stages[k] for k in ("ln_qkv", "attention")}, calls=10)
         plain_ms = time_ms(lambda: bk.block_backward_reference(
             x, g, params, HEADS), reps=5, inner=3)
     # Forward plus backward: the port's #1 + #2 through autograd, and the
@@ -307,7 +363,8 @@ def check_block_bwd(dtype, seed: int, batch: int = BATCH,
             "outputs": errs,
             "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
             "max_rel_err": max(e["rel_err"] for e in errs.values()),
-            "kernel_ms": ms, "plain_ms": plain_ms,
+            "kernel_ms": ms, "kernel_graph_ms": graph, "plain_ms": plain_ms,
+            "recompute_stages_device_ms": recompute,
             "port_fwd_bwd_ms": port_ms, "library_ms": library_ms,
             "library": "nn.TransformerEncoderLayer forward + backward",
             "bound_ms": 1e3 * max(flops / peak, nbytes / PEAK_BYTES_PER_S),
@@ -441,6 +498,15 @@ def device_ms(fn, kernels=None, calls: int = 50) -> float:
     these kernels' device time, so CUDA events around back-to-back calls
     would time the host. Raises if a named kernel, or any device operation,
     is missing from the profile."""
+    names = {"all": ""} if kernels is None else {k: k for k in kernels}
+    return sum(device_ms_by(fn, names, calls).values())
+
+
+def device_ms_by(fn, kernels: dict, calls: int = 20) -> dict:
+    """Device time per call of ``fn`` by label, each label the device
+    operations whose name holds its substring ("" holds every one), from
+    one torch.profiler run over ``calls`` calls after a warm-up. Raises if
+    a label has no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -451,15 +517,13 @@ def device_ms(fn, kernels=None, calls: int = 50) -> float:
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if kernels is not None:
-        missing = [k for k in kernels if not any(k in e.key for e in events)]
-        if missing:
-            raise RuntimeError(f"no device time recorded for {missing}")
-        events = [e for e in events if any(k in e.key for k in kernels)]
-    us = sum(e.self_device_time_total for e in events)
-    if not us > 0:
-        raise RuntimeError("the profile recorded no device time")
-    return us / 1e3 / calls
+    out = {}
+    for label, sub in kernels.items():
+        us = sum(e.self_device_time_total for e in events if sub in e.key)
+        if not us > 0:
+            raise RuntimeError(f"no device time recorded for {sub}")
+        out[label] = us / 1e3 / calls
+    return out
 
 
 def graph_ms(fn, calls: int = 20) -> float:
@@ -1737,6 +1801,7 @@ def check_block_res(dtype, seed: int, batch: int = BATCH,
         got = bk._launch_res(x, params, HEADS)
         out1 = bk._launch(x, params, HEADS)
         want = bk.block_residual_reference(x, params, HEADS)
+        got_again = bk._launch_res(x, params, HEADS)
         res = got[1:]
         dx, grads = bk._launch_bwd_res(x, g, *res, params, HEADS)
         want_dx, want_g = bk.block_backward_residual_reference(
@@ -1745,6 +1810,8 @@ def check_block_res(dtype, seed: int, batch: int = BATCH,
         torch.cuda.synchronize()
     if not torch.equal(got[0], out1):
         raise RuntimeError(f"{what}: #3's output is not #1's bits")
+    if not all(torch.equal(a, b) for a, b in zip(got_again, got)):
+        raise RuntimeError(f"{what}: a repeated #3 call gave other bits")
     if not (torch.equal(again[0], dx) and all(
             torch.equal(again[1][k], grads[k]) for k in bk.PKEYS)):
         raise RuntimeError(f"{what}: a repeated #4 call gave other bits")
@@ -1774,8 +1841,10 @@ def check_block_res(dtype, seed: int, batch: int = BATCH,
             x, params, HEADS), reps=9, inner=3)
         plain4 = time_ms(lambda: bk.block_backward_residual_reference(
             x, g, *res, params, HEADS), reps=5, inner=3)
+        graph3 = graph_ms(lambda: bk._launch_res(x, params, HEADS))
         layer = library_layer(params, dtype)
         lib3 = time_ms(lambda: layer(x))
+        lib3_graph = graph_ms(lambda: layer(x))
     raw = {k: v.float().detach().clone().requires_grad_()
            for k, v in params.items()}
     xg = x.detach().clone().requires_grad_()
@@ -1803,9 +1872,11 @@ def check_block_res(dtype, seed: int, batch: int = BATCH,
                        "_vit_block_res_kernel", **common,
            "outputs": {k: errs[k] for k in ("out", "qkv", "attn", "a1")},
            "out_bits_equal_to_vit_block_fwd": True,
+           "identical_bits_on_repeat": True,
            "max_abs_err": max(errs[k]["max_abs_err"]
                               for k in ("out", "qkv", "attn", "a1")),
-           "kernel_ms": ms3, "plain_ms": plain3, "library_ms": lib3,
+           "kernel_ms": ms3, "kernel_graph_ms": graph3, "plain_ms": plain3,
+           "library_ms": lib3, "library_graph_ms": lib3_graph,
            "library": "nn.TransformerEncoderLayer forward",
            **bounds["fwd"]}
     bwd = {"replaces": "rovit_kan_tpu/ops/block_kernel.py::"
@@ -2132,13 +2203,21 @@ def main() -> int:
 
     keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "library_ms")
 
-    def entry(name, source, replaces, launches, lo, hi, **extra):
+    def entry(name, source, replaces, launches, lo, hi, more=(), **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": lo["max_abs_err"], "ms": lo["kernel_ms"],
                 "plain_ms": lo["plain_ms"], "bound_ms": lo["bound_ms"],
                 "bound_by": lo["bound_by"], "library_ms": lo["library_ms"],
-                **extra, "fp32": {k: hi[k] for k in keys}}
+                **{k: lo[k] for k in more}, **extra,
+                "fp32": {k: hi[k] for k in keys + more}}
+
+    # Beside the common keys: #1's and #3's graph-replay device times and
+    # #1's stages; #2's graph time and its recomputed stages.
+    more1 = ("kernel_graph_ms", "library_graph_ms", "stages_device_ms",
+             "stages_bound_ms")
+    more2 = ("kernel_graph_ms", "recompute_stages_device_ms")
+    more3 = ("kernel_graph_ms", "library_graph_ms")
 
     csrc = "rovit_kan_tpu_torch/csrc/"
 
@@ -2155,8 +2234,9 @@ def main() -> int:
                 "call_ms": r["call_ms"], "plain_call_ms": r["plain_call_ms"],
                 "launches_by_path": by_path}
 
-    def n577(i):
-        return {str(d).replace("torch.", ""): {k: r[i][k] for k in keys}
+    def n577(i, more):
+        return {str(d).replace("torch.", ""):
+                {k: r[i][k] for k in keys + more}
                 for d, r in blocks577.items()}
 
     def long_launches(name):
@@ -2186,14 +2266,15 @@ def main() -> int:
         by_path = {"fit": fitted["fit_launches"][name],
                    "resume": fitted["resume_launches"][name]}
         lo = res_kernels[TOKENS, torch.bfloat16][i]
+        more = more3 if i == 0 else ()
         return entry(name, csrc + source,
                      f"rovit_kan_tpu/ops/block_kernel.py:{line}",
                      sum(by_path.values()), lo,
-                     res_kernels[TOKENS, torch.float32][i],
+                     res_kernels[TOKENS, torch.float32][i], more,
                      launches_by_path=by_path,
                      n577={str(d).replace("torch.", ""):
                            {k: res_kernels[LONG_TOKENS, d][i][k]
-                            for k in keys}
+                            for k in keys + more}
                            for d in (torch.bfloat16, torch.float32)},
                      **({"port_fwd_bwd_ms": lo["port_fwd_bwd_ms"]}
                         if i else {}))
@@ -2201,14 +2282,16 @@ def main() -> int:
     emit({"kernels": [
         entry("vit_block_fwd", csrc + "vit_block_fwd.cu",
               "rovit_kan_tpu/ops/block_kernel.py:92",
-              result["block_launches"], bf16, fp32,
+              result["block_launches"], bf16, fp32, more1,
               train_launches=trained["launches"]["vit_block_fwd"],
-              long_launches=long_launches("vit_block_fwd"), n577=n577(0)),
+              long_launches=long_launches("vit_block_fwd"),
+              n577=n577(0, more1)),
         entry("vit_block_bwd", csrc + "vit_block_bwd.cu",
               "rovit_kan_tpu/ops/block_kernel.py:399",
-              trained["launches"]["vit_block_bwd"], bwd16, bwd32,
+              trained["launches"]["vit_block_bwd"], bwd16, bwd32, more2,
               port_fwd_bwd_ms=bwd16["port_fwd_bwd_ms"],
-              long_launches=long_launches("vit_block_bwd"), n577=n577(1)),
+              long_launches=long_launches("vit_block_bwd"),
+              n577=n577(1, more2)),
         entry("augment", csrc + "augment.cu",
               "rovit_kan_tpu/ops/augment_kernel.py:73",
               trained["launches"]["augment"], aug16, aug32)] + [

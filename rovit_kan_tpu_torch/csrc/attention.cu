@@ -9,7 +9,8 @@
 //   bf16: attention_mma.cuh, mma.sync two-pass kernels with S, P, dS and the
 //         accumulators in registers and a cp.async ring (its note says how);
 //   fp32: the streamed stages of attention_common.cuh (FMA products from
-//         shared memory), the device code #1/#2 run inside a block.
+//         shared memory), the device code the fp32 #1 and every #2/#4 run
+//         inside a block (the bf16 #1/#3 run attention_mma.cuh's forward).
 // Rounding points are the TPU kernels':
 //   forward:  S = q . k^T in fp32, softmax in fp32, P rounded to the input
 //             type T, O = P . v accumulated and returned in fp32;
@@ -77,11 +78,11 @@ int run_fwd(const void* q, const void* k, const void* v, void* out, int B,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if constexpr (std::is_same<T, bf16>::value) {
-    return static_cast<int>(launch_attention_fwd_mma(
+    return static_cast<int>(launch_attention_fwd_mma<float, false>(
         strided(static_cast<const T*>(q), sq),
         strided(static_cast<const T*>(k), sk),
         strided(static_cast<const T*>(v), sv),
-        dense(static_cast<float*>(out), heads, N, hd), B, heads, N, hd,
+        dense(static_cast<float*>(out), heads, N, hd), B, heads, N, hd, 1.0f,
         static_cast<cudaStream_t>(stream)));
   } else {
     return static_cast<int>(launch_attention_fwd<T, float>(

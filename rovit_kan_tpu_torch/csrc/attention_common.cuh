@@ -1,8 +1,10 @@
 // Streamed softmax attention on Hopper (sm_90a), bf16 or fp32: the forward
 // and the two backward stages, as the ViT-block kernels run them inside a
-// block (vit_block_fwd.cu, vit_block_bwd.cu, through vit_block_common.cuh)
-// and the attention-only kernels run them alone (attention.cu). One device
-// code for both, reading its operands through strided views.
+// block (the fp32 forward, and the backwards' attention stages in both
+// types: vit_block_fwd.cu, vit_block_bwd.cu, through vit_block_common.cuh)
+// and the fp32 attention-only kernels run them alone (attention.cu); the
+// bf16 forwards run attention_mma.cuh. One device code for both, reading
+// its operands through strided views.
 //
 // Per (query tile, head, image) the forward keeps only the query tile and
 // one 64-key tile of K and V in shared memory, so shared memory does not

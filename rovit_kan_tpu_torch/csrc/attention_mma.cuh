@@ -1,12 +1,19 @@
 // Softmax attention in bf16 on Hopper (sm_90a) with mma.sync: the forward
 // and the two backward stages of the attention-only kernels #5 and #6
-// (attention.cu), with S, P, dS and every accumulator in registers.
+// (attention.cu), with S, P, dS and every accumulator in registers. The
+// forward is also the bf16 ViT block's attention stage (#1, #3, and #2's
+// recompute, through vit_block_common.cuh), where q is not pre-scaled: a
+// compile-time switch folds the block's hd^-1/2 into the row max and the
+// exp2 FMA and stores the output rounded once to bf16, and #5's instance
+// keeps its instructions.
 //
 // Replaces the streamed stages of attention_common.cuh for the bf16 entries
 // of attention.cu (rovit_kan_tpu/ops/attention.py::_attention_kernel and
-// ::_attention_bwd_kernel). Those stages kept S, P and the output
-// accumulator in shared memory, ran WMMA from shared memory and loaded tiles
-// synchronously, and reached 1.5-2.4% of their bounds; #1/#2 still run them.
+// ::_attention_bwd_kernel) and for the bf16 block forward. Those stages kept
+// S, P and the output accumulator in shared memory, ran WMMA from shared
+// memory and loaded tiles synchronously, and reached 1.5-2.4% of their
+// bounds; the fp32 routes and the block backwards' attention stages (#2,
+// #4) still run them.
 //
 // What bounds #5/#6 (attention.cu's note): at (32, 3, 577, 64) #5 moves
 // 35.5 MB (10.6 us at 3.35 TB/s) for 8.2 GFLOP (8.3 us at 989 TFLOP/s), #6
@@ -49,6 +56,7 @@
 #pragma once
 
 #include "attention_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
@@ -69,95 +77,6 @@ struct MmaTile {
 // A head width above 64 keeps the own rows' A fragments in shared memory.
 template <int HD>
 __host__ __device__ constexpr bool resident() { return HD <= 64; }
-
-// ---- PTX wrappers --------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid (src
-// must still be a mapped address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// d += a . b, one m16n8k16 bf16 product with fp32 accumulation.
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 g + t. A C fragment
-// c[4] holds rows g, g, g + 8, g + 8 and columns 2t, 2t + 1, 2t, 2t + 1 of
-// its 16 x 8 block; an A fragment a[4] holds (row g, k 2t..2t+1),
-// (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..); a B fragment (b0, b1)
-// holds (k 2t..2t+1, column g) and (k 2t + 8.., g).
-
-// The lane's ldmatrix row address for the A fragment of rows row0..+15,
-// depth k0..+15, of a row-major tile.
-template <int LD>
-__device__ __forceinline__ const bf16* a_addr(const bf16* t, int row0,
-                                              int k0, int lane) {
-  return t + (row0 + (lane & 15)) * LD + k0 + (lane >> 4) * 8;
-}
-// B fragments of two 8-column blocks n0..n0+15 at depth k0..+15, from a
-// tile stored [n][k] (K in q . k^T): r[0..1] block n0, r[2..3] block n0 + 8.
-template <int LD>
-__device__ __forceinline__ const bf16* bnk_addr(const bf16* t, int n0,
-                                                int k0, int lane) {
-  return t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + k0 +
-         ((lane >> 3) & 1) * 8;
-}
-// The same from a tile stored [k][n] (V in P . V), through ldmatrix.trans.
-template <int LD>
-__device__ __forceinline__ const bf16* bkn_addr(const bf16* t, int k0,
-                                                int n0, int lane) {
-  return t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 +
-         (lane >> 4) * 8;
-}
 
 // acc[NB] = A . B^T over depth HD: A the warp's 16 own rows (a_frag(kk, a)
 // gives depth block kk), B rows n0..n0 + 8 NB - 1 of a streamed [n][HD]
@@ -201,29 +120,6 @@ __device__ __forceinline__ void mma_pv(float (&acc)[HD / 8][4],
       mma_bf16(acc[2 * n + 1], p[kk], b[2], b[3]);
     }
   }
-}
-
-// C fragments of NB 8-column blocks (fp32) rounded to bf16 as the A
-// fragments of NB / 2 16-deep blocks.
-template <int NB>
-__device__ __forceinline__ void c_to_a(const float (&c)[NB][4],
-                                       uint32_t (&a)[NB / 2][4]) {
-#pragma unroll
-  for (int kk = 0; kk < NB / 2; ++kk) {
-    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Copies 64 rows of HD bf16 (row stride sr elements) into a tile, rows from
@@ -285,12 +181,20 @@ __device__ __forceinline__ void store_rows(HeadView<E> out, int b, int h,
 template <int HD>
 constexpr size_t fwd_mma_smem() { return 4 * MmaTile<HD>::kBytes; }
 
-// out (fp32) = softmax(q k^T) v for one (64-query tile, head, image).
+// out = softmax(q k^T * scale) v for one (64-query tile, head, image),
+// stored as OutT (fp32 for #5, bf16 for the ViT block, rounded once).
 // Steps 0..nt-1 stream K for the statistics, steps nt..2nt-1 K and V.
-template <int HD>
+// kScaled (the block, whose q is not pre-scaled): the row max is that of
+// the unscaled S (the same element, as scale > 0) and the exp2 FMA's
+// multiplier is scale log2(e), passed as scale_log2e; without it (#5) the
+// multiplier is the constant log2(e) and scale_log2e is not read, so #5
+// keeps its instructions and its bits.
+template <int HD, typename OutT, bool kScaled>
 __global__ void __launch_bounds__(kMmaThreads)
 attn_fwd_mma_kernel(HeadView<const bf16> q, HeadView<const bf16> k,
-                    HeadView<const bf16> v, HeadView<float> out, int N) {
+                    HeadView<const bf16> v, HeadView<OutT> out, int N,
+                    float scale_log2e) {
+  const float c2 = kScaled ? scale_log2e : kLog2e;
   using TL = MmaTile<HD>;
   constexpr int LD = TL::kLd;
   constexpr int KB = HD / 16;
@@ -351,21 +255,21 @@ attn_fwd_mma_kernel(HeadView<const bf16> q, HeadView<const bf16> k,
           mx = fmaxf(mx, fmaxf(sc[j][2 * half], sc[j][2 * half + 1]));
         }
         const float mn = fmaxf(m[half], quad_max(mx));
-        const float mn2 = mn * kLog2e;
+        const float mn2 = mn * c2;
         float e = 0.f;
 #pragma unroll
         for (int j = 0; j < NB; ++j) {
-          e += exp2f(fmaf(sc[j][2 * half], kLog2e, -mn2)) +
-               exp2f(fmaf(sc[j][2 * half + 1], kLog2e, -mn2));
+          e += exp2f(fmaf(sc[j][2 * half], c2, -mn2)) +
+               exp2f(fmaf(sc[j][2 * half + 1], c2, -mn2));
         }
-        l[half] = l[half] * exp2f((m[half] - mn) * kLog2e) + e;
+        l[half] = l[half] * exp2f((m[half] - mn) * c2) + e;
         m[half] = mn;
       }
       if (s == nt - 1) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           inv_l[half] = 1.f / quad_sum(l[half]);
-          m[half] *= kLog2e;                  // pass 2 reads m log2(e)
+          m[half] *= c2;                      // pass 2 reads m c2
         }
       }
     } else {
@@ -374,7 +278,7 @@ attn_fwd_mma_kernel(HeadView<const bf16> q, HeadView<const bf16> k,
       for (int j = 0; j < NB; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          sc[j][e] = exp2f(fmaf(sc[j][e], kLog2e, -m[e >> 1])) *
+          sc[j][e] = exp2f(fmaf(sc[j][e], c2, -m[e >> 1])) *
                      inv_l[e >> 1];
         }
       }
@@ -383,7 +287,7 @@ attn_fwd_mma_kernel(HeadView<const bf16> q, HeadView<const bf16> k,
       mma_pv<HD, NB / 2>(o, pa, sV(s), 0, lane);
     }
   }
-  store_rows<HD, float>(out, b, h, q0 + 16 * warp, N, o, g, t);
+  store_rows<HD, OutT>(out, b, h, q0 + 16 * warp, N, o, g, t);
 }
 
 // ---- backward (#6) ---------------------------------------------------------
@@ -691,15 +595,17 @@ attn_bwd_kv_mma_kernel(HeadView<const bf16> q, HeadView<const bf16> k,
 
 // ---- launches --------------------------------------------------------------
 
-template <int HD>
+template <int HD, typename OutT, bool kScaled>
 cudaError_t launch_fwd_mma_hd(HeadView<const bf16> q, HeadView<const bf16> k,
-                              HeadView<const bf16> v, HeadView<float> out,
-                              int B, int heads, int N, cudaStream_t stream) {
+                              HeadView<const bf16> v, HeadView<OutT> out,
+                              int B, int heads, int N, float scale_log2e,
+                              cudaStream_t stream) {
   constexpr size_t sm = fwd_mma_smem<HD>();
+  const auto kernel = attn_fwd_mma_kernel<HD, OutT, kScaled>;
   cudaError_t e;
-  if ((e = set_smem(attn_fwd_mma_kernel<HD>, sm)) != cudaSuccess) return e;
+  if ((e = set_smem(kernel, sm)) != cudaSuccess) return e;
   const dim3 grid((N + kMmaRows - 1) / kMmaRows, heads, B);
-  attn_fwd_mma_kernel<HD><<<grid, kMmaThreads, sm, stream>>>(q, k, v, out, N);
+  kernel<<<grid, kMmaThreads, sm, stream>>>(q, k, v, out, N, scale_log2e);
   return cudaGetLastError();
 }
 
@@ -737,25 +643,34 @@ cudaError_t launch_bwd_mma_hd(HeadView<const bf16> q, HeadView<const bf16> k,
     default: return cudaErrorInvalidValue;                                  \
   }
 
+// The dispatchers are templates, so a source that includes this header
+// compiles only the kernels it launches. #5: OutT float, kScaled false
+// (scale not read); the ViT block: bf16 and true.
+template <typename OutT, bool kScaled>
 cudaError_t launch_attention_fwd_mma(HeadView<const bf16> q,
                                      HeadView<const bf16> k,
                                      HeadView<const bf16> v,
-                                     HeadView<float> out, int B, int heads,
-                                     int N, int hd, cudaStream_t stream) {
-#define ATTN_FWD_CALL(HD) \
-  launch_fwd_mma_hd<HD>(q, k, v, out, B, heads, N, stream)
+                                     HeadView<OutT> out, int B, int heads,
+                                     int N, int hd, float scale,
+                                     cudaStream_t stream) {
+  const float c2 = scale * kLog2e;
+#define ATTN_FWD_CALL(HD)                                                   \
+  launch_fwd_mma_hd<HD, OutT, kScaled>(q, k, v, out, B, heads, N, c2,       \
+                                       stream)
   ATTN_MMA_DISPATCH(hd, ATTN_FWD_CALL)
 #undef ATTN_FWD_CALL
 }
 
-cudaError_t launch_attention_bwd_mma(HeadView<const bf16> q,
-                                     HeadView<const bf16> k,
-                                     HeadView<const bf16> v,
-                                     HeadView<const bf16> g,
-                                     HeadView<bf16> dq, HeadView<bf16> dk,
-                                     HeadView<bf16> dv, float* stats, int B,
+template <typename T>
+cudaError_t launch_attention_bwd_mma(HeadView<const T> q,
+                                     HeadView<const T> k,
+                                     HeadView<const T> v,
+                                     HeadView<const T> g,
+                                     HeadView<T> dq, HeadView<T> dk,
+                                     HeadView<T> dv, float* stats, int B,
                                      int heads, int N, int hd,
                                      cudaStream_t stream) {
+  static_assert(std::is_same<T, bf16>::value, "bf16 only");
 #define ATTN_BWD_CALL(HD) \
   launch_bwd_mma_hd<HD>(q, k, v, g, dq, dk, dv, stats, B, heads, N, stream)
   ATTN_MMA_DISPATCH(hd, ATTN_BWD_CALL)

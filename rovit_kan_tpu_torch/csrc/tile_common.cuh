@@ -23,8 +23,10 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 64;          // output columns per product step
 
-// Rows per CTA of the row-tiled forward kernels, queries per forward
-// attention CTA, and the tile of both sides of the attention backward.
+// Rows per CTA of the fp32 row-tiled forward kernels, queries per streamed
+// forward attention CTA (fp32), and the tile of both sides of the streamed
+// attention backward (bf16 and fp32); the bf16 forward tiles itself
+// (block_mma.cuh, attention_mma.cuh).
 template <typename T> struct Tile;
 template <> struct Tile<bf16> { static constexpr int kRows = 64; };
 template <> struct Tile<float> { static constexpr int kRows = 32; };

@@ -28,8 +28,9 @@
 // is written as per-CTA fp32 partials, and one last launch adds the
 // partials in a fixed order. There are no atomics, so two runs give the
 // same bits. Eight launches:
-//   1-2. ln_qkv and attention of the forward (vit_block_common.cuh), which
-//        also store the LN1 output for the qkv weight grad;
+//   1-2. ln_qkv and attention of the forward (vit_block_common.cuh: in
+//        bf16 the mma.sync stages of block_mma.cuh and attention_mma.cuh),
+//        which also store the LN1 output for the qkv weight grad;
 //   3. mlp_bwd, a tile of 32 rows (16 in fp32): proj and the residual, LN2,
 //      then fc1/GELU and dh = g . W2 in 64-column steps of the hidden
 //      dimension (da1 kept on chip), dz = da1 . W1, the LN2 backward,

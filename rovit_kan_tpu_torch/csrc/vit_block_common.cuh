@@ -1,8 +1,13 @@
 // Pieces shared by the ViT-block kernels (vit_block_fwd.cu, vit_block_bwd.cu):
-// row LayerNorm, GELU, and the first two stages of the forward (LN1 + qkv,
+// row LayerNorm, and the first two stages of the forward (LN1 + qkv,
 // attention), which the backward runs again to recompute what the forward
-// does not keep. The tiles and products are in tile_common.cuh, the
-// streamed attention in attention_common.cuh (which attention.cu shares).
+// does not keep. The route is chosen by the compute type:
+//   bf16: block_mma.cuh's ln_qkv (mma.sync from registers, a cp.async ring
+//         of Wqkv tiles), then attention_mma.cuh's forward with the block's
+//         scale folded into its exp2 FMA and the output rounded to bf16;
+//   fp32: ln_qkv_kernel below (FMA tiles from shared memory), then the
+//         streamed attention stage of attention_common.cuh.
+// The fp32 tiles and products are in tile_common.cuh.
 //
 // Rounding points are those of rovit_kan_tpu/ops/block_kernel.py: fp32
 // statistics and accumulation, one rounding to the compute type T where the
@@ -12,10 +17,10 @@
 #pragma once
 
 #include "attention_common.cuh"
+#include "attention_mma.cuh"
+#include "block_mma.cuh"
 
 namespace {
-
-constexpr float kLnEps = 1e-6f;
 
 // LayerNorm of `rows` rows of width D, one warp per row, fp32 statistics;
 // writes the result rounded to T, and the row's mean and inverse standard
@@ -61,11 +66,7 @@ __device__ void layernorm_rows(const S* __restrict__ src, size_t src_ld,
   }
 }
 
-__device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-}
-
-// ---- LN1 + qkv -------------------------------------------------------------
+// ---- LN1 + qkv, fp32 -------------------------------------------------------
 
 struct LnQkvLayout {
   size_t y, w, c, total;
@@ -138,29 +139,40 @@ HeadView<E> block_heads(E* base, int N, int D, int hd, int which) {
 }
 
 // The first two forward stages, as both the forward and the backward launch
-// them: x -> qkv (and the LN1 output where y_out is given) -> attn.
+// them: x -> qkv (and the LN1 output where y_out is given) -> attn. A width
+// the bf16 route does not take returns cudaErrorInvalidValue, unlaunched.
 template <typename T>
 cudaError_t launch_qkv_attention(const T* x, const float* ln1g,
                                  const float* ln1b, const T* wqkv,
                                  const float* bqkv, T* qkv, T* attn,
                                  T* y_out, int B, int N, int D, int heads,
                                  cudaStream_t stream) {
-  constexpr int R = Tile<T>::kRows;
   const int M = B * N;
   const int hd = D / heads;
-  cudaError_t e;
-  const size_t sm1 = ln_qkv_layout<T>(D).total;
-  if ((e = set_smem(ln_qkv_kernel<T>, sm1)) != cudaSuccess) return e;
-  ln_qkv_kernel<T><<<(M + R - 1) / R, kThreads, sm1, stream>>>(
-      x, ln1g, ln1b, wqkv, bqkv, qkv, y_out, M, D);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-
+  const float scale =
+      static_cast<float>(std::pow(static_cast<double>(hd), -0.5));
   const T* cq = qkv;
-  return launch_attention_fwd<T, T>(
-      block_heads(cq, N, D, hd, 0), block_heads(cq, N, D, hd, 1),
-      block_heads(cq, N, D, hd, 2), block_heads(attn, N, D, hd, -1), B,
-      heads, N, hd,
-      static_cast<float>(std::pow(static_cast<double>(hd), -0.5)), stream);
+  cudaError_t e;
+  if constexpr (std::is_same<T, bf16>::value) {
+    e = launch_ln_qkv_mma(x, ln1g, ln1b, wqkv, bqkv, qkv, y_out, M, D,
+                          stream);
+    if (e != cudaSuccess) return e;
+    return launch_attention_fwd_mma<bf16, true>(
+        block_heads(cq, N, D, hd, 0), block_heads(cq, N, D, hd, 1),
+        block_heads(cq, N, D, hd, 2), block_heads(attn, N, D, hd, -1), B,
+        heads, N, hd, scale, stream);
+  } else {
+    constexpr int R = Tile<T>::kRows;
+    const size_t sm1 = ln_qkv_layout<T>(D).total;
+    if ((e = set_smem(ln_qkv_kernel<T>, sm1)) != cudaSuccess) return e;
+    ln_qkv_kernel<T><<<(M + R - 1) / R, kThreads, sm1, stream>>>(
+        x, ln1g, ln1b, wqkv, bqkv, qkv, y_out, M, D);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    return launch_attention_fwd<T, T>(
+        block_heads(cq, N, D, hd, 0), block_heads(cq, N, D, hd, 1),
+        block_heads(cq, N, D, hd, 2), block_heads(attn, N, D, hd, -1), B,
+        heads, N, hd, scale, stream);
+  }
 }
 
 // Shapes both kernels take: D a multiple of 64, a head width that is a

@@ -20,36 +20,63 @@
 // masked instead (pad rows of K and V are zero in shared memory, pad
 // columns of P are zero).
 //
-// What bounds it on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s HBM):
-// at the serving shape B=64, N=197, D=192, 3 heads, hidden 768, one call
-// does 2*B*N*D*(3D + D + 2*4D) = 1.116e10 FLOP in the four products plus
-// 4*B*N*N*D = 1.908e9 FLOP in attention, 1.307e10 FLOP in all: 13.2 us at
-// the bf16 peak. It must move x in and out once (2 * 4.84 MB in bf16) plus
-// 0.88 MB of bf16 weights, about 10.6 MB: 3.2 us at the HBM rate. So it is
-// compute-bound, by a factor of four.
+// What bounds it on an H100 SXM (989 TFLOP/s dense bf16, 67 TFLOP/s fp32,
+// 3.35 TB/s HBM): at the serving shape B=64, N=197, D=192, 3 heads, hidden
+// 768 (M = B*N = 12,608 rows), one call does 2*M*D*(3D + D + 2*4D) =
+// 1.116e10 FLOP in the four products plus 4*B*N*N*D = 1.908e9 FLOP in
+// attention, 1.307e10 FLOP in all: 13.2 us at the bf16 peak. It must move x
+// in and out once (2 * 4.84 MB in bf16) plus 0.88 MB of bf16 weights, about
+// 10.6 MB: 3.2 us at the HBM rate. So it is compute-bound, by a factor of
+// four. By stage, with qkv and the attention output through device memory
+// between them: ln_qkv 2.79e9 FLOP (2.8 us) but x in and qkv out, 19.6 MB
+// (5.8 us), so bytes bound it; attention 1.91e9 FLOP (1.9 us) for 19.4 MB
+// (5.8 us), bytes again; proj_mlp 8.37e9 FLOP (8.5 us) for 15.2 MB (4.5
+// us), operations. At the long shape (32, 577, 192): 2.45e10 FLOP, 24.8 us
+// for the block; by stage 8.5 (bytes), 8.5 (bytes) and 12.4 us
+// (operations).
 //
-// First design, right before fast. Three launches per block call, each a
-// grid of independent CTAs of 256 threads:
-//   1. ln_qkv:    a tile of 64 rows (32 in fp32): LN1 into shared memory,
-//                 then the qkv product in 64-column steps;
-//   2. attention: one CTA per (64-query tile, head, image), streaming
-//                 64-key tiles of K and V through shared memory in two
-//                 passes (row statistics, then P . V), so any sequence
-//                 length fits (attention_common.cuh, shared with the
-//                 attention-only kernel #5 in attention.cu);
-//   3. proj_mlp:  a tile of 64 rows (32 in fp32): proj, the fp32 residual,
-//                 LN2, fc1, GELU (the 64 x 768 hidden tile stays in shared
-//                 memory), fc2 and the second residual.
-// qkv and the attention output go through device memory (2 x 7.3 MB in
-// bf16 at B=64, mostly served from the 50 MB L2); every other intermediate
-// stays on chip. bf16 products use the tensor cores through WMMA 16x16x16
-// fragments read from shared memory; fp32 products are plain FMA loops (the
-// TPU kernel's fp32 mode also stays out of reduced precision). Weights are
-// streamed through shared memory in 64-row chunks, with no overlap of loads
-// and math: wgmma, TMA and a persistent pipelined design are later work.
+// Three launches per block call. The route is chosen by the compute type.
 //
-// The helpers and the first two stages live in vit_block_common.cuh, which
-// the backward (vit_block_bwd.cu) shares.
+// bf16 (D of 64, 128 or 192; any other width returns
+// cudaErrorInvalidValue before any launch):
+//   1. ln_qkv:    block_mma.cuh, 96 rows per CTA of 6 warps: LN1 into mma
+//                 A fragments in registers, then qkv over 64-column tiles
+//                 of Wqkv that a two-stage cp.async ring brings in under
+//                 the products (mma.sync m16n8k16, accumulators and
+//                 epilogue in registers, rows in and out as 16-byte
+//                 vectors through a per-warp staging tile); 87.5 KB of
+//                 shared memory, two CTAs an SM;
+//   2. attention: attention_mma.cuh's forward (#5's kernel) over the qkv
+//                 buffer's strided head views, with the block's scale
+//                 hd^-1/2 folded into its row max and exp2 FMA and the
+//                 output rounded once to bf16; 64 queries per CTA of 4
+//                 warps, S, P and O in registers, K and V through a
+//                 two-stage cp.async ring, 36 KB, six CTAs an SM;
+//   3. proj_mlp:  block_mma.cuh, 48 rows per CTA: proj and the fp32
+//                 residual, LN2 from registers, then fc1 + GELU and fc2
+//                 chunk by chunk of the hidden dimension (each 64-wide h
+//                 chunk is repacked in registers as fc2's A fragments, so
+//                 no hidden tile exists), the weights through the same kind
+//                 of ring; 91.5 KB, two CTAs an SM.
+//   Wave arithmetic on 132 SMs: at (64, 197) ln_qkv has
+//   ceil(12,608 / 96) = 132 CTAs, one an SM; proj_mlp ceil(12,608 / 48) =
+//   263, one wave of its 264 slots (the 64-row tile of the first design
+//   gave 197 CTAs of one per SM, two waves, the second 65/132 full);
+//   attention 4 x 3 x 64 = 768 CTAs in 792 slots. At (32, 577): ln_qkv 193
+//   CTAs, one wave; proj_mlp 385, 1.46 waves (three CTAs on 121 SMs, two on
+//   11; the first design's 289 CTAs of one per SM ran in three waves, the
+//   last 25/132 full); attention 10 x 3 x 32 = 960 CTAs, 1.2 waves.
+//   qkv and the attention output go through device memory (2 x 7.3 MB at
+//   B=64, mostly served from the 50 MB L2), as #3 returns them anyway.
+//
+// fp32 (the first design, unchanged): 32-row tiles of 256 threads, FMA
+// products from shared memory (the TPU kernel's fp32 mode also stays out of
+// reduced precision), weights in 64-row chunks loaded with no overlap of
+// loads and math, the streamed attention stage of attention_common.cuh, and
+// the 32 x H hidden tile in shared memory.
+//
+// The first two stages live in vit_block_common.cuh, which the backward
+// (vit_block_bwd.cu) shares to recompute qkv and the attention output.
 //
 // The residual-saving forward (#3). vit_block_res_fwd_* replaces
 // rovit_kan_tpu/ops/block_kernel.py::_vit_block_res_kernel, the forward that
@@ -74,7 +101,7 @@
 
 namespace {
 
-// ---- 3. proj + residual + LN2 + fc1 + GELU + fc2 + residual ---------------
+// ---- 3. proj + residual + LN2 + fc1 + GELU + fc2 + residual, fp32 ---------
 
 struct MlpLayout {
   size_t a, x, h, w, c, total;
@@ -192,10 +219,8 @@ int run_block(const void* x, void* out, void* qkv, void* attn, void* a1,
   if (!block_shape_ok(B, N, D, heads, H)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  constexpr int R = Tile<T>::kRows;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int M = B * N;
-  const int row_tiles = (M + R - 1) / R;
   cudaError_t e = launch_qkv_attention<T>(
       static_cast<const T*>(x), static_cast<const float*>(ln1g),
       static_cast<const float*>(ln1b), static_cast<const T*>(wqkv),
@@ -203,18 +228,29 @@ int run_block(const void* x, void* out, void* qkv, void* attn, void* a1,
       static_cast<T*>(attn), nullptr, B, N, D, heads, stream);
   if (e != cudaSuccess) return e;
 
-  const size_t sm3 = proj_mlp_layout<T>(D, H).total;
-  const auto proj_mlp = a1 != nullptr ? proj_mlp_kernel<T, true>
-                                      : proj_mlp_kernel<T, false>;
-  if ((e = set_smem(proj_mlp, sm3)) != cudaSuccess) return e;
-  proj_mlp<<<row_tiles, kThreads, sm3, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(attn),
-      static_cast<const T*>(wproj), static_cast<const float*>(bproj),
-      static_cast<const float*>(ln2g), static_cast<const float*>(ln2b),
-      static_cast<const T*>(w1), static_cast<const float*>(b1),
-      static_cast<const T*>(w2), static_cast<const float*>(b2),
-      static_cast<T*>(out), static_cast<T*>(a1), M, D, H);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, bf16>::value) {
+    return static_cast<int>(launch_proj_mlp_mma(
+        static_cast<const T*>(x), static_cast<const T*>(attn),
+        static_cast<const T*>(wproj), static_cast<const float*>(bproj),
+        static_cast<const float*>(ln2g), static_cast<const float*>(ln2b),
+        static_cast<const T*>(w1), static_cast<const float*>(b1),
+        static_cast<const T*>(w2), static_cast<const float*>(b2),
+        static_cast<T*>(out), static_cast<T*>(a1), M, D, H, stream));
+  } else {
+    constexpr int R = Tile<T>::kRows;
+    const size_t sm3 = proj_mlp_layout<T>(D, H).total;
+    const auto proj_mlp = a1 != nullptr ? proj_mlp_kernel<T, true>
+                                        : proj_mlp_kernel<T, false>;
+    if ((e = set_smem(proj_mlp, sm3)) != cudaSuccess) return e;
+    proj_mlp<<<(M + R - 1) / R, kThreads, sm3, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(attn),
+        static_cast<const T*>(wproj), static_cast<const float*>(bproj),
+        static_cast<const float*>(ln2g), static_cast<const float*>(ln2b),
+        static_cast<const T*>(w1), static_cast<const float*>(b1),
+        static_cast<const T*>(w2), static_cast<const float*>(b2),
+        static_cast<T*>(out), static_cast<T*>(a1), M, D, H);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 }  // namespace

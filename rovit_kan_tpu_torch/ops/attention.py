@@ -4,9 +4,10 @@ Counterpart of ``rovit_kan_tpu/ops/attention.py::fused_attention`` and its
 custom VJP: ``softmax(q k^T) v`` over ``(B, heads, N, head_dim)`` with q
 already multiplied by ``head_dim ** -0.5``. The TPU kernels
 ``_attention_kernel`` (#5) and ``_attention_bwd_kernel`` (#6) are replaced
-on Hopper by ``csrc/attention.cu``, which runs the streamed attention stages
-that the block kernels share (``csrc/attention_common.cuh``; the source
-notes there say what bounds them and how they are tiled).
+on Hopper by ``csrc/attention.cu``: in bf16 the mma.sync kernels of
+``csrc/attention_mma.cuh`` (whose forward the bf16 block kernels share), in
+fp32 the streamed attention stages of ``csrc/attention_common.cuh``; the
+source notes there say what bounds them and how they are tiled.
 
 Rounding points are the TPU kernels': S and the softmax in fp32, P rounded
 to the input dtype before ``P v``, every product accumulated in fp32, the

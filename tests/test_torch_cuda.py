@@ -1,8 +1,10 @@
 """Port tests that need an NVIDIA GPU: the CUDA kernels (block forward #1,
-block backward #2, the saved-residual pair #3/#4, attention forward #5 and
+block backward #2 and the residual forward #3 from one row to 1,024 tokens
+at head widths 16-128, the residual backward #4, attention forward #5 and
 backward #6 at every head width they take and on the model's strided qkv
 views, augment #7, the KAN kernels #8-#11) against their plain versions,
-the served model through the block kernel, and small train steps through
+with the same bits on a repeated call, the served model through the block
+kernel, and small train steps through
 #1, #2 and #7 and through #5, #6 and #7. They skip where
 ``torch.cuda.is_available()`` is False. This file imports neither jax nor
 the JAX package, so it runs on a GPU machine without JAX:
@@ -65,13 +67,22 @@ def _tol(ref, dtype):
     return 2.0 * 2.0 ** (np.floor(np.log2(top)) - 7)
 
 
+# (B, N, D, heads) of the block kernels: earlier slices' shapes, then one
+# row (head width 16), head widths 48, 96 and 128, and a row count below
+# one CTA's 48 rows and under any tile.
+BLOCK_SHAPES = [(3, 37, 64, 2), (2, 197, 192, 3), (1, 5, 128, 4),
+                (2, 577, 192, 3), (1, 1024, 128, 2), (1, 1, 64, 4),
+                (3, 129, 192, 4), (2, 65, 192, 2), (1, 200, 128, 1),
+                (1, 3, 192, 3)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
-@pytest.mark.parametrize("shape", [(3, 37, 64, 2), (2, 197, 192, 3),
-                                   (1, 5, 128, 4), (2, 577, 192, 3),
-                                   (1, 1024, 128, 2)],
+@pytest.mark.parametrize("shape", BLOCK_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_plain(cuda, shape, dtype):
+    """#1 within ``_tol`` of ``block_reference``; the same bits on a
+    repeated call."""
     B, N, D, heads = shape
     rng = np.random.RandomState(sum(shape))
     p = _params(rng, D, 4 * D, dtype, cuda)
@@ -81,12 +92,14 @@ def test_kernel_matches_plain(cuda, shape, dtype):
     with torch.inference_mode():
         got = bk.fused_vit_block(x, p, heads)
         want = bk.block_reference(x, p, heads)
+        again = bk.fused_vit_block(x, p, heads)
     torch.cuda.synchronize()
-    assert bk.LAUNCHES == before + 1
+    assert bk.LAUNCHES == before + 2
     assert got.dtype == dtype and got.shape == x.shape
     assert torch.isfinite(got.float()).all()
     err = float((got.float() - want.float()).abs().max())
     assert err <= _tol(want, dtype), err
+    assert torch.equal(again, got)                   # the same bits
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
@@ -138,9 +151,7 @@ def _assert_grads(dx, grads, want_dx, want_grads, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
-@pytest.mark.parametrize("shape", [(3, 37, 64, 2), (2, 197, 192, 3),
-                                   (1, 5, 128, 4), (2, 577, 192, 3),
-                                   (1, 1024, 128, 2)],
+@pytest.mark.parametrize("shape", BLOCK_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
 def test_backward_kernel_matches_plain(cuda, shape, dtype):
     B, N, D, heads = shape
@@ -164,13 +175,11 @@ def test_backward_kernel_matches_plain(cuda, shape, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
-@pytest.mark.parametrize("shape", [(3, 37, 64, 2), (2, 197, 192, 3),
-                                   (1, 5, 128, 4), (2, 577, 192, 3),
-                                   (1, 1024, 128, 2)],
+@pytest.mark.parametrize("shape", BLOCK_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
 def test_residual_forward_kernel_matches_plain(cuda, shape, dtype):
     """#3: the output has #1's bits; qkv, attn and a1 within ``_tol`` of
-    ``block_residual_reference``'s."""
+    ``block_residual_reference``'s; the same bits on a repeated call."""
     B, N, D, heads = shape
     rng = np.random.RandomState(sum(shape) + 2)
     p = _params(rng, D, 4 * D, dtype, cuda)
@@ -181,9 +190,12 @@ def test_residual_forward_kernel_matches_plain(cuda, shape, dtype):
         got = bk._launch_res(x, p, heads)
         plain_out = bk._launch(x, p, heads)
         want = bk.block_residual_reference(x, p, heads)
+        again = bk._launch_res(x, p, heads)
     torch.cuda.synchronize()
-    assert (bk.LAUNCHES, bk.RES_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert (bk.LAUNCHES, bk.RES_LAUNCHES) == (before[0] + 1, before[1] + 2)
     assert torch.equal(got[0], plain_out)
+    for a, b in zip(again, got):                     # the same bits
+        assert torch.equal(a, b)
     for name, g, w, width in zip(("out", "qkv", "attn", "a1"), got, want,
                                  (D, 3 * D, D, 4 * D)):
         assert g.dtype == dtype and g.shape == (B, N, width), name
@@ -297,6 +309,32 @@ def test_attention_kernels_match_plain(cuda, shape, dtype):
     for a, b in zip(at._launch_bwd(q, k, v, g), grads):
         assert torch.equal(a, b)
     assert (at.LAUNCHES, at.BWD_LAUNCHES) == (fwd + 2, bwd + 2)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 197, 64), (2, 3, 577, 64),
+                                   (2, 2, 65, 16), (1, 2, 200, 128),
+                                   (3, 4, 129, 48)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_attention_forward_keeps_scale_one(cuda, shape):
+    """The bf16 #5 shares its forward with the ViT block's attention stage,
+    which folds hd^-1/2 into the exp2 FMA behind a compile-time switch; #5
+    keeps scale 1. On q that is not pre-scaled (logits hd^1/2 times larger
+    than the model's), #5 is softmax(q k^T) v: within two bf16 ulps of
+    ``attention_reference``, far from the scaled softmax, and the same bits
+    on a repeated call."""
+    rng = np.random.RandomState(sum(shape) + 7)
+    q, k, v = (torch.tensor(rng.normal(0, 1, shape), dtype=torch.float32,
+                            device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    out = at._launch(q, k, v)
+    ref = at.attention_reference(q, k, v)
+    scaled = at.attention_reference(
+        (q.float() * shape[-1] ** -0.5).to(torch.bfloat16), k, v)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) <= _tol(ref, torch.bfloat16)
+    assert float((out - scaled).abs().max()) > 10 * _tol(ref, torch.bfloat16)
+    assert torch.equal(at._launch(q, k, v), out)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],

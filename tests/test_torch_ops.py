@@ -106,7 +106,11 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
     assert _build.library_path("a") == second          # stable
     real = Path(_build.__file__).resolve().parent.parent / "csrc"
     monkeypatch.setattr(_build, "CSRC", real)
-    assert [h.name for h in _build._headers(real / "vit_block_bwd.cu", [])] \
-        == ["vit_block_common.cuh", "attention_common.cuh", "tile_common.cuh"]
+    block = ["vit_block_common.cuh", "attention_common.cuh",
+             "tile_common.cuh", "attention_mma.cuh", "mma_common.cuh",
+             "block_mma.cuh"]
+    for source in ("vit_block_fwd.cu", "vit_block_bwd.cu"):
+        assert [h.name for h in _build._headers(real / source, [])] == block
     assert [h.name for h in _build._headers(real / "attention.cu", [])] \
-        == ["attention_common.cuh", "tile_common.cuh", "attention_mma.cuh"]
+        == ["attention_common.cuh", "tile_common.cuh", "attention_mma.cuh",
+            "mma_common.cuh"]

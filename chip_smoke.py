@@ -13,10 +13,12 @@ exits non-zero:
    (CUDA events, warm-up, median) beside its bound, the plain version and
    one PyTorch library call computing the same function: the block forward
    (#1) and backward (#2) at (64, 197, 192), 3 heads, and the augment (#7)
-   at (64, 224, 224, 3), each in bf16 and fp32 (#1 also the same bits on a
-   repeated call; #1, #2 and ``TransformerEncoderLayer``'s forward also by
-   CUDA-graph replay, the device time; #1's three stages and #2's two
-   recomputed ones by torch.profiler); the KAN head's forward
+   at (64, 224, 224, 3), each in bf16 and fp32 (#1 and #2 also the same
+   bits on a repeated call; #1, #2 and ``TransformerEncoderLayer``'s forward
+   also by CUDA-graph replay, the device time; #1's three stages and each of
+   #2's stages by torch.profiler, the bf16 #2 failing if a stage it replaced
+   runs; #1 + #2 under autograd and ``TransformerEncoderLayer``'s forward +
+   backward also by profiler device time); the KAN head's forward
    (#10) and backward (#11) at (64, [192, 64, 16, 1]) and one KAN layer's
    (#8, #9) at (64, 192 -> 64), fp32, each output within 1e-4 of its
    largest magnitude and the same bits on a repeated call, their ``ms`` and
@@ -66,7 +68,9 @@ exits non-zero:
    (32, 577, 192), bf16 and fp32, against their plain versions (#3's output
    the bits of #1's, the same bits on a repeated #3 and #4 call), timed
    beside their bounds, the plain versions and ``TransformerEncoderLayer``
-   (#3 and the layer's forward also by CUDA-graph replay); one flagship
+   (#3, #4 and the layer's forward also by CUDA-graph replay; #4's stages,
+   and #3 + #4, #1 + #2 and the layer's forward + backward, by profiler
+   device time); one flagship
    train step with ``ROVIT_BLOCK_RESIDUAL_BWD=1`` held against the same step
    through #1/#2 and through #4's plain version (``hold_residual_step``);
    then ``Trainer.fit`` at the flagship's full width over a device-resident
@@ -280,6 +284,45 @@ def check_block(dtype, seed: int, batch: int = BATCH, tokens: int = TOKENS):
             "bound_by": "operations"}
 
 
+# The kernels of #2's and #4's stages in a profile, by stage and route
+# (#2 also runs #1's ln_qkv and attention stages to recompute qkv and the
+# attention output). The bf16 route's must run and the streamed and WMMA
+# stages it replaced must not (``OLD_BWD_STAGES``).
+BWD_STAGES = {
+    torch.bfloat16: {"mlp_bwd": "mlp_bwd_mma_kernel<",
+                     "attention_q": "attn_bwd_q_mma_kernel<",
+                     "attention_kv": "attn_bwd_kv_mma_kernel<",
+                     "qkv_bwd": "qkv_bwd_mma_kernel<",
+                     "wgrad": "wgrad_mma_kernel",
+                     "reduce": "namespace)::reduce_kernel<"},
+    torch.float32: {"mlp_bwd": "mlp_bwd_kernel<",
+                    "attention_q": "attn_bwd_q_kernel<",
+                    "attention_kv": "attn_bwd_kv_kernel<",
+                    "qkv_bwd": "qkv_bwd_kernel<",
+                    "wgrad": "wgrad_kernel<",
+                    "reduce": "namespace)::reduce_kernel<"}}
+OLD_BWD_STAGES = tuple(BWD_STAGES[torch.float32][k] for k in (
+    "mlp_bwd", "attention_q", "attention_kv", "qkv_bwd", "wgrad"))
+
+
+def bwd_stages(fn, dtype, recompute: bool, calls: int = 10) -> dict:
+    """Device time per call of each stage of one backward call ``fn`` (#2
+    when ``recompute``, else #4), and of all its device operations, from
+    one profile; in bf16 it raises if a replaced stage ran."""
+    ops = device_ops(fn, calls)
+    kernels = dict(BWD_STAGES[dtype])
+    if recompute:
+        kernels.update({k: BLOCK_STAGES[dtype][k]
+                        for k in ("ln_qkv", "attention")})
+    if dtype == torch.bfloat16:
+        old = [k for k in ops if any(o in k for o in OLD_BWD_STAGES)]
+        if old:
+            raise RuntimeError(f"bf16 backward ran replaced stages: {old}")
+    out = by_label(ops, kernels)
+    out["all"] = sum(ops.values())
+    return out
+
+
 def bwd_tol(ref: torch.Tensor, dtype) -> float:
     """Backward tolerance, relative to the largest magnitude of each output:
     fp32 1e-4 (sums in another order, up to B*N rows); bf16 1e-2 (a rounding
@@ -292,7 +335,11 @@ def bwd_tol(ref: torch.Tensor, dtype) -> float:
 def check_block_bwd(dtype, seed: int, batch: int = BATCH,
                     tokens: int = TOKENS):
     """Kernel #2 against ``block_backward_reference``: dx and all 12 grads,
-    each against its own tolerance."""
+    each against its own tolerance, and the same bits on a repeated call;
+    timed by CUDA events, by CUDA-graph replay and by stage
+    (``bwd_stages``) beside the plain version; #1 + #2 under autograd and
+    ``TransformerEncoderLayer``'s forward + backward by events and by
+    profiler device time."""
     from rovit_kan_tpu_torch.ops import block_kernel as bk
     x, params = block_inputs(dtype, seed, batch, tokens)
     g = torch.tensor(np.random.RandomState(seed + 10).normal(
@@ -300,7 +347,12 @@ def check_block_bwd(dtype, seed: int, batch: int = BATCH,
     with torch.no_grad():
         dx, grads = bk._launch_bwd(x, g, params, HEADS)
         want_dx, want = bk.block_backward_reference(x, g, params, HEADS)
+        again_dx, again = bk._launch_bwd(x, g, params, HEADS)
         torch.cuda.synchronize()
+    if not (torch.equal(again_dx, dx) and all(
+            torch.equal(again[k], grads[k]) for k in bk.PKEYS)):
+        raise RuntimeError(f"backward kernel ({dtype}) gave other bits on a "
+                           f"repeated call")
     errs, failed = {}, []
     for name, got, ref in [("dx", dx, want_dx)] + [
             (k, grads[k], want[k]) for k in bk.PKEYS]:
@@ -322,10 +374,8 @@ def check_block_bwd(dtype, seed: int, batch: int = BATCH,
         ms = time_ms(lambda: bk._launch_bwd(x, g, params, HEADS), reps=9)
         graph = graph_ms(lambda: bk._launch_bwd(x, g, params, HEADS),
                          calls=5)
-        stages = BLOCK_STAGES[dtype]
-        recompute = device_ms_by(
-            lambda: bk._launch_bwd(x, g, params, HEADS),
-            {k: stages[k] for k in ("ln_qkv", "attention")}, calls=10)
+        stages = bwd_stages(lambda: bk._launch_bwd(x, g, params, HEADS),
+                            dtype, recompute=True)
         plain_ms = time_ms(lambda: bk.block_backward_reference(
             x, g, params, HEADS), reps=5, inner=3)
     # Forward plus backward: the port's #1 + #2 through autograd, and the
@@ -345,6 +395,8 @@ def check_block_bwd(dtype, seed: int, batch: int = BATCH,
 
     port_ms = time_ms(port_fwd_bwd, reps=9)
     library_ms = time_ms(library_fwd_bwd, reps=9)
+    port_device = device_ms(port_fwd_bwd, calls=10)
+    library_device = device_ms(library_fwd_bwd, calls=10)
     # The needed work: the forward recomputed without fc2 (no gradient
     # reads the block's output), then two products per forward product.
     B, N, D = x.shape
@@ -360,13 +412,18 @@ def check_block_bwd(dtype, seed: int, batch: int = BATCH,
             "dtype": str(dtype).replace("torch.", ""),
             "shape": list(x.shape), "heads": HEADS,
             "launches_per_step": "12 (one per block; counted in 'train')",
+            "identical_bits_on_repeat": True,
             "outputs": errs,
             "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
             "max_rel_err": max(e["rel_err"] for e in errs.values()),
             "kernel_ms": ms, "kernel_graph_ms": graph, "plain_ms": plain_ms,
-            "recompute_stages_device_ms": recompute,
+            "stages_device_ms": stages,
             "port_fwd_bwd_ms": port_ms, "library_ms": library_ms,
+            "port_fwd_bwd_device_ms": port_device,
+            "library_device_ms": library_device,
             "library": "nn.TransformerEncoderLayer forward + backward",
+            "device_ms_source": "torch.profiler: every device operation of "
+                                "10 calls, per call",
             "bound_ms": 1e3 * max(flops / peak, nbytes / PEAK_BYTES_PER_S),
             "bound_by": "operations"}
 
@@ -502,11 +559,9 @@ def device_ms(fn, kernels=None, calls: int = 50) -> float:
     return sum(device_ms_by(fn, names, calls).values())
 
 
-def device_ms_by(fn, kernels: dict, calls: int = 20) -> dict:
-    """Device time per call of ``fn`` by label, each label the device
-    operations whose name holds its substring ("" holds every one), from
-    one torch.profiler run over ``calls`` calls after a warm-up. Raises if
-    a label has no device time."""
+def device_ops(fn, calls: int = 20) -> dict:
+    """Device time per call of ``fn`` by device operation name (ms), from
+    one torch.profiler run over ``calls`` calls after a warm-up."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -515,15 +570,28 @@ def device_ms_by(fn, kernels: dict, calls: int = 20) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {e.key: e.self_device_time_total / 1e3 / calls
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def by_label(ops: dict, kernels: dict) -> dict:
+    """Sums of ``device_ops`` by label, each label the operations whose name
+    holds its substring ("" holds every one). Raises if a label has no
+    device time."""
     out = {}
     for label, sub in kernels.items():
-        us = sum(e.self_device_time_total for e in events if sub in e.key)
-        if not us > 0:
+        ms = sum(v for k, v in ops.items() if sub in k)
+        if not ms > 0:
             raise RuntimeError(f"no device time recorded for {sub}")
-        out[label] = us / 1e3 / calls
+        out[label] = ms
     return out
+
+
+def device_ms_by(fn, kernels: dict, calls: int = 20) -> dict:
+    """Device time per call of ``fn`` by label (``by_label``), from one
+    torch.profiler run over ``calls`` calls after a warm-up."""
+    return by_label(device_ops(fn, calls), kernels)
 
 
 def graph_ms(fn, calls: int = 20) -> float:
@@ -1789,9 +1857,10 @@ def check_block_res(dtype, seed: int, batch: int = BATCH,
     #4 against ``block_backward_residual_reference`` on #3's residuals (each
     output within ``bwd_tol``; the same bits on a repeated call); timed
     beside their bounds, the plain versions and ``TransformerEncoderLayer``
-    (forward, and forward + backward); one block's forward + backward
-    through the port with the opt-in on (#3 + #4) and off (#1 + #2), in
-    turns."""
+    (forward, and forward + backward, also by profiler device time); #4 also
+    by CUDA-graph replay and by stage (``bwd_stages``); one block's forward +
+    backward through the port with the opt-in on (#3 + #4) and off (#1 +
+    #2), in turns, by events and by profiler device time."""
     from rovit_kan_tpu_torch.ops import block_kernel as bk
     x, params = block_inputs(dtype, seed, batch, tokens)
     g = torch.tensor(np.random.RandomState(seed + 10).normal(
@@ -1837,6 +1906,11 @@ def check_block_res(dtype, seed: int, batch: int = BATCH,
         ms3 = time_ms(lambda: bk._launch_res(x, params, HEADS))
         ms4 = time_ms(lambda: bk._launch_bwd_res(x, g, *res, params, HEADS),
                       reps=9)
+        graph4 = graph_ms(lambda: bk._launch_bwd_res(x, g, *res, params,
+                                                     HEADS), calls=5)
+        stages4 = bwd_stages(lambda: bk._launch_bwd_res(x, g, *res, params,
+                                                        HEADS),
+                             dtype, recompute=False)
         plain3 = time_ms(lambda: bk.block_residual_reference(
             x, params, HEADS), reps=9, inner=3)
         plain4 = time_ms(lambda: bk.block_backward_residual_reference(
@@ -1859,11 +1933,14 @@ def check_block_res(dtype, seed: int, batch: int = BATCH,
         layer(xg).backward(gx)
 
     lib4 = time_ms(library_fwd_bwd, reps=9)
+    lib4_device = device_ms(library_fwd_bwd, calls=10)
     pair_ms = {"residual": [], "recompute": []}
+    pair_device = {"residual": [], "recompute": []}
     for on in (True, False, True, False):
         with residual_opt_in(on):
-            pair_ms["residual" if on else "recompute"].append(
-                time_ms(port_fwd_bwd, reps=9))
+            arm = "residual" if on else "recompute"
+            pair_ms[arm].append(time_ms(port_fwd_bwd, reps=9))
+            pair_device[arm].append(device_ms(port_fwd_bwd, calls=10))
     bounds = res_bounds(x, params, dtype)
     common = {"dtype": str(dtype).replace("torch.", ""),
               "shape": list(x.shape), "heads": HEADS,
@@ -1885,9 +1962,12 @@ def check_block_res(dtype, seed: int, batch: int = BATCH,
            "identical_bits_on_repeat": True,
            "max_abs_err": max(errs[k]["max_abs_err"]
                               for k in ("dx",) + bk.PKEYS),
-           "kernel_ms": ms4, "plain_ms": plain4, "library_ms": lib4,
+           "kernel_ms": ms4, "kernel_graph_ms": graph4,
+           "stages_device_ms": stages4, "plain_ms": plain4,
+           "library_ms": lib4, "library_device_ms": lib4_device,
            "library": "nn.TransformerEncoderLayer forward + backward",
-           "port_fwd_bwd_ms": pair_ms, **bounds["bwd"]}
+           "port_fwd_bwd_ms": pair_ms, "port_fwd_bwd_device_ms": pair_device,
+           **bounds["bwd"]}
     return fwd, bwd
 
 
@@ -2216,8 +2296,10 @@ def main() -> int:
     # #1's stages; #2's graph time and its recomputed stages.
     more1 = ("kernel_graph_ms", "library_graph_ms", "stages_device_ms",
              "stages_bound_ms")
-    more2 = ("kernel_graph_ms", "recompute_stages_device_ms")
+    more2 = ("kernel_graph_ms", "stages_device_ms", "library_device_ms",
+             "port_fwd_bwd_device_ms")
     more3 = ("kernel_graph_ms", "library_graph_ms")
+    more4 = ("kernel_graph_ms", "stages_device_ms", "library_device_ms")
 
     csrc = "rovit_kan_tpu_torch/csrc/"
 
@@ -2266,7 +2348,7 @@ def main() -> int:
         by_path = {"fit": fitted["fit_launches"][name],
                    "resume": fitted["resume_launches"][name]}
         lo = res_kernels[TOKENS, torch.bfloat16][i]
-        more = more3 if i == 0 else ()
+        more = more3 if i == 0 else more4
         return entry(name, csrc + source,
                      f"rovit_kan_tpu/ops/block_kernel.py:{line}",
                      sum(by_path.values()), lo,
@@ -2276,7 +2358,8 @@ def main() -> int:
                            {k: res_kernels[LONG_TOKENS, d][i][k]
                             for k in keys + more}
                            for d in (torch.bfloat16, torch.float32)},
-                     **({"port_fwd_bwd_ms": lo["port_fwd_bwd_ms"]}
+                     **({k: lo[k] for k in ("port_fwd_bwd_ms",
+                                              "port_fwd_bwd_device_ms")}
                         if i else {}))
 
     emit({"kernels": [

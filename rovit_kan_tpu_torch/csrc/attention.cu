@@ -9,8 +9,8 @@
 //   bf16: attention_mma.cuh, mma.sync two-pass kernels with S, P, dS and the
 //         accumulators in registers and a cp.async ring (its note says how);
 //   fp32: the streamed stages of attention_common.cuh (FMA products from
-//         shared memory), the device code the fp32 #1 and every #2/#4 run
-//         inside a block (the bf16 #1/#3 run attention_mma.cuh's forward).
+//         shared memory), the device code the fp32 #1, #2 and #4 run
+//         inside a block (the bf16 blocks run attention_mma.cuh's).
 // Rounding points are the TPU kernels':
 //   forward:  S = q . k^T in fp32, softmax in fp32, P rounded to the input
 //             type T, O = P . v accumulated and returned in fp32;

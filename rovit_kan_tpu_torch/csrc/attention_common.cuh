@@ -1,17 +1,15 @@
-// Streamed softmax attention on Hopper (sm_90a), bf16 or fp32: the forward
-// and the two backward stages, as the ViT-block kernels run them inside a
-// block (the fp32 forward, and the backwards' attention stages in both
-// types: vit_block_fwd.cu, vit_block_bwd.cu, through vit_block_common.cuh)
-// and the fp32 attention-only kernels run them alone (attention.cu); the
-// bf16 forwards run attention_mma.cuh. One device code for both, reading
-// its operands through strided views.
+// Streamed softmax attention on Hopper (sm_90a), fp32: the forward and the
+// two backward stages, as the fp32 ViT-block kernels run them inside a
+// block (vit_block_fwd.cu, vit_block_bwd.cu, through vit_block_common.cuh)
+// and the fp32 attention-only kernels run them alone (attention.cu); every
+// bf16 route runs attention_mma.cuh. One device code for both, reading its
+// operands through strided views.
 //
 // Per (query tile, head, image) the forward keeps only the query tile and
 // one 64-key tile of K and V in shared memory, so shared memory does not
-// grow with the sequence: 72 KB in bf16 at a head width of 64; the largest
-// stage, the backward's key side in bf16 at head width 128, takes 191 KB,
-// within the 227 KB a block may have, for any N. Two passes over the key
-// tiles keep the TPU kernels' rounding points exactly:
+// grow with the sequence, within the 227 KB a block may have for any N.
+// Two passes over the key tiles keep the TPU kernels' rounding points
+// exactly:
 //   1. S = q . k^T (fp32) tile by tile, each row's max m and sum l of
 //      exp(S * scale - m), rescaled as m grows;
 //   2. S again, P = exp(S * scale - m) / l in fp32, rounded to the compute
@@ -31,9 +29,9 @@
 //     so the same bits as the query side), dV += P^T . dO with P rounded,
 //     dK += dS^T . Q.
 // Each output element is summed by one owner in a fixed order, so two runs
-// give the same bits. bf16 products use WMMA from shared memory; fp32
-// products are FMA loops. Pad rows of every tile are zero in shared memory
-// and masked (P = 0, dS = 0), so ragged N needs no padding in memory.
+// give the same bits. Products are FMA loops (tile_common.cuh). Pad rows of
+// every tile are zero in shared memory and masked (P = 0, dS = 0), so
+// ragged N needs no padding in memory.
 
 #pragma once
 

@@ -1,19 +1,21 @@
 // Softmax attention in bf16 on Hopper (sm_90a) with mma.sync: the forward
 // and the two backward stages of the attention-only kernels #5 and #6
-// (attention.cu), with S, P, dS and every accumulator in registers. The
-// forward is also the bf16 ViT block's attention stage (#1, #3, and #2's
-// recompute, through vit_block_common.cuh), where q is not pre-scaled: a
-// compile-time switch folds the block's hd^-1/2 into the row max and the
-// exp2 FMA and stores the output rounded once to bf16, and #5's instance
-// keeps its instructions.
+// (attention.cu), with S, P, dS and every accumulator in registers. They
+// are also the bf16 ViT block's attention stages (the forward in #1, #3 and
+// #2's recompute, through vit_block_common.cuh; the backward in #2 and #4,
+// vit_block_bwd.cu), where q is not pre-scaled: a compile-time switch
+// (kScaled) folds the block's hd^-1/2 into the row max and the exp2 FMA,
+// rounds the forward's output once to bf16, multiplies dS by the scale in
+// fp32 before it is rounded, and adds each backward CTA's fp32 column sums
+// of dQ, dK and dV (the qkv bias grad's partials); #5's and #6's instances
+// keep their instructions.
 //
 // Replaces the streamed stages of attention_common.cuh for the bf16 entries
 // of attention.cu (rovit_kan_tpu/ops/attention.py::_attention_kernel and
-// ::_attention_bwd_kernel) and for the bf16 block forward. Those stages kept
-// S, P and the output accumulator in shared memory, ran WMMA from shared
-// memory and loaded tiles synchronously, and reached 1.5-2.4% of their
-// bounds; the fp32 routes and the block backwards' attention stages (#2,
-// #4) still run them.
+// ::_attention_bwd_kernel) and for the bf16 block. Those stages kept S, P
+// and the output accumulator in shared memory, ran WMMA from shared memory
+// and loaded tiles synchronously, and reached 1.5-2.4% of their bounds;
+// the fp32 routes still run them.
 //
 // What bounds #5/#6 (attention.cu's note): at (32, 3, 577, 64) #5 moves
 // 35.5 MB (10.6 us at 3.35 TB/s) for 8.2 GFLOP (8.3 us at 989 TFLOP/s), #6
@@ -292,6 +294,25 @@ attn_fwd_mma_kernel(HeadView<const bf16> q, HeadView<const bf16> k,
 
 // ---- backward (#6) ---------------------------------------------------------
 
+// The CTA's column sums: the warps' partials (kMmaWarps rows of HD in
+// scratch) added in warp order.
+template <int HD>
+__device__ __forceinline__ void cta_col_sum(const float* scratch,
+                                            float* dst) {
+  for (int c = threadIdx.x; c < HD; c += kMmaThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kMmaWarps; ++w) s += scratch[w * HD + c];
+    dst[c] = s;
+  }
+}
+// The block backward's per-CTA row of column sums: [dq | dk | dv], each D
+// wide, at row (image, tile) of B * ceil(N / 64) rows.
+__device__ __forceinline__ float* part_row(float* part, int b, int D) {
+  return part + (static_cast<size_t>(b) * gridDim.x + blockIdx.x) * 3 * D;
+}
+
+
 // Keys (queries on the key side) per chunk of a streamed tile: the products
 // of a 64-row tile run in 64 / (8 * kChunkNB) chunks, which bounds the live
 // S and dP fragments.
@@ -319,12 +340,19 @@ __device__ __forceinline__ size_t mma_stat_index(int b, int h, int n, int N) {
 
 // dQ and the row statistics for one (64-query tile, head, image). Steps
 // 0..nt-1 give m, l and a = sum of exp(S - m) * dP; steps nt..2nt-1 give
-// dS = P (dP - a / l), rounded, and dQ += dS . K.
-template <int HD>
+// dS = P (dP - a / l), rounded, and dQ += dS . K. kScaled (the block): S
+// is scaled by `scale` inside the exp2 FMA (multiplier scale_log2e, and the
+// stored m is m scale log2(e)), dS is multiplied by `scale` before it is
+// rounded, and part gets the CTA's column sums of dQ; without it (#6)
+// neither scale nor part is read.
+template <int HD, bool kScaled>
 __global__ void __launch_bounds__(kMmaThreads)
 attn_bwd_q_mma_kernel(HeadView<const bf16> q, HeadView<const bf16> k,
                       HeadView<const bf16> v, HeadView<const bf16> g_in,
-                      HeadView<bf16> dq, float* __restrict__ stats, int N) {
+                      HeadView<bf16> dq, float* __restrict__ stats,
+                      float* __restrict__ part, int N, float scale,
+                      float scale_log2e) {
+  const float c2 = kScaled ? scale_log2e : kLog2e;
   using TL = MmaTile<HD>;
   constexpr int LD = TL::kLd;
   constexpr int KB = HD / 16;
@@ -410,18 +438,18 @@ attn_bwd_q_mma_kernel(HeadView<const bf16> q, HeadView<const bf16> k,
             mx = fmaxf(mx, fmaxf(sc[j][2 * half], sc[j][2 * half + 1]));
           }
           const float mn = fmaxf(m[half], quad_max(mx));
-          const float mn2 = mn * kLog2e;
+          const float mn2 = mn * c2;
           float e = 0.f, a = 0.f;
 #pragma unroll
           for (int j = 0; j < CN; ++j) {
 #pragma unroll
             for (int w = 0; w < 2; ++w) {
-              const float x = exp2f(fmaf(sc[j][2 * half + w], kLog2e, -mn2));
+              const float x = exp2f(fmaf(sc[j][2 * half + w], c2, -mn2));
               e += x;
               a += x * dp[j][2 * half + w];
             }
           }
-          const float corr = exp2f((m[half] - mn) * kLog2e);
+          const float corr = exp2f((m[half] - mn) * c2);
           l[half] = l[half] * corr + e;
           a_sum[half] = a_sum[half] * corr + a;
           m[half] = mn;
@@ -433,8 +461,9 @@ attn_bwd_q_mma_kernel(HeadView<const bf16> q, HeadView<const bf16> k,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float p =
-                exp2f(fmaf(sc[j][e], kLog2e, -m[e >> 1])) * inv_l[e >> 1];
-            sc[j][e] = p * (dp[j][e] - dsum[e >> 1]);
+                exp2f(fmaf(sc[j][e], c2, -m[e >> 1])) * inv_l[e >> 1];
+            const float ds = p * (dp[j][e] - dsum[e >> 1]);
+            sc[j][e] = kScaled ? ds * scale : ds;
           }
         }
         uint32_t da[CN / 2][4];
@@ -448,7 +477,7 @@ attn_bwd_q_mma_kernel(HeadView<const bf16> q, HeadView<const bf16> k,
         const float lt = quad_sum(l[half]);
         inv_l[half] = 1.f / lt;
         dsum[half] = quad_sum(a_sum[half]) / lt;
-        m[half] *= kLog2e;                    // pass 2 reads m log2(e)
+        m[half] *= c2;                        // pass 2 reads m c2
       }
       const size_t plane = static_cast<size_t>(gridDim.z) * gridDim.y * N;
 #pragma unroll
@@ -464,18 +493,32 @@ attn_bwd_q_mma_kernel(HeadView<const bf16> q, HeadView<const bf16> k,
     }
   }
   store_rows<HD, bf16>(dq, b, h, q0 + 16 * warp, N, dqa, g, t);
+  if constexpr (kScaled) {
+    const int r0 = q0 + 16 * warp + g;
+    const bool ok[2] = {r0 < N, r0 + 8 < N};
+    float* scratch = reinterpret_cast<float*>(smem);
+    const int D = gridDim.y * HD;
+    __syncthreads();                          // the ring is free
+    warp_col_partial<HD / 8>(dqa, ok, scratch + warp * HD, lane);
+    __syncthreads();
+    cta_col_sum<HD>(scratch, part_row(part, b, D) + h * HD);
+  }
 }
 
 // dK and dV for one (64-key tile, head, image), over the query tiles in
 // order: S^T = K . Q^T and dP^T = V . dO^T, P^T and dS^T from the stored
-// m log2(e), 1 / l and D, dV += P^T (rounded) . dO and dK += dS^T
-// (rounded) . Q.
-template <int HD>
+// m log2(e) (m scale log2(e) with kScaled), 1 / l and D, dV += P^T
+// (rounded) . dO and dK += dS^T (rounded) . Q; kScaled as the query side,
+// part getting the CTA's column sums of dK and dV.
+template <int HD, bool kScaled>
 __global__ void __launch_bounds__(kMmaThreads)
 attn_bwd_kv_mma_kernel(HeadView<const bf16> q, HeadView<const bf16> k,
                        HeadView<const bf16> v, HeadView<const bf16> g_in,
                        HeadView<bf16> dk, HeadView<bf16> dv,
-                       const float* __restrict__ stats, int N) {
+                       const float* __restrict__ stats,
+                       float* __restrict__ part, int N, float scale,
+                       float scale_log2e) {
+  const float c2 = kScaled ? scale_log2e : kLog2e;
   using TL = MmaTile<HD>;
   constexpr int LD = TL::kLd;
   constexpr int KB = HD / 16;
@@ -576,9 +619,10 @@ attn_bwd_kv_mma_kernel(HeadView<const bf16> q, HeadView<const bf16> k,
             const int e = 2 * half + w;
             const bool ok = q_ok && key_ok[half];
             const float p =
-                ok ? exp2f(fmaf(st[j][e], kLog2e, -mq)) * il : 0.f;
+                ok ? exp2f(fmaf(st[j][e], c2, -mq)) * il : 0.f;
             st[j][e] = p;
-            dpt[j][e] = ok ? p * (dpt[j][e] - dq_) : 0.f;
+            const float ds = p * (dpt[j][e] - dq_);
+            dpt[j][e] = ok ? (kScaled ? ds * scale : ds) : 0.f;
           }
         }
       }
@@ -591,6 +635,18 @@ attn_bwd_kv_mma_kernel(HeadView<const bf16> q, HeadView<const bf16> k,
   }
   store_rows<HD, bf16>(dk, b, h, k0 + 16 * warp, N, dka, g, t);
   store_rows<HD, bf16>(dv, b, h, k0 + 16 * warp, N, dva, g, t);
+  if constexpr (kScaled) {
+    float* scratch = reinterpret_cast<float*>(smem);
+    const int D = gridDim.y * HD;
+    float* dst = part_row(part, b, D) + h * HD;
+    __syncthreads();                          // the ring is free
+    warp_col_partial<HD / 8>(dka, key_ok, scratch + warp * HD, lane);
+    warp_col_partial<HD / 8>(dva, key_ok, scratch + (kMmaWarps + warp) * HD,
+                         lane);
+    __syncthreads();
+    cta_col_sum<HD>(scratch, dst + D);
+    cta_col_sum<HD>(scratch + kMmaWarps * HD, dst + 2 * D);
+  }
 }
 
 // ---- launches --------------------------------------------------------------
@@ -609,23 +665,27 @@ cudaError_t launch_fwd_mma_hd(HeadView<const bf16> q, HeadView<const bf16> k,
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool kScaled>
 cudaError_t launch_bwd_mma_hd(HeadView<const bf16> q, HeadView<const bf16> k,
                               HeadView<const bf16> v, HeadView<const bf16> g,
                               HeadView<bf16> dq, HeadView<bf16> dk,
-                              HeadView<bf16> dv, float* stats, int B,
-                              int heads, int N, cudaStream_t stream) {
+                              HeadView<bf16> dv, float* stats, float* part,
+                              int B, int heads, int N, float scale,
+                              cudaStream_t stream) {
   const dim3 grid((N + kMmaRows - 1) / kMmaRows, heads, B);
   constexpr size_t smq = bwd_q_mma_smem<HD>();
   constexpr size_t smk = bwd_kv_mma_smem<HD>();
+  const auto qk = attn_bwd_q_mma_kernel<HD, kScaled>;
+  const auto kvk = attn_bwd_kv_mma_kernel<HD, kScaled>;
+  const float c2 = scale * kLog2e;
   cudaError_t e;
-  if ((e = set_smem(attn_bwd_q_mma_kernel<HD>, smq)) != cudaSuccess) return e;
-  attn_bwd_q_mma_kernel<HD><<<grid, kMmaThreads, smq, stream>>>(
-      q, k, v, g, dq, stats, N);
+  if ((e = set_smem(qk, smq)) != cudaSuccess) return e;
+  qk<<<grid, kMmaThreads, smq, stream>>>(q, k, v, g, dq, stats, part, N,
+                                         scale, c2);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  if ((e = set_smem(attn_bwd_kv_mma_kernel<HD>, smk)) != cudaSuccess) return e;
-  attn_bwd_kv_mma_kernel<HD><<<grid, kMmaThreads, smk, stream>>>(
-      q, k, v, g, dk, dv, stats, N);
+  if ((e = set_smem(kvk, smk)) != cudaSuccess) return e;
+  kvk<<<grid, kMmaThreads, smk, stream>>>(q, k, v, g, dk, dv, stats, part,
+                                          N, scale, c2);
   return cudaGetLastError();
 }
 
@@ -671,8 +731,28 @@ cudaError_t launch_attention_bwd_mma(HeadView<const T> q,
                                      int heads, int N, int hd,
                                      cudaStream_t stream) {
   static_assert(std::is_same<T, bf16>::value, "bf16 only");
-#define ATTN_BWD_CALL(HD) \
-  launch_bwd_mma_hd<HD>(q, k, v, g, dq, dk, dv, stats, B, heads, N, stream)
+#define ATTN_BWD_CALL(HD)                                                   \
+  launch_bwd_mma_hd<HD, false>(q, k, v, g, dq, dk, dv, stats, nullptr, B,   \
+                               heads, N, 1.0f, stream)
+  ATTN_MMA_DISPATCH(hd, ATTN_BWD_CALL)
+#undef ATTN_BWD_CALL
+}
+
+// The ViT block's attention backward (#2, #4): q not pre-scaled, so the
+// block's scale is folded into the exp2 FMA and dS is multiplied by it in
+// fp32 before it is rounded; part gets B * ceil(N / 64) rows of
+// [dq | dk | dv] column sums (3 * heads * hd fp32) from the fp32
+// accumulators, for the qkv bias grad.
+template <typename T>
+cudaError_t launch_attention_bwd_block_mma(
+    HeadView<const T> q, HeadView<const T> k, HeadView<const T> v,
+    HeadView<const T> g, HeadView<T> dq, HeadView<T> dk, HeadView<T> dv,
+    float* stats, float* part, int B, int heads, int N, int hd, float scale,
+    cudaStream_t stream) {
+  static_assert(std::is_same<T, bf16>::value, "bf16 only");
+#define ATTN_BWD_CALL(HD)                                                   \
+  launch_bwd_mma_hd<HD, true>(q, k, v, g, dq, dk, dv, stats, part, B,       \
+                              heads, N, scale, stream)
   ATTN_MMA_DISPATCH(hd, ATTN_BWD_CALL)
 #undef ATTN_BWD_CALL
 }

@@ -2,9 +2,9 @@
 // LN1 + qkv (ln_qkv_mma_kernel, which the backward vit_block_bwd.cu also
 // runs to recompute qkv) and proj + residual + LN2 + fc1 + GELU + fc2 +
 // residual (proj_mlp_mma_kernel, with #3's a1 store behind kStoreA1), for a
-// model width D of 64, 128 or 192. They replace the WMMA stages that the
-// fp32 route still runs (vit_block_common.cuh, vit_block_fwd.cu); the note
-// in vit_block_fwd.cu says what bounds them.
+// model width D of 64, 128 or 192. They replace the first design's WMMA
+// stages; the fp32 route keeps its FMA stages (vit_block_common.cuh,
+// vit_block_fwd.cu). The note in vit_block_fwd.cu says what bounds them.
 //
 // Design. A CTA has W warps, 16 rows each; each stage has its own W:
 //   - products are mma.sync.m16n8k16 bf16 -> fp32 with every accumulator in
@@ -81,17 +81,12 @@ struct GemmPlan {
       2 * sizeof(bf16) * kStageMlp + sizeof(float) * kRows * kLdX;
 };
 
-// LayerNorm of a warp's 16 rows, the thread's rows g and g + 8 (half 0, 1),
-// read by val(half, j) as the float2 of columns 8 j + 2 t and 8 j + 2 t + 1:
-// two-pass fp32 statistics over the quad, the result rounded to bf16 as A
-// fragments.
+// LayerNorm statistics of a warp's 16 rows, the thread's rows g and g + 8
+// (half 0, 1), read by val(half, j) as the float2 of columns 8 j + 2 t and
+// 8 j + 2 t + 1: two-pass fp32 mean and 1 / sqrt(var + eps) over the quad.
 template <int D, typename Val>
-__device__ __forceinline__ void layernorm_to_a(Val val,
-                                               const float* __restrict__ g,
-                                               const float* __restrict__ b,
-                                               uint32_t (&a)[D / 16][4],
-                                               int t) {
-  float mean[2], rstd[2];
+__device__ __forceinline__ void layernorm_stats(Val val, float (&mean)[2],
+                                                float (&rstd)[2]) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     float s = 0.f;
@@ -112,6 +107,17 @@ __device__ __forceinline__ void layernorm_to_a(Val val,
     }
     rstd[half] = rsqrtf(quad_sum(q) / D + kLnEps);
   }
+}
+
+// LayerNorm of those rows, the result rounded to bf16 as A fragments.
+template <int D, typename Val>
+__device__ __forceinline__ void layernorm_to_a(Val val,
+                                               const float* __restrict__ g,
+                                               const float* __restrict__ b,
+                                               uint32_t (&a)[D / 16][4],
+                                               int t) {
+  float mean[2], rstd[2];
+  layernorm_stats<D>(val, mean, rstd);
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll

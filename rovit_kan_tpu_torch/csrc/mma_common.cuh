@@ -102,6 +102,16 @@ __device__ __forceinline__ const bf16* bkn_addr(const bf16* t, int k0,
          (lane >> 4) * 8;
 }
 
+// The A fragment of rows row0..row0+15, depth k0..k0+15, of a tile stored
+// [k][row] (an operand read transposed, as A^T in the weight grads'
+// A^T . B), through ldmatrix.trans.
+template <int LD>
+__device__ __forceinline__ const bf16* akm_addr(const bf16* t, int k0,
+                                                int row0, int lane) {
+  return t + (k0 + (lane & 7) + ((lane >> 4) & 1) * 8) * LD + row0 +
+         ((lane >> 3) & 1) * 8;
+}
+
 // C fragments of NB 8-column blocks (fp32) rounded to bf16 as the A
 // fragments of NB / 2 16-deep blocks.
 template <int NB>
@@ -123,6 +133,32 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The sum of v over the eight lanes that share t = lane & 3 (the rows of
+// a C fragment column), left in every lane.
+__device__ __forceinline__ float column_sum8(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+
+// Column sums of a warp's 16 rows of C fragments acc[NB] (fp32, before any
+// rounding), rows where !ok[half] left out: the two rows a thread holds,
+// then the eight threads of a column; lanes 0-3 write the 8 NB sums to dst.
+template <int NB>
+__device__ __forceinline__ void warp_col_partial(const float (&acc)[NB][4],
+                                                 const bool (&ok)[2],
+                                                 float* dst, int lane) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      const float v = column_sum8((ok[0] ? acc[j][w] : 0.f) +
+                                  (ok[1] ? acc[j][2 + w] : 0.f));
+      if (lane < 4) dst[8 * j + 2 * lane + w] = v;
+    }
+  }
 }
 
 // ---- tiles and products of the GEMM stages ---------------------------------

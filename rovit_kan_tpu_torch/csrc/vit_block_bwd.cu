@@ -19,38 +19,45 @@
 // grads: 22 MB in bf16) take 0.0066 ms at 3.35 TB/s, so it is
 // compute-bound.
 //
-// First design, right before fast. The TPU kernel keeps every intermediate
-// of a chunk of images in VMEM and adds its weight grads with += over a grid
-// that runs in sequence. Here CTAs run concurrently, so nothing is carried
-// between them: intermediates go through device memory (about 150 MB of
-// scratch at B=64 in bf16, mostly L2-resident in turn, and nothing of size
-// N x N), every cross-row sum
-// is written as per-CTA fp32 partials, and one last launch adds the
+// The TPU kernel keeps every intermediate of a chunk of images in VMEM and
+// adds its weight grads with += over a grid that runs in sequence. Here
+// CTAs run concurrently, so nothing is carried between them: intermediates
+// go through device memory (about 150 MB of scratch at B=64 in bf16,
+// mostly L2-resident in turn, and nothing of size N x N), every cross-row
+// sum is written as per-CTA fp32 partials, and one last launch adds the
 // partials in a fixed order. There are no atomics, so two runs give the
-// same bits. Eight launches:
-//   1-2. ln_qkv and attention of the forward (vit_block_common.cuh: in
-//        bf16 the mma.sync stages of block_mma.cuh and attention_mma.cuh),
-//        which also store the LN1 output for the qkv weight grad;
-//   3. mlp_bwd, a tile of 32 rows (16 in fp32): proj and the residual, LN2,
-//      then fc1/GELU and dh = g . W2 in 64-column steps of the hidden
-//      dimension (da1 kept on chip), dz = da1 . W1, the LN2 backward,
-//      dattn = dx1 . Wproj; stores the operands of the weight grads;
-//   4. attn_bwd_q, per (64-query tile, head, image; 32 in fp32), streaming
-//      key tiles: recomputes S and the fp32 P, dP = dO . V^T, dS, and
-//      dQ = dS . K; stores each row's softmax statistics and rowsum(P * dP).
-//      This is FlashAttention-2's split: the query side owns dQ,
-//   5. attn_bwd_kv, per (64-key tile, head, image), streaming query tiles:
+// same bits. Eight launches; the route is chosen by the compute type.
+//
+// bf16 (D of 64, 128 or 192; any other width returns cudaErrorInvalidValue
+// before any launch), mma.sync with register accumulators throughout:
+//   1-2. ln_qkv and attention of the forward (vit_block_common.cuh:
+//        block_mma.cuh's ln_qkv and attention_mma.cuh's forward), which
+//        also store the LN1 output for the qkv weight grad;
+//   3. mlp_bwd (block_bwd_mma.cuh, 96 rows a CTA): proj and the residual,
+//      LN2, then per 64-wide hidden chunk fc1/GELU, dh = g . W2 and
+//      da1, with dz = da1 . W1 accumulated in registers (no hidden tile),
+//      the LN2 backward on dz's fragments, dattn = dx1 . Wproj; stores the
+//      operands of the weight grads;
+//   4. attn_bwd_q, per (64-query tile, head, image), over the key tiles:
+//      S, the fp32 P, dP = dO . V^T, dS = P (dP - rowsum(P dP)) scale and
+//      dQ = dS . K in registers; stores each row's softmax statistics and
+//      dQ's per-tile column sums (FlashAttention-2's split: the query side
+//      owns dQ);
+//   5. attn_bwd_kv, per (64-key tile, head, image), over the query tiles:
 //      P and dS again from those statistics, dK = dS^T . Q and
-//      dV = P^T . dO, the key side owning dK and dV
-//      (4-5 in attention_common.cuh, shared with the attention-only
-//      backward #6 in attention.cu);
-//   6. qkv_bwd, a row tile: dy = dqkv . Wqkv, the LN1 backward, dx;
-//   7. wgrad: the four weight grads dW = A^T . B as 64x64 output tiles over
-//      row splits (split-K), fp32 partial tiles;
+//      dV = P^T . dO and their column sums (4-5: attention_mma.cuh's
+//      backward, #6's kernels with the block's scale switched in);
+//   6. qkv_bwd (block_bwd_mma.cuh, 64 rows a CTA): dy = dqkv . Wqkv over
+//      64-deep chunks of 3D, the LN1 backward on dy's fragments, dx;
+//   7. wgrad (block_bwd_mma.cuh): the four weight grads dW = A^T . B as
+//      64x64 output tiles over about four row splits, fp32 partial tiles;
 //   8. reduce: every partial summed in order into the 12 grads.
+// fp32, the first design: 16-row tiles of FMA products from shared memory
+// for 3 and 6, the streamed attention backward of attention_common.cuh for
+// 4-5, 64x64 FMA weight-grad tiles over 512-row splits for 7.
 // Pad rows of every attention tile are zero in shared memory and pad
-// probabilities and dS are exactly zero, so ragged N adds nothing to any
-// grad.
+// probabilities and dS are exactly zero, and rows past B*N are zero-filled
+// or masked in every row stage, so ragged shapes add nothing to any grad.
 //
 // The saved-residual backward (#4). vit_block_bwd_res_* replaces
 // rovit_kan_tpu/ops/block_kernel.py::_vit_block_bwd_res_kernel, which reads
@@ -74,17 +81,15 @@
 // followed by cudaGetLastError and the first error is returned.
 
 #include "vit_block_common.cuh"
+#include "block_bwd_mma.cuh"
 
 namespace {
 
-// Rows per CTA of the backward's row tiles.
-template <typename T> struct BwdTile;
-template <> struct BwdTile<bf16> { static constexpr int kRows = 32; };
-template <> struct BwdTile<float> { static constexpr int kRows = 16; };
-
-constexpr int kWgTile = 64;      // weight-grad output tile (square)
-constexpr int kWgRows = 32;      // rows per weight-grad step
-constexpr int kSplitRows = 512;  // about this many rows per weight-grad split
+// The fp32 route's stages: rows per CTA of mlp_bwd and qkv_bwd, rows per
+// weight-grad step, and about this many rows per weight-grad split.
+constexpr int kRowsF32 = 16;
+constexpr int kWgRows = 32;
+constexpr int kSplitRows = 512;
 
 __host__ __device__ constexpr int round_up(int v, int m) {
   return (v + m - 1) / m * m;
@@ -102,7 +107,7 @@ struct MlpBwdLayout {
 };
 template <typename T>
 __host__ __device__ MlpBwdLayout mlp_bwd_layout(int D, int H) {
-  constexpr int R = BwdTile<T>::kRows;
+  constexpr int R = kRowsF32;
   const int w1 = kChunk * ld_of<T>(D);
   const int w2 = D * ld_of<T>(kChunk);
   MlpBwdLayout L;
@@ -135,7 +140,7 @@ mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ attn,
                T* __restrict__ da1_out, float* __restrict__ dx1_out,
                T* __restrict__ dx1b_out, T* __restrict__ go_out,
                float* __restrict__ part, int M, int D, int H) {
-  constexpr int R = BwdTile<T>::kRows;
+  constexpr int R = kRowsF32;
   extern __shared__ __align__(128) unsigned char smem[];
   const MlpBwdLayout L = mlp_bwd_layout<T>(D, H);
   float* sX = reinterpret_cast<float*>(smem + L.x);  // x, x1, xhat2, dx1
@@ -321,7 +326,7 @@ struct QkvBwdLayout {
 };
 template <typename T>
 __host__ __device__ QkvBwdLayout qkv_bwd_layout(int D) {
-  constexpr int R = BwdTile<T>::kRows;
+  constexpr int R = kRowsF32;
   QkvBwdLayout L;
   L.dq = 0;
   L.x = L.dq + align128(sizeof(T) * R * ld_of<T>(3 * D));
@@ -342,7 +347,7 @@ qkv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dqkv,
                const float* __restrict__ ln1b, const T* __restrict__ wqkv,
                T* __restrict__ dx, T* __restrict__ y_out,
                float* __restrict__ part, int M, int D) {
-  constexpr int R = BwdTile<T>::kRows;
+  constexpr int R = kRowsF32;
   extern __shared__ __align__(128) unsigned char smem[];
   const QkvBwdLayout L = qkv_bwd_layout<T>(D);
   T* sDQ = reinterpret_cast<T*>(smem + L.dq);
@@ -431,19 +436,9 @@ qkv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dqkv,
 
 // ---- 7. weight grads dW = A^T . B over row splits -------------------------
 
-struct WgJob {
-  const void* a;      // (M, n_out), T
-  const void* b;      // (M, n_in), T
-  float* part;        // [splits][n_out][n_in]
-  int n_out, n_in, tile_begin;
-};
-struct WgJobs {
-  WgJob job[4];
-  int count, M, rows_per_split;
-};
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads) wgrad_kernel(WgJobs jobs) {
+  static_assert(std::is_same<T, float>::value, "fp32 only");
   constexpr int ld = ld_of<T>(kWgTile);
   __shared__ __align__(128) unsigned char smem[2 * kWgRows * ld * sizeof(T)];
   T* sA = reinterpret_cast<T*>(smem);
@@ -463,73 +458,35 @@ __global__ void __launch_bounds__(kThreads) wgrad_kernel(WgJobs jobs) {
                static_cast<size_t>(blockIdx.y) * J.n_out * J.n_in +
                static_cast<size_t>(to) * kWgTile * J.n_in + ti * kWgTile;
 
-  if constexpr (std::is_same<T, bf16>::value) {
-    namespace wmma = nvcuda::wmma;
-    const int warp = threadIdx.x >> 5;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-    wmma::fill_fragment(acc[0], 0.0f);
-    wmma::fill_fragment(acc[1], 0.0f);
-    for (int m0 = m_begin; m0 < m_end; m0 += kWgRows) {
-      const int rows = min(kWgRows, m_end - m0);
-      __syncthreads();
-      load_tile<T>(sA, ld, A + static_cast<size_t>(m0) * J.n_out, J.n_out,
-                   kWgRows, rows, kWgTile);
-      load_tile<T>(sB, ld, Bm + static_cast<size_t>(m0) * J.n_in, J.n_in,
-                   kWgRows, rows, kWgTile);
-      __syncthreads();
+  const int tm = threadIdx.x >> 4;     // rows 4*tm .. 4*tm+3
+  const int tn = threadIdx.x & 15;     // columns tn + 16*j
+  float acc[4][4] = {};
+  for (int m0 = m_begin; m0 < m_end; m0 += kWgRows) {
+    const int rows = min(kWgRows, m_end - m0);
+    __syncthreads();
+    load_tile<T>(sA, ld, A + static_cast<size_t>(m0) * J.n_out, J.n_out,
+                 kWgRows, rows, kWgTile);
+    load_tile<T>(sB, ld, Bm + static_cast<size_t>(m0) * J.n_in, J.n_in,
+                 kWgRows, rows, kWgTile);
+    __syncthreads();
+    for (int k = 0; k < kWgRows; ++k) {
+      float a[4], b[4];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int t = warp + u * kWarps;
-        const int tm = t >> 2;
-        const int tn = t & 3;
-        for (int k = 0; k < kWgRows; k += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
-              fa;
-          wmma::load_matrix_sync(fa, sA + k * ld + tm * 16, ld);
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-              fb;
-          wmma::load_matrix_sync(fb, sB + k * ld + tn * 16, ld);
-          wmma::mma_sync(acc[u], fa, fb, acc[u]);
-        }
-      }
+      for (int i = 0; i < 4; ++i) a[i] = to_f(sA[k * ld + 4 * tm + i]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) b[q] = to_f(sB[k * ld + tn + 16 * q]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(a[i], b[q], acc[i][q]);
     }
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int t = warp + u * kWarps;
-      wmma::store_matrix_sync(out + (t >> 2) * 16 * J.n_in + (t & 3) * 16,
-                              acc[u], J.n_in, wmma::mem_row_major);
-    }
-  } else {
-    const int tm = threadIdx.x >> 4;     // rows 4*tm .. 4*tm+3
-    const int tn = threadIdx.x & 15;     // columns tn + 16*j
-    float acc[4][4] = {};
-    for (int m0 = m_begin; m0 < m_end; m0 += kWgRows) {
-      const int rows = min(kWgRows, m_end - m0);
-      __syncthreads();
-      load_tile<T>(sA, ld, A + static_cast<size_t>(m0) * J.n_out, J.n_out,
-                   kWgRows, rows, kWgTile);
-      load_tile<T>(sB, ld, Bm + static_cast<size_t>(m0) * J.n_in, J.n_in,
-                   kWgRows, rows, kWgTile);
-      __syncthreads();
-      for (int k = 0; k < kWgRows; ++k) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = to_f(sA[k * ld + 4 * tm + i]);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) b[q] = to_f(sB[k * ld + tn + 16 * q]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(a[i], b[q], acc[i][q]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        out[static_cast<size_t>(4 * tm + i) * J.n_in + tn + 16 * q] =
-            acc[i][q];
   }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      out[static_cast<size_t>(4 * tm + i) * J.n_in + tn + 16 * q] =
+          acc[i][q];
 }
 
 // ---- 8. partial sums, in order ---------------------------------------------
@@ -545,10 +502,33 @@ struct RedSegs {
   int count;
 };
 
+// kWide (the bf16 route): a segment of 32 or more partials gets a warp per
+// element, lane l adding partials l, l + 32, ... in order and the lanes
+// then added by a fixed butterfly, so the few columns of a bias or
+// LayerNorm grad over hundreds of row tiles do not wait on one thread's
+// chain of loads; every other segment, and every segment of the fp32 route,
+// a thread per element adding its partials in order.
+__host__ __device__ inline bool reduce_wide(const RedSeg& S) {
+  return S.nparts >= 32;
+}
+
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads) reduce_kernel(RedSegs segs) {
   int j = 0;
   while (j + 1 < segs.count && segs.seg[j + 1].block_begin <= blockIdx.x) ++j;
   const RedSeg S = segs.seg[j];
+  if (kWide && reduce_wide(S)) {
+    const int e = ((blockIdx.x - S.block_begin) * kThreads + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (e >= S.n) return;                    // the whole warp
+    float s = 0.f;
+    for (int p = lane; p < S.nparts; p += 32) {
+      s += S.src[p * S.part_stride + e];
+    }
+    s = warp_sum(s);
+    if (lane == 0) S.dst[e] = s;
+    return;
+  }
   const int i = (blockIdx.x - S.block_begin) * kThreads + threadIdx.x;
   if (i >= S.n) return;
   float s = 0.f;
@@ -559,21 +539,45 @@ __global__ void __launch_bounds__(kThreads) reduce_kernel(RedSegs segs) {
 // ---- scratch and launches ---------------------------------------------------
 
 struct Sizes {
-  int B, N, D, heads, H, M, hd, row_tiles, attn_tiles, splits,
+  int B, N, D, heads, H, M, hd, mlp_tiles, qkv_tiles, attn_tiles, splits,
       rows_per_split;
 };
-// rows: the row tile; attn_rows: the attention backward's tile.
-Sizes sizes_of(int B, int N, int D, int heads, int H, int rows,
-               int attn_rows) {
+// The row tiles of mlp_bwd and qkv_bwd, the attention backward's tile and
+// the weight grads' row splits of each route. bf16: the mma.sync stages'
+// CTAs, and splits that give the weight grads about kWgCtas CTAs; fp32:
+// 16-row tiles and splits of about kSplitRows rows.
+template <typename T>
+Sizes sizes_of(int B, int N, int D, int heads, int H) {
+  constexpr bool kMma = std::is_same<T, bf16>::value;
   Sizes s;
   s.B = B; s.N = N; s.D = D; s.heads = heads; s.H = H;
   s.M = B * N;
   s.hd = D / heads;
-  s.row_tiles = (s.M + rows - 1) / rows;
+  int mlp_rows = kRowsF32, qkv_rows = kRowsF32, depth = kWgRows;
+  int attn_rows;
+  if constexpr (kMma) {
+    mlp_rows = 16 * kMlpBwdPairs;
+    qkv_rows = 16 * kQkvBwdWarps;
+    attn_rows = kMmaRows;
+    depth = kWgDepth;
+  } else {
+    attn_rows = Tile<T>::kRows;
+  }
+  s.mlp_tiles = (s.M + mlp_rows - 1) / mlp_rows;
+  s.qkv_tiles = (s.M + qkv_rows - 1) / qkv_rows;
   s.attn_tiles = (N + attn_rows - 1) / attn_rows;
-  int splits = (s.M + kSplitRows - 1) / kSplitRows;
-  splits = splits < 1 ? 1 : (splits > 64 ? 64 : splits);
-  s.rows_per_split = round_up((s.M + splits - 1) / splits, kWgRows);
+  int splits;
+  if (kMma) {
+    const int tiles = (4 * D * D + 2 * H * D) / (kWgTile * D);
+    splits = (kWgCtas + tiles - 1) / tiles;
+    const int most = (s.M + depth - 1) / depth;
+    splits = splits > most ? most : splits;
+  } else {
+    splits = (s.M + kSplitRows - 1) / kSplitRows;
+    splits = splits > 64 ? 64 : splits;
+  }
+  splits = splits < 1 ? 1 : splits;
+  s.rows_per_split = round_up((s.M + splits - 1) / splits, depth);
   s.splits = (s.M + s.rows_per_split - 1) / s.rows_per_split;
   return s;
 }
@@ -612,9 +616,9 @@ Work<T> carve(char* base, const Sizes& s, bool residual) {
   w.dx1 = reinterpret_cast<float*>(take(sizeof(float) * M * D));
   w.stats = reinterpret_cast<float*>(take(sizeof(float) * 3 * M * s.heads));
   w.part_mlp = reinterpret_cast<float*>(
-      take(sizeof(float) * s.row_tiles * (4 * D + H)));
+      take(sizeof(float) * s.mlp_tiles * (4 * D + H)));
   w.part_qkv =
-      reinterpret_cast<float*>(take(sizeof(float) * s.row_tiles * 2 * D));
+      reinterpret_cast<float*>(take(sizeof(float) * s.qkv_tiles * 2 * D));
   w.part_attn = reinterpret_cast<float*>(
       take(sizeof(float) * s.B * s.attn_tiles * 3 * D));
   w.part_w = reinterpret_cast<float*>(
@@ -626,9 +630,7 @@ Work<T> carve(char* base, const Sizes& s, bool residual) {
 template <typename T>
 size_t workspace_bytes(int B, int N, int D, int heads, int H, bool residual) {
   if (!block_shape_ok(B, N, D, heads, H)) return 0;
-  return carve<T>(nullptr, sizes_of(B, N, D, heads, H, BwdTile<T>::kRows,
-                                    Tile<T>::kRows), residual)
-      .total;
+  return carve<T>(nullptr, sizes_of<T>(B, N, D, heads, H), residual).total;
 }
 
 // qkv_in, attn_in, a1_in: the residuals #3 saved (#4), or all null to
@@ -643,12 +645,13 @@ int run_bwd(const void* x_, const void* g_, const void* qkv_in,
             const void* b2_, int B, int N, int D, int heads, int H,
             void* stream_ptr) {
   (void)b2_;   // the forward's last bias has no part in any grad
-  if (!block_shape_ok(B, N, D, heads, H)) {
+  constexpr bool kMma = std::is_same<T, bf16>::value;
+  if (!block_shape_ok(B, N, D, heads, H) ||
+      (kMma && !bwd_mma_width_ok(D))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  constexpr int R = BwdTile<T>::kRows;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const Sizes s = sizes_of(B, N, D, heads, H, R, Tile<T>::kRows);
+  const Sizes s = sizes_of<T>(B, N, D, heads, H);
   const bool residual = qkv_in != nullptr;
   const Work<T> w = carve<T>(static_cast<char*>(work_), s, residual);
   const T* qkv = residual ? static_cast<const T*>(qkv_in) : w.qkv;
@@ -678,36 +681,61 @@ int run_bwd(const void* x_, const void* g_, const void* qkv_in,
   }
 
   // 3. MLP, LN2 and proj.
-  const size_t sm3 = mlp_bwd_layout<T>(D, H).total;
-  const auto mlp_bwd = residual ? mlp_bwd_kernel<T, true>
-                                : mlp_bwd_kernel<T, false>;
-  if ((e = set_smem(mlp_bwd, sm3)) != cudaSuccess) return e;
-  mlp_bwd<<<s.row_tiles, kThreads, sm3, stream>>>(
-      x, attn, g, wproj, bproj, ln2g, ln2b, w1, b1, w2,
-      static_cast<const T*>(a1_in), w.z, w.h1, w.gb, w.da1, w.dx1, w.dx1b,
-      w.go, w.part_mlp, s.M, D, H);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const T* a1 = static_cast<const T*>(a1_in);
+  if constexpr (kMma) {
+    e = launch_mlp_bwd_mma(x, attn, g, wproj, bproj, ln2g, ln2b, w1, b1, w2,
+                           a1, w.z, w.h1, w.gb, w.da1, w.dx1, w.dx1b, w.go,
+                           w.part_mlp, s.M, D, H, stream);
+    if (e != cudaSuccess) return e;
+  } else {
+    const size_t sm3 = mlp_bwd_layout<T>(D, H).total;
+    const auto mlp_bwd = residual ? mlp_bwd_kernel<T, true>
+                                  : mlp_bwd_kernel<T, false>;
+    if ((e = set_smem(mlp_bwd, sm3)) != cudaSuccess) return e;
+    mlp_bwd<<<s.mlp_tiles, kThreads, sm3, stream>>>(
+        x, attn, g, wproj, bproj, ln2g, ln2b, w1, b1, w2, a1, w.z, w.h1,
+        w.gb, w.da1, w.dx1, w.dx1b, w.go, w.part_mlp, s.M, D, H);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
 
-  // 4-5. attention, query side then key side (attention_common.cuh).
+  // 4-5. attention, query side then key side: in bf16 attention_mma.cuh's
+  // backward with the block's scale, in fp32 attention_common.cuh's.
   const int hd = s.hd;
   const T* cgo = w.go;
-  e = launch_attention_bwd<T>(
-      block_heads(qkv, N, D, hd, 0), block_heads(qkv, N, D, hd, 1),
-      block_heads(qkv, N, D, hd, 2), block_heads(cgo, N, D, hd, -1),
-      block_heads(w.dqkv, N, D, hd, 0), block_heads(w.dqkv, N, D, hd, 1),
-      block_heads(w.dqkv, N, D, hd, 2), w.stats, w.part_attn, B, heads, N,
-      hd, scale, stream);
+  if constexpr (kMma) {
+    e = launch_attention_bwd_block_mma<T>(
+        block_heads(qkv, N, D, hd, 0), block_heads(qkv, N, D, hd, 1),
+        block_heads(qkv, N, D, hd, 2), block_heads(cgo, N, D, hd, -1),
+        block_heads(w.dqkv, N, D, hd, 0), block_heads(w.dqkv, N, D, hd, 1),
+        block_heads(w.dqkv, N, D, hd, 2), w.stats, w.part_attn, B, heads, N,
+        hd, scale, stream);
+  } else {
+    e = launch_attention_bwd<T>(
+        block_heads(qkv, N, D, hd, 0), block_heads(qkv, N, D, hd, 1),
+        block_heads(qkv, N, D, hd, 2), block_heads(cgo, N, D, hd, -1),
+        block_heads(w.dqkv, N, D, hd, 0), block_heads(w.dqkv, N, D, hd, 1),
+        block_heads(w.dqkv, N, D, hd, 2), w.stats, w.part_attn, B, heads, N,
+        hd, scale, stream);
+  }
   if (e != cudaSuccess) return e;
 
   // 6. qkv, LN1 and dx (and, for #4, the LN1 output).
-  const size_t sm6 = qkv_bwd_layout<T>(D).total;
-  const auto qkv_bwd = residual ? qkv_bwd_kernel<T, true>
-                                : qkv_bwd_kernel<T, false>;
-  if ((e = set_smem(qkv_bwd, sm6)) != cudaSuccess) return e;
-  qkv_bwd<<<s.row_tiles, kThreads, sm6, stream>>>(
-      x, w.dqkv, w.dx1, ln1g, ln1b, wqkv, static_cast<T*>(dx_),
-      residual ? w.y : nullptr, w.part_qkv, s.M, D);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  T* y_out = residual ? w.y : nullptr;
+  if constexpr (kMma) {
+    e = launch_qkv_bwd_mma(x, w.dqkv, w.dx1, ln1g, ln1b, wqkv,
+                           static_cast<T*>(dx_), y_out, w.part_qkv, s.M, D,
+                           stream);
+    if (e != cudaSuccess) return e;
+  } else {
+    const size_t sm6 = qkv_bwd_layout<T>(D).total;
+    const auto qkv_bwd = residual ? qkv_bwd_kernel<T, true>
+                                  : qkv_bwd_kernel<T, false>;
+    if ((e = set_smem(qkv_bwd, sm6)) != cudaSuccess) return e;
+    qkv_bwd<<<s.qkv_tiles, kThreads, sm6, stream>>>(
+        x, w.dqkv, w.dx1, ln1g, ln1b, wqkv, static_cast<T*>(dx_), y_out,
+        w.part_qkv, s.M, D);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
 
   // Grad offsets in the flat output, in the wrapper's PKEYS order.
   const size_t DD = static_cast<size_t>(D);
@@ -742,35 +770,43 @@ int run_bwd(const void* x_, const void* g_, const void* qkv_in,
   for (int i = 0; i < 4; ++i) {
     jobs.job[i] = list[i];
     jobs.job[i].tile_begin = tiles;
-    tiles += (list[i].n_out / kWgTile) * (list[i].n_in / kWgTile);
+    const int tile_in = kMma ? D : kWgTile;   // bf16: 64 x D tiles
+    tiles += (list[i].n_out / kWgTile) * (list[i].n_in / tile_in);
   }
-  wgrad_kernel<T><<<dim3(tiles, s.splits), kThreads, 0, stream>>>(jobs);
+  if constexpr (kMma) {
+    e = launch_wgrad_mma(jobs, tiles, s.splits, D, stream);
+    if (e != cudaSuccess) return e;
+  } else {
+    wgrad_kernel<T><<<dim3(tiles, s.splits), kThreads, 0, stream>>>(jobs);
+  }
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   // 8. every partial, in order.
   const long long mlp_w = 4 * D + H;
   const RedSeg segs[12] = {
-      {w.part_qkv, d_ln1g, 2 * D, D, s.row_tiles, 0},
-      {w.part_qkv + D, d_ln1b, 2 * D, D, s.row_tiles, 0},
+      {w.part_qkv, d_ln1g, 2 * D, D, s.qkv_tiles, 0},
+      {w.part_qkv + D, d_ln1b, 2 * D, D, s.qkv_tiles, 0},
       {pw_qkv, d_wqkv, 3 * D * D, 3 * D * D, s.splits, 0},
       {w.part_attn, d_bqkv, 3 * D, 3 * D, B * s.attn_tiles, 0},
       {pw_proj, d_wproj, D * D, D * D, s.splits, 0},
-      {w.part_mlp + 3 * D + H, d_bproj, mlp_w, D, s.row_tiles, 0},
-      {w.part_mlp + D + H, d_ln2g, mlp_w, D, s.row_tiles, 0},
-      {w.part_mlp + 2 * D + H, d_ln2b, mlp_w, D, s.row_tiles, 0},
+      {w.part_mlp + 3 * D + H, d_bproj, mlp_w, D, s.mlp_tiles, 0},
+      {w.part_mlp + D + H, d_ln2g, mlp_w, D, s.mlp_tiles, 0},
+      {w.part_mlp + 2 * D + H, d_ln2b, mlp_w, D, s.mlp_tiles, 0},
       {pw_w1, d_w1, H * D, H * D, s.splits, 0},
-      {w.part_mlp + D, d_b1, mlp_w, H, s.row_tiles, 0},
+      {w.part_mlp + D, d_b1, mlp_w, H, s.mlp_tiles, 0},
       {pw_w2, d_w2, D * H, D * H, s.splits, 0},
-      {w.part_mlp, d_b2, mlp_w, D, s.row_tiles, 0}};
+      {w.part_mlp, d_b2, mlp_w, D, s.mlp_tiles, 0}};
   RedSegs red;
   red.count = 12;
   int blocks = 0;
   for (int i = 0; i < 12; ++i) {
     red.seg[i] = segs[i];
     red.seg[i].block_begin = blocks;
-    blocks += (segs[i].n + kThreads - 1) / kThreads;
+    const int threads = kMma && reduce_wide(segs[i]) ? 32 * segs[i].n
+                                                     : segs[i].n;
+    blocks += (threads + kThreads - 1) / kThreads;
   }
-  reduce_kernel<<<blocks, kThreads, 0, stream>>>(red);
+  reduce_kernel<kMma><<<blocks, kThreads, 0, stream>>>(red);
   return static_cast<int>(cudaGetLastError());
 }
 

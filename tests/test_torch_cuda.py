@@ -129,6 +129,33 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
                   torch.float32)
 
 
+def test_backward_kernels_refuse_what_the_bf16_stages_do_not_take(cuda):
+    """The bf16 backwards' mma.sync stages take D of 64, 128 and 192; a
+    width the wrapper's checks pass (D = 256) is refused by the library,
+    unlaunched, not run on other stages. fp32 still takes it."""
+    rng = np.random.RandomState(5)
+    B, N, D, heads = 1, 9, 256, 2
+    x = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32)
+    g = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32,
+                     device=cuda)
+    p16 = _params(rng, D, 4 * D, torch.bfloat16, cuda)
+    x16 = x.to(cuda, torch.bfloat16)
+    saved = tuple(torch.zeros(B, N, w, dtype=torch.bfloat16, device=cuda)
+                  for w in (3 * D, D, 4 * D))
+    before = (bk.BWD_LAUNCHES, bk.BWD_RES_LAUNCHES)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        bk._launch_bwd(x16, g, p16, heads)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        bk._launch_bwd_res(x16, g, *saved, p16, heads)
+    assert (bk.BWD_LAUNCHES, bk.BWD_RES_LAUNCHES) == before
+    p32 = _params(rng, D, 4 * D, torch.float32, cuda)
+    x32 = x.to(cuda)
+    dx, grads = bk._launch_bwd(x32, g, p32, heads)
+    torch.cuda.synchronize()
+    want_dx, want = bk.block_backward_reference(x32, g, p32, heads)
+    _assert_grads(dx, grads, want_dx, want, torch.float32)
+
+
 def _bwd_tol(ref, dtype):
     """Backward tolerance relative to the largest magnitude of each output:
     fp32 1e-4 (sums in another order, over up to B*N rows); bf16 1e-2, since
@@ -206,9 +233,7 @@ def test_residual_forward_kernel_matches_plain(cuda, shape, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
-@pytest.mark.parametrize("shape", [(3, 37, 64, 2), (2, 197, 192, 3),
-                                   (1, 5, 128, 4), (2, 577, 192, 3),
-                                   (1, 1024, 128, 2)],
+@pytest.mark.parametrize("shape", BLOCK_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
 def test_residual_backward_kernel_matches_plain(cuda, shape, dtype):
     """#4 from #3's residuals against ``block_backward_residual_reference``

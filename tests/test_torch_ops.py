@@ -109,8 +109,11 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
     block = ["vit_block_common.cuh", "attention_common.cuh",
              "tile_common.cuh", "attention_mma.cuh", "mma_common.cuh",
              "block_mma.cuh"]
-    for source in ("vit_block_fwd.cu", "vit_block_bwd.cu"):
-        assert [h.name for h in _build._headers(real / source, [])] == block
+    assert [h.name for h in _build._headers(real / "vit_block_fwd.cu",
+                                            [])] == block
+    bwd = block + ["block_bwd_mma.cuh"]
+    assert [h.name for h in _build._headers(real / "vit_block_bwd.cu",
+                                            [])] == bwd
     assert [h.name for h in _build._headers(real / "attention.cu", [])] \
         == ["attention_common.cuh", "tile_common.cuh", "attention_mma.cuh",
             "mma_common.cuh"]

@@ -16,9 +16,11 @@ exits non-zero:
    at (64, 224, 224, 3), each in bf16 and fp32 (#1 and #2 also the same
    bits on a repeated call; #1, #2 and ``TransformerEncoderLayer``'s forward
    also by CUDA-graph replay, the device time; #1's three stages and each of
-   #2's stages by torch.profiler, the bf16 #2 failing if a stage it replaced
-   runs; #1 + #2 under autograd and ``TransformerEncoderLayer``'s forward +
-   backward also by profiler device time); the KAN head's forward
+   #2's stages by torch.profiler beside each stage's bound, #2 in either
+   type failing if a first-design stage it replaced runs; #1 + #2 under
+   autograd and ``TransformerEncoderLayer``'s forward + backward, and the
+   layer's backward alone (forward + backward less forward), also by
+   profiler device time); the KAN head's forward
    (#10) and backward (#11) at (64, [192, 64, 16, 1]) and one KAN layer's
    (#8, #9) at (64, 192 -> 64), fp32, each output within 1e-4 of its
    largest magnitude and the same bits on a repeated call, their ``ms`` and
@@ -68,9 +70,9 @@ exits non-zero:
    (32, 577, 192), bf16 and fp32, against their plain versions (#3's output
    the bits of #1's, the same bits on a repeated #3 and #4 call), timed
    beside their bounds, the plain versions and ``TransformerEncoderLayer``
-   (#3, #4 and the layer's forward also by CUDA-graph replay; #4's stages,
-   and #3 + #4, #1 + #2 and the layer's forward + backward, by profiler
-   device time); one flagship
+   (#3, #4 and the layer's forward also by CUDA-graph replay; #4's stages
+   beside their bounds, and #3 + #4, #1 + #2, the layer's forward +
+   backward and its backward alone, by profiler device time); one flagship
    train step with ``ROVIT_BLOCK_RESIDUAL_BWD=1`` held against the same step
    through #1/#2 and through #4's plain version (``hold_residual_step``);
    then ``Trainer.fit`` at the flagship's full width over a device-resident
@@ -286,8 +288,8 @@ def check_block(dtype, seed: int, batch: int = BATCH, tokens: int = TOKENS):
 
 # The kernels of #2's and #4's stages in a profile, by stage and route
 # (#2 also runs #1's ln_qkv and attention stages to recompute qkv and the
-# attention output). The bf16 route's must run and the streamed and WMMA
-# stages it replaced must not (``OLD_BWD_STAGES``).
+# attention output). Each route's must run, and the first design's stages,
+# which both routes replaced, must not (``REPLACED_BWD_STAGES``).
 BWD_STAGES = {
     torch.bfloat16: {"mlp_bwd": "mlp_bwd_mma_kernel<",
                      "attention_q": "attn_bwd_q_mma_kernel<",
@@ -295,32 +297,85 @@ BWD_STAGES = {
                      "qkv_bwd": "qkv_bwd_mma_kernel<",
                      "wgrad": "wgrad_mma_kernel",
                      "reduce": "namespace)::reduce_kernel<"},
-    torch.float32: {"mlp_bwd": "mlp_bwd_kernel<",
-                    "attention_q": "attn_bwd_q_kernel<",
-                    "attention_kv": "attn_bwd_kv_kernel<",
-                    "qkv_bwd": "qkv_bwd_kernel<",
-                    "wgrad": "wgrad_kernel<",
+    torch.float32: {"mlp_bwd": "mlp_bwd_fma_kernel<",
+                    "attention_q": "attn_bwd_q_fma_kernel<",
+                    "attention_kv": "attn_bwd_kv_fma_kernel<",
+                    "qkv_bwd": "qkv_bwd_fma_kernel<",
+                    "wgrad": "wgrad_fma_kernel<",
                     "reduce": "namespace)::reduce_kernel<"}}
-OLD_BWD_STAGES = tuple(BWD_STAGES[torch.float32][k] for k in (
-    "mlp_bwd", "attention_q", "attention_kv", "qkv_bwd", "wgrad"))
+REPLACED_BWD_STAGES = ("namespace)::mlp_bwd_kernel<",
+                       "namespace)::attn_bwd_q_kernel<",
+                       "namespace)::attn_bwd_kv_kernel<",
+                       "namespace)::qkv_bwd_kernel<",
+                       "namespace)::wgrad_kernel<")
 
 
 def bwd_stages(fn, dtype, recompute: bool, calls: int = 10) -> dict:
     """Device time per call of each stage of one backward call ``fn`` (#2
     when ``recompute``, else #4), and of all its device operations, from
-    one profile; in bf16 it raises if a replaced stage ran."""
+    one profile; it raises if a replaced stage ran."""
     ops = device_ops(fn, calls)
     kernels = dict(BWD_STAGES[dtype])
     if recompute:
         kernels.update({k: BLOCK_STAGES[dtype][k]
                         for k in ("ln_qkv", "attention")})
-    if dtype == torch.bfloat16:
-        old = [k for k in ops if any(o in k for o in OLD_BWD_STAGES)]
-        if old:
-            raise RuntimeError(f"bf16 backward ran replaced stages: {old}")
+    old = [k for k in ops if any(o in k for o in REPLACED_BWD_STAGES)]
+    if old:
+        raise RuntimeError(f"{dtype} backward ran replaced stages: {old}")
     out = by_label(ops, kernels)
     out["all"] = sum(ops.values())
     return out
+
+
+def bwd_stage_bounds_ms(x, dtype, recompute: bool) -> dict:
+    """Each of #2's (``recompute``) or #4's stages' least time: the larger
+    of its needed FLOP over the peak and its bytes (inputs read once,
+    outputs written once, in the compute type; partials and grads fp32)
+    over the HBM rate. mlp_bwd: proj again, fc1 again (#2 only), dh, dz and
+    dattn; the attention query side S, dP and dQ, the key side S, dP, dK
+    and dV; the reduce reads every partial once."""
+    B, N, D = x.shape
+    M, H, hd, size = B * N, HIDDEN, D // HEADS, x.element_size()
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    attn = 2 * B * HEADS * N * N * hd             # one N x N x hd product
+    rows = M * D * size
+    weights = (4 * D * D + 2 * H * D) * size
+    tiles = -(-M // 64)
+    work = {
+        "mlp_bwd": (2 * M * D * (2 * D + (3 if recompute else 2) * H),
+                    5 * rows + 4 * M * D + 2 * M * H * size
+                    + (0 if recompute else M * H * size) + weights
+                    + 4 * tiles * (4 * D + H)),
+        "attention_q": (3 * attn, 5 * rows + 4 * 3 * B * HEADS * N),
+        "attention_kv": (4 * attn, 6 * rows + 4 * 3 * B * HEADS * N),
+        "qkv_bwd": (2 * M * 3 * D * D,
+                    5 * rows + 4 * M * D + 3 * D * D * size
+                    + (0 if recompute else rows) + 4 * tiles * 2 * D),
+        "wgrad": (2 * M * (4 * D * D + 2 * H * D),
+                  (6 * M * D + 2 * M * H) * size + 4 * (4 * D * D + 2 * H * D)),
+        "reduce": (0, 4 * 2 * (4 * D * D + 2 * H * D + 6 * D + H))}
+    out = {k: 1e3 * max(f / peak, b / PEAK_BYTES_PER_S)
+           for k, (f, b) in work.items()}
+    if recompute:
+        first = stage_bounds_ms(x, dtype)
+        out.update({k: first[k] for k in ("ln_qkv", "attention")})
+    return out
+
+
+def layer_bwd_device_ms(layer, xg, gx, calls: int = 10) -> dict:
+    """``TransformerEncoderLayer``'s backward alone by profiler device time:
+    its forward + backward less its forward (the same training forward,
+    autograd recording), so each backward kernel has a library factor of
+    its own."""
+    def fwd():
+        layer(xg)
+
+    def fwd_bwd():
+        layer(xg).backward(gx)
+
+    both = device_ms(fwd_bwd, calls=calls)
+    forward = device_ms(fwd, calls=calls)
+    return {"fwd_bwd": both, "fwd": forward, "bwd": both - forward}
 
 
 def bwd_tol(ref: torch.Tensor, dtype) -> float:
@@ -396,7 +451,8 @@ def check_block_bwd(dtype, seed: int, batch: int = BATCH,
     port_ms = time_ms(port_fwd_bwd, reps=9)
     library_ms = time_ms(library_fwd_bwd, reps=9)
     port_device = device_ms(port_fwd_bwd, calls=10)
-    library_device = device_ms(library_fwd_bwd, calls=10)
+    library_split = layer_bwd_device_ms(layer, xg, gx)
+    library_device = library_split["fwd_bwd"]
     # The needed work: the forward recomputed without fc2 (no gradient
     # reads the block's output), then two products per forward product.
     B, N, D = x.shape
@@ -418,9 +474,12 @@ def check_block_bwd(dtype, seed: int, batch: int = BATCH,
             "max_rel_err": max(e["rel_err"] for e in errs.values()),
             "kernel_ms": ms, "kernel_graph_ms": graph, "plain_ms": plain_ms,
             "stages_device_ms": stages,
+            "stages_bound_ms": bwd_stage_bounds_ms(x, dtype, True),
             "port_fwd_bwd_ms": port_ms, "library_ms": library_ms,
             "port_fwd_bwd_device_ms": port_device,
             "library_device_ms": library_device,
+            "library_bwd_device_ms": library_split["bwd"],
+            "library_fwd_train_device_ms": library_split["fwd"],
             "library": "nn.TransformerEncoderLayer forward + backward",
             "device_ms_source": "torch.profiler: every device operation of "
                                 "10 calls, per call",
@@ -1933,7 +1992,8 @@ def check_block_res(dtype, seed: int, batch: int = BATCH,
         layer(xg).backward(gx)
 
     lib4 = time_ms(library_fwd_bwd, reps=9)
-    lib4_device = device_ms(library_fwd_bwd, calls=10)
+    lib4_split = layer_bwd_device_ms(layer, xg, gx)
+    lib4_device = lib4_split["fwd_bwd"]
     pair_ms = {"residual": [], "recompute": []}
     pair_device = {"residual": [], "recompute": []}
     for on in (True, False, True, False):
@@ -1963,8 +2023,12 @@ def check_block_res(dtype, seed: int, batch: int = BATCH,
            "max_abs_err": max(errs[k]["max_abs_err"]
                               for k in ("dx",) + bk.PKEYS),
            "kernel_ms": ms4, "kernel_graph_ms": graph4,
-           "stages_device_ms": stages4, "plain_ms": plain4,
+           "stages_device_ms": stages4,
+           "stages_bound_ms": bwd_stage_bounds_ms(x, dtype, False),
+           "plain_ms": plain4,
            "library_ms": lib4, "library_device_ms": lib4_device,
+           "library_bwd_device_ms": lib4_split["bwd"],
+           "library_fwd_train_device_ms": lib4_split["fwd"],
            "library": "nn.TransformerEncoderLayer forward + backward",
            "port_fwd_bwd_ms": pair_ms, "port_fwd_bwd_device_ms": pair_device,
            **bounds["bwd"]}
@@ -2293,13 +2357,17 @@ def main() -> int:
                 "fp32": {k: hi[k] for k in keys + more}}
 
     # Beside the common keys: #1's and #3's graph-replay device times and
-    # #1's stages; #2's graph time and its recomputed stages.
+    # #1's stages; #2's and #4's graph times, their stages beside the
+    # stages' bounds, and the layer's forward + backward and its backward
+    # alone by profiler device time.
     more1 = ("kernel_graph_ms", "library_graph_ms", "stages_device_ms",
              "stages_bound_ms")
-    more2 = ("kernel_graph_ms", "stages_device_ms", "library_device_ms",
+    more2 = ("kernel_graph_ms", "stages_device_ms", "stages_bound_ms",
+             "library_device_ms", "library_bwd_device_ms",
              "port_fwd_bwd_device_ms")
     more3 = ("kernel_graph_ms", "library_graph_ms")
-    more4 = ("kernel_graph_ms", "stages_device_ms", "library_device_ms")
+    more4 = ("kernel_graph_ms", "stages_device_ms", "stages_bound_ms",
+             "library_device_ms", "library_bwd_device_ms")
 
     csrc = "rovit_kan_tpu_torch/csrc/"
 

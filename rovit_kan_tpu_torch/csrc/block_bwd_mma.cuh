@@ -56,17 +56,10 @@
 
 #pragma once
 
+#include "block_bwd_common.cuh"
 #include "block_mma.cuh"
 
 namespace {
-
-// gelu_erf(a) and its derivative Phi(a) + a phi(a) from one erff.
-__device__ __forceinline__ float2 gelu_and_grad(float a) {
-  const float e = erff(a * 0.70710678118654752f);
-  return make_float2(0.5f * a * (1.0f + e),
-                     0.5f * (1.0f + e) +
-                         a * 0.3989422804014327f * expf(-0.5f * a * a));
-}
 
 // mlp_bwd's pairs of warps (96 rows) and qkv_bwd's warps (64 rows) a CTA.
 constexpr int kMlpBwdPairs = 6, kQkvBwdWarps = 4;
@@ -748,17 +741,6 @@ constexpr int kWgTile = 64;       // output rows of a tile (fp32: square)
 constexpr int kWgDepth = 64;      // rows per ring stage
 constexpr int kWgThreads = 256;   // 8 warps: 2 x 4, 32 x D / 4 outputs each
 constexpr int kWgCtas = 252;      // seven splits of 36 tiles at D = 192
-
-struct WgJob {
-  const void* a;      // (M, n_out), T
-  const void* b;      // (M, n_in), T
-  float* part;        // [splits][n_out][n_in]
-  int n_out, n_in, tile_begin;
-};
-struct WgJobs {
-  WgJob job[4];
-  int count, M, rows_per_split;
-};
 
 template <int D>
 struct WgPlan {

@@ -4,11 +4,11 @@ their plain versions.
 Counterpart of ``rovit_kan_tpu/ops/block_kernel.py::fused_vit_block`` and its
 custom VJP. The TPU kernel ``_vit_block_kernel`` is replaced on Hopper by
 ``csrc/vit_block_fwd.cu`` and the recompute backward ``_vit_block_bwd_kernel``
-by ``csrc/vit_block_bwd.cu``; the saved-residual pair
-``_vit_block_res_kernel`` / ``_vit_block_bwd_res_kernel`` by the
-``vit_block_res_fwd_*`` and ``vit_block_bwd_res_*`` entries of the same two
-sources (the source notes there say what bounds them and how they are
-tiled). One pre-LN block:
+by ``csrc/vit_block_bwd.cu`` (bf16) and ``csrc/vit_block_bwd_f32.cu`` (fp32);
+the saved-residual pair ``_vit_block_res_kernel`` /
+``_vit_block_bwd_res_kernel`` by the ``vit_block_res_fwd_*`` and
+``vit_block_bwd_res_*`` entries of the same sources (the source notes there
+say what bounds them and how they are tiled). One pre-LN block:
 
     x1 = x + proj(MHA(LN1(x)));  out = x1 + fc2(GELU(fc1(LN2(x1))))
 
@@ -341,20 +341,30 @@ def _library():
     return lib
 
 
+# The backward's two routes are two sources, built in parallel: the bf16
+# mma.sync stages (vit_block_bwd.cu) and the fp32 FMA stages
+# (vit_block_bwd_f32.cu).
+_BWD_SOURCES = {"bf16": ("vit_block_bwd", "vit_block_bwd_error_string"),
+                "f32": ("vit_block_bwd_f32",
+                        "vit_block_bwd_f32_error_string")}
+
+
 @functools.lru_cache(maxsize=None)
-def _bwd_library():
+def _bwd_library(suffix: str):
     from rovit_kan_tpu_torch.ops import _build
-    lib = _build.load("vit_block_bwd")
+    source, error_string = _BWD_SOURCES[suffix]
+    lib = _build.load(source)
     for name, extra in (("vit_block_bwd", 0), ("vit_block_bwd_res", 3)):
-        for suffix in ("bf16", "f32"):
-            fn = getattr(lib, f"{name}_{suffix}")
-            fn.argtypes = [ctypes.c_void_p] * extra + _BWD_ARGTYPES
-            fn.restype = ctypes.c_int
-            ws = getattr(lib, f"{name}_workspace_{suffix}")
-            ws.argtypes = _WS_ARGTYPES
-            ws.restype = ctypes.c_size_t
-    lib.vit_block_bwd_error_string.argtypes = [ctypes.c_int]
-    lib.vit_block_bwd_error_string.restype = ctypes.c_char_p
+        fn = getattr(lib, f"{name}_{suffix}")
+        fn.argtypes = [ctypes.c_void_p] * extra + _BWD_ARGTYPES
+        fn.restype = ctypes.c_int
+        ws = getattr(lib, f"{name}_workspace_{suffix}")
+        ws.argtypes = _WS_ARGTYPES
+        ws.restype = ctypes.c_size_t
+    err = getattr(lib, error_string)
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    lib.error_string = err
     return lib
 
 
@@ -416,9 +426,9 @@ def _run_bwd(x: torch.Tensor, g: torch.Tensor,
     hidden = params["w1"].shape[0]
     if saved is not None:
         _check_residuals(x, *saved, hidden)
-    lib = _bwd_library()
     name = "vit_block_bwd" if saved is None else "vit_block_bwd_res"
     suffix = "bf16" if x.dtype == torch.bfloat16 else "f32"
+    lib = _bwd_library(suffix)
     shapes = param_shapes(D, hidden)
     sizes = [int(torch.Size(s).numel()) for s in shapes.values()]
     with torch.cuda.device(x.device):
@@ -434,7 +444,7 @@ def _run_bwd(x: torch.Tensor, g: torch.Tensor,
             work.data_ptr(), *(params[k].data_ptr() for k in PKEYS),
             B, N, D, heads, hidden, stream)
     if rc != 0:
-        msg = lib.vit_block_bwd_error_string(rc).decode()
+        msg = lib.error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
                            f"({msg}) at B={B} N={N} D={D} heads={heads}")
     grads = {k: t.view(s) for (k, s), t in

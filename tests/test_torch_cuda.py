@@ -262,6 +262,53 @@ def test_residual_backward_kernel_matches_plain(cuda, shape, dtype):
         assert torch.equal(again[1][k], grads[k]), k
 
 
+# (B, N, D, heads, hidden / D) at the edges of the fp32 backward's tiles
+# (csrc/block_bwd_fma.cuh, attention_fma.cuh): B*N one row under, at and
+# over a multiple of its 64-row tiles; N of 63, 64, 65 and 577 (64-row
+# query and key tiles); D 64, 128 and 192 with 1-4 heads; a hidden width
+# that leaves a ragged last 128-wide chunk (192, 320); D 256 and 320, the
+# widest the fp32 route takes (at hidden widths the fp32 #3 takes too).
+FP32_EDGE_SHAPES = [(1, 127, 64, 1, 4), (2, 64, 64, 4, 4),
+                    (1, 129, 128, 2, 4), (2, 63, 128, 4, 4),
+                    (1, 64, 192, 4, 4), (3, 65, 192, 3, 4),
+                    (1, 577, 64, 2, 4), (1, 65, 128, 1, 2),
+                    (1, 63, 192, 2, 1), (2, 65, 192, 3, 3),
+                    (1, 64, 256, 4, 2), (1, 33, 320, 5, 1)]
+
+
+@pytest.mark.parametrize("residual", [False, True],
+                         ids=["recompute", "residual"])
+@pytest.mark.parametrize("shape", FP32_EDGE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fp32_backward_kernels_at_tile_edges(cuda, shape, residual):
+    """fp32 #2 (or #4 from #3's residuals) within ``_bwd_tol`` of its plain
+    version at the edges of the FMA stages' tiles; the same bits on a
+    repeated call."""
+    B, N, D, heads, mult = shape
+    rng = np.random.RandomState(sum(shape) + 5)
+    p = _params(rng, D, mult * D, torch.float32, cuda)
+    x = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32,
+                     device=cuda)
+    g = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32,
+                     device=cuda)
+    with torch.no_grad():
+        if residual:
+            saved = bk._launch_res(x, p, heads)[1:]
+            run = lambda: bk._launch_bwd_res(x, g, *saved, p, heads)
+            want_dx, want = bk.block_backward_residual_reference(
+                x, g, *saved, p, heads)
+        else:
+            run = lambda: bk._launch_bwd(x, g, p, heads)
+            want_dx, want = bk.block_backward_reference(x, g, p, heads)
+        dx, grads = run()
+        again_dx, again = run()
+    torch.cuda.synchronize()
+    _assert_grads(dx, grads, want_dx, want, torch.float32)
+    assert torch.equal(again_dx, dx)
+    for k in bk.PKEYS:
+        assert torch.equal(again[k], grads[k]), k
+
+
 def test_residual_block_under_autograd(cuda, monkeypatch):
     """With ``ROVIT_BLOCK_RESIDUAL_BWD=1`` the block under autograd runs #3
     and #4 (no #1 or #2) and its grads match the plain residual pair's;

@@ -111,9 +111,13 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
              "block_mma.cuh"]
     assert [h.name for h in _build._headers(real / "vit_block_fwd.cu",
                                             [])] == block
-    bwd = block + ["block_bwd_mma.cuh"]
+    bwd = block + ["block_bwd_mma.cuh", "block_bwd_common.cuh"]
     assert [h.name for h in _build._headers(real / "vit_block_bwd.cu",
                                             [])] == bwd
+    bwd32 = block + ["attention_fma.cuh", "fma_common.cuh",
+                     "block_bwd_fma.cuh", "block_bwd_common.cuh"]
+    assert [h.name for h in _build._headers(real / "vit_block_bwd_f32.cu",
+                                            [])] == bwd32
     assert [h.name for h in _build._headers(real / "attention.cu", [])] \
         == ["attention_common.cuh", "tile_common.cuh", "attention_mma.cuh",
             "mma_common.cuh"]

@@ -53,19 +53,27 @@ exits non-zero:
 7. long: the flagship at 384 px (577 tokens), batch 32, its weights the
    seed-0 224-px model's carried over by ``transfer_resolution``: the
    attention-only kernels #5/#6 at (32, 3, 577, 64) and (64, 3, 197, 64)
-   (bf16: the mma.sync kernels of ``attention_mma.cuh``; fp32: the streamed
-   stages) and #1/#2 at (32, 577, 192), bf16 and fp32, against their plain
-   versions (same bits on repeat for #1, #5 and #6) and timed beside their
-   bounds, the plain versions and SDPA or ``TransformerEncoderLayer``
-   (#1, #2, #5, #6 and the library forwards also by CUDA-graph replay, #1's
-   stages by torch.profiler); served through ``InferenceEngine``
+   (bf16: the mma.sync kernels of ``attention_mma.cuh``; fp32: the 3xTF32
+   mma.sync kernels of ``attention_tf32.cuh``) and #1/#2 at
+   (32, 577, 192), bf16 and fp32, against their plain versions (same bits
+   on repeat for #1, #5 and #6) and timed beside their bounds, the plain
+   versions and SDPA or ``TransformerEncoderLayer`` (#1, #2, #5, #6 and the
+   library forwards also by CUDA-graph replay, #1's stages by
+   torch.profiler; SDPA's forward + backward, its backward alone and the
+   port's #5 + #6 under autograd by profiler device time, with SDPA's
+   kernel names); served through ``InferenceEngine``
    with "auto" (12 x #1 per batch, no #5) and with
    ``use_pallas_block=False`` (12 x #5 per batch, no #1), each held
    against its plain versions and the fp32 model as in "serve"; three
    train steps with ``use_pallas_block=False, use_pallas_attention=True``
    (12 x #5, 12 x #6, 1 x #7 each), two with "auto" (12 x #1, 12 x #2,
    1 x #7 each), finite losses; one step held per
-   parameter against the same step with #6's plain version;
+   parameter against the same step with #6's plain version; the fp32 arm
+   (``flags.mixed_precision=False``, the attention kernels, block off):
+   one served batch (12 x #5) and one train step (12 x #5, 12 x #6; no
+   #7, which the trainer takes only for bf16) held against
+   ``plain_attention`` (outputs and loss 1e-4 relative, the flat gradient
+   1e-3 in L2);
 8. fit: the saved-residual pair. #3 and #4 at (64, 197, 192) and
    (32, 577, 192), bf16 and fp32, against their plain versions (#3's output
    the bits of #1's, the same bits on a repeated #3 and #4 call), timed
@@ -96,6 +104,7 @@ import copy
 import functools
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -109,6 +118,7 @@ import torch
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, no sparsity).
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -304,8 +314,6 @@ BWD_STAGES = {
                     "wgrad": "wgrad_fma_kernel<",
                     "reduce": "namespace)::reduce_kernel<"}}
 REPLACED_BWD_STAGES = ("namespace)::mlp_bwd_kernel<",
-                       "namespace)::attn_bwd_q_kernel<",
-                       "namespace)::attn_bwd_kv_kernel<",
                        "namespace)::qkv_bwd_kernel<",
                        "namespace)::wgrad_kernel<")
 
@@ -362,20 +370,27 @@ def bwd_stage_bounds_ms(x, dtype, recompute: bool) -> dict:
     return out
 
 
+def split_device_ms(fwd, fwd_bwd, calls: int = 10,
+                    graph: bool = False) -> dict:
+    """A backward alone by device time: ``fwd_bwd`` (forward + backward)
+    less ``fwd`` (the same training forward, autograd recording), so each
+    backward kernel has a library factor of its own; by profiler device time
+    (``device_ms``), or by CUDA-graph replay (``graph_ms``) when ``graph``."""
+    timer = graph_ms if graph else device_ms
+    both = timer(fwd_bwd, calls=calls)
+    forward = timer(fwd, calls=calls)
+    return {"fwd_bwd": both, "fwd": forward, "bwd": both - forward}
+
+
 def layer_bwd_device_ms(layer, xg, gx, calls: int = 10) -> dict:
-    """``TransformerEncoderLayer``'s backward alone by profiler device time:
-    its forward + backward less its forward (the same training forward,
-    autograd recording), so each backward kernel has a library factor of
-    its own."""
+    """``TransformerEncoderLayer``'s backward alone (``split_device_ms``)."""
     def fwd():
         layer(xg)
 
     def fwd_bwd():
         layer(xg).backward(gx)
 
-    both = device_ms(fwd_bwd, calls=calls)
-    forward = device_ms(fwd, calls=calls)
-    return {"fwd_bwd": both, "fwd": forward, "bwd": both - forward}
+    return split_device_ms(fwd, fwd_bwd, calls)
 
 
 def bwd_tol(ref: torch.Tensor, dtype) -> float:
@@ -618,20 +633,42 @@ def device_ms(fn, kernels=None, calls: int = 50) -> float:
     return sum(device_ms_by(fn, names, calls).values())
 
 
-def device_ops(fn, calls: int = 20) -> dict:
-    """Device time per call of ``fn`` by device operation name (ms), from
-    one torch.profiler run over ``calls`` calls after a warm-up."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_device(fn, calls: int = 20, takes: int = 5) -> dict:
+    """Launches and device time (ms) per device operation name over
+    ``calls`` calls of ``fn``, from torch.profiler after a warm-up call. The
+    profiler first traces one warm-up round of ``calls`` calls that it
+    discards (its schedule's warm-up step), since the first operations of a
+    trace can be lost. A profile in which an operation's launches are not a
+    multiple of ``calls`` lost some of them, and would time the calls it
+    kept as if they were all; it is taken again, up to ``takes`` times, and
+    the function raises if none is whole."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / calls
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    for _ in range(takes):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        ops = {e.key: (e.count, e.self_device_time_total / 1e3)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")}   # the step span
+        if ops and all(n % calls == 0 for n, _ in ops.values()):
+            return ops
+    raise RuntimeError(f"no whole profile in {takes} takes of {calls} calls:"
+                       f" launches {({k[:80]: n for k, (n, _) in ops.items()})}")
+
+
+def device_ops(fn, calls: int = 20) -> dict:
+    """Device time per call of ``fn`` by device operation name (ms), from a
+    whole profile of ``calls`` calls (``profile_device``)."""
+    return {k: ms / calls for k, (_, ms) in profile_device(fn, calls).items()}
 
 
 def by_label(ops: dict, kernels: dict) -> dict:
@@ -657,11 +694,13 @@ def graph_ms(fn, calls: int = 20) -> float:
     """Device time per call of ``fn``: CUDA events around replays of one
     CUDA graph that captured ``calls`` calls, so the host enqueues one graph
     launch per replay and a call whose host work exceeds its device time is
-    still timed by the device."""
+    still timed by the device. Three warm-up calls off the capture, as
+    PyTorch asks before a capture of autograd's backward."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()                                  # warm-up off the capture
+        for _ in range(3):
+            fn()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -669,6 +708,39 @@ def graph_ms(fn, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
     return time_ms(graph.replay, reps=10, inner=3) / calls
+
+
+def kernel_label(mangled: str) -> str:
+    """A mangled kernel name as its identifier and integer template
+    arguments, ``attn_bwd_kv_tf32_kernel<128>``."""
+    m = re.match(r"_ZN", mangled)
+    if not m:
+        return mangled[:60]
+    pos, name = m.end(), mangled
+    while pos < len(mangled) and mangled[pos].isdigit():
+        n = re.match(r"\d+", mangled[pos:]).group()
+        pos += len(n)
+        name, pos = mangled[pos:pos + int(n)], pos + int(n)
+    args = re.findall(r"Li(\d+)E", mangled[pos:].split("EEv")[0])
+    return name + (f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_table(log: str) -> list:
+    """[kernel, registers, spill stores in bytes] for each entry function
+    of an ``nvcc -Xptxas -v`` log."""
+    out, fn, spill = [], None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            out.append([kernel_label(fn), int(m.group(1)), spill])
+            fn = None
+    return out
 
 
 def check_kan(seed: int):
@@ -1249,16 +1321,8 @@ def train(smi: str):
 
 def count_device_ops(fn) -> int:
     """Device operations (kernels, copies) that one call of ``fn`` enqueues,
-    from torch.profiler, after a warm-up call."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    from torch.profiler, after a warm-up call (``profile_device``)."""
+    return sum(n for n, _ in profile_device(fn, calls=1).values())
 
 
 def set_kan_fused(kan, fused: bool) -> None:
@@ -1495,29 +1559,45 @@ SDPA = "F.scaled_dot_product_attention(q, k, v, scale=1.0)"
 
 def attention_bounds(shape, dtype) -> dict:
     """Least times of #5 and #6 on the card: FLOP of their products (#5 two
-    N x N x hd products, #6 five: S again, dV, dP, dQ, dK) over the peak of
-    the input type, and bytes (q, k, v in and an fp32 out; q, k, v and the
-    fp32 g in and dq, dk, dv out in the input type) over the HBM rate."""
+    N x N x hd products, #6 five: S again, dV, dP, dQ, dK) over the rate of
+    the route's arithmetic, and bytes (q, k, v in and an fp32 out; q, k, v
+    and the fp32 g in and dq, dk, dv out in the input type) over the HBM
+    rate. bf16 runs at the bf16 tensor peak. The fp32 route takes each
+    product as three TF32 products (3xTF32), so its bound is three times
+    the FLOP at the TF32 peak; the fp32 FMA bound (the FLOP at 67 TFLOP/s)
+    is printed beside it as ``fma_bound_ms``."""
     B, h, N, hd = shape
     size = 2 if dtype == torch.bfloat16 else 4
     numel = B * h * N * hd
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     out = {}
     for name, products, nbytes in (
             ("fwd", 2, numel * (3 * size + 4)),
             ("bwd", 5, numel * (6 * size + 4))):
-        bound = {"operations": 2 * products * B * h * N * N * hd / peak,
-                 "bytes": nbytes / PEAK_BYTES_PER_S}
+        flops = 2 * products * B * h * N * N * hd
+        seconds = (flops / PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                   else 3 * flops / PEAK_TF32_FLOPS)
+        bound = {"operations": seconds, "bytes": nbytes / PEAK_BYTES_PER_S}
         by = max(bound, key=bound.get)
         out[name] = {"bound_ms": 1e3 * bound[by], "bound_by": by,
-                     "flops": 2 * products * B * h * N * N * hd,
-                     "bytes": nbytes}
+                     "flops": flops, "bytes": nbytes}
+        if dtype == torch.float32:
+            out[name]["fma_bound_ms"] = 1e3 * max(
+                flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S)
     return out
 
 
-# The route of #5/#6 by dtype (csrc/attention.cu).
-ATTN_DESIGN = {torch.bfloat16: "mma.sync two-pass, registers",
-               torch.float32: "streamed stages, FMA from shared memory"}
+# The route of #5/#6 by dtype (csrc/attention.cu): design and device code.
+ATTN_DESIGN = {torch.bfloat16: ("mma.sync two-pass, registers",
+                                "attention_mma.cuh"),
+               torch.float32: ("3xTF32 mma.sync two-pass, registers",
+                               "attention_tf32.cuh")}
+
+
+def top_kernels(ops: dict, n: int = 4) -> list:
+    """The ``n`` device operations of a profile (``device_ops``) with the
+    most time, as [name, ms per call]."""
+    return [[k[:160], v] for k, v in
+            sorted(ops.items(), key=lambda kv: -kv[1])[:n]]
 
 
 def check_attention(shape, dtype, seed: int):
@@ -1526,7 +1606,11 @@ def check_attention(shape, dtype, seed: int):
     same bits on a repeated call, and timed (CUDA events) beside their
     bounds, the plain versions and SDPA (forward, and forward + backward,
     the library yardstick; never on the port's path), and the kernels' and
-    SDPA's forward device time from CUDA-graph replays. Tolerances: the
+    SDPA's forward device time from CUDA-graph replays; SDPA's forward +
+    backward, its training forward and its backward alone (the difference)
+    by CUDA-graph replay too, the port's #5 + #6 under autograd the same
+    way, and the names and profiler device times of SDPA's device kernels
+    (``profile_device``'s whole profiles). Tolerances: the
     forward's fp32 output within 1e-4 in fp32 and two bf16 ulps at its
     largest magnitude in bf16 (both round P at the same point; they differ
     where an fp32 sum in another order crosses a rounding boundary); the
@@ -1583,14 +1667,30 @@ def check_attention(shape, dtype, seed: int):
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     gx = g.to(dtype)
 
+    def sdpa_fwd():
+        for x in leaves:
+            x.grad = None
+        return F.scaled_dot_product_attention(*leaves, scale=1.0)
+
     def sdpa_fwd_bwd():
-        F.scaled_dot_product_attention(*leaves, scale=1.0).backward(gx)
+        sdpa_fwd().backward(gx)
+
+    def port_fwd():
+        for x in leaves:
+            x.grad = None
+        return at.fused_attention(*leaves)
 
     def port_fwd_bwd():
-        at.fused_attention(*leaves).backward(g)
+        port_fwd().backward(g)
 
     sdpa_fb = time_ms(sdpa_fwd_bwd, reps=9)
     port_fb = time_ms(port_fwd_bwd, reps=9)
+    sdpa_device = split_device_ms(sdpa_fwd, sdpa_fwd_bwd, graph=True)
+    port_device = split_device_ms(port_fwd, port_fwd_bwd, graph=True)
+    sdpa_ops = device_ops(sdpa_fwd_bwd, calls=5)
+    with torch.no_grad():
+        sdpa_fwd_ops = device_ops(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=1.0), calls=5)
     # Device time beside the event times (once a call's host work exceeds
     # its kernel's device time, events time the host): replays of a CUDA
     # graph of the wrapper calls (the backward's includes the wrapper's cast
@@ -1602,7 +1702,9 @@ def check_attention(shape, dtype, seed: int):
             q, k, v, scale=1.0))
     bounds = attention_bounds(shape, dtype)
     common = {"dtype": str(dtype).replace("torch.", ""), "shape": list(shape),
-              "design": ATTN_DESIGN[dtype],
+              "design": ATTN_DESIGN[dtype][0],
+              "device_source": "rovit_kan_tpu_torch/csrc/"
+                               + ATTN_DESIGN[dtype][1],
               "identical_bits_on_repeat": True,
               "kernel_ms_source": "CUDA events around 10 back-to-back calls",
               "kernel_graph_ms_source": "CUDA events around replays of a "
@@ -1612,7 +1714,7 @@ def check_attention(shape, dtype, seed: int):
            "max_abs_err": errs["out"]["max_abs_err"], "kernel_ms": ms_f,
            "kernel_graph_ms": graph_f, "plain_ms": plain_f,
            "library_ms": sdpa_f, "library_graph_ms": sdpa_graph_f,
-           "library": SDPA,
+           "library": SDPA, "library_kernels": top_kernels(sdpa_fwd_ops),
            **bounds["fwd"]}
     bwd = {"replaces": "rovit_kan_tpu/ops/attention.py::"
                        "_attention_bwd_kernel",
@@ -1621,7 +1723,16 @@ def check_attention(shape, dtype, seed: int):
                               for k in ("dq", "dk", "dv")),
            "kernel_ms": ms_b, "kernel_graph_ms": graph_b, "plain_ms": plain_b,
            "library_ms": sdpa_fb, "library": SDPA + " forward + backward",
-           "port_fwd_bwd_ms": port_fb, **bounds["bwd"]}
+           "library_device_ms_source": "CUDA events around replays of a "
+                                       "CUDA graph of 10 calls, per call; "
+                                       "bwd = fwd_bwd - fwd",
+           "library_device_ms": sdpa_device["fwd_bwd"],
+           "library_fwd_device_ms": sdpa_device["fwd"],
+           "library_bwd_device_ms": sdpa_device["bwd"],
+           "library_kernels": top_kernels(sdpa_ops),
+           "port_fwd_bwd_ms": port_fb,
+           "port_fwd_bwd_device_ms": port_device["fwd_bwd"],
+           "port_bwd_device_ms": port_device["bwd"], **bounds["bwd"]}
     return fwd, bwd
 
 
@@ -1645,10 +1756,11 @@ def long_model(cfg, inference: bool, dtype=None):
     return model
 
 
-def long_config(**tpu):
+def long_config(mixed_precision: bool = True, **tpu):
     from rovit_kan_tpu_torch.config import Config
     cfg = Config()
     cfg.data.image_size = LONG_SIZE
+    cfg.flags.mixed_precision = mixed_precision
     for k, v in tpu.items():
         setattr(cfg.tpu, k, v)
     return cfg
@@ -1813,6 +1925,87 @@ def hold_attention_step(cfg, batch, draws):
     return held
 
 
+def rel_err(got, want) -> float:
+    """Largest absolute difference over the largest magnitude of ``want``."""
+    got, want = (torch.as_tensor(x).double() for x in (got, want))
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def long_fp32_arm(smi: str):
+    """The attention-only path in fp32 (``flags.mixed_precision=False``,
+    ``use_pallas_attention=True``, block off) at 384 px, batch 32, weights
+    through ``transfer_resolution``: one served batch (12 x #5) and one
+    stage-4 train step (12 x #5, 12 x #6; the augment is plain PyTorch, as
+    the trainer takes #7 only for a bf16 model), each between a counter
+    reset and a read, held against the same batch and step through
+    ``plain_attention``: every served output and the loss within 1e-4 of
+    its largest magnitude, the flat gradient within 1e-3 in L2 (3xTF32
+    products, about 2^-21 relative each, against fp32's)."""
+    from rovit_kan_tpu_torch.ops import attention as at
+    from rovit_kan_tpu_torch.ops import augment_kernel as ak
+    from rovit_kan_tpu_torch.ops.mixing import draw_mix
+    from rovit_kan_tpu_torch.serving import InferenceEngine
+    reset, read = long_counters()
+    cfg = long_config(mixed_precision=False, use_pallas_block=False,
+                      use_pallas_attention=True)
+    model = long_model(cfg, inference=True)
+    blocks = model.backbone.model.blocks
+    if not all(b.attn.use_fused and not b.use_fused_block
+               and b.attn.dtype == torch.float32 for b in blocks):
+        raise RuntimeError("fp32 arm: the blocks are not on the fp32 "
+                           "attention-only path")
+    engine = InferenceEngine(model, batch_size=LONG_BATCH, device="cuda")
+    engine.warmup()
+    images = np.random.RandomState(12).randint(
+        0, 256, (LONG_BATCH, LONG_SIZE, LONG_SIZE, 3)).astype(np.uint8)
+    torch.cuda.synchronize()
+    reset()
+    served = engine.predict(images)
+    torch.cuda.synchronize()
+    serve_launches = read()
+    for b in blocks:
+        b.attn.attn_fn = at.plain_attention
+    plain = engine.predict(images)
+    outputs = {k: rel_err(v, plain[k]) for k, v in served.items()}
+
+    batch = train_batch(cfg, 410, LONG_BATCH)
+    draws = {"factors": ak.draw_factors(
+                 torch.Generator("cuda").manual_seed(7), LONG_BATCH),
+             "mix": draw_mix(torch.Generator().manual_seed(8), LONG_BATCH,
+                             LONG_SIZE, LONG_SIZE)}
+    torch.cuda.synchronize()
+    reset()
+    k = long_step(cfg, batch, draws)
+    torch.cuda.synchronize()
+    step_launches = read()
+    p = long_step(cfg, batch, draws, at.plain_attention)
+    flat_k, flat_p = (torch.cat([g.flatten() for g in r["grads"].values()])
+                      for r in (k, p))
+    held = {"served_rel_err": outputs, "loss_kernels": k["loss"],
+            "loss_plain": p["loss"],
+            "loss_rel_err": abs(k["loss"] - p["loss"]) / abs(p["loss"]),
+            "grad_rel_l2": float((flat_k - flat_p).norm())
+            / float(flat_p.norm()),
+            "tolerances": {"served": 1e-4, "loss": 1e-4, "grad_l2": 1e-3}}
+    want_serve = {"attention_fwd": 12}
+    want_step = {"attention_fwd": 12, "attention_bwd": 12}
+    launches = {"serve": serve_launches, "train": step_launches}
+    for got, want in ((serve_launches, want_serve),
+                      (step_launches, want_step)):
+        if got != {n: want.get(n, 0) for n in got}:
+            raise RuntimeError(f"fp32 arm launches {launches}")
+    if not (all(e <= 1e-4 for e in outputs.values())
+            and np.isfinite(k["loss"]) and held["loss_rel_err"] <= 1e-4
+            and held["grad_rel_l2"] <= 1e-3):
+        emit({"phase": "long", "fp32_attention_arm": held})
+        raise RuntimeError("fp32 attention arm out of tolerance")
+    return {"tpu": {"use_pallas_block": False,
+                    "use_pallas_attention": True},
+            "mixed_precision": False, "launches": launches, "held": held,
+            "card": smi}
+
+
 def long_phase(smi: str):
     """The 384-px (577-token) flagship, batch 32, with the seed-0 224-px
     weights carried over: #5/#6 and #1/#2 at the long path's shapes against
@@ -1852,6 +2045,7 @@ def long_phase(smi: str):
                                    LONG_BATCH),
         "mix": draw_mix(torch.Generator().manual_seed(6), LONG_BATCH,
                         LONG_SIZE, LONG_SIZE)})
+    fp32_arm = long_fp32_arm(smi)
     return {"phase": "long", "model": "DeiT-Tiny RoViT-KAN d=192 depth=12 "
             "heads=3 384px (577 tokens) bf16, seed-0 224-px weights through "
             "transfer_resolution", "batch_size": LONG_BATCH,
@@ -1861,7 +2055,8 @@ def long_phase(smi: str):
                                   for d, r in blocks577.items()},
             "serve_auto": serve_auto, "serve_attention": serve_attn,
             "train_attention": train_attn, "train_auto": train_auto,
-            "held_attention_step": held, "card": smi}, attention, blocks577
+            "held_attention_step": held, "fp32_attention_arm": fp32_arm,
+            "card": smi}, attention, blocks577
 
 
 RES_ENV = "ROVIT_BLOCK_RESIDUAL_BWD"
@@ -2320,8 +2515,7 @@ def main() -> int:
     logs = _build.build(_build.all_sources())
     emit({"phase": "build", "sources": sorted(logs),
           "seconds": time.perf_counter() - t0,
-          "ptxas": [ln.strip() for log in logs.values()
-                    for ln in log.splitlines() if "Used" in ln]})
+          "ptxas": {src: ptxas_table(log) for src, log in logs.items()}})
 
     bf16 = check_block(torch.bfloat16, seed=0)
     fp32 = check_block(torch.float32, seed=1)
@@ -2390,27 +2584,42 @@ def main() -> int:
                 for d, r in blocks577.items()}
 
     def long_launches(name):
-        return {path: longed[path]["launches"][name] for path in (
+        by_path = {path: longed[path]["launches"][name] for path in (
             "serve_auto", "serve_attention", "train_attention",
             "train_auto")}
+        fp32 = longed["fp32_attention_arm"]["launches"]
+        by_path.update({"serve_attention_fp32": fp32["serve"][name],
+                        "train_attention_fp32": fp32["train"][name]})
+        return by_path
+
+    # Beside the common keys: the graph-replay device times, the route, and
+    # SDPA's kernels; for #6 also SDPA's forward + backward, its training
+    # forward and its backward alone, and the port's #5 + #6 under
+    # autograd, by CUDA-graph replay.
+    attn_more = (("kernel_graph_ms", "library_graph_ms", "design",
+                  "device_source", "library_kernels"),
+                 ("kernel_graph_ms", "design", "device_source",
+                  "library_device_ms", "library_fwd_device_ms",
+                  "library_bwd_device_ms", "library_kernels",
+                  "port_fwd_bwd_ms", "port_fwd_bwd_device_ms",
+                  "port_bwd_device_ms"))
 
     def attn_entry(name, line, i):
         by_path = long_launches(name)
         lo = attn[LONG_TOKENS, torch.bfloat16][i]
-        graph = ("kernel_graph_ms",) + (() if i else ("library_graph_ms",))
-        akeys = keys + graph + ("design",)
-        return {**entry(name, csrc + "attention.cu",
-                        f"rovit_kan_tpu/ops/attention.py:{line}",
-                        sum(by_path.values()), lo,
-                        attn[LONG_TOKENS, torch.float32][i],
-                        launches_by_path=by_path, library=lo["library"],
-                        design=lo["design"],
-                        device_source=csrc + "attention_mma.cuh",
-                        **{k: lo[k] for k in graph},
-                        n197={str(d).replace("torch.", ""):
-                              {k: attn[TOKENS, d][i][k] for k in akeys}
-                              for d in (torch.bfloat16, torch.float32)}),
-                **({"port_fwd_bwd_ms": lo["port_fwd_bwd_ms"]} if i else {})}
+        hi = attn[LONG_TOKENS, torch.float32][i]
+        more = attn_more[i]
+        out = entry(name, csrc + "attention.cu",
+                    f"rovit_kan_tpu/ops/attention.py:{line}",
+                    sum(by_path.values()), lo, hi, more,
+                    launches_by_path=by_path, library=lo["library"],
+                    n197={str(d).replace("torch.", ""):
+                          {k: attn[TOKENS, d][i][k] for k in keys + more}
+                          for d in (torch.bfloat16, torch.float32)})
+        out["fp32"]["fma_bound_ms"] = hi["fma_bound_ms"]
+        out["n197"]["float32"]["fma_bound_ms"] = \
+            attn[TOKENS, torch.float32][i]["fma_bound_ms"]
+        return out
 
     def res_entry(name, source, line, i):
         by_path = {"fit": fitted["fit_launches"][name],

@@ -6,11 +6,11 @@
 // backward), with scale 1 (q comes pre-scaled, and the scale's own gradient
 // comes from autograd of q * scale outside), over strided (B, heads, N, hd)
 // views. The route is chosen by dtype:
-//   bf16: attention_mma.cuh, mma.sync two-pass kernels with S, P, dS and the
-//         accumulators in registers and a cp.async ring (its note says how);
-//   fp32: the streamed stages of attention_common.cuh (FMA products from
-//         shared memory), the device code the fp32 #1, #2 and #4 run
-//         inside a block (the bf16 blocks run attention_mma.cuh's).
+//   bf16: attention_mma.cuh, mma.sync.m16n8k16 two-pass kernels with S, P,
+//         dS and the accumulators in registers and a cp.async ring;
+//   fp32: attention_tf32.cuh, the same design on 3xTF32 mma.sync.m16n8k8
+//         products (each fp32 operand split into TF32 high and low parts,
+//         three tensor-core products); the source notes say how.
 // Rounding points are the TPU kernels':
 //   forward:  S = q . k^T in fp32, softmax in fp32, P rounded to the input
 //             type T, O = P . v accumulated and returned in fp32;
@@ -19,6 +19,8 @@
 //             in fp32, rounded to T, dQ = dS . K, dK = dS^T . Q, all fp32
 //             accumulated and stored once in T (the TPU kernel stores fp32
 //             and casts to the input type after: the same single rounding).
+// In fp32 nothing is rounded to T, and each product is 3xTF32 (about 2^-21
+// relative per product against fp32's 2^-24).
 // rowsum(P * dP) is summed per key tile as exp(S - m) * dP rescaled with the
 // row max, then divided by the row sum l: P * dP summed in another order,
 // not the dO . O identity, so it does not depend on O's rounding.
@@ -26,18 +28,20 @@
 // program for the TPU's layout; here the grid is (query or key tile, head,
 // image) and the ragged edge is masked.
 //
-// What bounds them on an H100 SXM (989 TFLOP/s dense bf16, 67 TFLOP/s fp32,
-// 3.35 TB/s HBM), at (B, heads, N, hd) = (32, 3, 577, 64) in bf16:
+// What bounds them on an H100 SXM (989 TFLOP/s dense bf16, 495 TF32,
+// 67 TFLOP/s fp32 FMA, 3.35 TB/s HBM), at (B, heads, N, hd) =
+// (32, 3, 577, 64):
 //   #5: 4 * B * heads * N^2 * hd = 8.18e9 FLOP, 8.3 us at the bf16 peak;
 //       q, k, v in (bf16) and an fp32 out, 35.5 MB, 10.6 us at the HBM
-//       rate: bytes-bound, about 10.6 us.
+//       rate: bytes-bound in bf16, about 10.6 us; in fp32 three TF32
+//       products each, 49.6 us (122 us on the FMA units).
 //   #6: five N x N x hd products (S again, dV, dP, dQ, dK),
 //       10 * B * heads * N^2 * hd = 2.05e10 FLOP, 20.7 us; q, k, v (bf16)
 //       and g (fp32) in, dq, dk, dv out in bf16, 56.7 MB, 16.9 us:
-//       operations-bound, about 20.7 us.
+//       operations-bound, about 20.7 us; in fp32 124 us as 3xTF32.
 // Both recompute S (the forward twice, the backward three times) to keep
-// P normalized in fp32 before it is rounded; the bf16 kernels keep the rest
-// out of shared memory. wgmma and TMA come later.
+// P normalized in fp32 before it is rounded; S, P and dS stay in registers.
+// wgmma and TMA come later.
 //
 // Interface: plain C, loaded with ctypes. q, k, v are read through strides
 // (elements; the last dimension contiguous); out, g, dq, dk, dv are
@@ -48,6 +52,7 @@
 
 #include "attention_common.cuh"
 #include "attention_mma.cuh"
+#include "attention_tf32.cuh"
 
 namespace {
 
@@ -85,11 +90,11 @@ int run_fwd(const void* q, const void* k, const void* v, void* out, int B,
         dense(static_cast<float*>(out), heads, N, hd), B, heads, N, hd, 1.0f,
         static_cast<cudaStream_t>(stream)));
   } else {
-    return static_cast<int>(launch_attention_fwd<T, float>(
+    return static_cast<int>(launch_attention_fwd_tf32<T>(
         strided(static_cast<const T*>(q), sq),
         strided(static_cast<const T*>(k), sk),
         strided(static_cast<const T*>(v), sv),
-        dense(static_cast<float*>(out), heads, N, hd), B, heads, N, hd, 1.0f,
+        dense(static_cast<float*>(out), heads, N, hd), B, heads, N, hd,
         static_cast<cudaStream_t>(stream)));
   }
 }
@@ -112,7 +117,7 @@ int run_bwd(const void* q, const void* k, const void* v, const void* g,
         dense(static_cast<T*>(dv), heads, N, hd), static_cast<float*>(stats),
         B, heads, N, hd, static_cast<cudaStream_t>(stream)));
   } else {
-    return static_cast<int>(launch_attention_bwd<T>(
+    return static_cast<int>(launch_attention_bwd_tf32<T>(
         strided(static_cast<const T*>(q), sq),
         strided(static_cast<const T*>(k), sk),
         strided(static_cast<const T*>(v), sv),
@@ -120,7 +125,7 @@ int run_bwd(const void* q, const void* k, const void* v, const void* g,
         dense(static_cast<T*>(dq), heads, N, hd),
         dense(static_cast<T*>(dk), heads, N, hd),
         dense(static_cast<T*>(dv), heads, N, hd), static_cast<float*>(stats),
-        nullptr, B, heads, N, hd, 1.0f, static_cast<cudaStream_t>(stream)));
+        B, heads, N, hd, static_cast<cudaStream_t>(stream)));
   }
 }
 

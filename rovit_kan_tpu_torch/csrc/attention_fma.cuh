@@ -2,10 +2,10 @@
 // (sm_90a): the query side (attn_bwd_q_fma_kernel) and the key side
 // (attn_bwd_kv_fma_kernel) of FlashAttention-2's split, with the block's
 // scale hd^-1/2 and the fp32 column sums of dQ, dK and dV that give the qkv
-// bias grad. It replaces, inside the block, attention_common.cuh's streamed
-// stages (32-row tiles, 4 x 4 FMA micro-tiles in a 256-thread CTA, S, dP and
-// dS through shared memory); #6's fp32 instance (attention.cu) still runs
-// those.
+// bias grad. It replaced, inside the block, the streamed backward stages of
+// the first design (32-row tiles, 4 x 4 FMA micro-tiles in a 256-thread
+// CTA, S, dP and dS through shared memory); #6's fp32 instance
+// (attention.cu) runs attention_tf32.cuh's 3xTF32 kernels.
 //
 // Work at (64, 197, 192), 3 heads: the query side's S twice (once for the
 // row statistics, once for dS), dP and dQ, the key side's S, dP, dK and

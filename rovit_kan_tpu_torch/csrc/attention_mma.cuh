@@ -10,12 +10,14 @@
 // of dQ, dK and dV (the qkv bias grad's partials); #5's and #6's instances
 // keep their instructions.
 //
-// Replaces the streamed stages of attention_common.cuh for the bf16 entries
-// of attention.cu (rovit_kan_tpu/ops/attention.py::_attention_kernel and
+// Replaces the streamed stages of the first design for the bf16 entries of
+// attention.cu (rovit_kan_tpu/ops/attention.py::_attention_kernel and
 // ::_attention_bwd_kernel) and for the bf16 block. Those stages kept S, P
 // and the output accumulator in shared memory, ran WMMA from shared memory
-// and loaded tiles synchronously, and reached 1.5-2.4% of their bounds;
-// the fp32 routes still run them.
+// and loaded tiles synchronously, and reached 1.5-2.4% of their bounds.
+// The fp32 entries run the same design on 3xTF32 products
+// (attention_tf32.cuh); the fp32 block forward keeps attention_common.cuh's
+// streamed forward.
 //
 // What bounds #5/#6 (attention.cu's note): at (32, 3, 577, 64) #5 moves
 // 35.5 MB (10.6 us at 3.35 TB/s) for 8.2 GFLOP (8.3 us at 989 TFLOP/s), #6

@@ -22,10 +22,10 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 64;          // output columns per product step
 
-// Rows per CTA of the fp32 row-tiled forward kernels, queries per streamed
-// forward attention CTA, and the tile of both sides of the streamed
-// attention backward: the fp32 route. The bf16 stages tile themselves
-// (block_mma.cuh, block_bwd_mma.cuh, attention_mma.cuh).
+// Rows per CTA of the fp32 row-tiled forward kernels and queries per
+// streamed forward attention CTA: the fp32 block forward's route. The other
+// stages tile themselves (block_mma.cuh, block_bwd_mma.cuh,
+// attention_mma.cuh, attention_tf32.cuh, the fp32 backward's fma files).
 template <typename T> struct Tile;
 template <> struct Tile<float> { static constexpr int kRows = 32; };
 
@@ -62,15 +62,14 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // C[M x N] (+)= A[M x K] . B, all in shared memory, fp32 FMA (the fp32
-// route; the bf16 stages run mma.sync, mma_common.cuh).
-// A is row-major [m][k] (lda), or stored [k][m] when A_KM (a transposed
-// operand, as in the backward's dS^T . Q). B_NK: B is stored [n][k] (a Linear
-// weight, or the K of attention), else [k][n] (the V of attention). M and N
-// are multiples of 4. A thread owns rows 4*tm..4*tm+3 and columns
+// block forward's route; the other stages run mma.sync or fma_common.cuh).
+// A is row-major [m][k] (lda). B_NK: B is stored [n][k] (a Linear weight,
+// or the K of attention), else [k][n] (the V of attention). M and N are
+// multiples of 4. A thread owns rows 4*tm..4*tm+3 and columns
 // tn + j*N/4, so the threads of a warp read neighbouring B rows and write
 // neighbouring C columns, and an accumulating call reads only what its
 // owner wrote.
-template <typename T, bool B_NK, bool A_KM = false>
+template <typename T, bool B_NK>
 __device__ void block_gemm(const T* __restrict__ A, int lda,
                            const T* __restrict__ Bm, int ldb,
                            float* __restrict__ C, int ldc,
@@ -91,7 +90,7 @@ __device__ void block_gemm(const T* __restrict__ A, int lda,
       float a[4], b[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        a[i] = A_KM ? A[k * lda + 4 * tm + i] : A[(4 * tm + i) * lda + k];
+        a[i] = A[(4 * tm + i) * lda + k];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         b[j] = B_NK ? Bm[(tn + j * qn) * ldb + k]
@@ -126,17 +125,6 @@ __device__ void load_tile(T* __restrict__ dst, int ld,
       v = *reinterpret_cast<const uint4*>(src + r * gstride + c);
     }
     *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-  }
-}
-
-// Column sums over the first `rows` rows of a shared fp32 tile, one thread
-// per column, rows added in order.
-__device__ void column_sums(const float* __restrict__ src, int ld, int rows,
-                            int cols, float* __restrict__ dst) {
-  for (int c = threadIdx.x; c < cols; c += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < rows; ++r) s += src[r * ld + c];
-    dst[c] = s;
   }
 }
 

@@ -6,12 +6,16 @@ already multiplied by ``head_dim ** -0.5``. The TPU kernels
 ``_attention_kernel`` (#5) and ``_attention_bwd_kernel`` (#6) are replaced
 on Hopper by ``csrc/attention.cu``: in bf16 the mma.sync kernels of
 ``csrc/attention_mma.cuh`` (whose forward the bf16 block kernels share), in
-fp32 the streamed attention stages of ``csrc/attention_common.cuh``; the
-source notes there say what bounds them and how they are tiled.
+fp32 the same design on 3xTF32 mma.sync products in
+``csrc/attention_tf32.cuh``; the source notes there say what bounds them
+and how they are tiled.
 
 Rounding points are the TPU kernels': S and the softmax in fp32, P rounded
 to the input dtype before ``P v``, every product accumulated in fp32, the
-forward's output fp32 (the caller casts). The backward casts the fp32
+forward's output fp32 (the caller casts). On the card an fp32 product is
+three TF32 tensor-core products of the operands' high and low parts (about
+2^-21 relative per product, where fp32 keeps 2^-24); the plain versions
+here are true fp32. The backward casts the fp32
 cotangent to the input dtype, recomputes P, and returns dq, dk, dv in the
 input dtype: ``dV = P_lo^T g``, ``dP = g V^T``,
 ``dS = P (dP - rowsum(P dP))`` rounded, ``dQ = dS K``, ``dK = dS^T Q``, with

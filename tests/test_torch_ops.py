@@ -120,4 +120,4 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
                                             [])] == bwd32
     assert [h.name for h in _build._headers(real / "attention.cu", [])] \
         == ["attention_common.cuh", "tile_common.cuh", "attention_mma.cuh",
-            "mma_common.cuh"]
+            "mma_common.cuh", "attention_tf32.cuh", "tf32_common.cuh"]

@@ -71,7 +71,7 @@ exits non-zero:
    parameter against the same step with #6's plain version; the fp32 arm
    (``flags.mixed_precision=False``, the attention kernels, block off):
    one served batch (12 x #5) and one train step (12 x #5, 12 x #6; no
-   #7, which the trainer takes only for bf16) held against
+   #7, which the trainer takes only under mixed precision) held against
    ``plain_attention`` (outputs and loss 1e-4 relative, the flat gradient
    1e-3 in L2);
 8. fit: the saved-residual pair. #3 and #4 at (64, 197, 192) and
@@ -209,14 +209,25 @@ def library_layer(params, dtype):
     return layer.to("cuda", dtype)
 
 
-def block_bound_ms(x, params, dtype) -> float:
+def op_seconds(flops, dtype, fma: bool = False) -> float:
+    """Least seconds for ``flops`` of products in the route of ``dtype``:
+    bf16 at the bf16 tensor peak; fp32 as 3xTF32, three TF32 products each
+    at the TF32 peak, or on the FMA units (``fma``) at 67 TFLOP/s."""
+    if dtype == torch.bfloat16:
+        return flops / PEAK_BF16_FLOPS
+    return flops / PEAK_FP32_FLOPS if fma else 3 * flops / PEAK_TF32_FLOPS
+
+
+def block_bound_ms(x, params, dtype, fma: bool = False) -> float:
+    """#1's least time: the larger of its FLOP over the route's rate
+    (``op_seconds``) and its bytes over the HBM rate."""
     B, N, D = x.shape
     hd = D // HEADS
     flops = 2 * B * N * D * (4 * D + 2 * HIDDEN) + 4 * B * HEADS * N * N * hd
     nbytes = 2 * x.numel() * x.element_size() + sum(
         p.numel() * p.element_size() for p in params.values())
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    return 1e3 * max(flops / peak, nbytes / PEAK_BYTES_PER_S)
+    return 1e3 * max(op_seconds(flops, dtype, fma),
+                     nbytes / PEAK_BYTES_PER_S)
 
 
 # The kernels of #1's three launches in a profile, by stage and route.
@@ -224,24 +235,41 @@ BLOCK_STAGES = {
     torch.bfloat16: {"ln_qkv": "ln_qkv_mma_kernel",
                      "attention": "attn_fwd_mma_kernel",
                      "proj_mlp": "proj_mlp_mma_kernel"},
-    torch.float32: {"ln_qkv": "ln_qkv_kernel<",
-                    "attention": "attn_fwd_kernel<",
-                    "proj_mlp": "proj_mlp_kernel<"}}
+    torch.float32: {"ln_qkv": "ln_qkv_tf32_kernel<",
+                    "attention": "attn_fwd_tf32_kernel<",
+                    "proj_mlp": "proj_mlp_tf32_kernel<"}}
+# The first design's fp32 forward stages, which the 3xTF32 stages replaced:
+# no profile of #1, #2 or #3 may show one.
+REPLACED_FWD_STAGES = ("namespace)::ln_qkv_kernel<",
+                       "namespace)::attn_fwd_kernel<",
+                       "namespace)::proj_mlp_kernel<")
+
+
+# The fp32 block stages' instances at the flagship's widths (D = 192, head
+# width 64), which must not spill (the build line's ``ptxas`` table).
+MAIN_PATH_TF32 = ("ln_qkv_tf32_kernel<192,", "proj_mlp_tf32_kernel<192,",
+                  "attn_fwd_tf32_kernel<64,true>")
+
+
+def no_replaced_fwd(ops: dict, what: str) -> None:
+    """Raises if a profile (``device_ops``) ran a replaced forward stage."""
+    old = [k for k in ops if any(o in k for o in REPLACED_FWD_STAGES)]
+    if old:
+        raise RuntimeError(f"{what} ran replaced forward stages: {old}")
 
 
 def stage_bounds_ms(x, dtype) -> dict:
     """Each of #1's stages' least time: the larger of its FLOP over the
-    peak and its bytes (inputs read once, outputs written once; qkv and the
-    attention output pass through device memory between the stages) over
-    the HBM rate."""
+    route's rate (``op_seconds``: fp32 as 3xTF32) and its bytes (inputs
+    read once, outputs written once; qkv and the attention output pass
+    through device memory between the stages) over the HBM rate."""
     B, N, D = x.shape
     M, size = B * N, x.element_size()
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     work = {"ln_qkv": (2 * M * D * 3 * D, (M * 4 * D + 3 * D * D) * size),
             "attention": (4 * B * N * N * D, M * 4 * D * size),
             "proj_mlp": (2 * M * D * (D + 2 * HIDDEN),
                          (3 * M * D + D * (D + 2 * HIDDEN)) * size)}
-    return {k: 1e3 * max(f / peak, b / PEAK_BYTES_PER_S)
+    return {k: 1e3 * max(op_seconds(f, dtype), b / PEAK_BYTES_PER_S)
             for k, (f, b) in work.items()}
 
 
@@ -276,8 +304,9 @@ def check_block(dtype, seed: int, batch: int = BATCH, tokens: int = TOKENS):
         library_ms = time_ms(lambda: layer(x))
         graph = graph_ms(lambda: bk.fused_vit_block(x, params, HEADS))
         library_graph = graph_ms(lambda: layer(x))
-        stages = device_ms_by(lambda: bk.fused_vit_block(x, params, HEADS),
-                              BLOCK_STAGES[dtype])
+        ops = device_ops(lambda: bk.fused_vit_block(x, params, HEADS))
+        no_replaced_fwd(ops, f"block kernel ({dtype})")
+        stages = by_label(ops, BLOCK_STAGES[dtype])
     return {"replaces": "rovit_kan_tpu/ops/block_kernel.py::"
                         "_vit_block_kernel",
             "dtype": str(dtype).replace("torch.", ""),
@@ -293,7 +322,9 @@ def check_block(dtype, seed: int, batch: int = BATCH, tokens: int = TOKENS):
             "stages_bound_ms": stage_bounds_ms(x, dtype),
             "library_max_abs_err": lib_err,
             "bound_ms": block_bound_ms(x, params, dtype),
-            "bound_by": "operations"}
+            "bound_by": "operations",
+            **({"fma_bound_ms": block_bound_ms(x, params, dtype, fma=True)}
+               if dtype == torch.float32 else {})}
 
 
 # The kernels of #2's and #4's stages in a profile, by stage and route
@@ -330,6 +361,7 @@ def bwd_stages(fn, dtype, recompute: bool, calls: int = 10) -> dict:
     old = [k for k in ops if any(o in k for o in REPLACED_BWD_STAGES)]
     if old:
         raise RuntimeError(f"{dtype} backward ran replaced stages: {old}")
+    no_replaced_fwd(ops, f"{dtype} backward")
     out = by_label(ops, kernels)
     out["all"] = sum(ops.values())
     return out
@@ -711,8 +743,8 @@ def graph_ms(fn, calls: int = 20) -> float:
 
 
 def kernel_label(mangled: str) -> str:
-    """A mangled kernel name as its identifier and integer template
-    arguments, ``attn_bwd_kv_tf32_kernel<128>``."""
+    """A mangled kernel name as its identifier and integer and bool
+    template arguments, ``attn_fwd_tf32_kernel<64,true>``."""
     m = re.match(r"_ZN", mangled)
     if not m:
         return mangled[:60]
@@ -721,7 +753,9 @@ def kernel_label(mangled: str) -> str:
         n = re.match(r"\d+", mangled[pos:]).group()
         pos += len(n)
         name, pos = mangled[pos:pos + int(n)], pos + int(n)
-    args = re.findall(r"Li(\d+)E", mangled[pos:].split("EEv")[0])
+    args = [v if t == "i" else ("true" if v == "1" else "false")
+            for t, v in re.findall(r"L([ib])(\d+)E",
+                                   mangled[pos:].split("EEv")[0])]
     return name + (f"<{','.join(args)}>" if args else "")
 
 
@@ -1058,6 +1092,12 @@ def one_step(cfg, kind: str, batch, draws, stage: int):
     from rovit_kan_tpu_torch.training.optimizer import build_optimizer
     from rovit_kan_tpu_torch.training.trainer import make_train_step
     fp32 = kind.startswith("fp32")
+    if fp32:
+        # An fp32 model under the mixed-precision config: the trainer's
+        # "auto" would take the augment kernel (bf16), as the JAX step does,
+        # so the fp32 kinds ask for the fp32 chain.
+        cfg = copy.deepcopy(cfg)
+        cfg.train.fused_augment = False
     model = build_model(cfg, dtype=torch.float32 if fp32 else torch.bfloat16,
                         device="cuda", seed=0)
     blocks = model.backbone.model.blocks
@@ -1937,7 +1977,7 @@ def long_fp32_arm(smi: str):
     ``use_pallas_attention=True``, block off) at 384 px, batch 32, weights
     through ``transfer_resolution``: one served batch (12 x #5) and one
     stage-4 train step (12 x #5, 12 x #6; the augment is plain PyTorch, as
-    the trainer takes #7 only for a bf16 model), each between a counter
+    the trainer takes #7 only under mixed precision), each between a counter
     reset and a read, held against the same batch and step through
     ``plain_attention``: every served output and the loss within 1e-4 of
     its largest magnitude, the flat gradient within 1e-3 in L2 (3xTF32
@@ -2090,17 +2130,21 @@ def res_bounds(x, params, dtype) -> dict:
     wbytes = sum(p.numel() * p.element_size() for p in params.values())
     wcount = sum(p.numel() for p in params.values())
     res = M * (4 * D + HIDDEN) * size
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     out = {}
     for name, flops, nbytes in (
             ("fwd", fwd, 2 * x.numel() * size + res + wbytes),
             ("bwd", bwd, 2 * x.numel() * size + 4 * x.numel() + res + wbytes
              + 4 * wcount)):
-        bound = {"operations": flops / peak,
+        # fp32 #3 runs 3xTF32 (the FMA bound beside it); fp32 #4 runs FMA.
+        fma = name == "bwd"
+        bound = {"operations": op_seconds(flops, dtype, fma),
                  "bytes": nbytes / PEAK_BYTES_PER_S}
         by = max(bound, key=bound.get)
         out[name] = {"bound_ms": 1e3 * bound[by], "bound_by": by,
                      "flops": flops, "bytes": nbytes}
+        if dtype == torch.float32 and not fma:
+            out[name]["fma_bound_ms"] = 1e3 * max(
+                op_seconds(flops, dtype, True), nbytes / PEAK_BYTES_PER_S)
     return out
 
 
@@ -2170,6 +2214,8 @@ def check_block_res(dtype, seed: int, batch: int = BATCH,
         plain4 = time_ms(lambda: bk.block_backward_residual_reference(
             x, g, *res, params, HEADS), reps=5, inner=3)
         graph3 = graph_ms(lambda: bk._launch_res(x, params, HEADS))
+        no_replaced_fwd(device_ops(lambda: bk._launch_res(x, params, HEADS)),
+                        what)
         layer = library_layer(params, dtype)
         lib3 = time_ms(lambda: layer(x))
         lib3_graph = graph_ms(lambda: layer(x))
@@ -2513,9 +2559,14 @@ def main() -> int:
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     logs = _build.build(_build.all_sources())
+    ptxas = {src: ptxas_table(log) for src, log in logs.items()}
     emit({"phase": "build", "sources": sorted(logs),
-          "seconds": time.perf_counter() - t0,
-          "ptxas": {src: ptxas_table(log) for src, log in logs.items()}})
+          "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    spilled = [row for src in ("vit_block_fwd", "vit_block_bwd_f32")
+               for row in ptxas[src]
+               if row[0].startswith(MAIN_PATH_TF32) and row[2]]
+    if spilled:
+        raise RuntimeError(f"main-path fp32 block instances spill: {spilled}")
 
     bf16 = check_block(torch.bfloat16, seed=0)
     fp32 = check_block(torch.float32, seed=1)
@@ -2639,13 +2690,23 @@ def main() -> int:
                                               "port_fwd_bwd_device_ms")}
                         if i else {}))
 
+    fwd1 = entry("vit_block_fwd", csrc + "vit_block_fwd.cu",
+                 "rovit_kan_tpu/ops/block_kernel.py:92",
+                 result["block_launches"], bf16, fp32, more1,
+                 train_launches=trained["launches"]["vit_block_fwd"],
+                 long_launches=long_launches("vit_block_fwd"),
+                 n577=n577(0, more1))
+    fwd3 = res_entry("vit_block_res_fwd", "vit_block_fwd.cu", 227, 0)
+    # The fp32 #1 and #3 run 3xTF32: their FMA bound beside the bound.
+    fwd1["fp32"]["fma_bound_ms"] = fp32["fma_bound_ms"]
+    fwd1["n577"]["float32"]["fma_bound_ms"] = \
+        blocks577[torch.float32][0]["fma_bound_ms"]
+    fwd3["fp32"]["fma_bound_ms"] = \
+        res_kernels[TOKENS, torch.float32][0]["fma_bound_ms"]
+    fwd3["n577"]["float32"]["fma_bound_ms"] = \
+        res_kernels[LONG_TOKENS, torch.float32][0]["fma_bound_ms"]
     emit({"kernels": [
-        entry("vit_block_fwd", csrc + "vit_block_fwd.cu",
-              "rovit_kan_tpu/ops/block_kernel.py:92",
-              result["block_launches"], bf16, fp32, more1,
-              train_launches=trained["launches"]["vit_block_fwd"],
-              long_launches=long_launches("vit_block_fwd"),
-              n577=n577(0, more1)),
+        fwd1,
         entry("vit_block_bwd", csrc + "vit_block_bwd.cu",
               "rovit_kan_tpu/ops/block_kernel.py:399",
               trained["launches"]["vit_block_bwd"], bwd16, bwd32, more2,
@@ -2661,7 +2722,7 @@ def main() -> int:
                            ("kan_module_bwd", 367))] + [
         attn_entry("attention_fwd", 36, 0),
         attn_entry("attention_bwd", 120, 1)] + [
-        res_entry("vit_block_res_fwd", "vit_block_fwd.cu", 227, 0),
+        fwd3,
         res_entry("vit_block_bwd_res", "vit_block_bwd.cu", 549, 1)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -163,9 +163,11 @@ class TPUConfig:
     use_pallas_block: "bool | str" = "auto"
     # Training knobs of the JAX package, kept so its config dicts load:
     # single-flat-vector AdamW update, fused augmentation kernel, donated
-    # train state, remat (refused by build_model until the training slice),
-    # and pipeline microbatches.
+    # train state, remat (build_model refuses it: not ported), and pipeline
+    # microbatches.
     fused_optimizer: bool = True
+    # Read by nothing, as in the JAX package: the train step reads the
+    # switch from ``train.fused_augment`` (training/trainer.py).
     fused_augment: "bool | str" = "auto"
     donate_state: bool = True
     remat_backbone: bool = False

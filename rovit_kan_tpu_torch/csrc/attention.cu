@@ -90,11 +90,11 @@ int run_fwd(const void* q, const void* k, const void* v, void* out, int B,
         dense(static_cast<float*>(out), heads, N, hd), B, heads, N, hd, 1.0f,
         static_cast<cudaStream_t>(stream)));
   } else {
-    return static_cast<int>(launch_attention_fwd_tf32<T>(
+    return static_cast<int>(launch_attention_fwd_tf32<T, false>(
         strided(static_cast<const T*>(q), sq),
         strided(static_cast<const T*>(k), sk),
         strided(static_cast<const T*>(v), sv),
-        dense(static_cast<float*>(out), heads, N, hd), B, heads, N, hd,
+        dense(static_cast<float*>(out), heads, N, hd), B, heads, N, hd, 1.0f,
         static_cast<cudaStream_t>(stream)));
   }
 }

@@ -1,14 +1,18 @@
 // Softmax attention in fp32 on Hopper (sm_90a) with 3xTF32 mma.sync: the
 // forward and the two backward stages of the attention-only kernels #5 and
 // #6 in fp32 (attention.cu), with S, P, dS and every accumulator in
-// registers.
+// registers; the forward is also the attention stage of the fp32 ViT-block
+// forwards #1 and #3 and of #2's recompute (vit_block_common.cuh), with the
+// block's scale folded in (kScaled). The fp32 block backward's attention
+// stage is attention_fma.cuh's.
 //
 // Replaces rovit_kan_tpu/ops/attention.py::_attention_kernel and
 // ::_attention_bwd_kernel for fp32 inputs, with scale 1 (q comes
-// pre-scaled). It takes the place of attention_common.cuh's streamed stages
-// for those entries (FMA products from shared memory, S, P and dS through
-// shared memory: 2.6x and 2.3x PyTorch's fp32 SDPA at (32, 3, 577, 64)).
-// The fp32 ViT-block kernels keep their own attention stages.
+// pre-scaled), and the attention part of block_kernel.py's fp32 kernels,
+// where q is scaled by hd^-1/2 inside the softmax. It took the place of
+// the first design's streamed FMA stages (S, P and dS through shared
+// memory: 2.6x and 2.3x PyTorch's fp32 SDPA at (32, 3, 577, 64), and 2.1x
+// and more the block's layer forward).
 //
 // What bounds #5/#6 in fp32 at (B, heads, N, hd) = (32, 3, 577, 64): #5 two
 // N x N x hd products, 8.18 GFLOP, #6 five (S again, dV, dP, dQ, dK),
@@ -68,7 +72,12 @@
 //
 // Rounding: every product in 3xTF32 with fp32 accumulation; P and dS in
 // fp32; nothing rounded to the input type, since it is fp32; dq, dk, dv
-// stored once in fp32. exp(S - m) is exp2f(S log2(e) - m log2(e)). Each
+// stored once in fp32. exp(S - m) is exp2f(S log2(e) - m log2(e)). In the
+// block (kScaled) P is still normalized in fp32 before P . V, the TPU
+// kernel's order (rovit_kan_tpu/ops/block_kernel.py:118-128), and O is
+// stored once in fp32; the only change is that the scale sits in the exp2
+// FMA, exp2f(S scale log2(e) - m scale log2(e)), instead of multiplying S
+// first, with m the row max of the unscaled S. Each
 // output element has one owner that sums in a fixed order: no atomics, the
 // same bits on every call. The query side's S and the key side's S^T take
 // their small products in another order, so their P may differ in the last
@@ -159,12 +168,19 @@ constexpr size_t fwd_tf32_smem() {
   return (tf32_resident<HD>() ? 4 : 5) * Tf32Tile<HD>::kBytes;
 }
 
-// out = softmax(q k^T) v for one (64-query tile, head, image), fp32.
-// Steps 0..nt-1 stream K for the statistics, steps nt..2nt-1 K and V.
-template <int HD>
+// out = softmax(q k^T * scale) v for one (64-query tile, head, image),
+// fp32. Steps 0..nt-1 stream K for the statistics, steps nt..2nt-1 K and V.
+// kScaled (the ViT block, whose q is not pre-scaled): the row max is that
+// of the unscaled S (the same element, as scale > 0) and the exp2 FMA's
+// multiplier is scale log2(e), passed as scale_log2e; without it (#5) the
+// multiplier is the constant log2(e) and scale_log2e is not read, so #5
+// keeps its instructions and its bits.
+template <int HD, bool kScaled>
 __global__ void __launch_bounds__(kMmaThreads)
 attn_fwd_tf32_kernel(HeadView<const float> q, HeadView<const float> k,
-                     HeadView<const float> v, HeadView<float> out, int N) {
+                     HeadView<const float> v, HeadView<float> out, int N,
+                     float scale_log2e) {
+  const float c2 = kScaled ? scale_log2e : kLog2e;
   using TL = Tf32Tile<HD>;
   constexpr int LD = TL::kLd;
   constexpr int KB = HD / 8;
@@ -231,21 +247,21 @@ attn_fwd_tf32_kernel(HeadView<const float> q, HeadView<const float> k,
           mx = fmaxf(mx, fmaxf(sc[j][2 * half], sc[j][2 * half + 1]));
         }
         const float mn = fmaxf(m[half], quad_max(mx));
-        const float mn2 = mn * kLog2e;
+        const float mn2 = mn * c2;
         float e = 0.f;
 #pragma unroll
         for (int j = 0; j < NB; ++j) {
-          e += exp2f(fmaf(sc[j][2 * half], kLog2e, -mn2)) +
-               exp2f(fmaf(sc[j][2 * half + 1], kLog2e, -mn2));
+          e += exp2f(fmaf(sc[j][2 * half], c2, -mn2)) +
+               exp2f(fmaf(sc[j][2 * half + 1], c2, -mn2));
         }
-        l[half] = l[half] * exp2f((m[half] - mn) * kLog2e) + e;
+        l[half] = l[half] * exp2f((m[half] - mn) * c2) + e;
         m[half] = mn;
       }
       if (s == nt - 1) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           inv_l[half] = 1.f / quad_sum(l[half]);
-          m[half] *= kLog2e;                  // pass 2 reads m log2(e)
+          m[half] *= c2;                      // pass 2 reads m c2
         }
       }
     } else {
@@ -254,7 +270,7 @@ attn_fwd_tf32_kernel(HeadView<const float> q, HeadView<const float> k,
       for (int j = 0; j < NB; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          sc[j][e] = exp2f(fmaf(sc[j][e], kLog2e, -m[e >> 1])) *
+          sc[j][e] = exp2f(fmaf(sc[j][e], c2, -m[e >> 1])) *
                      inv_l[e >> 1];
         }
       }
@@ -504,17 +520,18 @@ attn_bwd_kv_tf32_kernel(HeadView<const float> q, HeadView<const float> k,
 
 // ---- launches --------------------------------------------------------------
 
-template <int HD>
+template <int HD, bool kScaled>
 cudaError_t launch_fwd_tf32_hd(HeadView<const float> q,
                                HeadView<const float> k,
                                HeadView<const float> v, HeadView<float> out,
-                               int B, int heads, int N, cudaStream_t stream) {
+                               int B, int heads, int N, float scale_log2e,
+                               cudaStream_t stream) {
   constexpr size_t sm = fwd_tf32_smem<HD>();
-  const auto kernel = attn_fwd_tf32_kernel<HD>;
+  const auto kernel = attn_fwd_tf32_kernel<HD, kScaled>;
   cudaError_t e;
   if ((e = set_smem(kernel, sm)) != cudaSuccess) return e;
   const dim3 grid((N + kMmaRows - 1) / kMmaRows, heads, B);
-  kernel<<<grid, kMmaThreads, sm, stream>>>(q, k, v, out, N);
+  kernel<<<grid, kMmaThreads, sm, stream>>>(q, k, v, out, N, scale_log2e);
   return cudaGetLastError();
 }
 
@@ -555,16 +572,20 @@ cudaError_t launch_bwd_tf32_hd(HeadView<const float> q,
   }
 
 // The dispatchers are templates, so a source that includes this header
-// compiles only the kernels it launches. #5: out is fp32 and contiguous.
-template <typename T>
+// compiles only the kernels it launches. #5: kScaled false (scale not
+// read), out fp32 and contiguous; the ViT block (#1, #3, #2's recompute):
+// kScaled true, out a strided view of the block's (B, N, D) buffer.
+template <typename T, bool kScaled>
 cudaError_t launch_attention_fwd_tf32(HeadView<const T> q,
                                       HeadView<const T> k,
                                       HeadView<const T> v,
                                       HeadView<float> out, int B, int heads,
-                                      int N, int hd, cudaStream_t stream) {
+                                      int N, int hd, float scale,
+                                      cudaStream_t stream) {
   static_assert(std::is_same<T, float>::value, "fp32 only");
+  const float c2 = scale * kLog2e;
 #define ATTN_FWD_CALL(HD)                                                   \
-  launch_fwd_tf32_hd<HD>(q, k, v, out, B, heads, N, stream)
+  launch_fwd_tf32_hd<HD, kScaled>(q, k, v, out, B, heads, N, c2, stream)
   ATTN_TF32_DISPATCH(hd, ATTN_FWD_CALL)
 #undef ATTN_FWD_CALL
 }

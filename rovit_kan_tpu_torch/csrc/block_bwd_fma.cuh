@@ -256,7 +256,7 @@ mlp_bwd_fma_kernel(const float* __restrict__ x,
       }
     }
   }
-  // LN2, two-pass statistics as the forward's layernorm_rows.
+  // LN2, two-pass statistics as the forward's (layernorm_stats).
   fma_row_sums<P, 1>(mu, sRed);
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -501,7 +501,7 @@ qkv_bwd_fma_kernel(const float* __restrict__ x,
   fma_rows_by_weight<P, true, 3 * D>(dy, ring,
                                      dqkv + static_cast<size_t>(r0) * 3 * D,
                                      3 * D, valid, wqkv);
-  // The LN1 statistics again (two-pass, as layernorm_rows).
+  // The LN1 statistics again (two-pass, as layernorm_stats).
   float mu[1][TM], var[1][TM];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {

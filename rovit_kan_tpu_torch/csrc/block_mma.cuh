@@ -3,8 +3,8 @@
 // runs to recompute qkv) and proj + residual + LN2 + fc1 + GELU + fc2 +
 // residual (proj_mlp_mma_kernel, with #3's a1 store behind kStoreA1), for a
 // model width D of 64, 128 or 192. They replace the first design's WMMA
-// stages; the fp32 route keeps its FMA stages (vit_block_common.cuh,
-// vit_block_fwd.cu). The note in vit_block_fwd.cu says what bounds them.
+// stages; the fp32 route runs block_tf32.cuh's 3xTF32 stages, on this
+// design. The note in vit_block_fwd.cu says what bounds them.
 //
 // Design. A CTA has W warps, 16 rows each; each stage has its own W:
 //   - products are mma.sync.m16n8k16 bf16 -> fp32 with every accumulator in

@@ -1,8 +1,8 @@
 // Register-blocked fp32 FMA products on Hopper (sm_90a): the GEMM engine of
 // the fp32 route of the ViT-block backwards #2 and #4 (block_bwd_fma.cuh,
 // attention_fma.cuh). The bf16 route runs mma.sync (mma_common.cuh); the
-// fp32 forward stages keep tile_common.cuh's block_gemm; #5/#6's fp32
-// kernels run 3xTF32 mma.sync (attention_tf32.cuh).
+// fp32 forward stages (block_tf32.cuh) and #5/#6's fp32 kernels run 3xTF32
+// mma.sync (attention_tf32.cuh).
 //
 // fp32 has no tensor-core path here (no TF32: the kernels keep fp32's
 // rounding), so a product runs at the 67 TFLOP/s of the SMs' FMA pipes, and
@@ -41,11 +41,6 @@
 namespace {
 
 constexpr int kRingStages = 3;
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // The thread grid of a CTA of NT threads: TR threads along the rows and
 // NT / TR along the columns. A warp is LR x 32 / LR threads (lane % LR

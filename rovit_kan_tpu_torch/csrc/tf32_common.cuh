@@ -1,5 +1,5 @@
-// Register-level pieces of the 3xTF32 mma.sync kernels (attention_tf32.cuh;
-// the fp32 block stages may take them later): the TF32 split of an fp32
+// Register-level pieces of the 3xTF32 mma.sync kernels (attention_tf32.cuh
+// and the fp32 block stages of block_tf32.cuh): the TF32 split of an fp32
 // value, the m16n8k8 TF32 product and its three-product fp32-accurate form,
 // fragment loads from fp32 tiles in shared memory, the repack of a C
 // fragment as the next product's A fragment, and an asynchronous fp32 tile
@@ -23,8 +23,10 @@
 // when that product's k order is the permutation kappa = tq -> column 2 tq,
 // kappa = tq + 4 -> column 2 tq + 1 of the C block: then a = (c0, c2, c1,
 // c3), and the B fragment reads rows 2 tq and 2 tq + 1 of its [k][n] tile
-// (tf32_b_kn_perm). The sum over one k block is then taken in another
-// order, which the hardware does not define anyway.
+// (tf32_b_kn_perm), or columns 2 tq and 2 tq + 1 of its [n][k] tile, one
+// 8-byte load (tf32_b_nk_perm: a Linear weight, W2 in the block's fc2).
+// The sum over one k block is then taken in another order, which the
+// hardware does not define anyway.
 
 #pragma once
 
@@ -106,6 +108,19 @@ __device__ __forceinline__ void tf32_b_kn_perm(Tf32Frag<2>& b,
   const float* p = t + (k0 + 2 * tq) * LD + n0 + g;
   split_tf32(p[0], b.hi[0], b.lo[0]);
   split_tf32(p[LD], b.hi[1], b.lo[1]);
+}
+
+// The same from a tile stored [n][k] (a Linear weight): columns k0 + 2 tq
+// and k0 + 2 tq + 1 of row n0 + g, one 8-byte load (LD even, k0 a multiple
+// of 8). With LD = 8 mod 32 each half-warp's 16 loads cover the 32 banks.
+template <int LD>
+__device__ __forceinline__ void tf32_b_nk_perm(Tf32Frag<2>& b,
+                                               const float* t, int n0,
+                                               int k0, int g, int tq) {
+  const float2 v =
+      *reinterpret_cast<const float2*>(t + (n0 + g) * LD + k0 + 2 * tq);
+  split_tf32(v.x, b.hi[0], b.lo[0]);
+  split_tf32(v.y, b.hi[1], b.lo[1]);
 }
 
 // A C fragment (16 rows x 8 columns, fp32) as the split A fragment of an

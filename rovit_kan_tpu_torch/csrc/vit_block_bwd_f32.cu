@@ -17,9 +17,9 @@
 // many FMAs each shared-memory load feeds and how many threads have work.
 //
 // Stages (eight launches for #2, six for #4, as the bf16 route):
-//   1-2. #2 only: ln_qkv and the streamed attention forward of
-//        vit_block_common.cuh (#1's fp32 stages), which also store the LN1
-//        output for the qkv weight grad;
+//   1-2. #2 only: ln_qkv_tf32_kernel and attn_fwd_tf32_kernel through
+//        vit_block_common.cuh (#1's fp32 stages, 3xTF32 mma.sync), ln_qkv
+//        also storing the LN1 output for the qkv weight grad;
 //   3. mlp_bwd_fma_kernel (block_bwd_fma.cuh, 64 rows a CTA);
 //   4-5. attn_bwd_q_fma_kernel, attn_bwd_kv_fma_kernel (attention_fma.cuh,
 //        64-row query and key tiles, S, P and dS in registers);

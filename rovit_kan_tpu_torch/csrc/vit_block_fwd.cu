@@ -20,20 +20,24 @@
 // masked instead (pad rows of K and V are zero in shared memory, pad
 // columns of P are zero).
 //
-// What bounds it on an H100 SXM (989 TFLOP/s dense bf16, 67 TFLOP/s fp32,
-// 3.35 TB/s HBM): at the serving shape B=64, N=197, D=192, 3 heads, hidden
-// 768 (M = B*N = 12,608 rows), one call does 2*M*D*(3D + D + 2*4D) =
-// 1.116e10 FLOP in the four products plus 4*B*N*N*D = 1.908e9 FLOP in
-// attention, 1.307e10 FLOP in all: 13.2 us at the bf16 peak. It must move x
-// in and out once (2 * 4.84 MB in bf16) plus 0.88 MB of bf16 weights, about
-// 10.6 MB: 3.2 us at the HBM rate. So it is compute-bound, by a factor of
-// four. By stage, with qkv and the attention output through device memory
-// between them: ln_qkv 2.79e9 FLOP (2.8 us) but x in and qkv out, 19.6 MB
-// (5.8 us), so bytes bound it; attention 1.91e9 FLOP (1.9 us) for 19.4 MB
-// (5.8 us), bytes again; proj_mlp 8.37e9 FLOP (8.5 us) for 15.2 MB (4.5
-// us), operations. At the long shape (32, 577, 192): 2.45e10 FLOP, 24.8 us
-// for the block; by stage 8.5 (bytes), 8.5 (bytes) and 12.4 us
-// (operations).
+// What bounds it on an H100 SXM (989 TFLOP/s dense bf16, 495 TFLOP/s TF32,
+// 67 TFLOP/s fp32 FMA, 3.35 TB/s HBM): at the serving shape B=64, N=197,
+// D=192, 3 heads, hidden 768 (M = B*N = 12,608 rows), one call does
+// 2*M*D*(3D + D + 2*4D) = 1.116e10 FLOP in the four products plus
+// 4*B*N*N*D = 1.908e9 FLOP in attention, 1.307e10 FLOP in all: 13.2 us at
+// the bf16 peak. It must move x in and out once (2 * 4.84 MB in bf16) plus
+// 0.88 MB of bf16 weights, about 10.6 MB: 3.2 us at the HBM rate. So it is
+// compute-bound, by a factor of four. By stage, with qkv and the attention
+// output through device memory between them: ln_qkv 2.79e9 FLOP (2.8 us)
+// but x in and qkv out, 19.6 MB (5.8 us), so bytes bound it; attention
+// 1.91e9 FLOP (1.9 us) for 19.4 MB (5.8 us), bytes again; proj_mlp 8.37e9
+// FLOP (8.5 us) for 15.2 MB (4.5 us), operations. At the long shape (32,
+// 577, 192): 2.45e10 FLOP, 24.8 us for the block; by stage 8.5 (bytes), 8.5
+// (bytes) and 12.4 us (operations). In fp32 every product is three TF32
+// products (3xTF32), so the bound is three times the FLOP at the TF32
+// peak: 79.2 us at (64, 197) and 148.5 us at (32, 577) (on the FMA units
+// 195 and 366 us); by stage at (64, 197) ln_qkv 16.9 us, attention 11.6
+// (its 38.7 MB of fp32 bytes take 11.6 too) and proj_mlp 50.7 us.
 //
 // Three launches per block call. The route is chosen by the compute type.
 //
@@ -69,11 +73,31 @@
 //   qkv and the attention output go through device memory (2 x 7.3 MB at
 //   B=64, mostly served from the 50 MB L2), as #3 returns them anyway.
 //
-// fp32 (the first design, unchanged): 32-row tiles of 256 threads, FMA
-// products from shared memory (the TPU kernel's fp32 mode also stays out of
-// reduced precision), weights in 64-row chunks loaded with no overlap of
-// loads and math, the streamed attention stage of attention_common.cuh, and
-// the 32 x H hidden tile in shared memory.
+// fp32 (D of 64 to 320 in steps of 64; a wider D returns
+// cudaErrorInvalidValue before any launch): the same three launches, every
+// product in 3xTF32 mma.sync.m16n8k8 (tf32_common.cuh):
+//   1. ln_qkv:    block_tf32.cuh, 48 rows per CTA of 3 warps: the rows
+//                 stay as x in shared memory and LN1 is applied where each
+//                 A fragment is loaded; Wqkv streams through a three-stage
+//                 cp.async ring of 64 x 32 pieces; accumulators and bias in
+//                 registers; 68.3 KB;
+//   2. attention: attention_tf32.cuh's forward (#5's kernel) over the qkv
+//                 buffer's strided head views, with the block's scale
+//                 hd^-1/2 folded into its row max and exp2 FMA, O stored
+//                 once in fp32 into the (B, N, D) buffer;
+//   3. proj_mlp:  block_tf32.cuh, 48 rows per CTA: proj over all D columns
+//                 in registers and the fp32 residual x1 over the warp's
+//                 rows in shared memory, LN2 applied at each A fragment
+//                 load, then fc1 + GELU and fc2 chunk by chunk of 64 hidden
+//                 columns (fc1's C fragments are fc2's A fragments, in the
+//                 permuted k order of tf32_c_to_a, so no hidden tile
+//                 exists); the same ring; 68.3 KB, two CTAs an SM (its
+//                 254 registers a thread allow no third).
+//   Wave arithmetic on 132 SMs: at (64, 197) ln_qkv and proj_mlp have
+//   ceil(12,608 / 48) = 263 CTAs, one wave of proj_mlp's 264 slots (ln_qkv,
+//   under 100 registers, fits three CTAs an SM), attention 4 x 3 x 64 = 768
+//   CTAs; at (32, 577) 385 CTAs, 1.46 waves of proj_mlp's slots, and
+//   attention 10 x 3 x 32.
 //
 // The first two stages live in vit_block_common.cuh, which the backward
 // (vit_block_bwd.cu) shares to recompute qkv and the attention output.
@@ -90,7 +114,8 @@
 // store on top of #1 (19.4 MB at B=64 in bf16). The work stays #1's
 // 1.306e10 FLOP (0.0132 ms at the bf16 peak), but x, out and the 38.7 MB of
 // returned intermediates (49 MB in bf16) take 0.0147 ms at the HBM rate, so
-// bytes bound it in bf16 by a hair; in fp32 operations do (0.195 ms).
+// bytes bound it in bf16 by a hair; in fp32 operations do (0.0792 ms as
+// 3xTF32, 0.195 on the FMA units).
 //
 // Interface: plain C, loaded with ctypes. Each entry returns the first
 // CUDA error (0 = success), checked with cudaGetLastError after every
@@ -100,112 +125,6 @@
 #include "vit_block_common.cuh"
 
 namespace {
-
-// ---- 3. proj + residual + LN2 + fc1 + GELU + fc2 + residual, fp32 ---------
-
-struct MlpLayout {
-  size_t a, x, h, w, c, total;
-};
-template <typename T>
-__host__ __device__ MlpLayout proj_mlp_layout(int D, int H) {
-  constexpr int R = Tile<T>::kRows;
-  MlpLayout L;
-  L.a = 0;
-  L.x = L.a + align128(sizeof(T) * R * ld_of<T>(D));
-  L.h = L.x + align128(sizeof(float) * R * D);
-  L.w = L.h + align128(sizeof(T) * R * ld_of<T>(H));
-  L.c = L.w + align128(sizeof(T) * kChunk * ld_of<T>(D));
-  L.total = L.c + align128(sizeof(float) * R * (kChunk + 4));
-  return L;
-}
-
-// kStoreA1 (#3): also store the fc1 pre-activation to a1_out.
-template <typename T, bool kStoreA1>
-__global__ void __launch_bounds__(kThreads)
-proj_mlp_kernel(const T* __restrict__ x, const T* __restrict__ attn,
-                const T* __restrict__ wproj, const float* __restrict__ bproj,
-                const float* __restrict__ g2, const float* __restrict__ bn2,
-                const T* __restrict__ w1, const float* __restrict__ b1,
-                const T* __restrict__ w2, const float* __restrict__ b2,
-                T* __restrict__ out, T* __restrict__ a1_out, int M, int D,
-                int H) {
-  constexpr int R = Tile<T>::kRows;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const MlpLayout L = proj_mlp_layout<T>(D, H);
-  T* sA = reinterpret_cast<T*>(smem + L.a);        // attention out, then z
-  float* sX = reinterpret_cast<float*>(smem + L.x);  // x, then x1
-  T* sH = reinterpret_cast<T*>(smem + L.h);
-  T* sW = reinterpret_cast<T*>(smem + L.w);
-  float* sC = reinterpret_cast<float*>(smem + L.c);
-  const int ld = ld_of<T>(D);
-  const int ldh = ld_of<T>(H);
-  const int ldc = kChunk + 4;
-  const int r0 = blockIdx.x * R;
-  const int valid = min(R, M - r0);
-
-  load_tile<T>(sA, ld, attn + static_cast<size_t>(r0) * D, D, R, valid, D);
-  for (int i = threadIdx.x; i < R * D; i += kThreads) {
-    const int r = i / D;
-    sX[i] = r < valid ? to_f(x[static_cast<size_t>(r0) * D + i]) : 0.f;
-  }
-
-  // proj, and the first residual in fp32.
-  for (int n0 = 0; n0 < D; n0 += kChunk) {
-    __syncthreads();
-    load_tile<T>(sW, ld, wproj + static_cast<size_t>(n0) * D, D, kChunk,
-                 kChunk, D);
-    __syncthreads();
-    block_gemm<T, true>(sA, ld, sW, ld, sC, ldc, R, kChunk, D, false);
-    __syncthreads();
-    for (int i = threadIdx.x; i < R * kChunk; i += kThreads) {
-      const int r = i / kChunk;
-      const int c = i - r * kChunk;
-      float* xr = sX + r * D + n0 + c;
-      *xr = *xr + (sC[r * ldc + c] + bproj[n0 + c]);
-    }
-  }
-  __syncthreads();
-  layernorm_rows<float, T>(sX, D, R, R, g2, bn2, sA, ld, D);
-
-  // fc1 + GELU; the hidden tile stays in shared memory. With kStoreA1
-  // the pre-activation is stored too, rounded to T.
-  for (int n0 = 0; n0 < H; n0 += kChunk) {
-    __syncthreads();
-    load_tile<T>(sW, ld, w1 + static_cast<size_t>(n0) * D, D, kChunk, kChunk,
-                 D);
-    __syncthreads();
-    block_gemm<T, true>(sA, ld, sW, ld, sC, ldc, R, kChunk, D, false);
-    __syncthreads();
-    for (int i = threadIdx.x; i < R * kChunk; i += kThreads) {
-      const int r = i / kChunk;
-      const int c = i - r * kChunk;
-      const float a = sC[r * ldc + c] + b1[n0 + c];
-      sH[r * ldh + n0 + c] = from_f<T>(gelu_erf(a));
-      if (kStoreA1 && r < valid) {
-        a1_out[static_cast<size_t>(r0 + r) * H + n0 + c] = from_f<T>(a);
-      }
-    }
-  }
-
-  // fc2 in D-wide slices of the hidden dimension, and the second residual.
-  for (int n0 = 0; n0 < D; n0 += kChunk) {
-    for (int k0 = 0; k0 < H; k0 += D) {
-      __syncthreads();
-      load_tile<T>(sW, ld, w2 + static_cast<size_t>(n0) * H + k0, H, kChunk,
-                   kChunk, D);
-      __syncthreads();
-      block_gemm<T, true>(sH + k0, ldh, sW, ld, sC, ldc, R, kChunk, D,
-                          k0 > 0);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < valid * kChunk; i += kThreads) {
-      const int r = i / kChunk;
-      const int c = i - r * kChunk;
-      out[static_cast<size_t>(r0 + r) * D + n0 + c] = from_f<T>(
-          sX[r * D + n0 + c] + (sC[r * ldc + c] + b2[n0 + c]));
-    }
-  }
-}
 
 // qkv, attn: the first two stages' outputs (scratch for #1, returned by
 // #3); a1: the fc1 pre-activation, stored only when given (#3).
@@ -237,19 +156,13 @@ int run_block(const void* x, void* out, void* qkv, void* attn, void* a1,
         static_cast<const T*>(w2), static_cast<const float*>(b2),
         static_cast<T*>(out), static_cast<T*>(a1), M, D, H, stream));
   } else {
-    constexpr int R = Tile<T>::kRows;
-    const size_t sm3 = proj_mlp_layout<T>(D, H).total;
-    const auto proj_mlp = a1 != nullptr ? proj_mlp_kernel<T, true>
-                                        : proj_mlp_kernel<T, false>;
-    if ((e = set_smem(proj_mlp, sm3)) != cudaSuccess) return e;
-    proj_mlp<<<(M + R - 1) / R, kThreads, sm3, stream>>>(
+    return static_cast<int>(launch_proj_mlp_tf32(
         static_cast<const T*>(x), static_cast<const T*>(attn),
         static_cast<const T*>(wproj), static_cast<const float*>(bproj),
         static_cast<const float*>(ln2g), static_cast<const float*>(ln2b),
         static_cast<const T*>(w1), static_cast<const float*>(b1),
         static_cast<const T*>(w2), static_cast<const float*>(b2),
-        static_cast<T*>(out), static_cast<T*>(a1), M, D, H);
-    return static_cast<int>(cudaGetLastError());
+        static_cast<T*>(out), static_cast<T*>(a1), M, D, H, stream));
   }
 }
 

@@ -3,9 +3,10 @@
 Counterpart of ``rovit_kan_tpu/training/trainer.py``. One train step, for
 every curriculum stage and freeze state:
 
-    uint8 batch -> augment (the fused kernel where the model is bf16 on the
-    card, else the fp32 chain of plain ops) -> CutMix/MixUp when ``use_mix``
-    -> forward with dropout -> stage-masked joint loss -> backward ->
+    uint8 batch -> augment (the fused kernel on the card under
+    ``flags.mixed_precision``, else the fp32 chain of plain ops; the switch
+    is ``train.fused_augment``) -> CutMix/MixUp when ``use_mix`` -> forward
+    with dropout -> stage-masked joint loss -> backward ->
     backbone grads times ``backbone_live`` -> flat AdamW -> accuracy (and
     the EMA when ``train.ema_decay > 0``)
 
@@ -55,19 +56,17 @@ def _device_of(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def _model_dtype(model: nn.Module) -> torch.dtype:
-    return model.backbone.model.patch_embed.dtype
-
-
 def use_fused_augment(model: nn.Module, config: Config) -> bool:
-    """``tpu.fused_augment``: True/False force it; "auto" takes the kernel
-    exactly where the model computes in bf16 on the card (the kernel's
-    default compute type is bf16)."""
-    fa = config.tpu.fused_augment
+    """The augment kernel's switch, read as the JAX ``make_train_step`` reads
+    it: ``train.fused_augment`` (absent means "auto"); True/False force it;
+    "auto" takes the kernel where the model is on the card and
+    ``flags.mixed_precision`` is set (the JAX package's "tpu" backend read
+    as "cuda"). ``tpu.fused_augment`` is not read."""
+    fa = getattr(config.train, "fused_augment", "auto")
     if isinstance(fa, bool):
         return fa
     return (_device_of(model).type == "cuda"
-            and _model_dtype(model) == torch.bfloat16)
+            and bool(config.flags.mixed_precision))
 
 
 class TrainStep:

@@ -1,6 +1,7 @@
 """Port tests that need an NVIDIA GPU: the CUDA kernels (block forward #1,
 block backward #2 and the residual forward #3 from one row to 1,024 tokens
-at head widths 16-128, the residual backward #4, attention forward #5 and
+at head widths 16-128, the fp32 #1 and #3 also at the edges of their 3xTF32
+tiles and refusing D past 320, the residual backward #4, attention forward #5 and
 backward #6 at every head width they take and on the model's strided qkv
 views, augment #7, the KAN kernels #8-#11) against their plain versions,
 with the same bits on a repeated call, the served model through the block
@@ -309,6 +310,71 @@ def test_fp32_backward_kernels_at_tile_edges(cuda, shape, residual):
         assert torch.equal(again[k], grads[k]), k
 
 
+# (B, N, D, heads, hidden / D) at the edges of the fp32 forward's tiles
+# (csrc/block_tf32.cuh: 48 rows a CTA, 16 a warp; 64 x 32 weight pieces;
+# attention_tf32.cuh's 64-row query and key tiles): B*N one row under, at
+# and over a CTA's 48 and 96 rows; N of 1, 63, 65 and 577; D 64 to 320 with
+# 1 to 5 heads (head widths 16 to 128); hidden 1 to 4 x D.
+FP32_FWD_EDGE_SHAPES = [(1, 47, 64, 1, 1), (1, 48, 64, 4, 2),
+                        (1, 49, 128, 2, 3), (3, 32, 192, 3, 4),
+                        (1, 95, 192, 2, 4), (1, 97, 256, 4, 2),
+                        (1, 1, 320, 5, 1), (2, 63, 128, 8, 4),
+                        (1, 65, 192, 3, 2), (1, 577, 64, 1, 4),
+                        (1, 65, 320, 5, 3), (2, 63, 256, 2, 1)]
+
+
+@pytest.mark.parametrize("shape", FP32_FWD_EDGE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fp32_forward_kernels_at_tile_edges(cuda, shape):
+    """fp32 #1 within 1e-4 of ``block_reference`` at the edges of the
+    3xTF32 stages' tiles; #3's output has #1's bits and its qkv, attn and a1
+    are within 1e-4 of ``block_residual_reference``'s; a repeated call of
+    each gives the same bits."""
+    B, N, D, heads, mult = shape
+    rng = np.random.RandomState(sum(shape) + 7)
+    p = _params(rng, D, mult * D, torch.float32, cuda)
+    x = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32,
+                     device=cuda)
+    before = (bk.LAUNCHES, bk.RES_LAUNCHES)
+    with torch.no_grad():
+        out1 = bk._launch(x, p, heads)
+        again1 = bk._launch(x, p, heads)
+        res = bk._launch_res(x, p, heads)
+        again3 = bk._launch_res(x, p, heads)
+        want = bk.block_residual_reference(x, p, heads)
+    torch.cuda.synchronize()
+    assert (bk.LAUNCHES, bk.RES_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(again1, out1)
+    assert torch.equal(res[0], out1)                 # #3 keeps #1's bits
+    for a, b in zip(again3, res):
+        assert torch.equal(a, b)
+    for name, g, w, width in zip(("out", "qkv", "attn", "a1"), res, want,
+                                 (D, 3 * D, D, mult * D)):
+        assert g.shape == (B, N, width), name
+        assert torch.isfinite(g).all(), name
+        err = float((g - w).abs().max())
+        assert err <= 1e-4, (name, err)
+
+
+@pytest.mark.parametrize("D", [384, 448, 512])
+def test_fp32_forward_refuses_widths_past_320(cuda, D):
+    """The fp32 stages take D of 64 to 320 (block_tf32.cuh); a wider D that
+    the wrapper's checks pass is refused by the library before any launch,
+    for #1 and #3, and no launch is counted."""
+    rng = np.random.RandomState(D)
+    heads = D // 64
+    p = _params(rng, D, D, torch.float32, cuda)
+    x = torch.zeros(1, 5, D, dtype=torch.float32, device=cuda)
+    before = (bk.LAUNCHES, bk.RES_LAUNCHES)
+    with torch.no_grad():
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            bk._launch(x, p, heads)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            bk._launch_res(x, p, heads)
+    torch.cuda.synchronize()
+    assert (bk.LAUNCHES, bk.RES_LAUNCHES) == before
+
+
 def test_residual_block_under_autograd(cuda, monkeypatch):
     """With ``ROVIT_BLOCK_RESIDUAL_BWD=1`` the block under autograd runs #3
     and #4 (no #1 or #2) and its grads match the plain residual pair's;
@@ -486,15 +552,17 @@ def test_attention_refuses_what_it_does_not_take(cuda):
                          ids=["bf16", "fp32"])
 def test_train_step_through_the_attention_kernels(cuda, dtype):
     """One small step with ``use_pallas_attention=True`` and the block
-    unfused, through #5, #6 and (bf16: the trainer takes the augment kernel
-    only for a bf16 model) #7, against the same step through their plain
-    versions: bf16 loss within 1e-2 relative and gradient within 5e-2 in
-    L2, as the block's step above; fp32 (the 3xTF32 kernels, about 2^-21
-    relative per product) loss within 1e-4 and gradient within 1e-3."""
+    unfused, through #5, #6 and (bf16 only: the trainer takes the augment
+    kernel on the card under ``flags.mixed_precision``, which the fp32 arm
+    clears) #7, against the same step through their plain versions: bf16
+    loss within 1e-2 relative and gradient within 5e-2 in L2, as the block's
+    step above; fp32 (the 3xTF32 kernels, about 2^-21 relative per product)
+    loss within 1e-4 and gradient within 1e-3."""
     kw = dict(embed_dim=64, depth=2, num_heads=2, image_size=32,
               kan_layers=(64, 8, 1), hidden_dim=16, dropout=0.0,
               dtype=dtype, use_pallas_attention=True)
     cfg = Config()
+    cfg.flags.mixed_precision = dtype == torch.bfloat16
     rng = np.random.RandomState(4)
     labels = torch.tensor(rng.randint(0, 4, 8), device=cuda)
     batch = {"images": torch.tensor(rng.randint(0, 256, (8, 32, 32, 3)),

@@ -108,7 +108,8 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", real)
     block = ["vit_block_common.cuh", "attention_common.cuh",
              "tile_common.cuh", "attention_mma.cuh", "mma_common.cuh",
-             "block_mma.cuh"]
+             "attention_tf32.cuh", "tf32_common.cuh", "block_mma.cuh",
+             "block_tf32.cuh"]
     assert [h.name for h in _build._headers(real / "vit_block_fwd.cu",
                                             [])] == block
     bwd = block + ["block_bwd_mma.cuh", "block_bwd_common.cuh"]

@@ -16,10 +16,13 @@ tests/test_block_kernel.py).
 This file runs both sides unfused; tests/test_torch_train_fused.py runs them
 through the fused block.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
 
 from rovit_kan_tpu.config import Config as JaxConfig
@@ -232,9 +235,74 @@ def test_ema_follows_the_parameters():
         torch.testing.assert_close(step.ema[k], 0.75 * start[k] + 0.25 * v)
 
 
-def test_fused_augment_policy():
-    cfg = Config()
-    bf16 = RoViTKAN(**KW, dtype=torch.bfloat16)
-    assert not use_fused_augment(bf16, cfg)          # on the CPU
-    cfg.tpu.fused_augment = True
-    assert use_fused_augment(bf16, cfg)
+class _Chose(Exception):
+    """Raised by the spies below with the augment the JAX step traced."""
+
+
+def _jax_augment_choice(monkeypatch, jcfg, backend):
+    """Which augment the JAX ``make_train_step`` traces under ``jcfg`` on
+    ``backend``: spies stand in for both augment functions and stop the
+    step at its first call."""
+    import types
+    from rovit_kan_tpu.training import trainer as jtrainer
+
+    def spy(name):
+        def fn(*args, **kwargs):
+            raise _Chose(name)
+        return fn
+
+    monkeypatch.setattr(jtrainer, "fused_augment_batch", spy("fused"))
+    monkeypatch.setattr(jtrainer, "augment_batch", spy("plain"))
+    with monkeypatch.context() as m:
+        m.setattr(jax, "default_backend", lambda: backend)
+        _, step_fn = jax_make_train_step(JaxRoViTKAN(**KW), optax.sgd(0.0),
+                                         jcfg)
+    state = types.SimpleNamespace(rng=jax.random.PRNGKey(0))
+    try:
+        step_fn(state, {"images": np.zeros((1, IMG, IMG, 3), np.uint8)},
+                4, 1.0, 1.0)
+    except _Chose as chose:
+        return str(chose) == "fused"
+    raise AssertionError("the JAX step traced no augment")
+
+
+_UNSET = "unset"
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("mixed_precision", [True, False],
+                         ids=["mp", "no_mp"])
+@pytest.mark.parametrize("tpu_fa", [True, False],
+                         ids=["tpu_on", "tpu_off"])
+@pytest.mark.parametrize("train_fa", [_UNSET, True, False, "auto"],
+                         ids=["train_unset", "train_on", "train_off",
+                              "train_auto"])
+def test_fused_augment_policy(monkeypatch, train_fa, tpu_fa,
+                              mixed_precision, dtype, device):
+    """The port takes the augment kernel exactly where the JAX step does:
+    ``train.fused_augment`` forces it; unset or "auto" means the accelerator
+    and ``flags.mixed_precision``, whatever the model's dtype;
+    ``tpu.fused_augment`` is read by neither. A model on the card is
+    held against the JAX step on the "tpu" backend, a CPU model against the
+    "cpu" backend; the port's model reports its device, so no card is
+    needed."""
+    from rovit_kan_tpu_torch.training import trainer as ttrainer
+    jcfg, cfg = JaxConfig(), Config()
+    for c in (jcfg, cfg):
+        c.flags.mixed_precision = mixed_precision
+        c.tpu.fused_augment = tpu_fa
+        if train_fa is not _UNSET:
+            c.train.fused_augment = train_fa
+    want = _jax_augment_choice(monkeypatch, jcfg,
+                               "tpu" if device == "cuda" else "cpu")
+    model = _policy_model(dtype)
+    monkeypatch.setattr(ttrainer, "_device_of",
+                        lambda m: torch.device(device))
+    assert use_fused_augment(model, cfg) == want
+
+
+@functools.lru_cache(maxsize=None)
+def _policy_model(dtype):
+    return RoViTKAN(**KW, dtype=dtype)

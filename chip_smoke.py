@@ -23,10 +23,12 @@ exits non-zero:
    profiler device time); the KAN head's forward
    (#10) and backward (#11) at (64, [192, 64, 16, 1]) and one KAN layer's
    (#8, #9) at (64, 192 -> 64), fp32, each output within 1e-4 of its
-   largest magnitude and the same bits on a repeated call, their ``ms`` and
-   their plain versions' ``plain_ms`` the device time per call from
-   torch.profiler (CUDA events around back-to-back calls time the host
-   work there, kept as ``call_ms`` and ``plain_call_ms``);
+   largest magnitude and the same bits on a repeated call (#10/#11 also
+   with the basis's reciprocal divisions off; #11 one launch a call),
+   their ``ms`` and their plain versions' ``plain_ms`` the device time per
+   call from torch.profiler, the kernels' ``kernel_graph_ms`` by CUDA-graph
+   replay (CUDA events around back-to-back calls time the host work
+   there, kept as ``call_ms`` and ``plain_call_ms``);
 4. serve: the full-width DeiT-Tiny RoViT-KAN (seeded random weights) built
    with ``build_model`` and served through ``InferenceEngine`` and
    ``MicroBatcher``; the launch counters are set to 0 just before and read
@@ -760,30 +762,40 @@ def kernel_label(mangled: str) -> str:
 
 
 def ptxas_table(log: str) -> list:
-    """[kernel, registers, spill stores in bytes] for each entry function
-    of an ``nvcc -Xptxas -v`` log."""
-    out, fn, spill = [], None, 0
+    """[kernel, registers, spill stores in bytes, stack frame in bytes] for
+    each entry function of an ``nvcc -Xptxas -v`` log."""
+    out, fn, spill, stack = [], None, 0, 0
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            fn, spill = m.group(1), 0
+            fn, spill, stack = m.group(1), 0, 0
+        m = re.search(r"(\d+) bytes stack frame", ln)
+        if m:
+            stack = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", ln)
         if m and fn:
-            out.append([kernel_label(fn), int(m.group(1)), spill])
+            out.append([kernel_label(fn), int(m.group(1)), spill, stack])
             fn = None
     return out
 
 
 def check_kan(seed: int):
     """Kernels #10/#11 at (64, [192, 64, 16, 1]) and #8/#9 at (64, 192->64)
-    against their plain versions, identical bits on a repeated call, and
-    timed. Bytes: each input read once, each output written once."""
+    against their plain versions, identical bits on a repeated call (and,
+    for #10/#11, with the basis's reciprocal divisions turned off), and
+    timed: by torch.profiler device time and by CUDA-graph replay, since a
+    wrapper call's host time exceeds these kernels' device time, beside the
+    launch floor (a one-element fill replayed the same way). #11 makes one
+    launch at this batch. Bytes: each input read once, each output written
+    once."""
     from rovit_kan_tpu_torch.ops import kan_kernel as kk
     from rovit_kan_tpu_torch.ops.spline import make_knots
     knots = make_knots()
+    tiny = torch.zeros(1, device="cuda")
+    floor = graph_ms(lambda: tiny.fill_(1.0))
     out = {}
     for dims, fwd_name, bwd_name in ((KAN_DIMS, "kan_module_fwd",
                                       "kan_module_bwd"),
@@ -796,8 +808,8 @@ def check_kan(seed: int):
                 return [kk._launch_module(x, params, knots, 3)]
 
             def bwd():
-                dx, grads = kk._launch_module_bwd(x, g, params, knots, 3)
-                return [dx, *grads]
+                return flat_bwd(kk._launch_module_bwd(x, g, params, knots,
+                                                      3))
 
             def plain_fwd():
                 return [kk.kan_module_reference(x, params, knots)]
@@ -831,12 +843,18 @@ def check_kan(seed: int):
             if not (same_bits(fwd(), got_f) and same_bits(bwd(), got_b)):
                 raise RuntimeError(f"{fwd_name}/{bwd_name}: a repeated call "
                                    f"gave other bits")
+            if module and not (
+                    same_bits([kk._launch_module(x, params, knots, 3,
+                                                 False)], got_f)
+                    and same_bits(flat_bwd(kk._launch_module_bwd(
+                        x, g, params, knots, 3, False)), got_b)):
+                raise RuntimeError("kan_module_fwd/bwd: the reciprocal "
+                                   "basis gave other bits than __fdiv_rn")
             call_f, call_b = time_ms(fwd), time_ms(bwd)
             tag = "module" if module else "layer"
             ms_f = device_ms(fwd, [f"kan_{tag}_fwd_kernel"])
-            ms_b = device_ms(bwd, ["kan_layer_bwd_kernel"] if not module
-                             else ["kan_module_bwd_rows_kernel",
-                                   "kan_module_wgrad_kernel"])
+            ms_b = device_ms(bwd, [f"kan_{tag}_bwd_kernel"])
+            graph_f, graph_b = graph_ms(fwd), graph_ms(bwd)
             # The plain versions on the kernels' clock: the device time of
             # all their operations; CUDA events keep their call time.
             plain_f = device_ms(plain_fwd, calls=10)
@@ -857,17 +875,31 @@ def check_kan(seed: int):
             "_kan_module_bwd_kernel" if module else "_kan_layer_bwd_kernel",
             shape, errs_b, ms_b, plain_b, flops_b,
             2 * xbytes + gbytes + 2 * wbytes,
-            "1 per train step, two passes (counted in 'kan')" if module
+            "1 per train step, one launch (counted in 'kan')" if module
             else "1 per layer of a trajectory's gradient (counted in 'kan')")
-        out[fwd_name].update(call_ms=call_f, plain_call_ms=plain_call_f)
-        out[bwd_name].update(call_ms=call_b, plain_call_ms=plain_call_b)
+        out[fwd_name].update(call_ms=call_f, plain_call_ms=plain_call_f,
+                             kernel_graph_ms=graph_f, launch_floor_ms=floor)
+        out[bwd_name].update(call_ms=call_b, plain_call_ms=plain_call_b,
+                             kernel_graph_ms=graph_b, launch_floor_ms=floor)
         if module:
+            # The device operations of one #11 call: its one kernel.
             with torch.no_grad():
-                out[bwd_name]["ms_by_launch"] = {
-                    k: device_ms(bwd, [k]) for k in (
-                        "kan_module_bwd_rows_kernel",
-                        "kan_module_wgrad_kernel")}
+                ops = profile_device(bwd, calls=10)
+            per_call = {k[:80]: n / 10 for k, (n, _) in ops.items()}
+            if list(per_call.values()) != [1] \
+                    or "kan_module_bwd_kernel" not in next(iter(per_call)):
+                raise RuntimeError(f"kan_module_bwd launches per call "
+                                   f"{per_call}, want one kernel")
+            out[bwd_name]["launches_per_call"] = per_call
+            out[fwd_name]["reciprocal_basis_same_bits"] = True
+            out[bwd_name]["reciprocal_basis_same_bits"] = True
     return out
+
+
+def flat_bwd(result):
+    """#11's (dx, grads) as one list."""
+    dx, grads = result
+    return [dx, *grads]
 
 
 def features(model, images_u8: np.ndarray) -> np.ndarray:
@@ -2620,12 +2652,15 @@ def main() -> int:
         by_path = {"serve": phase["serve_launches"][name],
                    "trajectory": phase["trajectory_launches"][name],
                    "train": phase["train_launches"][name]}
-        return {"name": name, "route": "cuda", "source": csrc + "kan.cu",
+        source = "kan_module.cu" if "module" in name else "kan.cu"
+        return {"name": name, "route": "cuda", "source": csrc + source,
                 "replaces": f"rovit_kan_tpu/ops/kan_kernel.py:{line}",
                 "launches": sum(by_path.values()),
                 "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": None,
+                "kernel_graph_ms": r["kernel_graph_ms"],
+                "launch_floor_ms": r["launch_floor_ms"],
                 "call_ms": r["call_ms"], "plain_call_ms": r["plain_call_ms"],
                 "launches_by_path": by_path}
 

@@ -1,58 +1,43 @@
-// KAN layers on Hopper (sm_90a), fp32 throughout: one layer forward (#8) and
-// backward (#9), and the whole KAN head forward (#10) and recompute backward
-// (#11).
+// One KAN layer on Hopper (sm_90a), fp32 throughout: forward (#8) and
+// backward (#9). The whole head's kernels (#10/#11) are kan_module.cu; the
+// basis recursion and the shape limits both use are kan_common.cuh.
 //
-// Replaces rovit_kan_tpu/ops/kan_kernel.py::_kan_kernel (#8),
-// _kan_layer_bwd_kernel (#9), _kan_module_kernel (#10) and
-// _kan_module_bwd_kernel (#11). One layer computes
+// Replaces rovit_kan_tpu/ops/kan_kernel.py::_kan_kernel (#8) and
+// _kan_layer_bwd_kernel (#9). One layer computes
 //   a[b][o] = bias[o] + sum_i (x[b][i] W[o][i]
 //                              + sum_k basis_k(tanh x[b][i]) S[i][o][k])
-// with the cubic B-spline basis of the Cox-de Boor recursion truncated as
-// in ops/spline.py (half-open degree-0 intervals after a clamp to the knot
-// range, zero-denominator guards); the head runs its layers with ReLU
-// between them and 3 * sigmoid at the end. Layouts are the port's:
+// with the cubic B-spline basis of kan_common.cuh. Layouts are the port's:
 // S (in, out, K), W (out, in) as nn.Linear keeps it, bias (out).
 //
 // The TPU kernels run their products at Precision.HIGHEST; Hopper's tensor
 // cores have no IEEE fp32 mode, so every product here is an fp32 FMA on the
-// CUDA cores, and the basis recursion uses the _rn intrinsics so that the
-// compiler contracts none of its steps into an FMA the plain version does
-// not do. The interval test compares t with the knots themselves (never
-// index arithmetic), so t = 1 (tanh of |x| >= 10) gives all-zero bases as
-// the plain version does.
+// CUDA cores.
 //
-// What bounds it on an H100 SXM: the flagship head [192, 64, 16, 1] with 7
-// bases at B = 64 is 1.37e7 FLOP forward (0.20 us at 67 TFLOP/s) and
-// 4.1e7 backward (0.61 us), on ~0.5 MB of weights (0.14 us at 3.35 TB/s):
-// bound by operations, and all of it far below a launch's few microseconds.
-// So these kernels are latency-bound: the design keeps each launch short
-// and makes no more launches than the function needs.
+// What bounds it on an H100 SXM: the layer 192 -> 64 with 7 bases at B = 64
+// is 1.26e7 FLOP forward (0.19 us at 67 TFLOP/s) and twice that backward,
+// on ~0.4 MB of weights (0.12 us at 3.35 TB/s): bound by operations, and all
+// of it far below a launch's few microseconds. So these kernels are
+// latency-bound: the design keeps each launch short and makes no more
+// launches than the function needs.
 //
 // Design:
-// - A row-tile CTA owns kRows batch rows through every layer (a layer needs
-//   all of the previous layer's columns of its rows); activations of the
-//   tile stay in shared memory. The TPU kernel keeps all weights in VMEM;
-//   layer 0's 393 KB do not fit in 227 KB of shared memory, so weights are
-//   staged chunk by chunk of inputs from L2 (the ~0.5 MB stay resident
-//   there and every CTA reads the same ones), with cp.async into two
+// - A row-tile CTA owns kRows batch rows; the layer's 393 KB of weights do
+//   not fit in 227 KB of shared memory, so they are staged chunk by chunk of
+//   inputs from L2 (every CTA reads the same ones), with cp.async into two
 //   buffers: chunk c + 1 is in flight while chunk c is used.
 // - Forward: the tile's features (the bases of tanh x and x itself) go to
 //   shared memory up front; thread (o, s) sums output column o for the
 //   tile's rows over the chunk's inputs i = s mod (256 / out), and the
 //   splits s are added in a fixed order at the end.
-// - Backward through a layer (dx, or the gradient into the previous layer):
-//   thread (i, k) forms q[r][i][k] = sum_o g[r][o] M[o][i][k] (M is S and,
-//   at k = K, W), then thread (r, i) combines q with the basis derivatives
-//   of ops/spline.py::bspline_basis_and_deriv_list and (1 - t^2).
-// - Weight gradients: the TPU kernels add them over a grid that runs in
+// - Backward (dx): thread (i, k) forms q[r][i][k] = sum_o g[r][o] M[o][i][k]
+//   (M is S and, at k = K, W), then thread (r, i) combines q with the basis
+//   derivatives of ops/spline.py::bspline_basis_and_deriv_list and
+//   (1 - t^2).
+// - Weight gradients: the TPU kernel adds them over a grid that runs in
 //   order; CTAs here run in parallel, so each weight element belongs to one
 //   thread, which loops over the whole batch in order. No atomics: a
 //   repeated call gives the same bits. #9 does its rows and its weight
-//   gradients in one launch (two kinds of CTA); #11 is two launches: the
-//   rows pass (forward recompute, then the chain back through 3 sigmoid',
-//   each layer and relu', with relu'(0) = 0), which leaves each layer's
-//   input and output gradient in a scratch buffer, then the weight-gradient
-//   pass over all layers.
+//   gradients in one launch (two kinds of CTA).
 //
 // Interface: plain C, loaded with ctypes; each function returns the first
 // CUDA error of its launches (0 = success), cudaErrorInvalidValue for a
@@ -62,15 +47,12 @@
 #include <cuda_runtime.h>
 #include <cstddef>
 
+#include "kan_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRows = 2;            // batch rows of a row-tile CTA
-constexpr int kMaxLayers = 4;
-constexpr int kMaxBasis = 10;
-constexpr int kMaxKnots = kMaxBasis + 4;
-constexpr int kMaxIn = 1024;        // widest layer input
-constexpr int kMaxOut = 256;        // widest layer output
 constexpr int kChunk = 64;          // most inputs per staged weight chunk
 constexpr int kSlab = 16384;        // floats of one staged weight buffer
 constexpr int kAcc = 12;            // weight-gradient sums per thread
@@ -102,69 +84,6 @@ struct Grads {
   float* W[kMaxLayers];
   float* bias[kMaxLayers];
 };
-
-// Per layer: its input rows (B, in) and the gradient at its output (B, out),
-// as the weight-gradient pass reads them.
-struct Saved {
-  const float* h[kMaxLayers];
-  const float* g[kMaxLayers];
-};
-
-// Basis values (and, with kDeriv, d/dt) at t: the recursion of
-// ops/spline.py step by step, unrolled to kMaxBasis with run-time guards.
-template <bool kDeriv>
-__device__ __forceinline__ void bspline(float t, const Kan& P,
-                                        float (&b)[kMaxBasis],
-                                        float (&db)[kMaxBasis]) {
-  const int nb = P.nb;
-  const int nk = nb + 4;
-  const float* k = P.knots;
-  const float lo = k[0];
-  const float hi = k[nk - 1];
-  const float in_range = (t >= lo && t <= hi) ? 1.f : 0.f;
-  const float x = fminf(fmaxf(t, lo), hi);
-#pragma unroll
-  for (int i = 0; i < kMaxBasis; ++i) {
-    b[i] = (i < nb && x >= k[i] && x < k[i + 1]) ? 1.f : 0.f;
-    db[i] = 0.f;
-  }
-#pragma unroll
-  for (int d = 1; d <= 3; ++d) {
-    // Ascending i: the new b[i] reads the old b[i] and b[i + 1].
-#pragma unroll
-    for (int i = 0; i < kMaxBasis; ++i) {
-      const float b1 = (i + 1 < kMaxBasis) ? b[i + 1] : 0.f;
-      const float db1 = (i + 1 < kMaxBasis) ? db[i + 1] : 0.f;
-      float term = 0.f;
-      float dterm = 0.f;
-      if (i < nb) {
-        if (k[i + d] != k[i]) {
-          const float den = __fsub_rn(k[i + d], k[i]);
-          const float left = __fdiv_rn(__fsub_rn(x, k[i]), den);
-          term = __fmul_rn(left, b[i]);
-          if (kDeriv) {
-            dterm = __fadd_rn(__fdiv_rn(b[i], den), __fmul_rn(left, db[i]));
-          }
-        }
-        if (i + d + 1 < nk && i + 1 < nb && k[i + d + 1] != k[i + 1]) {
-          const float den = __fsub_rn(k[i + d + 1], k[i + 1]);
-          const float right = __fdiv_rn(__fsub_rn(k[i + d + 1], x), den);
-          term = __fadd_rn(term, __fmul_rn(right, b1));
-          if (kDeriv) {
-            dterm = __fadd_rn(__fsub_rn(dterm, __fdiv_rn(b1, den)),
-                              __fmul_rn(right, db1));
-          }
-        }
-      }
-      b[i] = term;
-      db[i] = dterm;
-    }
-  }
-  if (kDeriv) {
-#pragma unroll
-    for (int i = 0; i < kMaxBasis; ++i) db[i] = __fmul_rn(db[i], in_range);
-  }
-}
 
 // Row stride of a staged S chunk: the out * nb floats of one input, padded
 // so that one input's rows start (nb + 1) banks after the previous one's.
@@ -300,7 +219,7 @@ __device__ void layer_forward(const Kan& P, int l, const float* h, float* a,
         const int ii = e - r * fcn;
         const float x = h[r * din + i0 + ii];
         float b[kMaxBasis], db[kMaxBasis];
-        bspline<false>(tanhf(x), P, b, db);
+        bspline<false>(tanhf(x), P.nb, P.knots, b, db);
         float* f = feat + ii * nb1 * kRows + r;
 #pragma unroll
         for (int k = 0; k < kMaxBasis; ++k) {
@@ -399,7 +318,7 @@ __device__ void layer_backward_rows(const Kan& P, int l, const float* h,
       const float x = h[r * din + i0 + ii];
       const float t = tanhf(x);
       float b[kMaxBasis], db[kMaxBasis];
-      bspline<true>(t, P, b, db);
+      bspline<true>(t, P.nb, P.knots, b, db);
       const float* qq = q + r * pc + ii * nb1;
       float sp = 0.f;
 #pragma unroll
@@ -462,7 +381,7 @@ __device__ void layer_wgrad(const Kan& P, int l, int chunk,
       const int ii = e - bb * icn;
       const float x = h[static_cast<size_t>(b0 + bb) * din + i0 + ii];
       float b[kMaxBasis], db[kMaxBasis];
-      bspline<false>(tanhf(x), P, b, db);
+      bspline<false>(tanhf(x), P.nb, P.knots, b, db);
       float* f = feat + bb * pstride + ii * nb1;
 #pragma unroll
       for (int k = 0; k < kMaxBasis; ++k) {
@@ -510,11 +429,6 @@ __device__ void layer_wgrad(const Kan& P, int l, int chunk,
   }
 }
 
-__device__ __forceinline__ float* shared_floats() {
-  extern __shared__ float4 smem4[];
-  return reinterpret_cast<float*>(smem4);
-}
-
 // Rows [row0, row0 + kRows) of a (B, width) matrix into shared memory, rows
 // past the batch zero.
 __device__ __forceinline__ void load_rows(const float* __restrict__ src,
@@ -532,10 +446,6 @@ __device__ __forceinline__ void store_rows(const float* src, int row0,
   for (int e = threadIdx.x; e < nrows * width; e += kThreads) {
     dst[static_cast<size_t>(row0) * width + e] = src[e];
   }
-}
-
-__device__ __forceinline__ float sigmoid(float a) {
-  return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-a)));
 }
 
 // #8: one layer, rows in tiles of kRows.
@@ -580,114 +490,6 @@ kan_layer_bwd_kernel(Kan P, const float* __restrict__ x,
                       nrows, false, scratch);
 }
 
-// Offsets of each layer's activations in a row-tile CTA's shared memory:
-// act[l] holds layer l's input (kRows x dims[l]); act[n_layers] the last
-// pre-activation.
-__device__ __forceinline__ int act_offset(const Kan& P, int l) {
-  int off = 0;
-  for (int j = 0; j < l; ++j) off += align4(kRows * P.dims[j]);
-  return off;
-}
-
-// The head's forward for one row tile, leaving every layer's input (after
-// the ReLU) and the last pre-activation in act.
-__device__ void module_forward_rows(const Kan& P, const float* __restrict__ x,
-                                    int row0, int nrows, float* act,
-                                    float* scratch) {
-  load_rows(x, row0, nrows, P.dims[0], act);
-  for (int l = 0; l < P.n_layers; ++l) {
-    float* h = act + act_offset(P, l);
-    float* a = act + act_offset(P, l + 1);
-    layer_forward(P, l, h, a, scratch);
-    if (l < P.n_layers - 1) {
-      for (int e = threadIdx.x; e < kRows * P.dims[l + 1]; e += kThreads) {
-        a[e] = fmaxf(a[e], 0.f);
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// #10: the whole head, rows in tiles of kRows.
-__global__ void __launch_bounds__(kThreads)
-kan_module_fwd_kernel(Kan P, const float* __restrict__ x,
-                      float* __restrict__ y) {
-  float* sm = shared_floats();
-  const int row0 = blockIdx.x * kRows;
-  const int nrows = min(kRows, P.B - row0);
-  const int L = P.n_layers;
-  float* act = sm;
-  float* scratch = act + act_offset(P, L + 1);
-  module_forward_rows(P, x, row0, nrows, act, scratch);
-  const float* a = act + act_offset(P, L);
-  const int dl = P.dims[L];
-  for (int e = threadIdx.x; e < nrows * dl; e += kThreads) {
-    y[static_cast<size_t>(row0) * dl + e] = __fmul_rn(3.f, sigmoid(a[e]));
-  }
-}
-
-// #11, first launch: per row tile, the forward recomputed, then the chain
-// back to dx; each layer's input (l >= 1) and output gradient go to the
-// scratch rows that the second launch reads.
-__global__ void __launch_bounds__(kThreads)
-kan_module_bwd_rows_kernel(Kan P, const float* __restrict__ x,
-                           const float* __restrict__ g,
-                           float* __restrict__ dx, Saved saved) {
-  float* sm = shared_floats();
-  const int row0 = blockIdx.x * kRows;
-  const int nrows = min(kRows, P.B - row0);
-  const int L = P.n_layers;
-  float* act = sm;
-  float* ga = act + act_offset(P, L + 1);
-  float* gb = ga + kRows * kMaxOut;
-  float* scratch = gb + kRows * kMaxOut;
-  module_forward_rows(P, x, row0, nrows, act, scratch);
-
-  // Through 3 * sigmoid: ((g * 3) * s) * (1 - s), as the plain version.
-  const int dl = P.dims[L];
-  const float* aL = act + act_offset(P, L);
-  for (int e = threadIdx.x; e < kRows * dl; e += kThreads) {
-    const int r = e / dl;
-    const float gv = (r < nrows) ? g[static_cast<size_t>(row0) * dl + e]
-                                 : 0.f;
-    const float sg = sigmoid(aL[e]);
-    ga[e] = __fmul_rn(__fmul_rn(__fmul_rn(gv, 3.f), sg), __fsub_rn(1.f, sg));
-  }
-  __syncthreads();
-  for (int l = L - 1; l >= 0; --l) {
-    const int din = P.dims[l];
-    const int dout = P.dims[l + 1];
-    const float* h = act + act_offset(P, l);
-    store_rows(ga, row0, nrows, dout, const_cast<float*>(saved.g[l]));
-    if (l > 0) store_rows(h, row0, nrows, din, const_cast<float*>(saved.h[l]));
-    if (l > 0) {
-      layer_backward_rows(P, l, h, ga, gb, kRows, true, scratch);
-      float* t = ga;
-      ga = gb;
-      gb = t;
-    } else {
-      layer_backward_rows(P, 0, h, ga, dx + static_cast<size_t>(row0) * din,
-                          nrows, false, scratch);
-    }
-  }
-}
-
-// #11, second launch: the weight gradients of every layer; CTAs run over
-// (layer, input chunk).
-__global__ void __launch_bounds__(kThreads)
-kan_module_wgrad_kernel(Kan P, Saved saved, Grads G) {
-  float* sm = shared_floats();
-  int c = blockIdx.x;
-  int l = 0;
-  for (; l < P.n_layers; ++l) {
-    const int ic = wgrad_chunk(P.dims[l], P.dims[l + 1], P.nb);
-    const int chunks = (P.dims[l] + ic - 1) / ic;
-    if (c < chunks) break;
-    c -= chunks;
-  }
-  layer_wgrad(P, l, c, saved.h[l], saved.g[l], G, sm);
-}
-
 // ---------------------------------------------------------------- host
 
 int wgrad_ctas(const Kan& P, int l) {
@@ -705,12 +507,6 @@ size_t wgrad_smem(const Kan& P) {
     if (floats > most) most = floats;
   }
   return most * sizeof(float);
-}
-
-size_t act_floats(const Kan& P) {
-  size_t n = 0;
-  for (int l = 0; l <= P.n_layers; ++l) n += align4(kRows * P.dims[l]);
-  return n;
 }
 
 template <typename Kernel>
@@ -798,86 +594,6 @@ extern "C" int kan_layer_bwd(const float* x, const float* g, const float* S,
   kan_layer_bwd_kernel<<<tiles + wgrad_ctas(P, 0), kThreads, smem,
                          static_cast<cudaStream_t>(stream_ptr)>>>(
       P, x, g, dx, G, tiles);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int kan_module_fwd(const float* x, const void* const* params,
-                              float* y, int B, const int* dims, int n_layers,
-                              const float* knots, int n_knots,
-                              void* stream_ptr) {
-  Kan P;
-  if (!make_kan(P, B, dims, n_layers, knots, n_knots)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  for (int l = 0; l < n_layers; ++l) {
-    P.S[l] = static_cast<const float*>(params[3 * l]);
-    P.W[l] = static_cast<const float*>(params[3 * l + 1]);
-    P.bias[l] = static_cast<const float*>(params[3 * l + 2]);
-  }
-  const size_t smem = (act_floats(P) + kScratch) * sizeof(float);
-  int e = set_smem(kan_module_fwd_kernel, smem);
-  if (e) return e;
-  kan_module_fwd_kernel<<<row_tiles(B), kThreads, smem,
-                          static_cast<cudaStream_t>(stream_ptr)>>>(P, x, y);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Floats of scratch kan_module_bwd needs: each layer's input (layers >= 1)
-// and output gradient, B rows each.
-extern "C" long long kan_module_bwd_scratch(int B, const int* dims,
-                                            int n_layers) {
-  long long n = 0;
-  for (int l = 0; l < n_layers; ++l) {
-    n += static_cast<long long>(B) * dims[l + 1];
-    if (l > 0) n += static_cast<long long>(B) * dims[l];
-  }
-  return n;
-}
-
-extern "C" int kan_module_bwd(const float* x, const float* g,
-                              const void* const* params, float* dx,
-                              void* const* grads, float* scratch, int B,
-                              const int* dims, int n_layers,
-                              const float* knots, int n_knots,
-                              void* stream_ptr) {
-  Kan P;
-  if (!make_kan(P, B, dims, n_layers, knots, n_knots)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Grads G = {};
-  Saved saved = {};
-  float* next = scratch;
-  for (int l = 0; l < n_layers; ++l) {
-    P.S[l] = static_cast<const float*>(params[3 * l]);
-    P.W[l] = static_cast<const float*>(params[3 * l + 1]);
-    P.bias[l] = static_cast<const float*>(params[3 * l + 2]);
-    G.S[l] = static_cast<float*>(grads[3 * l]);
-    G.W[l] = static_cast<float*>(grads[3 * l + 1]);
-    G.bias[l] = static_cast<float*>(grads[3 * l + 2]);
-    saved.g[l] = next;
-    next += static_cast<size_t>(B) * dims[l + 1];
-    if (l == 0) {
-      saved.h[l] = x;
-    } else {
-      saved.h[l] = next;
-      next += static_cast<size_t>(B) * dims[l];
-    }
-  }
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const size_t smem =
-      (act_floats(P) + 2 * kRows * kMaxOut + kScratch) * sizeof(float);
-  int e = set_smem(kan_module_bwd_rows_kernel, smem);
-  if (e) return e;
-  kan_module_bwd_rows_kernel<<<row_tiles(B), kThreads, smem, stream>>>(
-      P, x, g, dx, saved);
-  e = static_cast<int>(cudaGetLastError());
-  if (e) return e;
-  int ctas = 0;
-  for (int l = 0; l < n_layers; ++l) ctas += wgrad_ctas(P, l);
-  const size_t wsmem = wgrad_smem(P);
-  e = set_smem(kan_module_wgrad_kernel, wsmem);
-  if (e) return e;
-  kan_module_wgrad_kernel<<<ctas, kThreads, wsmem, stream>>>(P, saved, G);
   return static_cast<int>(cudaGetLastError());
 }
 

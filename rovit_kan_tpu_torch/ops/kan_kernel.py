@@ -2,14 +2,16 @@
 versions.
 
 Counterpart of ``rovit_kan_tpu/ops/kan_kernel.py``. Its four TPU kernels are
-replaced on Hopper by ``csrc/kan.cu`` (the source note there says what bounds
+replaced on Hopper by two CUDA sources (the source notes say what bounds
 them and how they are tiled):
 
-- ``_kan_kernel`` (#8) and ``_kan_layer_bwd_kernel`` (#9): one KAN layer
-  ``x W_lin^T + b + sum_k basis_k(tanh x) S[:, :, k]`` and its gradient;
-- ``_kan_module_kernel`` (#10) and ``_kan_module_bwd_kernel`` (#11): the
-  whole stack, ReLU between layers and ``3 * sigmoid`` at the end, and its
-  recompute backward.
+- ``_kan_kernel`` (#8) and ``_kan_layer_bwd_kernel`` (#9), ``csrc/kan.cu``:
+  one KAN layer ``x W_lin^T + b + sum_k basis_k(tanh x) S[:, :, k]`` and its
+  gradient;
+- ``_kan_module_kernel`` (#10) and ``_kan_module_bwd_kernel`` (#11),
+  ``csrc/kan_module.cu``: the whole stack, ReLU between layers and
+  ``3 * sigmoid`` at the end, and its recompute backward, on thread-block
+  clusters that split every width across their CTAs (``module_plan``).
 
 Everything is fp32 and every product true fp32 (the TPU kernels run at
 ``Precision.HIGHEST``). The functions take the port's parameter layouts as
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,15 +40,25 @@ from rovit_kan_tpu_torch.ops.spline import (
 #: call on a CUDA tensor). The CPU path never touches it.
 LAUNCHES = 0
 #: Launches of the whole-module backward (#11), counted the same way (one per
-#: call, which runs the kernel's two passes).
+#: call: one kernel launch while the batch fits one row group; past it, one
+#: a wave of at most ``BWD_SLOTS`` clusters and one that adds the slots'
+#: weight gradients).
 BWD_LAUNCHES = 0
 #: Launches of the one-layer forward (#8).
 LAYER_LAUNCHES = 0
 #: Launches of the one-layer backward (#9).
 LAYER_BWD_LAUNCHES = 0
 
-# What csrc/kan.cu holds (its kMax* constants).
+# What csrc/kan_common.cuh holds (its kMax* constants).
 MAX_LAYERS, MAX_BASIS, MAX_IN, MAX_OUT = 4, 10, 1024, 256
+# What csrc/kan_module.cu's plans may use: CTAs of a cluster (16 is
+# Hopper's non-portable most), rows of a group, shared floats of a CTA.
+CLUSTER, FWD_ROWS, BWD_ROWS = 16, 16, 64
+SLAB_FLOATS, SMEM_FLOATS = 8192, 232448 // 4
+# #11's clusters a launch at most: its CTAs take one SM each, so 8 clusters
+# of 16 fill an H100's 132 SMs; each keeps one fp32 copy of the weight
+# gradients, so their memory is bounded whatever the batch.
+BWD_SLOTS = 8
 
 
 # ------------------------------------------------------------------ plain
@@ -127,6 +139,83 @@ def kan_module_backward_reference(x: torch.Tensor, g: torch.Tensor,
     return gcur, grads
 
 
+# ------------------------------------------------------------------ plan
+
+class ModulePlan(NamedTuple):
+    """How #10 (``backward=False``) or #11 splits a batch: ``groups`` row
+    groups of ``rows`` batch rows (the last group's rows past the batch are
+    padding), a cluster of ``cluster`` CTAs each; #11 runs them in waves of
+    ``slots`` clusters, cluster s of each wave adding its group's weight
+    gradients into slot s (so slot s sums groups s, s + slots, ... in
+    order), and then adds the slots in order; rank j of a cluster owns
+    ``bounds[d][j]:bounds[d][j + 1]`` of width ``d`` (layer d's inputs,
+    layer d - 1's outputs) and stages its slice of layer l's weights
+    ``chunk[l]`` inputs at a time; ``smem_floats`` is a CTA's shared
+    memory, as ``csrc/kan_module.cu::make_plan`` lays it out. With
+    ``reciprocal_basis`` the basis recursion divides through a table of
+    reciprocals where that gives the same bits (the source note says
+    where); without it every division is ``__fdiv_rn``."""
+    rows: int
+    cluster: int
+    groups: int
+    slots: int
+    smem_floats: int
+    chunk: Tuple[int, ...]
+    bounds: Tuple[Tuple[int, ...], ...]
+    reciprocal_basis: bool = True
+
+    def ints(self) -> List[int]:
+        """The plan as the C entry points take it."""
+        chunk = list(self.chunk) + [0] * (MAX_LAYERS - len(self.chunk))
+        return [self.rows, self.cluster, self.groups, self.slots,
+                self.smem_floats, int(self.reciprocal_basis), *chunk,
+                *(b for d in self.bounds for b in d)]
+
+
+def _smem_floats(rows, widest, chunk, dims, k1p, backward) -> int:
+    """A CTA's shared floats: features (and #11's basis derivatives) of the
+    rank's slices, two weight chunks, two partial-sum buffers, and (#11) two
+    gradient slices and each layer's gathered output gradient."""
+    n_layers = len(dims) - 1
+    feat = sum(widest[l] * k1p * rows for l in range(n_layers))
+    slab = max(chunk[l] * k1p * dims[l + 1] for l in range(n_layers))
+    total = feat * (2 if backward else 1) + 2 * slab \
+        + 2 * (rows + 4) * max(dims[1:])
+    if backward:
+        total += 2 * rows * max(widest[1:]) + (rows + 4) * sum(dims[1:])
+    return total
+
+
+@functools.lru_cache(maxsize=None)
+def module_plan(B: int, dims: Tuple[int, ...], n_basis: int,
+                backward: bool) -> ModulePlan:
+    """The launch plan of #10/#11 for a batch of ``B`` rows through a head
+    of widths ``dims``: every width split into ``CLUSTER`` contiguous
+    slices, ``FWD_ROWS`` / ``BWD_ROWS`` rows a group (fewer for a small
+    batch, or where a CTA's shared memory would not hold the features of
+    that many rows), each layer's weight chunk at most ``SLAB_FLOATS``;
+    #11's waves at most ``BWD_SLOTS`` clusters (#10's ``slots`` is its
+    groups: one launch)."""
+    dims = tuple(int(d) for d in dims)
+    k1p = (n_basis + 4) // 4 * 4
+    c = CLUSTER
+    bounds = tuple(tuple(j * d // c for j in range(c + 1)) for d in dims)
+    widest = [max(b[j + 1] - b[j] for j in range(c)) for b in bounds]
+    chunk = tuple(min(widest[l], max(1, SLAB_FLOATS // (dims[l + 1] * k1p)))
+                  for l in range(len(dims) - 1))
+    rows = min(BWD_ROWS if backward else FWD_ROWS, -(-B // 8) * 8)
+    while _smem_floats(rows, widest, chunk, dims, k1p, backward) \
+            > SMEM_FLOATS and rows > 8:
+        rows = max(8, rows // 16 * 8)
+    if _smem_floats(rows, widest, chunk, dims, k1p, backward) > SMEM_FLOATS:
+        raise ValueError(f"no plan fits KAN widths {list(dims)}")
+    groups = -(-B // rows)
+    return ModulePlan(rows, c, groups,
+                      min(groups, BWD_SLOTS) if backward else groups,
+                      _smem_floats(rows, widest, chunk, dims, k1p, backward),
+                      chunk, bounds)
+
+
 # --------------------------------------------------------------- kernels
 
 def _layer_dims(params: Sequence[torch.Tensor]) -> List[int]:
@@ -178,35 +267,62 @@ _INTS = ctypes.POINTER(ctypes.c_int)
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
+def _load(name: str, sigs: dict, error_string: str):
     from rovit_kan_tpu_torch.ops import _build
-    lib = _build.load("kan")
-    sigs = {
-        "kan_layer_fwd": [_P] * 5 + [_I] * 3 + [_FLOATS, _I, _P],
-        "kan_layer_bwd": [_P] * 8 + [_I] * 3 + [_FLOATS, _I, _P],
-        "kan_module_fwd": [_P, _PTRS, _P, _I, _INTS, _I, _FLOATS, _I, _P],
-        "kan_module_bwd": [_P, _P, _PTRS, _P, _PTRS, _P, _I, _INTS, _I,
-                           _FLOATS, _I, _P],
-    }
-    for name, argtypes in sigs.items():
-        fn = getattr(lib, name)
+    lib = _build.load(name)
+    for fn_name, argtypes in sigs.items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.kan_module_bwd_scratch.argtypes = [_I, _INTS, _I]
-    lib.kan_module_bwd_scratch.restype = ctypes.c_longlong
-    lib.kan_error_string.argtypes = [_I]
-    lib.kan_error_string.restype = ctypes.c_char_p
+    lib.error_string = getattr(lib, error_string)
+    lib.error_string.argtypes = [_I]
+    lib.error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    """``csrc/kan.cu``: #8/#9."""
+    return _load("kan", {
+        "kan_layer_fwd": [_P] * 5 + [_I] * 3 + [_FLOATS, _I, _P],
+        "kan_layer_bwd": [_P] * 8 + [_I] * 3 + [_FLOATS, _I, _P],
+    }, "kan_error_string")
+
+
+@functools.lru_cache(maxsize=None)
+def _module_library():
+    """``csrc/kan_module.cu``: #10/#11."""
+    return _load("kan_module", {
+        "kan_module_fwd": [_P, _PTRS, _P, _I, _INTS, _I, _FLOATS, _I, _INTS,
+                           _P],
+        "kan_module_bwd": [_P, _P, _PTRS, _P, _PTRS, _P, _I, _INTS, _I,
+                           _FLOATS, _I, _INTS, _P],
+    }, "kan_module_error_string")
 
 
 def _c_array(ctype, values):
     return (ctype * len(values))(*values)
 
 
+@functools.lru_cache(maxsize=None)
+def _c_knots(knots: Tuple[float, ...]):
+    return _c_array(ctypes.c_float, knots)
+
+
+@functools.lru_cache(maxsize=None)
+def _module_args(B: int, dims: Tuple[int, ...], n_basis: int,
+                 backward: bool, reciprocal_basis: bool = True):
+    """The plan of a shape and its ctypes arrays (plan, widths), made once
+    per shape."""
+    plan = module_plan(B, dims, n_basis, backward)._replace(
+        reciprocal_basis=reciprocal_basis)
+    return plan, _c_array(ctypes.c_int, plan.ints()), \
+        _c_array(ctypes.c_int, dims)
+
+
 def _raise_on(rc: int, lib, what: str, x: torch.Tensor, dims) -> None:
     if rc != 0:
-        msg = lib.kan_error_string(rc).decode()
+        msg = lib.error_string(rc).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg}) "
                            f"at B={x.shape[0]} dims={list(dims)}")
 
@@ -215,7 +331,7 @@ def _launch_layer(x, spline_weights, weight, bias, knots, degree):
     global LAYER_LAUNCHES
     dims = _check_cuda_args(x, (spline_weights, weight, bias), knots, degree)
     lib = _library()
-    kn = _c_array(ctypes.c_float, [float(v) for v in knots])
+    kn = _c_knots(tuple(float(v) for v in knots))
     with torch.cuda.device(x.device):
         y = torch.empty((x.shape[0], dims[1]), dtype=torch.float32,
                         device=x.device)
@@ -236,7 +352,7 @@ def _launch_layer_bwd(x, g, spline_weights, weight, knots, degree):
     dims = _check_cuda_args(x, (spline_weights, weight, db), knots, degree)
     _check_grad(x, g, dims)
     lib = _library()
-    kn = _c_array(ctypes.c_float, [float(v) for v in knots])
+    kn = _c_knots(tuple(float(v) for v in knots))
     with torch.cuda.device(x.device):
         dx = torch.empty_like(x)
         ds = torch.empty_like(spline_weights)
@@ -261,45 +377,52 @@ def _check_grad(x: torch.Tensor, g: torch.Tensor, dims) -> None:
                          f"{g.device}")
 
 
-def _launch_module(x, params, knots, degree):
+def _launch_module(x, params, knots, degree, reciprocal_basis=True):
     global LAUNCHES
     dims = _check_cuda_args(x, params, knots, degree)
-    lib = _library()
-    kn = _c_array(ctypes.c_float, [float(v) for v in knots])
+    lib = _module_library()
+    kn = _c_knots(tuple(float(v) for v in knots))
+    _, cplan, cdims = _module_args(x.shape[0], tuple(dims),
+                                   len(knots) - degree - 1, False,
+                                   reciprocal_basis)
     ptrs = _c_array(ctypes.c_void_p, [p.data_ptr() for p in params])
     with torch.cuda.device(x.device):
         y = torch.empty((x.shape[0], dims[-1]), dtype=torch.float32,
                         device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.kan_module_fwd(x.data_ptr(), ptrs, y.data_ptr(), x.shape[0],
-                                _c_array(ctypes.c_int, dims), len(dims) - 1,
-                                kn, len(kn), stream)
+                                cdims, len(dims) - 1, kn, len(kn), cplan,
+                                stream)
     _raise_on(rc, lib, "kan_module_fwd", x, dims)
     LAUNCHES += 1
     return y
 
 
-def _launch_module_bwd(x, g, params, knots, degree):
+def _launch_module_bwd(x, g, params, knots, degree, reciprocal_basis=True):
     global BWD_LAUNCHES
     dims = _check_cuda_args(x, params, knots, degree)
     _check_grad(x, g, dims)
-    lib = _library()
-    kn = _c_array(ctypes.c_float, [float(v) for v in knots])
-    cdims = _c_array(ctypes.c_int, dims)
+    lib = _module_library()
+    kn = _c_knots(tuple(float(v) for v in knots))
+    plan, cplan, cdims = _module_args(x.shape[0], tuple(dims),
+                                      len(knots) - degree - 1, True,
+                                      reciprocal_basis)
     with torch.cuda.device(x.device):
         dx = torch.empty_like(x)
         grads = [torch.empty_like(p) for p in params]
-        scratch = torch.empty(
-            int(lib.kan_module_bwd_scratch(x.shape[0], cdims, len(dims) - 1)),
-            dtype=torch.float32, device=x.device)
+        # Each slot's fp32 weight-gradient sums, added in slot order by a
+        # second launch; none with one slot.
+        partials = torch.empty(
+            (plan.slots, sum(p.numel() for p in params)),
+            dtype=torch.float32, device=x.device) if plan.slots > 1 else None
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.kan_module_bwd(
             x.data_ptr(), g.data_ptr(),
             _c_array(ctypes.c_void_p, [p.data_ptr() for p in params]),
             dx.data_ptr(),
             _c_array(ctypes.c_void_p, [t.data_ptr() for t in grads]),
-            scratch.data_ptr(), x.shape[0], cdims, len(dims) - 1, kn,
-            len(kn), stream)
+            None if partials is None else partials.data_ptr(), x.shape[0],
+            cdims, len(dims) - 1, kn, len(kn), cplan, stream)
     _raise_on(rc, lib, "kan_module_bwd", x, dims)
     BWD_LAUNCHES += 1
     return dx, grads

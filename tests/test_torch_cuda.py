@@ -753,11 +753,11 @@ def test_train_step_through_the_residual_kernels(cuda, monkeypatch):
     assert float((gk - gp).norm()) <= 5e-2 * float(gp.norm())
 
 
-def _kan_params(rng, dims, device):
+def _kan_params(rng, dims, device, bases=7):
     """Flat (spline_weights, weight, bias) per layer, fp32 on ``device``."""
     out = []
     for a, b in zip(dims[:-1], dims[1:]):
-        out += [rng.normal(0, 0.1, (a, b, 7)), rng.normal(0, a ** -0.5,
+        out += [rng.normal(0, 0.1, (a, b, bases)), rng.normal(0, a ** -0.5,
                                                           (b, a)),
                 rng.normal(0, 0.1, (b,))]
     return [torch.tensor(t, dtype=torch.float32, device=device) for t in out]
@@ -778,34 +778,200 @@ def _kan_tol(ref):
     return 1e-4 * max(float(ref.abs().max()), 1e-6)
 
 
-KAN_DIMS = [(192, 64, 16, 1), (24, 8, 1), (32, 16, 4, 1)]
+# The flagship head and small ones, then widths that #10/#11's cluster of
+# 16 does not divide.
+KAN_DIMS = [(192, 64, 16, 1), (24, 8, 1), (32, 16, 4, 1), (200, 60, 13, 3)]
 
 
-@pytest.mark.parametrize("B", [1, 37, 64, 300])
-@pytest.mark.parametrize("dims", KAN_DIMS, ids=lambda d: "-".join(map(str, d)))
-def test_kan_module_kernels_match_plain(cuda, dims, B):
-    rng = np.random.RandomState(B + sum(dims))
-    params = _kan_params(rng, dims, cuda)
-    x = _kan_x(rng, B, dims[0], cuda)
-    g = torch.tensor(rng.normal(0, 1, (B, dims[-1])), dtype=torch.float32,
-                     device=cuda)
-    knots = make_knots()
+def _check_module_kernels(x, g, params, knots, widen=lambda t: t):
+    """#10/#11 on (x, g) against their plain versions on ``widen``'s
+    tensors, each output within 1e-4 of its largest magnitude; one launch
+    counted each; the same bits on a repeated call, and with the basis's
+    reciprocal divisions off (every division __fdiv_rn)."""
     fwd, bwd = kk.LAUNCHES, kk.BWD_LAUNCHES
     y = kk._launch_module(x, params, knots, 3)
     dx, grads = kk._launch_module_bwd(x, g, params, knots, 3)
     torch.cuda.synchronize()
     assert (kk.LAUNCHES, kk.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
-    want_y = kk.kan_module_reference(x, params, knots)
-    want_dx, want = kk.kan_module_backward_reference(x, g, params, knots)
+    wx, wg, wp = widen(x), widen(g), [widen(p) for p in params]
+    want_y = kk.kan_module_reference(wx, wp, knots)
+    want_dx, want = kk.kan_module_backward_reference(wx, wg, wp, knots)
     for name, got, ref in [("y", y, want_y), ("dx", dx, want_dx)] + [
             (f"grad{i}", a, b) for i, (a, b) in enumerate(zip(grads, want))]:
         assert got.shape == ref.shape and torch.isfinite(got).all(), name
-        err = float((got - ref).abs().max())
+        err = float((got.to(ref.dtype) - ref).abs().max())
         assert err <= _kan_tol(ref), (name, err)
     dx2, grads2 = kk._launch_module_bwd(x, g, params, knots, 3)
     assert torch.equal(dx2, dx)                       # no atomics: same bits
     for a, b in zip(grads2, grads):
         assert torch.equal(a, b)
+    assert torch.equal(kk._launch_module(x, params, knots, 3, False), y)
+    dx3, grads3 = kk._launch_module_bwd(x, g, params, knots, 3, False)
+    assert torch.equal(dx3, dx)
+    for a, b in zip(grads3, grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B", [1, 37, 64, 300, 1000])
+@pytest.mark.parametrize("dims", KAN_DIMS, ids=lambda d: "-".join(map(str, d)))
+def test_kan_module_kernels_match_plain(cuda, dims, B):
+    """#10/#11 against their plain versions; B = 300 and 1,000 span several
+    row groups of #11 (its second launch adds their weight gradients in
+    order)."""
+    rng = np.random.RandomState(B + sum(dims))
+    params = _kan_params(rng, dims, cuda)
+    x = _kan_x(rng, B, dims[0], cuda)
+    g = torch.tensor(rng.normal(0, 1, (B, dims[-1])), dtype=torch.float32,
+                     device=cuda)
+    _check_module_kernels(x, g, params, make_knots())
+
+
+def _repeated_knot():
+    knots = make_knots()
+    knots[5] = knots[4]
+    return knots
+
+
+# Knot vectors beside the flagship's: 3 bases (the K1P = 4 kernels, whose
+# recursion fixes nb = 3), 6 and 9 (nb known only at run time, through the
+# reciprocal divider's general form), and 7 bases with a repeated knot (the
+# general form with its zero-denominator guards).
+OTHER_KNOTS = {"3-bases": make_knots(1), "6-bases": make_knots(4),
+               "9-bases": make_knots(7), "repeated-knot": _repeated_knot()}
+
+
+@pytest.mark.parametrize("knots", list(OTHER_KNOTS))
+@pytest.mark.parametrize("B", [37, 300])
+def test_kan_module_kernels_at_other_basis_counts(cuda, B, knots):
+    """#10/#11 on each form of the basis recursion against the plain
+    version, and bit for bit with the reciprocal divider off."""
+    knots = OTHER_KNOTS[knots]
+    dims = KAN_DIMS[2]
+    rng = np.random.RandomState(B + len(knots))
+    params = _kan_params(rng, dims, cuda, bases=len(knots) - 4)
+    x = _kan_x(rng, B, dims[0], cuda)
+    g = torch.tensor(rng.normal(0, 1, (B, dims[-1])), dtype=torch.float32,
+                     device=cuda)
+    _check_module_kernels(x, g, params, knots)
+
+
+def _widest_head(B, device):
+    """The widest head the kernels take, seeded by ``B``: widths, knots
+    (10 bases), x, g and the flat parameters, spline weights scaled by
+    fan-in."""
+    dims = (1024, 256, 256, 256, 256)
+    rng = np.random.RandomState(B)
+    params = []
+    for a, b in zip(dims[:-1], dims[1:]):
+        params += [rng.normal(0, 0.1 * (64 / a) ** 0.5, (a, b, 10)),
+                   rng.normal(0, a ** -0.5, (b, a)), rng.normal(0, 0.1, (b,))]
+    params = [torch.tensor(t, dtype=torch.float32, device=device)
+              for t in params]
+    x = torch.tensor(rng.normal(0, 1.0, (B, dims[0])), dtype=torch.float32,
+                     device=device)
+    g = torch.tensor(rng.normal(0, 1, (B, dims[-1])), dtype=torch.float32,
+                     device=device)
+    return dims, make_knots(8), x, g, params
+
+
+@pytest.mark.parametrize("B", [1, 37, 64])
+def test_kan_module_kernels_at_the_widest_shape(cuda, B):
+    """The widest head the kernels take (4 layers, 1,024 inputs, 256
+    outputs, 10 bases) against its plain version run in fp64, at batches of
+    one row group of #11: at this width two fp32 orders of summation, the
+    kernels' and the fp32 plain version's, sat up to 1.6e-4 of the largest
+    output apart on the card. fp64 holds an fp32 evaluation only
+    where no layer's input reaches |h| = 8.66, past which the fp32 tanh is
+    exactly 1 and the basis is cut off; with spline weights scaled by fan-in
+    (N(0, 0.1^2 64 / in)) and x ~ N(0, 1) the inputs stay below that, which
+    the test checks. Larger batches are left to the other shapes: the
+    truncated recursion of ops/spline.py jumps at the knots k[nb] ..
+    k[nb + 2], and with 256 inputs a layer and hundreds of rows some input
+    lands within rounding of one, where any two evaluations can differ by
+    O(1) (found on the card at B = 300: one row whose every layer agreed
+    with the plain version on the same input, while the chained outputs
+    did not; a small shift of the input removed it)."""
+    dims, knots, x, g, params = _widest_head(B, cuda)
+    h = x.double()
+    for layer in range(len(dims) - 1):
+        assert float(h.abs().max()) < 8.5, (layer, float(h.abs().max()))
+        h = torch.relu(kk.kan_layer_reference(
+            h, *[p.double() for p in params[3 * layer:3 * layer + 3]],
+            knots))
+    _check_module_kernels(x, g, params, knots, lambda t: t.double())
+
+
+def test_kan_module_kernels_walk_row_groups_at_the_widest_shape(cuda):
+    """The widest head at B = 1,000: 125 row groups of 8 rows, which #11
+    runs in 16 waves of 8 clusters. Its weight-gradient sums take 8 fp32
+    copies of the gradients whatever the batch (not one a group); and the
+    batch's
+    results are, bit for bit, those of one launch a group (each held
+    against the plain version by the test above) composed in the kernels'
+    order: dx and y row by row, each slot's groups added in order, then
+    the slots in order."""
+    B = 1000
+    dims, knots, x, g, params = _widest_head(B, cuda)
+    plan = kk.module_plan(B, dims, 10, True)
+    assert (plan.groups, plan.slots) == (125, kk.BWD_SLOTS)
+    n = sum(p.numel() for p in params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    dx, grads = kk._launch_module_bwd(x, g, params, knots, 3)
+    torch.cuda.synchronize()
+    used = torch.cuda.max_memory_allocated(cuda) - base
+    # dx, the gradients and the slots' sums, and 1 MiB for the allocator.
+    assert used <= 4 * (dx.numel() + (1 + plan.slots) * n) + 2 ** 20, used
+    y = kk._launch_module(x, params, knots, 3)
+    fwd_rows = kk.module_plan(B, dims, 10, False).rows
+    for r in range(0, B, fwd_rows):
+        assert torch.equal(
+            kk._launch_module(x[r:r + fwd_rows], params, knots, 3),
+            y[r:r + fwd_rows])
+    slots = [None] * plan.slots
+    for gi in range(plan.groups):
+        rows = slice(gi * plan.rows, (gi + 1) * plan.rows)
+        one = kk.module_plan(plan.rows, dims, 10, True)
+        assert (one.rows, one.groups, one.slots) == (plan.rows, 1, 1)
+        dx_g, grads_g = kk._launch_module_bwd(
+            x[rows].contiguous(), g[rows].contiguous(), params, knots, 3)
+        assert torch.equal(dx_g, dx[rows])
+        s = gi % plan.slots
+        slots[s] = grads_g if slots[s] is None else [
+            a + b for a, b in zip(slots[s], grads_g)]
+    total = slots[0]
+    for more in slots[1:]:
+        total = [a + b for a, b in zip(total, more)]
+    for i, (a, b) in enumerate(zip(grads, total)):
+        assert torch.isfinite(a).all() and torch.equal(a, b), i
+
+
+@pytest.mark.parametrize("B", [1, 64, 65, 1000])
+def test_kan_module_backward_launches(cuda, B):
+    """#11 is one kernel launch while the batch fits one row group of the
+    plan (64 rows at the flagship's widths); past it, one a wave of at most
+    8 clusters, then the ordered add of their slots' weight gradients."""
+    from torch.profiler import ProfilerActivity, profile
+    dims = KAN_DIMS[0]
+    knots = make_knots()
+    rng = np.random.RandomState(B)
+    params = _kan_params(rng, dims, cuda)
+    x = _kan_x(rng, B, dims[0], cuda)
+    g = torch.ones(B, 1, device=cuda)
+    kk._launch_module_bwd(x, g, params, knots, 3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kk._launch_module_bwd(x, g, params, knots, 3)
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               for _ in range(e.count)]
+    groups = kk.module_plan(B, dims, 7, True).groups
+    assert groups == (1 if B <= 64 else -(-B // 64))
+    waves = -(-groups // kk.BWD_SLOTS)
+    assert len(kernels) == (1 if groups == 1 else waves + 1), kernels
+    assert any("kan_module_bwd_kernel" in k for k in kernels)
 
 
 @pytest.mark.parametrize("B", [1, 37, 64, 300])

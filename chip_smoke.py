@@ -13,8 +13,10 @@ exits non-zero:
    (CUDA events, warm-up, median) beside its bound, the plain version and
    one PyTorch library call computing the same function: the block forward
    (#1) and backward (#2) at (64, 197, 192), 3 heads, and the augment (#7)
-   at (64, 224, 224, 3), each in bf16 and fp32 (#1 and #2 also the same
-   bits on a repeated call; #1, #2 and ``TransformerEncoderLayer``'s forward
+   at (64, 224, 224, 3), each in bf16 and fp32 (#7 also at (32, 384, 384, 3)
+   in bf16, timed, and at (3, 33, 35, 3) in both, held; #1, #2 and #7 also
+   the same bits on a repeated call; #7 also by profiler device time per
+   launch name; #1, #2, #7 and ``TransformerEncoderLayer``'s forward
    also by CUDA-graph replay, the device time; #1's three stages and each of
    #2's stages by torch.profiler beside each stage's bound, #2 in either
    type failing if a first-design stage it replaced runs; #1 + #2 under
@@ -544,40 +546,76 @@ def augment_tol(compute) -> float:
     return 3 * 2.0 ** -8 / 0.224 if compute == torch.bfloat16 else 1e-5
 
 
-def check_augment(compute, seed: int):
-    """Kernel #7 against ``augment_reference`` at the training batch."""
+#: #7's timed shapes: the 224-px train step's batch in bf16 and fp32
+#: compute and the 384-px ("long") step's in bf16, fp32 out; and one odd
+#: shape (W * 3 % 16 != 0, so no bulk copies) held but not timed.
+AUGMENT_SHAPES = (((BATCH, 224, 224), torch.bfloat16),
+                  ((BATCH, 224, 224), torch.float32),
+                  ((32, 384, 384), torch.bfloat16))
+AUGMENT_ODD = (3, 33, 35)
+
+
+def check_augment(compute, seed: int, shape=(BATCH, 224, 224),
+                  timed: bool = True):
+    """Kernel #7 against ``augment_reference`` within ``augment_tol``, the
+    same bits on a repeated call, and timed three ways: by CUDA events
+    around back-to-back wrapper calls (``kernel_ms``, as #1-#6), by
+    CUDA-graph replay (``kernel_graph_ms``, the device time) and by
+    torch.profiler device time per launch name (``device_ms_by_kernel``).
+    Bytes: each input read once, each output written once."""
     from rovit_kan_tpu_torch.ops import augment_kernel as ak
+    B, H, W = shape
     rng = np.random.RandomState(seed)
-    imgs = torch.from_numpy(rng.randint(0, 256, (BATCH, 224, 224, 3))
+    imgs = torch.from_numpy(rng.randint(0, 256, (B, H, W, 3))
                             .astype(np.uint8)).cuda()
-    factors = ak.draw_factors(torch.Generator("cuda").manual_seed(seed),
-                              BATCH)
+    factors = ak.draw_factors(torch.Generator("cuda").manual_seed(seed), B)
     got = ak.fused_augment_batch(imgs, factors, compute)
+    again = ak.fused_augment_batch(imgs, factors, compute)
     want = ak.augment_reference(imgs, factors, compute)
     torch.cuda.synchronize()
+    what = f"augment kernel ({compute}, {tuple(shape)})"
     if not torch.isfinite(got).all():
-        raise RuntimeError(f"augment kernel ({compute}) non-finite values")
+        raise RuntimeError(f"{what} non-finite values")
+    if not torch.equal(got, again):
+        raise RuntimeError(f"{what}: a repeated call gave other bits")
     err = float((got - want).abs().max())
     tol = augment_tol(compute)
     if not err <= tol:
-        raise RuntimeError(f"augment kernel ({compute}) max |err| {err} > "
-                           f"tolerance {tol}")
-    ms = time_ms(lambda: ak.fused_augment_batch(imgs, factors, compute))
-    plain_ms = time_ms(lambda: ak.augment_reference(imgs, factors, compute),
-                       reps=9, inner=3)
+        raise RuntimeError(f"{what} max |err| {err} > tolerance {tol}")
+    out = {"compute_dtype": str(compute).replace("torch.", ""),
+           "out_dtype": "float32", "shape": [B, H, W, 3],
+           "max_abs_err": err, "tolerance": tol,
+           "identical_bits_on_repeat": True}
+    if not timed:
+        return out
+    fn = functools.partial(ak.fused_augment_batch, imgs, factors, compute)
+    ops = device_ops(fn)
     nbytes = imgs.numel() * (1 + got.element_size()) + factors.numel() * 4
     return {"replaces": "rovit_kan_tpu/ops/augment_kernel.py::"
-                        "_augment_kernel",
-            "compute_dtype": str(compute).replace("torch.", ""),
-            "out_dtype": "float32", "shape": list(imgs.shape),
+                        "_augment_kernel", **out,
             "launches_per_step": "1 (counted in 'train')",
-            "max_abs_err": err, "tolerance": tol, "kernel_ms": ms,
-            "plain_ms": plain_ms, "library_ms": None,
+            "kernel_ms": time_ms(fn), "kernel_graph_ms": graph_ms(fn),
+            "device_ms_by_kernel": {k[:90]: v for k, v in ops.items()},
+            "device_ms": sum(ops.values()),
+            "plain_ms": time_ms(lambda: ak.augment_reference(
+                imgs, factors, compute), reps=9, inner=3),
+            "library_ms": None,
             "library": "none: no single PyTorch call computes the flips, "
                        "jitter and normalization, and the card has no "
                        "torchvision",
             "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
             "bound_by": "bytes"}
+
+
+def augment_checks(seed: int = 4) -> dict:
+    """#7 at ``AUGMENT_SHAPES`` (timed) and ``AUGMENT_ODD`` in bf16 and
+    fp32 compute (held only)."""
+    timed = [check_augment(c, seed + i, shape)
+             for i, (shape, c) in enumerate(AUGMENT_SHAPES)]
+    odd = [check_augment(c, seed + 7 + i, AUGMENT_ODD, timed=False)
+           for i, c in enumerate((torch.bfloat16, torch.float32))]
+    return {"bf16": timed[0], "fp32": timed[1], "n384": timed[2],
+            "odd": odd}
 
 
 KAN_DIMS = (192, 64, 16, 1)
@@ -2604,11 +2642,12 @@ def main() -> int:
     fp32 = check_block(torch.float32, seed=1)
     bwd16 = check_block_bwd(torch.bfloat16, seed=2)
     bwd32 = check_block_bwd(torch.float32, seed=3)
-    aug16 = check_augment(torch.bfloat16, seed=4)
-    aug32 = check_augment(torch.float32, seed=5)
+    aug = augment_checks()
+    aug16, aug32 = aug["bf16"], aug["fp32"]
     kan = check_kan(seed=6)
     emit({"phase": "kernels", "vit_block_fwd": [bf16, fp32],
-          "vit_block_bwd": [bwd16, bwd32], "augment": [aug16, aug32], **kan,
+          "vit_block_bwd": [bwd16, bwd32],
+          "augment": [aug16, aug32, aug["n384"], *aug["odd"]], **kan,
           "card": smi})
 
     result = serve(smi)
@@ -2645,6 +2684,8 @@ def main() -> int:
     more3 = ("kernel_graph_ms", "library_graph_ms")
     more4 = ("kernel_graph_ms", "stages_device_ms", "stages_bound_ms",
              "library_device_ms", "library_bwd_device_ms")
+    # #7's graph-replay and per-launch profiler device times.
+    more7 = ("kernel_graph_ms", "device_ms_by_kernel")
 
     csrc = "rovit_kan_tpu_torch/csrc/"
 
@@ -2750,7 +2791,9 @@ def main() -> int:
               n577=n577(1, more2)),
         entry("augment", csrc + "augment.cu",
               "rovit_kan_tpu/ops/augment_kernel.py:73",
-              trained["launches"]["augment"], aug16, aug32)] + [
+              trained["launches"]["augment"], aug16, aug32, more7,
+              n384={k: aug["n384"][k] for k in keys + more7},
+              odd=aug["odd"])] + [
         kan_entry(name, line, kan[name], kanned)
         for name, line in (("kan_layer_fwd", 48), ("kan_layer_bwd", 129),
                            ("kan_module_fwd", 252),

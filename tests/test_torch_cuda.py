@@ -612,20 +612,33 @@ def _augment_tol(compute_dtype):
 
 @pytest.mark.parametrize("compute", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
-@pytest.mark.parametrize("shape", [(3, 32, 32), (2, 224, 224)],
+@pytest.mark.parametrize("shape", [(3, 32, 32), (2, 224, 224),
+                                   (64, 224, 224), (32, 384, 384),
+                                   (3, 33, 35), (2, 7, 5)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_augment_kernel_matches_plain(cuda, shape, compute):
+    """#7 against its plain version at the main path's shapes, a shape with
+    no bulk copies (W * 3 % 16 != 0) and one with fewer rows than the
+    cluster has CTAs; the same bits on a repeated call; one kernel, of the
+    cluster design, a call; and no memory allocated but the output."""
+    from torch.profiler import ProfilerActivity, profile
     B, H, W = shape
     rng = np.random.RandomState(B * H)
     imgs = torch.tensor(rng.randint(0, 256, (B, H, W, 3)), dtype=torch.uint8,
                         device=cuda)
     factors = ak.draw_factors(torch.Generator(cuda).manual_seed(B), B)
-    factors[:, :2] = torch.tensor([[1.0, 0.0], [0.0, 1.0], [1.0, 1.0]][:B],
-                                  device=cuda)        # every flip case
+    coins = torch.tensor([[1.0, 0.0], [0.0, 1.0], [1.0, 1.0], [0.0, 0.0]],
+                         device=cuda)
+    factors[:, :2] = coins.repeat(-(-B // 4), 1)[:B]    # every flip case
     for out_dtype in (torch.float32, torch.bfloat16):
         before = ak.LAUNCHES
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        base = torch.cuda.memory_allocated(cuda)
         got = ak.fused_augment_batch(imgs, factors, compute, out_dtype)
         torch.cuda.synchronize()
+        used = torch.cuda.max_memory_allocated(cuda) - base
+        assert used <= -(-got.numel() * got.element_size() // 512) * 512, used
         assert ak.LAUNCHES == before + 1
         want = ak.augment_reference(imgs, factors, compute, out_dtype)
         assert got.dtype == out_dtype and got.shape == (B, H, W, 3)
@@ -634,6 +647,15 @@ def test_augment_kernel_matches_plain(cuda, shape, compute):
             tol += 2.0 ** -6                # one ulp of the bf16 store at |v| < 4
         err = float((got.float() - want.float()).abs().max())
         assert err <= tol, err
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = ak.fused_augment_batch(imgs, factors, compute, out_dtype)
+            torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        kernels = [e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   for _ in range(e.count)]
+        assert len(kernels) == 1 and "augment_cluster_kernel" in kernels[0], \
+            kernels
 
 
 def test_served_model_through_the_kernel(cuda):

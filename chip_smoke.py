@@ -7,7 +7,10 @@ exits non-zero:
 
 1. device: the card's name and power limit;
 2. build: every ``rovit_kan_tpu_torch/csrc/*.cu`` compiled from a clean
-   build directory, one ``nvcc`` per source, all started together;
+   build directory, one ``nvcc`` per source, all started together; the
+   fp32 block stages' and the KAN kernels' instances on the main path
+   must not spill (``ptxas``; #11's may keep the 4 bytes it spilled
+   before, ``KAN_SPILL_BYTES``);
 3. kernels: each ported kernel against its plain PyTorch version on the
    card at the main path's shapes, with the stated tolerance, and timed
    (CUDA events, warm-up, median) beside its bound, the plain version and
@@ -24,13 +27,19 @@ exits non-zero:
    layer's backward alone (forward + backward less forward), also by
    profiler device time); the KAN head's forward
    (#10) and backward (#11) at (64, [192, 64, 16, 1]) and one KAN layer's
-   (#8, #9) at (64, 192 -> 64), fp32, each output within 1e-4 of its
-   largest magnitude and the same bits on a repeated call (#10/#11 also
-   with the basis's reciprocal divisions off; #11 one launch a call),
-   their ``ms`` and their plain versions' ``plain_ms`` the device time per
-   call from torch.profiler, the kernels' ``kernel_graph_ms`` by CUDA-graph
-   replay (CUDA events around back-to-back calls time the host work
-   there, kept as ``call_ms`` and ``plain_call_ms``);
+   (#8, #9: ``kan_module.cu``'s kernels without the head) at
+   (64, 192 -> 64), fp32, each output within 1e-4 of its largest
+   magnitude, the same bits on a repeated call and with the basis's
+   reciprocal divisions off, the kernels of a call (#10, #11 and #8 one
+   launch; #9 four clusters of 16 rows, then the slots' ordered add as a
+   second launch), their ``ms`` and
+   their plain versions' ``plain_ms`` the device time per call from
+   torch.profiler, the kernels' ``kernel_graph_ms`` by CUDA-graph replay
+   (CUDA events around back-to-back calls time the host work there, kept
+   as ``call_ms`` and ``plain_call_ms``), #9 also at 16, 32 and 64 rows a
+   group by graph replay; then, on a line of its own
+   ("kan_layer_widths"), #8/#9 checked and timed the same way at the
+   trajectory's other layers, 64 -> 16 and 16 -> 1;
 4. serve: the full-width DeiT-Tiny RoViT-KAN (seeded random weights) built
    with ``build_model`` and served through ``InferenceEngine`` and
    ``MicroBatcher``; the launch counters are set to 0 just before and read
@@ -253,6 +262,13 @@ REPLACED_FWD_STAGES = ("namespace)::ln_qkv_kernel<",
 # width 64), which must not spill (the build line's ``ptxas`` table).
 MAIN_PATH_TF32 = ("ln_qkv_tf32_kernel<192,", "proj_mlp_tf32_kernel<192,",
                   "attn_fwd_tf32_kernel<64,true>")
+# The kan_module.cu instances of the flagship head and its trajectory (7
+# bases: 8 feature slots; with the head and without it). None may spill
+# more than listed here: #11's keeps the 4 bytes it spilled before #8/#9
+# moved into its source (each variant that removed them ran #11 slower on
+# an H100; PERF.md §6).
+MAIN_PATH_KAN = ("kan_module_fwd_kernel<8,", "kan_module_bwd_kernel<8,")
+KAN_SPILL_BYTES = {"kan_module_bwd_kernel<8,true>": 4}
 
 
 def no_replaced_fwd(ops: dict, what: str) -> None:
@@ -820,117 +836,188 @@ def ptxas_table(log: str) -> list:
     return out
 
 
-def check_kan(seed: int):
-    """Kernels #10/#11 at (64, [192, 64, 16, 1]) and #8/#9 at (64, 192->64)
-    against their plain versions, identical bits on a repeated call (and,
-    for #10/#11, with the basis's reciprocal divisions turned off), and
-    timed: by torch.profiler device time and by CUDA-graph replay, since a
-    wrapper call's host time exceeds these kernels' device time, beside the
-    launch floor (a one-element fill replayed the same way). #11 makes one
-    launch at this batch. Bytes: each input read once, each output written
-    once."""
+def kan_calls(dims, seed: int):
+    """The smoke's seeded inputs at ``dims`` and the calls of the kernels and
+    their plain versions on them: #10/#11 for the head, #8/#9 for one
+    layer (``len(dims) == 2``). Each call returns a list of outputs; the
+    kernels' take ``recip``, the basis's reciprocal divisions on or off."""
     from rovit_kan_tpu_torch.ops import kan_kernel as kk
     from rovit_kan_tpu_torch.ops.spline import make_knots
     knots = make_knots()
+    x, params, g = kan_inputs(seed, dims)
+    if len(dims) > 2:
+        def fwd(recip=True):
+            return [kk._launch_module(x, params, knots, 3, recip)]
+
+        def bwd(recip=True):
+            return flat_bwd(kk._launch_module_bwd(x, g, params, knots, 3,
+                                                  recip))
+
+        def plain_fwd():
+            return [kk.kan_module_reference(x, params, knots)]
+
+        def plain_bwd():
+            return flat_bwd(kk.kan_module_backward_reference(x, g, params,
+                                                             knots))
+    else:
+        def fwd(recip=True):
+            return [kk._launch_layer(x, *params, knots, 3, recip)]
+
+        def bwd(recip=True):
+            return list(kk._launch_layer_bwd(x, g, *params[:2], knots, 3,
+                                             recip))
+
+        def plain_fwd():
+            return [kk.kan_layer_reference(x, *params, knots)]
+
+        def plain_bwd():
+            return list(kk.kan_layer_backward_reference(
+                x, g, *params[:2], knots))
+    return (x, params, g), (fwd, bwd, plain_fwd, plain_bwd)
+
+
+def kan_module_outputs(seed: int = 6) -> list:
+    """#10's output and #11's gradients at the smoke's inputs, for holding
+    two checkouts' kernels against each other bit for bit (this file copied
+    into the other checkout and called there)."""
+    _, (fwd, bwd, _, _) = kan_calls(KAN_DIMS, seed)
+    with torch.no_grad():
+        out = [t.cpu() for t in fwd() + bwd()]
+    torch.cuda.synchronize()
+    return out
+
+
+def kernels_per_call(fn, want: dict) -> dict:
+    """The device operations of one call of ``fn`` (whole profiles): raises
+    unless they are ``want``'s kernels (name: launches), each named op
+    holding one of its names."""
+    with torch.no_grad():
+        ops = profile_device(fn, calls=10)
+    per_call = {k[:80]: n / 10 for k, (n, _) in ops.items()}
+    got = {name: sum(n for k, n in per_call.items() if name in k)
+           for name in want}
+    if got != want or sum(per_call.values()) != sum(want.values()):
+        raise RuntimeError(f"launches per call {per_call}, want {want}")
+    return per_call
+
+
+def kan_bwd_kernels(dims, batch: int = BATCH) -> dict:
+    """The kernels of one #11 call (#9 for one layer) under its plan: a
+    launch a wave of at most ``slots`` clusters, then, past one row group,
+    the slots' ordered add."""
+    from rovit_kan_tpu_torch.ops import kan_kernel as kk
+    plan = kk.module_plan(batch, tuple(dims), KAN_BASES, True, len(dims) > 2)
+    want = {"kan_module_bwd_kernel": -(-plan.groups // plan.slots)}
+    if plan.groups > 1:
+        want["kan_grad_reduce_kernel"] = 1
+    return want
+
+
+def check_kan_case(dims, names, seed: int, floor: float) -> dict:
+    """#10/#11 (the head) or #8/#9 (one layer) at (64, ``dims``): each
+    output against its plain version, the same bits on a repeated call and
+    with the basis's reciprocal divisions off, the kernels of a call
+    (``kan_bwd_kernels``), and timed by torch.profiler device time (every
+    device operation of a call: its kernels) and by CUDA-graph replay
+    beside the launch floor ``floor``. Bytes: each input read once, each
+    output written once."""
+    (x, params, g), (fwd, bwd, plain_fwd, plain_bwd) = kan_calls(dims, seed)
+    module = len(dims) > 2
+    fwd_name, bwd_name = names
+    grad_names = ["dx"] + [f"d{k}{layer}" for layer in range(len(dims) - 1)
+                           for k in ("spline", "weight", "bias")]
+    with torch.no_grad():
+        got_f, got_b = fwd(), bwd()
+        want_f, want_b = plain_fwd(), plain_bwd()
+        torch.cuda.synchronize()
+        errs_f = hold_kan(fwd_name, [("y", got_f[0], want_f[0])])
+        errs_b = hold_kan(bwd_name, list(zip(grad_names, got_b, want_b)))
+        if not (same_bits(fwd(), got_f) and same_bits(bwd(), got_b)):
+            raise RuntimeError(f"{fwd_name}/{bwd_name}: a repeated call "
+                               f"gave other bits")
+        if not (same_bits(fwd(False), got_f)
+                and same_bits(bwd(False), got_b)):
+            raise RuntimeError(f"{fwd_name}/{bwd_name}: the reciprocal "
+                               f"basis gave other bits than __fdiv_rn")
+        call_f, call_b = time_ms(fwd), time_ms(bwd)
+        ms_f, ms_b = device_ms(fwd), device_ms(bwd)
+        graph_f, graph_b = graph_ms(fwd), graph_ms(bwd)
+        # The plain versions on the kernels' clock: the device time of
+        # all their operations; CUDA events keep their call time.
+        plain_f = device_ms(plain_fwd, calls=10)
+        plain_b = device_ms(plain_bwd, calls=10)
+        plain_call_f = time_ms(plain_fwd, reps=9, inner=3)
+        plain_call_b = time_ms(plain_bwd, reps=9, inner=3)
+    per_call_f = kernels_per_call(fwd, {"kan_module_fwd_kernel": 1})
+    per_call_b = kernels_per_call(bwd, kan_bwd_kernels(dims))
+    flops_f, flops_b = kan_flops(dims, module)
+    wbytes = 4 * sum(p.numel() for p in params)
+    # y has the shape of g.
+    xbytes, gbytes = 4 * x.numel(), 4 * g.numel()
+    shape = [BATCH, list(dims)]
+    out = {fwd_name: kan_result(
+        "_kan_module_kernel" if module else "_kan_kernel", shape, errs_f,
+        ms_f, plain_f, flops_f, xbytes + wbytes + gbytes,
+        "1 per served batch and per train step (counted in 'kan')"
+        if module else "1 per layer of a trajectory (counted in 'kan')"),
+        bwd_name: kan_result(
+        "_kan_module_bwd_kernel" if module else "_kan_layer_bwd_kernel",
+        shape, errs_b, ms_b, plain_b, flops_b,
+        2 * xbytes + gbytes + 2 * wbytes,
+        "1 per train step, one launch (counted in 'kan')" if module
+        else "1 per layer of a trajectory's gradient, a cluster launch and "
+             "the slots' ordered add (counted in 'kan')")}
+    for name, call, plain_call, graph, per_call in (
+            (fwd_name, call_f, plain_call_f, graph_f, per_call_f),
+            (bwd_name, call_b, plain_call_b, graph_b, per_call_b)):
+        out[name].update(call_ms=call, plain_call_ms=plain_call,
+                         kernel_graph_ms=graph, launch_floor_ms=floor,
+                         launches_per_call=per_call,
+                         reciprocal_basis_same_bits=True)
+    return out
+
+
+def kan_layer_bwd_rows(seed: int) -> dict:
+    """#9 at (64, 192 -> 64) with 16, 32 and 64 rows a group
+    (``LAYER_BWD_ROWS``: 4, 2 and 1 clusters; past one, the slots' ordered
+    add as a second launch), each held against its plain version and timed
+    by CUDA-graph replay, ms."""
+    from rovit_kan_tpu_torch.ops import kan_kernel as kk
+    _, (_, bwd, _, plain_bwd) = kan_calls(KAN_DIMS[:2], seed)
+    rows, out = kk.LAYER_BWD_ROWS, {}
+    try:
+        for r in (16, 32, 64):
+            kk.LAYER_BWD_ROWS = r
+            kk.module_plan.cache_clear()
+            kk._module_args.cache_clear()
+            with torch.no_grad():
+                hold_kan(f"kan_layer_bwd at {r} rows", list(zip(
+                    ("dx", "dspline", "dweight", "dbias"), bwd(),
+                    plain_bwd())))
+                out[str(r)] = graph_ms(bwd)
+    finally:
+        kk.LAYER_BWD_ROWS = rows
+        kk.module_plan.cache_clear()
+        kk._module_args.cache_clear()
+    return out
+
+
+def check_kan(seed: int):
+    """#10/#11 at (64, [192, 64, 16, 1]) and #8/#9 at (64, 192 -> 64)
+    (``check_kan_case``), #9's rows a group (``kan_layer_bwd_rows``), and
+    the trajectory's other layers, 64 -> 16 and 16 -> 1, under
+    "kan_layer_widths"."""
     tiny = torch.zeros(1, device="cuda")
     floor = graph_ms(lambda: tiny.fill_(1.0))
-    out = {}
-    for dims, fwd_name, bwd_name in ((KAN_DIMS, "kan_module_fwd",
-                                      "kan_module_bwd"),
-                                     (KAN_DIMS[:2], "kan_layer_fwd",
-                                      "kan_layer_bwd")):
-        x, params, g = kan_inputs(seed, dims)
-        module = len(dims) > 2
-        if module:
-            def fwd():
-                return [kk._launch_module(x, params, knots, 3)]
-
-            def bwd():
-                return flat_bwd(kk._launch_module_bwd(x, g, params, knots,
-                                                      3))
-
-            def plain_fwd():
-                return [kk.kan_module_reference(x, params, knots)]
-
-            def plain_bwd():
-                dx, grads = kk.kan_module_backward_reference(x, g, params,
-                                                             knots)
-                return [dx, *grads]
-        else:
-            def fwd():
-                return [kk._launch_layer(x, *params, knots, 3)]
-
-            def bwd():
-                return list(kk._launch_layer_bwd(x, g, *params[:2], knots,
-                                                 3))
-
-            def plain_fwd():
-                return [kk.kan_layer_reference(x, *params, knots)]
-
-            def plain_bwd():
-                return list(kk.kan_layer_backward_reference(
-                    x, g, *params[:2], knots))
-        names = ["dx"] + [f"d{k}{layer}" for layer in range(len(dims) - 1)
-                          for k in ("spline", "weight", "bias")]
-        with torch.no_grad():
-            got_f, got_b = fwd(), bwd()
-            want_f, want_b = plain_fwd(), plain_bwd()
-            torch.cuda.synchronize()
-            errs_f = hold_kan(fwd_name, [("y", got_f[0], want_f[0])])
-            errs_b = hold_kan(bwd_name, list(zip(names, got_b, want_b)))
-            if not (same_bits(fwd(), got_f) and same_bits(bwd(), got_b)):
-                raise RuntimeError(f"{fwd_name}/{bwd_name}: a repeated call "
-                                   f"gave other bits")
-            if module and not (
-                    same_bits([kk._launch_module(x, params, knots, 3,
-                                                 False)], got_f)
-                    and same_bits(flat_bwd(kk._launch_module_bwd(
-                        x, g, params, knots, 3, False)), got_b)):
-                raise RuntimeError("kan_module_fwd/bwd: the reciprocal "
-                                   "basis gave other bits than __fdiv_rn")
-            call_f, call_b = time_ms(fwd), time_ms(bwd)
-            tag = "module" if module else "layer"
-            ms_f = device_ms(fwd, [f"kan_{tag}_fwd_kernel"])
-            ms_b = device_ms(bwd, [f"kan_{tag}_bwd_kernel"])
-            graph_f, graph_b = graph_ms(fwd), graph_ms(bwd)
-            # The plain versions on the kernels' clock: the device time of
-            # all their operations; CUDA events keep their call time.
-            plain_f = device_ms(plain_fwd, calls=10)
-            plain_b = device_ms(plain_bwd, calls=10)
-            plain_call_f = time_ms(plain_fwd, reps=9, inner=3)
-            plain_call_b = time_ms(plain_bwd, reps=9, inner=3)
-        flops_f, flops_b = kan_flops(dims, module)
-        wbytes = 4 * sum(p.numel() for p in params)
-        # y has the shape of g.
-        xbytes, gbytes = 4 * x.numel(), 4 * g.numel()
-        shape = [BATCH, list(dims)]
-        out[fwd_name] = kan_result(
-            "_kan_module_kernel" if module else "_kan_kernel", shape, errs_f,
-            ms_f, plain_f, flops_f, xbytes + wbytes + gbytes,
-            "1 per served batch and per train step (counted in 'kan')"
-            if module else "1 per layer of a trajectory (counted in 'kan')")
-        out[bwd_name] = kan_result(
-            "_kan_module_bwd_kernel" if module else "_kan_layer_bwd_kernel",
-            shape, errs_b, ms_b, plain_b, flops_b,
-            2 * xbytes + gbytes + 2 * wbytes,
-            "1 per train step, one launch (counted in 'kan')" if module
-            else "1 per layer of a trajectory's gradient (counted in 'kan')")
-        out[fwd_name].update(call_ms=call_f, plain_call_ms=plain_call_f,
-                             kernel_graph_ms=graph_f, launch_floor_ms=floor)
-        out[bwd_name].update(call_ms=call_b, plain_call_ms=plain_call_b,
-                             kernel_graph_ms=graph_b, launch_floor_ms=floor)
-        if module:
-            # The device operations of one #11 call: its one kernel.
-            with torch.no_grad():
-                ops = profile_device(bwd, calls=10)
-            per_call = {k[:80]: n / 10 for k, (n, _) in ops.items()}
-            if list(per_call.values()) != [1] \
-                    or "kan_module_bwd_kernel" not in next(iter(per_call)):
-                raise RuntimeError(f"kan_module_bwd launches per call "
-                                   f"{per_call}, want one kernel")
-            out[bwd_name]["launches_per_call"] = per_call
-            out[fwd_name]["reciprocal_basis_same_bits"] = True
-            out[bwd_name]["reciprocal_basis_same_bits"] = True
+    out = {**check_kan_case(KAN_DIMS, ("kan_module_fwd", "kan_module_bwd"),
+                            seed, floor),
+           **check_kan_case(KAN_DIMS[:2], ("kan_layer_fwd", "kan_layer_bwd"),
+                            seed, floor)}
+    out["kan_layer_bwd"]["rows_graph_ms"] = kan_layer_bwd_rows(seed)
+    out["kan_layer_widths"] = {
+        f"{a}->{b}": check_kan_case((a, b), ("kan_layer_fwd",
+                                             "kan_layer_bwd"), seed, floor)
+        for a, b in zip(KAN_DIMS[1:-1], KAN_DIMS[2:])}
     return out
 
 
@@ -2635,8 +2722,15 @@ def main() -> int:
     spilled = [row for src in ("vit_block_fwd", "vit_block_bwd_f32")
                for row in ptxas[src]
                if row[0].startswith(MAIN_PATH_TF32) and row[2]]
+    kan_rows = [row for row in ptxas["kan_module"]
+                if row[0].startswith(MAIN_PATH_KAN)]
+    if len(kan_rows) != 4:
+        raise RuntimeError(f"want 4 main-path KAN instances, ptxas lists "
+                           f"{kan_rows}")
+    spilled += [row for row in kan_rows
+                if row[2] > KAN_SPILL_BYTES.get(row[0], 0)]
     if spilled:
-        raise RuntimeError(f"main-path fp32 block instances spill: {spilled}")
+        raise RuntimeError(f"main-path instances spill: {spilled}")
 
     bf16 = check_block(torch.bfloat16, seed=0)
     fp32 = check_block(torch.float32, seed=1)
@@ -2645,10 +2739,12 @@ def main() -> int:
     aug = augment_checks()
     aug16, aug32 = aug["bf16"], aug["fp32"]
     kan = check_kan(seed=6)
+    kan_widths = kan.pop("kan_layer_widths")
     emit({"phase": "kernels", "vit_block_fwd": [bf16, fp32],
           "vit_block_bwd": [bwd16, bwd32],
           "augment": [aug16, aug32, aug["n384"], *aug["odd"]], **kan,
           "card": smi})
+    emit({"phase": "kan_layer_widths", "layers": kan_widths, "card": smi})
 
     result = serve(smi)
     emit(result)
@@ -2693,8 +2789,8 @@ def main() -> int:
         by_path = {"serve": phase["serve_launches"][name],
                    "trajectory": phase["trajectory_launches"][name],
                    "train": phase["train_launches"][name]}
-        source = "kan_module.cu" if "module" in name else "kan.cu"
-        return {"name": name, "route": "cuda", "source": csrc + source,
+        return {"name": name, "route": "cuda",
+                "source": csrc + "kan_module.cu",
                 "replaces": f"rovit_kan_tpu/ops/kan_kernel.py:{line}",
                 "launches": sum(by_path.values()),
                 "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],

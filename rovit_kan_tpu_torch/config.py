@@ -155,7 +155,8 @@ class TPUConfig:
     # card. The fused block takes precedence where both are on.
     use_pallas_attention: "bool | str" = "auto"
     # Fused KAN kernels (JAX: ops/kan_kernel.py; in the port, the
-    # hand-written CUDA kernels of csrc/kan.cu). Off by default, as in JAX.
+    # hand-written CUDA kernels of csrc/kan_module.cu). Off by default, as
+    # in JAX.
     use_pallas_kan: bool = False
     # Whole-transformer-block fused kernel (ops/block_kernel.py; in the
     # port, the hand-written CUDA block kernel). "auto" applies the policy

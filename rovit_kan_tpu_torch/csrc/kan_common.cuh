@@ -1,6 +1,6 @@
-// What the KAN kernels share: the limits of the shapes they take, the cubic
-// B-spline basis and its derivative, and 3 * sigmoid's sigmoid. kan.cu (one
-// layer, #8/#9) and kan_module.cu (the whole head, #10/#11) both include it.
+// The KAN kernels' limits of the shapes they take, the cubic B-spline basis
+// and its derivative, and 3 * sigmoid's sigmoid. Its one includer is
+// kan_module.cu (the whole head, #10/#11, and one layer, #8/#9).
 //
 // The basis is the recursion of ops/spline.py step by step: the half-open
 // degree-0 intervals after a clamp of t to the knot range, zero-denominator
@@ -8,10 +8,9 @@
 // of them into an FMA the plain version does not do. The interval test
 // compares t with the knots themselves (never index arithmetic), so t = 1
 // (tanh of |x| >= 10) gives all-zero bases as the plain version does.
-// The divisions go through a Div: IeeeDiv is __fdiv_rn; kan_module.cu passes
-// one that gives the same bits from a reciprocal table where that is proven
-// (its note says when). Everything sits in an anonymous namespace, so each
-// source that includes this header gets its own copy.
+// The divisions go through a Div: IeeeDiv is __fdiv_rn; kan_module.cu also
+// passes one that gives the same bits from a reciprocal table where that is
+// proven (its note says when). Everything sits in an anonymous namespace.
 
 #pragma once
 

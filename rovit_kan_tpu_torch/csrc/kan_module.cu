@@ -1,21 +1,28 @@
-// The whole KAN head on Hopper (sm_90a), fp32 throughout: forward (#10) and
-// recompute backward (#11), each on thread-block clusters.
+// The KAN head on Hopper (sm_90a), fp32 throughout: the whole head's
+// forward (#10) and recompute backward (#11), and one KAN layer's forward
+// (#8) and backward (#9), all on thread-block clusters.
 //
-// Replaces rovit_kan_tpu/ops/kan_kernel.py::_kan_module_kernel (#10) and
-// _kan_module_bwd_kernel (#11). Layer l computes
+// Replaces rovit_kan_tpu/ops/kan_kernel.py::_kan_module_kernel (#10),
+// _kan_module_bwd_kernel (#11), _kan_kernel (#8) and _kan_layer_bwd_kernel
+// (#9). Layer l computes
 //   a[b][o] = bias[o] + sum_i (h[b][i] W[o][i]
 //                              + sum_k basis_k(tanh h[b][i]) S[i][o][k])
-// with the basis of kan_common.cuh, ReLU between layers and 3 * sigmoid at
-// the end; #11 walks back through 3 sigmoid', each layer and relu' (0 at 0)
-// to dx and every layer's dS, dW and db. Layouts are the port's: S (in, out,
-// K), W (out, in) as nn.Linear keeps it, bias (out).
+// with the basis of kan_common.cuh, ReLU between layers and, with the head
+// (#10/#11), 3 * sigmoid at the end; #11 walks back through 3 sigmoid',
+// each layer and relu' (0 at 0) to dx and every layer's dS, dW and db.
+// Without the head (the plan's switch, one layer only) the same kernels
+// are #8 and #9: the forward writes a itself, and the backward's top
+// gradient is g, so it recomputes no forward: the bases and their
+// derivatives, dx and the weight gradients, the TPU #9's work. Layouts are
+// the port's: S (in, out, K), W (out, in) as nn.Linear keeps it, bias (out).
 //
 // The TPU kernels run their products at Precision.HIGHEST; Hopper's tensor
 // cores have no IEEE fp32 mode, so every product is an fp32 FMA.
 //
 // What bounds it on an H100 SXM: the flagship head [192, 64, 16, 1] with 7
 // bases at B = 64 is 1.37e7 FLOP forward (0.20 us at 67 TFLOP/s) and
-// 4.1e7 backward (0.61 us), on ~0.43 MB of weights: far below a launch.
+// 4.1e7 backward (0.61 us), on ~0.43 MB of weights; its layer 192 -> 64 is
+// 1.26e7 forward and twice that backward: all far below a launch.
 // What a launch does take is latency: the basis recursion's IEEE divisions
 // (a chain of microseconds per (row, input)), the weights' trip from L2,
 // and the barriers between layers. The design spreads those over many SMs
@@ -34,9 +41,9 @@
 //   order through distributed shared memory, plus the bias, so a repeated
 //   call gives the same bits; the ReLU and the next layer's bases follow in
 //   the same thread. The owner of the last outputs applies 3 * sigmoid
-//   (#10) or forms the top gradient (#11). (Storing the partials into the
-//   owners before the barrier, in place of these loads after it, ran
-//   slower on the card.)
+//   (#10), forms the top gradient (#11), or writes a (#8). (Storing the
+//   partials into the owners before the barrier, in place of these loads
+//   after it, ran slower on the card.)
 // - Backward (#11), per layer from the last: every rank gathers the
 //   layer's output gradient (R x out) from the owners' slices and keeps
 //   it, then forms dh for its inputs (q = g M through the staged weights,
@@ -45,16 +52,17 @@
 //   After the chain, one pass forms every layer's dS and dW for the rank's
 //   inputs (summed over the group's rows in order) and db for its outputs,
 //   the small layers' tiles beside layer 0's. Nothing goes through global
-//   scratch.
+//   scratch. #9 reads its group's rows of g straight into that kept
+//   gradient and needs no cluster barrier: no rank reads another's memory.
 // - Weights stream through two shared buffers in the order the layers use
-//   them (forward 0..L-1, then backward L-1..0): the next chunk's copy runs
-//   under the current chunk's work and the barriers between. On the
-//   flagship every rank's slice of a layer is one chunk.
-// - #10 runs a cluster per row group. #11 runs waves of at most slots
-//   clusters (8, ops/kan_kernel.py::BWD_SLOTS), in order on the stream:
-//   cluster s of a wave keeps its group's weight gradients in fp32 slot s,
-//   the first wave storing, each later one adding to what the same thread
-//   stored there, so slot s sums groups s, s + slots, ... in order. With
+//   them (forward 0..L-1, then backward L-1..0; #9 only its backward): the
+//   next chunk's copy runs under the current chunk's work and the barriers
+//   between. On the flagship every rank's slice of a layer is one chunk.
+// - #10 and #8 run a cluster per row group. #11 and #9 run waves of at
+//   most slots clusters (8, ops/kan_kernel.py::BWD_SLOTS), in order on the
+//   stream: cluster s of a wave keeps its group's weight gradients in fp32
+//   slot s, the first wave storing, each later one adding to what the same
+//   thread stored there, so slot s sums groups s, s + slots, ... in order. With
 //   one group (B <= R) the slot is the gradients themselves: one launch.
 //   With more, kan_grad_reduce_kernel adds the slots in order. The slots'
 //   memory does not grow with the batch. No atomics anywhere.
@@ -79,8 +87,13 @@
 //   hold the kernels' outputs with and without the table bit for bit, in
 //   each form.
 // The host's plan (ops/kan_kernel.py::module_plan) gives R, C, the groups,
-// the slots, the chunks and the bounds; the entry points check it against the shapes and
-// recompute its shared-memory size.
+// the slots, the chunks, the bounds and the head switch, which picks the
+// kernels' kHead instance, so that the switch compiles away (read at run
+// time in one instance it cost #11 2% on an H100, its registers
+// unchanged); the entry points check the plan against the shapes and
+// recompute its shared-memory size. ptxas spills 4 bytes in #11's instance
+// at 8 feature slots: each variant that removed them ran #11 slower on an
+// H100.
 //
 // Interface: plain C, loaded with ctypes; each function returns the first
 // CUDA error of its launches (0 = success), cudaErrorInvalidValue for a
@@ -131,6 +144,7 @@ struct Plan {
   // two partial buffers, two gradient slices.
   int feat[kMaxLayers], der[kMaxLayers], ga[kMaxLayers];
   int slab[2], part[2], slice[2];
+  int head;                             // 1: 3 * sigmoid at the end (#10/#11)
 };
 
 // Where layer l's dS, dW and db go: ptr[3 l + {0, 1, 2}] + slot * stride.
@@ -151,13 +165,24 @@ __device__ __forceinline__ int chunks_of(const Plan& P, int l, int rank) {
   return (n_of(P, l, rank) + P.ic[l] - 1) / P.ic[l];
 }
 
-// Job j of the weight stream: (layer, chunk). Forward layers 0..L-1, then,
-// with kBwd, backward layers L-1..0. False past the last job.
-template <bool kBwd>
+// The layers whose forward a kernel runs: all, but #9's backward none
+// (without the head there is one layer, make_plan checks, and its top
+// gradient needs no forward).
+template <bool kBwd, bool kHead>
+__device__ __forceinline__ int forward_layers(const Plan& P) {
+  return kBwd && !kHead ? 0 : P.n_layers;
+}
+
+// Job j of the weight stream: (layer, chunk). Forward layers 0..F-1 (F =
+// forward_layers), then, with kBwd, backward layers L-1..0. False past the
+// last job.
+template <bool kBwd, bool kHead>
 __device__ __forceinline__ bool job_of(const Plan& P, int rank, int j,
                                        int& l, int& c) {
   for (int pass = 0; pass < (kBwd ? 2 : 1); ++pass) {
-    for (int s = 0; s < P.n_layers; ++s) {
+    const int n_pass =
+        pass == 0 ? forward_layers<kBwd, kHead>(P) : P.n_layers;
+    for (int s = 0; s < n_pass; ++s) {
       l = pass == 0 ? s : P.n_layers - 1 - s;
       const int n = chunks_of(P, l, rank);
       if (j < n) {
@@ -172,10 +197,10 @@ __device__ __forceinline__ bool job_of(const Plan& P, int rank, int j,
 
 // Starts the copy of job j's weights into buffer j % 2, as one cp.async
 // group (empty past the last job).
-template <bool kBwd, int NT, int K1P>
+template <bool kBwd, bool kHead, int NT, int K1P>
 __device__ void issue(const Plan& P, int rank, int j, float* sm) {
   int l, c;
-  if (job_of<kBwd>(P, rank, j, l, c)) {
+  if (job_of<kBwd, kHead>(P, rank, j, l, c)) {
     const int nb = P.nb;
     const int din = P.dims[l];
     const int dout = P.dims[l + 1];
@@ -207,12 +232,12 @@ __device__ void issue(const Plan& P, int rank, int j, float* sm) {
 // The weight stream's consumer side: waits for job jn's copies and for
 // every thread (so the other buffer is free), starts job jn + 1's copy
 // there, and returns jn's buffer.
-template <bool kBwd, int NT, int K1P>
+template <bool kBwd, bool kHead, int NT, int K1P>
 __device__ __forceinline__ const float* next_job(const Plan& P, int rank,
                                                  int& jn, float* sm) {
   __pipeline_wait_prior(0);
   __syncthreads();
-  issue<kBwd, NT, K1P>(P, rank, jn + 1, sm);
+  issue<kBwd, kHead, NT, K1P>(P, rank, jn + 1, sm);
   return sm + P.slab[jn++ & 1];
 }
 
@@ -379,10 +404,10 @@ __device__ void forward_partial(const Plan& P, int l, const float* F,
 // Layer l's pre-activation of the rank's outputs: the C partials in rank
 // order (through distributed shared memory; ranks with no inputs of the
 // layer hold none), plus the bias. Then either the ReLU and the next
-// layer's features, or, after the last layer, 3 * sigmoid into y (#10) or
-// the top gradient ((g * 3) * s) * (1 - s) into the rank's gradient slice
-// (#11).
-template <bool kBwd, int NT, int K1P>
+// layer's features, or, after the last layer, 3 * sigmoid into y (#10), a
+// itself into y (#8), or the top gradient ((g * 3) * s) * (1 - s) into the
+// rank's gradient slice (#11).
+template <bool kBwd, bool kHead, int NT, int K1P>
 __device__ void reduce_layer(const Plan& P, cg::cluster_group& cluster,
                              int rank, int l, int row0, float* sm,
                              const float* __restrict__ g,
@@ -425,7 +450,8 @@ __device__ void reduce_layer(const Plan& P, cg::cluster_group& cluster,
         sm[P.slice[l & 1] + oo * R + r] = __fmul_rn(
             __fmul_rn(__fmul_rn(gv, 3.f), s), __fsub_rn(1.f, s));
       } else if (row < P.B) {
-        y[static_cast<size_t>(row) * dl + o] = __fmul_rn(3.f, sigmoid(a));
+        y[static_cast<size_t>(row) * dl + o] =
+            kHead ? __fmul_rn(3.f, sigmoid(a)) : a;
       }
     }
   }
@@ -450,6 +476,23 @@ __device__ void gather(const Plan& P, cg::cluster_group& cluster,
         reinterpret_cast<const float4*>(cluster.map_shared_rank(slice, q));
     *reinterpret_cast<float4*>(ga + o * ps + 4 * r4) =
         src[(o - P.bounds[d][q]) * R4 + r4];
+  }
+}
+
+// #9's output gradient of layer l, ga[l][o][r] (row stride R + 4): the
+// group's rows of g itself (rows past the batch are 0).
+template <int NT>
+__device__ void load_grad(const Plan& P, int l, int row0,
+                          const float* __restrict__ g, float* sm) {
+  const int R = P.R;
+  const int dout = P.dims[l + 1];
+  float* ga = sm + P.ga[l];
+  for (int e = threadIdx.x; e < R * dout; e += NT) {
+    const int r = e / dout;
+    const int o = e - r * dout;
+    const int row = row0 + r;
+    ga[o * (R + 4) + r] =
+        row < P.B ? g[static_cast<size_t>(row) * dout + o] : 0.f;
   }
 }
 
@@ -619,8 +662,8 @@ __device__ void input_grads(const Plan& P, int rank, int l, const float* M,
   }
 }
 
-// #10: one cluster per group of R rows.
-template <int K1P>
+// #10 (#8 without kHead): one cluster per group of R rows.
+template <int K1P, bool kHead>
 __global__ void __launch_bounds__(kFwdThreads)
 kan_module_fwd_kernel(const __grid_constant__ Plan P,
                       const float* __restrict__ x, float* __restrict__ y) {
@@ -630,26 +673,28 @@ kan_module_fwd_kernel(const __grid_constant__ Plan P,
   const int row0 = static_cast<int>(blockIdx.x) / P.C * P.R;
   float* sm = shared_floats();
   int jn = 0;
-  issue<false, NT, K1P>(P, rank, 0, sm);
+  issue<false, kHead, NT, K1P>(P, rank, 0, sm);
   input_features<false, NT, K1P>(P, rank, row0, x, sm);
   for (int l = 0; l < P.n_layers; ++l) {
     for (int c = 0; c < chunks_of(P, l, rank); ++c) {
-      const float* M = next_job<false, NT, K1P>(P, rank, jn, sm);
+      const float* M = next_job<false, kHead, NT, K1P>(P, rank, jn, sm);
       const int c0 = c * P.ic[l];
       forward_partial<NT, K1P, kFwdOuts10>(
           P, l, sm + P.feat[l], M, c0, min(P.ic[l], n_of(P, l, rank) - c0),
           c == 0, sm + P.part[l & 1]);
     }
     cluster.sync();
-    reduce_layer<false, NT, K1P>(P, cluster, rank, l, row0, sm, nullptr, y);
+    reduce_layer<false, kHead, NT, K1P>(P, cluster, rank, l, row0, sm,
+                                        nullptr, y);
   }
   cluster.sync();       // no CTA leaves while another reads its partials
 }
 
 // #11: the forward recomputed as #10 (with the basis derivatives kept),
 // then the chain back; cluster s of the launch takes group group0 + s and
-// keeps its weight gradients in slot s.
-template <int K1P>
+// keeps its weight gradients in slot s. #9 (without kHead): the bases and
+// their derivatives, then its one layer's backward from g.
+template <int K1P, bool kHead>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 kan_module_bwd_kernel(const __grid_constant__ Plan P,
                       const float* __restrict__ x,
@@ -662,24 +707,30 @@ kan_module_bwd_kernel(const __grid_constant__ Plan P,
   const int row0 = (P.group0 + slot) * P.R;
   float* sm = shared_floats();
   int jn = 0;
-  issue<true, NT, K1P>(P, rank, 0, sm);
+  const int nf = forward_layers<true, kHead>(P);
+  issue<true, kHead, NT, K1P>(P, rank, 0, sm);
   input_features<true, NT, K1P>(P, rank, row0, x, sm);
-  for (int l = 0; l < P.n_layers; ++l) {
+  for (int l = 0; l < nf; ++l) {
     for (int c = 0; c < chunks_of(P, l, rank); ++c) {
-      const float* M = next_job<true, NT, K1P>(P, rank, jn, sm);
+      const float* M = next_job<true, kHead, NT, K1P>(P, rank, jn, sm);
       const int c0 = c * P.ic[l];
       forward_partial<NT, K1P, kFwdOuts11>(
           P, l, sm + P.feat[l], M, c0, min(P.ic[l], n_of(P, l, rank) - c0),
           c == 0, sm + P.part[l & 1]);
     }
     cluster.sync();
-    reduce_layer<true, NT, K1P>(P, cluster, rank, l, row0, sm, g, nullptr);
+    reduce_layer<true, kHead, NT, K1P>(P, cluster, rank, l, row0, sm, g,
+                                       nullptr);
   }
-  for (int l = P.n_layers - 1; l >= 0; --l) {
-    cluster.sync();     // every slice of layer l's output gradient written
-    gather<NT>(P, cluster, l, sm);
+  for (int l = kHead ? P.n_layers - 1 : 0; l >= 0; --l) {
+    if (!kHead) {
+      load_grad<NT>(P, l, row0, g, sm);  // read after next_job's barrier
+    } else {
+      cluster.sync();   // every slice of layer l's output gradient written
+      gather<NT>(P, cluster, l, sm);
+    }
     for (int c = 0; c < chunks_of(P, l, rank); ++c) {
-      const float* M = next_job<true, NT, K1P>(P, rank, jn, sm);
+      const float* M = next_job<true, kHead, NT, K1P>(P, rank, jn, sm);
       const int c0 = c * P.ic[l];
       input_grads<NT, K1P>(P, rank, l, M, c0,
                            min(P.ic[l], n_of(P, l, rank) - c0), row0, sm,
@@ -692,7 +743,8 @@ kan_module_bwd_kernel(const __grid_constant__ Plan P,
   } else {
     weight_grads<NT, K1P, true>(P, G, rank, slot, sm);
   }
-  cluster.sync();       // no CTA leaves while another reads its slices
+  // No CTA leaves while another reads its slices (#9 reads none).
+  if (kHead) cluster.sync();
 }
 
 // The weight gradients of the slots: out = sum over slots in order of each
@@ -720,9 +772,9 @@ kan_grad_reduce_kernel(const float* __restrict__ part, int slots,
 // ---------------------------------------------------------------- host
 
 // Fills P from the C arguments and the plan ([R, C, groups, slots, shared
-// floats, reciprocal basis (0 or 1), ic[kMaxLayers], bounds[(L + 1)
-// (C + 1)]]), and lays out shared memory; false for a shape or plan the
-// kernels do not take.
+// floats, reciprocal basis (0 or 1), head (0 or 1; 0 only with one layer),
+// ic[kMaxLayers], bounds[(L + 1) (C + 1)]]), and lays out shared memory;
+// false for a shape or plan the kernels do not take.
 bool make_plan(Plan& P, int B, const int* dims, int n_layers,
                const float* knots, int n_knots, const int* plan, bool bwd) {
   const int nb = n_knots - 4;
@@ -738,9 +790,11 @@ bool make_plan(Plan& P, int B, const int* dims, int n_layers,
   P.C = plan[1];
   P.groups = plan[2];
   P.slots = plan[3];
+  P.head = plan[6];
   if (P.R < 8 || P.R > kMaxRows || P.R % 8 || P.C < 1 ||
       P.C > kMaxCluster || P.groups != (B + P.R - 1) / P.R ||
-      P.slots < 1 || P.slots > P.groups) {
+      P.slots < 1 || P.slots > P.groups ||
+      !(P.head == 1 || (P.head == 0 && n_layers == 1))) {
     return false;
   }
   for (int l = 0; l <= n_layers; ++l) {
@@ -748,7 +802,7 @@ bool make_plan(Plan& P, int B, const int* dims, int n_layers,
     if (dims[l] < 1 || dims[l] > kMaxIn) return false;
     if (l > 0 && dims[l] > kMaxOut) return false;
   }
-  const int* bounds = plan + 6 + kMaxLayers;
+  const int* bounds = plan + 7 + kMaxLayers;
   int nmax[kMaxLayers + 1] = {};
   for (int d = 0; d <= n_layers; ++d) {
     for (int j = 0; j <= P.C; ++j) {
@@ -779,7 +833,7 @@ bool make_plan(Plan& P, int B, const int* dims, int n_layers,
   long long slab = 0;
   int most_out = 0;
   for (int l = 0; l < n_layers; ++l) {
-    P.ic[l] = plan[6 + l];
+    P.ic[l] = plan[7 + l];
     if (P.ic[l] < 1) return false;
     P.feat[l] = off;
     off += nmax[l] * k1p * P.R;
@@ -854,6 +908,40 @@ int launch_clusters(const Plan& P, int clusters, int threads,
   return e ? e : last;
 }
 
+// The instances of P's feature slots (K1P) with or without the head.
+template <bool kHead>
+int launch_fwd(const Plan& P, int smem_floats, cudaStream_t stream,
+               const float* x, float* y) {
+  const int k1p = (P.nb + 4) / 4 * 4;
+  if (k1p == 4) {
+    return launch_clusters<kan_module_fwd_kernel<4, kHead>>(
+        P, P.groups, kFwdThreads, smem_floats, stream, x, y);
+  }
+  if (k1p == 8) {
+    return launch_clusters<kan_module_fwd_kernel<8, kHead>>(
+        P, P.groups, kFwdThreads, smem_floats, stream, x, y);
+  }
+  return launch_clusters<kan_module_fwd_kernel<12, kHead>>(
+      P, P.groups, kFwdThreads, smem_floats, stream, x, y);
+}
+
+template <bool kHead>
+int launch_bwd(const Plan& P, int clusters, int smem_floats,
+               cudaStream_t stream, const float* x, const float* g,
+               float* dx, const Grads& G) {
+  const int k1p = (P.nb + 4) / 4 * 4;
+  if (k1p == 4) {
+    return launch_clusters<kan_module_bwd_kernel<4, kHead>>(
+        P, clusters, kBwdThreads, smem_floats, stream, x, g, dx, G);
+  }
+  if (k1p == 8) {
+    return launch_clusters<kan_module_bwd_kernel<8, kHead>>(
+        P, clusters, kBwdThreads, smem_floats, stream, x, g, dx, G);
+  }
+  return launch_clusters<kan_module_bwd_kernel<12, kHead>>(
+      P, clusters, kBwdThreads, smem_floats, stream, x, g, dx, G);
+}
+
 void set_weights(Plan& P, const void* const* params) {
   for (int l = 0; l < P.n_layers; ++l) {
     P.S[l] = static_cast<const float*>(params[3 * l]);
@@ -874,17 +962,8 @@ extern "C" int kan_module_fwd(const float* x, const void* const* params,
   }
   set_weights(P, params);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int k1p = (P.nb + 4) / 4 * 4;
-  if (k1p == 4) {
-    return launch_clusters<kan_module_fwd_kernel<4>>(
-        P, P.groups, kFwdThreads, plan[4], stream, x, y);
-  }
-  if (k1p == 8) {
-    return launch_clusters<kan_module_fwd_kernel<8>>(
-        P, P.groups, kFwdThreads, plan[4], stream, x, y);
-  }
-  return launch_clusters<kan_module_fwd_kernel<12>>(
-      P, P.groups, kFwdThreads, plan[4], stream, x, y);
+  return P.head ? launch_fwd<true>(P, plan[4], stream, x, y)
+                : launch_fwd<false>(P, plan[4], stream, x, y);
 }
 
 // partials: with plan[3] > 1 slots, plan[3] x (every gradient's size)
@@ -921,7 +1000,6 @@ extern "C" int kan_module_bwd(const float* x, const float* g,
   }
   G.stride = slots > 1 ? seg.off[seg.n] : 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int k1p = (P.nb + 4) / 4 * 4;
   int e = 0;
   // Waves of at most slots clusters, in order on the stream: wave w takes
   // groups w slots .. w slots + slots - 1, so slot s sums groups s,
@@ -929,16 +1007,9 @@ extern "C" int kan_module_bwd(const float* x, const float* g,
   for (P.group0 = 0; !e && P.group0 < P.groups; P.group0 += slots) {
     P.first = P.group0 == 0;
     const int clusters = min(slots, P.groups - P.group0);
-    if (k1p == 4) {
-      e = launch_clusters<kan_module_bwd_kernel<4>>(
-          P, clusters, kBwdThreads, plan[4], stream, x, g, dx, G);
-    } else if (k1p == 8) {
-      e = launch_clusters<kan_module_bwd_kernel<8>>(
-          P, clusters, kBwdThreads, plan[4], stream, x, g, dx, G);
-    } else {
-      e = launch_clusters<kan_module_bwd_kernel<12>>(
-          P, clusters, kBwdThreads, plan[4], stream, x, g, dx, G);
-    }
+    e = P.head ? launch_bwd<true>(P, clusters, plan[4], stream, x, g, dx, G)
+               : launch_bwd<false>(P, clusters, plan[4], stream, x, g, dx,
+                                   G);
   }
   if (e || slots == 1) return e;
   const long long n = seg.off[seg.n];

@@ -2,16 +2,17 @@
 versions.
 
 Counterpart of ``rovit_kan_tpu/ops/kan_kernel.py``. Its four TPU kernels are
-replaced on Hopper by two CUDA sources (the source notes say what bounds
-them and how they are tiled):
+replaced on Hopper by the two cluster kernels of ``csrc/kan_module.cu`` (its
+source note says what bounds them and how they are tiled), which split every
+width across a cluster's CTAs (``module_plan``):
 
-- ``_kan_kernel`` (#8) and ``_kan_layer_bwd_kernel`` (#9), ``csrc/kan.cu``:
-  one KAN layer ``x W_lin^T + b + sum_k basis_k(tanh x) S[:, :, k]`` and its
-  gradient;
-- ``_kan_module_kernel`` (#10) and ``_kan_module_bwd_kernel`` (#11),
-  ``csrc/kan_module.cu``: the whole stack, ReLU between layers and
-  ``3 * sigmoid`` at the end, and its recompute backward, on thread-block
-  clusters that split every width across their CTAs (``module_plan``).
+- ``_kan_module_kernel`` (#10) and ``_kan_module_bwd_kernel`` (#11): the
+  whole stack, ReLU between layers and ``3 * sigmoid`` at the end (the
+  plan's head), and its recompute backward;
+- ``_kan_kernel`` (#8) and ``_kan_layer_bwd_kernel`` (#9): one KAN layer
+  ``x W_lin^T + b + sum_k basis_k(tanh x) S[:, :, k]`` and its gradient, as
+  the same kernels on a one-layer plan without the head: no squash, and a
+  backward that takes ``g`` as its top gradient and recomputes no forward.
 
 Everything is fp32 and every product true fp32 (the TPU kernels run at
 ``Precision.HIGHEST``). The functions take the port's parameter layouts as
@@ -54,6 +55,11 @@ MAX_LAYERS, MAX_BASIS, MAX_IN, MAX_OUT = 4, 10, 1024, 256
 # What csrc/kan_module.cu's plans may use: CTAs of a cluster (16 is
 # Hopper's non-portable most), rows of a group, shared floats of a CTA.
 CLUSTER, FWD_ROWS, BWD_ROWS = 16, 16, 64
+# Rows of a group of #9 (the backward without the head): at (64, 192 -> 64)
+# on an H100, 16 rows (four clusters, then the slots' ordered add) ran
+# faster than 32 or 64 (one cluster, whose CTAs evaluate their bases in two
+# rounds); chip_smoke.py::kan_layer_bwd_rows times the three.
+LAYER_BWD_ROWS = 16
 SLAB_FLOATS, SMEM_FLOATS = 8192, 232448 // 4
 # #11's clusters a launch at most: its CTAs take one SM each, so 8 clusters
 # of 16 fill an H100's 132 SMs; each keeps one fp32 copy of the weight
@@ -142,19 +148,23 @@ def kan_module_backward_reference(x: torch.Tensor, g: torch.Tensor,
 # ------------------------------------------------------------------ plan
 
 class ModulePlan(NamedTuple):
-    """How #10 (``backward=False``) or #11 splits a batch: ``groups`` row
-    groups of ``rows`` batch rows (the last group's rows past the batch are
-    padding), a cluster of ``cluster`` CTAs each; #11 runs them in waves of
-    ``slots`` clusters, cluster s of each wave adding its group's weight
-    gradients into slot s (so slot s sums groups s, s + slots, ... in
-    order), and then adds the slots in order; rank j of a cluster owns
+    """How #10 (``backward=False``) or #11 splits a batch (#8 and #9 with
+    ``head`` off): ``groups`` row groups of ``rows`` batch rows (the last
+    group's rows past the batch are padding), a cluster of ``cluster`` CTAs
+    each; the backward runs them in waves of ``slots`` clusters, cluster s
+    of each wave adding its group's weight gradients into slot s (so slot
+    s sums groups s, s + slots, ... in order), and then adds the slots in
+    order; rank j of a cluster owns
     ``bounds[d][j]:bounds[d][j + 1]`` of width ``d`` (layer d's inputs,
     layer d - 1's outputs) and stages its slice of layer l's weights
     ``chunk[l]`` inputs at a time; ``smem_floats`` is a CTA's shared
     memory, as ``csrc/kan_module.cu::make_plan`` lays it out. With
     ``reciprocal_basis`` the basis recursion divides through a table of
     reciprocals where that gives the same bits (the source note says
-    where); without it every division is ``__fdiv_rn``."""
+    where); without it every division is ``__fdiv_rn``. With ``head`` the
+    last layer ends in ``3 * sigmoid`` (#10/#11); without it (one layer
+    only) the forward writes the pre-activation and the backward takes the
+    upstream gradient as its top gradient (#8/#9)."""
     rows: int
     cluster: int
     groups: int
@@ -163,13 +173,14 @@ class ModulePlan(NamedTuple):
     chunk: Tuple[int, ...]
     bounds: Tuple[Tuple[int, ...], ...]
     reciprocal_basis: bool = True
+    head: bool = True
 
     def ints(self) -> List[int]:
         """The plan as the C entry points take it."""
         chunk = list(self.chunk) + [0] * (MAX_LAYERS - len(self.chunk))
         return [self.rows, self.cluster, self.groups, self.slots,
-                self.smem_floats, int(self.reciprocal_basis), *chunk,
-                *(b for d in self.bounds for b in d)]
+                self.smem_floats, int(self.reciprocal_basis), int(self.head),
+                *chunk, *(b for d in self.bounds for b in d)]
 
 
 def _smem_floats(rows, widest, chunk, dims, k1p, backward) -> int:
@@ -188,22 +199,27 @@ def _smem_floats(rows, widest, chunk, dims, k1p, backward) -> int:
 
 @functools.lru_cache(maxsize=None)
 def module_plan(B: int, dims: Tuple[int, ...], n_basis: int,
-                backward: bool) -> ModulePlan:
-    """The launch plan of #10/#11 for a batch of ``B`` rows through a head
-    of widths ``dims``: every width split into ``CLUSTER`` contiguous
-    slices, ``FWD_ROWS`` / ``BWD_ROWS`` rows a group (fewer for a small
+                backward: bool, head: bool = True) -> ModulePlan:
+    """The launch plan of #10/#11 (#8/#9 without ``head``, one layer only)
+    for a batch of ``B`` rows through a head of widths ``dims``: every width
+    split into ``CLUSTER`` contiguous slices, ``FWD_ROWS`` / ``BWD_ROWS``
+    (``LAYER_BWD_ROWS`` without the head) rows a group (fewer for a small
     batch, or where a CTA's shared memory would not hold the features of
-    that many rows), each layer's weight chunk at most ``SLAB_FLOATS``;
-    #11's waves at most ``BWD_SLOTS`` clusters (#10's ``slots`` is its
-    groups: one launch)."""
+    that many rows), each layer's weight chunk at most ``SLAB_FLOATS``; the
+    backward's waves at most ``BWD_SLOTS`` clusters (the forward's
+    ``slots`` is its groups: one launch)."""
     dims = tuple(int(d) for d in dims)
+    if not head and len(dims) != 2:
+        raise ValueError(f"a plan without the head takes one layer, got "
+                         f"widths {list(dims)}")
     k1p = (n_basis + 4) // 4 * 4
     c = CLUSTER
     bounds = tuple(tuple(j * d // c for j in range(c + 1)) for d in dims)
     widest = [max(b[j + 1] - b[j] for j in range(c)) for b in bounds]
     chunk = tuple(min(widest[l], max(1, SLAB_FLOATS // (dims[l + 1] * k1p)))
                   for l in range(len(dims) - 1))
-    rows = min(BWD_ROWS if backward else FWD_ROWS, -(-B // 8) * 8)
+    most = (BWD_ROWS if head else LAYER_BWD_ROWS) if backward else FWD_ROWS
+    rows = min(most, -(-B // 8) * 8)
     while _smem_floats(rows, widest, chunk, dims, k1p, backward) \
             > SMEM_FLOATS and rows > 8:
         rows = max(8, rows // 16 * 8)
@@ -213,7 +229,7 @@ def module_plan(B: int, dims: Tuple[int, ...], n_basis: int,
     return ModulePlan(rows, c, groups,
                       min(groups, BWD_SLOTS) if backward else groups,
                       _smem_floats(rows, widest, chunk, dims, k1p, backward),
-                      chunk, bounds)
+                      chunk, bounds, head=head)
 
 
 # --------------------------------------------------------------- kernels
@@ -267,37 +283,23 @@ _INTS = ctypes.POINTER(ctypes.c_int)
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 
 
-def _load(name: str, sigs: dict, error_string: str):
+@functools.lru_cache(maxsize=None)
+def _module_library():
+    """``csrc/kan_module.cu``: #8-#11, built on first use."""
     from rovit_kan_tpu_torch.ops import _build
-    lib = _build.load(name)
-    for fn_name, argtypes in sigs.items():
+    lib = _build.load("kan_module")
+    for fn_name, argtypes in {
+            "kan_module_fwd": [_P, _PTRS, _P, _I, _INTS, _I, _FLOATS, _I,
+                               _INTS, _P],
+            "kan_module_bwd": [_P, _P, _PTRS, _P, _PTRS, _P, _I, _INTS, _I,
+                               _FLOATS, _I, _INTS, _P]}.items():
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.error_string = getattr(lib, error_string)
+    lib.error_string = lib.kan_module_error_string
     lib.error_string.argtypes = [_I]
     lib.error_string.restype = ctypes.c_char_p
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _library():
-    """``csrc/kan.cu``: #8/#9."""
-    return _load("kan", {
-        "kan_layer_fwd": [_P] * 5 + [_I] * 3 + [_FLOATS, _I, _P],
-        "kan_layer_bwd": [_P] * 8 + [_I] * 3 + [_FLOATS, _I, _P],
-    }, "kan_error_string")
-
-
-@functools.lru_cache(maxsize=None)
-def _module_library():
-    """``csrc/kan_module.cu``: #10/#11."""
-    return _load("kan_module", {
-        "kan_module_fwd": [_P, _PTRS, _P, _I, _INTS, _I, _FLOATS, _I, _INTS,
-                           _P],
-        "kan_module_bwd": [_P, _P, _PTRS, _P, _PTRS, _P, _I, _INTS, _I,
-                           _FLOATS, _I, _INTS, _P],
-    }, "kan_module_error_string")
 
 
 def _c_array(ctype, values):
@@ -311,10 +313,10 @@ def _c_knots(knots: Tuple[float, ...]):
 
 @functools.lru_cache(maxsize=None)
 def _module_args(B: int, dims: Tuple[int, ...], n_basis: int,
-                 backward: bool, reciprocal_basis: bool = True):
+                 backward: bool, reciprocal_basis: bool, head: bool):
     """The plan of a shape and its ctypes arrays (plan, widths), made once
     per shape."""
-    plan = module_plan(B, dims, n_basis, backward)._replace(
+    plan = module_plan(B, dims, n_basis, backward, head)._replace(
         reciprocal_basis=reciprocal_basis)
     return plan, _c_array(ctypes.c_int, plan.ints()), \
         _c_array(ctypes.c_int, dims)
@@ -327,47 +329,6 @@ def _raise_on(rc: int, lib, what: str, x: torch.Tensor, dims) -> None:
                            f"at B={x.shape[0]} dims={list(dims)}")
 
 
-def _launch_layer(x, spline_weights, weight, bias, knots, degree):
-    global LAYER_LAUNCHES
-    dims = _check_cuda_args(x, (spline_weights, weight, bias), knots, degree)
-    lib = _library()
-    kn = _c_knots(tuple(float(v) for v in knots))
-    with torch.cuda.device(x.device):
-        y = torch.empty((x.shape[0], dims[1]), dtype=torch.float32,
-                        device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.kan_layer_fwd(x.data_ptr(), spline_weights.data_ptr(),
-                               weight.data_ptr(), bias.data_ptr(),
-                               y.data_ptr(), x.shape[0], dims[0], dims[1],
-                               kn, len(kn), stream)
-    _raise_on(rc, lib, "kan_layer_fwd", x, dims)
-    LAYER_LAUNCHES += 1
-    return y
-
-
-def _launch_layer_bwd(x, g, spline_weights, weight, knots, degree):
-    global LAYER_BWD_LAUNCHES
-    # The bias gradient's buffer stands in for the bias in the shape check.
-    db = torch.empty(weight.shape[0], dtype=torch.float32, device=x.device)
-    dims = _check_cuda_args(x, (spline_weights, weight, db), knots, degree)
-    _check_grad(x, g, dims)
-    lib = _library()
-    kn = _c_knots(tuple(float(v) for v in knots))
-    with torch.cuda.device(x.device):
-        dx = torch.empty_like(x)
-        ds = torch.empty_like(spline_weights)
-        dw = torch.empty_like(weight)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.kan_layer_bwd(x.data_ptr(), g.data_ptr(),
-                               spline_weights.data_ptr(), weight.data_ptr(),
-                               dx.data_ptr(), ds.data_ptr(), dw.data_ptr(),
-                               db.data_ptr(), x.shape[0], dims[0], dims[1],
-                               kn, len(kn), stream)
-    _raise_on(rc, lib, "kan_layer_bwd", x, dims)
-    LAYER_BWD_LAUNCHES += 1
-    return dx, ds, dw, db
-
-
 def _check_grad(x: torch.Tensor, g: torch.Tensor, dims) -> None:
     want = (x.shape[0], dims[-1])
     if g.dtype != torch.float32 or tuple(g.shape) != want \
@@ -377,14 +338,14 @@ def _check_grad(x: torch.Tensor, g: torch.Tensor, dims) -> None:
                          f"{g.device}")
 
 
-def _launch_module(x, params, knots, degree, reciprocal_basis=True):
-    global LAUNCHES
+def _fwd(x, params, knots, degree, reciprocal_basis, head):
+    """One launch of ``kan_module_fwd``: #10 with ``head``, #8 without."""
     dims = _check_cuda_args(x, params, knots, degree)
     lib = _module_library()
     kn = _c_knots(tuple(float(v) for v in knots))
     _, cplan, cdims = _module_args(x.shape[0], tuple(dims),
                                    len(knots) - degree - 1, False,
-                                   reciprocal_basis)
+                                   reciprocal_basis, head)
     ptrs = _c_array(ctypes.c_void_p, [p.data_ptr() for p in params])
     with torch.cuda.device(x.device):
         y = torch.empty((x.shape[0], dims[-1]), dtype=torch.float32,
@@ -394,19 +355,19 @@ def _launch_module(x, params, knots, degree, reciprocal_basis=True):
                                 cdims, len(dims) - 1, kn, len(kn), cplan,
                                 stream)
     _raise_on(rc, lib, "kan_module_fwd", x, dims)
-    LAUNCHES += 1
     return y
 
 
-def _launch_module_bwd(x, g, params, knots, degree, reciprocal_basis=True):
-    global BWD_LAUNCHES
+def _bwd(x, g, params, knots, degree, reciprocal_basis, head):
+    """One call of ``kan_module_bwd``: #11 with ``head``, #9 without.
+    Returns ``(dx, grads)`` with ``grads`` flat like ``params``."""
     dims = _check_cuda_args(x, params, knots, degree)
     _check_grad(x, g, dims)
     lib = _module_library()
     kn = _c_knots(tuple(float(v) for v in knots))
     plan, cplan, cdims = _module_args(x.shape[0], tuple(dims),
                                       len(knots) - degree - 1, True,
-                                      reciprocal_basis)
+                                      reciprocal_basis, head)
     with torch.cuda.device(x.device):
         dx = torch.empty_like(x)
         grads = [torch.empty_like(p) for p in params]
@@ -424,6 +385,41 @@ def _launch_module_bwd(x, g, params, knots, degree, reciprocal_basis=True):
             None if partials is None else partials.data_ptr(), x.shape[0],
             cdims, len(dims) - 1, kn, len(kn), cplan, stream)
     _raise_on(rc, lib, "kan_module_bwd", x, dims)
+    return dx, grads
+
+
+def _launch_layer(x, spline_weights, weight, bias, knots, degree,
+                  reciprocal_basis=True):
+    global LAYER_LAUNCHES
+    y = _fwd(x, (spline_weights, weight, bias), knots, degree,
+             reciprocal_basis, head=False)
+    LAYER_LAUNCHES += 1
+    return y
+
+
+def _launch_layer_bwd(x, g, spline_weights, weight, knots, degree,
+                      reciprocal_basis=True):
+    global LAYER_BWD_LAUNCHES
+    # The backward reads no bias: an unset tensor of its shape stands in.
+    bias = torch.empty(weight.shape[0], dtype=torch.float32,
+                       device=x.device)
+    dx, (ds, dw, db) = _bwd(x, g, (spline_weights, weight, bias), knots,
+                            degree, reciprocal_basis, head=False)
+    LAYER_BWD_LAUNCHES += 1
+    return dx, ds, dw, db
+
+
+def _launch_module(x, params, knots, degree, reciprocal_basis=True):
+    global LAUNCHES
+    y = _fwd(x, params, knots, degree, reciprocal_basis, head=True)
+    LAUNCHES += 1
+    return y
+
+
+def _launch_module_bwd(x, g, params, knots, degree, reciprocal_basis=True):
+    global BWD_LAUNCHES
+    dx, grads = _bwd(x, g, params, knots, degree, reciprocal_basis,
+                     head=True)
     BWD_LAUNCHES += 1
     return dx, grads
 

@@ -17,6 +17,8 @@ largest output magnitude (both sides round at the same points, so they
 differ only where an fp32 sum crosses a rounding boundary). The backward's
 and the augment's tolerances are stated beside their tests.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -969,26 +971,32 @@ def test_kan_module_kernels_walk_row_groups_at_the_widest_shape(cuda):
         assert torch.isfinite(a).all() and torch.equal(a, b), i
 
 
+def _kernels_of_one_call(fn):
+    """The device kernels one call of ``fn`` launches, by profiler name."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            for _ in range(e.count)]
+
+
 @pytest.mark.parametrize("B", [1, 64, 65, 1000])
 def test_kan_module_backward_launches(cuda, B):
     """#11 is one kernel launch while the batch fits one row group of the
     plan (64 rows at the flagship's widths); past it, one a wave of at most
     8 clusters, then the ordered add of their slots' weight gradients."""
-    from torch.profiler import ProfilerActivity, profile
     dims = KAN_DIMS[0]
     knots = make_knots()
     rng = np.random.RandomState(B)
     params = _kan_params(rng, dims, cuda)
     x = _kan_x(rng, B, dims[0], cuda)
     g = torch.ones(B, 1, device=cuda)
-    kk._launch_module_bwd(x, g, params, knots, 3)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        kk._launch_module_bwd(x, g, params, knots, 3)
-        torch.cuda.synchronize()
-    kernels = [e.key for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               for _ in range(e.count)]
+    kernels = _kernels_of_one_call(
+        lambda: kk._launch_module_bwd(x, g, params, knots, 3))
     groups = kk.module_plan(B, dims, 7, True).groups
     assert groups == (1 if B <= 64 else -(-B // 64))
     waves = -(-groups // kk.BWD_SLOTS)
@@ -1000,6 +1008,11 @@ def test_kan_module_backward_launches(cuda, B):
 @pytest.mark.parametrize("shape", [(192, 64), (16, 1), (64, 16)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_kan_layer_kernels_match_plain(cuda, shape, B):
+    """#8/#9, kan_module.cu's kernels on a one-layer plan without the head,
+    against their plain versions; the same bits on repeat and with the
+    reciprocal divider off; #9 one kernel launch while the batch fits one
+    row group (``LAYER_BWD_ROWS``), past it one a wave of at most 8
+    clusters and the ordered add of the slots."""
     rng = np.random.RandomState(B * 7 + shape[0])
     s, w, b = _kan_params(rng, shape, cuda)
     x = _kan_x(rng, B, shape[0], cuda)
@@ -1018,8 +1031,18 @@ def test_kan_layer_kernels_match_plain(cuda, shape, B):
         assert a.shape == ref.shape and torch.isfinite(a).all(), name
         assert float((a - ref).abs().max()) <= _kan_tol(ref), name
     again = kk._launch_layer_bwd(x, g, s, w, knots, 3)
-    for a, b in zip(again, got):
-        assert torch.equal(a, b)
+    for a, b_ in zip(again, got):
+        assert torch.equal(a, b_)
+    assert torch.equal(kk._launch_layer(x, s, w, b, knots, 3, False), y)
+    for a, b_ in zip(kk._launch_layer_bwd(x, g, s, w, knots, 3, False), got):
+        assert torch.equal(a, b_)
+    kernels = _kernels_of_one_call(
+        lambda: kk._launch_layer_bwd(x, g, s, w, knots, 3))
+    plan = kk.module_plan(B, shape, 7, True, False)
+    assert plan.groups == -(-B // kk.LAYER_BWD_ROWS) and not plan.head
+    waves = -(-plan.groups // kk.BWD_SLOTS)
+    assert len(kernels) == (1 if plan.groups == 1 else waves + 1), kernels
+    assert any("kan_module_bwd_kernel" in k for k in kernels)
 
 
 def test_kan_kernels_refuse_what_they_do_not_take(cuda):
@@ -1038,6 +1061,19 @@ def test_kan_kernels_refuse_what_they_do_not_take(cuda):
                             _kan_params(rng, (8,) * 6, cuda), knots)
     with pytest.raises(ValueError):                      # too wide an output
         kk.fused_kan_module(x, _kan_params(rng, (24, 300, 1), cuda), knots)
+    # No plan without the head past one layer, and the entry point refuses
+    # one made by hand (cudaErrorInvalidValue).
+    with pytest.raises(ValueError, match="one layer"):
+        kk._fwd(x, params, knots, 3, True, head=False)
+    plan = kk.module_plan(3, (24, 8, 1), 7, False)._replace(head=False)
+    y = torch.empty(3, 1, device=cuda)
+    rc = kk._module_library().kan_module_fwd(
+        x.data_ptr(), kk._c_array(ctypes.c_void_p,
+                                  [p.data_ptr() for p in params]),
+        y.data_ptr(), 3, kk._c_array(ctypes.c_int, (24, 8, 1)), 2,
+        kk._c_knots(tuple(float(v) for v in knots)), len(knots),
+        kk._c_array(ctypes.c_int, plan.ints()), None)
+    assert rc == 1
     # Under autograd the module runs #10 and #11 and the grads reach the
     # parameters.
     leaves = [p.clone().requires_grad_() for p in params]

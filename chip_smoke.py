@@ -105,7 +105,22 @@ exits non-zero:
    checkpoint written), ``resume`` and one more epoch, ``load_engine`` on
    the best checkpoint serving two batches (its outputs the bits of the
    trainer's best weights through the same kernels); the same fit with the
-   opt-in off and on in turns for the epoch img/s of both arms.
+   opt-in off and on in turns for the epoch img/s of both arms;
+9. eval: the train -> evaluate -> serve loop through the CLIs, on a
+   synthetic JPEG tree at 224 px (``generate_synthetic_dataset``: 4 x 48
+   augmented images, split 80/20 into 2 train steps and 1 validation batch
+   an epoch, and 4 x 25 test images, 2 batches, the second 36 of 64 valid).
+   ``cli.train`` for 2 epochs at batch 64 (12 x #1, 12 x #2 and 1 x #7 per
+   step; 12 x #1 per validation and test batch and per bs=1 FPS forward;
+   finite losses; the CSV, ``best_model`` and ``test_metrics.json``);
+   ``cli.evaluate --calibrate --store_temperature`` on ``best_model`` (T
+   stored and served by ``load_engine``, or a degenerate fit refused with
+   the sidecar unchanged), then with ``--device_metrics on``: the counts
+   equal to the host path's, accuracy equal in fp32, macro F1 within 1e-6,
+   the other metrics within 1e-5; one ``Evaluator`` pass through #1 held against the
+   plain block and the fp32 model as "serve" holds served outputs
+   (``hold_served``); the test pass's seconds, evaluation img/s and the
+   bs=1 FPS, which must be finite and positive.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 is ``{"ok": true, "device": {...}}``. Imports torch and the port only.
@@ -115,6 +130,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import io
 import json
 import os
 import re
@@ -1060,8 +1076,13 @@ def profile_serving(engine, images_u8: np.ndarray, smi: str):
                             for e in top], "card": smi}
 
 
-def hold_served(served, plain, exact):
-    """Served outputs of a kernel path against the same model through the
+SERVED_KEYS = ("features", "cls_probs", "ordinal_probs", "ordinal_severity",
+               "uncertainty_std", "kan_severity")
+
+
+def hold_served(served, plain, exact, keys=SERVED_KEYS):
+    """Served outputs ``keys`` (and the argmax ``cls_pred``) of a kernel path
+    against the same model through the
     plain versions (``plain``) and the fp32 model (``exact``). The kernel
     and the plain path round at the same points; where an fp32 sum in
     another order crosses a bf16 rounding boundary, the one-ulp difference
@@ -1072,8 +1093,7 @@ def hold_served(served, plain, exact):
     from fp32 (floor 1e-3 for outputs bf16 barely moves). Returns the
     readings and the names of the outputs that failed."""
     checks, failed = {}, []
-    for k in ("features", "cls_probs", "ordinal_probs", "ordinal_severity",
-              "uncertainty_std", "kan_severity"):
+    for k in keys:
         ref_err = float(np.abs(plain[k] - exact[k]).max())
         checks[k] = {"vs_plain_block": float(np.abs(served[k]
                                                     - plain[k]).max()),
@@ -2698,6 +2718,253 @@ def fit_phase(smi: str):
             "card": smi}, kernels
 
 
+EVAL_AUG_PER_CLASS = 48     # 192 images: 154 train (2 steps), 38 validation
+EVAL_TEST_PER_CLASS = 25    # 100 test images: 2 batches, the second 36 valid
+FPS_FORWARDS = 110          # fps_benchmark: 10 warm-up + 100 timed
+
+
+def run_cli(fn, argv):
+    """``fn(argv)`` between a launch-counter reset and a read, its printing
+    kept off the smoke's output; returns its result, the launches, the
+    seconds and what it printed."""
+    reset, read = fit_counters()
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = fn([str(a) for a in argv])
+    torch.cuda.synchronize()
+    return result, read(), time.perf_counter() - t0, out.getvalue()
+
+
+def check_launches(what: str, got: dict, fwd: int, bwd: int = 0,
+                   augment: int = 0) -> None:
+    want = {"vit_block_fwd": fwd, "vit_block_bwd": bwd,
+            "vit_block_res_fwd": 0, "vit_block_bwd_res": 0,
+            "augment": augment}
+    if got != want:
+        raise RuntimeError(f"{what} launches {got}, want {want}")
+
+
+def check_fps(what: str, metrics: dict) -> float:
+    fps = metrics.get("fps")
+    if "fps_error" in metrics or not (fps is not None and np.isfinite(fps)
+                                      and fps > 0):
+        raise RuntimeError(f"{what}: fps {fps}, {metrics.get('fps_error')}")
+    return fps
+
+
+def eval_phase(smi: str):
+    """The train CLI -> evaluate CLI -> ``load_engine`` loop on the flagship
+    (module docstring, phase 9)."""
+    from pathlib import Path
+
+    from rovit_kan_tpu_torch.cli import evaluate as cli_evaluate
+    from rovit_kan_tpu_torch.cli import train as cli_train
+    from rovit_kan_tpu_torch.config import Config
+    from rovit_kan_tpu_torch.data.dataset import Loader, RoseLeafDataset
+    from rovit_kan_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from rovit_kan_tpu_torch.evaluation.evaluator import (
+        Evaluator,
+        load_model_for_evaluation,
+    )
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.serving import load_engine
+    from rovit_kan_tpu_torch.utils.checkpoint import is_finalized, load_meta
+
+    cfg = Config()
+    size = cfg.data.image_size
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_eval_"))
+    try:
+        t0 = time.perf_counter()
+        data = root / "data"
+        generate_synthetic_dataset(data / "Augmented Image",
+                                   n_per_class=EVAL_AUG_PER_CLASS, size=size,
+                                   seed=42)
+        generate_synthetic_dataset(data / "Original Image",
+                                   n_per_class=EVAL_TEST_PER_CLASS, size=size,
+                                   seed=43)
+        data_s = time.perf_counter() - t0
+
+        # The train CLI: 2 epochs of 2 steps and 1 validation batch, then
+        # the Evaluator's 2 test batches and its bs=1 FPS forwards.
+        out = root / "train"
+        metrics, train_launches, train_s, _ = run_cli(cli_train.main, [
+            "--data_root", data, "--output_dir", out, "--epochs", 2,
+            "--batch_size", BATCH])
+        with open(out / "logs" / "train_epochs.csv") as f:
+            header, *rows = [ln.strip().split(",") for ln in f]
+        best = out / "checkpoints" / "best_model"
+        if not (rows and is_finalized(best)
+                and (out / "results" / "test_metrics.json").exists()):
+            raise RuntimeError(f"train CLI wrote {len(rows)} CSV rows; "
+                               f"best_model finalized: {is_finalized(best)}")
+        losses = [float(r[header.index(c)]) for r in rows for c in header
+                  if c.endswith("_loss")]
+        if not np.all(np.isfinite(losses)):
+            raise RuntimeError(f"train CLI: non-finite losses {losses}")
+        steps, vals, tests = 2 * len(rows), len(rows), 2
+        check_launches("train CLI", train_launches,
+                       12 * (steps + vals + tests + FPS_FORWARDS),
+                       12 * steps, steps)
+        train_fps = check_fps("train CLI", metrics)
+
+        # The evaluate CLI, host metrics, with the temperature stored.
+        sidecar = best.parent / "best_model.meta.json"
+        before = sidecar.read_bytes()
+        host_out = root / "eval_host"
+        ev, host_launches, host_s, printed = run_cli(cli_evaluate.main, [
+            "--checkpoint", best, "--data_root", data, "--output_dir",
+            host_out, "--batch_size", BATCH, "--calibrate",
+            "--store_temperature", "--device_metrics", "off"])
+        check_launches("evaluate CLI (host metrics)", host_launches,
+                       12 * (1 + tests + FPS_FORWARDS))
+        host = json.loads((host_out / "test_metrics.json").read_text())
+        eval_fps = check_fps("evaluate CLI", host)
+        t, degenerate = ev.temperature, ev.temperature_degenerate
+        engine = load_engine(best, batch_size=BATCH, device="cuda")
+        if degenerate:
+            case = "degenerate fit refused, sidecar unchanged"
+            ok = (sidecar.read_bytes() == before
+                  and "Refusing --store_temperature" in printed
+                  and engine.stats()["temperature"] == 1.0)
+        else:
+            case = "stored, and load_engine serves with it"
+            ok = (load_meta(best).get("temperature") == t
+                  and host["temperature"] == t
+                  and engine.stats()["temperature"] == t)
+        if not ok:
+            raise RuntimeError(f"temperature {t} (degenerate {degenerate}): "
+                               f"sidecar {load_meta(best).get('temperature')},"
+                               f" engine {engine.stats()['temperature']}")
+        reset, read = fit_counters()
+        with contextlib.redirect_stdout(io.StringIO()):
+            test_ds = RoseLeafDataset(data / "Original Image",
+                                      cfg.data.class_names,
+                                      cfg.data.severity_map, image_size=size)
+        images = np.stack([test_ds[i][0] for i in range(BATCH)])
+        reset()
+        served = engine.predict(images)
+        serve_launches = read()
+        check_launches("load_engine", serve_launches, 12)
+        if not (np.isfinite(served["cls_probs"]).all() and np.allclose(
+                served["cls_probs"].sum(-1), 1.0, atol=1e-5)):
+            raise RuntimeError("load_engine served non-finite probabilities")
+
+        # The evaluate CLI, device metrics, at the same temperature.
+        dev_out = root / "eval_device"
+        ev2, dev_launches, dev_s, _ = run_cli(cli_evaluate.main, [
+            "--checkpoint", best, "--data_root", data, "--output_dir",
+            dev_out, "--batch_size", BATCH, "--calibrate",
+            "--device_metrics", "on"])
+        check_launches("evaluate CLI (device metrics)", dev_launches,
+                       12 * (1 + tests))
+        dev = json.loads((dev_out / "test_metrics_device.json").read_text())
+        gaps = {k: abs(dev[k] - host[k]) for k in
+                ("accuracy", "macro_f1", "mae", "spearman_rho",
+                 "brier_score", "ece")}
+        # The device path computes in fp32 (as the JAX one does), the host
+        # in fp64: the counts agree exactly, accuracy to the fp32 rounding
+        # of the same quotient, macro F1 to its fp32 arithmetic.
+        if (ev2.temperature != t
+                or dev["confusion_matrix"] != host["confusion_matrix"]
+                or np.float32(dev["accuracy"]) != np.float32(host["accuracy"])
+                or gaps["macro_f1"] > 1e-6 or max(gaps.values()) > 1e-5):
+            raise RuntimeError(f"device metrics differ from the host path: "
+                               f"{gaps}, T {ev2.temperature} vs {t}")
+
+        # One Evaluator on the same weights through #1, the plain block and
+        # the fp32 model; its collected outputs held as served ones.
+        loader = Loader(test_ds, BATCH)
+        model, state = load_model_for_evaluation(best, device="cuda")
+        kernel_ev = Evaluator(model, state, loader, cfg)
+        kernel_ev._collect()                  # decodes and caches the set
+        pass_s = []
+        reset()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            d = kernel_ev._collect()
+            pass_s.append(time.perf_counter() - t0)
+        collect_launches = read()
+        check_launches("Evaluator", collect_launches, 3 * 12 * tests)
+        # Where the time of a test pass and of a bs=1 FPS forward goes:
+        # device operations and device time per call against the wall time.
+        one = torch.zeros((1, size, size, 3), dtype=torch.uint8,
+                          device=kernel_ev.device)
+        kernel_fps = kernel_ev._fps()
+        profiles = {}
+        for name, fn, calls, wall_s in (
+                ("test_pass", kernel_ev._collect, 3,
+                 statistics.median(pass_s)),
+                ("fps_forward", lambda: kernel_ev._forward(one), 20,
+                 1.0 / kernel_fps)):
+            ops = profile_device(fn, calls)
+            device_ms = sum(ms for _, ms in ops.values()) / calls
+            profiles[name] = {
+                "device_ops": sum(n for n, _ in ops.values()) / calls,
+                "device_ms": device_ms, "wall_ms": 1e3 * wall_s,
+                "device_busy_share": device_ms / (1e3 * wall_s),
+                "top": top_kernels({k: ms / calls
+                                    for k, (_, ms) in ops.items()})}
+        plain_cfg = copy.deepcopy(cfg)
+        plain_cfg.tpu.use_pallas_block = False
+        refs = {}
+        for name, ref_cfg, dtype in (("plain", plain_cfg, None),
+                                     ("exact", cfg, torch.float32)):
+            ref_model = build_model(ref_cfg, dtype=dtype, inference=True,
+                                    device="cuda")
+            reset()
+            refs[name] = Evaluator(ref_model, state, loader, cfg)._collect()
+            check_launches(f"Evaluator ({name})", read(), 0)
+
+        def as_served(arr):
+            return {"cls_probs": arr["probs"],
+                    "cls_pred": arr["probs"].argmax(1),
+                    "kan_severity": arr["severity_pred"],
+                    "uncertainty_std": arr["uncertainty"]}
+
+        checks, failed = hold_served(
+            as_served(d), as_served(refs["plain"]), as_served(refs["exact"]),
+            keys=("cls_probs", "uncertainty_std", "kan_severity"))
+        if failed:
+            emit({"phase": "eval", "outputs": checks})
+            raise RuntimeError(f"evaluated outputs out of tolerance: "
+                               f"{failed}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    n_test = int(d["labels"].size)
+    return {"phase": "eval", "model": "DeiT-Tiny RoViT-KAN d=192 depth=12 "
+            "heads=3 224px bf16, batch 64: cli.train -> cli.evaluate -> "
+            "load_engine over a synthetic JPEG tree",
+            "images": {"augmented": 4 * EVAL_AUG_PER_CLASS,
+                       "test": n_test},
+            "data_seconds": data_s,
+            "train_cli": {"seconds": train_s, "epochs": len(rows),
+                          "launches": train_launches, "fps_bs1": train_fps,
+                          "test_accuracy": metrics["accuracy"],
+                          "losses_finite": True},
+            "evaluate_cli_host": {"seconds": host_s,
+                                  "launches": host_launches,
+                                  "fps_bs1": eval_fps,
+                                  "ece": host["ece"],
+                                  "ece_precalibration":
+                                      host.get("ece_precalibration")},
+            "evaluate_cli_device": {"seconds": dev_s,
+                                    "launches": dev_launches,
+                                    "gaps_vs_host": gaps},
+            "temperature": t, "temperature_degenerate": degenerate,
+            "temperature_case": case,
+            "serve_launches": serve_launches,
+            "evaluator_launches": collect_launches,
+            "test_pass_seconds": pass_s,
+            "eval_images_per_sec": n_test / statistics.median(pass_s),
+            "fps_bs1": eval_fps, "fps_bs1_evaluator": kernel_fps,
+            "profiles": profiles,
+            "held_vs_plain_block": checks, "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2756,6 +3023,8 @@ def main() -> int:
     emit(longed)
     fitted, res_kernels = fit_phase(smi)
     emit(fitted)
+    evaled = eval_phase(smi)
+    emit(evaled)
 
     keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "library_ms")
 
@@ -2867,6 +3136,13 @@ def main() -> int:
                  result["block_launches"], bf16, fp32, more1,
                  train_launches=trained["launches"]["vit_block_fwd"],
                  long_launches=long_launches("vit_block_fwd"),
+                 eval_launches={
+                     path: evaled[path]["launches"]["vit_block_fwd"]
+                     for path in ("train_cli", "evaluate_cli_host",
+                                  "evaluate_cli_device")} | {
+                     "load_engine": evaled["serve_launches"]["vit_block_fwd"],
+                     "evaluator": evaled["evaluator_launches"][
+                         "vit_block_fwd"]},
                  n577=n577(0, more1))
     fwd3 = res_entry("vit_block_res_fwd", "vit_block_fwd.cu", 227, 0)
     # The fp32 #1 and #3 run 3xTF32: their FMA bound beside the bound.

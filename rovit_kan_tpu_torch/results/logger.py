@@ -4,12 +4,15 @@ training curves.
 A copy of ``rovit_kan_tpu/results/logger.py`` (numpy and the standard
 library; the port keeps its own copy): the same 14-column epoch CSV (epoch,
 stage, six train metrics, six val metrics), ``reset``, ``truncate_from``,
-``save_metrics`` and ``log_experiment``. The plots import matplotlib only
-when they are drawn; a machine without it logs everything else."""
+``save_metrics``, ``log_experiment``, ``save_comparison_table`` and
+``plot_training_curves``. The plot imports matplotlib only when it is
+drawn; on a machine without it the plot is skipped with a warning and
+everything else is logged."""
 from __future__ import annotations
 
 import csv
 import json
+import warnings
 from pathlib import Path
 from typing import Any, Dict, Optional
 
@@ -136,8 +139,15 @@ class ExperimentLogger:
 
     def plot_training_curves(self, csv_path: Optional[Path] = None,
                              out_name: Optional[str] = None) -> Optional[Path]:
-        """2x3 grid: total/cls/ord/unc/kan loss and accuracy."""
-        import matplotlib
+        """2x3 grid: total/cls/ord/unc/kan loss and accuracy; returns the
+        PNG's path, or None when there is nothing to draw or no
+        matplotlib."""
+        try:
+            import matplotlib
+        except ImportError:
+            warnings.warn("matplotlib is not installed: training curves not "
+                          "drawn")
+            return None
         matplotlib.use("Agg")
         import matplotlib.pyplot as plt
 

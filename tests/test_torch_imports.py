@@ -38,6 +38,11 @@ def test_port_has_modules():
                  "rovit_kan_tpu_torch/utils/checkpoint.py",
                  "rovit_kan_tpu_torch/results/logger.py",
                  "rovit_kan_tpu_torch/evaluation/evaluator.py",
+                 "rovit_kan_tpu_torch/evaluation/metrics.py",
+                 "rovit_kan_tpu_torch/evaluation/calibration.py",
+                 "rovit_kan_tpu_torch/ops/device_metrics.py",
+                 "rovit_kan_tpu_torch/cli/train.py",
+                 "rovit_kan_tpu_torch/cli/evaluate.py",
                  "chip_smoke.py"):
         assert want in names
 

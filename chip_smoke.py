@@ -120,9 +120,45 @@ exits non-zero:
    the other metrics within 1e-5; one ``Evaluator`` pass through #1 held against the
    plain block and the fp32 model as "serve" holds served outputs
    (``hold_served``); the test pass's seconds, evaluation img/s and the
-   bs=1 FPS, which must be finite and positive.
+   bs=1 FPS, which must be finite and positive. The phase's directory
+   (and its ``best_model``) serves phases 10-12;
+10. wide: F3's repair. bf16 ``get_config("small")`` (d = 384) saved as a
+   checkpoint, served one 224-px batch of 64 through ``load_engine`` and
+   trained one step, both on the plain block (no #1 or #2 launch, finite
+   outputs and loss); a forced ``use_pallas_block=True`` at d = 384 raises
+   the wrapper's ValueError naming the bf16 widths, before any launch; the
+   flagship still takes 12 #1 launches a batch;
+11. export: ``cli.export_model --verify`` on ``best_model``; then three
+   artifacts, each saved, loaded afresh by ``load_exported`` and held
+   against its ``InferenceEngine`` bit for bit on a full batch and on a
+   partial batch padded by the caller: the 224-px flagship at batch 64 from
+   ``best_model`` with its stored temperature (12 ``vit_block_fwd`` op
+   nodes, 12 #1 launches a call), the 384-px model with
+   ``use_pallas_block=False`` at batch 32 (12 ``attention_fwd`` nodes and #5
+   launches), and the flagship with ``use_pallas_kan=True`` (1
+   ``kan_module_fwd`` node and #10 launch, and 12 #1); each artifact's
+   device operations per batch (torch.profiler) no more than the eager
+   ``build_serving_forward``'s, its graph's node census, and one call's
+   time against the eager forward's by CUDA events in turns and by
+   CUDA-graph replay (the artifact only: the eager forward copies its
+   normalization constants from the host, which a capture refuses); the
+   host time per wrapper call through each custom op and through the ctypes
+   launch alone (the parent's path), in turns; served 224-px img/s at batch
+   64 and bs=1 FPS through the op and with the block forward on the ctypes
+   launch alone, in turns;
+12. serve_cli: ``python -m rovit_kan_tpu_torch.cli.serve`` in a subprocess
+   on ``best_model``: 16 concurrent single-image and 2 batch-64 clients
+   (each batch the engine's bits, each single image within 1e-5 as in
+   "serve"), ``/healthz`` and ``/metrics`` (parsed, the same stats), served
+   img/s and p50/p95 latency over HTTP from 4 clients of 6 batches each,
+   and a SIGTERM while 8 batches are in flight: every one answered with the
+   engine's bits, exit 0 within 30 s; the process's launch counters, read
+   after the drain, 12 #1 for each batch it ran;
+13. bench: ``cli.bench`` once, its JSON line printed, every rate finite and
+   positive, every MFU in (0, 1], #1, #2 and #7 launched.
 
-The line before the last is ``nvidia-smi``'s name and power limit; the last
+The kernels line gives each kernel's launches on the export, serve CLI and
+bench paths in its ``launches_by_path``. The line before the last is ``nvidia-smi``'s name and power limit; the last
 is ``{"ok": true, "device": {...}}``. Imports torch and the port only.
 """
 from __future__ import annotations
@@ -141,6 +177,7 @@ import sys
 import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -2755,11 +2792,10 @@ def check_fps(what: str, metrics: dict) -> float:
     return fps
 
 
-def eval_phase(smi: str):
+def eval_phase(smi: str, root):
     """The train CLI -> evaluate CLI -> ``load_engine`` loop on the flagship
-    (module docstring, phase 9)."""
-    from pathlib import Path
-
+    (module docstring, phase 9), in the directory ``root``, whose
+    ``train/checkpoints/best_model`` the later phases export and serve."""
     from rovit_kan_tpu_torch.cli import evaluate as cli_evaluate
     from rovit_kan_tpu_torch.cli import train as cli_train
     from rovit_kan_tpu_torch.config import Config
@@ -2775,164 +2811,160 @@ def eval_phase(smi: str):
 
     cfg = Config()
     size = cfg.data.image_size
-    root = Path(tempfile.mkdtemp(prefix="chip_smoke_eval_"))
-    try:
+    t0 = time.perf_counter()
+    data = root / "data"
+    generate_synthetic_dataset(data / "Augmented Image",
+                               n_per_class=EVAL_AUG_PER_CLASS, size=size,
+                               seed=42)
+    generate_synthetic_dataset(data / "Original Image",
+                               n_per_class=EVAL_TEST_PER_CLASS, size=size,
+                               seed=43)
+    data_s = time.perf_counter() - t0
+
+    # The train CLI: 2 epochs of 2 steps and 1 validation batch, then
+    # the Evaluator's 2 test batches and its bs=1 FPS forwards.
+    out = root / "train"
+    metrics, train_launches, train_s, _ = run_cli(cli_train.main, [
+        "--data_root", data, "--output_dir", out, "--epochs", 2,
+        "--batch_size", BATCH])
+    with open(out / "logs" / "train_epochs.csv") as f:
+        header, *rows = [ln.strip().split(",") for ln in f]
+    best = out / "checkpoints" / "best_model"
+    if not (rows and is_finalized(best)
+            and (out / "results" / "test_metrics.json").exists()):
+        raise RuntimeError(f"train CLI wrote {len(rows)} CSV rows; "
+                           f"best_model finalized: {is_finalized(best)}")
+    losses = [float(r[header.index(c)]) for r in rows for c in header
+              if c.endswith("_loss")]
+    if not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"train CLI: non-finite losses {losses}")
+    steps, vals, tests = 2 * len(rows), len(rows), 2
+    check_launches("train CLI", train_launches,
+                   12 * (steps + vals + tests + FPS_FORWARDS),
+                   12 * steps, steps)
+    train_fps = check_fps("train CLI", metrics)
+
+    # The evaluate CLI, host metrics, with the temperature stored.
+    sidecar = best.parent / "best_model.meta.json"
+    before = sidecar.read_bytes()
+    host_out = root / "eval_host"
+    ev, host_launches, host_s, printed = run_cli(cli_evaluate.main, [
+        "--checkpoint", best, "--data_root", data, "--output_dir",
+        host_out, "--batch_size", BATCH, "--calibrate",
+        "--store_temperature", "--device_metrics", "off"])
+    check_launches("evaluate CLI (host metrics)", host_launches,
+                   12 * (1 + tests + FPS_FORWARDS))
+    host = json.loads((host_out / "test_metrics.json").read_text())
+    eval_fps = check_fps("evaluate CLI", host)
+    t, degenerate = ev.temperature, ev.temperature_degenerate
+    engine = load_engine(best, batch_size=BATCH, device="cuda")
+    if degenerate:
+        case = "degenerate fit refused, sidecar unchanged"
+        ok = (sidecar.read_bytes() == before
+              and "Refusing --store_temperature" in printed
+              and engine.stats()["temperature"] == 1.0)
+    else:
+        case = "stored, and load_engine serves with it"
+        ok = (load_meta(best).get("temperature") == t
+              and host["temperature"] == t
+              and engine.stats()["temperature"] == t)
+    if not ok:
+        raise RuntimeError(f"temperature {t} (degenerate {degenerate}): "
+                           f"sidecar {load_meta(best).get('temperature')},"
+                           f" engine {engine.stats()['temperature']}")
+    reset, read = fit_counters()
+    with contextlib.redirect_stdout(io.StringIO()):
+        test_ds = RoseLeafDataset(data / "Original Image",
+                                  cfg.data.class_names,
+                                  cfg.data.severity_map, image_size=size)
+    images = np.stack([test_ds[i][0] for i in range(BATCH)])
+    reset()
+    served = engine.predict(images)
+    serve_launches = read()
+    check_launches("load_engine", serve_launches, 12)
+    if not (np.isfinite(served["cls_probs"]).all() and np.allclose(
+            served["cls_probs"].sum(-1), 1.0, atol=1e-5)):
+        raise RuntimeError("load_engine served non-finite probabilities")
+
+    # The evaluate CLI, device metrics, at the same temperature.
+    dev_out = root / "eval_device"
+    ev2, dev_launches, dev_s, _ = run_cli(cli_evaluate.main, [
+        "--checkpoint", best, "--data_root", data, "--output_dir",
+        dev_out, "--batch_size", BATCH, "--calibrate",
+        "--device_metrics", "on"])
+    check_launches("evaluate CLI (device metrics)", dev_launches,
+                   12 * (1 + tests))
+    dev = json.loads((dev_out / "test_metrics_device.json").read_text())
+    gaps = {k: abs(dev[k] - host[k]) for k in
+            ("accuracy", "macro_f1", "mae", "spearman_rho",
+             "brier_score", "ece")}
+    # The device path computes in fp32 (as the JAX one does), the host
+    # in fp64: the counts agree exactly, accuracy to the fp32 rounding
+    # of the same quotient, macro F1 to its fp32 arithmetic.
+    if (ev2.temperature != t
+            or dev["confusion_matrix"] != host["confusion_matrix"]
+            or np.float32(dev["accuracy"]) != np.float32(host["accuracy"])
+            or gaps["macro_f1"] > 1e-6 or max(gaps.values()) > 1e-5):
+        raise RuntimeError(f"device metrics differ from the host path: "
+                           f"{gaps}, T {ev2.temperature} vs {t}")
+
+    # One Evaluator on the same weights through #1, the plain block and
+    # the fp32 model; its collected outputs held as served ones.
+    loader = Loader(test_ds, BATCH)
+    model, state = load_model_for_evaluation(best, device="cuda")
+    kernel_ev = Evaluator(model, state, loader, cfg)
+    kernel_ev._collect()                  # decodes and caches the set
+    pass_s = []
+    reset()
+    for _ in range(3):
         t0 = time.perf_counter()
-        data = root / "data"
-        generate_synthetic_dataset(data / "Augmented Image",
-                                   n_per_class=EVAL_AUG_PER_CLASS, size=size,
-                                   seed=42)
-        generate_synthetic_dataset(data / "Original Image",
-                                   n_per_class=EVAL_TEST_PER_CLASS, size=size,
-                                   seed=43)
-        data_s = time.perf_counter() - t0
-
-        # The train CLI: 2 epochs of 2 steps and 1 validation batch, then
-        # the Evaluator's 2 test batches and its bs=1 FPS forwards.
-        out = root / "train"
-        metrics, train_launches, train_s, _ = run_cli(cli_train.main, [
-            "--data_root", data, "--output_dir", out, "--epochs", 2,
-            "--batch_size", BATCH])
-        with open(out / "logs" / "train_epochs.csv") as f:
-            header, *rows = [ln.strip().split(",") for ln in f]
-        best = out / "checkpoints" / "best_model"
-        if not (rows and is_finalized(best)
-                and (out / "results" / "test_metrics.json").exists()):
-            raise RuntimeError(f"train CLI wrote {len(rows)} CSV rows; "
-                               f"best_model finalized: {is_finalized(best)}")
-        losses = [float(r[header.index(c)]) for r in rows for c in header
-                  if c.endswith("_loss")]
-        if not np.all(np.isfinite(losses)):
-            raise RuntimeError(f"train CLI: non-finite losses {losses}")
-        steps, vals, tests = 2 * len(rows), len(rows), 2
-        check_launches("train CLI", train_launches,
-                       12 * (steps + vals + tests + FPS_FORWARDS),
-                       12 * steps, steps)
-        train_fps = check_fps("train CLI", metrics)
-
-        # The evaluate CLI, host metrics, with the temperature stored.
-        sidecar = best.parent / "best_model.meta.json"
-        before = sidecar.read_bytes()
-        host_out = root / "eval_host"
-        ev, host_launches, host_s, printed = run_cli(cli_evaluate.main, [
-            "--checkpoint", best, "--data_root", data, "--output_dir",
-            host_out, "--batch_size", BATCH, "--calibrate",
-            "--store_temperature", "--device_metrics", "off"])
-        check_launches("evaluate CLI (host metrics)", host_launches,
-                       12 * (1 + tests + FPS_FORWARDS))
-        host = json.loads((host_out / "test_metrics.json").read_text())
-        eval_fps = check_fps("evaluate CLI", host)
-        t, degenerate = ev.temperature, ev.temperature_degenerate
-        engine = load_engine(best, batch_size=BATCH, device="cuda")
-        if degenerate:
-            case = "degenerate fit refused, sidecar unchanged"
-            ok = (sidecar.read_bytes() == before
-                  and "Refusing --store_temperature" in printed
-                  and engine.stats()["temperature"] == 1.0)
-        else:
-            case = "stored, and load_engine serves with it"
-            ok = (load_meta(best).get("temperature") == t
-                  and host["temperature"] == t
-                  and engine.stats()["temperature"] == t)
-        if not ok:
-            raise RuntimeError(f"temperature {t} (degenerate {degenerate}): "
-                               f"sidecar {load_meta(best).get('temperature')},"
-                               f" engine {engine.stats()['temperature']}")
-        reset, read = fit_counters()
-        with contextlib.redirect_stdout(io.StringIO()):
-            test_ds = RoseLeafDataset(data / "Original Image",
-                                      cfg.data.class_names,
-                                      cfg.data.severity_map, image_size=size)
-        images = np.stack([test_ds[i][0] for i in range(BATCH)])
+        d = kernel_ev._collect()
+        pass_s.append(time.perf_counter() - t0)
+    collect_launches = read()
+    check_launches("Evaluator", collect_launches, 3 * 12 * tests)
+    # Where the time of a test pass and of a bs=1 FPS forward goes:
+    # device operations and device time per call against the wall time.
+    one = torch.zeros((1, size, size, 3), dtype=torch.uint8,
+                      device=kernel_ev.device)
+    kernel_fps = kernel_ev._fps()
+    profiles = {}
+    for name, fn, calls, wall_s in (
+            ("test_pass", kernel_ev._collect, 3,
+             statistics.median(pass_s)),
+            ("fps_forward", lambda: kernel_ev._forward(one), 20,
+             1.0 / kernel_fps)):
+        ops = profile_device(fn, calls)
+        device_ms = sum(ms for _, ms in ops.values()) / calls
+        profiles[name] = {
+            "device_ops": sum(n for n, _ in ops.values()) / calls,
+            "device_ms": device_ms, "wall_ms": 1e3 * wall_s,
+            "device_busy_share": device_ms / (1e3 * wall_s),
+            "top": top_kernels({k: ms / calls
+                                for k, (_, ms) in ops.items()})}
+    plain_cfg = copy.deepcopy(cfg)
+    plain_cfg.tpu.use_pallas_block = False
+    refs = {}
+    for name, ref_cfg, dtype in (("plain", plain_cfg, None),
+                                 ("exact", cfg, torch.float32)):
+        ref_model = build_model(ref_cfg, dtype=dtype, inference=True,
+                                device="cuda")
         reset()
-        served = engine.predict(images)
-        serve_launches = read()
-        check_launches("load_engine", serve_launches, 12)
-        if not (np.isfinite(served["cls_probs"]).all() and np.allclose(
-                served["cls_probs"].sum(-1), 1.0, atol=1e-5)):
-            raise RuntimeError("load_engine served non-finite probabilities")
+        refs[name] = Evaluator(ref_model, state, loader, cfg)._collect()
+        check_launches(f"Evaluator ({name})", read(), 0)
 
-        # The evaluate CLI, device metrics, at the same temperature.
-        dev_out = root / "eval_device"
-        ev2, dev_launches, dev_s, _ = run_cli(cli_evaluate.main, [
-            "--checkpoint", best, "--data_root", data, "--output_dir",
-            dev_out, "--batch_size", BATCH, "--calibrate",
-            "--device_metrics", "on"])
-        check_launches("evaluate CLI (device metrics)", dev_launches,
-                       12 * (1 + tests))
-        dev = json.loads((dev_out / "test_metrics_device.json").read_text())
-        gaps = {k: abs(dev[k] - host[k]) for k in
-                ("accuracy", "macro_f1", "mae", "spearman_rho",
-                 "brier_score", "ece")}
-        # The device path computes in fp32 (as the JAX one does), the host
-        # in fp64: the counts agree exactly, accuracy to the fp32 rounding
-        # of the same quotient, macro F1 to its fp32 arithmetic.
-        if (ev2.temperature != t
-                or dev["confusion_matrix"] != host["confusion_matrix"]
-                or np.float32(dev["accuracy"]) != np.float32(host["accuracy"])
-                or gaps["macro_f1"] > 1e-6 or max(gaps.values()) > 1e-5):
-            raise RuntimeError(f"device metrics differ from the host path: "
-                               f"{gaps}, T {ev2.temperature} vs {t}")
+    def as_served(arr):
+        return {"cls_probs": arr["probs"],
+                "cls_pred": arr["probs"].argmax(1),
+                "kan_severity": arr["severity_pred"],
+                "uncertainty_std": arr["uncertainty"]}
 
-        # One Evaluator on the same weights through #1, the plain block and
-        # the fp32 model; its collected outputs held as served ones.
-        loader = Loader(test_ds, BATCH)
-        model, state = load_model_for_evaluation(best, device="cuda")
-        kernel_ev = Evaluator(model, state, loader, cfg)
-        kernel_ev._collect()                  # decodes and caches the set
-        pass_s = []
-        reset()
-        for _ in range(3):
-            t0 = time.perf_counter()
-            d = kernel_ev._collect()
-            pass_s.append(time.perf_counter() - t0)
-        collect_launches = read()
-        check_launches("Evaluator", collect_launches, 3 * 12 * tests)
-        # Where the time of a test pass and of a bs=1 FPS forward goes:
-        # device operations and device time per call against the wall time.
-        one = torch.zeros((1, size, size, 3), dtype=torch.uint8,
-                          device=kernel_ev.device)
-        kernel_fps = kernel_ev._fps()
-        profiles = {}
-        for name, fn, calls, wall_s in (
-                ("test_pass", kernel_ev._collect, 3,
-                 statistics.median(pass_s)),
-                ("fps_forward", lambda: kernel_ev._forward(one), 20,
-                 1.0 / kernel_fps)):
-            ops = profile_device(fn, calls)
-            device_ms = sum(ms for _, ms in ops.values()) / calls
-            profiles[name] = {
-                "device_ops": sum(n for n, _ in ops.values()) / calls,
-                "device_ms": device_ms, "wall_ms": 1e3 * wall_s,
-                "device_busy_share": device_ms / (1e3 * wall_s),
-                "top": top_kernels({k: ms / calls
-                                    for k, (_, ms) in ops.items()})}
-        plain_cfg = copy.deepcopy(cfg)
-        plain_cfg.tpu.use_pallas_block = False
-        refs = {}
-        for name, ref_cfg, dtype in (("plain", plain_cfg, None),
-                                     ("exact", cfg, torch.float32)):
-            ref_model = build_model(ref_cfg, dtype=dtype, inference=True,
-                                    device="cuda")
-            reset()
-            refs[name] = Evaluator(ref_model, state, loader, cfg)._collect()
-            check_launches(f"Evaluator ({name})", read(), 0)
-
-        def as_served(arr):
-            return {"cls_probs": arr["probs"],
-                    "cls_pred": arr["probs"].argmax(1),
-                    "kan_severity": arr["severity_pred"],
-                    "uncertainty_std": arr["uncertainty"]}
-
-        checks, failed = hold_served(
-            as_served(d), as_served(refs["plain"]), as_served(refs["exact"]),
-            keys=("cls_probs", "uncertainty_std", "kan_severity"))
-        if failed:
-            emit({"phase": "eval", "outputs": checks})
-            raise RuntimeError(f"evaluated outputs out of tolerance: "
-                               f"{failed}")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    checks, failed = hold_served(
+        as_served(d), as_served(refs["plain"]), as_served(refs["exact"]),
+        keys=("cls_probs", "uncertainty_std", "kan_severity"))
+    if failed:
+        emit({"phase": "eval", "outputs": checks})
+        raise RuntimeError(f"evaluated outputs out of tolerance: "
+                           f"{failed}")
 
     n_test = int(d["labels"].size)
     return {"phase": "eval", "model": "DeiT-Tiny RoViT-KAN d=192 depth=12 "
@@ -2963,6 +2995,596 @@ def eval_phase(smi: str):
             "fps_bs1": eval_fps, "fps_bs1_evaluator": kernel_fps,
             "profiles": profiles,
             "held_vs_plain_block": checks, "card": smi}
+
+
+def all_counters():
+    """Reset and read every kernel's launch counter, under the kernels
+    line's names."""
+    from rovit_kan_tpu_torch.ops import attention as at
+    from rovit_kan_tpu_torch.ops import augment_kernel as ak
+    from rovit_kan_tpu_torch.ops import block_kernel as bk
+    from rovit_kan_tpu_torch.ops import kan_kernel as kk
+    names = {"vit_block_fwd": (bk, "LAUNCHES"),
+             "vit_block_bwd": (bk, "BWD_LAUNCHES"),
+             "vit_block_res_fwd": (bk, "RES_LAUNCHES"),
+             "vit_block_bwd_res": (bk, "BWD_RES_LAUNCHES"),
+             "augment": (ak, "LAUNCHES"),
+             "kan_layer_fwd": (kk, "LAYER_LAUNCHES"),
+             "kan_layer_bwd": (kk, "LAYER_BWD_LAUNCHES"),
+             "kan_module_fwd": (kk, "LAUNCHES"),
+             "kan_module_bwd": (kk, "BWD_LAUNCHES"),
+             "attention_fwd": (at, "LAUNCHES"),
+             "attention_bwd": (at, "BWD_LAUNCHES")}
+
+    def reset():
+        for mod, attr in names.values():
+            setattr(mod, attr, 0)
+
+    def read():
+        return {k: getattr(mod, attr) for k, (mod, attr) in names.items()}
+
+    return reset, read
+
+
+def only(launches: dict, **want) -> None:
+    """Raise unless ``launches`` holds ``want`` and zeros elsewhere."""
+    full = {k: want.get(k, 0) for k in launches}
+    if launches != full:
+        raise RuntimeError(f"launches {launches}, want {full}")
+
+
+def uint8_batch(seed: int, n: int, size: int = 224) -> np.ndarray:
+    return np.random.RandomState(seed).randint(
+        0, 256, (n, size, size, 3)).astype(np.uint8)
+
+
+def wide_phase(smi: str, root):
+    """F3's repair on the card (module docstring, phase 10)."""
+    from rovit_kan_tpu_torch.config import Config, get_config
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.ops import block_kernel as bk
+    from rovit_kan_tpu_torch.serving import InferenceEngine, load_engine
+    from rovit_kan_tpu_torch.training.trainer import make_train_step
+    from rovit_kan_tpu_torch.training.optimizer import build_optimizer
+    from rovit_kan_tpu_torch.utils.checkpoint import save_checkpoint
+
+    reset, read = all_counters()
+    cfg = get_config("small")
+    model = build_model(cfg, device="cuda", seed=0)
+    ck = root / "small" / "best_model"
+    save_checkpoint(ck, model.state_dict(), config=cfg)
+    engine = load_engine(ck, batch_size=BATCH, device="cuda")
+    if any(b.use_fused_block for b in engine.model.backbone.model.blocks):
+        raise RuntimeError("'auto' sent d=384 to the fused block")
+    images = uint8_batch(20, BATCH)
+    reset()
+    served = engine.predict(images)
+    torch.cuda.synchronize()
+    serve_launches = read()
+    only(serve_launches)
+    if not all(np.isfinite(v).all() for v in served.values()):
+        raise RuntimeError("small preset served non-finite outputs")
+
+    opt = build_optimizer(model, cfg)
+    step = make_train_step(model, opt, cfg,
+                           generator=torch.Generator("cuda").manual_seed(0))
+    if any(b.use_fused_block for b in model.backbone.model.blocks):
+        raise RuntimeError("'auto' sent d=384 to the fused block in training")
+    reset()
+    metrics = step(train_batch(cfg, 21), 4, 1.0, 1)
+    loss = float(metrics["total_loss"])
+    train_launches = read()
+    only(train_launches, augment=1 if step.fused_augment else 0)
+    if not np.isfinite(loss):
+        raise RuntimeError(f"small preset train loss {loss}")
+
+    forced = copy.deepcopy(cfg)
+    forced.tpu.use_pallas_block = True
+    fmodel = build_model(forced, inference=True, device="cuda", seed=0)
+    x = torch.zeros((2, 224, 224, 3), dtype=torch.uint8, device="cuda")
+    reset()
+    try:
+        with torch.inference_mode():
+            fmodel(x.float())
+        raise RuntimeError("a forced fused block ran at d=384")
+    except ValueError as e:
+        refused = str(e)
+    if "D=384" not in refused or str(bk.BLOCK_WIDTHS[torch.bfloat16]) \
+            not in refused:
+        raise RuntimeError(f"d=384 refused with {refused!r}")
+    torch.cuda.synchronize()
+    only(read())
+
+    flagship = InferenceEngine(build_model(Config(), inference=True,
+                                           device="cuda", seed=0),
+                               batch_size=BATCH, device="cuda")
+    reset()
+    flagship.predict(images)
+    flagship_launches = read()
+    only(flagship_launches, vit_block_fwd=12)
+    return {"phase": "wide", "model": "get_config('small'): d=384 depth=12 "
+            "heads=6 224px bf16, batch 64", "serve_launches": serve_launches,
+            "train_launches": train_launches, "train_loss": loss,
+            "forced_fused_refused": refused,
+            "flagship_launches_per_batch": flagship_launches["vit_block_fwd"],
+            "card": smi}
+
+
+def op_nodes(program, name: str) -> int:
+    """Nodes of an exported graph that call the custom op ``name``."""
+    target = f"rovit_kan_torch.{name}.default"
+    return sum(1 for n in program.graph.nodes
+               if n.op == "call_function" and str(n.target) == target)
+
+
+def same_outputs(got: dict, want: dict, rows: int) -> list:
+    """The outputs whose first ``rows`` rows are not the same bits."""
+    return [k for k, v in want.items()
+            if not np.array_equal(got[k].cpu().numpy()[:rows], v[:rows])]
+
+
+def export_case(label, model, engine, images, counters, want_launch,
+                nodes, root, temperature):
+    """Export ``model`` at the engine's batch, save, load it afresh and hold
+    the artifact against ``engine``: the same bits on a full and a padded
+    partial batch, ``want_launch`` (name, count) per call by the counters
+    and in the graph, device operations per batch against the eager serving
+    forward, and the times of one call both ways."""
+    from rovit_kan_tpu_torch.export import load_exported, save_exported
+    from rovit_kan_tpu_torch.serving import build_serving_forward
+
+    reset, read = counters
+    path = root / f"{label}.pt2"
+    t0 = time.perf_counter()
+    size_bytes = save_exported(path, model, engine.batch_size,
+                               temperature=temperature)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    artifact = load_exported(path)
+    load_s = time.perf_counter() - t0
+    program = artifact.program
+    graph_nodes = {n: op_nodes(program, n) for n in nodes}
+    calls = [str(n.target) for n in program.graph.nodes
+             if n.op == "call_function"]
+    census = {"call_nodes": len(calls),
+              "assert_tensor_metadata": calls.count(
+                  "aten._assert_tensor_metadata.default"),
+              "to_dtype": calls.count("aten.to.dtype")}
+    name, per_call = want_launch
+    if graph_nodes != nodes:
+        raise RuntimeError(f"{label}: op nodes {graph_nodes}, want {nodes}")
+    n_part = engine.batch_size * 3 // 5
+    padded = np.zeros_like(images)
+    padded[:n_part] = images[:n_part]
+    reset()
+    got = artifact(images)
+    got_part = artifact(padded)
+    torch.cuda.synchronize()
+    launches = read()
+    only(launches, **{name: 2 * per_call,
+                      **({"vit_block_fwd": 24} if name == "kan_module_fwd"
+                         else {})})
+    want = engine.predict(images)
+    want_part = engine.predict(images[:n_part])
+    differ = (same_outputs(got, want, len(images))
+              + [k + "(partial)" for k in
+                 same_outputs(got_part, want_part, n_part)])
+    if differ:
+        raise RuntimeError(f"{label}: artifact outputs differ from the "
+                           f"engine's bits: {differ}")
+    x = torch.from_numpy(images).cuda()
+    eager = build_serving_forward(engine.model, temperature)
+    module = program.module()
+
+    def run_artifact():
+        with torch.inference_mode():
+            module(x)
+
+    def run_eager():
+        with torch.inference_mode():
+            eager(x)
+
+    ops = {"artifact": sum(n for n, _ in profile_device(run_artifact,
+                                                          calls=3).values()),
+           "eager": sum(n for n, _ in profile_device(run_eager,
+                                                     calls=3).values())}
+    ops = {k: v / 3 for k, v in ops.items()}
+    if ops["artifact"] > ops["eager"]:
+        raise RuntimeError(f"{label}: the artifact enqueues {ops} device "
+                           f"operations per batch")
+    # Events around back-to-back calls, in turns; CUDA-graph replay for the
+    # artifact only: the eager forward copies its normalization constants
+    # from the host on every call, which a capture refuses.
+    times = {"artifact_events_ms": [], "eager_events_ms": []}
+    for turn in ("artifact", "eager", "eager", "artifact"):
+        fn = run_artifact if turn == "artifact" else run_eager
+        times[f"{turn}_events_ms"].append(time_ms(fn, reps=5, inner=5))
+    times["artifact_graph_ms"] = graph_ms(run_artifact, calls=5)
+    return {"case": label, "bytes": size_bytes, "export_s": export_s,
+            "load_s": load_s, "op_nodes": graph_nodes,
+            "graph_census": census,
+            "launches_per_call": per_call, "launches": launches,
+            "same_bits_as_engine": True, "partial_rows": n_part,
+            "device_ops_per_batch": ops, "times_in_turns": times}
+
+
+def dispatch_cost(reps: int = 7, calls: int = 100) -> dict:
+    """Host microseconds per wrapper call through the custom op and through
+    the ctypes launch alone (the parent's path), in turns, at the main
+    path's shapes: #1 (64, 197, 192) bf16, #5 (32, 3, 577, 64) bf16, #10
+    (64, [192, 64, 16, 1]) fp32. Each reading is the wall time of ``calls``
+    back-to-back calls over ``calls``, after a synchronize, before the
+    device's queue fills; the median of ``reps``."""
+    from rovit_kan_tpu_torch.ops import attention as at
+    from rovit_kan_tpu_torch.ops import block_kernel as bk
+    from rovit_kan_tpu_torch.ops import kan_kernel as kk
+
+    x, params = block_inputs(torch.bfloat16, seed=30)
+    plist = [params[k] for k in bk.PKEYS]
+    q, k, v = (torch.randn((32, 3, LONG_TOKENS, 64), device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    from rovit_kan_tpu_torch.ops.spline import make_knots
+    kx, kparams, _ = kan_inputs(seed=31)
+    knots = make_knots()
+    klist = [float(t) for t in knots]
+    cases = {
+        "vit_block_fwd": (lambda: bk._VIT_BLOCK_FWD(x, plist, HEADS),
+                          lambda: bk._launch(x, params, HEADS)),
+        "attention_fwd": (lambda: at._ATTENTION_FWD(q, k, v),
+                          lambda: at._launch(q, k, v)),
+        "kan_module_fwd": (lambda: kk._KAN_MODULE_FWD(kx, list(kparams),
+                                                      klist, 3),
+                           lambda: kk._launch_module(kx, kparams, knots, 3))}
+
+    def host_us(fn):
+        with torch.inference_mode():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            dt = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        return dt / calls * 1e6
+
+    out = {}
+    for name, (op, ctypes_only) in cases.items():
+        got = {"op": [], "ctypes": []}
+        for _ in range(reps):
+            got["op"].append(host_us(op))
+            got["ctypes"].append(host_us(ctypes_only))
+        out[name] = {"op_us": statistics.median(got["op"]),
+                     "ctypes_only_us": statistics.median(got["ctypes"]),
+                     "op_us_all": got["op"], "ctypes_only_us_all":
+                     got["ctypes"]}
+        out[name]["dispatch_us"] = (out[name]["op_us"]
+                                    - out[name]["ctypes_only_us"])
+    return out
+
+
+@contextlib.contextmanager
+def ctypes_only_block():
+    """The block forward without the op: the wrapper's parent path, a ctypes
+    launch straight from ``_forward``."""
+    from rovit_kan_tpu_torch.ops import block_kernel as bk
+    op = bk._VIT_BLOCK_FWD
+    bk._VIT_BLOCK_FWD = lambda x, plist, heads: bk._launch(
+        x, dict(zip(bk.PKEYS, plist)), heads)
+    try:
+        yield
+    finally:
+        bk._VIT_BLOCK_FWD = op
+
+
+def served_rates(model=None, n_batches: int = 20) -> dict:
+    """Served 224-px img/s at batch 64 (``InferenceEngine`` over
+    ``n_batches`` batches; its busy-span rate) and bs=1 FPS
+    (``fps_benchmark`` of the serving forward on one image) of the seed-0
+    flagship. Uses only what the port had before its custom ops, so a copy
+    of this script can time an earlier checkout the same way."""
+    from rovit_kan_tpu_torch.config import Config
+    from rovit_kan_tpu_torch.evaluation.metrics import fps_benchmark
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.serving import InferenceEngine, \
+        build_serving_forward
+
+    if model is None:
+        model = build_model(Config(), inference=True, device="cuda", seed=0)
+    engine = InferenceEngine(model, batch_size=BATCH, device="cuda")
+    engine.warmup()
+    for i in range(n_batches):
+        engine.predict(uint8_batch(40 + i, BATCH))
+    one = torch.from_numpy(uint8_batch(60, 1)).cuda()
+    return {"served_images_per_sec": engine.stats()["images_per_sec"],
+            "fps_bs1": fps_benchmark(build_serving_forward(model), one)}
+
+
+def serving_speed(rounds: int = 4) -> dict:
+    """``served_rates`` through the op and with the block forward on the
+    ctypes launch alone, in turns (op, ctypes, ctypes, op, ...)."""
+    from rovit_kan_tpu_torch.config import Config
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+
+    model = build_model(Config(), inference=True, device="cuda", seed=0)
+    out = {"op": [], "ctypes_only": []}
+    for turn in ["op", "ctypes_only", "ctypes_only", "op"] * (rounds // 2):
+        with (ctypes_only_block() if turn == "ctypes_only"
+              else contextlib.nullcontext()):
+            out[turn].append(served_rates(model))
+    return out
+
+
+def export_phase(smi: str, root, best):
+    """Export, load and hold three artifacts; dispatch cost and served
+    speed through the op and without it (module docstring, phase 11)."""
+    from rovit_kan_tpu_torch.cli import export_model as cli_export
+    from rovit_kan_tpu_torch.config import Config
+    from rovit_kan_tpu_torch.evaluation.evaluator import \
+        load_model_for_evaluation
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.serving import InferenceEngine, load_engine
+    from rovit_kan_tpu_torch.utils.checkpoint import load_meta
+
+    counters = all_counters()
+    reset, read = counters
+    out_dir = root / "export"
+    # The export CLI on best_model, with its --verify.
+    n_bytes, cli_launches, cli_s, printed = run_cli(cli_export.main, [
+        best, out_dir / "cli.pt2", "--batch-size", BATCH, "--verify"])
+    if "Verified" not in printed:
+        raise RuntimeError(f"export CLI did not verify: {printed}")
+    t = float(load_meta(best).get("temperature", 1.0))
+    model, _ = load_model_for_evaluation(best, device="cuda")
+    engine = load_engine(best, batch_size=BATCH, device="cuda")
+    if engine.temperature != t:
+        raise RuntimeError(f"engine T {engine.temperature}, sidecar {t}")
+    cases = [export_case("flagship_224", model, engine, uint8_batch(50, BATCH),
+                         counters, ("vit_block_fwd", 12),
+                         {"vit_block_fwd": 12, "attention_fwd": 0,
+                          "kan_module_fwd": 0}, out_dir, t)]
+    cfg = long_config(use_pallas_block=False)
+    m384 = build_model(cfg, inference=True, device="cuda", seed=0)
+    cases.append(export_case(
+        "attention_384", m384,
+        InferenceEngine(m384, batch_size=LONG_BATCH, device="cuda"),
+        uint8_batch(51, LONG_BATCH, LONG_SIZE), counters,
+        ("attention_fwd", 12),
+        {"vit_block_fwd": 0, "attention_fwd": 12, "kan_module_fwd": 0},
+        out_dir, 1.0))
+    kcfg = Config()
+    kcfg.tpu.use_pallas_kan = True
+    mkan = build_model(kcfg, inference=True, device="cuda", seed=0)
+    cases.append(export_case(
+        "kan_224", mkan, InferenceEngine(mkan, batch_size=BATCH,
+                                         device="cuda"),
+        uint8_batch(52, BATCH), counters, ("kan_module_fwd", 1),
+        {"vit_block_fwd": 12, "attention_fwd": 0, "kan_module_fwd": 1},
+        out_dir, 1.0))
+    launches = {k: sum(c["launches"][k] for c in cases)
+                for k in cases[0]["launches"]}
+    dispatch = dispatch_cost()
+    speed = serving_speed()
+    return {"phase": "export", "temperature": t,
+            "export_cli": {"bytes": n_bytes, "seconds": cli_s,
+                           "launches": cli_launches, "verified": True},
+            "cases": cases, "launches": launches,
+            "dispatch_host_us_per_call": dispatch,
+            "serving_op_vs_ctypes_only": speed, "card": smi}
+
+
+def post(base: str, images: np.ndarray, timeout: float = 120):
+    import urllib.request
+    buf = io.BytesIO()
+    np.save(buf, images)
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(urllib.request.Request(
+            f"{base}/predict", buf.getvalue()), timeout=timeout) as r:
+        body = json.loads(r.read())
+    return body, time.perf_counter() - t0
+
+
+def as_arrays(body: dict, want: dict) -> dict:
+    return {k: np.asarray(body[k], dtype=want[k].dtype) for k in want}
+
+
+# ``python -m rovit_kan_tpu_torch.cli.serve ARGS`` (runpy does what -m
+# does), then the process's launch counters, read after the drain.
+SERVE_CODE = (
+    "import json, runpy, sys\n"
+    "runpy.run_module('rovit_kan_tpu_torch.cli.serve', run_name='__main__',"
+    " alter_sys=True)\n"
+    "import chip_smoke\n"
+    "print('LAUNCHES ' + json.dumps(chip_smoke.all_counters()[1]()), "
+    "flush=True)\n")
+
+
+def serve_cli_phase(smi: str, best):
+    """``cli.serve`` in a subprocess on best_model (module docstring, phase
+    12)."""
+    import signal
+    import urllib.request
+
+    from rovit_kan_tpu_torch.serving import load_engine
+
+    engine = load_engine(best, batch_size=BATCH, device="cuda")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", SERVE_CODE, "--checkpoint", str(best),
+         "--host", "127.0.0.1", "--port", "0", "--batch_size", str(BATCH)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        t0 = time.perf_counter()
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith("Serving on http://"):
+                break
+        else:
+            raise RuntimeError(f"cli.serve did not start: {lines}")
+        start_s = time.perf_counter() - t0
+        base = line.split()[2]
+        singles = uint8_batch(70, 16)
+        pairs = [uint8_batch(71, BATCH), uint8_batch(72, BATCH)]
+        results = {}
+
+        def client(key, images):
+            results[key] = post(base, images)
+
+        threads = ([threading.Thread(target=client, args=(("one", i),
+                                                          singles[i:i + 1]))
+                    for i in range(16)]
+                   + [threading.Thread(target=client, args=(("batch", i),
+                                                            pairs[i]))
+                      for i in range(2)])
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        if len(results) != 18:
+            raise RuntimeError(f"{18 - len(results)} clients got no answer")
+        # A batch of 64 is served alone, at its engine's rows: the same
+        # bits. A single image lands at another row of a coalesced batch
+        # than in the engine's own padded batch; it agrees to fp32 noise
+        # (the "serve" phase's MicroBatcher bound, 1e-5).
+        direct = engine.predict(singles)
+        single_err = 0.0
+        for i in range(16):
+            got = as_arrays(results["one", i][0], direct)
+            single_err = max(single_err, max(
+                float(np.abs(got[k][0].astype(np.float64) - direct[k][i])
+                      .max()) for k in direct))
+        if not single_err <= 1e-5:
+            raise RuntimeError(f"served singles differ by {single_err}")
+        for i in range(2):
+            want = engine.predict(pairs[i])
+            got = as_arrays(results["batch", i][0], want)
+            if not all(np.array_equal(got[k], want[k]) for k in want):
+                raise RuntimeError("a served batch of 64 is not the "
+                                   "engine's bits")
+        with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if health["requests_coalesced"] < 16:
+            raise RuntimeError(f"healthz {health}")
+        with urllib.request.urlopen(f"{base}/metrics", timeout=60) as r:
+            text = r.read().decode()
+        metrics = {}
+        for ln in text.splitlines():
+            if ln.startswith("# TYPE "):
+                _, _, name, kind = ln.split()
+                if kind not in ("counter", "gauge"):
+                    raise RuntimeError(f"metric type {ln}")
+            else:
+                name, value = ln.split()
+                metrics[name] = float(value)
+        if metrics["rovit_serving_requests_coalesced"] != \
+                health["requests_coalesced"] or len(metrics) != len(health):
+            raise RuntimeError(f"metrics {metrics} against {health}")
+
+        # Served throughput over HTTP: 4 clients, 6 batches of 64 each.
+        lat = []
+        lock = threading.Lock()
+
+        def load(seed):
+            for j in range(6):
+                _, s = post(base, pairs[(seed + j) % 2])
+                with lock:
+                    lat.append(s)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=load, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - t0
+        if len(lat) != 24:
+            raise RuntimeError(f"{24 - len(lat)} load requests unanswered")
+
+        # The drain: 8 batches of 64 posted at once, SIGTERM 0.15 s later,
+        # when every connection has been accepted and some answers are
+        # still being computed; each must be answered, and the server must
+        # exit 0 within 30 s.
+        drained, failed = {}, {}
+
+        def late(i):
+            try:
+                body, _ = post(base, pairs[i % 2])
+                drained[i] = (body, time.perf_counter())
+            except OSError as e:         # URLError and connection errors
+                failed[i] = repr(e)
+
+        late_threads = [threading.Thread(target=late, args=(i,))
+                        for i in range(8)]
+        for th in late_threads:
+            th.start()
+        time.sleep(0.15)
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=30)
+        exit_s = time.perf_counter() - t_term
+        for th in late_threads:
+            th.join(timeout=60)
+        lines += rest.splitlines()
+        if proc.returncode != 0:
+            raise RuntimeError(f"cli.serve exited {proc.returncode}: "
+                               f"{lines[-20:]}")
+        if failed or len(drained) != 8:
+            raise RuntimeError(f"in-flight requests lost: {failed}")
+        after_term = sum(1 for _, t in drained.values() if t > t_term)
+        for i, (body, _) in drained.items():
+            want = engine.predict(pairs[i % 2])
+            got = as_arrays(body, want)
+            if not all(np.array_equal(got[k], want[k]) for k in want):
+                raise RuntimeError("a drained answer is not the engine's")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    counted = [ln for ln in lines if ln.startswith("LAUNCHES ")]
+    launches = json.loads(counted[-1].split(" ", 1)[1])
+    # The warm-up, the batches before /healthz, then one batch for each
+    # load and drain request (a batch of 64 runs alone); 12 x #1 each.
+    batches = 1 + health["batches_run"] + 24 + 8
+    only(launches, vit_block_fwd=12 * batches)
+    lat_ms = 1e3 * np.asarray(lat)
+    return {"phase": "serve_cli", "start_s": start_s, "healthz": health,
+            "metrics": len(metrics), "single_image_max_abs_err": single_err,
+            "http_images_per_sec": 24 * BATCH / wall,
+            "http_p50_latency_ms": float(np.percentile(lat_ms, 50)),
+            "http_p95_latency_ms": float(np.percentile(lat_ms, 95)),
+            "drain": {"answered": len(drained),
+                      "answered_after_sigterm": after_term,
+                      "exit_code": proc.returncode,
+                      "exit_s_after_sigterm": exit_s},
+            "launches": launches, "card": smi}
+
+
+def bench_phase(smi: str):
+    """``cli.bench`` once, in this process, between a counter reset and a
+    read (module docstring, phase 13)."""
+    from rovit_kan_tpu_torch.cli import bench as cli_bench
+    reset, read = all_counters()
+    torch.cuda.synchronize()
+    reset()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = cli_bench.main([])
+    torch.cuda.synchronize()
+    launches = read()
+    line = out.getvalue().strip().splitlines()[-1]
+    if json.loads(line) != json.loads(json.dumps(res)):
+        raise RuntimeError("cli.bench's line is not its result")
+    rates = [res[k] for k in res if k.endswith("_ips_bs64")
+             or k.endswith("_ips_bs256")] + [res["fps_bs1"]]
+    mfus = [v for k, v in res.items() if k.startswith("implied_mfu")]
+    if not (all(np.isfinite(r) and r > 0 for r in rates)
+            and all(0 < m <= 1 for m in mfus) and not res["timing_suspect"]
+            and res["fused_block"] == {"inference": True, "train": True}):
+        raise RuntimeError(f"cli.bench line out of range: {line}")
+    for k in ("vit_block_fwd", "vit_block_bwd", "augment"):
+        if not launches[k] > 0:
+            raise RuntimeError(f"cli.bench launched no {k}: {launches}")
+    return {"phase": "bench", "line": res, "launches": launches,
+            "card": smi}
 
 
 def main() -> int:
@@ -3023,8 +3645,20 @@ def main() -> int:
     emit(longed)
     fitted, res_kernels = fit_phase(smi)
     emit(fitted)
-    evaled = eval_phase(smi)
-    emit(evaled)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_eval_"))
+    try:
+        evaled = eval_phase(smi, root)
+        emit(evaled)
+        best = root / "train" / "checkpoints" / "best_model"
+        emit(wide_phase(smi, root))
+        exported = export_phase(smi, root, best)
+        emit(exported)
+        served = serve_cli_phase(smi, best)
+        emit(served)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    benched = bench_phase(smi)
+    emit(benched)
 
     keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "library_ms")
 
@@ -3153,7 +3787,7 @@ def main() -> int:
         res_kernels[TOKENS, torch.float32][0]["fma_bound_ms"]
     fwd3["n577"]["float32"]["fma_bound_ms"] = \
         res_kernels[LONG_TOKENS, torch.float32][0]["fma_bound_ms"]
-    emit({"kernels": [
+    kernels = [
         fwd1,
         entry("vit_block_bwd", csrc + "vit_block_bwd.cu",
               "rovit_kan_tpu/ops/block_kernel.py:399",
@@ -3173,7 +3807,16 @@ def main() -> int:
         attn_entry("attention_fwd", 36, 0),
         attn_entry("attention_bwd", 120, 1)] + [
         fwd3,
-        res_entry("vit_block_bwd_res", "vit_block_bwd.cu", 549, 1)]})
+        res_entry("vit_block_bwd_res", "vit_block_bwd.cu", 549, 1)]
+    # The export, serve CLI and bench paths: the three artifacts' calls, the
+    # serve CLI's process (its warm-up and every batch it served), cli.bench.
+    new_paths = {"export": exported["launches"],
+                 "serve_cli": served["launches"],
+                 "bench": benched["launches"]}
+    for e in kernels:
+        e.setdefault("launches_by_path", {}).update(
+            {path: counts[e["name"]] for path, counts in new_paths.items()})
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

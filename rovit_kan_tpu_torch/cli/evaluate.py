@@ -2,7 +2,8 @@
 
     python -m rovit_kan_tpu_torch.cli.evaluate --checkpoint CK --data_root DATA \
         [--batch_size 32] [--output_dir outputs/eval] [--image_size S] [--cpu] \
-        [--calibrate [--store_temperature]] [--device_metrics auto|on|off]
+        [--calibrate [--store_temperature]] [--device_metrics auto|on|off] \
+        [--matmul_precision P]
 
 The flow of the JAX package's ``scripts/evaluate.py``: the model and its
 weights come from the checkpoint (at ``--image_size`` through the position
@@ -13,14 +14,21 @@ checkpoint's sidecar, which ``load_engine`` then applies, and refuses a
 degenerate fit, leaving the sidecar unchanged. ``--device_metrics`` computes
 the metrics on the device (``auto``: when more than one card is visible) and
 writes ``test_metrics_device.json``; otherwise ``Evaluator.evaluate`` writes
-``test_metrics.json``, the report and the figures. Runs on the card unless
-``--cpu`` is given. XLA's ``--matmul_precision`` has no counterpart here.
+``test_metrics.json``, the report and the figures. ``--matmul_precision``
+sets ``torch.set_float32_matmul_precision`` for the plain path. Runs on the
+card unless ``--cpu`` is given.
 """
 from __future__ import annotations
 
 import argparse
 import json
 from pathlib import Path
+
+from rovit_kan_tpu_torch.cli import (
+    MATMUL_PRECISION,
+    MATMUL_PRECISION_HELP,
+    set_matmul_precision,
+)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -49,6 +57,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "(ops/device_metrics.py) instead of gathering "
                         "predictions to the host; 'auto' switches it on "
                         "when more than one card is visible")
+    p.add_argument("--matmul_precision", default=None,
+                   choices=sorted(MATMUL_PRECISION),
+                   help=MATMUL_PRECISION_HELP)
     return p.parse_args(argv)
 
 
@@ -56,6 +67,7 @@ def main(argv=None):
     """Run the evaluation; returns the ``Evaluator`` (its ``temperature``
     and ``temperature_degenerate`` after ``--calibrate``)."""
     args = parse_args(argv)
+    set_matmul_precision(args.matmul_precision)
     import torch
 
     from rovit_kan_tpu_torch.config import get_config

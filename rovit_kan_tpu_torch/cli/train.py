@@ -4,7 +4,8 @@
         [--output_dir outputs/train] [--epochs N] [--batch_size B] \
         [--synthetic [--synthetic_per_class N]] [--fast] [--cpu] [--resume] \
         [--device_cache] [--all_seeds] [--patience P] [--ema_decay D] \
-        [--checkpoint_min_interval S]
+        [--checkpoint_min_interval S] [--preset tiny|small|base] \
+        [--profile_dir DIR] [--matmul_precision P]
 
 The single-card flow of the JAX package's ``scripts/train.py``. A run:
 dataloaders over ``DATA/Augmented Image`` (train and validation, a seeded
@@ -18,11 +19,16 @@ seed of ``train.seeds`` and writes ``seed_summary.json``. ``--fast`` sets
 the JAX script's smoke-run config (64 px, depth 2, width 32, fp32, 2
 epochs at batch 8).
 
-Runs on the card unless ``--cpu`` is given. Not ported yet: the wider
-presets (``--preset small`` and ``base`` exit: the fused block's widths stop
-at 320), the mesh, pipeline, tensor, sequence, FSDP, MoE, expert and
-multi-host flags, ``--device_cache_sharded``, ``--profile_dir`` and
-``--pretrained_npz``; XLA's ``--matmul_precision`` has no counterpart.
+``--profile_dir`` writes a torch.profiler trace of the first epoch
+(``utils/profiling.py::trace``) before the fit goes on from the second, as
+the JAX script's ``jax.profiler`` trace. ``--matmul_precision`` sets
+``torch.set_float32_matmul_precision`` for the plain path. The presets
+``small`` and ``base`` (d = 384, 768) train on the plain block: the fused
+block's bf16 stages take d of 64 to 192.
+
+Runs on the card unless ``--cpu`` is given. Not ported yet: the mesh,
+pipeline, tensor, sequence, FSDP, MoE, expert and multi-host flags,
+``--device_cache_sharded`` and ``--pretrained_npz``.
 """
 from __future__ import annotations
 
@@ -31,8 +37,11 @@ import copy
 import json
 from pathlib import Path
 
-#: Backbone widths of the presets this CLI refuses.
-_WIDE_PRESETS = {"small": 384, "base": 768}
+from rovit_kan_tpu_torch.cli import (
+    MATMUL_PRECISION,
+    MATMUL_PRECISION_HELP,
+    set_matmul_precision,
+)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -44,8 +53,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--preset", default="tiny",
                    choices=["tiny", "small", "base"],
-                   help="backbone width preset; only 'tiny' (DeiT-Tiny) is "
-                        "ported")
+                   help="backbone width preset (DeiT-Tiny d=192, small "
+                        "d=384, base d=768)")
     p.add_argument("--synthetic", action="store_true",
                    help="generate a synthetic dataset under data_root")
     p.add_argument("--synthetic_per_class", type=int, default=None,
@@ -72,6 +81,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--all_seeds", action="store_true",
                    help="run every seed in config.train.seeds (default "
                         "[42, 123, 999]) and report mean/std test metrics")
+    p.add_argument("--profile_dir", type=Path, default=None,
+                   help="write a torch.profiler trace of the first epoch "
+                        "here")
+    p.add_argument("--matmul_precision", default=None,
+                   choices=sorted(MATMUL_PRECISION),
+                   help=MATMUL_PRECISION_HELP)
     return p.parse_args(argv)
 
 
@@ -114,9 +129,11 @@ def build_config(args: argparse.Namespace):
 
 
 def run_one(config, seed: int, out_dir: Path, aug_root: Path,
-            orig_root: Path, device: str, resume: bool, device_cache: bool):
+            orig_root: Path, device: str, resume: bool, device_cache: bool,
+            profile_dir: Path = None):
     """One training run and its test evaluation; returns the test metrics,
-    or None when the run was preempted."""
+    or None when the run was preempted. With ``profile_dir`` the first
+    epoch runs under a torch.profiler trace written there."""
     from rovit_kan_tpu_torch.data.dataset import create_dataloaders
     from rovit_kan_tpu_torch.evaluation.evaluator import (
         Evaluator,
@@ -191,6 +208,13 @@ def run_one(config, seed: int, out_dir: Path, aug_root: Path,
             print(f"Replaced previous epoch CSV at {logger.csv_path}")
     print("Parameters:", count_parameters(model)["total"])
 
+    if profile_dir is not None:
+        from rovit_kan_tpu_torch.utils.profiling import trace
+        with trace(profile_dir):
+            state, _ = trainer.train_epoch(state, start_epoch)
+        start_epoch += 1
+        print(f"Profiler trace written to {profile_dir}")
+
     result = trainer.fit(state, start_epoch=start_epoch)
     if result["preempted"]:
         # A half-trained model must never produce "final" metrics.
@@ -218,11 +242,7 @@ def main(argv=None):
     """Run the training; returns the test metrics (``--all_seeds``: the
     seed summary), or None when preempted."""
     args = parse_args(argv)
-    if args.preset in _WIDE_PRESETS:
-        raise SystemExit(
-            f"--preset {args.preset} (d={_WIDE_PRESETS[args.preset]}) is not "
-            f"ported: the fused ViT block's widths stop at 320; use --preset "
-            f"tiny")
+    set_matmul_precision(args.matmul_precision)
     import numpy as np
 
     from rovit_kan_tpu_torch import resolve_device
@@ -248,7 +268,7 @@ def main(argv=None):
 
     def run(seed, out_dir):
         return run_one(config, seed, out_dir, aug_root, orig_root, device,
-                       args.resume, args.device_cache)
+                       args.resume, args.device_cache, args.profile_dir)
 
     if not args.all_seeds:
         metrics = run(args.seed, args.output_dir)

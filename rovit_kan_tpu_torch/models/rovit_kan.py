@@ -25,6 +25,7 @@ from rovit_kan_tpu_torch.models.heads import (
 )
 from rovit_kan_tpu_torch.models.kan import KANLayer, KANSeverityModule
 from rovit_kan_tpu_torch.models.vit import DeiTTinyBackbone
+from rovit_kan_tpu_torch.ops.block_kernel import BLOCK_WIDTHS
 from rovit_kan_tpu_torch.ops.ordinal import (
     cumulative_to_class_probs,
     ordinal_expected_severity,
@@ -122,10 +123,15 @@ def _resolve_fused_block(setting, *, inference: bool, dtype: torch.dtype,
                          embed_dim: int, device: torch.device) -> bool:
     """Block-kernel policy: ``rovit_kan_tpu``'s ``_resolve_pallas_block``
     with "tpu" read as "cuda" (bf16 on the card, for inference, or for
-    training at d <= 512, where the backward kernel runs too); True/False
-    force one implementation."""
+    training at d <= 512, where the backward kernel runs too), taken only
+    at a width the bf16 stages take (``BLOCK_WIDTHS``, 192 at most, forward
+    and backward alike). So "auto" runs the small and base presets (d = 384,
+    768) on the plain block, where the JAX rule takes its kernel. True/False
+    force one implementation; a forced kernel refuses a width it does not
+    take."""
     if setting == "auto":
         return (dtype == torch.bfloat16 and device.type == "cuda"
+                and embed_dim in BLOCK_WIDTHS[torch.bfloat16]
                 and (bool(inference) or embed_dim <= 512))
     return bool(setting)
 

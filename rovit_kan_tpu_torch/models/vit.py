@@ -155,8 +155,13 @@ class Block(nn.Module):
 
     def kernel_params(self) -> Dict[str, torch.Tensor]:
         """The block's tensors in the kernel's layout, cast once and reused
-        until a parameter is replaced or modified in place."""
+        until a parameter is replaced or modified in place. While
+        ``torch.export`` traces, the tensors have no data pointers, so the
+        cast is traced instead of cached; ``export.export_serving`` casts
+        the weights beforehand, so there it is the identity."""
         raw = self.block_params()
+        if torch.compiler.is_exporting():
+            return prepare_block_params(raw, self.dtype)
         key = (self.dtype,) + tuple((t.data_ptr(), t._version)
                                     for t in raw.values())
         if key != self._kernel_key:

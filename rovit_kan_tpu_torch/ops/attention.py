@@ -22,6 +22,12 @@ input dtype: ``dV = P_lo^T g``, ``dP = g V^T``,
 no scale on dS (the scale's own gradient comes from autograd of
 ``q * scale`` outside).
 
+The forward kernel #5 is the custom op ``rovit_kan_torch::attention_fwd``
+(CUDA only, with a fake that gives the fp32 output's shape), so
+``torch.export`` records it as one node and a loaded artifact calls it
+again; importing this module registers it. Eager calls on the card go
+through the op too; the backward #6 is a plain ctypes call.
+
 Under autograd the call is ``FusedAttention``, which saves only q, k and v.
 """
 from __future__ import annotations
@@ -159,6 +165,25 @@ def _launch(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("rovit_kan_torch::attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def _attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> torch.Tensor:
+    """Kernel #5 as an opaque op: the checks, the launch on the current
+    stream and the error raise."""
+    return _launch(q, k, v)
+
+
+@_attention_fwd_op.register_fake
+def _(q, k, v):
+    _check_cuda_args(q, k, v)
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
+# The overload itself: calling it skips the op object's Python wrapper.
+_ATTENTION_FWD = torch.ops.rovit_kan_torch.attention_fwd.default
+
+
 def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
@@ -192,7 +217,7 @@ def _forward(q, k, v, plain: bool) -> torch.Tensor:
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention runs on cpu or cuda, got "
                          f"{q.device}")
-    return _launch(q, k, v)
+    return _ATTENTION_FWD(q, k, v)
 
 
 def _backward(q, k, v, g, plain: bool):

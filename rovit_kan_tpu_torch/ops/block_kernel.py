@@ -25,6 +25,13 @@ and rounds where ``_vit_block_bwd_kernel`` does (see
 not the JAX ``(in, out)``. ``prepare_block_params`` casts the weights to the
 compute dtype once, which the kernels require.
 
+The forward kernel #1 is the custom op ``rovit_kan_torch::vit_block_fwd``
+(``torch.library.custom_op``, CUDA only, with a fake that gives x's shape
+and dtype), so ``torch.export`` records it as one node of a graph and a
+loaded artifact calls it again; the op's implementation is the checks and
+the ctypes launch. Importing this module registers the op. Eager calls on
+the card go through the op too; the other kernels are plain ctypes calls.
+
 Under autograd the block is ``FusedViTBlock``: the forward saves only ``x``
 and the parameters (the recompute contract of the JAX custom VJP), and the
 backward gives ``dx`` and the 12 parameter grads, summed over the batch.
@@ -40,7 +47,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +56,12 @@ PKEYS = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wproj", "bproj",
          "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
 WEIGHT_KEYS = ("wqkv", "wproj", "w1", "w2")
 LN_EPS = 1e-6
+#: The widths D that each route's stages take, forward and backward: the
+#: bf16 mma.sync stages (``csrc/block_mma.cuh``, ``block_bwd_mma.cuh``
+#: ``bwd_mma_width_ok``) and the fp32 ones (``block_tf32.cuh``
+#: ``tf32_block_width_ok``, ``block_bwd_fma.cuh`` ``bwd_fma_width_ok``).
+BLOCK_WIDTHS = {torch.bfloat16: (64, 128, 192),
+                torch.float32: (64, 128, 192, 256, 320)}
 
 #: Launches of the CUDA block forward since import (one per wrapper call on
 #: a CUDA tensor). The CPU path never touches it.
@@ -277,12 +290,18 @@ def _check_cuda_args(x: torch.Tensor, params: Dict[str, torch.Tensor],
                          f"shape {tuple(x.shape)}")
     B, N, D = x.shape
     hidden = params["w1"].shape[0]
-    if heads < 1 or D % heads or D % 64 or (D // heads) % 16 \
+    widths = BLOCK_WIDTHS[x.dtype]
+    if D not in widths:
+        raise ValueError(
+            f"unsupported block width D={D} in {x.dtype}: the "
+            f"{str(x.dtype).replace('torch.', '')} stages take D in "
+            f"{widths}")
+    if heads < 1 or D % heads or (D // heads) % 16 \
             or D // heads > 128 or hidden % D or min(B, N) < 1:
         raise ValueError(
             f"unsupported block shape B={B} N={N} D={D} heads={heads} "
-            f"hidden={hidden}: the kernel needs D % 64 == 0, a head width "
-            f"that is a multiple of 16 up to 128, and hidden % D == 0")
+            f"hidden={hidden}: the kernel needs a head width that is a "
+            f"multiple of 16 up to 128, and hidden % D == 0")
     for k, shape in param_shapes(D, hidden).items():
         t = params[k]
         dtype = x.dtype if k in WEIGHT_KEYS else torch.float32
@@ -406,6 +425,25 @@ def _launch(x: torch.Tensor, params: Dict[str, torch.Tensor],
     return out
 
 
+@torch.library.custom_op("rovit_kan_torch::vit_block_fwd", mutates_args=(),
+                         device_types="cuda")
+def _vit_block_fwd_op(x: torch.Tensor, params: List[torch.Tensor],
+                      heads: int) -> torch.Tensor:
+    """Kernel #1 as an opaque op: the checks, the launch on the current
+    stream and the error raise, ``params`` in ``PKEYS`` order."""
+    return _launch(x, dict(zip(PKEYS, params)), heads)
+
+
+@_vit_block_fwd_op.register_fake
+def _(x, params, heads):
+    _check_cuda_args(x, dict(zip(PKEYS, params)), heads)
+    return torch.empty_like(x)
+
+
+# The overload itself: calling it skips the op object's Python wrapper.
+_VIT_BLOCK_FWD = torch.ops.rovit_kan_torch.vit_block_fwd.default
+
+
 def _launch_res(x: torch.Tensor, params: Dict[str, torch.Tensor],
                 heads: int):
     """Kernel #3: ``(out, qkv, attn, a1)``, the residuals ``(B, N, .)`` in
@@ -486,7 +524,7 @@ def _runs_plain(x: torch.Tensor, plain: bool) -> bool:
 def _forward(x, params, heads, plain: bool):
     if _runs_plain(x, plain):
         return block_reference(x, params, heads)
-    return _launch(x, params, heads)
+    return _VIT_BLOCK_FWD(x, [params[k] for k in PKEYS], heads)
 
 
 def _forward_res(x, params, heads, plain: bool):

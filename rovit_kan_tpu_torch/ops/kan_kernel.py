@@ -21,6 +21,13 @@ they are: ``spline_weights`` ``(in, out, K)``, the ``nn.Linear`` weight
 layouts. A CPU tensor runs the plain versions (the backward is the
 hand-written gradient, not autograd); a CUDA tensor launches the kernels or
 raises.
+
+The whole-module forward #10 is the custom op
+``rovit_kan_torch::kan_module_fwd`` (CUDA only, with a fake that gives the
+``(B, dims[-1])`` fp32 output), so ``torch.export`` records it as one node
+and a loaded artifact calls it again; importing this module registers it.
+Eager calls on the card go through the op too; #8, #9 and #11 are plain
+ctypes calls.
 """
 from __future__ import annotations
 
@@ -416,6 +423,26 @@ def _launch_module(x, params, knots, degree, reciprocal_basis=True):
     return y
 
 
+@torch.library.custom_op("rovit_kan_torch::kan_module_fwd", mutates_args=(),
+                         device_types="cuda")
+def _kan_module_fwd_op(x: torch.Tensor, params: List[torch.Tensor],
+                       knots: List[float], degree: int) -> torch.Tensor:
+    """Kernel #10 as an opaque op: the checks, the launch on the current
+    stream and the error raise; ``params`` flat as ``fused_kan_module``
+    takes them, ``knots`` the static knot vector."""
+    return _launch_module(x, params, knots, degree)
+
+
+@_kan_module_fwd_op.register_fake
+def _(x, params, knots, degree):
+    dims = _check_cuda_args(x, params, knots, degree)
+    return x.new_empty((x.shape[0], dims[-1]), dtype=torch.float32)
+
+
+# The overload itself: calling it skips the op object's Python wrapper.
+_KAN_MODULE_FWD = torch.ops.rovit_kan_torch.kan_module_fwd.default
+
+
 def _launch_module_bwd(x, g, params, knots, degree, reciprocal_basis=True):
     global BWD_LAUNCHES
     dx, grads = _bwd(x, g, params, knots, degree, reciprocal_basis,
@@ -449,7 +476,8 @@ def _layer_backward(x, g, spline_weights, weight, knots, degree):
 
 def _module_forward(x, params, knots, degree):
     if _route(x, "fused_kan_module"):
-        return _launch_module(x, params, knots, degree)
+        return _KAN_MODULE_FWD(x, list(params), [float(v) for v in knots],
+                               degree)
     return kan_module_reference(x, params, knots, degree)
 
 

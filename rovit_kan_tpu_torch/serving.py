@@ -27,7 +27,7 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import Dict, List, Tuple
+from typing import Dict, Iterable, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -201,6 +201,12 @@ class InferenceEngine:
             return {k: np.concatenate([p[k] for p in parts])
                     for k in parts[0]}
         return self.fetch(self.dispatch(images_u8))
+
+    def predict_stream(self, batches: Iterable[np.ndarray]
+                       ) -> Iterator[Dict[str, np.ndarray]]:
+        """Serve each batch of ``batches`` in turn, as ``predict`` does."""
+        for images in batches:
+            yield self.predict(images)
 
     def stats(self) -> Dict[str, float]:
         """Rolling serving stats (last 10k requests; totals exact).

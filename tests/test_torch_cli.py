@@ -11,7 +11,7 @@ the JAX script's own source; ``--all_seeds`` writes ``seed_summary.json``;
 ``load_engine`` serves with; a degenerate fit is refused and leaves the
 sidecar's bytes as they were; ``--device_metrics on`` writes
 ``test_metrics_device.json``, which agrees with the host path;
-``--preset small`` exits with its message.
+``--preset small`` and ``base`` reach the run with their widths.
 """
 import argparse
 import ast
@@ -198,12 +198,22 @@ def test_evaluate_device_metrics(trained, tmp_path):
     assert dev["severity_is_fallback"] is False
 
 
-@pytest.mark.parametrize("preset", ["small", "base"])
-def test_wide_presets_exit(preset, tmp_path):
-    with pytest.raises(SystemExit, match=f"--preset {preset} .* not ported"):
-        cli_train.main(["--preset", preset, "--cpu", "--synthetic",
-                        "--data_root", str(tmp_path / "data")])
-    assert not (tmp_path / "data").exists()
+@pytest.mark.parametrize("preset,width", [("small", 384), ("base", 768)])
+def test_wide_presets_exit(preset, width, tmp_path, monkeypatch):
+    """The wide presets are no longer refused: the run gets the preset's
+    config (and trains it on the plain block; "auto" fuses only d <= 192)."""
+    runs = []
+
+    def run_one(config, seed, out_dir, *rest):
+        runs.append(config)
+        return {"accuracy": 0.5}
+
+    monkeypatch.setattr(cli_train, "run_one", run_one)
+    assert cli_train.main(["--preset", preset, "--cpu", "--data_root",
+                           str(tmp_path / "data")]) == {"accuracy": 0.5}
+    (config,) = runs
+    assert config.model.embed_dim == width
+    assert config.model.kan_layers[0] == width
 
 
 def _logged(log_cls, log_dir):

@@ -1,13 +1,15 @@
 """Port tests that need an NVIDIA GPU: the CUDA kernels (block forward #1,
 block backward #2 and the residual forward #3 from one row to 1,024 tokens
 at head widths 16-128, the fp32 #1 and #3 also at the edges of their 3xTF32
-tiles and refusing D past 320, the residual backward #4, attention forward #5 and
-backward #6 at every head width they take and on the model's strided qkv
+tiles and refusing D past 320 (the bf16 ones past 192) before any launch,
+the residual backward #4, attention forward #5 and backward #6 at every
+head width they take and on the model's strided qkv
 views, augment #7, the KAN kernels #8-#11) against their plain versions,
 with the same bits on a repeated call, the served model through the block
-kernel, and small train steps through
-#1, #2 and #7 and through #5, #6 and #7. They skip where
-``torch.cuda.is_available()`` is False. This file imports neither jax nor
+kernel, small train steps through #1, #2 and #7 and through #5, #6 and
+#7, the small preset on the plain block, and an exported artifact through
+the kernels' custom ops. They skip where ``torch.cuda.is_available()`` is
+False. This file imports neither jax nor
 the JAX package, so it runs on a GPU machine without JAX:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
@@ -133,9 +135,10 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
 
 
 def test_backward_kernels_refuse_what_the_bf16_stages_do_not_take(cuda):
-    """The bf16 backwards' mma.sync stages take D of 64, 128 and 192; a
-    width the wrapper's checks pass (D = 256) is refused by the library,
-    unlaunched, not run on other stages. fp32 still takes it."""
+    """The bf16 backwards' mma.sync stages take D of 64, 128 and 192; the
+    wrapper's checks refuse D = 256 with a ValueError naming those widths
+    (``BLOCK_WIDTHS``), unlaunched, not run on other stages. fp32 still
+    takes it."""
     rng = np.random.RandomState(5)
     B, N, D, heads = 1, 9, 256, 2
     x = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32)
@@ -146,9 +149,9 @@ def test_backward_kernels_refuse_what_the_bf16_stages_do_not_take(cuda):
     saved = tuple(torch.zeros(B, N, w, dtype=torch.bfloat16, device=cuda)
                   for w in (3 * D, D, 4 * D))
     before = (bk.BWD_LAUNCHES, bk.BWD_RES_LAUNCHES)
-    with pytest.raises(RuntimeError, match="invalid argument"):
+    with pytest.raises(ValueError, match=r"D=256.*\(64, 128, 192\)"):
         bk._launch_bwd(x16, g, p16, heads)
-    with pytest.raises(RuntimeError, match="invalid argument"):
+    with pytest.raises(ValueError, match=r"D=256.*\(64, 128, 192\)"):
         bk._launch_bwd_res(x16, g, *saved, p16, heads)
     assert (bk.BWD_LAUNCHES, bk.BWD_RES_LAUNCHES) == before
     p32 = _params(rng, D, 4 * D, torch.float32, cuda)
@@ -360,18 +363,18 @@ def test_fp32_forward_kernels_at_tile_edges(cuda, shape):
 
 @pytest.mark.parametrize("D", [384, 448, 512])
 def test_fp32_forward_refuses_widths_past_320(cuda, D):
-    """The fp32 stages take D of 64 to 320 (block_tf32.cuh); a wider D that
-    the wrapper's checks pass is refused by the library before any launch,
-    for #1 and #3, and no launch is counted."""
+    """The fp32 stages take D of 64 to 320 (block_tf32.cuh); the wrapper's
+    checks refuse a wider D with a ValueError naming those widths before any
+    launch, for #1 and #3, and no launch is counted."""
     rng = np.random.RandomState(D)
     heads = D // 64
     p = _params(rng, D, D, torch.float32, cuda)
     x = torch.zeros(1, 5, D, dtype=torch.float32, device=cuda)
     before = (bk.LAUNCHES, bk.RES_LAUNCHES)
     with torch.no_grad():
-        with pytest.raises(RuntimeError, match="invalid argument"):
+        with pytest.raises(ValueError, match=f"D={D}.*320"):
             bk._launch(x, p, heads)
-        with pytest.raises(RuntimeError, match="invalid argument"):
+        with pytest.raises(ValueError, match=f"D={D}.*320"):
             bk._launch_res(x, p, heads)
     torch.cuda.synchronize()
     assert (bk.LAUNCHES, bk.RES_LAUNCHES) == before
@@ -681,6 +684,70 @@ def test_served_model_through_the_kernel(cuda):
     # Two blocks of bf16 noise at d=64; the outputs stay close.
     np.testing.assert_allclose(served["cls_probs"], plain["cls_probs"],
                                atol=2e-2)
+
+
+def test_small_preset_serves_and_trains_on_the_plain_block(cuda):
+    """F3: bf16 ``get_config("small")`` (d = 384) is sent to the plain block
+    by "auto", serves a batch and trains a step with no #1 or #2 launch;
+    a forced fused block refuses the width before any launch."""
+    from rovit_kan_tpu_torch.config import get_config
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    cfg = get_config("small")
+    cfg.data.image_size = 64
+    model = build_model(cfg, device="cuda", seed=0)
+    served_model = build_model(cfg, inference=True, device="cuda", seed=0)
+    for m in (model, served_model):
+        assert not any(b.use_fused_block for b in m.backbone.model.blocks)
+    rng = np.random.RandomState(8)
+    imgs = rng.randint(0, 256, (4, 64, 64, 3)).astype(np.uint8)
+    labels = torch.tensor(rng.randint(0, 4, 4), device=cuda)
+    batch = {"images": torch.tensor(imgs, device=cuda), "labels": labels,
+             "severity": labels.float()}
+    counts = (bk.LAUNCHES, bk.BWD_LAUNCHES)
+    served = InferenceEngine(served_model, batch_size=4,
+                             device="cuda").predict(imgs)
+    step = make_train_step(model, build_optimizer(model, cfg), cfg,
+                           generator=torch.Generator("cuda").manual_seed(0))
+    loss = float(step(batch, 4, 1.0, 1)["total_loss"])
+    torch.cuda.synchronize()
+    assert (bk.LAUNCHES, bk.BWD_LAUNCHES) == counts
+    assert np.isfinite(loss)
+    assert all(np.isfinite(v).all() for v in served.values())
+    cfg.tpu.use_pallas_block = True
+    forced = build_model(cfg, inference=True, device="cuda", seed=0)
+    with torch.inference_mode(), pytest.raises(ValueError, match="D=384"):
+        forced(torch.zeros((1, 64, 64, 3), device=cuda))
+    assert bk.LAUNCHES == counts[0]
+
+
+def test_export_artifact_through_the_kernel_ops(cuda, tmp_path):
+    """An artifact of a small bf16 model on the fused block (and the KAN
+    kernels) holds one op node per block and one for the head, launches
+    them through the ops, and gives the engine's bits."""
+    from rovit_kan_tpu_torch.export import load_exported, save_exported
+    model = RoViTKAN(embed_dim=64, depth=2, num_heads=2, image_size=32,
+                     kan_layers=(64, 8, 1), hidden_dim=16,
+                     dtype=torch.bfloat16, use_pallas_block=True,
+                     use_pallas_kan=True)
+    init_weights(model, seed=2)
+    model = model.to(cuda).eval()
+    engine = InferenceEngine(model, batch_size=8, temperature=1.5,
+                             device="cuda")
+    save_exported(tmp_path / "a.pt2", model, batch_size=8, temperature=1.5)
+    artifact = load_exported(tmp_path / "a.pt2")
+    targets = [str(n.target) for n in artifact.program.graph.nodes
+               if n.op == "call_function"]
+    assert targets.count("rovit_kan_torch.vit_block_fwd.default") == 2
+    assert targets.count("rovit_kan_torch.kan_module_fwd.default") == 1
+    imgs = np.random.RandomState(9).randint(0, 256, (8, 32, 32, 3)).astype(
+        np.uint8)
+    before = (bk.LAUNCHES, kk.LAUNCHES)
+    got = artifact(imgs)
+    torch.cuda.synchronize()
+    assert (bk.LAUNCHES, kk.LAUNCHES) == (before[0] + 2, before[1] + 1)
+    want = engine.predict(imgs)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].cpu().numpy(), v, err_msg=k)
 
 
 def test_train_step_through_the_kernels(cuda):

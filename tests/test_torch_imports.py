@@ -43,6 +43,11 @@ def test_port_has_modules():
                  "rovit_kan_tpu_torch/ops/device_metrics.py",
                  "rovit_kan_tpu_torch/cli/train.py",
                  "rovit_kan_tpu_torch/cli/evaluate.py",
+                 "rovit_kan_tpu_torch/export.py",
+                 "rovit_kan_tpu_torch/cli/export_model.py",
+                 "rovit_kan_tpu_torch/cli/serve.py",
+                 "rovit_kan_tpu_torch/cli/bench.py",
+                 "rovit_kan_tpu_torch/cli/profile_train.py",
                  "chip_smoke.py"):
         assert want in names
 

@@ -5,7 +5,12 @@ every leaf perturbed off its init so biases and LayerNorms are not trivial)
 go through ``load_jax_params``; all six outputs must match at 2e-5 in fp32
 (the JAX converter's precedent, tests/test_convert.py), and at 5e-2 in bf16
 against the JAX model with the fused block kernel (interpret mode here).
+The block policy against the JAX rule (F3: the port's "auto" takes the fused
+block only at the bf16 stages' widths), and the wrapper's refusal of other
+widths before any launch.
 """
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +20,7 @@ import torch
 from rovit_kan_tpu.config import Config as JaxConfig
 from rovit_kan_tpu.models.convert import convert_reference_checkpoint
 from rovit_kan_tpu.models.rovit_kan import RoViTKAN as JaxRoViTKAN
+from rovit_kan_tpu.models.rovit_kan import _resolve_pallas_block
 from rovit_kan_tpu.models.rovit_kan import predict as jax_predict
 from rovit_kan_tpu_torch.config import Config
 from rovit_kan_tpu_torch.models.convert import load_jax_params, to_jax_params
@@ -177,6 +183,26 @@ def test_block_policy_and_unported_options():
                                     embed_dim=768, device=cuda)
     assert _resolve_fused_block(True, inference=False, dtype=bf16,
                                 embed_dim=768, device=cpu)
+    # The small and base presets (d = 384, 768): the JAX rule takes its
+    # kernel for bf16 inference at any width and for training at d <= 512;
+    # the port's "auto" takes the fused block only at widths its bf16
+    # stages take (64, 128, 192), so these run on the plain block.
+    with mock.patch.object(jax, "default_backend", lambda: "tpu"):
+        for d in (384, 768):
+            for inference in (True, False):
+                jax_rule = _resolve_pallas_block(
+                    "auto", inference=inference, dtype=jnp.bfloat16,
+                    embed_dim=d)
+                assert jax_rule == (inference or d <= 512)
+                assert not _resolve_fused_block(
+                    "auto", inference=inference, dtype=bf16, embed_dim=d,
+                    device=cuda)
+                assert _resolve_fused_block(True, inference=inference,
+                                            dtype=bf16, embed_dim=d,
+                                            device=cuda)
+        for d in bk.BLOCK_WIDTHS[bf16]:
+            assert _resolve_fused_block("auto", inference=False, dtype=bf16,
+                                        embed_dim=d, device=cuda)
     cfg = Config()
     cfg.tpu.use_pallas_attention = True          # kernels #5/#6
     cfg.tpu.use_pallas_block = False
@@ -189,6 +215,39 @@ def test_block_policy_and_unported_options():
         setattr(getattr(cfg, section), field, value)   # not ported yet
         with pytest.raises(NotImplementedError):
             build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 384),
+                                     (torch.bfloat16, 256),
+                                     (torch.float32, 384)])
+def test_block_kernel_refuses_unsupported_widths(dtype, D):
+    """A width the route's stages do not take is refused by the wrapper's
+    checks, naming the widths, before anything is launched (no card is
+    needed to reach the check)."""
+    heads = D // 64
+    params = bk.prepare_block_params(
+        {k: torch.zeros(s) for k, s in bk.param_shapes(D, 4 * D).items()},
+        dtype)
+    x = torch.zeros(2, 5, D, dtype=dtype)
+    widths = str(bk.BLOCK_WIDTHS[dtype])
+    with pytest.raises(ValueError, match=f"D={D}.*{widths}"):
+        bk._check_cuda_args(x, params, heads)
+    g = torch.zeros(2, 5, D)
+    with pytest.raises(ValueError, match=f"D={D}.*{widths}"):
+        bk._check_bwd_args(x, g, params, heads)
+    # The forced kernel's op refuses it the same way while export traces.
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        fx = torch.empty((2, 5, D), dtype=dtype, device="cuda")
+        fp = [torch.empty(t.shape, dtype=t.dtype, device="cuda")
+              for t in (params[k] for k in bk.PKEYS)]
+        with pytest.raises(ValueError, match=f"D={D}"):
+            bk._VIT_BLOCK_FWD(fx, fp, heads)
+    for d in bk.BLOCK_WIDTHS[dtype]:             # the widths it takes pass
+        p = bk.prepare_block_params(
+            {k: torch.zeros(s) for k, s in bk.param_shapes(d, 4 * d).items()},
+            dtype)
+        bk._check_cuda_args(torch.zeros(1, 3, d, dtype=dtype), p, d // 64)
 
 
 def test_config_dict_saved_by_jax_loads():

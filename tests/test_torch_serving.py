@@ -2,8 +2,9 @@
 
 The engine is held against the JAX package's ``build_serving_forward`` on
 the same weights (fp32, 2e-5), with a partial batch and a calibration
-temperature; the MicroBatcher's coalescing, FIFO carry and cancellation are
-checked with a gated stand-in engine.
+temperature; ``predict_stream`` gives ``predict``'s outputs batch by batch;
+the MicroBatcher's coalescing, FIFO carry and cancellation are checked with
+a gated stand-in engine.
 """
 import threading
 import time
@@ -75,6 +76,19 @@ def test_oversize_request_splits_and_stats(pair):
     s = engine.stats()
     assert s["requests"] >= 4 and s["images_per_sec"] > 0
     assert s["temperature"] == TEMPERATURE
+
+
+def test_predict_stream_matches_predict(pair):
+    _, _, engine = pair
+    batches = [_imgs(8, seed=10), _imgs(3, seed=11), _imgs(19, seed=12)]
+    stream = engine.predict_stream(iter(batches))
+    assert iter(stream) is stream                 # lazy, one batch a step
+    for imgs, got in zip(batches, stream):
+        want = engine.predict(imgs)
+        assert set(got) == set(want)
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+    assert next(engine.predict_stream([]), None) is None
 
 
 def test_temperature_validated():

@@ -121,7 +121,7 @@ exits non-zero:
    plain block and the fp32 model as "serve" holds served outputs
    (``hold_served``); the test pass's seconds, evaluation img/s and the
    bs=1 FPS, which must be finite and positive. The phase's directory
-   (and its ``best_model``) serves phases 10-12;
+   (and its ``best_model``) serves phases 10-15;
 10. wide: F3's repair. bf16 ``get_config("small")`` (d = 384) saved as a
    checkpoint, served one 224-px batch of 64 through ``load_engine`` and
    trained one step, both on the plain block (no #1 or #2 launch, finite
@@ -155,10 +155,34 @@ exits non-zero:
    engine's bits, exit 0 within 30 s; the process's launch counters, read
    after the drain, 12 #1 for each batch it ran;
 13. bench: ``cli.bench`` once, its JSON line printed, every rate finite and
-   positive, every MFU in (0, 1], #1, #2 and #7 launched.
+   positive, every MFU in (0, 1], #1, #2 and #7 launched;
+14. explain: the flagship in bf16 built for inference, seed-0 weights with
+   its LayerNorms drawn (``draw_layer_norms``), 64 random uint8 images at
+   224 px through ``eval_batch``. Attention rollout launches no kernel;
+   the fp32 model's maps on the card within 1e-4 of the same function on
+   the CPU (16 images). A Grad-CAM++ call launches #1 11 times and nothing
+   else (no #2), leaves every ``.grad`` None and the model in eval mode;
+   its tap, tap gradient and maps held against the same call through the
+   plain versions and the fp32 model's: within twice the plain call's
+   distance from fp32 (the tap and gradient at least ``bf16_tol``; the
+   maps by mean absolute distance, ``hold_gradcam``). At 384 px (batch 32, the
+   224-px weights by ``transfer_resolution``) a call launches #1 11 times
+   and #5 and #6 once, held the same way. Maps a second of each method
+   (host wall time closed by a synchronize), Grad-CAM++'s device
+   operations and busy share; then ``cli.visualize`` on 8 images of phase
+   9's test set with its ``best_model``: its launches (11 + 12 #1, and 12
+   more where matplotlib draws the KAN figures) and its 21 figures, or
+   one warning and none;
+15. ablation: ``cli.run_ablation --synthetic --device-cache`` at the
+   flagship's width and 224 px over 4 x 48 images (134 train, 28
+   validation, 30 test), 2 epochs at batch 64: every variant trains,
+   evaluates and calibrates with 12 #1 per forward, 12 #2 and one #7 per
+   step; six CSV rows and the four components' importance; the same
+   command again skips all six and launches nothing.
 
-The kernels line gives each kernel's launches on the export, serve CLI and
-bench paths in its ``launches_by_path``. The line before the last is ``nvidia-smi``'s name and power limit; the last
+The kernels line gives each kernel's launches on the export, serve CLI,
+bench, explain, explain_384, visualize and ablation paths in its
+``launches_by_path``. The line before the last is ``nvidia-smi``'s name and power limit; the last
 is ``{"ok": true, "device": {...}}``. Imports torch and the port only.
 """
 from __future__ import annotations
@@ -177,6 +201,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -3587,6 +3612,350 @@ def bench_phase(smi: str):
             "card": smi}
 
 
+ROLLOUT_CPU_IMAGES = 16
+ROLLOUT_TOL = 1e-4        # fp32, sums in another order; maps in [0, 1]
+VIZ_SAMPLES = 8
+ABLATION_PER_CLASS = 48   # 192 images: 134 train (2 steps), 28 val, 30 test
+ABLATION_EPOCHS = 2
+
+
+def draw_layer_norms(model, seed: int) -> None:
+    """Seeded LayerNorm scales ``1 + N(0, 0.1^2)`` and biases
+    ``N(0, 0.1^2)``. At init every LayerNorm has unit scale and zero bias,
+    so the Grad-CAM++ tap's channels sum to zero and its maps are rounding
+    noise, which no tolerance can hold; a trained model's LayerNorms are not
+    the identity."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.LayerNorm):
+                mod.weight.copy_(1 + 0.1 * torch.randn(mod.weight.shape,
+                                                       generator=g))
+                mod.bias.copy_(0.1 * torch.randn(mod.bias.shape,
+                                                 generator=g))
+
+
+def gradcam_call(model, x, targets):
+    """One Grad-CAM++ call through the port: the tap, its gradient, the
+    targets and the maps, on the device."""
+    from rovit_kan_tpu_torch.explainability.gradcam import (
+        _cam_from_grads,
+        gradcam_taps,
+    )
+    acts, grads, idx = gradcam_taps(model, x, targets)
+    return acts, grads, idx, _cam_from_grads(acts, grads, model.image_size)
+
+
+@contextlib.contextmanager
+def plain_kernels(model):
+    """The model's blocks through ``plain_vit_block`` and its attention
+    cores through ``plain_attention`` (the plain versions on the card), put
+    back after."""
+    from rovit_kan_tpu_torch.ops.attention import plain_attention
+    from rovit_kan_tpu_torch.ops.block_kernel import plain_vit_block
+    blocks = model.backbone.model.blocks
+    kept = [(b.block_fn, b.attn.attn_fn) for b in blocks]
+    for b in blocks:
+        b.block_fn, b.attn.attn_fn = plain_vit_block, plain_attention
+    try:
+        yield
+    finally:
+        for b, (block_fn, attn_fn) in zip(blocks, kept):
+            b.block_fn, b.attn.attn_fn = block_fn, attn_fn
+
+
+def hold_gradcam(label, model, exact, x, targets, want: dict) -> dict:
+    """One Grad-CAM++ call between a counter reset and a read, which must
+    show ``want`` and nothing else, and leave every ``.grad`` None and the
+    model in eval mode. Its tap, gradient and maps are held against the
+    same call through the plain versions and through the fp32 model
+    (``exact``) by ``hold_served``'s rule: both distances within twice the
+    plain call's distance from fp32, at least ``bf16_tol`` for the tap and
+    gradient and 1e-3 for the maps, whose distances are mean absolute
+    ones."""
+    reset, read = all_counters()
+    torch.cuda.synchronize()
+    reset()
+    acts, grads, idx, cams = gradcam_call(model, x, targets)
+    torch.cuda.synchronize()
+    launches = read()
+    only(launches, **want)
+    if any(p.grad is not None for p in model.parameters()) \
+            or model.training:
+        raise RuntimeError(f"{label}: Grad-CAM++ wrote a .grad or left "
+                           f"the model in training mode")
+    with plain_kernels(model):
+        reset()
+        p_acts, p_grads, _, p_cams = gradcam_call(model, x, targets)
+        torch.cuda.synchronize()
+        only(read())
+    e_acts, e_grads, _, e_cams = gradcam_call(exact, x, targets)
+    # The tap is the 11th block's output through norm1: where an fp32 sum
+    # in #1 lands on the other side of a bf16 rounding boundary than in the
+    # plain version, the ulp spreads through the blocks like any other bf16
+    # rounding, so the two paths part by as much as bf16 and fp32 do. Both
+    # are held as ``hold_served`` holds outputs, with ``bf16_tol`` (two bf16
+    # ulps at the largest magnitude) as the floor.
+    holds = {}
+    for name, got, ref, ex in (("tap", acts, p_acts, e_acts),
+                               ("tap_grad", grads, p_grads, e_grads)):
+        ref_err = float((ref - ex).abs().max())
+        holds[name] = {"vs_plain": float((got - ref).abs().max()),
+                       "vs_fp32": float((got - ex).abs().max()),
+                       "plain_vs_fp32": ref_err,
+                       "bf16_tol": bf16_tol(ref),
+                       "tolerance": 2 * max(ref_err, bf16_tol(ref)),
+                       "max_abs": float(ref.abs().max())}
+    # A min-max normalized map moves by up to 1 where its top patch
+    # changes, which bf16 rounding alone can do: the maps are held by their
+    # mean absolute distance, and the largest is reported.
+    ref_err = float((p_cams - e_cams).abs().mean())
+    holds["maps"] = {"mean_vs_plain": float((cams - p_cams).abs().mean()),
+                     "mean_vs_fp32": float((cams - e_cams).abs().mean()),
+                     "plain_mean_vs_fp32": ref_err,
+                     "tolerance": 2 * max(ref_err, 1e-3),
+                     "max_vs_plain": float((cams - p_cams).abs().max()),
+                     "plain_max_vs_fp32": float((p_cams - e_cams).abs().max())}
+    failed = [k for k in ("tap", "tap_grad")
+              if not max(holds[k]["vs_plain"], holds[k]["vs_fp32"])
+              <= holds[k]["tolerance"]]
+    m = holds["maps"]
+    if not max(m["mean_vs_plain"], m["mean_vs_fp32"]) <= m["tolerance"]:
+        failed.append("maps")
+    if not (torch.isfinite(cams).all() and cams.min() >= 0
+            and cams.max() <= 1 + 1e-6):
+        failed.append("maps_range")
+    if failed:
+        emit({"phase": "explain", "case": label, "holds": holds})
+        raise RuntimeError(f"{label}: Grad-CAM++ out of tolerance: {failed}")
+    return {"launches": launches, "holds": holds,
+            "targets": idx.tolist()[:8]}
+
+
+def maps_per_second(fn, n: int, calls: int = 5) -> float:
+    """Maps a second of ``fn`` (``n`` maps a call), host wall time over
+    ``calls`` calls after a warm-up, closed by a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return n * calls / (time.perf_counter() - t0)
+
+
+def explain_phase(smi: str, root, best):
+    """Attention rollout, Grad-CAM++ at 224 and 384 px, and
+    ``cli.visualize`` on the card (module docstring, phase 14)."""
+    from rovit_kan_tpu_torch.cli import visualize as cli_visualize
+    from rovit_kan_tpu_torch.config import Config
+    from rovit_kan_tpu_torch.explainability import ViTAttentionRollout
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.ops.preprocess import eval_batch
+
+    reset, read = all_counters()
+    cfg = Config()
+    model = build_model(cfg, inference=True, device="cuda", seed=0)
+    draw_layer_norms(model, seed=30)
+    if not all(b.use_fused_block for b in model.backbone.model.blocks):
+        raise RuntimeError("'auto' did not take the fused block at 224 px")
+    exact = build_model(cfg, dtype=torch.float32, inference=True,
+                        device="cuda", seed=0)
+    exact.load_state_dict(model.state_dict())
+    x = eval_batch(torch.from_numpy(
+        uint8_batch(31, BATCH, cfg.data.image_size)).cuda())
+    targets = torch.arange(BATCH, device=x.device) % cfg.model.num_classes
+
+    # Rollout: every block on the plain path, no kernel. The fp32 model's
+    # maps on the card against the same function on the CPU.
+    roller = ViTAttentionRollout(model)
+    torch.cuda.synchronize()
+    reset()
+    maps = roller.maps(x)
+    torch.cuda.synchronize()
+    rollout_launches = read()
+    only(rollout_launches)
+    if not (torch.isfinite(maps).all() and maps.min() >= 0
+            and maps.max() <= 1 + 1e-6):
+        raise RuntimeError("rollout maps out of [0, 1]")
+    cpu = build_model(cfg, dtype=torch.float32, inference=True, device="cpu",
+                      seed=0)
+    cpu.load_state_dict(model.state_dict())
+    n_cpu = ROLLOUT_CPU_IMAGES
+    card32 = ViTAttentionRollout(exact).maps(x[:n_cpu]).cpu()
+    host32 = ViTAttentionRollout(cpu, device="cpu").maps(x[:n_cpu].cpu())
+    rollout_gap = float((card32 - host32).abs().max())
+    if not rollout_gap <= ROLLOUT_TOL:
+        raise RuntimeError(f"fp32 rollout on the card {rollout_gap} from "
+                           f"the CPU's (tolerance {ROLLOUT_TOL})")
+
+    # Grad-CAM++ at 224 px: #1 on the 11 blocks before the tap, as
+    # inference calls; the last block plain.
+    cam224 = hold_gradcam("224", model, exact, x, targets,
+                          {"vit_block_fwd": cfg.model.depth - 1})
+    rates = {"rollout_maps_per_sec": maps_per_second(
+                 lambda: roller.maps(x), BATCH),
+             "gradcam_maps_per_sec": maps_per_second(
+                 lambda: gradcam_call(model, x, targets), BATCH)}
+    wall_ms = 1e3 * BATCH / rates["gradcam_maps_per_sec"]
+    ops = profile_device(lambda: gradcam_call(model, x, targets), calls=3)
+    device_ms = sum(ms for _, ms in ops.values()) / 3
+    gradcam_profile = {
+        "device_ops": sum(n for n, _ in ops.values()) / 3,
+        "device_ms": device_ms, "wall_ms": wall_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "top": top_kernels({k: ms / 3 for k, (_, ms) in ops.items()})}
+    del exact, cpu
+
+    # Grad-CAM++ at 384 px: "auto" takes #1 for the blocks before the tap
+    # and #5/#6 for the last block's attention.
+    cfg384 = long_config()
+    model384 = long_model(cfg384, inference=True)
+    draw_layer_norms(model384, seed=32)
+    last = model384.backbone.model.blocks[-1]
+    if not (last.use_fused_block and last.attn.use_fused):
+        raise RuntimeError("'auto' at 384 px did not take #1 and #5")
+    exact384 = long_model(cfg384, inference=True, dtype=torch.float32)
+    exact384.load_state_dict(model384.state_dict())
+    x384 = eval_batch(torch.from_numpy(
+        uint8_batch(33, LONG_BATCH, LONG_SIZE)).cuda())
+    t384 = torch.arange(LONG_BATCH, device=x.device) % cfg.model.num_classes
+    cam384 = hold_gradcam("384", model384, exact384, x384, t384,
+                          {"vit_block_fwd": cfg.model.depth - 1,
+                           "attention_fwd": 1, "attention_bwd": 1})
+    rates["gradcam_384_maps_per_sec"] = maps_per_second(
+        lambda: gradcam_call(model384, x384, t384), LONG_BATCH)
+    del model384, exact384
+
+    # cli.visualize on the eval phase's best_model.
+    out = root / "viz"
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        with contextlib.redirect_stdout(io.StringIO()):
+            attn_maps, cams = cli_visualize.main([str(a) for a in (
+                "--checkpoint", best, "--data_root", root / "data",
+                "--output_dir", out, "--num_samples", VIZ_SAMPLES)])
+    torch.cuda.synchronize()
+    viz_s = time.perf_counter() - t0
+    viz_launches = read()
+    figures = sorted(p.name for p in out.glob("*.png"))
+    no_mpl = [str(w.message) for w in warned
+              if "matplotlib is not installed" in str(w.message)]
+    # 11 #1 for Grad-CAM++, 12 for the predictions, 12 more for the KAN
+    # figures' forward, which runs only where matplotlib draws.
+    want = (cfg.model.depth - 1) + cfg.model.depth * (1 if no_mpl else 2)
+    only(viz_launches, vit_block_fwd=want)
+    expected = 2 * VIZ_SAMPLES + 1 + 4
+    size = cfg.data.image_size
+    if not (attn_maps.shape == cams.shape == (VIZ_SAMPLES, size, size)
+            and np.isfinite(cams).all()
+            and (len(figures) == expected if not no_mpl
+                 else not figures and len(no_mpl) == 1)):
+        raise RuntimeError(f"cli.visualize wrote {figures}, warned {no_mpl}")
+    return {"phase": "explain", "model": "DeiT-Tiny RoViT-KAN d=192 "
+            "depth=12 heads=3 bf16, seed-0 weights, LayerNorms drawn "
+            "(seed 30; 32 at 384 px); batch 64 at 224 px, 32 at 384 px",
+            "rollout": {"launches": rollout_launches,
+                        "fp32_card_vs_cpu": rollout_gap,
+                        "tolerance": ROLLOUT_TOL, "cpu_images": n_cpu},
+            "gradcam_224": cam224, "gradcam_384": cam384,
+            "rates": rates, "gradcam_profile": gradcam_profile,
+            "visualize": {"seconds": viz_s, "launches": viz_launches,
+                          "figures": len(figures), "warned": no_mpl},
+            "launches": {k: rollout_launches[k] + cam224["launches"][k]
+                         for k in rollout_launches},
+            "launches_384": cam384["launches"],
+            "card": smi}
+
+
+def ablation_phase(smi: str, root):
+    """``cli.run_ablation --synthetic --device-cache`` at the flagship's
+    full width, then the same command again (module docstring, phase 15)."""
+    from rovit_kan_tpu_torch.cli import run_ablation as cli_ablation
+    from rovit_kan_tpu_torch.experiments.ablation import (
+        CANONICAL_VARIANTS,
+        AblationExperiment,
+    )
+
+    reset, read = all_counters()
+    out = root / "ablation"
+    argv = ["--data-root", root / "ablation_data", "--output-dir", out,
+            "--synthetic", "--n-per-class", ABLATION_PER_CLASS,
+            "--epochs", ABLATION_EPOCHS, "--batch-size", BATCH,
+            "--device-cache"]
+    n_train, n_val, n_test = (len(s) for s in cli_ablation.split_indices(
+        4 * ABLATION_PER_CLASS, 42))
+    steps = ABLATION_EPOCHS * (n_train // BATCH)
+    val_batches = -(-n_val // BATCH)
+    # Train steps; a validation pass an epoch; the test pass; the bs=1 FPS
+    # forwards; the calibration's validation pass.
+    forwards = (steps + ABLATION_EPOCHS * val_batches + -(-n_test // BATCH)
+                + FPS_FORWARDS + val_batches)
+    per_variant = {}
+    real = AblationExperiment.run_single_experiment
+
+    def counted(self, variant, epochs=None):
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        result = real(self, variant, epochs)
+        torch.cuda.synchronize()
+        per_variant[variant.name] = {"launches": read(),
+                                     "seconds": time.perf_counter() - t0}
+        return result
+
+    runs = []
+    AblationExperiment.run_single_experiment = counted
+    try:
+        for _ in range(2):
+            per_variant = {}
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as printed:
+                exp = cli_ablation.main([str(a) for a in argv])
+            runs.append((exp, per_variant, time.perf_counter() - t0,
+                         printed.getvalue()))
+    finally:
+        AblationExperiment.run_single_experiment = real
+    (exp, first, first_s, _), (again, second, second_s, printed) = runs
+    names = [v.name for v in CANONICAL_VARIANTS]
+    for name in names:
+        only(first[name]["launches"], vit_block_fwd=12 * forwards,
+             vit_block_bwd=12 * steps, augment=steps)
+        only(second[name]["launches"])
+        m = exp.results[name]
+        if not (np.isfinite(m["accuracy"]) and m["temperature"] > 0
+                and np.isfinite(m["ece_calibrated"])):
+            raise RuntimeError(f"{name}: metrics {m}")
+    rows = (out / "ablation_results.csv").read_text().splitlines()
+    importance = json.loads((out / "component_importance.json").read_text())
+    if not (len(rows) == 7 and [r.split(",")[0] for r in rows[1:]] == names
+            and set(importance) == {"ordinal_head", "uncertainty_head",
+                                    "kan_module", "curriculum"}
+            and printed.count("skipping retrain") == 6
+            and all(again.results[n]["accuracy"] == exp.results[n]["accuracy"]
+                    for n in names)):
+        raise RuntimeError(f"ablation outputs: {len(rows)} CSV rows, "
+                           f"importance {importance}")
+    launches = {k: sum(first[n]["launches"][k] for n in names)
+                for k in first[names[0]]["launches"]}
+    return {"phase": "ablation", "model": "DeiT-Tiny RoViT-KAN d=192 "
+            "depth=12 heads=3 224px bf16, the six variants, batch 64, "
+            f"{ABLATION_EPOCHS} epochs over a synthetic tree of "
+            f"{4 * ABLATION_PER_CLASS} images on the card",
+            "split": [n_train, n_val, n_test], "steps_per_variant": steps,
+            "forwards_per_variant": forwards,
+            "seconds": first_s, "seconds_per_variant":
+                {n: first[n]["seconds"] for n in names},
+            "skip_run_seconds": second_s,
+            "accuracy": {n: exp.results[n]["accuracy"] for n in names},
+            "temperature": {n: exp.results[n]["temperature"] for n in names},
+            "component_importance": importance, "launches": launches,
+            "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3655,6 +4024,10 @@ def main() -> int:
         emit(exported)
         served = serve_cli_phase(smi, best)
         emit(served)
+        explained = explain_phase(smi, root, best)
+        emit(explained)
+        ablated = ablation_phase(smi, root)
+        emit(ablated)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     benched = bench_phase(smi)
@@ -3809,10 +4182,16 @@ def main() -> int:
         fwd3,
         res_entry("vit_block_bwd_res", "vit_block_bwd.cu", 549, 1)]
     # The export, serve CLI and bench paths: the three artifacts' calls, the
-    # serve CLI's process (its warm-up and every batch it served), cli.bench.
+    # serve CLI's process (its warm-up and every batch it served), cli.bench;
+    # the explain paths: a rollout and a Grad-CAM++ call at 224 px, one
+    # Grad-CAM++ call at 384 px, cli.visualize; the first ablation run.
     new_paths = {"export": exported["launches"],
                  "serve_cli": served["launches"],
-                 "bench": benched["launches"]}
+                 "bench": benched["launches"],
+                 "explain": explained["launches"],
+                 "explain_384": explained["launches_384"],
+                 "visualize": explained["visualize"]["launches"],
+                 "ablation": ablated["launches"]}
     for e in kernels:
         e.setdefault("launches_by_path", {}).update(
             {path: counts[e["name"]] for path, counts in new_paths.items()})

@@ -28,9 +28,9 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from rovit_kan_tpu_torch import resolve_device
+from rovit_kan_tpu_torch.ops.preprocess import resize_bilinear
 
 _HEADS = ("classification_head", "ordinal_head", "uncertainty_head")
 POS_EMBED_KEY = "backbone.model.pos_embed"
@@ -126,8 +126,7 @@ def interpolate_pos_embed(pos_embed: torch.Tensor,
     gs, gd = math.isqrt(n_src), math.isqrt(n_dst)
     d = patch_pos.shape[-1]
     grid = patch_pos.reshape(1, gs, gs, d).permute(0, 3, 1, 2).float()
-    resized = F.interpolate(grid, size=(gd, gd), mode="bilinear",
-                            align_corners=False, antialias=True)
+    resized = resize_bilinear(grid, (gd, gd))
     resized = resized.permute(0, 2, 3, 1).reshape(1, gd * gd, d)
     return torch.cat([cls_pos, resized.to(pos_embed.dtype)], dim=1)
 

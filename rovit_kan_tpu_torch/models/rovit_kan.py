@@ -72,11 +72,24 @@ class RoViTKAN(nn.Module):
                                                 use_fused=use_pallas_kan)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                return_attention: bool = False,
+                gradcam_perturbation: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """x: ``(B, H, W, 3)`` normalized images (NHWC). ``generator``
-        draws the heads' dropout masks in training mode."""
-        feats = self.backbone(x)                       # (B, D) fp32
+        draws the heads' dropout masks in training mode.
+        ``return_attention`` adds ``attention``, the blocks' fp32 softmax
+        weights ``(depth, B, heads, N, N)``; ``gradcam_perturbation``, a
+        ``(B, N, D)`` fp32 tensor added to the last block's ``norm1``
+        output, adds that sum as ``norm1_tap`` (``models/vit.py`` says which
+        blocks then run plain)."""
+        taps = None
+        if return_attention or gradcam_perturbation is not None:
+            taps = self.backbone(x, return_attention=return_attention,
+                                 gradcam_perturbation=gradcam_perturbation)
+            feats = taps["features"]
+        else:
+            feats = self.backbone(x)                   # (B, D) fp32
         B = feats.shape[0]
 
         def zeros(width):
@@ -94,6 +107,8 @@ class RoViTKAN(nn.Module):
             out["mu"], out["log_var"] = zeros(1), zeros(1)
         out["kan_severity"] = (self.kan_module(feats) if self.with_kan
                                else zeros(1))
+        if taps is not None:
+            out.update({k: v for k, v in taps.items() if k != "features"})
         return out
 
     @property

@@ -19,8 +19,20 @@ fused recompute backward, and the grads reach the fp32 parameters. With
 ``use_pallas`` (and the block unfused) each attention's ``softmax(q k^T) v``
 goes through ``ops.attention.fused_attention`` (kernels #5/#6 on the card);
 the fused block wins where both are on, as in the JAX ``Block``. The rest of
-the unfused path is plain autograd. Attention maps and the Grad-CAM tap come
-with the explainability slice.
+the unfused path is plain autograd.
+
+The explainability taps are call-time arguments, as in the JAX module, and
+never change a module's settings (another thread may serve from the same
+model). ``return_attention`` runs every block on the plain path and returns
+each block's fp32 softmax weights; ``gradcam_perturbation`` is added to the
+last block's fp32 ``norm1`` output, whose sum is the Grad-CAM++ tap, and
+runs only that block plain (its attention core still through
+``fused_attention`` where the model was built with it). The blocks before
+the tap do not depend on the perturbation, so they run without autograd:
+the fused block there is an inference call of the forward kernel, and the
+gradient of a call with a perturbation reaches the perturbation and what
+follows the tap, not the blocks before it. A call without either returns
+what it always did.
 """
 from __future__ import annotations
 
@@ -91,13 +103,17 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_weights: bool = False):
+        """The attention output; with ``return_weights``, also the fp32
+        softmax weights ``(B, heads, N, N)`` from the plain path, taken
+        before their cast to the compute dtype."""
         B, N, D = x.shape
         h = self.num_heads
         hd = D // h
         qkv = _linear(x, self.qkv, self.dtype)
         q, k, v = qkv.reshape(B, N, 3, h, hd).permute(2, 0, 3, 1, 4)
-        if self.use_fused:
+        weights = None
+        if self.use_fused and not return_weights:
             out = self.attn_fn(q * hd ** -0.5, k, v)
         else:
             logits = torch.matmul((q * hd ** -0.5).float(),
@@ -105,7 +121,8 @@ class Attention(nn.Module):
             weights = torch.softmax(logits, dim=-1)
             out = torch.matmul(weights.to(v.dtype).float(), v.float())
         out = out.to(self.dtype).transpose(1, 2).reshape(B, N, D)
-        return _linear(out, self.proj, self.dtype)
+        out = _linear(out, self.proj, self.dtype)
+        return (out, weights) if return_weights else out
 
 
 class Mlp(nn.Module):
@@ -172,15 +189,27 @@ class Block(nn.Module):
             self._kernel_key = key
         return self._kernel_params
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.use_fused_block:
+    def forward(self, x: torch.Tensor, return_weights: bool = False,
+                norm1_perturbation: Optional[torch.Tensor] = None):
+        """The block's output. With ``return_weights`` or
+        ``norm1_perturbation`` the block runs plain and returns ``(out,
+        weights, tap)``: the fp32 softmax weights (None unless asked for)
+        and the fp32 ``norm1`` output plus the perturbation."""
+        taps = return_weights or norm1_perturbation is not None
+        if self.use_fused_block and not taps:
             return self.block_fn(x.to(self.dtype), self.block_params(),
                                  self.num_heads,
                                  kernel_params=self.kernel_params())
-        y = _layer_norm(x, self.norm1).to(self.dtype)
-        x = x + self.attn(y)
+        y = _layer_norm(x, self.norm1)
+        if norm1_perturbation is not None:
+            y = y + norm1_perturbation
+        tap = y
+        attn = self.attn(y.to(self.dtype), return_weights)
+        attn_out, weights = attn if return_weights else (attn, None)
+        x = x + attn_out
         z = _layer_norm(x, self.norm2)
-        return x + self.mlp(z.to(self.dtype))
+        out = x + self.mlp(z.to(self.dtype))
+        return (out, weights, tap) if taps else out
 
 
 class VisionTransformer(nn.Module):
@@ -203,16 +232,49 @@ class VisionTransformer(nn.Module):
             for _ in range(depth)])
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: ``(B, H, W, 3)`` normalized images (NHWC)."""
+    def forward(self, x: torch.Tensor, return_attention: bool = False,
+                gradcam_perturbation: Optional[torch.Tensor] = None):
+        """x: ``(B, H, W, 3)`` normalized images (NHWC).
+
+        Returns the fp32 CLS feature ``(B, D)``. With ``return_attention``
+        or ``gradcam_perturbation`` (a ``(B, N, D)`` fp32 tensor added to the
+        last block's ``norm1`` output; pass zeros and differentiate with
+        respect to it), returns a dict of ``features`` and what was asked
+        for: ``attention`` ``(depth, B, heads, N, N)`` fp32, ``norm1_tap``
+        ``(B, N, D)`` fp32."""
         B = x.shape[0]
         x = self.patch_embed(x)
         cls = self.cls_token.expand(B, -1, -1).to(x.dtype)
         x = torch.cat([cls, x], dim=1)
         x = x + self.pos_embed.to(x.dtype)
+        if return_attention or gradcam_perturbation is not None:
+            return self._forward_taps(x, return_attention,
+                                      gradcam_perturbation)
         for blk in self.blocks:
             x = blk(x)
         return _layer_norm(x, self.norm)[:, 0]
+
+    def _forward_taps(self, x: torch.Tensor, return_attention: bool,
+                      perturbation: Optional[torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        maps, out = [], {}
+        last = len(self.blocks) - 1
+        for i, blk in enumerate(self.blocks):
+            perturb = perturbation if i == last else None
+            if return_attention or perturb is not None:
+                x, weights, tap = blk(x, return_attention, perturb)
+                if return_attention:
+                    maps.append(weights)
+                if perturb is not None:
+                    out["norm1_tap"] = tap
+            else:
+                # Before the tap: nothing here depends on the perturbation.
+                with torch.no_grad():
+                    x = blk(x)
+        out["features"] = _layer_norm(x, self.norm)[:, 0]
+        if return_attention:
+            out["attention"] = torch.stack(maps)
+        return out
 
 
 class DeiTTinyBackbone(nn.Module):
@@ -223,5 +285,5 @@ class DeiTTinyBackbone(nn.Module):
         super().__init__()
         self.model = VisionTransformer(**kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.model(x)
+    def forward(self, x: torch.Tensor, **taps):
+        return self.model(x, **taps)

@@ -10,7 +10,10 @@ saturation), so they can be fed the JAX package's draws.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+import torch.nn.functional as F
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -31,6 +34,15 @@ def normalize(images: torch.Tensor) -> torch.Tensor:
 def eval_batch(images_u8: torch.Tensor) -> torch.Tensor:
     """Inference pipeline: normalize only."""
     return normalize(to_float(images_u8))
+
+
+def resize_bilinear(t: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """``(B, C, H, W)`` resampled to ``size`` as ``jax.image.resize(...,
+    "bilinear")`` resamples the last two axes: half-pixel centres, and a
+    triangle kernel widened by the scale where the grid shrinks
+    (antialiased)."""
+    return F.interpolate(t, size=tuple(size), mode="bilinear",
+                         align_corners=False, antialias=True)
 
 
 def random_flips(images: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:

@@ -48,6 +48,11 @@ def test_port_has_modules():
                  "rovit_kan_tpu_torch/cli/serve.py",
                  "rovit_kan_tpu_torch/cli/bench.py",
                  "rovit_kan_tpu_torch/cli/profile_train.py",
+                 "rovit_kan_tpu_torch/explainability/attention_maps.py",
+                 "rovit_kan_tpu_torch/explainability/gradcam.py",
+                 "rovit_kan_tpu_torch/cli/visualize.py",
+                 "rovit_kan_tpu_torch/experiments/ablation.py",
+                 "rovit_kan_tpu_torch/cli/run_ablation.py",
                  "chip_smoke.py"):
         assert want in names
 

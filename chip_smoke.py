@@ -178,10 +178,29 @@ exits non-zero:
    validation, 30 test), 2 epochs at batch 64: every variant trains,
    evaluates and calibrates with 12 #1 per forward, 12 #2 and one #7 per
    step; six CSV rows and the four components' importance; the same
-   command again skips all six and launches nothing.
+   command again skips all six and launches nothing;
+16. baselines: ``cli.run_baselines --synthetic`` over the six baselines
+   (deit_tiny, efficientnet_b0, mobilenetv3_large, resnet50, vgg16,
+   swin_tiny) at 224 px, batch 32, one epoch over 4 x 32 augmented images
+   (102 train: 3 steps; 26 validation) and 4 x 16 original test images:
+   every model trains, evaluates, calibrates and times its bs=1 FPS, with
+   six ``*_metrics.json`` whose metrics are finite, each ``params`` the JAX
+   module's count at 224 px, ``fps`` finite and positive with no
+   ``fps_error``, and six CSV rows sorted by accuracy. The baselines train
+   and evaluate in fp32 on the plain block and the plain augment, so the
+   only launches are #1's in deit_tiny's FPS column, where the bf16 twin on
+   the fused block runs 12 a forward (1,320 over its 110 forwards); none
+   elsewhere in the phase. Through that twin, held against the same twin
+   on the plain block and the fp32 model (``hold_served``'s rule): one
+   batch of 64 on fresh weights with drawn LayerNorms, and one batch of 1
+   (the FPS column's shape) on the model the sweep trained. Per model: the
+   sweep's train seconds and its first epoch's img/s (cuDNN's algorithm
+   search included), the img/s of 5 train steps timed after 2 warm-up
+   steps, bs=1 FPS, and one profiled train step's device operations and
+   busy share.
 
 The kernels line gives each kernel's launches on the export, serve CLI,
-bench, explain, explain_384, visualize and ablation paths in its
+bench, explain, explain_384, visualize, ablation and baselines paths in its
 ``launches_by_path``. The line before the last is ``nvidia-smi``'s name and power limit; the last
 is ``{"ok": true, "device": {...}}``. Imports torch and the port only.
 """
@@ -1498,15 +1517,15 @@ def hold_train_step(cfg, batch, draws):
     return held
 
 
-def profile_step(step, batch):
-    """torch.profiler over one train step: device time by kernel and the
-    device's busy share of the step's wall time."""
+def profile_step(fn):
+    """torch.profiler over one train step, ``fn()``: device time by kernel
+    and the device's busy share of the step's wall time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch, 4, 1.0, 1)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -1568,7 +1587,7 @@ def train(smi: str):
     if not all(np.isfinite(losses)):
         raise RuntimeError(f"non-finite train losses {losses}")
 
-    prof = profile_step(step, batches[0])
+    prof = profile_step(lambda: step(batches[0], 4, 1.0, 1))
 
     # One repeated batch, mixing off, at lr 1e-3: the loss must fall.
     set_hyperparams(opt, 1e-3, 0.1)
@@ -1800,9 +1819,9 @@ def kan_phase(smi: str):
         step_ms["kan_kernels" if fused else "plain_kan"].append(
             1e3 * (time.perf_counter() - t1) / len(tb[2:]))
     set_kan_fused(train_model.kan_module, True)
-    prof_on = profile_step(step, tb[0])
+    prof_on = profile_step(lambda: step(tb[0], 4, 1.0, 1))
     set_kan_fused(train_model.kan_module, False)
-    prof_off = profile_step(step, tb[0])
+    prof_off = profile_step(lambda: step(tb[0], 4, 1.0, 1))
     set_kan_fused(train_model.kan_module, True)
 
     held = hold_kan_step(cfg, tb[0], {
@@ -2180,7 +2199,8 @@ def long_train(smi: str, label: str, steps: int, want_per_step: dict,
         raise RuntimeError(f"{label}: non-finite train losses {losses}")
     return {"tpu": tpu, "steps": steps, "launches": launches,
             "losses": losses, "step_ms": 1e3 * elapsed / steps,
-            "profile": profile_step(step, batches[0]), "card": smi}
+            "profile": profile_step(lambda: step(batches[0], 4, 1.0, 1)),
+            "card": smi}
 
 
 def hold_attention_step(cfg, batch, draws):
@@ -2749,7 +2769,7 @@ def fit_phase(smi: str):
         for on in (True, False):
             with residual_opt_in(on):
                 step_profiles["residual" if on else "recompute"] = \
-                    profile_step(tr.train_step, batch)
+                    profile_step(lambda: tr.train_step(batch, 4, 1.0, 1))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3956,6 +3976,191 @@ def ablation_phase(smi: str, root):
             "card": smi}
 
 
+BASELINE_MODELS = ("deit_tiny", "efficientnet_b0", "mobilenetv3_large",
+                   "resnet50", "vgg16", "swin_tiny")
+BASELINE_PER_CLASS = 32   # 128 augmented: 102 train (3 steps), 26 val
+BASELINE_BATCH = 32
+BASELINE_SIZE = 224
+BASELINE_TIMED_STEPS = 5  # warm train steps timed a model
+# The JAX modules' parameter counts at 224 px, 4 classes (jax.eval_shape;
+# the JAX package's outputs/baselines/*_metrics.json).
+BASELINE_PARAMS = {"deit_tiny": 5_525_188, "resnet50": 23_516_228,
+                   "efficientnet_b0": 4_012_672,
+                   "mobilenetv3_large": 4_205_322,
+                   "vgg16": 134_276_932, "swin_tiny": 27_522_430}
+BASELINE_METRICS = ("accuracy", "macro_f1", "weighted_f1", "brier_score",
+                    "ece", "ece_calibrated", "brier_calibrated",
+                    "temperature", "params", "fps", "train_time_s")
+
+
+def hold_baseline_twin(exp, trained) -> dict:
+    """deit_tiny's FPS twin (bf16, #1) against the same twin on the plain
+    block and the fp32 model, by ``hold_served``'s rule, at 224 px: one
+    batch of 64 on fresh weights whose LayerNorms are drawn, so the blocks
+    are not the identity-normalized ones of init, and one batch of 1, the
+    FPS column's shape, on ``trained``, the model the sweep trained."""
+    fresh = exp.build_model("deit_tiny").eval()
+    draw_layer_norms(fresh, seed=16)
+    return {"batch_64_fresh": hold_deit_twin(fresh, BATCH, seed=16),
+            "batch_1_trained": hold_deit_twin(trained.eval(), 1, seed=18)}
+
+
+def hold_deit_twin(model, n: int, seed: int) -> dict:
+    """``n`` images of a seed through ``model``'s bf16 fused-block twin,
+    held against that twin on the plain block and against ``model``."""
+    from rovit_kan_tpu_torch.ops.block_kernel import plain_vit_block
+    from rovit_kan_tpu_torch.ops.preprocess import eval_batch
+    twin = model.twin(torch.bfloat16, use_fused_block=True)
+    x = eval_batch(torch.from_numpy(uint8_batch(seed, n, BASELINE_SIZE))
+                   .cuda())
+    reset, read = all_counters()
+
+    def outputs(m):
+        with torch.inference_mode():
+            out = m(x)
+        probs = torch.softmax(out["cls_logits"].float(), -1)
+        return {"features": out["features"].float().cpu().numpy(),
+                "cls_probs": probs.cpu().numpy(),
+                "cls_pred": probs.argmax(-1).cpu().numpy()}
+
+    torch.cuda.synchronize()
+    reset()
+    served = outputs(twin)
+    torch.cuda.synchronize()
+    only(read(), vit_block_fwd=12)
+    blocks = twin.backbone.vit.blocks
+    for b in blocks:
+        b.block_fn = plain_vit_block
+    plain = outputs(twin)
+    exact = outputs(model)
+    only(read(), vit_block_fwd=12)
+    checks, failed = hold_served(served, plain, exact,
+                                 keys=("features", "cls_probs"))
+    if failed:
+        raise RuntimeError(f"deit_tiny FPS twin out of tolerance at batch "
+                           f"{n}: {failed}, {checks}")
+    return checks
+
+
+def baselines_phase(smi: str, root):
+    """``cli.run_baselines --synthetic`` over the six baselines at 224 px,
+    the DeiT FPS twin held, one profiled train step a model (module
+    docstring, phase 16)."""
+    from rovit_kan_tpu_torch.cli import run_baselines as cli_baselines
+    from rovit_kan_tpu_torch.experiments.baselines import BaselineExperiment
+
+    reset, read = all_counters()
+    out = root / "baselines"
+    argv = ["--data-root", root / "baselines_data", "--output-dir", out,
+            "--synthetic", "--models", *BASELINE_MODELS,
+            "--image-size", BASELINE_SIZE, "--batch-size", BASELINE_BATCH,
+            "--epochs", 1, "--n-per-class", BASELINE_PER_CLASS]
+    per_model, trained = {}, {}
+    real = BaselineExperiment.run_single
+    real_fps = BaselineExperiment._fps_step
+
+    def counted(self, name):
+        torch.cuda.synchronize()
+        before, t0 = read(), time.perf_counter()
+        result = real(self, name)
+        torch.cuda.synchronize()
+        after = read()
+        per_model[name] = {"launches": {k: after[k] - before[k]
+                                        for k in after},
+                           "seconds": time.perf_counter() - t0,
+                           "train_images": BASELINE_BATCH * len(
+                               self.train_loader)}
+        return result
+
+    def kept(self, name, model):
+        trained[name] = model                 # the trained model it times
+        return real_fps(self, name, model)
+
+    BaselineExperiment.run_single = counted
+    BaselineExperiment._fps_step = kept
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            exp = cli_baselines.main([str(a) for a in argv])
+    finally:
+        BaselineExperiment.run_single = real
+        BaselineExperiment._fps_step = real_fps
+    torch.cuda.synchronize()
+    seconds, launches = time.perf_counter() - t0, read()
+    log = printed.getvalue()
+    missing = [n for n in BASELINE_MODELS
+               if not (out / f"{n}_metrics.json").exists()
+               or n not in per_model]
+    if missing:
+        raise RuntimeError(f"baselines missing {missing}: {log[-3000:]}")
+    readings = {}
+    for name in BASELINE_MODELS:
+        m = json.loads((out / f"{name}_metrics.json").read_text())
+        fps = check_fps(name, m)
+        bad = [k for k in BASELINE_METRICS
+               if not (m.get(k) is not None and np.isfinite(m[k]))]
+        if bad or m["params"] != BASELINE_PARAMS[name]:
+            raise RuntimeError(f"{name}: metrics {m}")
+        want = ({"vit_block_fwd": 12 * FPS_FORWARDS}
+                if name == "deit_tiny" else {})
+        only(per_model[name]["launches"], **want)
+        train_s = m["train_time_s"]
+        readings[name] = {
+            "train_seconds": train_s,
+            "first_epoch_images_per_sec":
+                per_model[name]["train_images"] / train_s,
+            "fps_bs1": fps, "seconds": per_model[name]["seconds"],
+            "accuracy": m["accuracy"], "temperature": m["temperature"],
+            "params": m["params"]}
+    only(launches, vit_block_fwd=12 * FPS_FORWARDS)
+    rows = (out / "baseline_comparison.csv").read_text().splitlines()
+    accs = [float(r.split(",")[1]) for r in rows[1:]]
+    if not (len(rows) == 7 and accs == sorted(accs, reverse=True)
+            and {r.split(",")[0] for r in rows[1:]} == set(BASELINE_MODELS)):
+        raise RuntimeError(f"baseline CSV: {rows}")
+
+    # Warm train steps timed, then one profiled, a model, on a batch of the
+    # phase's shape.
+    cfg = exp.config
+    probe = BaselineExperiment(cfg, None, None, None, out, device="cuda")
+    rng = np.random.RandomState(17)
+    batch = {"images": torch.from_numpy(uint8_batch(17, BASELINE_BATCH,
+                                                    BASELINE_SIZE)).cuda(),
+             "labels": torch.from_numpy(rng.randint(0, 4, BASELINE_BATCH))
+             .cuda(),
+             "valid": torch.ones(BASELINE_BATCH).cuda()}
+    for name in BASELINE_MODELS:
+        step, _, _ = probe._make_steps(probe.build_model(name))
+        reset()
+        for _ in range(2):                    # first calls pick algorithms
+            step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(BASELINE_TIMED_STEPS):
+            step(batch)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / BASELINE_TIMED_STEPS
+        readings[name]["train_step_ms"] = step_s * 1e3
+        readings[name]["train_images_per_sec"] = BASELINE_BATCH / step_s
+        readings[name]["train_step_profile"] = profile_step(
+            lambda: step(batch))
+        only(read())
+    held = hold_baseline_twin(probe, trained["deit_tiny"])
+    return {"phase": "baselines", "models": list(BASELINE_MODELS),
+            "config": f"{BASELINE_SIZE}px, batch {BASELINE_BATCH}, 1 epoch, "
+                      f"fp32; "
+                      f"synthetic trees of 4 x {BASELINE_PER_CLASS} "
+                      f"augmented and 4 x {BASELINE_PER_CLASS // 2} test "
+                      f"images",
+            "seconds": seconds, "launches": launches,
+            "launches_by_model": {n: per_model[n]["launches"]
+                                  for n in BASELINE_MODELS},
+            "readings": readings, "deit_twin_held": held,
+            "csv_rows": len(rows) - 1, "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4028,6 +4233,17 @@ def main() -> int:
         emit(explained)
         ablated = ablation_phase(smi, root)
         emit(ablated)
+        baselined = baselines_phase(smi, root)
+        emit({"phase": "baselines_readings",
+              "per_model": {n: {k: r[k] for k in (
+                  "train_seconds", "first_epoch_images_per_sec",
+                  "train_images_per_sec", "fps_bs1")} | {
+                  "device_ops": r["train_step_profile"]["kernel_launches"],
+                  "device_busy_share":
+                      r["train_step_profile"]["device_busy_share"]}
+                  for n, r in baselined["readings"].items()},
+              "card": smi})
+        emit(baselined)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     benched = bench_phase(smi)
@@ -4184,14 +4400,16 @@ def main() -> int:
     # The export, serve CLI and bench paths: the three artifacts' calls, the
     # serve CLI's process (its warm-up and every batch it served), cli.bench;
     # the explain paths: a rollout and a Grad-CAM++ call at 224 px, one
-    # Grad-CAM++ call at 384 px, cli.visualize; the first ablation run.
+    # Grad-CAM++ call at 384 px, cli.visualize; the first ablation run; the
+    # baseline sweep.
     new_paths = {"export": exported["launches"],
                  "serve_cli": served["launches"],
                  "bench": benched["launches"],
                  "explain": explained["launches"],
                  "explain_384": explained["launches_384"],
                  "visualize": explained["visualize"]["launches"],
-                 "ablation": ablated["launches"]}
+                 "ablation": ablated["launches"],
+                 "baselines": baselined["launches"]}
     for e in kernels:
         e.setdefault("launches_by_path", {}).update(
             {path: counts[e["name"]] for path, counts in new_paths.items()})

@@ -1,7 +1,7 @@
 """Command-line entry points of the port: ``python -m
 rovit_kan_tpu_torch.cli.<name>`` for ``train``, ``evaluate``,
-``export_model``, ``serve``, ``bench``, ``profile_train``, ``visualize`` and
-``run_ablation`` (``--cpu`` off the card)."""
+``export_model``, ``serve``, ``bench``, ``profile_train``, ``visualize``,
+``run_ablation`` and ``run_baselines`` (``--cpu`` off the card)."""
 from __future__ import annotations
 
 #: ``--matmul_precision``'s values (the JAX scripts' XLA precisions) and the

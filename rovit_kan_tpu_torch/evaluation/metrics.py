@@ -143,9 +143,11 @@ def ece(probs: np.ndarray, y_true: np.ndarray, n_bins: int = 10) -> float:
 
 
 def count_params(params) -> int:
-    """Parameter count of an ``nn.Module`` or of a state dict's tensors (the
-    port's modules register no buffers, so the two agree: 5,706,394 for the
-    flagship)."""
+    """Parameter count of an ``nn.Module`` (its parameters only, as JAX's
+    ``count_params(variables["params"])``: 5,706,394 for the flagship), or of
+    a dict of parameter tensors. A module's buffers (the baselines'
+    BatchNorm running statistics) are not parameters, so pass the module
+    rather than its ``state_dict()``, which holds them too."""
     if isinstance(params, torch.nn.Module):
         return sum(p.numel() for p in params.parameters())
     return sum(int(v.numel()) for v in params.values())

@@ -15,6 +15,14 @@ the reference's state_dict names, so the mapping is mechanical:
   ``spline_weights (in, out, K)``, ``cls_token`` and ``pos_embed`` are
   copied as they are.
 
+``load_baseline_variables`` maps a JAX ``BaselineModel``'s ``{"params",
+"batch_stats"}`` tree the same way, with a conv ``weight (O, I/g, kh, kw)``
+<-> ``kernel (kh, kw, I/g, O)`` (a depthwise ``(C, 1, k, k)`` <-> ``(k, k, 1,
+C)``), a BatchNorm's ``weight``/``bias`` <-> ``params`` ``scale``/``bias``
+and its ``running_mean``/``running_var`` <-> ``batch_stats`` ``mean``/``var``.
+The port's VGG-16 flattens in the JAX (H, W, C) order, so its ``fc1`` needs
+no permutation; Swin's ``rel_bias`` is copied as it is.
+
 ``transfer_resolution`` carries a state_dict to another image size (the
 JAX package's resolution-transfer recipe): the position embedding's patch
 grid is resampled bilinearly; every other weight is independent of the
@@ -108,6 +116,65 @@ def to_jax_params(model: nn.Module) -> Dict:
             node = node.setdefault(p, {})
         node[path[-1]] = np.ascontiguousarray(value.T if transpose
                                               else value)
+    return tree
+
+
+_BN_STATS = {"running_mean": "mean", "running_var": "var"}
+
+
+def _variable_path(key: str, ndim: int) -> Tuple[str, Tuple[str, ...],
+                                                  Tuple[int, ...]]:
+    """The JAX collection and path of a baseline state_dict entry, and the
+    axis order that takes the port's tensor to the JAX array (inverse:
+    ``np.argsort`` of it)."""
+    leaf = key.rpartition(".")[2]
+    if leaf in _BN_STATS:
+        path, _ = _jax_path(key, ndim)
+        return "batch_stats", path[:-1] + (_BN_STATS[leaf],), ()
+    path, transpose = _jax_path(key, ndim)
+    order = ((2, 3, 1, 0) if ndim == 4 else (1, 0)) if transpose else ()
+    return "params", path, order
+
+
+def load_baseline_variables(model: nn.Module, variables: Mapping,
+                            device="cuda") -> nn.Module:
+    """Load a JAX ``BaselineModel``'s variables (``{"params": ...,
+    "batch_stats": ...}``, the latter absent for DeiT) into the port's
+    ``BaselineModel`` and move it to ``device``. Every parameter and
+    running statistic must be in the tree with the matching shape."""
+    dev = resolve_device(device)
+    sd = {}
+    for key, cur in model.state_dict().items():
+        col, path, order = _variable_path(key, cur.dim())
+        try:
+            value = np.array(_get(variables[col], path), dtype=np.float32)
+        except KeyError as e:
+            raise KeyError(f"{key}: no {col}/{'/'.join(path)} in the JAX "
+                           f"variables") from e
+        if order:
+            value = value.transpose(np.argsort(order))
+        if tuple(value.shape) != tuple(cur.shape):
+            raise ValueError(f"{key}: JAX {col}/{'/'.join(path)} has shape "
+                             f"{value.shape}, the module wants "
+                             f"{tuple(cur.shape)}")
+        sd[key] = torch.from_numpy(np.ascontiguousarray(value))
+    model.load_state_dict(sd, strict=True)
+    return model.to(dev)
+
+
+def to_baseline_variables(model: nn.Module) -> Dict:
+    """The inverse of ``load_baseline_variables``: ``{"params", and
+    "batch_stats" where the model has BatchNorms}`` of fp32 numpy arrays
+    (used by the tests)."""
+    tree: Dict = {}
+    for key, t in model.state_dict().items():
+        col, path, order = _variable_path(key, t.dim())
+        value = t.detach().to("cpu", torch.float32).numpy()
+        node = tree.setdefault(col, {})
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(
+            value.transpose(order) if order else value)
     return tree
 
 

@@ -56,6 +56,16 @@ def _device_of(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
+    """A loader's numpy batch (or a ``DeviceLoader``'s) on ``device``, the
+    labels as int64."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v).to(device, non_blocking=True)
+        out[k] = t.long() if k == "labels" else t
+    return out
+
+
 def use_fused_augment(model: nn.Module, config: Config) -> bool:
     """The augment kernel's switch, read as the JAX ``make_train_step`` reads
     it: ``train.fused_augment`` (absent means "auto"); True/False force it;
@@ -316,14 +326,6 @@ class Trainer:
         return stage, lr, backbone_scale, backbone_live
 
     # -- epochs ------------------------------------------------------------
-    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
-        dev = self.device
-        out = {}
-        for k, v in batch.items():
-            t = torch.as_tensor(v).to(dev, non_blocking=True)
-            out[k] = t.long() if k == "labels" else t
-        return out
-
     def _device_batches(self, loader, drop_valid: bool = True):
         """Batches on the device, the next one's copy issued before the
         current one is yielded."""
@@ -331,7 +333,7 @@ class Trainer:
         for batch in loader:
             if drop_valid:
                 batch = {k: v for k, v in batch.items() if k != "valid"}
-            nxt = self._to_device(batch)
+            nxt = to_device(batch, self.device)
             if pending is not None:
                 yield pending
             pending = nxt

@@ -1155,3 +1155,55 @@ def test_kan_kernels_refuse_what_they_do_not_take(cuda):
     assert float((xg.grad - want_dx).abs().max()) <= _kan_tol(want_dx)
     for p, ref in zip(leaves, want):
         assert float((p.grad - ref).abs().max()) <= _kan_tol(ref)
+
+
+def _all_launches():
+    """Every kernel's launch counter, #1-#11."""
+    return {"block": (bk.LAUNCHES, bk.BWD_LAUNCHES, bk.RES_LAUNCHES,
+                      bk.BWD_RES_LAUNCHES),
+            "augment": ak.LAUNCHES,
+            "kan": (kk.LAYER_LAUNCHES, kk.LAYER_BWD_LAUNCHES, kk.LAUNCHES,
+                    kk.BWD_LAUNCHES),
+            "attention": (at.LAUNCHES, at.BWD_LAUNCHES)}
+
+
+def test_baselines_launch_only_in_the_deit_fps_twin(cuda, tmp_path):
+    """The DeiT baseline's bf16 fused twin (its FPS column's step) launches
+    #1 once per block a forward; the convnets' and fp32 DeiT's train and
+    eval steps launch none of #1-#11 (the plain block and augment, as in
+    the JAX harness)."""
+    from rovit_kan_tpu_torch.config import get_config
+    from rovit_kan_tpu_torch.experiments.baselines import (
+        BaselineExperiment,
+    )
+    cfg = get_config()
+    cfg.data.image_size = 64
+    exp = BaselineExperiment(cfg, None, None, None, tmp_path, device="cuda")
+    deit = exp.build_model("deit_tiny")
+    fps_step = exp._fps_step("deit_tiny", deit)
+    assert fps_step is not None
+    assert exp._fps_step("resnet50", exp.build_model("resnet50")) is None
+    before = _all_launches()
+    fps_step({"images": torch.zeros((1, 64, 64, 3), dtype=torch.uint8,
+                                    device=cuda)})
+    torch.cuda.synchronize()
+    after = _all_launches()
+    assert after["block"][0] == before["block"][0] + 12
+    assert {**after, "block": after["block"][1:]} == \
+        {**before, "block": before["block"][1:]}
+
+    rng = np.random.RandomState(10)
+    batch = {"images": torch.tensor(rng.randint(0, 256, (4, 64, 64, 3))
+                                    .astype(np.uint8), device=cuda),
+             "labels": torch.tensor(rng.randint(0, 4, 4), device=cuda),
+             "valid": torch.ones(4, device=cuda)}
+    for name in ("resnet50", "efficientnet_b0", "mobilenetv3_large",
+                 "vgg16", "swin_tiny", "deit_tiny"):
+        model = exp.build_model(name)
+        step, eval_step, _ = exp._make_steps(model)
+        before = _all_launches()
+        loss = float(step(batch)["loss"])
+        probs = eval_step(batch)["probs"]
+        torch.cuda.synchronize()
+        assert _all_launches() == before, name
+        assert np.isfinite(loss) and torch.isfinite(probs).all(), name

@@ -53,6 +53,9 @@ def test_port_has_modules():
                  "rovit_kan_tpu_torch/cli/visualize.py",
                  "rovit_kan_tpu_torch/experiments/ablation.py",
                  "rovit_kan_tpu_torch/cli/run_ablation.py",
+                 "rovit_kan_tpu_torch/models/baselines.py",
+                 "rovit_kan_tpu_torch/experiments/baselines.py",
+                 "rovit_kan_tpu_torch/cli/run_baselines.py",
                  "chip_smoke.py"):
         assert want in names
 

@@ -121,7 +121,8 @@ exits non-zero:
    plain block and the fp32 model as "serve" holds served outputs
    (``hold_served``); the test pass's seconds, evaluation img/s and the
    bs=1 FPS, which must be finite and positive. The phase's directory
-   (and its ``best_model``) serves phases 10-15;
+   (and its ``best_model``) serves phases 10-15, its JPEG tree phases
+   17-18;
 10. wide: F3's repair. bf16 ``get_config("small")`` (d = 384) saved as a
    checkpoint, served one 224-px batch of 64 through ``load_engine`` and
    trained one step, both on the plain block (no #1 or #2 launch, finite
@@ -199,10 +200,39 @@ exits non-zero:
    steps, bs=1 FPS, and one profiled train step's device operations and
    busy share.
 
+17. pretrained: weight import. A reference-format ``best_model.pth`` and a
+   timm backbone state_dict at the flagship's shapes (seeded numpy) through
+   ``cli.convert_checkpoint`` (its line and counts, no launch; the
+   reference ``.npz`` read back through the port's key map is the reference
+   state_dict bit for bit); ``cli.train --pretrained_npz`` from the timm
+   ``.npz`` for one epoch on phase 9's JPEG tree at batch 64 (12 x #1,
+   12 x #2 and 1 x #7 a step; 12 x #1 a validation, test and bs=1 FPS
+   forward), whose weights before the first step are
+   ``merge_pretrained(init, npz)`` bit for bit (every backbone leaf the
+   npz's, the heads at the seed's init); ``load_engine`` on its
+   ``best_model`` serving one batch (12 x #1);
+18. moe: the flagship with ``moe_experts=8`` (blocks 1, 3, ..., 11 sparse,
+   18,142,234 parameters). One MoE layer at (64, 197, 192) on the card and
+   the CPU, fp32 and bf16: the same chosen token sets, outputs within the
+   stated tolerance (``moe_layer_checks``); ``cli.train --moe_experts 8``
+   for one epoch (6 x #1 a forward: the dense blocks; 6 x #2 and 1 x #7 a
+   step), ``cli.evaluate --calibrate`` (6 x #1 a forward) and
+   ``load_engine`` serving three batches (6 x #1 each), one batch held
+   against the plain block and the fp32 model (``hold_served``) with the
+   token-expert selections each path parts on counted; three steps with
+   ``tpu.remat_backbone`` on and off, the same losses and gradients bit for
+   bit (6 blocks recomputed a step), their ms and peak memory; one step
+   with ``use_pallas_attention=True`` (6 x #5 and #6 in the MoE blocks,
+   6 x #1 and #2 in the dense ones, 1 x #7) held against #6's plain version
+   by ``hold_attention_step``'s rule, and read against plain attention;
+   the MoE and dense flagships' train step ms at batch 64, served img/s and
+   bs=1 FPS in turns.
+
 The kernels line gives each kernel's launches on the export, serve CLI,
-bench, explain, explain_384, visualize, ablation and baselines paths in its
-``launches_by_path``. The line before the last is ``nvidia-smi``'s name and power limit; the last
-is ``{"ok": true, "device": {...}}``. Imports torch and the port only.
+bench, explain, explain_384, visualize, ablation, baselines, pretrained and
+moe paths in its ``launches_by_path``. The line before the last is
+``nvidia-smi``'s name and power limit; the last is ``{"ok": true,
+"device": {...}}``. Imports torch and the port only.
 """
 from __future__ import annotations
 
@@ -2805,11 +2835,12 @@ EVAL_TEST_PER_CLASS = 25    # 100 test images: 2 batches, the second 36 valid
 FPS_FORWARDS = 110          # fps_benchmark: 10 warm-up + 100 timed
 
 
-def run_cli(fn, argv):
-    """``fn(argv)`` between a launch-counter reset and a read, its printing
-    kept off the smoke's output; returns its result, the launches, the
-    seconds and what it printed."""
-    reset, read = fit_counters()
+def run_cli(fn, argv, counters=None):
+    """``fn(argv)`` between a launch-counter reset and a read (the block
+    and augment counters, or ``counters()``'s), its printing kept off the
+    smoke's output; returns its result, the launches, the seconds and what
+    it printed."""
+    reset, read = (counters or fit_counters)()
     out = io.StringIO()
     torch.cuda.synchronize()
     reset()
@@ -4161,6 +4192,548 @@ def baselines_phase(smi: str, root):
             "csv_rows": len(rows) - 1, "card": smi}
 
 
+PRETRAINED_SEED = 19
+MOE_EXPERTS = 8
+MOE_PARAMS, DENSE_PARAMS = 18_142_234, 5_706_394
+BACKBONE_PARAMS = 5_524_416
+REMAT_STEPS = 3
+TIMED_STEPS = 5           # warm train steps timed a model and turn
+
+
+def reference_state_dict(cfg, seed: int) -> dict:
+    """A reference-format ``model_state_dict`` at ``cfg``'s shapes (the
+    port's state_dict in the reference layout, the patch embedding a
+    ``(D, 3, p, p)`` convolution) with seeded numpy values: LayerNorm
+    scales about 1, every other leaf N(0, 0.02^2)."""
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.utils.checkpoint import _to_reference
+    shapes = _to_reference(build_model(cfg, inference=True, device="cpu")
+                           .state_dict())
+    rng = np.random.RandomState(seed)
+    out = {}
+    for k, v in shapes.items():
+        value = rng.normal(0, 0.02, tuple(v.shape)).astype(np.float32)
+        if "norm" in k and k.endswith(".weight"):
+            value += 1.0
+        out[k] = value
+    return out
+
+
+def add_launches(*dicts) -> dict:
+    return {k: sum(d[k] for d in dicts) for k in dicts[0]}
+
+
+def recording_init_state(seen: list):
+    """A context in which ``Trainer.init_state`` also keeps, in ``seen``,
+    a CPU copy of the weights each fresh run starts from."""
+    from rovit_kan_tpu_torch.training import trainer as trainer_mod
+    init_state = trainer_mod.Trainer.init_state
+
+    def recording(self, params=None):
+        state = init_state(self, params)
+        seen.append({k: v.detach().cpu().clone()
+                     for k, v in state.params.items()})
+        return state
+
+    @contextlib.contextmanager
+    def ctx():
+        trainer_mod.Trainer.init_state = recording
+        try:
+            yield
+        finally:
+            trainer_mod.Trainer.init_state = init_state
+    return ctx()
+
+
+def pretrained_phase(smi: str, root):
+    """Weight import on the card (module docstring, phase 17)."""
+    from rovit_kan_tpu_torch.cli import convert_checkpoint as cli_convert
+    from rovit_kan_tpu_torch.cli import train as cli_train
+    from rovit_kan_tpu_torch.config import Config
+    from rovit_kan_tpu_torch.models import convert as tc
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.serving import load_engine
+    from rovit_kan_tpu_torch.utils.checkpoint import _from_reference
+
+    cfg, work = Config(), root / "pretrained"
+    work.mkdir()
+    ref = reference_state_dict(cfg, PRETRAINED_SEED)
+    torch.save({"model_state_dict": {k: torch.from_numpy(v)
+                                     for k, v in ref.items()},
+                "epoch": 30}, work / "best_model.pth")
+    prefix = "backbone.model."
+    timm = {k[len(prefix):]: torch.from_numpy(v) for k, v in
+            reference_state_dict(cfg, PRETRAINED_SEED + 1).items()
+            if k.startswith(prefix)}
+    rng = np.random.RandomState(PRETRAINED_SEED + 2)
+    timm["head.weight"] = torch.from_numpy(
+        rng.normal(0, 0.02, (1000, DIM)).astype(np.float32))
+    timm["head.bias"] = torch.zeros(1000)
+    torch.save(timm, work / "deit_tiny.pth")
+
+    converted = {}
+    for name, kind, n in (("best_model", "reference RoViTKAN", DENSE_PARAMS),
+                          ("deit_tiny", "timm ViT backbone",
+                           BACKBONE_PARAMS)):
+        _, launches, secs, printed = run_cli(
+            cli_convert.main, ["--input", work / f"{name}.pth", "--output",
+                               work / f"{name}.npz"], all_counters)
+        only(launches)
+        want = f"Converted {kind}: {n:,} params -> {work / name}.npz"
+        if printed.strip() != want:
+            raise RuntimeError(f"convert_checkpoint printed {printed!r}, "
+                               f"want {want!r}")
+        converted[name] = {"seconds": secs, "printed": printed.strip()}
+    # The reference file's weights, through the .npz and the port's key
+    # map, are the reference state_dict bit for bit.
+    flagship = build_model(cfg, inference=True, device="cpu")
+    got = tc.jax_state_dict(flagship, tc.load_npz(work / "best_model.npz"))
+    want = _from_reference({k: torch.from_numpy(v) for k, v in ref.items()})
+    if got.keys() != want.keys() or not all(torch.equal(got[k], want[k])
+                                            for k in want):
+        raise RuntimeError("the converted reference .npz is not the "
+                           "reference state_dict")
+
+    # cli.train from the timm backbone: one epoch (2 steps, 1 validation
+    # batch, 2 test batches and the bs=1 FPS forwards).
+    argv = ["--data_root", root / "data", "--output_dir", work / "train",
+            "--epochs", 1, "--batch_size", BATCH, "--pretrained_npz",
+            work / "deit_tiny.npz"]
+    seen = []
+    with recording_init_state(seen):
+        metrics, train_launches, train_s, printed = run_cli(
+            cli_train.main, argv, all_counters)
+    steps, vals, tests = 2, 1, 2
+    only(train_launches, vit_block_fwd=12 * (steps + vals + tests
+                                             + FPS_FORWARDS),
+         vit_block_bwd=12 * steps, augment=steps)
+    if len(seen) != 1 or "Loading pretrained weights" not in printed:
+        raise RuntimeError(f"cli.train made {len(seen)} fresh starts")
+    args = cli_train.parse_args([str(a) for a in argv])
+    init_model = build_model(cli_train.build_config(args), device="cpu",
+                             seed=args.seed)
+    init = tc.to_jax_params(init_model)
+    merged = tc.jax_state_dict(init_model, tc.merge_pretrained(
+        init, tc.load_npz(work / "deit_tiny.npz"), verbose=False))
+    differ = [k for k, v in merged.items() if not torch.equal(seen[0][k], v)]
+    if differ or seen[0].keys() != merged.keys():
+        raise RuntimeError(f"cli.train did not start from the merged "
+                           f"weights: {differ[:5]}")
+    backbone = _from_reference({prefix + k: v for k, v in timm.items()
+                                if not k.startswith("head.")})
+    from_npz = [k for k in merged if k in backbone
+                and torch.equal(merged[k], backbone[k])]
+    if len(from_npz) != sum(k.startswith(prefix) for k in merged):
+        raise RuntimeError("a backbone leaf kept its init")
+
+    best = work / "train" / "checkpoints" / "best_model"
+    engine = load_engine(best, batch_size=BATCH, device="cuda")
+    reset, read = all_counters()
+    images = uint8_batch(70, BATCH, cfg.data.image_size)
+    torch.cuda.synchronize()
+    reset()
+    served = engine.predict(images)
+    serve_launches = read()
+    only(serve_launches, vit_block_fwd=12)
+    if not (np.isfinite(served["cls_probs"]).all() and np.allclose(
+            served["cls_probs"].sum(-1), 1.0, atol=1e-5)):
+        raise RuntimeError("pretrained model served non-finite outputs")
+    return {"phase": "pretrained", "model": "DeiT-Tiny RoViT-KAN d=192 "
+            "depth=12 heads=3 224px bf16, batch 64: a reference-format "
+            "best_model.pth and a timm backbone state_dict (seeded numpy at "
+            "the flagship's shapes) through cli.convert_checkpoint, "
+            "cli.train --pretrained_npz (timm) for 1 epoch, load_engine",
+            "converted": converted,
+            "start_weights": {"merged_bit_for_bit": True,
+                              "leaves_from_npz": len(from_npz),
+                              "leaves_kept_at_init":
+                                  len(merged) - len(from_npz)},
+            "train_cli": {"seconds": train_s, "launches": train_launches,
+                          "test_accuracy": metrics["accuracy"],
+                          "fps_bs1": check_fps("pretrained train CLI",
+                                               metrics)},
+            "serve_launches": serve_launches,
+            "launches": add_launches(train_launches, serve_launches),
+            "card": smi}
+
+
+def moe_layer_checks(seed: int = 21) -> dict:
+    """One flagship MoE layer (D 192, H 768, E 8, capacity 50 of 197) on
+    the same fp32 input (64, 197, 192) and weights on the card and on the
+    CPU, in fp32 and in bf16: the chosen token sets exactly equal (routing
+    runs in fp32 in both), the outputs within 1e-4 of their largest
+    magnitude in fp32 (sums of up to 768 terms in another order) and within
+    two bf16 ulps of it in bf16 (``bf16_tol``: both round the FFN's operands
+    at the same points and sum in fp32)."""
+    from rovit_kan_tpu_torch.models.moe import MoEMlp, expert_capacity, route
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.normal(0, 1, (BATCH, TOKENS, DIM))
+                         .astype(np.float32))
+    weights = {"w1": rng.normal(0, DIM ** -0.5, (MOE_EXPERTS, DIM, HIDDEN)),
+               "b1": rng.normal(0, 0.02, (MOE_EXPERTS, HIDDEN)),
+               "w2": rng.normal(0, HIDDEN ** -0.5, (MOE_EXPERTS, HIDDEN, DIM)),
+               "b2": rng.normal(0, 0.02, (MOE_EXPERTS, DIM)),
+               "gate.weight": rng.normal(0, DIM ** -0.5, (MOE_EXPERTS, DIM))}
+    C = expert_capacity(TOKENS, MOE_EXPERTS, 2.0)
+    out = {"capacity": C}
+    for dtype in (torch.float32, torch.bfloat16):
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            layer = MoEMlp(DIM, HIDDEN, MOE_EXPERTS, 2.0, dtype)
+            layer.load_state_dict({k: torch.from_numpy(v.astype(np.float32))
+                                   for k, v in weights.items()})
+            layer.to(dev)
+            with torch.no_grad():
+                xd = x.to(dev)
+                idx = route(xd, layer.gate.weight, C)[0]
+                runs[dev] = (idx.sort(-1).values.cpu(),
+                             layer(xd).float().cpu())
+                torch.cuda.synchronize()
+        (ci, co), (gi, go) = runs["cpu"], runs["cuda"]
+        tol = (FP32_TOL * float(co.abs().max()) if dtype == torch.float32
+               else bf16_tol(co))
+        err = float((go - co).abs().max())
+        name = str(dtype).replace("torch.", "")
+        out[name] = {"sets_equal": bool(torch.equal(ci, gi)),
+                     "max_abs_err": err, "tolerance": tol,
+                     "max_abs_out": float(co.abs().max())}
+        if not torch.equal(ci, gi) or not err <= tol:
+            raise RuntimeError(f"MoE layer ({name}) on the card: {out[name]}")
+    return out
+
+
+def record_routing(model):
+    """Forward hooks on each MoE layer of ``model`` that keep, in the
+    returned dict, its chosen token indices (sorted per expert) of the last
+    call; and the hooks' handles."""
+    from rovit_kan_tpu_torch.models.moe import MoEMlp, expert_capacity, route
+    chosen, handles = {}, []
+
+    def hook(name):
+        def fn(mod, args, out):
+            x = args[0]
+            C = expert_capacity(x.shape[1], mod.num_experts,
+                                mod.capacity_factor)
+            chosen[name] = route(x, mod.gate.weight, C)[0].sort(-1) \
+                .values.cpu()
+        return fn
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, MoEMlp):
+            handles.append(mod.register_forward_hook(hook(name)))
+    return chosen, handles
+
+
+def selection_flips(a: dict, b: dict, tokens: int) -> dict:
+    """Per MoE layer, the token-expert selections in ``a`` that ``b`` does
+    not make (each is one token that one expert took in one run and not in
+    the other)."""
+    out = {}
+    for name, ia in a.items():
+        ma = torch.zeros(*ia.shape[:2], tokens, dtype=torch.bool)
+        mb = torch.zeros_like(ma)
+        ma.scatter_(-1, ia, True)
+        mb.scatter_(-1, b[name], True)
+        out[name] = int((ma & ~mb).sum())
+    return out
+
+
+def moe_steps(cfg, batches, remat: bool):
+    """``len(batches)`` stage-4 steps of the MoE flagship from the seed-0
+    weights (mixing on, the step's own seeded generators) with
+    ``tpu.remat_backbone=remat``: the losses, each step's gradients, the
+    step ms, the peak device memory and the blocks remat recomputed."""
+    from rovit_kan_tpu_torch.models import vit
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.training.optimizer import build_optimizer
+    from rovit_kan_tpu_torch.training.trainer import make_train_step
+    cfg = copy.deepcopy(cfg)
+    cfg.tpu.remat_backbone = remat
+    model = build_model(cfg, device="cuda", seed=0)
+    opt = build_optimizer(model, cfg)
+    step = make_train_step(model, opt, cfg,
+                           generator=torch.Generator("cuda").manual_seed(0))
+    calls = []
+    checkpoint = vit.checkpoint
+
+    def counting(*args, **kw):
+        calls.append(1)
+        return checkpoint(*args, **kw)
+
+    vit.checkpoint = counting
+    losses, grads = [], []
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for b in batches:
+            losses.append(float(step(b, 4, 1.0, 1)["total_loss"]))
+            grads.append({k: p.grad.detach().clone()
+                          for k, p in zip(opt.names, opt.params)})
+        torch.cuda.synchronize()
+    finally:
+        vit.checkpoint = checkpoint
+    return {"losses": losses, "grads": grads,
+            "step_ms": 1e3 * (time.perf_counter() - t0) / len(batches),
+            "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+            "remat_calls": len(calls)}
+
+
+def moe_attention_step(cfg, batch, draws, attn_fn=None, stage: int = 4):
+    """One step at ``stage`` of the MoE flagship with
+    ``use_pallas_attention`` forced, from the seed-0 weights with fixed
+    draws, between a counter reset and a read; ``attn_fn`` replaces the MoE
+    blocks' attention core. Returns the loss, the gradients and the
+    launches."""
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.training.optimizer import build_optimizer
+    from rovit_kan_tpu_torch.training.trainer import make_train_step
+    model = build_model(cfg, device="cuda", seed=0)
+    blocks = model.backbone.model.blocks
+    if [b.use_fused_block for b in blocks] != [i % 2 == 0
+                                               for i in range(12)] \
+            or not all(b.attn.use_fused for b in blocks):
+        raise RuntimeError("forced attention: unexpected block policy")
+    if attn_fn is not None:
+        for b in blocks:
+            b.attn.attn_fn = attn_fn
+    opt = build_optimizer(model, cfg)
+    step = make_train_step(model, opt, cfg,
+                           generator=torch.Generator("cuda").manual_seed(1))
+    reset, read = all_counters()
+    torch.cuda.synchronize()
+    reset()
+    m = step(batch, stage, 1.0, 1, draws=dict(
+        draws, dropout=torch.Generator("cuda").manual_seed(2)))
+    torch.cuda.synchronize()
+    return {"loss": float(m["total_loss"]), "launches": read(),
+            "grads": {k: p.grad.detach().clone()
+                      for k, p in zip(opt.names, opt.params)}}
+
+
+def leaf_gaps(a: dict, b: dict) -> dict:
+    """Each parameter's gradient distance ``|a - b|`` over ``|b|``."""
+    return {n: float((g - b[n]).norm()) / max(float(b[n].norm()), 1e-30)
+            for n, g in a.items()}
+
+
+def timed_steps(model, cfg, batches, profile: bool = False):
+    """ms per train step of ``model`` over ``batches`` after one warm-up
+    step (stage 4, mixing on), and with ``profile`` one more step's
+    ``profile_step`` (else None)."""
+    from rovit_kan_tpu_torch.training.optimizer import build_optimizer
+    from rovit_kan_tpu_torch.training.trainer import make_train_step
+    opt = build_optimizer(model, cfg)
+    step = make_train_step(model, opt, cfg,
+                           generator=torch.Generator("cuda").manual_seed(0))
+    step(batches[0], 4, 1.0, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        step(b, 4, 1.0, 1)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+    return ms, (profile_step(lambda: step(batches[0], 4, 1.0, 1))
+                if profile else None)
+
+
+def moe_phase(smi: str, root):
+    """The expert-choice MoE flagship on the card (module docstring, phase
+    18)."""
+    from rovit_kan_tpu_torch.cli import evaluate as cli_evaluate
+    from rovit_kan_tpu_torch.cli import train as cli_train
+    from rovit_kan_tpu_torch.config import Config
+    from rovit_kan_tpu_torch.evaluation.evaluator import \
+        load_model_for_evaluation
+    from rovit_kan_tpu_torch.models.rovit_kan import (
+        build_model,
+        count_parameters,
+    )
+    from rovit_kan_tpu_torch.ops import attention as at
+    from rovit_kan_tpu_torch.ops import augment_kernel as ak
+    from rovit_kan_tpu_torch.ops import block_kernel as bk
+    from rovit_kan_tpu_torch.ops.mixing import draw_mix
+    from rovit_kan_tpu_torch.serving import InferenceEngine, load_engine
+
+    cfg, work = Config(), root / "moe"
+    cfg.model.moe_experts = MOE_EXPERTS
+    work.mkdir()
+    layer = moe_layer_checks()
+
+    # Train, evaluate and serve through the CLIs and load_engine: 6 #1 a
+    # forward (the dense blocks 0, 2, ..., 10), 6 #2 and one #7 a step.
+    steps, vals, tests = 2, 1, 2
+    metrics, train_launches, train_s, _ = run_cli(cli_train.main, [
+        "--data_root", root / "data", "--output_dir", work / "train",
+        "--epochs", 1, "--batch_size", BATCH, "--moe_experts", MOE_EXPERTS],
+        all_counters)
+    only(train_launches, vit_block_fwd=6 * (steps + vals + tests
+                                            + FPS_FORWARDS),
+         vit_block_bwd=6 * steps, augment=steps)
+    best = work / "train" / "checkpoints" / "best_model"
+    ev, eval_launches, eval_s, _ = run_cli(cli_evaluate.main, [
+        "--checkpoint", best, "--data_root", root / "data", "--output_dir",
+        work / "eval", "--batch_size", BATCH, "--calibrate",
+        "--device_metrics", "off"], all_counters)
+    only(eval_launches, vit_block_fwd=6 * (1 + tests + FPS_FORWARDS))
+    engine = load_engine(best, batch_size=BATCH, device="cuda")
+    model = engine.model
+    if count_parameters(model)["total"] != MOE_PARAMS:
+        raise RuntimeError(f"MoE flagship has {count_parameters(model)}")
+    engine.warmup()
+    size = cfg.data.image_size
+    batches = [uint8_batch(80 + i, BATCH, size) for i in range(3)]
+    reset, read = all_counters()
+    chosen, handles = record_routing(model)
+    torch.cuda.synchronize()
+    reset()
+    outs = [engine.predict(b) for b in batches]
+    serve_launches = read()
+    only(serve_launches, vit_block_fwd=6 * len(batches))
+    for out in outs:
+        if not all(np.isfinite(v).all() for v in out.values()):
+            raise RuntimeError("MoE model served non-finite outputs")
+
+    # The served batch against the same weights through the plain block
+    # and in fp32; how many token-expert selections the paths part on.
+    served = engine.predict(batches[0])
+    routes = {"kernels": dict(chosen)}
+    served["features"] = features(model, batches[0])
+    for b in model.backbone.model.blocks:
+        b.block_fn = bk.plain_vit_block
+    plain = engine.predict(batches[0])
+    routes["plain"] = dict(chosen)
+    plain["features"] = features(model, batches[0])
+    for b in model.backbone.model.blocks:
+        b.block_fn = bk.fused_vit_block
+    for h in handles:
+        h.remove()
+    model32, _ = load_model_for_evaluation(best, device="cuda",
+                                           dtype=torch.float32)
+    chosen32, handles = record_routing(model32)
+    exact = InferenceEngine(model32, batch_size=BATCH,
+                            device="cuda").predict(batches[0])
+    routes["fp32"] = dict(chosen32)
+    exact["features"] = features(model32, batches[0])
+    for h in handles:
+        h.remove()
+    checks, failed = hold_served(served, plain, exact)
+    total = (len(routes["kernels"]) * BATCH * MOE_EXPERTS
+             * layer["capacity"])
+    flips = {"kernels_vs_plain": selection_flips(
+                 routes["kernels"], routes["plain"], TOKENS),
+             "kernels_vs_fp32": selection_flips(
+                 routes["kernels"], routes["fp32"], TOKENS),
+             "plain_vs_fp32": selection_flips(
+                 routes["plain"], routes["fp32"], TOKENS),
+             "selections_per_path": total}
+    if failed:
+        emit({"phase": "moe", "outputs": checks, "selection_flips": flips})
+        raise RuntimeError(f"MoE served outputs out of tolerance: {failed}")
+
+    # Remat on and off: the same losses and gradients, bit for bit.
+    train_cfg = copy.deepcopy(cfg)
+    step_batches = [train_batch(train_cfg, 400 + i)
+                    for i in range(REMAT_STEPS)]
+    remat = {on: moe_steps(train_cfg, step_batches, on)
+             for on in (False, True)}
+    same = remat[False]["losses"] == remat[True]["losses"] and all(
+        torch.equal(g, b[k]) for a, b in zip(remat[False]["grads"],
+                                             remat[True]["grads"])
+        for k, g in a.items())
+    remat_out = {k: {"losses": r["losses"], "step_ms": r["step_ms"],
+                     "peak_mib": r["peak_mib"],
+                     "blocks_recomputed": r["remat_calls"]}
+                 for k, r in (("off", remat[False]), ("on", remat[True]))}
+    if not same or remat[True]["remat_calls"] != 6 * REMAT_STEPS \
+            or remat[False]["remat_calls"]:
+        again = moe_steps(train_cfg, step_batches, False)
+        remat_out["off_again_same"] = again["losses"] == \
+            remat[False]["losses"]
+        emit({"phase": "moe", "remat": remat_out})
+        raise RuntimeError("remat on and off differ")
+    del remat
+
+    # One step with the attention kernels forced: #5/#6 in the 6 MoE
+    # blocks, #1/#2 in the dense ones; against #6's plain version (the
+    # same forward launches, so the same loss bits, and each parameter's
+    # gradient within 5e-2 of its L2 norm, hold_attention_step's rule), and
+    # readings against plain attention forward and backward, at stage 4 and
+    # at stage 3 (without the KAN loss, which makes the stage-4 gradient
+    # ill-conditioned at these weights; hold_train_step).
+    attn_cfg = copy.deepcopy(cfg)
+    attn_cfg.tpu.use_pallas_attention = True
+    draws = {"factors": ak.draw_factors(
+                 torch.Generator("cuda").manual_seed(3), BATCH),
+             "mix": draw_mix(torch.Generator().manual_seed(4), BATCH, size,
+                             size)}
+    k = moe_attention_step(attn_cfg, step_batches[0], draws)
+    only(k["launches"], vit_block_fwd=6, vit_block_bwd=6, attention_fwd=6,
+         attention_bwd=6, augment=1)
+    kp = moe_attention_step(attn_cfg, step_batches[0], draws,
+                            _kernel_fwd_plain_bwd_attention)
+    only(kp["launches"], vit_block_fwd=6, vit_block_bwd=6, attention_fwd=6,
+         augment=1)
+    leaf = leaf_gaps(k["grads"], kp["grads"])
+    worst = max(leaf, key=leaf.get)
+    attention = {"launches": k["launches"], "loss": k["loss"],
+                 "loss_plain_bwd": kp["loss"], "tolerance": 5e-2,
+                 "worst_leaf": worst, "worst_rel": leaf[worst],
+                 "median_leaf_rel": float(np.median(list(leaf.values()))),
+                 "plain_attention": {}}
+    for stage in (4, 3):
+        ks = k if stage == 4 else moe_attention_step(
+            attn_cfg, step_batches[0], draws, stage=stage)
+        pa = moe_attention_step(attn_cfg, step_batches[0], draws,
+                                at.plain_attention, stage)
+        only(pa["launches"], vit_block_fwd=6, vit_block_bwd=6, augment=1)
+        plain_leaf = leaf_gaps(ks["grads"], pa["grads"])
+        attention["plain_attention"][f"stage{stage}"] = {
+            "loss_kernels": ks["loss"], "loss_plain": pa["loss"],
+            "median_leaf_rel": float(np.median(list(plain_leaf.values()))),
+            "max_leaf_rel": max(plain_leaf.values())}
+    if k["loss"] != kp["loss"] or not leaf[worst] <= 5e-2:
+        emit({"phase": "moe", "attention_step": attention})
+        raise RuntimeError("MoE attention step out of tolerance")
+    attention_launches = k["launches"]
+    del k, kp, ks, pa
+
+    # Against the dense flagship, in turns (dense, moe, moe, dense): train
+    # step ms at batch 64, served img/s and bs=1 FPS; one profiled step of
+    # each.
+    dense_cfg = Config()
+    timed = [train_batch(dense_cfg, 500 + i) for i in range(TIMED_STEPS)]
+    speed, profiles = {"dense": [], "moe": []}, {}
+    for name in ("dense", "moe", "moe", "dense"):
+        c = cfg if name == "moe" else dense_cfg
+        m = build_model(c, device="cuda", seed=0)
+        step_ms, prof = timed_steps(m, c, timed, name not in profiles)
+        if prof is not None:
+            profiles[name] = prof
+        rates = served_rates(build_model(c, inference=True, device="cuda",
+                                         seed=0))
+        speed[name].append({"step_ms": step_ms,
+                            "train_images_per_sec": 1e3 * BATCH / step_ms,
+                            **rates})
+    return {"phase": "moe", "model": "DeiT-Tiny RoViT-KAN d=192 depth=12 "
+            "heads=3 224px bf16, moe_experts=8 every 2nd block (1, 3, ..., "
+            "11), capacity factor 2 (50 of 197 tokens an expert), batch 64",
+            "parameters": {"moe": MOE_PARAMS, "dense": DENSE_PARAMS},
+            "layer": layer,
+            "train_cli": {"seconds": train_s, "launches": train_launches,
+                          "test_accuracy": metrics["accuracy"],
+                          "fps_bs1": check_fps("MoE train CLI", metrics)},
+            "evaluate_cli": {"seconds": eval_s, "launches": eval_launches,
+                             "temperature": ev.temperature},
+            "serve_launches": serve_launches,
+            "held_vs_plain_block": checks, "selection_flips": flips,
+            "remat": remat_out, "attention_step": attention,
+            "speed_in_turns": speed, "train_step_profiles": profiles,
+            "launches": add_launches(train_launches, eval_launches,
+                                     serve_launches, attention_launches),
+            "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4244,6 +4817,10 @@ def main() -> int:
                   for n, r in baselined["readings"].items()},
               "card": smi})
         emit(baselined)
+        pretrained = pretrained_phase(smi, root)
+        emit(pretrained)
+        moed = moe_phase(smi, root)
+        emit(moed)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     benched = bench_phase(smi)
@@ -4401,7 +4978,8 @@ def main() -> int:
     # serve CLI's process (its warm-up and every batch it served), cli.bench;
     # the explain paths: a rollout and a Grad-CAM++ call at 224 px, one
     # Grad-CAM++ call at 384 px, cli.visualize; the first ablation run; the
-    # baseline sweep.
+    # baseline sweep; the pretrained run and its served batch; the MoE
+    # train, evaluate and serve calls and its forced-attention step.
     new_paths = {"export": exported["launches"],
                  "serve_cli": served["launches"],
                  "bench": benched["launches"],
@@ -4409,7 +4987,9 @@ def main() -> int:
                  "explain_384": explained["launches_384"],
                  "visualize": explained["visualize"]["launches"],
                  "ablation": ablated["launches"],
-                 "baselines": baselined["launches"]}
+                 "baselines": baselined["launches"],
+                 "pretrained": pretrained["launches"],
+                 "moe": moed["launches"]}
     for e in kernels:
         e.setdefault("launches_by_path", {}).update(
             {path: counts[e["name"]] for path, counts in new_paths.items()})

@@ -1,7 +1,8 @@
 """Command-line entry points of the port: ``python -m
 rovit_kan_tpu_torch.cli.<name>`` for ``train``, ``evaluate``,
 ``export_model``, ``serve``, ``bench``, ``profile_train``, ``visualize``,
-``run_ablation`` and ``run_baselines`` (``--cpu`` off the card)."""
+``run_ablation``, ``run_baselines`` (``--cpu`` off the card) and
+``convert_checkpoint`` (CPU only)."""
 from __future__ import annotations
 
 #: ``--matmul_precision``'s values (the JAX scripts' XLA precisions) and the

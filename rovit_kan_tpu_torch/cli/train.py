@@ -5,7 +5,8 @@
         [--synthetic [--synthetic_per_class N]] [--fast] [--cpu] [--resume] \
         [--device_cache] [--all_seeds] [--patience P] [--ema_decay D] \
         [--checkpoint_min_interval S] [--preset tiny|small|base] \
-        [--profile_dir DIR] [--matmul_precision P]
+        [--profile_dir DIR] [--matmul_precision P] [--pretrained_npz NPZ] \
+        [--moe_experts E]
 
 The single-card flow of the JAX package's ``scripts/train.py``. A run:
 dataloaders over ``DATA/Augmented Image`` (train and validation, a seeded
@@ -26,9 +27,16 @@ the JAX script's ``jax.profiler`` trace. ``--matmul_precision`` sets
 ``small`` and ``base`` (d = 384, 768) train on the plain block: the fused
 block's bf16 stages take d of 64 to 192.
 
+``--pretrained_npz`` starts a fresh run from converted weights (the JAX
+package's ``.npz``, from ``cli.convert_checkpoint`` or the JAX package's
+``save_npz``) laid over the init drawn from ``--seed`` by
+``merge_pretrained``; ``--resume`` wins over it. ``--moe_experts E`` (E > 1)
+turns every second block's MLP into an expert-choice MoE with E experts
+(``models/moe.py``).
+
 Runs on the card unless ``--cpu`` is given. Not ported yet: the mesh,
-pipeline, tensor, sequence, FSDP, MoE, expert and multi-host flags,
-``--device_cache_sharded`` and ``--pretrained_npz``.
+pipeline, tensor, sequence, FSDP, expert and multi-host flags and
+``--device_cache_sharded``.
 """
 from __future__ import annotations
 
@@ -87,6 +95,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--matmul_precision", default=None,
                    choices=sorted(MATMUL_PRECISION),
                    help=MATMUL_PRECISION_HELP)
+    p.add_argument("--pretrained_npz", type=Path, default=None,
+                   help="converted timm/reference weights "
+                        "(cli.convert_checkpoint)")
+    p.add_argument("--moe_experts", type=int, default=0,
+                   help="turn every 2nd backbone block's FFN into an "
+                        "expert-choice MoE with N experts (models/moe.py; "
+                        "0 = dense flagship)")
     return p.parse_args(argv)
 
 
@@ -96,6 +111,10 @@ def build_config(args: argparse.Namespace):
     from rovit_kan_tpu_torch.config import get_config
 
     config = get_config(args.preset)
+    if args.pretrained_npz:
+        config.model.pretrained_npz = args.pretrained_npz
+    if args.moe_experts > 1:
+        config.model.moe_experts = args.moe_experts
     config.paths.checkpoints_dir = args.output_dir / "checkpoints"
     config.paths.results_dir = args.output_dir / "results"
     config.paths.logs_dir = args.output_dir / "logs"
@@ -201,7 +220,20 @@ def run_one(config, seed: int, out_dir: Path, aug_root: Path,
                   f"point from {logger.csv_path}")
         print(f"Resumed from epoch {start_epoch - 1} ({resume_name})")
     else:
-        state = trainer.init_state()
+        if cfg.model.pretrained_npz:
+            from rovit_kan_tpu_torch.models.convert import (
+                jax_state_dict,
+                load_npz,
+                merge_pretrained,
+                to_jax_params,
+            )
+            print(f"Loading pretrained weights: {cfg.model.pretrained_npz}")
+            pre = load_npz(cfg.model.pretrained_npz)
+            # build_model drew the init from the seed; merge over it.
+            merged = merge_pretrained(to_jax_params(model), pre)
+            state = trainer.init_state(params=jax_state_dict(model, merged))
+        else:
+            state = trainer.init_state()
         if logger.reset():
             # A fresh run into a directory holding a previous run's CSV
             # replaces it; appending would mix two epoch lineages.

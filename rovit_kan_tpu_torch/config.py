@@ -164,7 +164,7 @@ class TPUConfig:
     use_pallas_block: "bool | str" = "auto"
     # Training knobs of the JAX package, kept so its config dicts load:
     # single-flat-vector AdamW update, fused augmentation kernel, donated
-    # train state, remat (build_model refuses it: not ported), and pipeline
+    # train state, remat (read by build_model), and pipeline
     # microbatches.
     fused_optimizer: bool = True
     # Read by nothing, as in the JAX package: the train step reads the

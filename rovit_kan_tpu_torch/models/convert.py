@@ -13,7 +13,21 @@ the reference's state_dict names, so the mapping is mechanical:
 - a LayerNorm ``weight`` <-> ``scale``;
 - a KAN layer's ``linear.{weight,bias}`` <-> ``kernel`` / ``bias``;
   ``spline_weights (in, out, K)``, ``cls_token`` and ``pos_embed`` are
-  copied as they are.
+  copied as they are;
+- a MoE block's ``moe.gate.weight (E, D)`` <-> ``moe/gate/kernel (D, E)``,
+  transposed as any Linear; the stacked ``moe.w1``, ``b1``, ``w2``, ``b2``
+  are copied as they are.
+
+Weight import, the JAX module's converter in numpy and torch: a reference
+``best_model.pth`` (``load_torch_checkpoint``,
+``convert_reference_checkpoint``) or a timm ViT state_dict
+(``convert_timm_vit``) becomes the JAX param tree, leaf for leaf the JAX
+functions' tree, which ``save_npz`` writes as the JAX package's ``.npz``
+(one file serves both packages) and ``merge_pretrained`` lays over an
+initialized tree. The reference has no MoE, so
+``convert_reference_checkpoint`` knows no ``moe`` keys; a port MoE
+checkpoint round-trips through the port's own ``model.pt``
+(``utils/checkpoint.py``).
 
 ``load_baseline_variables`` maps a JAX ``BaselineModel``'s ``{"params",
 "batch_stats"}`` tree the same way, with a conv ``weight (O, I/g, kh, kw)``
@@ -30,6 +44,7 @@ token count.
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Any, Dict, Mapping, Tuple
 
@@ -39,6 +54,7 @@ import torch.nn as nn
 
 from rovit_kan_tpu_torch import resolve_device
 from rovit_kan_tpu_torch.ops.preprocess import resize_bilinear
+from rovit_kan_tpu_torch.utils.checkpoint import patch_weight_from_conv
 
 _HEADS = ("classification_head", "ordinal_head", "uncertainty_head")
 POS_EMBED_KEY = "backbone.model.pos_embed"
@@ -78,13 +94,11 @@ def _get(tree: Mapping, path: Tuple[str, ...]) -> Any:
     return node
 
 
-def load_jax_params(model: nn.Module, params: Mapping,
-                    device="cuda") -> nn.Module:
-    """Load a JAX param tree into ``model`` and move it to ``device``.
-
-    Every parameter of the model must be in the tree with the matching
-    shape; raises otherwise, and when CUDA is asked for and absent."""
-    dev = resolve_device(device)
+def jax_state_dict(model: nn.Module, params: Mapping
+                   ) -> Dict[str, torch.Tensor]:
+    """``model``'s state_dict with every value taken from the JAX param
+    tree ``params`` (fp32, on the CPU). Every parameter of the model must
+    be in the tree with the matching shape; raises otherwise."""
     sd = {}
     for key, cur in model.state_dict().items():
         path, transpose = _jax_path(key, cur.dim())
@@ -100,7 +114,15 @@ def load_jax_params(model: nn.Module, params: Mapping,
                              f"{value.shape}, the module wants "
                              f"{tuple(cur.shape)}")
         sd[key] = torch.from_numpy(np.ascontiguousarray(value))
-    model.load_state_dict(sd, strict=True)
+    return sd
+
+
+def load_jax_params(model: nn.Module, params: Mapping,
+                    device="cuda") -> nn.Module:
+    """Load a JAX param tree into ``model`` (``jax_state_dict``) and move
+    it to ``device``; raises when CUDA is asked for and absent."""
+    dev = resolve_device(device)
+    model.load_state_dict(jax_state_dict(model, params), strict=True)
     return model.to(dev)
 
 
@@ -207,4 +229,170 @@ def transfer_resolution(state: Mapping[str, torch.Tensor], image_size: int,
     out = dict(state)
     out[POS_EMBED_KEY] = interpolate_pos_embed(
         state[POS_EMBED_KEY], (image_size // patch_size) ** 2 + 1)
+    return out
+
+
+# -- weight import: reference and timm checkpoints -------------------------
+
+def _np(x) -> np.ndarray:
+    """An owned fp32 numpy copy (never a view of a live tensor)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().to("cpu", torch.float32).numpy()
+    return np.array(x, dtype=np.float32, copy=True)
+
+
+def _linear(sd: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    return {"kernel": _np(sd[f"{prefix}.weight"]).T,
+            "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _layernorm(sd: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    return {"scale": _np(sd[f"{prefix}.weight"]),
+            "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def convert_timm_vit(sd: Mapping, depth: int = 12, prefix: str = "") -> Dict:
+    """A timm VisionTransformer state_dict (deit_tiny layout: ``cls_token``,
+    ``pos_embed``, ``patch_embed.proj``, ``blocks.{i}.{norm1, attn.qkv,
+    attn.proj, norm2, mlp.fc1, mlp.fc2}``, ``norm``) as the JAX backbone
+    tree. The patch convolution ``(D, C, p, p)`` becomes the ``(p * p * C,
+    D)`` kernel; other keys (``head.*``, ``fc_norm``, ...) are ignored."""
+    p = prefix
+    conv = torch.from_numpy(_np(sd[f"{p}patch_embed.proj.weight"]))
+    out: Dict = {
+        "cls_token": _np(sd[f"{p}cls_token"]),
+        "pos_embed": _np(sd[f"{p}pos_embed"]),
+        "patch_embed": {"proj": {
+            "kernel": np.ascontiguousarray(
+                patch_weight_from_conv(conv).numpy().T),
+            "bias": _np(sd[f"{p}patch_embed.proj.bias"])}},
+        "norm": _layernorm(sd, f"{p}norm"),
+    }
+    for i in range(depth):
+        b = f"{p}blocks.{i}"
+        out[f"blocks_{i}"] = {
+            "norm1": _layernorm(sd, f"{b}.norm1"),
+            "attn": {"qkv": _linear(sd, f"{b}.attn.qkv"),
+                     "proj": _linear(sd, f"{b}.attn.proj")},
+            "norm2": _layernorm(sd, f"{b}.norm2"),
+            "mlp": {"fc1": _linear(sd, f"{b}.mlp.fc1"),
+                    "fc2": _linear(sd, f"{b}.mlp.fc2")},
+        }
+    return out
+
+
+def convert_reference_checkpoint(sd: Mapping, depth: int = 12) -> Dict:
+    """A reference RoViTKAN ``model_state_dict`` as the JAX param tree. A
+    head the checkpoint lacks (an ablation variant) is absent from the
+    tree, as in the variant's model."""
+    params: Dict = {"backbone": convert_timm_vit(sd, depth=depth,
+                                                 prefix="backbone.model.")}
+    if "classification_head.fc1.weight" in sd:
+        params["classification_head"] = {
+            "trunk": {"fc1": _linear(sd, "classification_head.fc1")},
+            "fc2": _linear(sd, "classification_head.fc2")}
+    if "ordinal_head.fc1.weight" in sd:
+        params["ordinal_head"] = {
+            "trunk": {"fc1": _linear(sd, "ordinal_head.fc1")},
+            "fc2": _linear(sd, "ordinal_head.fc2")}
+    if "uncertainty_head.fc1.weight" in sd:
+        params["uncertainty_head"] = {
+            "trunk": {"fc1": _linear(sd, "uncertainty_head.fc1")},
+            "fc_mu": _linear(sd, "uncertainty_head.fc_mu"),
+            "fc_logvar": _linear(sd, "uncertainty_head.fc_logvar")}
+    if "kan_module.kan_layers.0.spline_weights" in sd:
+        n_kan = sum(1 for k in sd if k.startswith("kan_module.kan_layers.")
+                    and k.endswith(".spline_weights"))
+        params["kan_module"] = {
+            f"kan_layers_{i}": {
+                "spline_weights": _np(
+                    sd[f"kan_module.kan_layers.{i}.spline_weights"]),
+                "kernel": _np(
+                    sd[f"kan_module.kan_layers.{i}.linear.weight"]).T,
+                "bias": _np(sd[f"kan_module.kan_layers.{i}.linear.bias"])}
+            for i in range(n_kan)}
+    return params
+
+
+def load_torch_checkpoint(path) -> Dict[str, np.ndarray]:
+    """A reference ``best_model.pth`` (its ``model_state_dict``) or a bare
+    state_dict file, as fp32 numpy arrays. ``torch.load`` unpickles the
+    whole file, as the JAX function does: load only files you trust."""
+    ck = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ck.get("model_state_dict", ck)
+    return {k: _np(v) for k, v in sd.items()}
+
+
+def save_npz(params: Mapping, path) -> None:
+    """Flatten a param tree to an ``.npz``, keys joined with '/' (the JAX
+    package's format)."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def rec(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                rec(v, f"{prefix}{k}/")
+            else:
+                flat[f"{prefix}{k}"] = np.asarray(v)
+
+    rec(params)
+    np.savez(path, **flat)
+
+
+def load_npz(path) -> Dict:
+    """The inverse of ``save_npz``."""
+    out: Dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            *parents, leaf = key.split("/")
+            node = out
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = z[key]
+    return out
+
+
+def convert_checkpoint_file(pth_path, npz_path=None, depth: int = 12) -> Dict:
+    """A reference ``.pth`` as the JAX param tree, also written to
+    ``npz_path`` when given."""
+    params = convert_reference_checkpoint(load_torch_checkpoint(pth_path),
+                                          depth=depth)
+    if npz_path is not None:
+        save_npz(params, npz_path)
+    return params
+
+
+def merge_pretrained(params: Mapping, pretrained: Mapping,
+                     verbose: bool = True) -> Dict:
+    """A copy of the JAX param tree ``params`` with the converted
+    ``pretrained`` weights laid over it (the reference's
+    ``pretrained=True``): a leaf of the same shape replaces the init; a
+    ``pos_embed`` of another grid (same width) is resampled to this one by
+    ``interpolate_pos_embed``; keys ``params`` lacks are skipped, and a leaf
+    of another shape keeps its init. ``params`` is left as it was."""
+    out = copy.deepcopy(params)
+
+    def rec(dst, src, path=""):
+        for k, v in src.items():
+            if k not in dst:
+                if verbose:
+                    print(f"  [pretrained] skipping unknown {path}{k}")
+                continue
+            if isinstance(v, Mapping):
+                rec(dst[k], v, f"{path}{k}/")
+            elif np.shape(dst[k]) == np.shape(v):
+                dst[k] = np.asarray(v, dtype=np.float32)
+            elif k == "pos_embed" and np.ndim(v) == 3 \
+                    and np.shape(v)[-1] == np.shape(dst[k])[-1]:
+                dst[k] = interpolate_pos_embed(
+                    torch.from_numpy(np.array(v, np.float32)),
+                    np.shape(dst[k])[1]).numpy()
+                if verbose:
+                    print(f"  [pretrained] interpolated {path}{k} "
+                          f"{np.shape(v)} -> {np.shape(dst[k])}")
+            elif verbose:
+                print(f"  [pretrained] shape mismatch {path}{k}: "
+                      f"{np.shape(v)} vs {np.shape(dst[k])} — keeping init")
+
+    rec(out, pretrained)
     return out

@@ -1,0 +1,91 @@
+"""Mixture-of-Experts MLP with expert-choice routing (opt-in).
+
+Counterpart of ``rovit_kan_tpu/models/moe.py``. Each expert takes its top-C
+tokens of the gate's probabilities, so every expert is full by construction
+and no balancing loss is needed; the flagship stays dense
+(``ModelConfig.moe_experts = 0``).
+
+- **Routing** runs in fp32 on the fp32 input, whatever the compute dtype.
+  Each expert's C tokens are the first C of a stable descending sort of its
+  scores, which is the set ``jax.lax.top_k`` picks: on a tie the lower
+  token index wins (``torch.topk`` makes no such promise, and with one
+  expert every probability is 1.0).
+- **Dispatch and combine are one-hot batched matmuls**, as in the JAX
+  module, not ``index_add_``: the card's atomics would give other bits on a
+  repeated call, in remat's recompute and in the backward.
+- **The expert FFN** takes its operands in ``dtype`` and sums in fp32 (the
+  JAX einsums' ``preferred_element_type``): the operands are rounded to
+  ``dtype`` and multiplied in fp32, as ``models/vit.py``'s plain attention
+  does; ``b1`` and ``b2`` are added in fp32 and the output is cast to
+  ``dtype``.
+- **Parameters**: ``gate`` is a bias-free ``Linear(D, E)``, whose ``weight
+  (E, D)`` is the JAX ``gate/kernel (D, E)`` transposed; ``w1 (E, D, H)``,
+  ``b1 (E, H)``, ``w2 (E, H, D)`` and ``b2 (E, D)`` are the JAX leaves as
+  they are. Tokens no expert picks get zero, and the residual stream
+  carries them.
+
+The JAX module's ``n_valid`` (sequence-parallel filler tokens masked out of
+the gate) comes with the port of ``parallel/``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def expert_capacity(num_tokens: int, num_experts: int,
+                    capacity_factor: float) -> int:
+    """Tokens each expert processes: ceil(S * cf / E), clipped to [1, S]."""
+    c = math.ceil(num_tokens * capacity_factor / num_experts)
+    return max(1, min(c, num_tokens))
+
+
+def route(x: torch.Tensor, gate_weight: torch.Tensor, capacity: int):
+    """The expert-choice routing of ``x (B, S, D)``: each expert's chosen
+    token indices ``(B, E, C)`` and their fp32 gate probabilities."""
+    probs = torch.softmax(F.linear(x.float(), gate_weight.float()), dim=-1)
+    scores = probs.transpose(1, 2)                       # (B, E, S)
+    idx = torch.sort(scores, dim=-1, descending=True,
+                     stable=True).indices[..., :capacity]
+    return idx, torch.gather(scores, -1, idx)
+
+
+class MoEMlp(nn.Module):
+    """Expert-choice MoE FFN in place of ``vit.Mlp`` (``x`` is the block's
+    fp32 ``norm2`` output). Routing never mixes batch rows. With one expert
+    and ``capacity_factor >= 1`` (C = S) it is the dense ``Mlp`` with
+    expert 0's weights."""
+
+    def __init__(self, dim: int = 192, hidden: int = 768,
+                 num_experts: int = 8, capacity_factor: float = 2.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_experts = num_experts
+        self.capacity_factor = capacity_factor
+        self.dtype = dtype
+        self.gate = nn.Linear(dim, num_experts, bias=False)
+        self.w1 = nn.Parameter(torch.zeros(num_experts, dim, hidden))
+        self.b1 = nn.Parameter(torch.zeros(num_experts, hidden))
+        self.w2 = nn.Parameter(torch.zeros(num_experts, hidden, dim))
+        self.b2 = nn.Parameter(torch.zeros(num_experts, dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, S, D = x.shape
+        E, dt = self.num_experts, self.dtype
+        C = expert_capacity(S, E, self.capacity_factor)
+        idx, w = route(x, self.gate.weight, C)
+        disp = F.one_hot(idx, S).to(dt).reshape(B, E * C, S)
+        xin = torch.bmm(disp, x.to(dt)).reshape(B, E, C, D)
+        h = torch.einsum("becd,edh->bech", xin.float(),
+                         self.w1.to(dt).float())
+        h = F.gelu(h + self.b1[None, :, None, :])      # exact erf GELU
+        out = torch.einsum("bech,ehd->becd", h.to(dt).float(),
+                           self.w2.to(dt).float())
+        out = (out + self.b2[None, :, None, :]) * w[..., None]
+        # Token s sums every expert slot that chose it.
+        y = torch.bmm(disp.float().transpose(1, 2),
+                      out.reshape(B, E * C, D))
+        return y.to(dt)

@@ -6,7 +6,9 @@ emits every output with a fixed shape (``features``, ``cls_logits``,
 by its ``with_*`` toggle has no parameters and its slot is zeros, marked
 absent by ``head_mask``. Submodule names give the reference's state_dict
 keys (``backbone.model.blocks.{i}.attn.qkv.weight``,
-``kan_module.kan_layers.{i}.spline_weights``, ...).
+``kan_module.kan_layers.{i}.spline_weights``, ...); a MoE block's experts
+sit under ``backbone.model.blocks.{i}.moe`` (``gate.weight``, ``w1``, ``b1``,
+``w2``, ``b2``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from rovit_kan_tpu_torch.models.heads import (
     UncertaintyHead,
 )
 from rovit_kan_tpu_torch.models.kan import KANLayer, KANSeverityModule
+from rovit_kan_tpu_torch.models.moe import MoEMlp
 from rovit_kan_tpu_torch.models.vit import DeiTTinyBackbone
 from rovit_kan_tpu_torch.ops.block_kernel import BLOCK_WIDTHS
 from rovit_kan_tpu_torch.ops.ordinal import (
@@ -46,7 +49,9 @@ class RoViTKAN(nn.Module):
                  with_kan: bool = True, dtype: torch.dtype = torch.float32,
                  use_pallas_attention: bool = False,
                  use_pallas_block: bool = False,
-                 use_pallas_kan: bool = False):
+                 use_pallas_kan: bool = False, remat: bool = False,
+                 moe_experts: int = 0, moe_every: int = 2,
+                 moe_capacity_factor: float = 2.0):
         super().__init__()
         self.image_size = image_size
         self.num_classes = num_classes
@@ -57,7 +62,9 @@ class RoViTKAN(nn.Module):
             image_size=image_size, patch_size=patch_size,
             embed_dim=embed_dim, depth=depth, num_heads=num_heads,
             mlp_ratio=mlp_ratio, dtype=dtype, use_pallas=use_pallas_attention,
-            use_fused_block=use_pallas_block)
+            use_fused_block=use_pallas_block, remat=remat,
+            moe_experts=moe_experts, moe_every=moe_every,
+            moe_capacity_factor=moe_capacity_factor)
         self.classification_head = ClassificationHead(
             embed_dim, hidden_dim, num_classes, dropout)
         if with_ordinal:
@@ -169,18 +176,28 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
     Linear weights lecun_normal (truncated normal, std 1/sqrt(fan_in)
     corrected for the truncation), zero biases, unit LayerNorm, CLS and
     position embeddings truncated N(0, 0.02^2), spline coefficients
-    N(0, 0.1^2). Drawn on the CPU, so the weights do not depend on the
-    device."""
+    N(0, 0.1^2); each expert's ``w1``/``w2`` lecun_normal over its own
+    fan-in (D, H: the JAX ``batch_axis=0``), zero ``b1``/``b2``. Drawn on the
+    CPU, so the weights do not depend on the device."""
     g = torch.Generator().manual_seed(seed)
     lecun_std_scale = 1.0 / 0.87962566103423978
+
+    def lecun_(p: torch.Tensor, fan_in: int) -> None:
+        w = torch.empty(p.shape)
+        _trunc_normal_(w, lecun_std_scale / math.sqrt(fan_in), g)
+        p.copy_(w)
+
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, nn.Linear):
-                w = torch.empty(mod.weight.shape)
-                _trunc_normal_(w, lecun_std_scale / math.sqrt(mod.in_features),
-                               g)
-                mod.weight.copy_(w)
-                mod.bias.zero_()
+                lecun_(mod.weight, mod.in_features)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, MoEMlp):
+                lecun_(mod.w1, mod.w1.shape[1])
+                lecun_(mod.w2, mod.w2.shape[1])
+                mod.b1.zero_()
+                mod.b2.zero_()
             elif isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
@@ -202,15 +219,12 @@ def build_model(config: Config, *, with_ordinal: Optional[bool] = None,
     """RoViTKAN from a Config, with weights drawn from ``seed``, in eval mode
     when ``inference``. Head toggles default to ``config.model.with_*``.
     Runs on the card unless ``device="cpu"``; raises when CUDA is asked for
-    and absent, and for remat and MoE, which are not ported yet.
-    ``tpu.use_pallas_kan`` passes through as it is (no "auto"), as in the
-    JAX ``build_model``: the KAN kernels when true."""
+    and absent. ``tpu.use_pallas_kan`` passes through as it is (no "auto"),
+    as in the JAX ``build_model``: the KAN kernels when true; so do
+    ``tpu.remat_backbone`` and ``model.moe_experts``, ``moe_every`` and
+    ``moe_capacity_factor`` (``models/vit.py``)."""
     dev = resolve_device(device)
     m, tpu = config.model, config.tpu
-    if tpu.remat_backbone or m.moe_experts > 1:
-        raise NotImplementedError(
-            "the port has no remat or MoE yet: set tpu.remat_backbone to "
-            "False and model.moe_experts to 0")
     if dtype is None:
         dtype = (torch.bfloat16 if config.flags.mixed_precision
                  else torch.float32)
@@ -233,7 +247,9 @@ def build_model(config: Config, *, with_ordinal: Optional[bool] = None,
         use_pallas_block=_resolve_fused_block(
             tpu.use_pallas_block, inference=inference, dtype=dtype,
             embed_dim=m.embed_dim, device=dev),
-        use_pallas_kan=tpu.use_pallas_kan)
+        use_pallas_kan=tpu.use_pallas_kan, remat=tpu.remat_backbone,
+        moe_experts=m.moe_experts, moe_every=m.moe_every,
+        moe_capacity_factor=m.moe_capacity_factor)
     init_weights(model, seed)
     model.train(not inference)
     return model.to(dev)
@@ -257,7 +273,8 @@ def predict(model: RoViTKAN, x: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 def count_parameters(model: nn.Module) -> Dict[str, int]:
-    """Per-component parameter counts; 5,706,394 in all for the flagship."""
+    """Per-component parameter counts; 5,706,394 in all for the flagship,
+    18,142,234 with ``moe_experts = 8``."""
     by_comp = {name: sum(p.numel() for p in child.parameters())
                for name, child in model.named_children()}
     by_comp["total"] = sum(p.numel() for p in model.parameters())

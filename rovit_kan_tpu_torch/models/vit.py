@@ -33,6 +33,16 @@ the fused block there is an inference call of the forward kernel, and the
 gradient of a call with a perturbation reaches the perturbation and what
 follows the tap, not the blocks before it. A call without either returns
 what it always did.
+
+With ``moe_experts > 1`` every ``moe_every``-th block (blocks
+``moe_every - 1``, ``2 * moe_every - 1``, ...) has the expert-choice
+``MoEMlp`` (``models/moe.py``) in place of its dense MLP; such a block always
+runs plain (its attention core through ``fused_attention`` where asked), as
+in the JAX ``Block``. ``remat`` recomputes each plain block in the backward
+(``torch.utils.checkpoint``) instead of keeping its activations, on calls
+that record gradients and ask for no tap; a fused block is left alone, since
+its backward already keeps only the block's input and recomputes the rest.
+Gradients are the same bits with remat on and off.
 """
 from __future__ import annotations
 
@@ -41,7 +51,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from rovit_kan_tpu_torch.models.moe import MoEMlp
 from rovit_kan_tpu_torch.ops.attention import fused_attention
 from rovit_kan_tpu_torch.ops.block_kernel import (
     fused_vit_block,
@@ -144,20 +156,28 @@ class Block(nn.Module):
     ``use_fused_block`` routes the whole block through ``block_fn``
     (``fused_vit_block``, or ``plain_vit_block`` to hold it against the
     plain versions); otherwise ``use_pallas`` routes the attention core
-    through ``fused_attention``. The parameters are the same either way."""
+    through ``fused_attention``. The parameters are the same either way.
+    ``num_experts > 1`` puts a ``MoEMlp`` (under ``moe``) in place of the
+    dense MLP and the block never runs fused."""
 
     def __init__(self, dim: int = 192, num_heads: int = 3,
                  mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32,
-                 use_fused_block: bool = False, use_pallas: bool = False):
+                 use_fused_block: bool = False, use_pallas: bool = False,
+                 num_experts: int = 0, moe_capacity_factor: float = 2.0):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
-        self.use_fused_block = use_fused_block
+        self.use_fused_block = use_fused_block and num_experts <= 1
         self.block_fn = fused_vit_block
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = Attention(dim, num_heads, dtype, use_fused=use_pallas)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        hidden = int(dim * mlp_ratio)
+        if num_experts > 1:
+            self.moe = MoEMlp(dim, hidden, num_experts, moe_capacity_factor,
+                              dtype)
+        else:
+            self.mlp = Mlp(dim, hidden, dtype)
         self._kernel_params: Optional[Dict[str, torch.Tensor]] = None
         self._kernel_key: Optional[Tuple] = None
 
@@ -208,28 +228,42 @@ class Block(nn.Module):
         attn_out, weights = attn if return_weights else (attn, None)
         x = x + attn_out
         z = _layer_norm(x, self.norm2)
-        out = x + self.mlp(z.to(self.dtype))
+        if hasattr(self, "moe"):
+            # Routing sees the fp32 norm2 output, as in the JAX block.
+            out = x + self.moe(z)
+        else:
+            out = x + self.mlp(z.to(self.dtype))
         return (out, weights, tap) if taps else out
 
 
 class VisionTransformer(nn.Module):
-    """ViT trunk returning the fp32 CLS feature ``(B, D)``."""
+    """ViT trunk returning the fp32 CLS feature ``(B, D)``. Raises
+    ValueError for ``moe_every < 1`` with ``moe_experts > 1``."""
 
     def __init__(self, image_size: int = 224, patch_size: int = 16,
                  embed_dim: int = 192, depth: int = 12, num_heads: int = 3,
                  mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32,
-                 use_fused_block: bool = False, use_pallas: bool = False):
+                 use_fused_block: bool = False, use_pallas: bool = False,
+                 remat: bool = False, moe_experts: int = 0,
+                 moe_every: int = 2, moe_capacity_factor: float = 2.0):
         super().__init__()
+        if moe_experts > 1 and moe_every < 1:
+            raise ValueError(f"moe_every must be >= 1 with moe_experts > 1 "
+                             f"(got moe_every={moe_every})")
         n_patches = (image_size // patch_size) ** 2
         self.image_size = image_size
+        self.remat = remat
         self.patch_embed = PatchEmbed(patch_size, embed_dim, dtype=dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, n_patches + 1,
                                                   embed_dim))
         self.blocks = nn.ModuleList([
             Block(embed_dim, num_heads, mlp_ratio, dtype, use_fused_block,
-                  use_pallas)
-            for _ in range(depth)])
+                  use_pallas,
+                  num_experts=(moe_experts if moe_experts > 1
+                               and (i + 1) % moe_every == 0 else 0),
+                  moe_capacity_factor=moe_capacity_factor)
+            for i in range(depth)])
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor, return_attention: bool = False,
@@ -250,8 +284,12 @@ class VisionTransformer(nn.Module):
         if return_attention or gradcam_perturbation is not None:
             return self._forward_taps(x, return_attention,
                                       gradcam_perturbation)
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x)
+            if remat and not blk.use_fused_block:
+                x = checkpoint(blk, x, use_reentrant=False)
+            else:
+                x = blk(x)
         return _layer_norm(x, self.norm)[:, 0]
 
     def _forward_taps(self, x: torch.Tensor, return_attention: bool,

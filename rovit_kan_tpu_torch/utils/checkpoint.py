@@ -68,13 +68,19 @@ def _to_reference(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def patch_weight_from_conv(w: torch.Tensor) -> torch.Tensor:
+    """A patch-embedding convolution weight ``(D, C, p, p)`` as the port's
+    Linear weight ``(D, p * p * C)``, each patch flattened in (row, col,
+    channel) order; its transpose is the JAX ``PatchEmbed`` kernel."""
+    return w.permute(0, 2, 3, 1).reshape(w.shape[0], -1).contiguous()
+
+
 def _from_reference(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The inverse of ``_to_reference``."""
     out = dict(sd)
     w = sd.get(_PATCH_KEY)
     if w is not None and w.dim() == 4:
-        out[_PATCH_KEY] = w.permute(0, 2, 3, 1).reshape(
-            w.shape[0], -1).contiguous()
+        out[_PATCH_KEY] = patch_weight_from_conv(w)
     return out
 
 

@@ -84,6 +84,8 @@ def _jax_script_config(args: argparse.Namespace) -> dict:
     ["--fast", "--epochs", "3", "--batch_size", "4"],
     ["--epochs", "7", "--batch_size", "16", "--patience", "2",
      "--ema_decay", "0.99", "--checkpoint_min_interval", "30"],
+    ["--epochs", "3", "--batch_size", "4", "--patience", "1",
+     "--ema_decay", "0.9", "--moe_experts", "8", "--pretrained_npz", "w.npz"],
 ])
 def test_config_fields_match_jax_script(flags):
     args = cli_train.parse_args(flags + ["--output_dir", "o"])

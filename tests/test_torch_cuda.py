@@ -7,8 +7,9 @@ head width they take and on the model's strided qkv
 views, augment #7, the KAN kernels #8-#11) against their plain versions,
 with the same bits on a repeated call, the served model through the block
 kernel, small train steps through #1, #2 and #7 and through #5, #6 and
-#7, the small preset on the plain block, and an exported artifact through
-the kernels' custom ops. They skip where ``torch.cuda.is_available()`` is
+#7, the small preset on the plain block, an exported artifact through
+the kernels' custom ops, one MoE layer against the CPU and a MoE train step
+with remat on and off. They skip where ``torch.cuda.is_available()`` is
 False. This file imports neither jax nor
 the JAX package, so it runs on a GPU machine without JAX:
 
@@ -794,6 +795,81 @@ def test_train_step_through_the_kernels(cuda):
     assert nk == (2, 2, 1) and npl == (0, 0, 0)
     assert np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)
     assert float((gk - gp).norm()) <= 5e-2 * float(gp.norm())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_moe_layer_matches_the_cpu(cuda, dtype):
+    """One MoE layer (197 tokens, D 192, H 768, E 8, capacity 50) on the
+    same input and weights on the card and on the CPU: the same chosen
+    token sets (routing runs in fp32 on both), outputs within 1e-4 of their
+    largest magnitude in fp32 and within two bf16 ulps of it in bf16 (both
+    round the FFN's operands at the same points and sum in fp32)."""
+    from rovit_kan_tpu_torch.models.moe import MoEMlp, expert_capacity, route
+    rng = np.random.RandomState(8)
+    x = torch.tensor(rng.normal(0, 1, (4, 197, 192)), dtype=torch.float32)
+    layer = MoEMlp(192, 768, 8, 2.0, dtype)
+    std = {"gate.weight": 192 ** -0.5, "w1": 192 ** -0.5, "b1": 0.02,
+           "w2": 768 ** -0.5, "b2": 0.02}
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            p.copy_(torch.tensor(rng.normal(0, std[name], p.shape)))
+    C = expert_capacity(197, 8, 2.0)
+    with torch.no_grad():
+        want_idx = route(x, layer.gate.weight, C)[0].sort(-1).values
+        want = layer(x).float()
+        layer.to(cuda)
+        got_idx = route(x.to(cuda), layer.gate.weight, C)[0].sort(-1).values
+        got = layer(x.to(cuda)).float().cpu()
+    assert torch.equal(got_idx.cpu(), want_idx)
+    tol = (1e-4 * float(want.abs().max()) if dtype == torch.float32
+           else _tol(want, dtype))
+    assert float((got - want).abs().max()) <= tol
+
+
+def test_remat_gives_the_same_step_on_the_card(cuda):
+    """Two bf16 steps of a small MoE model (d 64, 4 blocks, blocks 1 and 3
+    sparse, the dense ones through #1/#2): remat on and off give the same
+    losses and gradients, bit for bit; remat recomputes the two MoE blocks
+    and leaves the fused ones alone."""
+    from rovit_kan_tpu_torch.models import vit
+    kw = dict(embed_dim=64, depth=4, num_heads=2, image_size=32,
+              kan_layers=(64, 8, 1), hidden_dim=16, dropout=0.0,
+              dtype=torch.bfloat16, use_pallas_block=True, moe_experts=4)
+    cfg = Config()
+    rng = np.random.RandomState(5)
+    batches = []
+    for _ in range(2):
+        labels = torch.tensor(rng.randint(0, 4, 8), device=cuda)
+        batches.append({"images": torch.tensor(
+            rng.randint(0, 256, (8, 32, 32, 3)), dtype=torch.uint8,
+            device=cuda), "labels": labels, "severity": labels.float()})
+
+    def run(remat):
+        model = RoViTKAN(**kw, remat=remat)
+        init_weights(model, seed=0)
+        model.to(cuda)
+        opt = build_optimizer(model, cfg)
+        step = make_train_step(model, opt, cfg,
+                               generator=torch.Generator(cuda).manual_seed(0))
+        out = []
+        for b in batches:
+            loss = float(step(b, 4, 1.0, 1)["total_loss"])
+            out.append((loss, opt.grad.clone()))
+        return out
+
+    calls = []
+    checkpoint = vit.checkpoint
+    vit.checkpoint = lambda *a, **k: calls.append(1) or checkpoint(*a, **k)
+    try:
+        on = run(True)
+    finally:
+        vit.checkpoint = checkpoint
+    off = run(False)
+    assert len(calls) == 2 * len(batches)
+    for (lon, gon), (loff, goff) in zip(on, off):
+        assert np.isfinite(lon) and lon == loff
+        assert torch.equal(gon, goff)
 
 
 def test_train_step_through_the_residual_kernels(cuda, monkeypatch):

@@ -6,8 +6,9 @@ go through ``load_jax_params``; all six outputs must match at 2e-5 in fp32
 (the JAX converter's precedent, tests/test_convert.py), and at 5e-2 in bf16
 against the JAX model with the fused block kernel (interpret mode here).
 The block policy against the JAX rule (F3: the port's "auto" takes the fused
-block only at the bf16 stages' widths), and the wrapper's refusal of other
-widths before any launch.
+block only at the bf16 stages' widths), ``build_model`` with remat and with
+MoE (the fused block on the dense blocks only), and the wrapper's refusal
+of other widths before any launch.
 """
 from unittest import mock
 
@@ -209,12 +210,20 @@ def test_block_policy_and_unported_options():
     for blk in build_model(cfg, device="cpu").backbone.model.blocks:
         assert blk.attn.use_fused and not blk.use_fused_block
         assert blk.attn.attn_fn is fused_attention
-    for section, field, value in (("tpu", "remat_backbone", True),
-                                  ("model", "moe_experts", 4)):
-        cfg = Config()
-        setattr(getattr(cfg, section), field, value)   # not ported yet
-        with pytest.raises(NotImplementedError):
-            build_model(cfg, device="cpu")
+    # Remat and MoE build (they raised NotImplementedError before their
+    # port): a forced fused block stays on the dense blocks only, and the
+    # experts sit in every second block, as in the JAX model.
+    cfg = Config()
+    cfg.tpu.remat_backbone = True
+    assert build_model(cfg, device="cpu").backbone.model.remat
+    cfg = Config()
+    cfg.model.moe_experts = 4
+    cfg.tpu.use_pallas_block = True
+    blocks = build_model(cfg, device="cpu").backbone.model.blocks
+    assert [hasattr(b, "moe") for b in blocks] == [i % 2 == 1
+                                                   for i in range(12)]
+    assert [b.use_fused_block for b in blocks] == [i % 2 == 0
+                                                   for i in range(12)]
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 384),

@@ -92,17 +92,18 @@ def assert_grads_match(model, jgrads, step):
             err_msg=f"step {step}: {name}")
 
 
-def run_pair(n_steps, fused, kan=False, attention=False):
+def run_pair(n_steps, fused, kan=False, attention=False, model_kw=None):
     """Take ``n_steps`` on both sides, holding every step's gradients;
     ``fused`` routes both through the block kernel, ``kan`` through the KAN
-    kernels, ``attention`` through the attention-only kernels. Returns (jax
-    losses, port losses, jax params, port model)."""
+    kernels, ``attention`` through the attention-only kernels; ``model_kw``
+    overrides the model's settings on both sides. Returns (jax losses, port
+    losses, jax params, port model)."""
     jcfg = JaxConfig()
     jcfg.flags.mixed_precision = False
     jcfg.train.learning_rate = LR
-    flags = dict(use_pallas_block=fused, use_pallas_kan=kan,
-                 use_pallas_attention=attention)
-    jmodel = JaxRoViTKAN(**KW, **flags)
+    flags = dict(KW, use_pallas_block=fused, use_pallas_kan=kan,
+                 use_pallas_attention=attention, **(model_kw or {}))
+    jmodel = JaxRoViTKAN(**flags)
     params = jmodel.init(jax.random.PRNGKey(0),
                          np.zeros((1, IMG, IMG, 3), np.float32))["params"]
     pert = np.random.RandomState(0)
@@ -117,7 +118,7 @@ def run_pair(n_steps, fused, kan=False, attention=False):
     cfg = Config()
     cfg.flags.mixed_precision = False
     cfg.train.learning_rate = LR
-    model = load_jax_params(RoViTKAN(**KW, **flags), params, device="cpu")
+    model = load_jax_params(RoViTKAN(**flags), params, device="cpu")
     opt = topt.build_optimizer(model, cfg)
     step = make_train_step(model, opt, cfg, focal_alpha=ALPHA)
     assert not step.fused_augment            # fp32 on the CPU: plain chain

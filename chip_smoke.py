@@ -227,10 +227,50 @@ exits non-zero:
    by ``hold_attention_step``'s rule, and read against plain attention;
    the MoE and dense flagships' train step ms at batch 64, served img/s and
    bs=1 FPS in turns.
+19. native: the host resize engine (``native/preprocess.cpp``) built with
+   g++ on the card's host (seconds), its uint8 bits against
+   ``data/resize.py`` on 384 -> 224, 100 -> 224, 333 x 500 and 1 x 57
+   images at 1, 2 and 8 threads; ``cli.bench_host_pipeline`` over a
+   4,000-image JPEG tree at 384 px, written and built on one thread per
+   CPU (as ``DeviceLoader`` fills its cache): the cache build's wall time
+   and img/s through the engine and through the numpy copy, in turns,
+   twice, the resize's share of each build's thread time, the micro
+   resize's thread sweep and the host's CPU counts;
+20. dp: data parallelism on the one card, two ranks (``chip_smoke.py
+   --dp-worker``, started by ``cli.spawn_workers``; gloo named
+   explicitly: NCCL refuses two ranks on one device; every exit code
+   checked). Three flagship bf16 steps at batch 64 global (CutMix/MixUp,
+   dropout), at stage 3 and at stage 4, on the ranks against the same
+   steps in one process, beside the fp32 model's steps (``hold_dp``): the
+   first step's loss within 1e-4 (relative), its all-reduced gradient per
+   leaf within 1e-3 of its largest magnitude at stage 3 (the leaves whose
+   gradient the bf16 trunk sums in bf16 within two bf16 ulps) and within
+   5e-2 of its L2 norm at stage 4; each later step's loss and whole
+   gradient (L2), and at stage 3 each leaf's gradient, within twice the
+   bf16 step's own distance from the fp32 step's; the
+   ranks' parameters equal bit for bit after the steps; every step's gaps
+   on a "dp_readings" line; 12 #1, 12 #2, 1 #7 and no other launch a step
+   on each rank; each rank's step ms and img/s. Then a two-epoch
+   ``Trainer.fit`` over the sharded ``DeviceLoader`` (4 x 40 leaf images:
+   2 train steps and 1 validation batch an epoch), its launches on each
+   rank, the ranks' weights equal, the temperature fitted on the
+   validation cache (rank 0's T on both ranks), ``load_engine`` on its
+   ``best_model`` serving that T (12 #1 a batch, the same outputs on both
+   ranks). Last, ``cli.train`` through ``python -m torch.distributed.run
+   --nproc_per_node=1 ... --multihost`` (a world of 1, no process group)
+   beside the single-card ``cli.train --devices 1``, one epoch each on a
+   224-px JPEG tree: the same epoch CSV, bit for bit.
+
+``chip_smoke.py --nccl`` (a host with two cards or more) builds the kernels
+and runs phase 20 alone over NCCL, rank r on cuda:r, on a "dp_nccl" line:
+the same steps, checks and fit, then ``cli.train --devices 2`` beside
+``cli.train --devices 1`` (both ranks on NCCL, one epoch CSV, its
+checkpoint served by ``load_engine``) in place of the world-1 run.
 
 The kernels line gives each kernel's launches on the export, serve CLI,
-bench, explain, explain_384, visualize, ablation, baselines, pretrained and
-moe paths in its ``launches_by_path``. The line before the last is
+bench, explain, explain_384, visualize, ablation, baselines, pretrained,
+moe and (each rank's) dp paths in its ``launches_by_path``. The line
+before the last is
 ``nvidia-smi``'s name and power limit; the last is ``{"ok": true,
 "device": {...}}``. Imports torch and the port only.
 """
@@ -2902,7 +2942,7 @@ def eval_phase(smi: str, root):
     out = root / "train"
     metrics, train_launches, train_s, _ = run_cli(cli_train.main, [
         "--data_root", data, "--output_dir", out, "--epochs", 2,
-        "--batch_size", BATCH])
+        "--batch_size", BATCH, "--devices", 1])
     with open(out / "logs" / "train_epochs.csv") as f:
         header, *rows = [ln.strip().split(",") for ln in f]
     best = out / "checkpoints" / "best_model"
@@ -3936,7 +3976,7 @@ def ablation_phase(smi: str, root):
     argv = ["--data-root", root / "ablation_data", "--output-dir", out,
             "--synthetic", "--n-per-class", ABLATION_PER_CLASS,
             "--epochs", ABLATION_EPOCHS, "--batch-size", BATCH,
-            "--device-cache"]
+            "--device-cache", "--devices", 1]
     n_train, n_val, n_test = (len(s) for s in cli_ablation.split_indices(
         4 * ABLATION_PER_CLASS, 42))
     steps = ABLATION_EPOCHS * (n_train // BATCH)
@@ -4298,7 +4338,7 @@ def pretrained_phase(smi: str, root):
     # batch, 2 test batches and the bs=1 FPS forwards).
     argv = ["--data_root", root / "data", "--output_dir", work / "train",
             "--epochs", 1, "--batch_size", BATCH, "--pretrained_npz",
-            work / "deit_tiny.npz"]
+            work / "deit_tiny.npz", "--devices", 1]
     seen = []
     with recording_init_state(seen):
         metrics, train_launches, train_s, printed = run_cli(
@@ -4565,8 +4605,8 @@ def moe_phase(smi: str, root):
     steps, vals, tests = 2, 1, 2
     metrics, train_launches, train_s, _ = run_cli(cli_train.main, [
         "--data_root", root / "data", "--output_dir", work / "train",
-        "--epochs", 1, "--batch_size", BATCH, "--moe_experts", MOE_EXPERTS],
-        all_counters)
+        "--epochs", 1, "--batch_size", BATCH, "--moe_experts", MOE_EXPERTS,
+        "--devices", 1], all_counters)
     only(train_launches, vit_block_fwd=6 * (steps + vals + tests
                                             + FPS_FORWARDS),
          vit_block_bwd=6 * steps, augment=steps)
@@ -4734,6 +4774,504 @@ def moe_phase(smi: str, root):
             "card": smi}
 
 
+
+NATIVE_SHAPES = (((384, 384), 224), ((100, 100), 224), ((333, 500), 224),
+                 ((1, 57), 224))
+HOST_PIPELINE_IMAGES = 4000
+
+
+def native_phase(smi: str, root):
+    """The C++ resize engine built with g++ on the card's host, its bits
+    against ``data/resize.py``, and ``cli.bench_host_pipeline`` at 4,000
+    images, the engine and the numpy copy in turns, twice (module
+    docstring, phase 19)."""
+    from rovit_kan_tpu_torch import native
+    from rovit_kan_tpu_torch.cli import bench_host_pipeline
+    from rovit_kan_tpu_torch.data.resize import resize_image
+
+    native.library_path().unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(19)
+    checked = 0
+    for hw, size in NATIVE_SHAPES:
+        images = [rng.randint(0, 256, (*hw, 3)).astype(np.uint8)
+                  for _ in range(4)]
+        for threads in (1, 2, 8):
+            got = native.resize_batch(images, size, n_threads=threads)
+            for g, im in zip(got, images):
+                if not np.array_equal(g, resize_image(im, size)):
+                    raise RuntimeError(f"native resize {hw} -> {size} at "
+                                       f"{threads} threads differs from "
+                                       f"data/resize.py")
+                checked += 1
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rec = bench_host_pipeline.main([
+            "--scales", str(HOST_PIPELINE_IMAGES), "--rounds", "2",
+            "--workers", str(os.cpu_count() or 1),
+            "--out", str(root / "host_pipeline.json")])
+    bench_s = time.perf_counter() - t0
+    build = rec[f"cache_build_{HOST_PIPELINE_IMAGES}"]
+    for rnd in build["rounds"]:
+        for arm in ("engine", "numpy"):
+            if rnd[arm]["n_images"] != HOST_PIPELINE_IMAGES:
+                raise RuntimeError(f"host pipeline {arm}: {rnd[arm]}")
+    return {"phase": "native", "library": lib.name, "build_seconds": build_s,
+            "images_held": checked, "bench_seconds": bench_s,
+            "host_cpus": rec["host_cpus"],
+            "affinity_cpus": rec["affinity_cpus"],
+            "micro_resize": rec["micro_resize"],
+            "tree_write_s": build["tree_write_s"],
+            "cache_build": build["rounds"], "card": smi}
+
+
+
+DP_RANKS = 2
+DP_STEPS = 3
+DP_STAGES = (3, 4)
+DP_PER_CLASS = 40         # 160 images: 128 train (2 steps), 32 validation
+DP_TIMEOUT = 600
+
+
+def dp_config(root):
+    """The flagship ``Config()`` at batch 64 for the two-epoch fit: stage
+    1 then 2, the backbone frozen in epoch 1."""
+    from rovit_kan_tpu_torch.config import Config
+    cfg = Config()
+    cfg.train.batch_size = BATCH
+    cfg.train.epochs = 2
+    cfg.train.stage_1_epochs, cfg.train.stage_2_epochs = 1, 2
+    cfg.flags.freeze_backbone_epochs = 1
+    cfg.paths.checkpoints_dir = Path(root) / "fit" / "checkpoints"
+    return cfg
+
+
+def dp_steps(mesh, stage: int, fp32: bool = False):
+    """``DP_STEPS`` flagship steps at ``stage`` with mixing on, bf16 (or
+    the fp32 model with ``fp32``), from the seed-0 weights on the global
+    batches ``train_batch(cfg, 300 + i)``: each step's loss, accuracy and
+    (all-reduced) flat gradient, the flat parameters after the last, the
+    launches and the steps' wall ms."""
+    from rovit_kan_tpu_torch.config import Config
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.parallel.mesh import replicate
+    from rovit_kan_tpu_torch.training.optimizer import build_optimizer
+    from rovit_kan_tpu_torch.training.trainer import make_train_step
+    cfg = Config()
+    cfg.flags.mixed_precision = not fp32
+    dev = "cuda" if mesh is None else mesh.device
+    model = build_model(cfg, device=dev, seed=0)
+    replicate(model, mesh)           # rank 0's weights, as Trainer does
+    opt = build_optimizer(model, cfg)
+    step = make_train_step(model, opt, cfg,
+                           generator=torch.Generator(dev).manual_seed(0),
+                           mesh=mesh)
+    batches = [{k: v.to(dev) for k, v in train_batch(cfg, 300 + i).items()}
+               for i in range(DP_STEPS)]
+    reset, read = all_counters()
+    torch.cuda.synchronize()
+    reset()
+    out = {"loss": [], "accuracy": [], "grads": [], "ms": []}
+    for b in batches:
+        t0 = time.perf_counter()
+        m = step(b, stage, 1.0, 1)
+        out["loss"].append(float(m["total_loss"]))
+        torch.cuda.synchronize()
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        out["accuracy"].append(float(m["accuracy"]))
+        out["grads"].append(opt.grad.detach().cpu().clone())
+    out["launches"] = read()
+    out["params"] = opt.flat.detach().cpu().clone()
+    out["names"], out["sizes"] = list(opt.names), list(opt._sizes)
+    return out
+
+
+def dp_fit(mesh, root):
+    """A two-epoch ``Trainer.fit`` of the flagship over the sharded cache,
+    the temperature fitted on its validation cache (rank 0's T on every
+    rank), then ``load_engine`` on its ``best_model`` serving one batch."""
+    from rovit_kan_tpu_torch.data.dataset import Subset
+    from rovit_kan_tpu_torch.data.device_cache import DeviceLoader
+    from rovit_kan_tpu_torch.evaluation.evaluator import Evaluator
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.serving import load_engine
+    from rovit_kan_tpu_torch.training.trainer import Trainer
+    from rovit_kan_tpu_torch.utils.checkpoint import update_meta
+    cfg = dp_config(root)
+    leaves = LeafSet(DP_PER_CLASS, 224, seed=20)
+    order = np.random.RandomState(20).permutation(len(leaves))
+    train = DeviceLoader(Subset(leaves, order[:128]), BATCH, shuffle=True,
+                         drop_last=True, seed=0, mesh=mesh, shard_data=True)
+    val = DeviceLoader(Subset(leaves, order[128:]), BATCH, mesh=mesh,
+                       shard_data=True)
+    tr = Trainer(build_model(cfg, device=mesh.device, seed=1), train, val,
+                 cfg, seed=0, mesh=mesh)
+    reset, read = all_counters()
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    res = tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read()
+    params = tr.optimizer.flat.detach().cpu().clone()
+    epochs = len(res["history"]["train"])
+    steps, vals = epochs * len(train), epochs * len(val)
+    only(launches, vit_block_fwd=12 * (steps + vals),
+         vit_block_bwd=12 * steps, augment=steps)
+    best = cfg.paths.checkpoints_dir / "best_model"
+    evaluator = Evaluator(tr.model, tr.eval_params(res["best_state"]), val,
+                          cfg, output_dir=Path(root) / "fit" / "results")
+    reset()
+    temperature = evaluator.fit_temperature(val)
+    only(read(), vit_block_fwd=12 * len(val))
+    update_meta(best, temperature=temperature)
+    engine = load_engine(best, device=mesh.device)
+    if engine.temperature != temperature:
+        raise RuntimeError(f"dp load_engine serves T {engine.temperature}, "
+                           f"the fit gave {temperature}")
+    reset()
+    served = engine.predict(uint8_batch(21, BATCH))
+    only(read(), vit_block_fwd=12)
+    probs = served["cls_probs"]
+    if not np.isfinite(probs).all() or probs.shape != (BATCH, 4):
+        raise RuntimeError(f"dp load_engine: {probs}")
+    return {"history": {p: [{k: m[k] for k in ("total_loss", "accuracy")}
+                            for m in res["history"][p]]
+                        for p in ("train", "val")},
+            "fit_seconds": fit_s, "launches": launches,
+            "steps": steps, "val_batches": vals,
+            "shard_rows": int(train.rows_per_shard),
+            "temperature": temperature, "params": params, "served": probs}
+
+
+def dp_worker(root: str, backend: str) -> int:
+    """One rank of the "dp" phase (started by ``dp_phase`` with torchrun's
+    variables). ``gloo``: every rank on cuda:0, the backend named, since
+    NCCL refuses two ranks on one card; ``nccl``: rank r on cuda:r, the
+    mesh's default."""
+    from rovit_kan_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = (make_mesh(-1, backend="gloo", device="cuda:0")
+            if backend == "gloo" else make_mesh(-1))
+    if mesh.backend != backend:
+        raise RuntimeError(f"dp rank {mesh.rank}: {mesh}, want {backend}")
+    out = {"steps": {s: dp_steps(mesh, s) for s in DP_STAGES},
+           "fit": dp_fit(mesh, Path(root)), "mesh": repr(mesh)}
+    torch.save(out, Path(root) / f"rank{mesh.rank}.pt")
+    return 0
+
+
+def run_ranks(root: Path, n: int, backend: str) -> list:
+    """``chip_smoke.py --dp-worker root backend`` as ``n`` ranks through
+    ``cli.spawn_workers``: every exit code is checked and a failed or hung
+    rank stops the others and fails the phase. Returns each rank's saved
+    results."""
+    from rovit_kan_tpu_torch.cli import spawn_workers
+    try:
+        spawn_workers([sys.executable, os.path.abspath(__file__),
+                       "--dp-worker", root, backend], n, log_dir=root,
+                      timeout=DP_TIMEOUT)
+    except SystemExit as e:
+        tails = {r: (root / f"rank{r}.log").read_text()[-3000:]
+                 for r in range(n)}
+        raise RuntimeError(f"dp ranks: {e}: {tails}") from None
+    return [torch.load(root / f"rank{r}.pt", weights_only=False)
+            for r in range(n)]
+
+
+def dp_gaps(single, exact, ranks) -> dict:
+    """Each rank's steps against the one-process bf16 steps (``single``),
+    beside the one-process fp32 steps' gaps from them (``exact``), per
+    step: the largest relative loss gap over the ranks and the fp32 one's;
+    the all-reduced gradient's gaps: the five worst leaves in units of the
+    leaf's largest magnitude, the ``DP_BF16_GRAD_LEAVES`` in units of two
+    bf16 ulps of it (``bf16_tol``), the median leaf, the largest gap in
+    units of a leaf's L2 norm, the five worst leaves in units of their
+    limit after the first step (``hold_dp``), and the whole gradient's gap
+    and the fp32 one's in units of its L2 norm."""
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    out = {"loss_rel": [max(rel(got["loss"][i], single["loss"][i])
+                            for got in ranks) for i in range(DP_STEPS)],
+           "fp32_loss_rel": [rel(exact["loss"][i], single["loss"][i])
+                             for i in range(DP_STEPS)], "grad": [],
+           "grad_norm_rel": [max(float((got["grads"][i]
+                                        - single["grads"][i]).norm())
+                                 / float(single["grads"][i].norm())
+                                 for got in ranks)
+                             for i in range(DP_STEPS)],
+           "fp32_grad_norm_rel": [float((exact["grads"][i]
+                                         - single["grads"][i]).norm())
+                                  / float(single["grads"][i].norm())
+                                  for i in range(DP_STEPS)]}
+    for i in range(DP_STEPS):
+        of_max, of_ulps, of_norm, of_limit = {}, {}, 0.0, {}
+        wants = torch.split(single["grads"][i], single["sizes"])
+        fp32s = torch.split(exact["grads"][i], single["sizes"])
+        for got in ranks:
+            for name, g, want, f in zip(
+                    single["names"], torch.split(got["grads"][i],
+                                                 single["sizes"]),
+                    wants, fp32s):
+                d = float((g - want).abs().max())
+                of_norm = max(of_norm, float((g - want).norm())
+                              / max(float(want.norm()), 1e-30))
+                bf16_leaf = name.startswith(DP_BF16_GRAD_LEAVES)
+                if bf16_leaf:
+                    of_ulps[name] = max(of_ulps.get(name, 0.0),
+                                        d / bf16_tol(want))
+                else:
+                    of_max[name] = max(of_max.get(name, 0.0), d / max(
+                        float(want.abs().max()), 1e-30))
+                floor = (bf16_tol(want) if bf16_leaf
+                         else 1e-3 * float(want.abs().max()))
+                limit = 2 * max(float((f - want).abs().max()), floor)
+                of_limit[name] = max(of_limit.get(name, 0.0),
+                                     d / max(limit, 1e-30))
+        out["grad"].append({
+            "worst_of_max": dict(sorted(of_max.items(),
+                                        key=lambda kv: -kv[1])[:5]),
+            "bf16_leaves_of_two_ulps": of_ulps,
+            "median_of_max": float(np.median(list(of_max.values()))),
+            "max_of_norm": of_norm,
+            "worst_of_limit": dict(sorted(of_limit.items(),
+                                          key=lambda kv: -kv[1])[:5])})
+    return out
+
+
+#: Leaves whose gradient the bf16 trunk forms in bf16 (the patch
+#: embedding's matmul, the token and position embeddings' sums over the
+#: batch): each rank rounds its half-batch sum to bf16 before the
+#: all-reduce, where one process rounds the whole batch's sum once.
+DP_BF16_GRAD_LEAVES = ("backbone.model.patch_embed.",
+                       "backbone.model.pos_embed", "backbone.model.cls_token")
+
+
+def hold_dp(gaps, ranks) -> None:
+    """Raise unless the ranks' steps agree with the one-process steps.
+
+    The first step (the same weights on both sides): at stages 3 and 4 the
+    loss on every rank within 1e-4 (relative) of the one-process step's;
+    at stage 3 each leaf's all-reduced gradient within 1e-3 of its largest
+    magnitude, the ``DP_BF16_GRAD_LEAVES`` within two bf16 ulps of it
+    (``bf16_tol``); at stage 4, whose gradient is ill-conditioned at the
+    seed-0 weights (the "train" phase holds its gradient at stage 3 for
+    that reason), each leaf within 5e-2 of its L2 norm, the "train" phase's
+    rule for a rounding change in the bf16 backward.
+
+    After the first update the two sides' weights part by Adam's +-lr
+    steps on rounding-level gradient differences, as the bf16 and fp32
+    models' weights part by larger ones. So each later step is held by
+    ``hold_served``'s rule against the fp32 model's steps in the same
+    call: the ranks' loss within twice the bf16 step's own distance from
+    fp32 (floor 1e-4, relative); at stage 3 each leaf's gradient within
+    twice the bf16 gradient's largest distance from fp32 on that leaf
+    (floor 1e-3 of its largest magnitude, two bf16 ulps on the
+    ``DP_BF16_GRAD_LEAVES``); at both stages the whole gradient within
+    twice the bf16 gradient's distance from fp32, in L2. Stage 4 is held
+    in L2 only: there one update from either rounding change leaves the
+    next gradient about as far from the one-process one as its own size
+    (the fp32 model's too), so a leaf's largest gap is noise.
+
+    The ranks' parameters must be equal bit for bit after every stage's
+    steps."""
+    for stage, g in gaps.items():
+        if g["loss_rel"][0] > 1e-4:
+            raise RuntimeError(f"dp stage {stage}: first loss "
+                               f"{g['loss_rel'][0]:.2e} off the "
+                               f"one-process step's")
+        for i in range(1, DP_STEPS):
+            limit = 2 * max(g["fp32_loss_rel"][i], 1e-4)
+            if g["loss_rel"][i] > limit:
+                raise RuntimeError(f"dp stage {stage} step {i + 1}: loss "
+                                   f"{g['loss_rel'][i]:.2e} off, limit "
+                                   f"{limit:.2e}")
+            leaves = max(g["grad"][i]["worst_of_limit"].values())
+            if (stage == 3 and leaves > 1.0) or (
+                    g["grad_norm_rel"][i] > 2 * g["fp32_grad_norm_rel"][i]):
+                raise RuntimeError(f"dp stage {stage} step {i + 1} "
+                                   f"gradient: {g['grad'][i]}, whole "
+                                   f"{g['grad_norm_rel'][i]:.2e} (fp32 "
+                                   f"{g['fp32_grad_norm_rel'][i]:.2e})")
+        if not torch.equal(ranks[0]["steps"][stage]["params"],
+                           ranks[1]["steps"][stage]["params"]):
+            raise RuntimeError(f"dp stage {stage}: the ranks' parameters "
+                               f"differ")
+    first3, first4 = gaps[3]["grad"][0], gaps[4]["grad"][0]
+    if max(first3["worst_of_max"].values()) > 1e-3 or max(
+            first3["bf16_leaves_of_two_ulps"].values()) > 1.0:
+        raise RuntimeError(f"dp stage 3 gradient: {first3}")
+    if first4["max_of_norm"] > 5e-2:
+        raise RuntimeError(f"dp stage 4 gradient: {first4}")
+
+
+DP_CLI_PER_CLASS = 24     # 96 images: 77 train (1 step), 19 validation
+
+
+def cli_train_argv(data: Path, out: Path) -> list:
+    return ["--data_root", str(data), "--output_dir", str(out), "--epochs",
+            "1", "--batch_size", str(BATCH), "--seed", "0"]
+
+
+def cli_train_data(root: Path) -> Path:
+    """A 224-px JPEG tree for ``cli.train``: 4 x 24 training images, 4 x 8
+    test images."""
+    from rovit_kan_tpu_torch.config import Config
+    from rovit_kan_tpu_torch.data.synthetic import generate_synthetic_dataset
+    names = Config().data.class_names
+    data = root / "data"
+    generate_synthetic_dataset(data / "Augmented Image", DP_CLI_PER_CLASS,
+                               size=224, class_names=names, seed=0)
+    generate_synthetic_dataset(data / "Original Image", 8, size=224,
+                               class_names=names, seed=1)
+    return data
+
+
+def run_cli_train(root: Path, runs: dict) -> dict:
+    """Each of ``runs`` (name -> the command before ``cli_train_argv``) in
+    its own process, side by side, on ``cli_train_data``; fails unless
+    every one exits 0. Returns each run's output."""
+    data = cli_train_data(root)
+    repo = str(Path(os.path.abspath(__file__)).parent)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    procs = {}
+    for name, cmd in runs.items():
+        procs[name] = subprocess.Popen(
+            cmd + cli_train_argv(data, root / name), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, cwd=repo, env=env)
+    logs = {}
+    try:
+        for name, p in procs.items():
+            logs[name] = p.communicate(timeout=DP_TIMEOUT)[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, p in procs.items():
+        if p.returncode != 0:
+            raise RuntimeError(f"{name} exited with {p.returncode}: "
+                               f"{logs[name][-3000:]}")
+    return logs
+
+
+TRAIN_CLI = [sys.executable, "-m", "rovit_kan_tpu_torch.cli.train"]
+
+
+def world_one_run(root: Path) -> dict:
+    """``cli.train`` through ``torch.distributed.run --nproc_per_node=1 ...
+    --multihost`` (a world of 1: no process group) and as the single-card
+    run, side by side in two processes; their epoch CSVs must agree bit for
+    bit."""
+    t0 = time.perf_counter()
+    runs = {"torchrun_world1": [sys.executable, "-m",
+                                "torch.distributed.run", "--nproc_per_node=1",
+                                "-m", "rovit_kan_tpu_torch.cli.train",
+                                "--multihost", "--devices", "1"],
+            "single_card": TRAIN_CLI + ["--devices", "1"]}
+    logs = run_cli_train(root, runs)
+    if "Multi-host: rank 0 of 1" not in logs["torchrun_world1"]:
+        raise RuntimeError("the torchrun run did not take --multihost")
+    csvs = {name: (root / name / "logs" / "train_epochs.csv").read_text()
+            for name in runs}
+    if csvs["torchrun_world1"] != csvs["single_card"]:
+        raise RuntimeError(f"world-1 CSV differs: {csvs}")
+    return {"seconds": time.perf_counter() - t0,
+            "epoch_csv": csvs["single_card"].splitlines()[1:]}
+
+
+def nccl_cli_run(root: Path) -> dict:
+    """``cli.train --devices 2`` (NCCL, rank r on cuda:r) beside the
+    single-card ``cli.train --devices 1``: both ranks on NCCL, one writer of
+    the epoch CSV and the checkpoint, ``load_engine`` serving from it, and
+    the epoch losses of the two runs side by side (read, not held: the
+    validation batch of 19 rows pads differently)."""
+    from rovit_kan_tpu_torch.serving import load_engine
+    t0 = time.perf_counter()
+    logs = run_cli_train(root, {"devices2": TRAIN_CLI + ["--devices", "2"],
+                                "devices1": TRAIN_CLI + ["--devices", "1"]})
+    for r in range(2):
+        if f"rank {r} of 2 on cuda:{r} (nccl)" not in logs["devices2"]:
+            raise RuntimeError(f"cli.train --devices 2: no NCCL rank {r}: "
+                               f"{logs['devices2'][-3000:]}")
+    csvs = {name: (root / name / "logs" / "train_epochs.csv").read_text()
+            .splitlines() for name in ("devices2", "devices1")}
+    if len(csvs["devices2"]) != 2:
+        raise RuntimeError(f"cli.train --devices 2 CSV: {csvs['devices2']}")
+    engine = load_engine(root / "devices2" / "checkpoints" / "best_model",
+                         device="cuda")
+    probs = engine.predict(uint8_batch(22, BATCH))["cls_probs"]
+    if not np.isfinite(probs).all():
+        raise RuntimeError(f"cli.train --devices 2 checkpoint serves {probs}")
+    return {"seconds": time.perf_counter() - t0,
+            "epoch_csv": {k: v[1:] for k, v in csvs.items()}}
+
+
+def dp_phase(smi: str, root: Path, backend: str = "gloo"):
+    """Data parallelism (module docstring, phase 20): two ranks on cuda:0
+    through gloo, or with ``nccl`` on cuda:0 and cuda:1 (``--nccl``)."""
+    root.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    single = {s: dp_steps(None, s) for s in DP_STAGES}
+    exact = {s: dp_steps(None, s, fp32=True) for s in DP_STAGES}
+    ranks = run_ranks(root, DP_RANKS, backend)
+    gaps = {s: dp_gaps(single[s], exact[s], [r["steps"][s] for r in ranks])
+            for s in DP_STAGES}
+    emit({"phase": "dp_readings", "backend": backend, "gaps": gaps,
+          "card": smi})
+    hold_dp(gaps, ranks)
+    for r, rank in enumerate(ranks):
+        for s in DP_STAGES:
+            only(rank["steps"][s]["launches"], vit_block_fwd=12 * DP_STEPS,
+                 vit_block_bwd=12 * DP_STEPS, augment=DP_STEPS)
+    steps = [r["steps"][DP_STAGES[-1]] for r in ranks]
+    single = single[DP_STAGES[-1]]
+    fits = [r["fit"] for r in ranks]
+    if not torch.equal(fits[0]["params"], fits[1]["params"]) or not \
+            np.array_equal(fits[0]["served"], fits[1]["served"]) or \
+            fits[0]["temperature"] != fits[1]["temperature"]:
+        raise RuntimeError("dp fit: the ranks' weights, temperatures or "
+                           "served outputs differ")
+    for f in fits:
+        for part in ("train", "val"):
+            for m in f["history"][part]:
+                if not np.isfinite(m["total_loss"]):
+                    raise RuntimeError(f"dp fit: non-finite {part} {m}")
+    cli = (world_one_run(root / "world1") if backend == "gloo"
+           else nccl_cli_run(root / "cli"))
+    launches = {f"rank{r}": {k: fits[r]["launches"][k] + sum(
+        ranks[r]["steps"][s]["launches"][k] for s in DP_STAGES)
+        for k in fits[r]["launches"]} for r in range(DP_RANKS)}
+    return {"phase": "dp" if backend == "gloo" else "dp_nccl",
+            "ranks": DP_RANKS, "meshes": [r["mesh"] for r in ranks],
+            "batch_size": BATCH, "steps": DP_STEPS,
+            "single_step_ms": single["ms"],
+            "rank_step_ms": {f"rank{r}": s["ms"] for r, s in
+                             enumerate(steps)},
+            # The global batch a second, as each rank sees it (the first
+            # step, with its set-up, left out).
+            "rank_images_per_sec": {
+                f"rank{r}": BATCH * 1e3 * (DP_STEPS - 1) / sum(s["ms"][1:])
+                for r, s in enumerate(steps)},
+            "single_images_per_sec": BATCH * 1e3 * (DP_STEPS - 1)
+            / sum(single["ms"][1:]),
+            "losses": {"single": single["loss"],
+                       **{f"rank{r}": s["loss"] for r, s in enumerate(steps)}},
+            "fit": {k: fits[0][k] for k in ("history", "fit_seconds",
+                                            "steps", "val_batches",
+                                            "shard_rows", "launches",
+                                            "temperature")},
+            "launches": launches, "cli": cli,
+            "seconds": time.perf_counter() - t0, "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4821,6 +5359,9 @@ def main() -> int:
         emit(pretrained)
         moed = moe_phase(smi, root)
         emit(moed)
+        emit(native_phase(smi, root))
+        dped = dp_phase(smi, root / "dp")
+        emit(dped)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     benched = bench_phase(smi)
@@ -4989,7 +5530,9 @@ def main() -> int:
                  "ablation": ablated["launches"],
                  "baselines": baselined["launches"],
                  "pretrained": pretrained["launches"],
-                 "moe": moed["launches"]}
+                 "moe": moed["launches"],
+                 **{f"dp_{r}": counts
+                    for r, counts in dped["launches"].items()}}
     for e in kernels:
         e.setdefault("launches_by_path", {}).update(
             {path: counts[e["name"]] for path, counts in new_paths.items()})
@@ -5000,5 +5543,36 @@ def main() -> int:
     return 0
 
 
+def main_nccl() -> int:
+    """``chip_smoke.py --nccl``: the "dp" phase over NCCL, rank r on
+    cuda:r, on a host with two cards or more (module docstring)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        print("chip_smoke --nccl: needs two visible cards", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from rovit_kan_tpu_torch.ops import _build
+    smi = nvidia_smi()
+    name = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "torch_name": name, "nvidia_smi": smi,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    _build.build(_build.all_sources())
+    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_nccl_"))
+    try:
+        emit(dp_phase(smi, root / "dp", backend="nccl"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2], sys.argv[3]))
+    sys.exit(main_nccl() if sys.argv[1:] == ["--nccl"] else main())

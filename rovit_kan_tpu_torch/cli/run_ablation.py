@@ -1,9 +1,10 @@
-"""Run the six-variant ablation study on one card.
+"""Run the six-variant ablation study, on one card or several.
 
     python -m rovit_kan_tpu_torch.cli.run_ablation [--data-root data] \
         [--output-dir outputs/ablation] [--batch-size 32] [--epochs 50] \
         [--seed 42] [--patience P] [--checkpoint-min-interval S] [--fast] \
-        [--synthetic [--n-per-class N]] [--tiny] [--device-cache] [--cpu]
+        [--synthetic [--n-per-class N]] [--tiny] [--device-cache] [--cpu] \
+        [--devices N] [--multihost]
 
 The flow of the JAX package's ``scripts/run_ablation.py``: the dataset
 under ``DATA/Augmented Image`` (``--synthetic`` generates it first), a
@@ -15,15 +16,28 @@ most 4 epochs at batch 8. Below the config's last curriculum stage the
 stage boundaries are spread evenly over the epochs (not with ``--tiny``).
 ``--device-cache`` keeps the splits on the card (``DeviceLoader``).
 
-Runs on the card unless ``--cpu`` is given. Not ported yet: ``--devices``
-(the mesh).
+``--devices N`` (default -1, every visible card) trains every variant data
+parallel over N ranks, one process per card (``cli.train``'s launch: N
+workers with ``--multihost``, rank r on ``cuda:r``; ``--cpu --devices N``
+on the CPU); rank 0 writes the files. ``--multihost`` joins a torchrun job
+instead.
+
+Runs on the card unless ``--cpu`` is given. Not ported: the pipelined
+variant of the JAX study.
 """
 from __future__ import annotations
 
 import argparse
+import sys
 from pathlib import Path
 
 import numpy as np
+
+from rovit_kan_tpu_torch.cli import (
+    MULTIHOST_HELP,
+    data_parallel_size,
+    spawn_workers,
+)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -53,6 +67,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="tiny model + 64px (smoke test)")
     p.add_argument("--device-cache", action="store_true",
                    help="keep the uint8 splits on the card (DeviceLoader)")
+    p.add_argument("--devices", type=int, default=-1,
+                   help="data-parallel mesh size (-1 = all): one process "
+                        "per card")
+    p.add_argument("--multihost", action="store_true", help=MULTIHOST_HELP)
     return p.parse_args(argv)
 
 
@@ -115,8 +133,21 @@ def split_indices(n: int, seed: int, max_samples=None):
 
 
 def main(argv=None):
-    """Run the study; returns the ``AblationExperiment``."""
+    """Run the study; returns the ``AblationExperiment`` (None in the
+    process that started the ranks of ``--devices N``)."""
     args = parse_args(argv)
+    mesh = None
+    if args.multihost:
+        from rovit_kan_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(args.devices, device="cpu" if args.cpu else None)
+    else:
+        n = data_parallel_size(args.devices, args.cpu)
+        if n > 1:
+            spawn_workers(
+                [sys.executable, "-m", "rovit_kan_tpu_torch.cli.run_ablation",
+                 *(sys.argv[1:] if argv is None else argv), "--multihost"],
+                n)
+            return None
     from rovit_kan_tpu_torch import resolve_device
     from rovit_kan_tpu_torch.data.dataset import (
         Loader,
@@ -125,18 +156,22 @@ def main(argv=None):
     )
     from rovit_kan_tpu_torch.data.synthetic import generate_synthetic_dataset
     from rovit_kan_tpu_torch.experiments.ablation import run_ablation_study
+    from rovit_kan_tpu_torch.parallel.multihost import barrier, process_index
 
     device = "cpu" if args.cpu else "cuda"
     resolve_device(device)
+    if mesh is not None:
+        device = str(mesh.device)
     config, epochs, max_samples = build_config(args)
 
     root = args.data_root / "Augmented Image"
-    if args.synthetic:
+    if args.synthetic and process_index() == 0:
         n = args.n_per_class or (8 if args.tiny else 64)
         generate_synthetic_dataset(root, n_per_class=n,
                                    size=config.data.image_size,
                                    class_names=config.data.class_names,
                                    seed=args.seed)
+    barrier()                     # the other ranks read rank 0's images
 
     ds = RoseLeafDataset(root, config.data.class_names,
                          config.data.severity_map,
@@ -154,7 +189,7 @@ def main(argv=None):
         )
         train_l, val_l, test_l = device_cache_loaders(
             train_ds, val_ds, test_ds, batch_size, seed=args.seed,
-            device=device)
+            device=device, mesh=mesh)
     else:
         train_l = Loader(train_ds, batch_size, shuffle=True, drop_last=True,
                          seed=args.seed)
@@ -164,7 +199,8 @@ def main(argv=None):
     focal_alpha = train_ds.get_class_weights()
     exp = run_ablation_study(config, train_l, val_l, test_l,
                              args.output_dir, focal_alpha=focal_alpha,
-                             epochs=epochs, device=device, seed=args.seed)
+                             epochs=epochs, device=device, seed=args.seed,
+                             mesh=mesh)
     print("Ablation study complete:", args.output_dir)
     return exp
 

@@ -1,4 +1,4 @@
-"""Train RoViT-KAN end to end on one card, then evaluate it on the test set.
+"""Train RoViT-KAN end to end, on one card or several, then evaluate it.
 
     python -m rovit_kan_tpu_torch.cli.train --data_root DATA [--seed 42] \
         [--output_dir outputs/train] [--epochs N] [--batch_size B] \
@@ -6,9 +6,10 @@
         [--device_cache] [--all_seeds] [--patience P] [--ema_decay D] \
         [--checkpoint_min_interval S] [--preset tiny|small|base] \
         [--profile_dir DIR] [--matmul_precision P] [--pretrained_npz NPZ] \
-        [--moe_experts E]
+        [--moe_experts E] [--devices N] [--multihost] \
+        [--device_cache_sharded]
 
-The single-card flow of the JAX package's ``scripts/train.py``. A run:
+The flow of the JAX package's ``scripts/train.py``. A run:
 dataloaders over ``DATA/Augmented Image`` (train and validation, a seeded
 80/20 split) and ``DATA/Original Image`` (test), with ``--device_cache``
 the whole set on the card; the focal alpha from the train split's class
@@ -34,21 +35,39 @@ package's ``.npz``, from ``cli.convert_checkpoint`` or the JAX package's
 turns every second block's MLP into an expert-choice MoE with E experts
 (``models/moe.py``).
 
-Runs on the card unless ``--cpu`` is given. Not ported yet: the mesh,
-pipeline, tensor, sequence, FSDP, expert and multi-host flags and
-``--device_cache_sharded``.
+Data parallelism, one process per card (``parallel/``): ``--devices N``
+(default -1, every visible card) starts N workers on this host, rank r on
+``cuda:r``, each running this flow with ``--multihost``, and fails if any
+of them fails; ``--cpu --devices N`` starts N workers on the CPU (gloo).
+Asking for more cards than are visible raises. ``--multihost`` makes this
+process one rank of the job torchrun describes (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``): ``python
+-m torch.distributed.run --nnodes H --nproc_per_node G -m
+rovit_kan_tpu_torch.cli.train --multihost ...``. Every rank loads the same
+seeded global batches and trains its rows of each; rank 0 alone writes the
+checkpoints, the epoch CSV and the reports. ``--device_cache_sharded``
+(implies ``--device_cache``) stores each split sharded over the ranks.
+
+Runs on the card unless ``--cpu`` is given. Not ported yet:
+``--pipeline_parallel``, ``--pipeline_microbatches``, ``--tensor_parallel``,
+``--sequence_parallel``, ``--fsdp`` and ``--expert_parallel``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
+import sys
 from pathlib import Path
 
 from rovit_kan_tpu_torch.cli import (
     MATMUL_PRECISION,
     MATMUL_PRECISION_HELP,
+    MULTIHOST_HELP,
+    data_parallel_size,
     set_matmul_precision,
+    spawn_workers,
 )
 
 
@@ -102,6 +121,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="turn every 2nd backbone block's FFN into an "
                         "expert-choice MoE with N experts (models/moe.py; "
                         "0 = dense flagship)")
+    p.add_argument("--devices", type=int, default=-1,
+                   help="data-parallel mesh size (-1 = all): one process "
+                        "per card")
+    p.add_argument("--multihost", action="store_true", help=MULTIHOST_HELP)
+    p.add_argument("--device_cache_sharded", action="store_true",
+                   help="implies --device_cache, storing each split "
+                        "sharded over the mesh (1/dp of it per card, "
+                        "shard-local gathers, stratified batches + "
+                        "per-shard shuffle) instead of a copy on every "
+                        "card")
     return p.parse_args(argv)
 
 
@@ -149,10 +178,12 @@ def build_config(args: argparse.Namespace):
 
 def run_one(config, seed: int, out_dir: Path, aug_root: Path,
             orig_root: Path, device: str, resume: bool, device_cache: bool,
-            profile_dir: Path = None):
+            profile_dir: Path = None, mesh=None,
+            device_cache_sharded: bool = False):
     """One training run and its test evaluation; returns the test metrics,
     or None when the run was preempted. With ``profile_dir`` the first
-    epoch runs under a torch.profiler trace written there."""
+    epoch runs under a torch.profiler trace written there. ``mesh``: this
+    rank's data mesh (rank 0 writes the files)."""
     from rovit_kan_tpu_torch.data.dataset import create_dataloaders
     from rovit_kan_tpu_torch.evaluation.evaluator import (
         Evaluator,
@@ -162,6 +193,7 @@ def run_one(config, seed: int, out_dir: Path, aug_root: Path,
         build_model,
         count_parameters,
     )
+    from rovit_kan_tpu_torch.parallel.multihost import process_index
     from rovit_kan_tpu_torch.results.logger import ExperimentLogger
     from rovit_kan_tpu_torch.training.trainer import Trainer
     from rovit_kan_tpu_torch.utils.checkpoint import promote_staging
@@ -180,20 +212,24 @@ def run_one(config, seed: int, out_dir: Path, aug_root: Path,
     # Focal alpha from the train split's class weights.
     focal_alpha = train_l.dataset.get_class_weights()
     cfg.loss.focal_alpha = focal_alpha.tolist()
-    if device_cache:
+    if device_cache or device_cache_sharded:
         from rovit_kan_tpu_torch.data.device_cache import (
             device_cache_loaders,
         )
         train_l, val_l, test_l = device_cache_loaders(
             train_l.dataset, val_l.dataset, test_l.dataset,
-            cfg.train.batch_size, seed=seed, device=device)
+            cfg.train.batch_size, seed=seed, device=device, mesh=mesh,
+            shard_data=device_cache_sharded)
         print(f"Device cache: {train_l.nbytes / 1e6:.0f} MB train split "
-              f"resident on the card")
+              f"resident on the card"
+              + (f" (shard {mesh.rank} of {mesh.size})"
+                 if train_l.sharded else ""))
 
+    main = process_index() == 0
     model = build_model(cfg, device=device, seed=seed)
-    logger = ExperimentLogger(cfg.paths.logs_dir, "train")
+    logger = ExperimentLogger(cfg.paths.logs_dir, "train") if main else None
     trainer = Trainer(model, train_l, val_l, cfg, logger=logger,
-                      focal_alpha=focal_alpha, seed=seed)
+                      focal_alpha=focal_alpha, seed=seed, mesh=mesh)
 
     start_epoch = 1
     ck_dir = Path(cfg.paths.checkpoints_dir)
@@ -214,7 +250,7 @@ def run_one(config, seed: int, out_dir: Path, aug_root: Path,
         state, start_epoch = trainer.resume(resume_name)
         # Epochs the previous process logged past this restore point were
         # discarded by the restore: drop their CSV rows.
-        dropped = logger.truncate_from(start_epoch)
+        dropped = logger.truncate_from(start_epoch) if main else 0
         if dropped:
             print(f"Dropped {dropped} stale epoch rows past the restore "
                   f"point from {logger.csv_path}")
@@ -234,7 +270,7 @@ def run_one(config, seed: int, out_dir: Path, aug_root: Path,
             state = trainer.init_state(params=jax_state_dict(model, merged))
         else:
             state = trainer.init_state()
-        if logger.reset():
+        if main and logger.reset():
             # A fresh run into a directory holding a previous run's CSV
             # replaces it; appending would mix two epoch lineages.
             print(f"Replaced previous epoch CSV at {logger.csv_path}")
@@ -242,7 +278,7 @@ def run_one(config, seed: int, out_dir: Path, aug_root: Path,
 
     if profile_dir is not None:
         from rovit_kan_tpu_torch.utils.profiling import trace
-        with trace(profile_dir):
+        with trace(profile_dir) if main else contextlib.nullcontext():
             state, _ = trainer.train_epoch(state, start_epoch)
         start_epoch += 1
         print(f"Profiler trace written to {profile_dir}")
@@ -253,7 +289,8 @@ def run_one(config, seed: int, out_dir: Path, aug_root: Path,
         print("Run preempted — skipping final evaluation; re-run with "
               "--resume to continue")
         return None
-    logger.plot_training_curves()
+    if main:
+        logger.plot_training_curves()
 
     # Evaluate the weights model selection and the checkpoint use: the EMA
     # when it is on.
@@ -267,27 +304,44 @@ def run_one(config, seed: int, out_dir: Path, aug_root: Path,
         eval_weights = trainer.eval_params(result["best_state"])
     evaluator = Evaluator(model, eval_weights, test_l, cfg,
                           output_dir=cfg.paths.results_dir)
-    return evaluator.evaluate()
+    return evaluator.evaluate(save=main)
 
 
 def main(argv=None):
     """Run the training; returns the test metrics (``--all_seeds``: the
     seed summary), or None when preempted."""
     args = parse_args(argv)
+    mesh = None
+    if args.multihost:
+        from rovit_kan_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(args.devices, device="cpu" if args.cpu else None)
+        print(f"Multi-host: rank {mesh.rank} of {mesh.size} on "
+              f"{mesh.device} ({mesh.backend or 'no process group'})")
+    else:
+        n = data_parallel_size(args.devices, args.cpu)
+        if n > 1:
+            spawn_workers(
+                [sys.executable, "-m", "rovit_kan_tpu_torch.cli.train",
+                 *(sys.argv[1:] if argv is None else argv), "--multihost"],
+                n)
+            return _rank0_result(args)
     set_matmul_precision(args.matmul_precision)
     import numpy as np
 
     from rovit_kan_tpu_torch import resolve_device
     from rovit_kan_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from rovit_kan_tpu_torch.parallel.multihost import barrier, process_index
 
     device = "cpu" if args.cpu else "cuda"
     resolve_device(device)
+    if mesh is not None:
+        device = str(mesh.device)
     np.random.seed(args.seed)
     config = build_config(args)
 
     aug_root = args.data_root / "Augmented Image"
     orig_root = args.data_root / "Original Image"
-    if args.synthetic:
+    if args.synthetic and process_index() == 0:
         n = args.synthetic_per_class or (8 if args.fast else 64)
         generate_synthetic_dataset(aug_root, n_per_class=n,
                                    size=config.data.image_size,
@@ -297,10 +351,12 @@ def main(argv=None):
                                    size=config.data.image_size,
                                    class_names=config.data.class_names,
                                    seed=args.seed + 1)
+    barrier()                     # the other ranks read rank 0's images
 
     def run(seed, out_dir):
         return run_one(config, seed, out_dir, aug_root, orig_root, device,
-                       args.resume, args.device_cache, args.profile_dir)
+                       args.resume, args.device_cache, args.profile_dir,
+                       mesh, args.device_cache_sharded)
 
     if not args.all_seeds:
         metrics = run(args.seed, args.output_dir)
@@ -325,13 +381,22 @@ def main(argv=None):
         summary[k] = {"mean": float(vals.mean()), "std": float(vals.std()),
                       "per_seed": {str(s): float(m[k])
                                    for s, m in all_metrics.items()}}
-    args.output_dir.mkdir(parents=True, exist_ok=True)
-    (args.output_dir / "seed_summary.json").write_text(
-        json.dumps(summary, indent=2))
+    if process_index() == 0:
+        args.output_dir.mkdir(parents=True, exist_ok=True)
+        (args.output_dir / "seed_summary.json").write_text(
+            json.dumps(summary, indent=2))
     print("Seed sweep summary (mean ± std):")
     for k in keys:
         print(f"  {k:14s} {summary[k]['mean']:.4f} ± {summary[k]['std']:.4f}")
     return summary
+
+
+def _rank0_result(args):
+    """What rank 0 wrote: the seed summary or the test metrics (None when
+    the run was preempted)."""
+    path = (args.output_dir / "seed_summary.json" if args.all_seeds
+            else args.output_dir / "results" / "test_metrics.json")
+    return json.loads(path.read_text()) if path.exists() else None
 
 
 if __name__ == "__main__":

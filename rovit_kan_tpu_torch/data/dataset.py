@@ -11,9 +11,10 @@ library only (the port keeps its own copy):
 
 Batches always have one shape (drop_last for training; a zero-padded tail
 and a ``valid`` mask for evaluation), as in the JAX package. Images are
-decoded once on the host with PIL, resized by ``data/resize.py`` (the JAX
-package's native half-pixel bilinear resize, copied in numpy, so the pixels
-are the reference's) and cached as uint8; the random augmentations run on
+decoded once on the host with PIL, resized by the C++ engine
+``native/preprocess.cpp`` (the port's copy of the JAX package's, so the
+pixels are the reference's; ``data/resize.py`` is its plain numpy version)
+and cached as uint8; the random augmentations run on
 the device inside the train step. A background thread prefetches batches.
 The trainer moves each batch to the card.
 """
@@ -26,7 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from rovit_kan_tpu_torch.data.resize import resize_image
+from rovit_kan_tpu_torch.native import resize_batch
 
 IMG_EXTENSIONS = {".jpg", ".jpeg", ".png", ".bmp", ".webp", ".ppm"}
 
@@ -85,7 +86,9 @@ class RoseLeafDataset:
         with Image.open(s["path"]) as im:
             arr = np.asarray(im.convert("RGB"), dtype=np.uint8)
         if arr.shape[:2] != (self.image_size, self.image_size):
-            arr = resize_image(arr, self.image_size)
+            # The C++ engine (native/preprocess.cpp), one thread: the
+            # loaders already decode on a thread pool.
+            arr = resize_batch([arr], self.image_size, n_threads=1)[0]
         if self._cache is not None:
             self._cache[idx] = arr
         return arr
@@ -194,7 +197,7 @@ class Loader:
             valid[j] = 1.0
 
         if self.num_workers > 1 and len(idxs) > 1:
-            # PIL's decode and numpy's resize release the GIL for most of
+            # PIL's decode and the C++ resize release the GIL for most of
             # their work, so plain threads parallelize the batch assembly.
             list(self._pool().map(fill, range(len(idxs)), idxs))
         else:

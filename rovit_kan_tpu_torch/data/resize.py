@@ -1,4 +1,4 @@
-"""The dataset's host-side image resize, in numpy.
+"""The plain numpy version of the dataset's host-side image resize.
 
 A copy of ``rovit_kan_tpu/native/preprocess.cpp::resize_image``, the resize
 the JAX package's dataset runs whenever its native library builds: separable
@@ -7,7 +7,9 @@ every intermediate in float32, the result rounded by adding 0.5 and
 truncating. The operations run in the C++ order, vectorized, so the port
 loads the same uint8 pixels as the reference.
 
-The port always resizes through this copy. The reference falls back to
+The dataset resizes through the C++ engine (``native/preprocess.cpp``),
+which gives these bits; this copy is what the tests and
+``cli.bench_host_pipeline`` hold it against. The reference falls back to
 PIL's ``BILINEAR`` (which antialiases when it shrinks) only on a machine
 where its native library cannot be compiled; the port has no such fallback.
 """

@@ -19,7 +19,10 @@ Counterpart of ``rovit_kan_tpu/evaluation/evaluator.py``:
   imported only to draw them; without it the figures are skipped with one
   warning and everything else is written.
 
-The multi-host broadcast of the fitted temperature is not ported.
+Under a process group (data-parallel ranks) every rank fits T on what its
+loader yields and process 0's T is broadcast to all of them, as the JAX
+package does, so ``--store_temperature`` persists the value every rank
+serves.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from rovit_kan_tpu_torch.evaluation.calibration import (
 from rovit_kan_tpu_torch.models.convert import transfer_resolution
 from rovit_kan_tpu_torch.models.rovit_kan import RoViTKAN, build_model
 from rovit_kan_tpu_torch.ops.preprocess import eval_batch
+from rovit_kan_tpu_torch.parallel.multihost import broadcast_one_to_all
 from rovit_kan_tpu_torch.utils.checkpoint import load_checkpoint
 
 FIGURES = ("confusion_matrix", "confidence_histogram", "reliability_diagram",
@@ -120,12 +124,17 @@ class Evaluator:
         Degenerate fits (a perfectly separated validation set) are clamped
         to ``calibration.T_FLOOR`` and flagged on
         ``self.temperature_degenerate``, so callers that persist T
-        (``--store_temperature``) can refuse."""
+        (``--store_temperature``) can refuse.
+
+        Under a process group, process 0's T and flag are broadcast to every
+        process: all ranks agree on (and return) the same T."""
         cat = self._outputs(val_loader, temp=1.0)
         logits, labels = self._host(cat, "cls_logits", "labels")
         rep = fit_temperature_report(logits, labels)
-        self.temperature_degenerate = bool(rep["degenerate"])
-        self.temperature = rep["temperature"]
+        t, degenerate = broadcast_one_to_all(
+            (rep["temperature"], bool(rep["degenerate"])))
+        self.temperature_degenerate = degenerate
+        self.temperature = t
         return self.temperature
 
     def calibrated_metrics(self, val_loader) -> Dict[str, float]:

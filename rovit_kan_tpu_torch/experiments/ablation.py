@@ -20,8 +20,13 @@ Counterpart of ``rovit_kan_tpu/experiments/ablation.py``:
 
 Variants without a head are other modules (the ``with_*`` flags of
 ``RoViTKAN``); the curriculum toggle is a config flag the same train step
-reads. Runs on the card unless ``device="cpu"``. The mesh and the pipelined
-model are not ported.
+reads. Runs on the card unless ``device="cpu"``.
+
+``mesh=`` (a data mesh, one process per card) goes through to every
+variant's ``Trainer``: every rank runs the same study over the same
+loaders, and rank 0 alone writes the files (the epoch CSV, the metrics,
+the curves, the summary), behind the checkpoints' barriers. The pipelined
+model is not ported.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from rovit_kan_tpu_torch.evaluation.evaluator import (
     load_model_for_evaluation,
 )
 from rovit_kan_tpu_torch.models.rovit_kan import build_model
+from rovit_kan_tpu_torch.parallel.multihost import barrier, process_index
 from rovit_kan_tpu_torch.results.logger import ExperimentLogger
 from rovit_kan_tpu_torch.training.trainer import Trainer
 from rovit_kan_tpu_torch.utils.checkpoint import promote_staging
@@ -83,7 +89,8 @@ class AblationExperiment:
     def __init__(self, config: Config, train_loader, val_loader, test_loader,
                  output_dir, focal_alpha: Optional[np.ndarray] = None,
                  variants: Optional[List[AblationConfig]] = None,
-                 device="cuda", seed: int = 42, run_fps: bool = True):
+                 device="cuda", seed: int = 42, run_fps: bool = True,
+                 mesh=None):
         self.base_config = config
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -91,7 +98,8 @@ class AblationExperiment:
         self.output_dir = Path(output_dir)
         self.focal_alpha = focal_alpha
         self.variants = variants or CANONICAL_VARIANTS
-        self.device = device
+        self.device = device if mesh is None else mesh.device
+        self.mesh = mesh
         self.seed = seed
         self.run_fps = run_fps
         self.results: Dict[str, Dict] = {}
@@ -136,10 +144,11 @@ class AblationExperiment:
                             with_uncertainty=variant.use_uncertainty,
                             with_kan=variant.use_kan, device=self.device,
                             seed=self.seed)
-        logger = ExperimentLogger(exp_dir, variant.name)
+        main = process_index() == 0
+        logger = ExperimentLogger(exp_dir, variant.name) if main else None
         trainer = Trainer(model, self.train_loader, self.val_loader, cfg,
                           logger=logger, focal_alpha=self.focal_alpha,
-                          seed=self.seed)
+                          seed=self.seed, mesh=self.mesh)
         preempt = exp_dir / "preempt_model"
         resumed = preempt_pending            # never restore a torn write
         if resumed:
@@ -147,13 +156,15 @@ class AblationExperiment:
                   f"resuming")
             state, start_epoch = trainer.resume("preempt_model")
             # Rows the preempted process logged past its checkpoint.
-            logger.truncate_from(start_epoch)
+            if main:
+                logger.truncate_from(start_epoch)
             fit = trainer.fit(state, epochs=epochs,
                               start_epoch=start_epoch)
         else:
             # A fresh run replaces an earlier run's epoch CSV rather than
             # appending a second lineage to it.
-            logger.reset()
+            if main:
+                logger.reset()
             fit = trainer.fit(epochs=epochs)
         if fit.get("preempted"):
             # A half-trained variant is never cached; its preemption
@@ -171,18 +182,20 @@ class AblationExperiment:
             eval_weights = trainer.eval_params(fit["best_state"])
         evaluator = Evaluator(model, eval_weights, self.test_loader, cfg,
                               output_dir=exp_dir)
-        metrics = evaluator.evaluate(run_fps=self.run_fps)
+        metrics = evaluator.evaluate(
+            run_fps=self.run_fps, **({} if main else {"save": False}))
         # The raw `ece` stays comparable with the reference's CSVs;
         # `ece_calibrated` is what one validation-fitted scalar buys.
         metrics.update(evaluator.calibrated_metrics(self.val_loader))
         metrics["experiment"] = variant.name
         metrics["best_val_loss"] = fit["best_val_loss"]
-        logger.save_metrics(metrics, "test_metrics.json")
-        if preempt.exists():
-            # The variant is complete: a stale preemption checkpoint would
-            # make the next run resume a finished training.
-            shutil.rmtree(preempt)
-        logger.plot_training_curves()
+        if main:
+            logger.save_metrics(metrics, "test_metrics.json")
+            if preempt.exists():
+                # The variant is complete: a stale preemption checkpoint
+                # would make the next run resume a finished training.
+                shutil.rmtree(preempt)
+            logger.plot_training_curves()
         self.results[variant.name] = metrics
         return metrics
 
@@ -235,21 +248,26 @@ class AblationExperiment:
 def run_ablation_study(config: Config, train_loader, val_loader, test_loader,
                        output_dir, focal_alpha=None, epochs=None,
                        variants=None, device="cuda", seed: int = 42,
-                       run_fps: bool = True) -> AblationExperiment:
+                       run_fps: bool = True, mesh=None
+                       ) -> AblationExperiment:
     """Every variant, then the CSV, the comparison table and
-    ``component_importance.json``."""
+    ``component_importance.json`` (rank 0 writes them)."""
     exp = AblationExperiment(config, train_loader, val_loader, test_loader,
                              output_dir, focal_alpha=focal_alpha,
                              variants=variants, device=device, seed=seed,
-                             run_fps=run_fps)
+                             run_fps=run_fps, mesh=mesh)
     exp.run_all_experiments(epochs=epochs)
-    exp.save_summary_csv()
+    main = process_index() == 0
+    if main:
+        exp.save_summary_csv()
     exp.print_comparison()
     importance = exp.get_component_importance()
     if importance:
         print("Component importance (accuracy delta vs full):")
         for comp, d in sorted(importance.items(), key=lambda kv: -kv[1]):
             print(f"  {comp:20s} {d:+.4f}")
-    (Path(output_dir) / "component_importance.json").write_text(
-        json.dumps(importance, indent=2))
+    if main:
+        (Path(output_dir) / "component_importance.json").write_text(
+            json.dumps(importance, indent=2))
+    barrier()
     return exp

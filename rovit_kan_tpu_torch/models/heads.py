@@ -8,24 +8,43 @@ reference's ``fc1`` / ``fc2`` / ``fc_mu`` / ``fc_logvar``.
 
 Dropout draws its mask from the ``torch.Generator`` passed down through the
 forward (the global RNG when it is None), so a training step's draws are
-reproducible; it is the identity in eval mode and when p = 0.
+reproducible; it is the identity in eval mode and when p = 0. Under data
+parallelism the forward gets a ``GlobalRows``: the mask is drawn for the
+whole global batch and this rank keeps its rows, so N ranks drop what one
+device would.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 
+@dataclasses.dataclass
+class GlobalRows:
+    """A generator that draws for ``global_batch`` rows, of which the
+    caller holds ``rows``."""
+    generator: torch.Generator
+    rows: slice
+    global_batch: int
+
+
 def dropout(x: torch.Tensor, p: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Union[torch.Generator, GlobalRows, None] = None
+            ) -> torch.Tensor:
     """Inverted dropout with a mask ``rand(generator) >= p``."""
     if not training or p == 0.0:
         return x
-    mask = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return x * mask / (1.0 - p)
+    if isinstance(generator, GlobalRows):
+        u = torch.rand((generator.global_batch, *x.shape[1:]),
+                       generator=generator.generator,
+                       device=x.device)[generator.rows]
+    else:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    return x * (u >= p) / (1.0 - p)
 
 
 class ClassificationHead(nn.Module):

@@ -36,8 +36,15 @@ def focal_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def _masked_mean(per_example: torch.Tensor,
-                 valid: Optional[torch.Tensor]) -> torch.Tensor:
-    """Batch mean, or the mean over the rows ``valid`` (0/1) marks."""
+                 valid: Optional[torch.Tensor],
+                 count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Batch mean, or the mean over the rows ``valid`` (0/1) marks. With
+    ``count`` (a data-parallel rank's share): the rows' sum over ``count``,
+    the valid rows of the global batch."""
+    if count is not None:
+        s = per_example.sum() if valid is None else (
+            per_example * valid).sum()
+        return s / torch.clamp(count, min=1.0)
     if valid is None:
         return per_example.mean()
     return (per_example * valid).sum() / torch.clamp(valid.sum(), min=1.0)
@@ -96,7 +103,8 @@ def joint_loss(outputs: Dict[str, torch.Tensor], class_targets: torch.Tensor,
                focal_alpha: Optional[torch.Tensor] = None,
                head_mask: Optional[Dict[str, bool]] = None,
                mixup: Optional[Dict[str, torch.Tensor]] = None,
-               valid: Optional[torch.Tensor] = None
+               valid: Optional[torch.Tensor] = None,
+               count: Optional[torch.Tensor] = None
                ) -> Dict[str, torch.Tensor]:
     """Stage-masked ``L = L_cls + l*L_ord + m*L_unc + n*L_kan``.
 
@@ -107,6 +115,9 @@ def joint_loss(outputs: Dict[str, torch.Tensor], class_targets: torch.Tensor,
             classification term becomes ``lam * L(a) + (1 - lam) * L(b)``;
             severity targets stay unmixed.
         valid: optional 0/1 per example (padded batches).
+        count: optional global valid-row count; each mean becomes this
+            batch's sum over it (one data-parallel rank's share of the
+            global mean; the ranks' shares add up to it).
 
     Returns:
         ``cls_loss``, ``ord_loss``, ``unc_loss``, ``kan_loss``,
@@ -121,10 +132,10 @@ def joint_loss(outputs: Dict[str, torch.Tensor], class_targets: torch.Tensor,
         lb = focal_loss_per_example(logits, mixup["labels_b"], focal_gamma,
                                     focal_alpha)
         lam = mixup["lam"]
-        cls = _masked_mean(lam * la + (1.0 - lam) * lb, valid)
+        cls = _masked_mean(lam * la + (1.0 - lam) * lb, valid, count)
     else:
         cls = _masked_mean(focal_loss_per_example(
-            logits, class_targets, focal_gamma, focal_alpha), valid)
+            logits, class_targets, focal_gamma, focal_alpha), valid, count)
 
     # A Python stage stays on the host (no copy to the device per step).
     on = ((lambda n: (stage >= n).float()) if torch.is_tensor(stage)
@@ -134,11 +145,11 @@ def joint_loss(outputs: Dict[str, torch.Tensor], class_targets: torch.Tensor,
     m_kan = on(4) * float(head_mask["kan"])
 
     ord_l = m_ord * _masked_mean(ordinal_bce_per_example(
-        outputs["ordinal_logits"], severity_targets), valid)
+        outputs["ordinal_logits"], severity_targets), valid, count)
     unc_l = m_unc * _masked_mean(uncertainty_per_example(
-        outputs["mu"], outputs["log_var"], severity_targets), valid)
+        outputs["mu"], outputs["log_var"], severity_targets), valid, count)
     kan_l = m_kan * _masked_mean(kan_regression_per_example(
-        outputs["kan_severity"], severity_targets), valid)
+        outputs["kan_severity"], severity_targets), valid, count)
 
     total = cls + lambda_ord * ord_l + mu_unc * unc_l + nu_kan * kan_l
     return {"cls_loss": cls, "ord_loss": ord_l, "unc_loss": unc_l,

@@ -19,8 +19,23 @@ rate and the backbone freeze per epoch, validation, the best checkpoint
 (with a disk-write cooldown), early stopping, ``resume`` and SIGTERM
 preemption, as the JAX ``Trainer``. Over a ``DeviceLoader`` an epoch is a
 loop of steps over on-device gathers (the JAX package compiles it into one
-``lax.scan``), with the same batches and numbers. Data, tensor and pipeline
-parallelism are not ported.
+``lax.scan``), with the same batches and numbers.
+
+Data parallelism (``mesh=``, a ``parallel.Mesh`` of N > 1 ranks, one
+process per card): a step on N ranks is the step of one device on the whole
+global batch. Every rank holds the global uint8 batch (the same seeded
+loader, or an ``all_gather`` of the ranks' rows from a sharded
+``DeviceLoader``), draws the augment factors, the mix and the heads'
+dropout masks for every row of it from the same seeded generators, augments
+and mixes all of it, then forwards its own rows. Its loss is its rows' sum
+over the global batch's row count (train batches are not padded; an eval
+batch's valid count is all-reduced), so the ranks' gradients add up to the
+global one: one ``all_reduce`` of the flat gradient
+buffer, at every call (each accumulation micro-step too), before the
+clipping. The metrics are all-reduced, so early stopping, the curriculum
+and checkpointing decide alike on every rank; a SIGTERM on any rank stops
+all of them at the same epoch boundary. A mesh of 1 runs no collective.
+Tensor, sequence, expert and pipeline parallelism and FSDP are not ported.
 """
 from __future__ import annotations
 
@@ -35,12 +50,19 @@ import torch
 import torch.nn as nn
 
 from rovit_kan_tpu_torch.config import Config
+from rovit_kan_tpu_torch.models.heads import GlobalRows
 from rovit_kan_tpu_torch.ops.augment_kernel import (
     draw_factors,
     fused_augment_batch,
 )
 from rovit_kan_tpu_torch.ops.mixing import cutmix_or_mixup, draw_mix
 from rovit_kan_tpu_torch.ops.preprocess import augment_batch, eval_batch
+from rovit_kan_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
+from rovit_kan_tpu_torch.parallel.multihost import (
+    any_process,
+    broadcast_one_to_all,
+    make_global_array,
+)
 from rovit_kan_tpu_torch.training.losses import joint_loss
 from rovit_kan_tpu_torch.training.optimizer import (
     FlatAdamW,
@@ -79,6 +101,19 @@ def use_fused_augment(model: nn.Module, config: Config) -> bool:
             and bool(config.flags.mixed_precision))
 
 
+def _data_parallel(mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """``mesh`` where it has more than one rank, else None."""
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
+def _reduce_metrics(mesh: Mesh, metrics: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """Each 0-dim metric summed over the ranks, in one collective."""
+    keys = list(metrics)
+    vec = mesh.all_reduce_(torch.stack([metrics[k].float() for k in keys]))
+    return dict(zip(keys, vec.unbind()))
+
+
 class TrainStep:
     """``step(batch, stage, backbone_live, use_mix, draws=None)`` ->
     metrics (0-dim tensors: the five losses and ``accuracy``).
@@ -87,12 +122,17 @@ class TrainStep:
     ``severity`` float, all on the model's device. ``draws``: ``factors``
     ``(B, 8)``, ``mix`` (``ops.mixing.draw_mix``'s dict or None) and
     ``dropout`` (a ``torch.Generator`` on the device, or None for the
-    step's own)."""
+    step's own).
+
+    With a ``mesh`` of N > 1 ranks, ``batch`` and ``draws`` are the global
+    batch's and the step is this rank's share of it (module docstring)."""
 
     def __init__(self, model: nn.Module, optimizer: FlatAdamW,
                  config: Config, focal_alpha=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 mesh: Optional[Mesh] = None):
         self.model = model
+        self.mesh = _data_parallel(mesh)
         self.optimizer = optimizer
         self.config = config
         dev = _device_of(model)
@@ -135,26 +175,43 @@ class TrainStep:
         if draws is None:
             draws = self.draw(B, H, W, use_mix)
         x = self.augment(images, draws["factors"])
-        labels = batch["labels"]
+        labels, severity = batch["labels"], batch["severity"]
         mix = draws["mix"] if use_mix else None
         x, la, lb, lam = cutmix_or_mixup(x, labels, mix)
+        generator = draws.get("dropout") or self.generator
+        mesh, count = self.mesh, None
+        if mesh is not None:
+            rows = mesh.rows(B)
+            x, labels, severity, la, lb = (
+                t[rows] for t in (x, labels, severity, la, lb))
+            generator = GlobalRows(generator, rows, B)
+            # Train batches have no padding: every global row counts.
+            count = torch.full((), float(B), device=x.device)
 
         model.train()
         opt.zero_grad()
-        out = model(x, generator=draws.get("dropout") or self.generator)
+        out = model(x, generator=generator)
         losses = joint_loss(
-            out, labels, batch["severity"], stage,
+            out, labels, severity, stage,
             lambda_ord=lc.lambda_ord, mu_unc=lc.mu_unc, nu_kan=lc.nu_kan,
             focal_gamma=lc.focal_gamma, focal_alpha=self.alpha,
             head_mask=model.head_mask,
-            mixup={"labels_a": la, "labels_b": lb, "lam": lam})
+            mixup={"labels_a": la, "labels_b": lb, "lam": lam}, count=count)
         losses["total_loss"].backward()
+        if mesh is not None:
+            mesh.all_reduce_(opt.grad)
         zero_backbone_grads(opt, float(backbone_live))
         opt.step()
 
         metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["accuracy"] = (out["cls_logits"].detach().argmax(-1)
-                               == labels).float().mean()
+        correct = (out["cls_logits"].detach().argmax(-1)
+                   == labels).float()
+        if mesh is None:
+            metrics["accuracy"] = correct.mean()
+        else:
+            metrics["accuracy"] = correct.sum()
+            metrics = _reduce_metrics(mesh, metrics)
+            metrics["accuracy"] = metrics["accuracy"] / count
         # Under gradient accumulation the parameters move only on the
         # applying call; the EMA freezes on the micro-steps in between.
         if self.ema is not None and opt.applied:
@@ -167,17 +224,20 @@ class TrainStep:
 
 def make_train_step(model: nn.Module, optimizer: FlatAdamW, config: Config,
                     focal_alpha=None,
-                    generator: Optional[torch.Generator] = None
-                    ) -> TrainStep:
+                    generator: Optional[torch.Generator] = None,
+                    mesh: Optional[Mesh] = None) -> TrainStep:
     """The train step (see ``TrainStep``)."""
-    return TrainStep(model, optimizer, config, focal_alpha, generator)
+    return TrainStep(model, optimizer, config, focal_alpha, generator, mesh)
 
 
-def make_eval_step(model: nn.Module, config: Config, focal_alpha=None):
+def make_eval_step(model: nn.Module, config: Config, focal_alpha=None,
+                   mesh: Optional[Mesh] = None):
     """``eval_step(batch) -> dict``: deterministic forward, the stage-4 loss
     over the rows ``batch["valid"]`` marks, and ``correct`` and ``n`` for
-    the accuracy."""
+    the accuracy. With a ``mesh`` of N > 1 ranks, ``batch`` is this rank's
+    rows and the results are the global batch's (all-reduced)."""
     lc = config.loss
+    mesh = _data_parallel(mesh)
     alpha = (None if focal_alpha is None else
              torch.as_tensor(np.asarray(focal_alpha, np.float32),
                              device=_device_of(model)))
@@ -187,15 +247,20 @@ def make_eval_step(model: nn.Module, config: Config, focal_alpha=None):
         model.eval()
         out = model(eval_batch(batch["images"]))
         valid = batch["valid"].float()
+        count = None if mesh is None else mesh.all_reduce_(valid.sum())
         losses = joint_loss(out, batch["labels"], batch["severity"], 4,
                             lambda_ord=lc.lambda_ord, mu_unc=lc.mu_unc,
                             nu_kan=lc.nu_kan, focal_gamma=lc.focal_gamma,
                             focal_alpha=alpha, head_mask=model.head_mask,
-                            valid=valid)
+                            valid=valid, count=count)
         correct = ((out["cls_logits"].argmax(-1) == batch["labels"]).float()
                    * valid).sum()
+        if mesh is not None:
+            losses = _reduce_metrics(mesh, {**losses, "correct": correct})
+            correct = losses.pop("correct")
         return {**losses, "correct": correct,
-                "n": torch.clamp(valid.sum(), min=1.0)}
+                "n": torch.clamp(valid.sum() if count is None else count,
+                                 min=1.0)}
 
     return eval_step
 
@@ -227,16 +292,22 @@ _EVAL_KEYS = ("total_loss", "cls_loss", "ord_loss", "unc_loss", "kan_loss")
 
 
 class Trainer:
-    """Epoch-driven fit loop over a model on its device (the JAX
-    ``Trainer`` without meshes). ``train_loader`` yields fixed-shape batches
-    (``data.dataset.Loader``'s numpy dicts, or a ``DeviceLoader``) and must
-    drop its last partial batch; ``val_loader`` may pad it and mark it in
-    ``valid``."""
+    """Epoch-driven fit loop over a model on its device. ``train_loader``
+    yields fixed-shape batches (``data.dataset.Loader``'s numpy dicts, or a
+    ``DeviceLoader``) and must drop its last partial batch; ``val_loader``
+    may pad it and mark it in ``valid``.
+
+    ``mesh``: the data mesh (``parallel.make_mesh``); every rank builds a
+    ``Trainer`` over the same loaders (a sharded ``DeviceLoader`` on this
+    same mesh) and calls the same methods in the same order. Its collectives
+    and the checkpoints' barriers pair up across the ranks."""
 
     def __init__(self, model: nn.Module, train_loader, val_loader,
                  config: Config, logger=None, focal_alpha=None,
-                 seed: int = 42):
+                 seed: int = 42, mesh: Optional[Mesh] = None):
         self.model = model
+        self.mesh = mesh
+        self._dp = _data_parallel(mesh)
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.config = config
@@ -244,11 +315,15 @@ class Trainer:
         self.focal_alpha = focal_alpha
         self.seed = seed
         self.device = _device_of(model)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the model is on {self.device}, the mesh's "
+                             f"rank on {mesh.device}")
         self.optimizer = build_optimizer(model, config)
         self.train_step = make_train_step(
             model, self.optimizer, config, focal_alpha,
-            generator=torch.Generator(self.device).manual_seed(seed))
-        self.eval_step = make_eval_step(model, config, focal_alpha)
+            generator=torch.Generator(self.device).manual_seed(seed),
+            mesh=mesh)
+        self.eval_step = make_eval_step(model, config, focal_alpha, mesh)
         self._use_mix = 1 if (config.flags.use_mixup
                               or config.flags.use_cutmix) else 0
         self.best_val_loss = float("inf")
@@ -298,6 +373,7 @@ class Trainer:
             else:
                 for k, v in self.model.state_dict().items():
                     v.copy_(params[k])
+        replicate(self.model, self._dp)      # rank 0's weights everywhere
         self.optimizer.reset()
         if self.train_step.ema is not None:
             self.train_step.ema = {k: v.detach().clone().float() for k, v in
@@ -326,13 +402,28 @@ class Trainer:
         return stage, lr, backbone_scale, backbone_live
 
     # -- epochs ------------------------------------------------------------
-    def _device_batches(self, loader, drop_valid: bool = True):
-        """Batches on the device, the next one's copy issued before the
-        current one is yielded."""
+    def _sharded(self, loader) -> bool:
+        """Whether ``loader`` is a sharded ``DeviceLoader``, which must be on
+        the trainer's mesh: its plans are split by that mesh's ranks."""
+        if not getattr(loader, "sharded", False):
+            return False
+        if loader.mesh is not self.mesh:
+            raise ValueError("sharded DeviceLoader and Trainer must share "
+                             "one mesh: pass the loader's mesh to "
+                             "Trainer(mesh=...)")
+        return True
+
+    def _device_batches(self, loader, drop_valid: bool = True,
+                        shard: bool = False):
+        """Batches on the device (with ``shard``, this rank's rows of
+        each), the next one's copy issued before the current one is
+        yielded."""
         pending = None
         for batch in loader:
             if drop_valid:
                 batch = {k: v for k, v in batch.items() if k != "valid"}
+            if shard:
+                batch = shard_batch(batch, self._dp)
             nxt = to_device(batch, self.device)
             if pending is not None:
                 yield pending
@@ -360,7 +451,15 @@ class Trainer:
         stage, lr, bb_scale, bb_live = self._epoch_knobs(epoch)
         set_hyperparams(self.optimizer, lr, bb_scale)
         loader = self.train_loader
-        if hasattr(loader, "epoch_index_plan"):
+        if self._sharded(loader):
+            # Each rank gathers its shard's rows of the stratified plan; the
+            # global batch is every rank's rows, in rank order.
+            plan = torch.from_numpy(
+                loader.epoch_index_plan()[:, self.mesh.rank]).to(self.device)
+            batches = (make_global_array(
+                {k: v for k, v in loader.gather(row).items()
+                 if k != "valid"}, self.mesh) for row in plan)
+        elif hasattr(loader, "epoch_index_plan"):
             # Device-resident set: the plan's rows gathered on the device.
             plan = torch.from_numpy(loader.epoch_index_plan()).to(self.device)
             batches = (loader.gather(row) for row in plan)
@@ -409,12 +508,21 @@ class Trainer:
     def _validate(self) -> Dict[str, float]:
         loader = self.val_loader
         if hasattr(loader, "eval_index_plan"):
+            # This rank's rows of each batch: its shard's column of a
+            # sharded plan, its slice of a global one.
             idx, valid = loader.eval_index_plan()
-            idx = torch.from_numpy(idx).to(self.device)
-            valid = torch.from_numpy(valid).to(self.device)
+            if self._sharded(loader):
+                idx, valid = idx[:, self.mesh.rank], valid[:, self.mesh.rank]
+            elif self._dp is not None:
+                rows = self._dp.rows(idx.shape[1])
+                idx, valid = idx[:, rows], valid[:, rows]
+            idx = torch.from_numpy(np.ascontiguousarray(idx)).to(self.device)
+            valid = torch.from_numpy(
+                np.ascontiguousarray(valid)).to(self.device)
             batches = (loader.gather(i, v) for i, v in zip(idx, valid))
         else:
-            batches = self._device_batches(loader, drop_valid=False)
+            batches = self._device_batches(loader, drop_valid=False,
+                                           shard=self._dp is not None)
         per_batch = [self.eval_step(b) for b in batches]
         if not per_batch:
             return {"accuracy": 0.0}
@@ -543,7 +651,10 @@ class Trainer:
                     self.epochs_without_improvement = 0
                     improved = True
                     best_state = state.copy()
-                    if time.time() - last_ckpt_t >= ckpt_interval:
+                    # Rank 0's clock decides for every rank: the save is
+                    # collective.
+                    if broadcast_one_to_all(
+                            time.time() - last_ckpt_t >= ckpt_interval):
                         # The write overlaps the next epochs; fit joins it
                         # before returning.
                         self.save_checkpoint(state, epoch, val_m,
@@ -559,7 +670,7 @@ class Trainer:
                         print(f"Early stopping at epoch {epoch}")
                         break
 
-                if self._preempt_requested and epoch < epochs:
+                if any_process(self._preempt_requested) and epoch < epochs:
                     # (A signal during the final epoch is completion.) Save
                     # the current state, so a resumed run continues where
                     # this one stopped, and any deferred best first.

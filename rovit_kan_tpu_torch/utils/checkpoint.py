@@ -24,6 +24,12 @@ committed checkpoint survives the whole write. ``block=False`` copies the
 tensors to the host and returns; a background thread writes, and
 ``wait_for_checkpoints`` (or the next save or load) joins it and finishes
 the swap. ``promote_staging`` adopts a committed stage left by a crash.
+
+Under a process group (``parallel.multihost``), as the JAX package does:
+every rank calls the same functions in the same order, rank 0 alone
+writes, stages, promotes and deletes, and every rank waits at a barrier
+before it acts on the directory. Rank 0's background writer is joined
+before that barrier.
 """
 from __future__ import annotations
 
@@ -36,6 +42,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from rovit_kan_tpu_torch.parallel.multihost import barrier, process_index
+
 _STAGE_SUFFIX = ".next"
 _TMP_SUFFIX = ".tmp"
 _FILE = "model.pt"
@@ -45,6 +53,11 @@ _PATCH_KEY = "backbone.model.patch_embed.proj.weight"
 _PENDING: Dict[str, Path] = {}
 # The background writer of a block=False save and the error it raised.
 _WRITER: Dict[str, Any] = {"thread": None, "error": None}
+
+
+def _writer() -> bool:
+    """Whether this process touches the checkpoint directory (rank 0)."""
+    return process_index() == 0
 
 
 def _stage_for(path: Path) -> Path:
@@ -110,10 +123,15 @@ def _join_writer() -> None:
 def _complete_pending() -> None:
     """Swap every committed staging directory into its final name. Call only
     after the writer has been joined."""
+    had_pending = bool(_PENDING)
     for final_s in list(_PENDING):
         stage = _PENDING.pop(final_s)
-        if is_finalized(stage):
+        if _writer() and is_finalized(stage):
             _swap_into_place(Path(final_s), stage)
+    if had_pending:
+        # No other rank reads (or stages over) the final names before rank
+        # 0's swaps have landed.
+        barrier()
 
 
 def wait_for_checkpoints() -> None:
@@ -146,14 +164,17 @@ def promote_staging(path) -> bool:
     path = Path(path).absolute()
     stage = _stage_for(path)
     stage_meta = _meta_for(stage)
-    if is_finalized(stage):
-        fe, se = _meta_epoch(path), _meta_epoch(stage)
-        final_newer = (is_finalized(path) and fe is not None
-                       and se is not None and fe > se)
-        if not final_newer:
-            _swap_into_place(path, stage)
-    elif stage_meta.exists() and not stage.exists() and is_finalized(path):
-        stage_meta.replace(_meta_for(path))
+    if _writer():
+        if is_finalized(stage):
+            fe, se = _meta_epoch(path), _meta_epoch(stage)
+            final_newer = (is_finalized(path) and fe is not None
+                           and se is not None and fe > se)
+            if not final_newer:
+                _swap_into_place(path, stage)
+        elif (stage_meta.exists() and not stage.exists()
+              and is_finalized(path)):
+            stage_meta.replace(_meta_for(path))
+    barrier()
     return is_finalized(path)
 
 
@@ -161,12 +182,14 @@ def discard_staging(path) -> None:
     """Delete ``path``, its ``<path>.next`` staging directory and both
     sidecars (whatever of them exists)."""
     path = Path(path).absolute()
-    for d in (path, _stage_for(path)):
-        if d.exists():
-            shutil.rmtree(d)
-        meta = _meta_for(d)
-        if meta.exists():
-            meta.unlink()
+    if _writer():
+        for d in (path, _stage_for(path)):
+            if d.exists():
+                shutil.rmtree(d)
+            meta = _meta_for(d)
+            if meta.exists():
+                meta.unlink()
+    barrier()
 
 
 def _to_jsonable(x):
@@ -224,10 +247,17 @@ def save_checkpoint(path, params: Dict[str, torch.Tensor],
     # must land under its final name before a newer one is staged.
     wait_for_checkpoints()
     stage = _stage_for(path)
+    _PENDING[str(path)] = stage
+    if not _writer():
+        barrier()                 # rank 0 cleans the stage
+        if block:
+            _complete_pending()
+        return
     if stage.exists():
         shutil.rmtree(stage)       # a torso, or a stage about to be replaced
     for torso in path.parent.glob("*" + _STAGE_SUFFIX + _TMP_SUFFIX):
         shutil.rmtree(torso, ignore_errors=True)
+    barrier()
     payload = {"model_state_dict": _to_reference(_to_host(params))}
     if opt_state is not None:
         payload["optimizer_state_dict"] = _to_host(opt_state)
@@ -239,7 +269,6 @@ def save_checkpoint(path, params: Dict[str, torch.Tensor],
     if config is not None:
         meta["config"] = (config.to_dict() if hasattr(config, "to_dict")
                           else _to_jsonable(config))
-    _PENDING[str(path)] = stage
     if block:
         _write(stage, payload, meta)
         _complete_pending()
@@ -291,8 +320,10 @@ def update_meta(path, **fields) -> Dict[str, Any]:
     path = Path(path).absolute()
     meta = {**load_meta(path), **{k: _to_jsonable(v)
                                   for k, v in fields.items()}}
-    meta_path = _meta_for(path)
-    tmp = meta_path.parent / (meta_path.name + ".tmp")
-    tmp.write_text(json.dumps(meta))
-    tmp.replace(meta_path)
+    if _writer():
+        meta_path = _meta_for(path)
+        tmp = meta_path.parent / (meta_path.name + ".tmp")
+        tmp.write_text(json.dumps(meta))
+        tmp.replace(meta_path)
+    barrier()
     return meta

@@ -465,7 +465,7 @@ def test_cli_config_matches_jax_script(flags):
     stmts = _between(_jax_main().body, "config = get_config()",
                      "root = args.data_root")
     env = _run_statements(stmts, {"args": argparse.Namespace(
-        **vars(args), devices=-1), "get_config": jax_get_config})
+        **vars(args)), "get_config": jax_get_config})
     config, epochs, max_samples = cli.build_config(args)
     assert config.to_dict() == env["config"].to_dict()
     assert (epochs, max_samples) == (env["epochs"], env["max_samples"])

@@ -240,10 +240,11 @@ exits non-zero:
    --dp-worker``, started by ``cli.spawn_workers``; gloo named
    explicitly: NCCL refuses two ranks on one device; every exit code
    checked). Three flagship bf16 steps at batch 64 global (CutMix/MixUp,
-   dropout), at stage 3 and at stage 4, on the ranks against the same
-   steps in one process, beside the fp32 model's steps (``hold_dp``): the
-   first step's loss within 1e-4 (relative), its all-reduced gradient per
-   leaf within 1e-3 of its largest magnitude at stage 3 (the leaves whose
+   dropout, the EMA on), at stage 3 and at stage 4, on the ranks against
+   the same steps in one process, beside the fp32 model's steps
+   (``hold_dp``): the first step's loss within 1e-4 (relative), its
+   all-reduced gradient per leaf within 1e-3 of its largest magnitude at
+   stage 3 (the leaves whose
    gradient the bf16 trunk sums in bf16 within two bf16 ulps) and within
    5e-2 of its L2 norm at stage 4; each later step's loss and whole
    gradient (L2), and at stage 3 each leaf's gradient, within twice the
@@ -260,16 +261,52 @@ exits non-zero:
    --nproc_per_node=1 ... --multihost`` (a world of 1, no process group)
    beside the single-card ``cli.train --devices 1``, one epoch each on a
    224-px JPEG tree: the same epoch CSV, bit for bit.
+21. fsdp: the same two ranks (one start of theirs serves phases 20-22)
+   take phase 20's steps (the EMA on in both) under ``parallel.fsdp.FSDP``
+   (the bf16 flagship, 56 of its 173 leaves sharded), held by
+   ``hold_dp``'s rules against the one-process steps and against the
+   "dp" ranks' steps of the same call (gaps on an "fsdp_readings" line);
+   12 #1, 12 #2, 1 #7 and no other launch a step on each rank, as under
+   data parallelism; each rank's parameter, moment and EMA bytes equal to
+   ``sharded_size`` and below the replicated figure, one unit gathered at
+   a time; each rank's peak memory under data parallelism and FSDP and
+   its step ms. The stage-4 steps again with
+   ``ROVIT_BLOCK_RESIDUAL_BWD=1``: 12 #3, 12 #4, 1 #7 a step, the first
+   loss the same bits. Then a two-epoch ``Trainer.fit(fsdp=True)`` over
+   the sharded cache (its launches, the ranks' histories equal) whose
+   ``best_model`` holds the ranks' gathered best weights bit for bit,
+   loads into a one-process ``Trainer`` (``resume``) with the same bits
+   and is served by ``load_engine`` (12 #1). Last, one bf16 step of the
+   base preset (d = 768, 86 M parameters, the plain block) at batch 8
+   under data parallelism and under FSDP: each rank's state bytes (FSDP's
+   must be fewer), peak memory and step ms.
+22. baselines_dp: the ranks' first ResNet-50 step of
+   ``BaselineExperiment`` at 224 px, batch 32 with 5 padded rows, from the
+   seed's weights, against the one-process step: loss and accuracy 1e-4,
+   the all-reduced gradient within twice the one-process step's own
+   distance from itself with the batch's rows reversed: in L2, and each
+   leaf (in units of its largest magnitude, floor 1% of the whole
+   gradient's) within twice the largest such leaf gap; the running
+   statistics 1e-4 (floor 1%);
+   then ``cli.run_baselines`` (``--multihost`` on the ranks' mesh) over
+   resnet50 and deit_tiny for one epoch beside the one-process sweep
+   (``--devices 1``) on the same tree: the ranks' weights and statistics
+   equal bit for bit, the running statistics within 5e-2 of the
+   one-process sweep's (floor 1%), the parameters within 4 x lr a step
+   (Adam's steps on BatchNorm's rounding-noise gradients), the CSV's
+   columns, and 12 #1 launches a deit_tiny FPS forward on rank 0 alone.
 
 ``chip_smoke.py --nccl`` (a host with two cards or more) builds the kernels
-and runs phase 20 alone over NCCL, rank r on cuda:r, on a "dp_nccl" line:
-the same steps, checks and fit, then ``cli.train --devices 2`` beside
-``cli.train --devices 1`` (both ranks on NCCL, one epoch CSV, its
-checkpoint served by ``load_engine``) in place of the world-1 run.
+and runs phases 20-22 alone over NCCL, rank r on cuda:r, on "dp_nccl",
+"fsdp_nccl" and "baselines_dp_nccl" lines: the same steps, checks and fit,
+then ``cli.train --devices 2`` beside ``cli.train --devices 1`` (both
+ranks on NCCL, one epoch CSV, its checkpoint served by ``load_engine``) in
+place of the world-1 run.
 
 The kernels line gives each kernel's launches on the export, serve CLI,
 bench, explain, explain_384, visualize, ablation, baselines, pretrained,
-moe and (each rank's) dp paths in its ``launches_by_path``. The line
+moe and (each rank's) dp, fsdp and baselines_dp paths in its
+``launches_by_path``. The line
 before the last is
 ``nvidia-smi``'s name and power limit; the last is ``{"ok": true,
 "device": {...}}``. Imports torch and the port only.
@@ -279,6 +316,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import gc
 import io
 import json
 import os
@@ -4849,32 +4887,76 @@ def dp_config(root):
     return cfg
 
 
-def dp_steps(mesh, stage: int, fp32: bool = False):
+def memory_base(dev) -> int:
+    """The bytes allocated on ``dev`` now, its peak counter reset, so that
+    ``max_memory_allocated(dev)`` less this is what follows takes."""
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def state_bytes(net, opt, ema) -> dict:
+    """A rank's training state: parameters, AdamW moments, EMA."""
+    def size(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+    return {"params": size(net.state_dict().values()),
+            "mu": size([opt.mu]), "nu": size([opt.nu]),
+            "ema": size(ema.values()) if ema else 0}
+
+
+def dp_steps(mesh, stage: int, fp32: bool = False, fsdp: bool = False):
     """``DP_STEPS`` flagship steps at ``stage`` with mixing on, bf16 (or
     the fp32 model with ``fp32``), from the seed-0 weights on the global
     batches ``train_batch(cfg, 300 + i)``: each step's loss, accuracy and
     (all-reduced) flat gradient, the flat parameters after the last, the
-    launches and the steps' wall ms."""
+    launches, the steps' wall ms and the card's peak memory above what was
+    allocated before, the EMA on. With ``fsdp`` the steps run under
+    ``parallel.fsdp.FSDP``: the gradients and parameters are gathered
+    whole in the one-process layout on rank 0 (None on the other ranks),
+    and each rank's state bytes sit beside ``sharded_size`` and the
+    replicated figure."""
     from rovit_kan_tpu_torch.config import Config
     from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.parallel.fsdp import (
+        FSDP,
+        fsdp_param_specs,
+        sharded_size,
+    )
     from rovit_kan_tpu_torch.parallel.mesh import replicate
     from rovit_kan_tpu_torch.training.optimizer import build_optimizer
     from rovit_kan_tpu_torch.training.trainer import make_train_step
     cfg = Config()
     cfg.flags.mixed_precision = not fp32
+    cfg.train.ema_decay = 0.999      # the EMA's bytes in both memories
     dev = "cuda" if mesh is None else mesh.device
+    base = memory_base(dev)
     model = build_model(cfg, device=dev, seed=0)
     replicate(model, mesh)           # rank 0's weights, as Trainer does
-    opt = build_optimizer(model, cfg)
-    step = make_train_step(model, opt, cfg,
+    out = {"loss": [], "accuracy": [], "grads": [], "ms": []}
+    if fsdp:
+        specs = fsdp_param_specs(model, mesh)
+        out["sharded_size"] = sharded_size(model, specs, mesh)
+        out["replicated_bytes"] = sharded_size(model, {}, mesh)
+        out["sharded_leaves"] = sum(d is not None for d in specs.values())
+        net = FSDP(model, mesh, specs)
+    else:
+        net = model
+    opt = build_optimizer(net, cfg)
+    step = make_train_step(net, opt, cfg,
                            generator=torch.Generator(dev).manual_seed(0),
                            mesh=mesh)
+
+    def whole(flat):
+        return (net.gather_flat(flat) if fsdp
+                else flat.detach().cpu().clone())
+
     batches = [{k: v.to(dev) for k, v in train_batch(cfg, 300 + i).items()}
                for i in range(DP_STEPS)]
     reset, read = all_counters()
     torch.cuda.synchronize()
     reset()
-    out = {"loss": [], "accuracy": [], "grads": [], "ms": []}
     for b in batches:
         t0 = time.perf_counter()
         m = step(b, stage, 1.0, 1)
@@ -4882,10 +4964,17 @@ def dp_steps(mesh, stage: int, fp32: bool = False):
         torch.cuda.synchronize()
         out["ms"].append(1e3 * (time.perf_counter() - t0))
         out["accuracy"].append(float(m["accuracy"]))
-        out["grads"].append(opt.grad.detach().cpu().clone())
+        out["grads"].append(whole(opt.grad))
     out["launches"] = read()
-    out["params"] = opt.flat.detach().cpu().clone()
-    out["names"], out["sizes"] = list(opt.names), list(opt._sizes)
+    out["params"] = whole(opt.flat)
+    if fsdp:
+        out["names"] = net.full_order()
+        out["sizes"] = [int(np.prod(net.shapes[k])) for k in out["names"]]
+        out["state_bytes"] = state_bytes(net, opt, step.ema)
+        out["peak_live_units"] = net.peak_live
+    else:
+        out["names"], out["sizes"] = list(opt.names), list(opt._sizes)
+    out["peak_mib"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
     return out
 
 
@@ -4948,6 +5037,193 @@ def dp_fit(mesh, root):
             "temperature": temperature, "params": params, "served": probs}
 
 
+def fsdp_fit(mesh, root):
+    """``dp_fit``'s two-epoch fit under FSDP (``Trainer(fsdp=True)``): its
+    launches, its history, the best state's parameters whole on rank 0
+    (None on the others) and its ``best_model``."""
+    from rovit_kan_tpu_torch.data.dataset import Subset
+    from rovit_kan_tpu_torch.data.device_cache import DeviceLoader
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.training.trainer import Trainer
+    cfg = dp_config(Path(root) / "fsdp")
+    leaves = LeafSet(DP_PER_CLASS, 224, seed=20)
+    order = np.random.RandomState(20).permutation(len(leaves))
+    train = DeviceLoader(Subset(leaves, order[:128]), BATCH, shuffle=True,
+                         drop_last=True, seed=0, mesh=mesh, shard_data=True)
+    val = DeviceLoader(Subset(leaves, order[128:]), BATCH, mesh=mesh,
+                       shard_data=True)
+    tr = Trainer(build_model(cfg, device=mesh.device, seed=1), train, val,
+                 cfg, seed=0, mesh=mesh, fsdp=True)
+    if tr.fsdp is None:
+        raise RuntimeError("fsdp fit: the trainer did not shard")
+    reset, read = all_counters()
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    res = tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read()
+    epochs = len(res["history"]["train"])
+    steps, vals = epochs * len(train), epochs * len(val)
+    only(launches, vit_block_fwd=12 * (steps + vals),
+         vit_block_bwd=12 * steps, augment=steps)
+    best = tr.fsdp.gather_full(tr.eval_params(res["best_state"]))
+    return {"history": {p: [{k: m[k] for k in ("total_loss", "accuracy")}
+                            for m in res["history"][p]]
+                        for p in ("train", "val")},
+            "fit_seconds": fit_s, "launches": launches, "steps": steps,
+            "val_batches": vals, "best_params": best,
+            "best_model": str(cfg.paths.checkpoints_dir / "best_model")}
+
+
+FSDP_BASE_BATCH = 8       # the base preset's one step under DP and FSDP
+
+
+def base_memory(mesh, fsdp: bool) -> dict:
+    """One bf16 stage-4 step of the base preset (d = 768, 12 blocks, the
+    plain block: F3) at global batch ``FSDP_BASE_BATCH``, under data
+    parallelism or FSDP: the step's ms, each rank's state bytes and the
+    card's peak memory above what was allocated before."""
+    from rovit_kan_tpu_torch.config import get_config
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.parallel.fsdp import FSDP
+    from rovit_kan_tpu_torch.parallel.mesh import replicate
+    from rovit_kan_tpu_torch.training.optimizer import build_optimizer
+    from rovit_kan_tpu_torch.training.trainer import make_train_step
+    cfg = get_config("base")
+    dev = mesh.device
+    base = memory_base(dev)
+    model = build_model(cfg, device=dev, seed=0)
+    if any(b.use_fused_block for b in model.backbone.model.blocks):
+        raise RuntimeError("base preset: the fused block at d = 768")
+    replicate(model, mesh)
+    n_params = sum(p.numel() for p in model.parameters())
+    net = FSDP(model, mesh) if fsdp else model
+    opt = build_optimizer(net, cfg)
+    step = make_train_step(net, opt, cfg,
+                           generator=torch.Generator(dev).manual_seed(0),
+                           mesh=mesh)
+    batch = {k: v.to(dev) for k, v in
+             train_batch(cfg, 400, FSDP_BASE_BATCH).items()}
+    reset, read = all_counters()
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    loss = float(step(batch, 4, 1.0, 1)["total_loss"])
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    only(read(), augment=1)
+    if not np.isfinite(loss):
+        raise RuntimeError(f"base preset step: loss {loss}")
+    return {"params": n_params, "loss": loss, "step_ms": ms,
+            "state_bytes": state_bytes(net, opt, step.ema),
+            "peak_mib": (torch.cuda.max_memory_allocated(dev) - base)
+            / 2**20}
+
+
+BASELINE_DP_MODELS = ("resnet50", "deit_tiny")
+
+
+def baselines_first_step(mesh, reverse: bool = False) -> dict:
+    """One ResNet-50 train step of ``BaselineExperiment`` at 224 px, batch
+    ``BASELINE_BATCH`` with its last 5 rows padded, from the seed's weights
+    on ``mesh`` (None: one process): the loss and accuracy, the gradient
+    (all-reduced) and the running statistics after it, on the host. With
+    ``reverse`` the batch's rows (and their draws) come in reverse order:
+    the same step in another summation order."""
+    from rovit_kan_tpu_torch.config import get_config
+    from rovit_kan_tpu_torch.experiments.baselines import BaselineExperiment
+    from rovit_kan_tpu_torch.ops.augment_kernel import draw_factors
+    cfg = get_config()
+    cfg.data.image_size = BASELINE_SIZE
+    exp = BaselineExperiment(cfg, None, None, None, "unused",
+                             device="cuda", run_fps=False, mesh=mesh)
+    model = exp.build_model("resnet50")
+    step, _, _ = exp._make_steps(model)
+    dev = exp.device
+    rng = np.random.RandomState(23)
+    valid = np.ones(BASELINE_BATCH, np.float32)
+    valid[-5:] = 0.0
+    batch = {"images": torch.from_numpy(uint8_batch(23, BASELINE_BATCH,
+                                                    BASELINE_SIZE)).to(dev),
+             "labels": torch.from_numpy(rng.randint(0, 4, BASELINE_BATCH))
+             .to(dev), "valid": torch.from_numpy(valid).to(dev)}
+    factors = draw_factors(torch.Generator(dev).manual_seed(5),
+                           BASELINE_BATCH)
+    if reverse:
+        batch = {k: v.flip(0) for k, v in batch.items()}
+        factors = factors.flip(0)
+    m = step(batch, draws={"factors": factors, "dropout": None})
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "grads": {k: p.grad.detach().cpu().clone()
+                      for k, p in model.named_parameters()},
+            "stats": {k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))}}
+
+
+def baselines_sweep(root: Path, name: str, extra: list, mesh=None) -> dict:
+    """``cli.run_baselines`` over ``BASELINE_DP_MODELS`` for one epoch on
+    the tree under ``root`` into ``root / name`` (``extra`` appended to its
+    argv; with ``mesh``, the worker's mesh stands for the one the CLI's
+    ``--multihost`` makes): each model's state after training, its
+    launches, train steps and metrics, the sweep's seconds."""
+    from rovit_kan_tpu_torch.cli import run_baselines as cli_baselines
+    from rovit_kan_tpu_torch.experiments.baselines import BaselineExperiment
+    from rovit_kan_tpu_torch.parallel import mesh as pmesh
+    reset, read = all_counters()
+    models, launches, steps = {}, {}, {}
+    real_build = BaselineExperiment.build_model
+    real_single = BaselineExperiment.run_single
+    real_mesh = pmesh.make_mesh
+
+    def build(self, n):
+        models[n] = real_build(self, n)
+        steps[n] = len(self.train_loader) * self.epochs
+        return models[n]
+
+    def single(self, n):
+        torch.cuda.synchronize()
+        before = read()
+        result = real_single(self, n)
+        torch.cuda.synchronize()
+        after = read()
+        launches[n] = {k: after[k] - before[k] for k in after}
+        return result
+
+    argv = ["--data-root", root / "baselines_dp_data", "--output-dir",
+            root / name, "--models", *BASELINE_DP_MODELS, "--image-size",
+            BASELINE_SIZE, "--batch-size", BASELINE_BATCH, "--epochs", 1,
+            "--n-per-class", BASELINE_PER_CLASS, *extra]
+    BaselineExperiment.build_model = build
+    BaselineExperiment.run_single = single
+    if mesh is not None:
+        pmesh.make_mesh = lambda *a, **k: mesh
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    try:
+        exp = cli_baselines.main([str(a) for a in argv])
+    finally:
+        BaselineExperiment.build_model = real_build
+        BaselineExperiment.run_single = real_single
+        pmesh.make_mesh = real_mesh
+    torch.cuda.synchronize()
+    missing = [n for n in BASELINE_DP_MODELS if n not in exp.results]
+    if missing:
+        raise RuntimeError(f"baselines sweep {name}: {missing} failed")
+    return {"state": {n: {k: v.detach().cpu().clone()
+                          for k, v in m.state_dict().items()}
+                      for n, m in models.items()},
+            "launches": launches, "steps": steps,
+            "seconds": time.perf_counter() - t0,
+            "lr": exp.config.train.learning_rate,
+            "results": {n: {k: exp.results[n].get(k)
+                            for k in BASELINE_METRICS + ("fps",)}
+                        for n in BASELINE_DP_MODELS}}
+
+
 def dp_worker(root: str, backend: str) -> int:
     """One rank of the "dp" phase (started by ``dp_phase`` with torchrun's
     variables). ``gloo``: every rank on cuda:0, the backend named, since
@@ -4962,6 +5238,17 @@ def dp_worker(root: str, backend: str) -> int:
         raise RuntimeError(f"dp rank {mesh.rank}: {mesh}, want {backend}")
     out = {"steps": {s: dp_steps(mesh, s) for s in DP_STAGES},
            "fit": dp_fit(mesh, Path(root)), "mesh": repr(mesh)}
+    out["fsdp"] = {"steps": {s: dp_steps(mesh, s, fsdp=True)
+                             for s in DP_STAGES},
+                   "fit": fsdp_fit(mesh, Path(root)),
+                   "base": {mode: base_memory(mesh, mode == "fsdp")
+                            for mode in ("dp", "fsdp")}}
+    with residual_opt_in(True):
+        out["fsdp"]["residual"] = dp_steps(mesh, DP_STAGES[-1], fsdp=True)
+    out["baselines"] = {
+        "first_step": baselines_first_step(mesh),
+        "sweep": baselines_sweep(Path(root), "baselines_dp",
+                                 ["--multihost"], mesh)}
     torch.save(out, Path(root) / f"rank{mesh.rank}.pt")
     return 0
 
@@ -5053,7 +5340,7 @@ DP_BF16_GRAD_LEAVES = ("backbone.model.patch_embed.",
                        "backbone.model.pos_embed", "backbone.model.cls_token")
 
 
-def hold_dp(gaps, ranks) -> None:
+def hold_dp(gaps, ranks, what: str = "dp") -> None:
     """Raise unless the ranks' steps agree with the one-process steps.
 
     The first step (the same weights on both sides): at stages 3 and 4 the
@@ -5080,35 +5367,37 @@ def hold_dp(gaps, ranks) -> None:
     (the fp32 model's too), so a leaf's largest gap is noise.
 
     The ranks' parameters must be equal bit for bit after every stage's
-    steps."""
+    steps (``ranks``; None under FSDP, where each rank holds its shards).
+    ``what`` names the run in the errors."""
     for stage, g in gaps.items():
         if g["loss_rel"][0] > 1e-4:
-            raise RuntimeError(f"dp stage {stage}: first loss "
+            raise RuntimeError(f"{what} stage {stage}: first loss "
                                f"{g['loss_rel'][0]:.2e} off the "
                                f"one-process step's")
         for i in range(1, DP_STEPS):
             limit = 2 * max(g["fp32_loss_rel"][i], 1e-4)
             if g["loss_rel"][i] > limit:
-                raise RuntimeError(f"dp stage {stage} step {i + 1}: loss "
+                raise RuntimeError(f"{what} stage {stage} step {i + 1}: loss "
                                    f"{g['loss_rel'][i]:.2e} off, limit "
                                    f"{limit:.2e}")
             leaves = max(g["grad"][i]["worst_of_limit"].values())
             if (stage == 3 and leaves > 1.0) or (
                     g["grad_norm_rel"][i] > 2 * g["fp32_grad_norm_rel"][i]):
-                raise RuntimeError(f"dp stage {stage} step {i + 1} "
+                raise RuntimeError(f"{what} stage {stage} step {i + 1} "
                                    f"gradient: {g['grad'][i]}, whole "
                                    f"{g['grad_norm_rel'][i]:.2e} (fp32 "
                                    f"{g['fp32_grad_norm_rel'][i]:.2e})")
-        if not torch.equal(ranks[0]["steps"][stage]["params"],
-                           ranks[1]["steps"][stage]["params"]):
-            raise RuntimeError(f"dp stage {stage}: the ranks' parameters "
+        if ranks is not None and not torch.equal(
+                ranks[0]["steps"][stage]["params"],
+                ranks[1]["steps"][stage]["params"]):
+            raise RuntimeError(f"{what} stage {stage}: the ranks' parameters "
                                f"differ")
     first3, first4 = gaps[3]["grad"][0], gaps[4]["grad"][0]
     if max(first3["worst_of_max"].values()) > 1e-3 or max(
             first3["bf16_leaves_of_two_ulps"].values()) > 1.0:
-        raise RuntimeError(f"dp stage 3 gradient: {first3}")
+        raise RuntimeError(f"{what} stage 3 gradient: {first3}")
     if first4["max_of_norm"] > 5e-2:
-        raise RuntimeError(f"dp stage 4 gradient: {first4}")
+        raise RuntimeError(f"{what} stage 4 gradient: {first4}")
 
 
 DP_CLI_PER_CLASS = 24     # 96 images: 77 train (1 step), 19 validation
@@ -5214,14 +5503,237 @@ def nccl_cli_run(root: Path) -> dict:
             "epoch_csv": {k: v[1:] for k, v in csvs.items()}}
 
 
+def of_max(got: dict, want: dict, floor: float = 0.0) -> dict:
+    """Each tensor's largest gap from ``want``'s in units of its largest
+    magnitude there, or of ``floor`` of the largest magnitude over all of
+    ``want`` where that is more (rounding-noise leaves: see
+    ``tests/test_torch_baselines_dp.py::GRAD_FLOOR``)."""
+    whole = max(float(v.abs().max()) for v in want.values() if v.numel())
+    return {k: float((got[k].float() - v.float()).abs().max()) / max(
+        float(v.abs().max()), floor * whole, 1e-30)
+        for k, v in want.items() if v.numel()}
+
+
+def worst(ratios: dict, n: int = 3) -> dict:
+    return dict(sorted(ratios.items(), key=lambda kv: -kv[1])[:n])
+
+
+def fsdp_line(smi, root, backend, single, exact, ranks) -> dict:
+    """The "fsdp" phase from the ranks' FSDP runs (module docstring, phase
+    21): the steps held as ``hold_dp`` holds the "dp" steps, against the
+    one-process steps and against the "dp" ranks' of the same call; the
+    launches, state bytes and gathered-unit count of each rank; the fit's
+    checkpoint loaded by a one-process ``Trainer`` and served; the base
+    preset's memory under both."""
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.serving import load_engine
+    from rovit_kan_tpu_torch.training.trainer import Trainer
+    from rovit_kan_tpu_torch.utils.checkpoint import load_checkpoint
+    fs = [r["fsdp"] for r in ranks]
+    mine = {s: [fs[0]["steps"][s]] for s in DP_STAGES}
+    gaps = {s: dp_gaps(single[s], exact[s], mine[s]) for s in DP_STAGES}
+    vs_dp = {s: dp_gaps(ranks[0]["steps"][s], exact[s], mine[s])
+             for s in DP_STAGES}
+    emit({"phase": "fsdp_readings", "backend": backend, "gaps": gaps,
+          "gaps_vs_dp": vs_dp, "card": smi})
+    hold_dp(gaps, None, "fsdp")
+    hold_dp(vs_dp, None, "fsdp against dp")
+    for f in fs:
+        for s in DP_STAGES:
+            st = f["steps"][s]
+            only(st["launches"], vit_block_fwd=12 * DP_STEPS,
+                 vit_block_bwd=12 * DP_STEPS, augment=DP_STEPS)
+            want = st["sharded_size"]
+            if st["state_bytes"] != dict.fromkeys(("params", "mu", "nu",
+                                                   "ema"), want) \
+                    or st["peak_live_units"] != 1 or want >= \
+                    st["replicated_bytes"]:
+                raise RuntimeError(f"fsdp state: {st['state_bytes']}, "
+                                   f"sharded_size {want}, "
+                                   f"{st['peak_live_units']} units")
+    for f in fs:
+        # The saved-residual pair (#3, #4) in #1's and #2's place; #3's
+        # output has #1's bits, so the first loss is the same.
+        res = f["residual"]
+        only(res["launches"], vit_block_res_fwd=12 * DP_STEPS,
+             vit_block_bwd_res=12 * DP_STEPS, augment=DP_STEPS)
+        if res["loss"][0] != f["steps"][DP_STAGES[-1]]["loss"][0] or \
+                not np.isfinite(res["loss"]).all():
+            raise RuntimeError(f"fsdp residual steps: {res['loss']}")
+    fits = [f["fit"] for f in fs]
+    if fits[0]["history"] != fits[1]["history"]:
+        raise RuntimeError(f"fsdp fit: the ranks' histories differ: "
+                           f"{[f['history'] for f in fits]}")
+    for part in ("train", "val"):
+        for m in fits[0]["history"][part]:
+            if not np.isfinite(m["total_loss"]):
+                raise RuntimeError(f"fsdp fit: non-finite {part} {m}")
+    best = Path(fits[0]["best_model"])
+    ck = load_checkpoint(best)
+    cfg = dp_config(root / "fsdp")
+    tr = Trainer(build_model(cfg, device="cuda", seed=1), None, None, cfg,
+                 seed=0)
+    tr.resume("best_model")
+    loaded = tr.model.state_dict()
+    for k, v in fits[0]["best_params"].items():
+        if not (torch.equal(ck["params"][k], v)
+                and torch.equal(loaded[k].cpu(), v)):
+            raise RuntimeError(f"fsdp checkpoint: {k} is not the ranks' "
+                               f"gathered best weights")
+    reset, read = all_counters()
+    engine = load_engine(best, device="cuda")
+    torch.cuda.synchronize()
+    reset()
+    probs = engine.predict(uint8_batch(24, BATCH))["cls_probs"]
+    only(read(), vit_block_fwd=12)
+    if not np.isfinite(probs).all() or probs.shape != (BATCH, 4):
+        raise RuntimeError(f"fsdp checkpoint serves {probs}")
+    base = {r: f["base"] for r, f in enumerate(fs)}
+    for b in base.values():
+        dp_b, fsdp_b = (sum(b[m]["state_bytes"].values())
+                        for m in ("dp", "fsdp"))
+        if fsdp_b >= dp_b:
+            raise RuntimeError(f"fsdp base preset: {b}")
+    last = DP_STAGES[-1]
+    st = {r: f["steps"][last] for r, f in enumerate(fs)}
+    launches = {f"rank{r}": {k: f["fit"]["launches"][k]
+                             + f["residual"]["launches"][k] + sum(
+        f["steps"][s]["launches"][k] for s in DP_STAGES)
+        for k in f["fit"]["launches"]} for r, f in enumerate(fs)}
+    return {"phase": "fsdp" if backend == "gloo" else "fsdp_nccl",
+            "ranks": DP_RANKS, "batch_size": BATCH, "steps": DP_STEPS,
+            "sharded_leaves": st[0]["sharded_leaves"],
+            "state_bytes": {f"rank{r}": x["state_bytes"]
+                            for r, x in st.items()},
+            "sharded_size": st[0]["sharded_size"],
+            "replicated_bytes": st[0]["replicated_bytes"],
+            "peak_mib": {f"rank{r}": {"dp": ranks[r]["steps"][last][
+                "peak_mib"], "fsdp": x["peak_mib"]} for r, x in st.items()},
+            "single_peak_mib": single[last]["peak_mib"],
+            "rank_step_ms": {f"rank{r}": {"dp": ranks[r]["steps"][last][
+                "ms"], "fsdp": x["ms"]} for r, x in st.items()},
+            "losses": {"single": single[last]["loss"],
+                       "dp_rank0": ranks[0]["steps"][last]["loss"],
+                       "fsdp_rank0": st[0]["loss"]},
+            "fit": {k: fits[0][k] for k in ("history", "fit_seconds",
+                                            "steps", "val_batches")},
+            "base_preset": {f"rank{r}": b for r, b in base.items()},
+            "base_batch": FSDP_BASE_BATCH, "launches": launches,
+            "card": smi}
+
+
+def baselines_dp_line(smi, root, backend, one, ranks) -> dict:
+    """The "baselines_dp" phase (module docstring, phase 22): the ranks'
+    first ResNet-50 step and ``cli.run_baselines`` sweep against the
+    one-process ones of the same call."""
+    b = [r["baselines"] for r in ranks]
+    sweeps = [x["sweep"] for x in b]
+    for n in BASELINE_DP_MODELS:
+        for k, v in sweeps[0]["state"][n].items():
+            if not torch.equal(v, sweeps[1]["state"][n][k]):
+                raise RuntimeError(f"baselines dp: the ranks' {n} {k} "
+                                   f"differ")
+    first, want = b[0]["first_step"], one["first_step"]
+    rev = one["first_step_reversed"]
+    stats_floor = 1e-2
+    # The yardstick: the one-process step's own distance from itself with
+    # the rows reversed. BatchNorm's backward cancels, so another summation
+    # order moves a deep leaf by up to ~1e-2 of its largest magnitude, and
+    # which leaf moves most is itself noise: each leaf is held against the
+    # largest such move over the leaves, the whole gradient in L2.
+    own = of_max(rev["grads"], want["grads"], 1e-2)
+    ranks_gap = of_max(first["grads"], want["grads"], 1e-2)
+    noise = max(max(own.values()), 1e-4)
+    def flat(grads):
+        return torch.cat([grads[k].reshape(-1) for k in want["grads"]])
+
+    ref = flat(want["grads"])
+    whole = {name: float((flat(g) - ref).norm() / ref.norm())
+             for name, g in (("ranks", first["grads"]),
+                             ("reversed", rev["grads"]))}
+    first_gaps = {
+        "metrics": {k: abs(first["metrics"][k] - want["metrics"][k])
+                    for k in want["metrics"]},
+        "grads_of_max": worst(ranks_gap), "reversed_of_max": worst(own),
+        "grad_l2_rel": whole,
+        "stats": worst(of_max(first["stats"], want["stats"], stats_floor))}
+    if max(first_gaps["metrics"].values()) > 1e-4 or max(
+            ranks_gap.values()) > 2 * noise or whole["ranks"] > 2 * max(
+            whole["reversed"], 1e-6) or max(
+            first_gaps["stats"].values()) > 1e-4:
+        raise RuntimeError(f"baselines dp first step: {first_gaps}")
+    one_sweep = one["sweep"]
+    sweep_gaps = {}
+    for n in BASELINE_DP_MODELS:
+        got, ref = sweeps[0]["state"][n], one_sweep["state"][n]
+        steps = one_sweep["steps"][n]
+        if sweeps[0]["steps"][n] != steps:
+            raise RuntimeError(f"baselines dp {n}: {sweeps[0]['steps'][n]} "
+                               f"steps, one process {steps}")
+        stats = {k: v for k, v in ref.items()
+                 if k.endswith(("running_mean", "running_var"))}
+        params = {k: v for k, v in ref.items() if k not in stats
+                  and not k.endswith("num_batches_tracked")}
+        # Adam moves an element by about lr a step whatever its gradient,
+        # so two runs whose gradients differ by rounding part by up to a
+        # few lr a step on the elements BatchNorm makes rounding noise, and
+        # their batch moments with them: the sweep is held loosely, the
+        # first step holds the arithmetic.
+        lr_units = max(float((got[k] - v).abs().max()) for k, v in
+                       params.items()) / (one_sweep["lr"] * steps)
+        sweep_gaps[n] = {"params_lr_steps": lr_units}
+        if stats:
+            sweep_gaps[n]["stats"] = worst(of_max(
+                {k: got[k] for k in stats}, stats, stats_floor))
+        if lr_units > 4.0 or (stats and max(
+                sweep_gaps[n]["stats"].values()) > 5e-2):
+            raise RuntimeError(f"baselines dp {n}: {sweep_gaps[n]}")
+    fps_launch = {"vit_block_fwd": 12 * FPS_FORWARDS}
+    for r, sw in enumerate(sweeps + [one_sweep]):
+        for n in BASELINE_DP_MODELS:
+            only(sw["launches"][n], **(fps_launch if n == "deit_tiny"
+                                       and r != 1 else {}))
+    csvs = {k: (root / k / "baseline_comparison.csv").read_text()
+            .splitlines() for k in ("baselines_dp", "baselines_one")}
+    if csvs["baselines_dp"][0] != csvs["baselines_one"][0] or sorted(
+            r.split(",")[0] for r in csvs["baselines_dp"][1:]) != sorted(
+            BASELINE_DP_MODELS):
+        raise RuntimeError(f"baselines dp CSV: {csvs}")
+    return {"phase": "baselines_dp" if backend == "gloo"
+            else "baselines_dp_nccl",
+            "ranks": DP_RANKS, "models": list(BASELINE_DP_MODELS),
+            "first_step_gaps": first_gaps, "sweep_gaps": sweep_gaps,
+            "sweep_seconds": {"rank0": sweeps[0]["seconds"],
+                              "rank1": sweeps[1]["seconds"],
+                              "one_process": one_sweep["seconds"]},
+            "results": {"ranks": sweeps[0]["results"],
+                        "one_process": one_sweep["results"]},
+            "launches": {f"rank{r}": {k: sum(sw["launches"][n][k]
+                                             for n in BASELINE_DP_MODELS)
+                                      for k in sw["launches"]["deit_tiny"]}
+                         for r, sw in enumerate(sweeps)},
+            "csv_header": csvs["baselines_dp"][0], "card": smi}
+
+
 def dp_phase(smi: str, root: Path, backend: str = "gloo"):
     """Data parallelism (module docstring, phase 20): two ranks on cuda:0
-    through gloo, or with ``nccl`` on cuda:0 and cuda:1 (``--nccl``)."""
+    through gloo, or with ``nccl`` on cuda:0 and cuda:1 (``--nccl``); the
+    same ranks run the "fsdp" and "baselines_dp" phases (21, 22). Returns
+    the three phases' lines."""
     root.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     single = {s: dp_steps(None, s) for s in DP_STAGES}
     exact = {s: dp_steps(None, s, fp32=True) for s in DP_STAGES}
+    # The baselines' one-process runs first: the sweep writes the tree the
+    # ranks read.
+    one_baselines = {
+        "first_step": baselines_first_step(None),
+        "first_step_reversed": baselines_first_step(None, reverse=True),
+        "sweep": baselines_sweep(root, "baselines_one",
+                                 ["--synthetic", "--devices", "1"])}
     ranks = run_ranks(root, DP_RANKS, backend)
+    fsdped = fsdp_line(smi, root, backend, single, exact, ranks)
+    baselined = baselines_dp_line(smi, root, backend, one_baselines, ranks)
     gaps = {s: dp_gaps(single[s], exact[s], [r["steps"][s] for r in ranks])
             for s in DP_STAGES}
     emit({"phase": "dp_readings", "backend": backend, "gaps": gaps,
@@ -5249,7 +5761,7 @@ def dp_phase(smi: str, root: Path, backend: str = "gloo"):
     launches = {f"rank{r}": {k: fits[r]["launches"][k] + sum(
         ranks[r]["steps"][s]["launches"][k] for s in DP_STAGES)
         for k in fits[r]["launches"]} for r in range(DP_RANKS)}
-    return {"phase": "dp" if backend == "gloo" else "dp_nccl",
+    dped = {"phase": "dp" if backend == "gloo" else "dp_nccl",
             "ranks": DP_RANKS, "meshes": [r["mesh"] for r in ranks],
             "batch_size": BATCH, "steps": DP_STEPS,
             "single_step_ms": single["ms"],
@@ -5270,6 +5782,7 @@ def dp_phase(smi: str, root: Path, backend: str = "gloo"):
                                             "temperature")},
             "launches": launches, "cli": cli,
             "seconds": time.perf_counter() - t0, "card": smi}
+    return dped, fsdped, baselined
 
 
 def main() -> int:
@@ -5360,8 +5873,10 @@ def main() -> int:
         moed = moe_phase(smi, root)
         emit(moed)
         emit(native_phase(smi, root))
-        dped = dp_phase(smi, root / "dp")
+        dped, fsdped, bdped = dp_phase(smi, root / "dp")
         emit(dped)
+        emit(fsdped)
+        emit(bdped)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     benched = bench_phase(smi)
@@ -5531,8 +6046,10 @@ def main() -> int:
                  "baselines": baselined["launches"],
                  "pretrained": pretrained["launches"],
                  "moe": moed["launches"],
-                 **{f"dp_{r}": counts
-                    for r, counts in dped["launches"].items()}}
+                 **{f"{name}_{r}": counts
+                    for name, line in (("dp", dped), ("fsdp", fsdped),
+                                       ("baselines_dp", bdped))
+                    for r, counts in line["launches"].items()}}
     for e in kernels:
         e.setdefault("launches_by_path", {}).update(
             {path: counts[e["name"]] for path, counts in new_paths.items()})
@@ -5563,7 +6080,8 @@ def main_nccl() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_nccl_"))
     try:
-        emit(dp_phase(smi, root / "dp", backend="nccl"))
+        for line in dp_phase(smi, root / "dp", backend="nccl"):
+            emit(line)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(smi, flush=True)

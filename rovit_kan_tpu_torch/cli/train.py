@@ -7,7 +7,7 @@
         [--checkpoint_min_interval S] [--preset tiny|small|base] \
         [--profile_dir DIR] [--matmul_precision P] [--pretrained_npz NPZ] \
         [--moe_experts E] [--devices N] [--multihost] \
-        [--device_cache_sharded]
+        [--device_cache_sharded] [--fsdp]
 
 The flow of the JAX package's ``scripts/train.py``. A run:
 dataloaders over ``DATA/Augmented Image`` (train and validation, a seeded
@@ -47,10 +47,15 @@ rovit_kan_tpu_torch.cli.train --multihost ...``. Every rank loads the same
 seeded global batches and trains its rows of each; rank 0 alone writes the
 checkpoints, the epoch CSV and the reports. ``--device_cache_sharded``
 (implies ``--device_cache``) stores each split sharded over the ranks.
+``--fsdp`` shards the parameters, gradients, AdamW moments and EMA over the
+ranks (ZeRO-3, ``parallel/fsdp.py``; MoE experts included) and prints each
+rank's parameter bytes beside the replicated figure; on one rank there is
+nothing to shard over and it trains replicated. Its checkpoints are the
+single-card files.
 
 Runs on the card unless ``--cpu`` is given. Not ported yet:
 ``--pipeline_parallel``, ``--pipeline_microbatches``, ``--tensor_parallel``,
-``--sequence_parallel``, ``--fsdp`` and ``--expert_parallel``.
+``--sequence_parallel`` and ``--expert_parallel``.
 """
 from __future__ import annotations
 
@@ -131,6 +136,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "shard-local gathers, stratified batches + "
                         "per-shard shuffle) instead of a copy on every "
                         "card")
+    p.add_argument("--fsdp", action="store_true",
+                   help="ZeRO-3: shard params, grads, optimizer moments "
+                        "and EMA over the data axis instead of "
+                        "replicating (parallel/fsdp.py)")
     return p.parse_args(argv)
 
 
@@ -179,11 +188,12 @@ def build_config(args: argparse.Namespace):
 def run_one(config, seed: int, out_dir: Path, aug_root: Path,
             orig_root: Path, device: str, resume: bool, device_cache: bool,
             profile_dir: Path = None, mesh=None,
-            device_cache_sharded: bool = False):
+            device_cache_sharded: bool = False, fsdp: bool = False):
     """One training run and its test evaluation; returns the test metrics,
     or None when the run was preempted. With ``profile_dir`` the first
     epoch runs under a torch.profiler trace written there. ``mesh``: this
-    rank's data mesh (rank 0 writes the files)."""
+    rank's data mesh (rank 0 writes the files); ``fsdp`` shards the state
+    over it."""
     from rovit_kan_tpu_torch.data.dataset import create_dataloaders
     from rovit_kan_tpu_torch.evaluation.evaluator import (
         Evaluator,
@@ -227,9 +237,31 @@ def run_one(config, seed: int, out_dir: Path, aug_root: Path,
 
     main = process_index() == 0
     model = build_model(cfg, device=device, seed=seed)
+    n_params = count_parameters(model)["total"]
     logger = ExperimentLogger(cfg.paths.logs_dir, "train") if main else None
+    if fsdp and (mesh is None or mesh.size == 1):
+        print("FSDP: data axis has 1 device — nothing to shard over; "
+              "params stay replicated")
+        fsdp = False
+    elif fsdp:
+        from rovit_kan_tpu_torch.parallel.fsdp import (
+            fsdp_param_specs,
+            sharded_size,
+        )
+        print(f"FSDP: params/grads/moments/EMA sharded over "
+              f"data={mesh.size} (ZeRO-3)")
+        shard_mb = sharded_size(model, fsdp_param_specs(model, mesh),
+                                mesh) / 1e6
+        print(f"FSDP state/device: params {shard_mb:.1f} MB (replicated: "
+              f"{sharded_size(model, {}, mesh) / 1e6:.1f} MB); AdamW "
+              f"moments and EMA shard identically")
     trainer = Trainer(model, train_l, val_l, cfg, logger=logger,
-                      focal_alpha=focal_alpha, seed=seed, mesh=mesh)
+                      focal_alpha=focal_alpha, seed=seed, mesh=mesh,
+                      fsdp=fsdp)
+    # The model whole for a while (under FSDP its sharded leaves are
+    # gathered): the merge and the final evaluation read it.
+    whole = (trainer.fsdp.full_module if trainer.fsdp is not None
+             else contextlib.nullcontext)
 
     start_epoch = 1
     ck_dir = Path(cfg.paths.checkpoints_dir)
@@ -266,15 +298,17 @@ def run_one(config, seed: int, out_dir: Path, aug_root: Path,
             print(f"Loading pretrained weights: {cfg.model.pretrained_npz}")
             pre = load_npz(cfg.model.pretrained_npz)
             # build_model drew the init from the seed; merge over it.
-            merged = merge_pretrained(to_jax_params(model), pre)
-            state = trainer.init_state(params=jax_state_dict(model, merged))
+            with whole():
+                params = jax_state_dict(model, merge_pretrained(
+                    to_jax_params(model), pre))
+            state = trainer.init_state(params=params)
         else:
             state = trainer.init_state()
         if main and logger.reset():
             # A fresh run into a directory holding a previous run's CSV
             # replaces it; appending would mix two epoch lineages.
             print(f"Replaced previous epoch CSV at {logger.csv_path}")
-    print("Parameters:", count_parameters(model)["total"])
+    print("Parameters:", n_params)
 
     if profile_dir is not None:
         from rovit_kan_tpu_torch.utils.profiling import trace
@@ -294,6 +328,7 @@ def run_one(config, seed: int, out_dir: Path, aug_root: Path,
 
     # Evaluate the weights model selection and the checkpoint use: the EMA
     # when it is on.
+    gathered = whole()
     if (resume_name == "preempt_model" and start_epoch > 1
             and not result["improved"] and (ck_dir / "best_model").exists()):
         # Resumed from a preemption checkpoint and no epoch beat the
@@ -302,9 +337,13 @@ def run_one(config, seed: int, out_dir: Path, aug_root: Path,
             ck_dir / "best_model", cfg, device=device)
     else:
         eval_weights = trainer.eval_params(result["best_state"])
-    evaluator = Evaluator(model, eval_weights, test_l, cfg,
-                          output_dir=cfg.paths.results_dir)
-    return evaluator.evaluate(save=main)
+        if trainer.fsdp is not None:
+            # This rank's shards: gathered into the model for the test.
+            gathered, eval_weights = whole(eval_weights), None
+    with gathered:
+        evaluator = Evaluator(model, eval_weights, test_l, cfg,
+                              output_dir=cfg.paths.results_dir)
+        return evaluator.evaluate(save=main)
 
 
 def main(argv=None):
@@ -356,7 +395,7 @@ def main(argv=None):
     def run(seed, out_dir):
         return run_one(config, seed, out_dir, aug_root, orig_root, device,
                        args.resume, args.device_cache, args.profile_dir,
-                       mesh, args.device_cache_sharded)
+                       mesh, args.device_cache_sharded, args.fsdp)
 
     if not args.all_seeds:
         metrics = run(args.seed, args.output_dir)

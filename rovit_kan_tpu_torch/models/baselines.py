@@ -18,7 +18,12 @@ Swin compute in fp32; only DeiT takes another ``dtype`` (its bf16 FPS twin).
 variance ``E[x^2] - E[x]^2`` in training and updates its running statistics
 with that same variance (flax ``BatchNorm(momentum=0.9)``), where
 ``nn.BatchNorm2d`` would keep the unbiased one. Its buffers never enter the
-optimizer. Swin's relative-position index and shifted-window masks are numpy
+optimizer. Over a data mesh of N > 1 ranks (``sync_batchnorm``) its
+training moments are the global batch's, as in the JAX package's SPMD step:
+the per-channel sums of x and x^2 and the element count are all-reduced
+(one collective, whose backward is an all-reduce of their gradients), so
+the moments and the running statistics are one device's. Swin's
+relative-position index and shifted-window masks are numpy
 constants of the block's shape, held as non-persistent buffers.
 
 Every backbone takes ``image_size``: VGG-16's first dense layer, Swin's
@@ -55,13 +60,25 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        #: The data mesh whose global batch the moments cover (None: this
+        #: process's rows; ``sync_batchnorm`` sets it).
+        self.mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         if self.training:
             dims = (0, 2, 3)
-            mean = x.mean(dims)
-            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            if self.mesh is None:
+                mean = x.mean(dims)
+                var = torch.clamp((x * x).mean(dims) - mean * mean,
+                                  min=0.0)
+            else:
+                count = torch.full_like(x[0, :, 0, 0],
+                                        float(x.numel() // x.shape[1]))
+                s, s2, n = _RankSum.apply(self.mesh, torch.stack(
+                    [x.sum(dims), (x * x).sum(dims), count]))
+                mean = s / n
+                var = torch.clamp(s2 / n - mean * mean, min=0.0)
             with torch.no_grad():
                 m = BN_MOMENTUM
                 self.running_mean.mul_(m).add_((1.0 - m) * mean)
@@ -71,6 +88,31 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         return ((x - mean[:, None, None]) * mul[:, None, None]
                 + self.bias[:, None, None])
+
+
+class _RankSum(torch.autograd.Function):
+    """``t`` summed over the ranks of ``mesh``; the gradient, a sum over
+    the ranks too."""
+
+    @staticmethod
+    def forward(ctx, mesh, t):
+        ctx.mesh = mesh
+        return mesh.all_reduce_(t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.mesh.all_reduce_(g.clone())
+
+
+def sync_batchnorm(model: nn.Module, mesh) -> nn.Module:
+    """Every ``BatchNorm`` of ``model`` takes its training moments over the
+    global batch of ``mesh``'s ranks (its own rows on a mesh of 1 or
+    None, with no collective)."""
+    mesh = mesh if mesh is not None and mesh.size > 1 else None
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.mesh = mesh
+    return model
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:

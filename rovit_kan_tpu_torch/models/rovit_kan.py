@@ -97,6 +97,17 @@ class RoViTKAN(nn.Module):
             feats = taps["features"]
         else:
             feats = self.backbone(x)                   # (B, D) fp32
+        out = self.heads(feats, generator)
+        if taps is not None:
+            out.update({k: v for k, v in taps.items() if k != "features"})
+        return out
+
+    def heads(self, feats: torch.Tensor,
+              generator: Optional[torch.Generator] = None
+              ) -> Dict[str, torch.Tensor]:
+        """The output dict from the fp32 CLS feature ``(B, D)``: the
+        feature itself and every head's output (zeros for a head that is
+        off)."""
         B = feats.shape[0]
 
         def zeros(width):
@@ -114,8 +125,6 @@ class RoViTKAN(nn.Module):
             out["mu"], out["log_var"] = zeros(1), zeros(1)
         out["kan_severity"] = (self.kan_module(feats) if self.with_kan
                                else zeros(1))
-        if taps is not None:
-            out.update({k: v for k, v in taps.items() if k != "features"})
         return out
 
     @property

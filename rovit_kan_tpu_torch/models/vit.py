@@ -266,6 +266,21 @@ class VisionTransformer(nn.Module):
             for i in range(depth)])
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        """The tokens the first block takes: the patches embedded, the CLS
+        token before them and the position embeddings added, in the
+        compute dtype."""
+        B = x.shape[0]
+        x = self.patch_embed(x)
+        cls = self.cls_token.expand(B, -1, -1).to(x.dtype)
+        x = torch.cat([cls, x], dim=1)
+        return x + self.pos_embed.to(x.dtype)
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """The fp32 CLS feature of the last block's tokens (the final
+        norm)."""
+        return _layer_norm(x, self.norm)[:, 0]
+
     def forward(self, x: torch.Tensor, return_attention: bool = False,
                 gradcam_perturbation: Optional[torch.Tensor] = None):
         """x: ``(B, H, W, 3)`` normalized images (NHWC).
@@ -276,11 +291,7 @@ class VisionTransformer(nn.Module):
         respect to it), returns a dict of ``features`` and what was asked
         for: ``attention`` ``(depth, B, heads, N, N)`` fp32, ``norm1_tap``
         ``(B, N, D)`` fp32."""
-        B = x.shape[0]
-        x = self.patch_embed(x)
-        cls = self.cls_token.expand(B, -1, -1).to(x.dtype)
-        x = torch.cat([cls, x], dim=1)
-        x = x + self.pos_embed.to(x.dtype)
+        x = self.embed(x)
         if return_attention or gradcam_perturbation is not None:
             return self._forward_taps(x, return_attention,
                                       gradcam_perturbation)
@@ -290,7 +301,7 @@ class VisionTransformer(nn.Module):
                 x = checkpoint(blk, x, use_reentrant=False)
             else:
                 x = blk(x)
-        return _layer_norm(x, self.norm)[:, 0]
+        return self.features(x)
 
     def _forward_taps(self, x: torch.Tensor, return_attention: bool,
                       perturbation: Optional[torch.Tensor]
@@ -309,7 +320,7 @@ class VisionTransformer(nn.Module):
                 # Before the tap: nothing here depends on the perturbation.
                 with torch.no_grad():
                     x = blk(x)
-        out["features"] = _layer_norm(x, self.norm)[:, 0]
+        out["features"] = self.features(x)
         if return_attention:
             out["attention"] = torch.stack(maps)
         return out

@@ -1,8 +1,9 @@
 """Data parallelism over ``torch.distributed``: one process per card.
 
-The ported part of ``rovit_kan_tpu/parallel``: the 1-D data mesh and its
-multi-host glue. FSDP, tensor and sequence parallelism, expert parallelism
-and the GPipe pipeline are not ported.
+The ported part of ``rovit_kan_tpu/parallel``: the 1-D data mesh, its
+multi-host glue and FSDP over it (``parallel/fsdp.py``). Tensor and
+sequence parallelism, expert parallelism and the GPipe pipeline are not
+ported.
 """
 from rovit_kan_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,

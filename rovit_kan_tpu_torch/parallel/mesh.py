@@ -10,7 +10,9 @@ device on the whole global batch (``training/trainer.py``).
 The backend is NCCL for a card and gloo for the CPU. gloo with tensors on
 a card is taken only when the caller names it (two ranks sharing one card,
 which NCCL refuses); its collectives then go through host copies, since
-gloo's CUDA support lacks ``all_gather``. A mesh of 1 makes no process
+gloo's CUDA support lacks ``all_gather``. ``all_gather`` and
+``reduce_scatter`` work along any dimension (the FSDP step's weights and
+gradients, ``parallel/fsdp.py``). A mesh of 1 makes no process
 group and runs no collective.
 """
 from __future__ import annotations
@@ -27,9 +29,19 @@ from rovit_kan_tpu_torch.parallel.multihost import (
     rank_rows,
 )
 
+# The one-tensor collectives under their current names (older torch has
+# only the ``*_tensor`` ones, which newer torch deprecates).
+_ALL_GATHER = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
 
 class Mesh:
     """This process's place in a 1-D data mesh of ``size`` ranks."""
+
+    #: The mesh's one axis, the JAX package's data axis.
+    axis_names = ("data",)
 
     def __init__(self, size: int, rank: int, device: torch.device,
                  backend: Optional[str]):
@@ -62,14 +74,29 @@ class Mesh:
             dist.all_reduce(t)
         return t
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``t`` concatenated along dim 0, in rank order."""
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's ``t`` concatenated along ``dim``, in rank order."""
         if self.size == 1:
             return t
-        src = t.cpu() if self._staged(t) else t.contiguous()
-        parts = [torch.empty_like(src) for _ in range(self.size)]
-        dist.all_gather(parts, src)
-        return torch.cat(parts).to(t.device)
+        src = t.movedim(dim, 0)
+        src = src.cpu() if self._staged(t) else src.contiguous()
+        out = src.new_empty((self.size * src.shape[0], *src.shape[1:]))
+        _ALL_GATHER(out, src)
+        return out.to(t.device).movedim(0, dim)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """``t`` summed over the ranks and split into ``size`` equal chunks
+        along ``dim``; returns this rank's chunk."""
+        if self.size == 1:
+            return t
+        src = t.movedim(dim, 0)
+        src = src.cpu() if self._staged(t) else src.contiguous()
+        if src.shape[0] % self.size:
+            raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)}"
+                             f" is not divisible by {self.size} ranks")
+        out = src.new_empty((src.shape[0] // self.size, *src.shape[1:]))
+        _REDUCE_SCATTER(out, src)
+        return out.to(t.device).movedim(0, dim)
 
     def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s ``t`` on every rank, in place; returns ``t``."""

@@ -25,6 +25,14 @@ With ``accum_steps = k > 1`` a step is ``optax.MultiSteps``: the gradients of
 k micro-batches are averaged (the running mean ``acc + (g - acc) / (n + 1)``)
 and only every k-th call updates the parameters and moves the step count;
 ``applied`` says whether the last call did.
+
+Under FSDP (``parallel/fsdp.py``) the optimizer is built over the ``FSDP``
+wrapper: the flat buffer holds this rank's shard of each sharded leaf and
+each whole leaf, the whole leaves in one slice (``replicated``), so the
+moments, the accumulator and the EMA shrink with it. The update is the same
+per element; only the global norm changes: the squares of the sharded part
+are summed over the ranks (one ``all_reduce``) and the whole leaves' added
+once.
 """
 from __future__ import annotations
 
@@ -43,12 +51,26 @@ class FlatAdamW:
     def __init__(self, model: nn.Module, learning_rate: float,
                  backbone_scale: float = 0.1, *, weight_decay: float = 1e-4,
                  clip: float = 1.0, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8, accum_steps: int = 1):
+                 eps: float = 1e-8, accum_steps: int = 1,
+                 mesh=None, sharded=()):
         named: List[Tuple[str, nn.Parameter]] = [
             (k, p) for k, p in model.named_parameters() if p.requires_grad]
         # Backbone first, so its grads are one leading slice.
         named.sort(key=lambda kp: not kp[0].startswith("backbone."))
         self.names = [k for k, _ in named]
+        #: The slice of whole leaves when ``sharded`` names the leaves of
+        #: which this buffer holds a shard (None: every leaf is whole).
+        self.replicated = None
+        self.mesh = mesh
+        if sharded:
+            whole = [i for i, k in enumerate(self.names) if k not in sharded]
+            if whole != list(range(whole[0], whole[-1] + 1)):
+                raise ValueError("the whole leaves must be one run of the "
+                                 "parameter order")
+            offs = [0]
+            for _, p in named:
+                offs.append(offs[-1] + p.numel())
+            self.replicated = slice(offs[whole[0]], offs[whole[-1] + 1])
         self.n_backbone = sum(p.numel() for k, p in named
                               if k.startswith("backbone."))
         with torch.no_grad():
@@ -139,7 +161,14 @@ class FlatAdamW:
                 return None
             g = self.acc.clone()
             self.acc.zero_()
-        gnorm = torch.sqrt(torch.sum(g * g))
+        sq = g * g
+        r = self.replicated
+        if r is None:
+            gnorm = torch.sqrt(torch.sum(sq))
+        else:
+            shards = self.mesh.all_reduce_(torch.sum(sq[:r.start])
+                                           + torch.sum(sq[r.stop:]))
+            gnorm = torch.sqrt(shards + torch.sum(sq[r]))
         g = g * (self.clip / torch.clamp(gnorm, min=self.clip))
         self.count += 1
         self.mu.mul_(self.b1).add_((1.0 - self.b1) * g)
@@ -162,11 +191,23 @@ class FlatAdamW:
 def build_optimizer(model: nn.Module, config: Config) -> FlatAdamW:
     """The flat AdamW with the config's learning rate, weight decay and
     clip, the backbone at 0.1 of the learning rate, and gradient
-    accumulation over ``train.accum_steps`` micro-batches."""
+    accumulation over ``train.accum_steps`` micro-batches. ``model`` may be
+    an ``FSDP`` wrapper: the buffer then holds its shards."""
+    shards = getattr(model, "shards", None)
     return FlatAdamW(model, config.train.learning_rate, 0.1,
                      weight_decay=config.train.weight_decay,
                      clip=config.flags.gradient_clip,
-                     accum_steps=getattr(config.train, "accum_steps", 1))
+                     accum_steps=getattr(config.train, "accum_steps", 1),
+                     mesh=model.mesh if shards else None,
+                     sharded=frozenset(shards or ()))
+
+
+def reduce_grads(optimizer: FlatAdamW, mesh) -> None:
+    """Sum over the ranks the gradients every rank holds whole: the whole
+    buffer under data parallelism, the whole leaves' slice under FSDP
+    (whose shards were reduce-scattered in the backward)."""
+    r = optimizer.replicated
+    mesh.all_reduce_(optimizer.grad if r is None else optimizer.grad[r])
 
 
 def set_hyperparams(optimizer: FlatAdamW, learning_rate: float,

@@ -35,10 +35,21 @@ buffer, at every call (each accumulation micro-step too), before the
 clipping. The metrics are all-reduced, so early stopping, the curriculum
 and checkpointing decide alike on every rank; a SIGTERM on any rank stops
 all of them at the same epoch boundary. A mesh of 1 runs no collective.
-Tensor, sequence, expert and pipeline parallelism and FSDP are not ported.
+
+FSDP (``Trainer(..., fsdp=True)`` over a mesh of N > 1 ranks, or
+``make_train_step`` over a ``parallel.fsdp.FSDP`` wrapper): the same step
+on parameters, gradients, AdamW moments and EMA sharded over the ranks by
+the JAX package's rule (``parallel/fsdp.py``); the sharded leaves' gradients
+are reduce-scattered in the backward and only the whole leaves' slice of
+the flat gradient is all-reduced. The state the trainer hands out
+(``TrainState``) then holds this rank's shards; a checkpoint is written
+whole, in the one-process layout (every rank joins the gathers, rank 0
+writes), and a checkpoint of either kind loads under either. Tensor,
+sequence, expert and pipeline parallelism are not ported.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import time
@@ -57,6 +68,7 @@ from rovit_kan_tpu_torch.ops.augment_kernel import (
 )
 from rovit_kan_tpu_torch.ops.mixing import cutmix_or_mixup, draw_mix
 from rovit_kan_tpu_torch.ops.preprocess import augment_batch, eval_batch
+from rovit_kan_tpu_torch.parallel.fsdp import make_fsdp
 from rovit_kan_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
 from rovit_kan_tpu_torch.parallel.multihost import (
     any_process,
@@ -68,6 +80,7 @@ from rovit_kan_tpu_torch.training.optimizer import (
     FlatAdamW,
     build_optimizer,
     cosine_lr,
+    reduce_grads,
     set_hyperparams,
     zero_backbone_grads,
 )
@@ -125,7 +138,9 @@ class TrainStep:
     step's own).
 
     With a ``mesh`` of N > 1 ranks, ``batch`` and ``draws`` are the global
-    batch's and the step is this rank's share of it (module docstring)."""
+    batch's and the step is this rank's share of it (module docstring).
+    ``model`` may be an ``FSDP`` wrapper over that mesh, with the optimizer
+    built over it."""
 
     def __init__(self, model: nn.Module, optimizer: FlatAdamW,
                  config: Config, focal_alpha=None,
@@ -199,7 +214,7 @@ class TrainStep:
             mixup={"labels_a": la, "labels_b": lb, "lam": lam}, count=count)
         losses["total_loss"].backward()
         if mesh is not None:
-            mesh.all_reduce_(opt.grad)
+            reduce_grads(opt, mesh)
         zero_backbone_grads(opt, float(backbone_live))
         opt.step()
 
@@ -300,11 +315,14 @@ class Trainer:
     ``mesh``: the data mesh (``parallel.make_mesh``); every rank builds a
     ``Trainer`` over the same loaders (a sharded ``DeviceLoader`` on this
     same mesh) and calls the same methods in the same order. Its collectives
-    and the checkpoints' barriers pair up across the ranks."""
+    and the checkpoints' barriers pair up across the ranks. ``fsdp``: shard
+    the state over that mesh (``self.fsdp``, the ``FSDP`` wrapper; None on
+    a mesh of 1, where there is nothing to shard over)."""
 
     def __init__(self, model: nn.Module, train_loader, val_loader,
                  config: Config, logger=None, focal_alpha=None,
-                 seed: int = 42, mesh: Optional[Mesh] = None):
+                 seed: int = 42, mesh: Optional[Mesh] = None,
+                 fsdp: bool = False):
         self.model = model
         self.mesh = mesh
         self._dp = _data_parallel(mesh)
@@ -318,12 +336,15 @@ class Trainer:
         if mesh is not None and mesh.device != self.device:
             raise ValueError(f"the model is on {self.device}, the mesh's "
                              f"rank on {mesh.device}")
-        self.optimizer = build_optimizer(model, config)
+        # What the steps run: the model, or its FSDP wrapper.
+        self.net = make_fsdp(model, self._dp) if fsdp else model
+        self.fsdp = self.net if self.net is not model else None
+        self.optimizer = build_optimizer(self.net, config)
         self.train_step = make_train_step(
-            model, self.optimizer, config, focal_alpha,
+            self.net, self.optimizer, config, focal_alpha,
             generator=torch.Generator(self.device).manual_seed(seed),
             mesh=mesh)
-        self.eval_step = make_eval_step(model, config, focal_alpha, mesh)
+        self.eval_step = make_eval_step(self.net, config, focal_alpha, mesh)
         self._use_mix = 1 if (config.flags.use_mixup
                               or config.flags.use_cutmix) else 0
         self.best_val_loss = float("inf")
@@ -337,7 +358,7 @@ class Trainer:
     def _live(self) -> TrainState:
         """The state being trained, as references to its tensors."""
         self._state = TrainState(
-            params=self.model.state_dict(),
+            params=self.net.state_dict(),
             opt_state=self.optimizer.state_dict(),
             ema_params=self.train_step.ema, step=self._step)
         return self._state
@@ -348,7 +369,7 @@ class Trainer:
         state)."""
         if state is self._state:
             return
-        for k, v in self.model.state_dict().items():
+        for k, v in self.net.state_dict().items():
             v.copy_(state.params[k])
         self.optimizer.load_state_dict(state.opt_state)
         ema = state.ema_params
@@ -365,19 +386,23 @@ class Trainer:
                    ) -> TrainState:
         """Fresh training from ``params`` (a state_dict), or from weights
         drawn from the trainer's seed: fresh optimizer, the EMA seeded with
-        the parameters, the step's generators reseeded."""
+        the parameters, the step's generators reseeded. Under FSDP
+        ``params`` is whole (a checkpoint's) and each rank keeps its
+        shards."""
         from rovit_kan_tpu_torch.models.rovit_kan import init_weights
-        with torch.no_grad():
+        whole = (self.fsdp.full_module(keep=True) if self.fsdp is not None
+                 else contextlib.nullcontext())
+        with torch.no_grad(), whole:
             if params is None:
                 init_weights(self.model, self.seed)
             else:
                 for k, v in self.model.state_dict().items():
                     v.copy_(params[k])
-        replicate(self.model, self._dp)      # rank 0's weights everywhere
+            replicate(self.model, self._dp)   # rank 0's weights everywhere
         self.optimizer.reset()
         if self.train_step.ema is not None:
             self.train_step.ema = {k: v.detach().clone().float() for k, v in
-                                   self.model.state_dict().items()}
+                                   self.net.state_dict().items()}
         self.train_step.generator.manual_seed(self.seed)
         self.train_step.mix_generator.manual_seed(self.seed)
         self._step = 0
@@ -489,7 +514,7 @@ class Trainer:
     @torch.no_grad()
     def _with_weights(self, weights: Dict[str, torch.Tensor], fn):
         """``fn()`` with ``weights`` in the model, then its own back."""
-        live = self.model.state_dict()
+        live = self.net.state_dict()
         if all(weights[k].data_ptr() == v.data_ptr()
                for k, v in live.items()):
             return fn()
@@ -548,6 +573,8 @@ class Trainer:
         try:
             if opt_state is None:
                 raise ValueError("no optimizer state")
+            if self.fsdp is not None:
+                opt_state = self.fsdp.local_opt_state(opt_state)
             self.optimizer.load_state_dict(opt_state)
         except ValueError:
             print("resume: optimizer state structure mismatch; restoring "
@@ -557,9 +584,12 @@ class Trainer:
                 print("resume: checkpoint has no EMA tree; seeding EMA "
                       "from the restored params")
             else:
+                ema = ck["ema_params"]
+                if self.fsdp is not None:
+                    ema = self.fsdp.local(ema)
                 self.train_step.ema = {
-                    k: v.to(self.device, torch.float32)
-                    for k, v in ck["ema_params"].items()}
+                    k: v.to(self.device, torch.float32, copy=True)
+                    for k, v in ema.items()}
         self.best_val_loss = ck.get("best_val_loss", float("inf"))
         # Early-stop patience continues where it left off (a preempt/resume
         # cycle must not grant fresh patience).
@@ -712,10 +742,16 @@ class Trainer:
                         metrics: Dict[str, float], name: str = "best_model",
                         block: bool = True) -> None:
         from rovit_kan_tpu_torch.utils.checkpoint import save_checkpoint
-        save_checkpoint(self._ckpt_dir() / name, state.params,
-                        opt_state=state.opt_state, epoch=epoch,
+        params, opt_state, ema = (state.params, state.opt_state,
+                                  state.ema_params)
+        if self.fsdp is not None:
+            # Whole, in the one-process layout, on rank 0 (which writes).
+            params, ema = map(self.fsdp.gather_full, (params, ema))
+            opt_state = self.fsdp.full_opt_state(opt_state)
+        save_checkpoint(self._ckpt_dir() / name, params,
+                        opt_state=opt_state, epoch=epoch,
                         best_val_loss=self.best_val_loss, metrics=metrics,
-                        config=self.config, ema_params=state.ema_params,
+                        config=self.config, ema_params=ema,
                         epochs_without_improvement=(
                             self.epochs_without_improvement),
                         block=block)

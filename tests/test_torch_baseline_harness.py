@@ -419,18 +419,22 @@ def _actions(parser):
 
 
 def test_cli_flags_match_jax_script():
-    """The JAX script's flags and defaults, less ``--devices`` and
-    ``--fps-timeout``, and one departure: ``--output-dir`` defaults to a
-    directory of the port's own, away from the JAX package's TPU records."""
+    """The JAX script's flags and defaults, ``--devices`` included, less
+    ``--fps-timeout``, plus the port's ``--multihost`` (one rank of a
+    torchrun job, as ``cli.train``'s), and one departure: ``--output-dir``
+    defaults to a directory of the port's own, away from the JAX package's
+    TPU records."""
     want = _actions(_jax_parser())
     assert {"--devices", "--fps-timeout"} <= set(want)
-    for left_out in ("--devices", "--fps-timeout"):
-        want.pop(left_out)
+    want.pop("--fps-timeout")
     assert want["--output-dir"][3] == Path("outputs/baselines")
     want["--output-dir"] = want["--output-dir"][:3] + (
         Path("outputs/torch_baselines"),) + want["--output-dir"][4:]
     assert _actions(argparse.ArgumentParser()) == {}
-    assert _actions(cli_parser()) == want
+    got = _actions(cli_parser())
+    assert got.pop("--multihost") == ("multihost", "_StoreTrueAction", None,
+                                      False, 0, True)
+    assert got == want
     assert cli.parse_args([]).models is None
 
 

@@ -296,17 +296,42 @@ exits non-zero:
    (Adam's steps on BatchNorm's rounding-noise gradients), the CSV's
    columns, and 12 #1 launches a deit_tiny FPS forward on rank 0 alone.
 
+23. tp: the same two ranks on a data 1 x model 2 mesh
+   (``parallel.make_2d_mesh``): phase 20's steps (the seed-0 bf16 flagship,
+   batch 64, CutMix/MixUp, dropout, the EMA, stages 3 and 4) under tensor
+   parallelism (``parallel.tensor.TensorParallel``: the Megatron rules, 72
+   of 173 leaves sharded) and under TP + SP (198 tokens, one filler),
+   held by ``hold_dp``'s rules against the one-process bf16 and fp32
+   steps, for another route (``route=True``: the first loss within 1e-4,
+   every step's gradient within twice the bf16 step's own distance from
+   fp32); gaps on a "tp_readings" line; 12 #5, 12 #6, 1 #7 and no other
+   launch a step on each rank (the sharded block runs its heads' attention
+   core through #5/#6, never #1/#2); every rank's replicated leaves equal
+   bit for bit; each rank's parameter, moment and EMA bytes equal to
+   ``sharded_size``, 12,176,488 B of parameters; peak memory and step ms
+   beside the "dp" ranks'. Then a two-epoch ``Trainer.fit`` under TP + SP
+   over the sharded cache (12 #5 a validation batch) whose ``best_model``
+   holds the ranks' gathered best weights bit for bit, loads into a
+   one-process ``Trainer`` with the same bits and is served by
+   ``load_engine`` (12 #1). Last, one bf16 step of the base preset (d =
+   768, 12 heads, the plain block and attention core) at batch 8 under TP
+   and TP + SP: 175,988,584 B of parameters a rank, peak memory, step ms.
+
 ``chip_smoke.py --nccl`` (a host with two cards or more) builds the kernels
-and runs phases 20-22 alone over NCCL, rank r on cuda:r, on "dp_nccl",
-"fsdp_nccl" and "baselines_dp_nccl" lines: the same steps, checks and fit,
-then ``cli.train --devices 2`` beside ``cli.train --devices 1`` (both
-ranks on NCCL, one epoch CSV, its checkpoint served by ``load_engine``) in
-place of the world-1 run.
+and runs phases 20-23 alone over NCCL, rank r on cuda:r, on "dp_nccl",
+"fsdp_nccl", "baselines_dp_nccl" and "tp_nccl" lines: the same steps,
+checks and fit, then ``cli.train --devices 2`` beside ``cli.train
+--devices 1`` (both ranks on NCCL, one epoch CSV, its checkpoint served by
+``load_engine``) in place of the world-1 run. With four cards visible it
+also runs FSDP+TP on data 2 x model 2 (``--tp4-worker``, an
+"fsdp_tp_nccl" line): the flagship's steps held as phase 23's, 24 #5 (a
+unit's forward runs again in its backward), 12 #6 and 1 #7 a step, and
+6,139,112 B of parameters a rank.
 
 The kernels line gives each kernel's launches on the export, serve CLI,
 bench, explain, explain_384, visualize, ablation, baselines, pretrained,
-moe and (each rank's) dp, fsdp and baselines_dp paths in its
-``launches_by_path``. The line
+moe and (each rank's) dp, fsdp, baselines_dp, tp and sp paths in its
+``launches_by_path`` (sp: phase 23's TP + SP steps and fit). The line
 before the last is
 ``nvidia-smi``'s name and power limit; the last is ``{"ok": true,
 "device": {...}}``. Imports torch and the port only.
@@ -4906,7 +4931,8 @@ def state_bytes(net, opt, ema) -> dict:
             "ema": size(ema.values()) if ema else 0}
 
 
-def dp_steps(mesh, stage: int, fp32: bool = False, fsdp: bool = False):
+def dp_steps(mesh, stage: int, fp32: bool = False, fsdp: bool = False,
+             route: bool = False):
     """``DP_STEPS`` flagship steps at ``stage`` with mixing on, bf16 (or
     the fp32 model with ``fp32``), from the seed-0 weights on the global
     batches ``train_batch(cfg, 300 + i)``: each step's loss, accuracy and
@@ -4916,7 +4942,8 @@ def dp_steps(mesh, stage: int, fp32: bool = False, fsdp: bool = False):
     ``parallel.fsdp.FSDP``: the gradients and parameters are gathered
     whole in the one-process layout on rank 0 (None on the other ranks),
     and each rank's state bytes sit beside ``sharded_size`` and the
-    replicated figure."""
+    replicated figure. ``route``: the tensor-parallel block's route in one
+    process, the blocks unfused and their attention core through #5/#6."""
     from rovit_kan_tpu_torch.config import Config
     from rovit_kan_tpu_torch.models.rovit_kan import build_model
     from rovit_kan_tpu_torch.parallel.fsdp import (
@@ -4930,6 +4957,8 @@ def dp_steps(mesh, stage: int, fp32: bool = False, fsdp: bool = False):
     cfg = Config()
     cfg.flags.mixed_precision = not fp32
     cfg.train.ema_decay = 0.999      # the EMA's bytes in both memories
+    if route:
+        cfg.tpu.use_pallas_block, cfg.tpu.use_pallas_attention = False, True
     dev = "cuda" if mesh is None else mesh.device
     base = memory_base(dev)
     model = build_model(cfg, device=dev, seed=0)
@@ -5122,6 +5151,176 @@ def base_memory(mesh, fsdp: bool) -> dict:
             / 2**20}
 
 
+TP_PARAM_BYTES = {"tiny": 12_176_488, "base": 175_988_584}
+FSDP_TP_PARAM_BYTES = 6_139_112
+
+
+def tp_steps(mesh, stage: int, sp: bool, fsdp: bool = False) -> dict:
+    """``dp_steps``'s steps (the same seed-0 flagship, global batches and
+    EMA) under tensor parallelism over the mesh's model axis
+    (``parallel.tensor.TensorParallel``), with ``sp`` sequence parallelism
+    too, with ``fsdp`` FSDP+TP: the losses, the gradients and parameters
+    gathered whole in the one-process layout on rank 0 (None on the
+    others), the launches, step ms and peak memory, each rank's replicated
+    leaves and state bytes beside ``sharded_size``."""
+    from rovit_kan_tpu_torch.config import Config
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.parallel.fsdp import (
+        FSDP,
+        fsdp_param_specs,
+        sharded_size,
+    )
+    from rovit_kan_tpu_torch.parallel.mesh import replicate
+    from rovit_kan_tpu_torch.parallel.tensor import (
+        TensorParallel,
+        seq_sharding,
+    )
+    from rovit_kan_tpu_torch.training.optimizer import build_optimizer
+    from rovit_kan_tpu_torch.training.trainer import make_train_step
+    cfg = Config()
+    cfg.train.ema_decay = 0.999
+    dev = mesh.device
+    base = memory_base(dev)
+    model = build_model(cfg, device=dev, seed=0,
+                        act_sharding=seq_sharding(mesh) if sp else None)
+    replicate(model, mesh)           # rank 0's weights, as Trainer does
+    tp = TensorParallel(model, mesh)
+    data_specs = fsdp_param_specs(tp, mesh, tp=True) if fsdp else {}
+    net = FSDP(model, mesh, data_specs, tp=tp) if fsdp else tp
+    opt = build_optimizer(net, cfg)
+    step = make_train_step(net, opt, cfg,
+                           generator=torch.Generator(dev).manual_seed(0),
+                           mesh=mesh)
+    batches = [{k: v.to(dev) for k, v in train_batch(cfg, 300 + i).items()}
+               for i in range(DP_STEPS)]
+    out = {"loss": [], "accuracy": [], "grads": [], "ms": []}
+    reset, read = all_counters()
+    torch.cuda.synchronize()
+    reset()
+    for b in batches:
+        t0 = time.perf_counter()
+        m = step(b, stage, 1.0, 1)
+        out["loss"].append(float(m["total_loss"]))
+        torch.cuda.synchronize()
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        out["accuracy"].append(float(m["accuracy"]))
+        out["grads"].append(net.gather_flat(opt.grad))
+    out["launches"] = read()
+    out["params"] = net.gather_flat(opt.flat)
+    whole = set(tp.model_sharded) | set(getattr(net, "shards", ()))
+    out["replicated"] = {k: v.detach().cpu().clone()
+                         for k, v in net.state_dict().items()
+                         if k not in whole}
+    out["state_bytes"] = state_bytes(net, opt, step.ema)
+    out["sharded_size"] = sharded_size(tp, data_specs, mesh, tp.specs)
+    out["replicated_bytes"] = sharded_size(tp, {}, mesh)
+    out["names"] = net.full_order()
+    out["sizes"] = [int(np.prod(tp.full_shapes[k])) for k in out["names"]]
+    out["peak_mib"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+    return out
+
+
+def tp_fit(mesh, root):
+    """``dp_fit``'s two-epoch fit under TP + SP (the model built with
+    ``act_sharding``, the ``Trainer`` on the 2-D mesh): its launches and
+    history, the best state's parameters whole on rank 0 (None on the
+    others) and its ``best_model``."""
+    from rovit_kan_tpu_torch.data.dataset import Subset
+    from rovit_kan_tpu_torch.data.device_cache import DeviceLoader
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.parallel.tensor import seq_sharding
+    from rovit_kan_tpu_torch.training.trainer import Trainer
+    cfg = dp_config(Path(root) / "tp")
+    leaves = LeafSet(DP_PER_CLASS, 224, seed=20)
+    order = np.random.RandomState(20).permutation(len(leaves))
+    train = DeviceLoader(Subset(leaves, order[:128]), BATCH, shuffle=True,
+                         drop_last=True, seed=0, mesh=mesh, shard_data=True)
+    val = DeviceLoader(Subset(leaves, order[128:]), BATCH, mesh=mesh,
+                       shard_data=True)
+    tr = Trainer(build_model(cfg, device=mesh.device, seed=1,
+                             act_sharding=seq_sharding(mesh)),
+                 train, val, cfg, seed=0, mesh=mesh)
+    if tr.tp is None or not tr.tp.axis.seq:
+        raise RuntimeError("tp fit: the trainer did not shard")
+    reset, read = all_counters()
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    res = tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read()
+    epochs = len(res["history"]["train"])
+    steps, vals = epochs * len(train), epochs * len(val)
+    only(launches, attention_fwd=12 * (steps + vals),
+         attention_bwd=12 * steps, augment=steps)
+    best = tr.sharded.gather_full(tr.eval_params(res["best_state"]))
+    return {"history": {p: [{k: m[k] for k in ("total_loss", "accuracy")}
+                            for m in res["history"][p]]
+                        for p in ("train", "val")},
+            "fit_seconds": fit_s, "launches": launches, "steps": steps,
+            "val_batches": vals, "best_params": best,
+            "best_model": str(cfg.paths.checkpoints_dir / "best_model")}
+
+
+def tp_base(mesh, sp: bool) -> dict:
+    """``base_memory``'s one bf16 step of the base preset (d = 768, 12
+    heads, so the model axis divides them; the plain block and the plain
+    attention core) under TP, or TP + SP: the step's ms, each rank's state
+    bytes and the card's peak memory above what was allocated before."""
+    from rovit_kan_tpu_torch.config import get_config
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.parallel.fsdp import sharded_size
+    from rovit_kan_tpu_torch.parallel.mesh import replicate
+    from rovit_kan_tpu_torch.parallel.tensor import (
+        TensorParallel,
+        seq_sharding,
+    )
+    from rovit_kan_tpu_torch.training.optimizer import build_optimizer
+    from rovit_kan_tpu_torch.training.trainer import make_train_step
+    cfg = get_config("base")
+    dev = mesh.device
+    base = memory_base(dev)
+    model = build_model(cfg, device=dev, seed=0,
+                        act_sharding=seq_sharding(mesh) if sp else None)
+    replicate(model, mesh)
+    tp = TensorParallel(model, mesh)
+    opt = build_optimizer(tp, cfg)
+    step = make_train_step(tp, opt, cfg,
+                           generator=torch.Generator(dev).manual_seed(0),
+                           mesh=mesh)
+    batch = {k: v.to(dev) for k, v in
+             train_batch(cfg, 400, FSDP_BASE_BATCH).items()}
+    reset, read = all_counters()
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    loss = float(step(batch, 4, 1.0, 1)["total_loss"])
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    only(read(), augment=1)
+    if not np.isfinite(loss):
+        raise RuntimeError(f"base preset tp step: loss {loss}")
+    return {"loss": loss, "step_ms": ms,
+            "state_bytes": state_bytes(tp, opt, step.ema),
+            "sharded_size": sharded_size(tp, {}, mesh, tp.specs),
+            "peak_mib": (torch.cuda.max_memory_allocated(dev) - base)
+            / 2**20}
+
+
+def tp_worker(mesh, root) -> dict:
+    """The "tp" phase on one rank of a data 1 x model 2 mesh."""
+    t0 = time.perf_counter()
+    out = {"steps": {mode: {s: tp_steps(mesh, s, mode == "sp")
+                            for s in DP_STAGES} for mode in ("tp", "sp")},
+           "fit": tp_fit(mesh, root),
+           "base": {mode: tp_base(mesh, mode == "sp")
+                    for mode in ("tp", "sp")},
+           "mesh": repr(mesh)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 BASELINE_DP_MODELS = ("resnet50", "deit_tiny")
 
 
@@ -5249,19 +5448,37 @@ def dp_worker(root: str, backend: str) -> int:
         "first_step": baselines_first_step(mesh),
         "sweep": baselines_sweep(Path(root), "baselines_dp",
                                  ["--multihost"], mesh)}
+    from rovit_kan_tpu_torch.parallel.mesh import make_2d_mesh
+    tp_mesh = (make_2d_mesh(1, DP_RANKS, backend="gloo", device="cuda:0")
+               if backend == "gloo" else make_2d_mesh(1, DP_RANKS))
+    out["tp"] = tp_worker(tp_mesh, Path(root))
     torch.save(out, Path(root) / f"rank{mesh.rank}.pt")
     return 0
 
 
-def run_ranks(root: Path, n: int, backend: str) -> list:
-    """``chip_smoke.py --dp-worker root backend`` as ``n`` ranks through
-    ``cli.spawn_workers``: every exit code is checked and a failed or hung
-    rank stops the others and fails the phase. Returns each rank's saved
-    results."""
+def tp4_worker(root: str, backend: str) -> int:
+    """One rank of the four-card FSDP+TP run (``--nccl`` with four cards
+    visible): data 2 x model 2, rank r on cuda:r."""
+    from rovit_kan_tpu_torch.parallel.mesh import make_2d_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_2d_mesh(2, 2, backend=backend)
+    out = {"steps": {s: tp_steps(mesh, s, sp=False, fsdp=True)
+                     for s in DP_STAGES}, "mesh": repr(mesh)}
+    torch.save(out, Path(root) / f"rank{mesh.global_rank}.pt")
+    return 0
+
+
+def run_ranks(root: Path, n: int, backend: str,
+              worker: str = "--dp-worker") -> list:
+    """``chip_smoke.py --dp-worker root backend`` (or ``worker``) as ``n``
+    ranks through ``cli.spawn_workers``: every exit code is checked and a
+    failed or hung rank stops the others and fails the phase. Returns each
+    rank's saved results."""
     from rovit_kan_tpu_torch.cli import spawn_workers
     try:
         spawn_workers([sys.executable, os.path.abspath(__file__),
-                       "--dp-worker", root, backend], n, log_dir=root,
+                       worker, root, backend], n, log_dir=root,
                       timeout=DP_TIMEOUT)
     except SystemExit as e:
         tails = {r: (root / f"rank{r}.log").read_text()[-3000:]
@@ -5340,7 +5557,7 @@ DP_BF16_GRAD_LEAVES = ("backbone.model.patch_embed.",
                        "backbone.model.pos_embed", "backbone.model.cls_token")
 
 
-def hold_dp(gaps, ranks, what: str = "dp") -> None:
+def hold_dp(gaps, ranks, what: str = "dp", route: bool = False) -> None:
     """Raise unless the ranks' steps agree with the one-process steps.
 
     The first step (the same weights on both sides): at stages 3 and 4 the
@@ -5368,8 +5585,29 @@ def hold_dp(gaps, ranks, what: str = "dp") -> None:
 
     The ranks' parameters must be equal bit for bit after every stage's
     steps (``ranks``; None under FSDP, where each rank holds its shards).
-    ``what`` names the run in the errors."""
+    ``what`` names the run in the errors. ``route``: the ranks take another
+    route than the one-process step (tensor parallelism: plain GEMMs and
+    #5/#6 for #1/#2), so another bf16 rounding from the first step on:
+    every step's whole gradient is then held within twice the bf16 step's
+    own distance from fp32 (L2), and the first step's loss within twice
+    the fp32 loss's distance (floor 1e-4). The later losses are read, not
+    held: after one update on gradients that part as bf16's part from
+    fp32's, a loss moves as much as bf16's does, and a 2x bound on one
+    sample of that is a coin (``tp_ranks_hold``)."""
     for stage, g in gaps.items():
+        if route:
+            for i in range(DP_STEPS):
+                limit = 2 * max(g["fp32_loss_rel"][i], 1e-4)
+                if i == 0 and g["loss_rel"][i] > limit:
+                    raise RuntimeError(
+                        f"{what} stage {stage} step {i + 1}: loss "
+                        f"{g['loss_rel'][i]:.2e} off, limit {limit:.2e}")
+                if g["grad_norm_rel"][i] > 2 * g["fp32_grad_norm_rel"][i]:
+                    raise RuntimeError(
+                        f"{what} stage {stage} step {i + 1} gradient: "
+                        f"whole {g['grad_norm_rel'][i]:.2e} (fp32 "
+                        f"{g['fp32_grad_norm_rel'][i]:.2e})")
+            continue
         if g["loss_rel"][0] > 1e-4:
             raise RuntimeError(f"{what} stage {stage}: first loss "
                                f"{g['loss_rel'][0]:.2e} off the "
@@ -5392,6 +5630,8 @@ def hold_dp(gaps, ranks, what: str = "dp") -> None:
                 ranks[1]["steps"][stage]["params"]):
             raise RuntimeError(f"{what} stage {stage}: the ranks' parameters "
                                f"differ")
+    if route:
+        return
     first3, first4 = gaps[3]["grad"][0], gaps[4]["grad"][0]
     if max(first3["worst_of_max"].values()) > 1e-3 or max(
             first3["bf16_leaves_of_two_ulps"].values()) > 1.0:
@@ -5622,6 +5862,171 @@ def fsdp_line(smi, root, backend, single, exact, ranks) -> dict:
             "card": smi}
 
 
+def tp_ranks_hold(what, one, ranks, per_step: dict,
+                  want_bytes: int) -> dict:
+    """Hold the ranks' TP steps (``ranks``: each rank's ``tp_steps``
+    results by stage) against the one-process steps ``one`` (``single``:
+    bf16 through #1/#2, ``routed``: bf16 on the TP block's route, unfused
+    with #5/#6, ``exact``: fp32), against each by ``hold_dp``'s rules for
+    another route, and the first stage-3 loss within 1e-4 (relative) of the
+    routed step's; the launches a step (``per_step``); every rank's
+    replicated leaves equal bit for bit; each rank's parameter, moment and
+    EMA bytes equal to ``sharded_size``, which must be ``want_bytes``.
+    Returns the gaps.
+
+    Why not ``hold_dp``'s own rules, which hold the "dp" ranks: a DP rank
+    computes each of its rows with the one-process step's bits, so only
+    the sums over the batch part them. A TP rank sums its partials in
+    another order, and where one bf16 rounding flips, every rounding after
+    it decorrelates: on the card the first stage-3 gradient sits 0.030 (L2)
+    from the routed step's, half the bf16 step's 0.059 from fp32's, and
+    stage 4's loss moves by as much as bf16's does (PERF.md §6)."""
+    mine = {s: [ranks[0][s]] for s in DP_STAGES}
+    gaps = {ref: {s: dp_gaps(one[ref][s], one["exact"][s], mine[s])
+                  for s in DP_STAGES} for ref in ("routed", "single")}
+    emit({"phase": "tp_readings", "what": what, "gaps": gaps})
+    first = gaps["routed"][DP_STAGES[0]]["loss_rel"][0]
+    if first > 1e-4:
+        raise RuntimeError(f"{what}: first stage-{DP_STAGES[0]} loss "
+                           f"{first:.2e} off the routed step's")
+    for ref in ("routed", "single"):
+        hold_dp(gaps[ref], None, f"{what} against {ref}", route=True)
+    for r in ranks:
+        for s in DP_STAGES:
+            st = r[s]
+            only(st["launches"], **{k: n * DP_STEPS
+                                    for k, n in per_step.items()})
+            if st["state_bytes"] != dict.fromkeys(
+                    ("params", "mu", "nu", "ema"), st["sharded_size"]) \
+                    or st["sharded_size"] != want_bytes:
+                raise RuntimeError(f"{what} state: {st['state_bytes']}, "
+                                   f"sharded_size {st['sharded_size']}, "
+                                   f"want {want_bytes}")
+            for k, v in ranks[0][s]["replicated"].items():
+                if not torch.equal(st["replicated"][k], v):
+                    raise RuntimeError(f"{what} stage {s}: the ranks' "
+                                       f"replicated {k} differ")
+    return gaps
+
+
+def tp_line(smi, root, backend, one, ranks) -> dict:
+    """The "tp" phase from the ranks' TP and TP + SP runs (module
+    docstring, phase 23): the steps held against the one-process steps
+    (``tp_ranks_hold``), the fit's checkpoint loaded by a one-process
+    ``Trainer`` and served, the base preset's bytes; each rank's peak
+    memory and step ms beside its "dp" figures."""
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.serving import load_engine
+    from rovit_kan_tpu_torch.training.trainer import Trainer
+    from rovit_kan_tpu_torch.utils.checkpoint import load_checkpoint
+    tps = [r["tp"] for r in ranks]
+    per_step = {"attention_fwd": 12, "attention_bwd": 12, "augment": 1}
+    single = one["single"]
+    for mode in ("tp", "sp"):
+        tp_ranks_hold(f"tp {mode}", one, [t["steps"][mode] for t in tps],
+                      per_step, TP_PARAM_BYTES["tiny"])
+    fits = [t["fit"] for t in tps]
+    if fits[0]["history"] != fits[1]["history"]:
+        raise RuntimeError(f"tp fit: the ranks' histories differ: "
+                           f"{[f['history'] for f in fits]}")
+    for part in ("train", "val"):
+        for m in fits[0]["history"][part]:
+            if not np.isfinite(m["total_loss"]):
+                raise RuntimeError(f"tp fit: non-finite {part} {m}")
+    best = Path(fits[0]["best_model"])
+    ck = load_checkpoint(best)
+    cfg = dp_config(root / "tp")
+    tr = Trainer(build_model(cfg, device="cuda", seed=1), None, None, cfg,
+                 seed=0)
+    tr.resume("best_model")
+    loaded = tr.model.state_dict()
+    for k, v in fits[0]["best_params"].items():
+        if not (torch.equal(ck["params"][k], v)
+                and torch.equal(loaded[k].cpu(), v)):
+            raise RuntimeError(f"tp checkpoint: {k} is not the ranks' "
+                               f"gathered best weights")
+    reset, read = all_counters()
+    engine = load_engine(best, device="cuda")
+    torch.cuda.synchronize()
+    reset()
+    probs = engine.predict(uint8_batch(25, BATCH))["cls_probs"]
+    only(read(), vit_block_fwd=12)
+    if not np.isfinite(probs).all() or probs.shape != (BATCH, 4):
+        raise RuntimeError(f"tp checkpoint serves {probs}")
+    for t in tps:
+        for mode, b in t["base"].items():
+            if b["state_bytes"]["params"] != b["sharded_size"] \
+                    or b["sharded_size"] != TP_PARAM_BYTES["base"]:
+                raise RuntimeError(f"tp base preset {mode}: {b}")
+    last = DP_STAGES[-1]
+    launches = {f"{mode}_rank{r}": {
+        k: sum(t["steps"][mode][s]["launches"][k] for s in DP_STAGES)
+        + (t["fit"]["launches"][k] if mode == "sp" else 0)
+        for k in t["fit"]["launches"]}
+        for mode in ("tp", "sp") for r, t in enumerate(tps)}
+    return {"phase": "tp" if backend == "gloo" else "tp_nccl",
+            "ranks": DP_RANKS, "mesh": tps[0]["mesh"],
+            "batch_size": BATCH, "steps": DP_STEPS,
+            "tokens": {"tp": TOKENS, "sp": -(-TOKENS // DP_RANKS)
+                       * DP_RANKS},
+            "state_bytes": {f"{mode}_rank{r}": t["steps"][mode][last][
+                "state_bytes"] for mode in ("tp", "sp")
+                for r, t in enumerate(tps)},
+            "sharded_size": tps[0]["steps"]["tp"][last]["sharded_size"],
+            "replicated_bytes": tps[0]["steps"]["tp"][last][
+                "replicated_bytes"],
+            "peak_mib": {f"rank{r}": {
+                "dp": ranks[r]["steps"][last]["peak_mib"],
+                **{mode: t["steps"][mode][last]["peak_mib"]
+                   for mode in ("tp", "sp")}} for r, t in enumerate(tps)},
+            "single_peak_mib": single[last]["peak_mib"],
+            "routed_peak_mib": one["routed"][last]["peak_mib"],
+            "routed_step_ms": one["routed"][last]["ms"],
+            "rank_step_ms": {f"rank{r}": {
+                "dp": ranks[r]["steps"][last]["ms"],
+                **{mode: t["steps"][mode][last]["ms"]
+                   for mode in ("tp", "sp")}} for r, t in enumerate(tps)},
+            "single_step_ms": single[last]["ms"],
+            "losses": {"single": single[last]["loss"],
+                       **{f"{mode}_rank0": tps[0]["steps"][mode][last][
+                           "loss"] for mode in ("tp", "sp")}},
+            "fit": {k: fits[0][k] for k in ("history", "fit_seconds",
+                                            "steps", "val_batches")},
+            "base_preset": {f"rank{r}": t["base"]
+                            for r, t in enumerate(tps)},
+            "base_batch": FSDP_BASE_BATCH,
+            "seconds": [t["seconds"] for t in tps],
+            "launches": launches, "card": smi}
+
+
+def fsdp_tp_phase(smi: str, root: Path, one) -> dict:
+    """FSDP+TP on four cards (``--nccl`` with four visible): data 2 x
+    model 2, the flagship's steps held as the "tp" phase's (24 #5 a step:
+    a unit's forward runs again in its backward; 12 #6, 1 #7), each rank's
+    6,139,112 B of parameters."""
+    root.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    ranks = run_ranks(root, 4, "nccl", worker="--tp4-worker")
+    gaps = tp_ranks_hold("fsdp_tp", one, [r["steps"] for r in ranks],
+                         {"attention_fwd": 24, "attention_bwd": 12,
+                          "augment": 1}, FSDP_TP_PARAM_BYTES)
+    last = DP_STAGES[-1]
+    return {"phase": "fsdp_tp_nccl", "ranks": 4, "mesh": ranks[0]["mesh"],
+            "gaps": gaps, "sharded_size": ranks[0]["steps"][last][
+                "sharded_size"],
+            "state_bytes": {f"rank{r}": x["steps"][last]["state_bytes"]
+                            for r, x in enumerate(ranks)},
+            "peak_mib": {f"rank{r}": x["steps"][last]["peak_mib"]
+                         for r, x in enumerate(ranks)},
+            "rank_step_ms": {f"rank{r}": x["steps"][last]["ms"]
+                             for r, x in enumerate(ranks)},
+            "launches": {f"rank{r}": {k: sum(
+                x["steps"][s]["launches"][k] for s in DP_STAGES)
+                for k in x["steps"][last]["launches"]}
+                for r, x in enumerate(ranks)},
+            "seconds": time.perf_counter() - t0, "card": smi}
+
+
 def baselines_dp_line(smi, root, backend, one, ranks) -> dict:
     """The "baselines_dp" phase (module docstring, phase 22): the ranks'
     first ResNet-50 step and ``cli.run_baselines`` sweep against the
@@ -5718,8 +6123,9 @@ def baselines_dp_line(smi, root, backend, one, ranks) -> dict:
 def dp_phase(smi: str, root: Path, backend: str = "gloo"):
     """Data parallelism (module docstring, phase 20): two ranks on cuda:0
     through gloo, or with ``nccl`` on cuda:0 and cuda:1 (``--nccl``); the
-    same ranks run the "fsdp" and "baselines_dp" phases (21, 22). Returns
-    the three phases' lines."""
+    same ranks run the "fsdp", "baselines_dp" and "tp" phases (21-23).
+    Returns the four phases' lines and the one-process steps the "tp" ranks
+    were held against (bf16 on #1/#2, bf16 on the TP route, fp32)."""
     root.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     single = {s: dp_steps(None, s) for s in DP_STAGES}
@@ -5733,6 +6139,9 @@ def dp_phase(smi: str, root: Path, backend: str = "gloo"):
                                  ["--synthetic", "--devices", "1"])}
     ranks = run_ranks(root, DP_RANKS, backend)
     fsdped = fsdp_line(smi, root, backend, single, exact, ranks)
+    one = {"single": single, "exact": exact,
+           "routed": {s: dp_steps(None, s, route=True) for s in DP_STAGES}}
+    tped = tp_line(smi, root, backend, one, ranks)
     baselined = baselines_dp_line(smi, root, backend, one_baselines, ranks)
     gaps = {s: dp_gaps(single[s], exact[s], [r["steps"][s] for r in ranks])
             for s in DP_STAGES}
@@ -5782,7 +6191,7 @@ def dp_phase(smi: str, root: Path, backend: str = "gloo"):
                                             "temperature")},
             "launches": launches, "cli": cli,
             "seconds": time.perf_counter() - t0, "card": smi}
-    return dped, fsdped, baselined
+    return dped, fsdped, baselined, tped, one
 
 
 def main() -> int:
@@ -5873,10 +6282,11 @@ def main() -> int:
         moed = moe_phase(smi, root)
         emit(moed)
         emit(native_phase(smi, root))
-        dped, fsdped, bdped = dp_phase(smi, root / "dp")
+        dped, fsdped, bdped, tped, _ = dp_phase(smi, root / "dp")
         emit(dped)
         emit(fsdped)
         emit(bdped)
+        emit(tped)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     benched = bench_phase(smi)
@@ -6049,7 +6459,8 @@ def main() -> int:
                  **{f"{name}_{r}": counts
                     for name, line in (("dp", dped), ("fsdp", fsdped),
                                        ("baselines_dp", bdped))
-                    for r, counts in line["launches"].items()}}
+                    for r, counts in line["launches"].items()},
+                 **tped["launches"]}
     for e in kernels:
         e.setdefault("launches_by_path", {}).update(
             {path: counts[e["name"]] for path, counts in new_paths.items()})
@@ -6080,8 +6491,11 @@ def main_nccl() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_nccl_"))
     try:
-        for line in dp_phase(smi, root / "dp", backend="nccl"):
+        *lines, one = dp_phase(smi, root / "dp", backend="nccl")
+        for line in lines:
             emit(line)
+        if torch.cuda.device_count() >= 4:
+            emit(fsdp_tp_phase(smi, root / "fsdp_tp", one))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(smi, flush=True)
@@ -6093,4 +6507,6 @@ def main_nccl() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--tp4-worker"]:
+        sys.exit(tp4_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main_nccl() if sys.argv[1:] == ["--nccl"] else main())

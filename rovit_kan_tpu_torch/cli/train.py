@@ -7,7 +7,8 @@
         [--checkpoint_min_interval S] [--preset tiny|small|base] \
         [--profile_dir DIR] [--matmul_precision P] [--pretrained_npz NPZ] \
         [--moe_experts E] [--devices N] [--multihost] \
-        [--device_cache_sharded] [--fsdp]
+        [--device_cache_sharded] [--fsdp] [--tensor_parallel T] \
+        [--sequence_parallel]
 
 The flow of the JAX package's ``scripts/train.py``. A run:
 dataloaders over ``DATA/Augmented Image`` (train and validation, a seeded
@@ -53,9 +54,20 @@ rank's parameter bytes beside the replicated figure; on one rank there is
 nothing to shard over and it trains replicated. Its checkpoints are the
 single-card files.
 
+Tensor parallelism (``parallel/tensor.py``): ``--tensor_parallel T`` lays
+the ranks out on a 2-D mesh, data x model, with ``--devices N`` counting
+every process (data = N / T; a remainder is refused, as the JAX script
+refuses it) and shards each block's attention and MLP weights over the T
+ranks of a model column, Megatron-style; ``--sequence_parallel`` also
+shards the residual stream's tokens over them. ``--fsdp`` composes with
+both (FSDP+TP: the data axis shards what the Megatron rule leaves). The
+flag rules of the JAX script are checked before any data loads, with its
+messages. The checkpoints are the single-card files.
+
 Runs on the card unless ``--cpu`` is given. Not ported yet:
-``--pipeline_parallel``, ``--pipeline_microbatches``, ``--tensor_parallel``,
-``--sequence_parallel`` and ``--expert_parallel``.
+``--pipeline_parallel``, ``--pipeline_microbatches`` and
+``--expert_parallel``: they are parsed for the JAX script's flag rules and
+refused above 1.
 """
 from __future__ import annotations
 
@@ -139,8 +151,92 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--fsdp", action="store_true",
                    help="ZeRO-3: shard params, grads, optimizer moments "
                         "and EMA over the data axis instead of "
-                        "replicating (parallel/fsdp.py)")
+                        "replicating (parallel/fsdp.py; composes with "
+                        "--tensor_parallel into the FSDP+TP hybrid)")
+    p.add_argument("--tensor_parallel", type=int, default=1,
+                   help="model-axis size of a 2-D (data x model) mesh; "
+                        "shards attention+MLP weights Megatron-style "
+                        "(parallel/tensor.py). Total devices = "
+                        "data x model")
+    p.add_argument("--sequence_parallel", action="store_true",
+                   help="with --tensor_parallel: also shard the residual "
+                        "stream's token dim over the model axis "
+                        "(parallel/tensor.py::seq_sharding)")
+    p.add_argument("--pipeline_parallel", type=int, default=1,
+                   help="not ported: refused above 1")
+    p.add_argument("--pipeline_microbatches", type=int, default=None,
+                   help="not ported: refused")
+    p.add_argument("--expert_parallel", type=int, default=1,
+                   help="not ported: refused above 1")
     return p.parse_args(argv)
+
+
+def check_flags(args: argparse.Namespace) -> None:
+    """The JAX script's flag rules, with its messages, then the flags the
+    port does not take and the remainder of ``--devices`` over the model
+    axes; raises SystemExit before any data loads."""
+    if args.sequence_parallel:
+        if args.tensor_parallel <= 1:
+            raise SystemExit("--sequence_parallel requires "
+                             "--tensor_parallel > 1 (it shards over "
+                             "the model axis)")
+        if args.pipeline_parallel > 1:
+            raise SystemExit("--sequence_parallel composes with the "
+                             "GSPMD tensor-parallel path only; the "
+                             "pipeline stages run inside shard_map "
+                             "where sharding constraints don't apply")
+    if args.expert_parallel > 1:
+        if args.moe_experts <= 1:
+            raise SystemExit("--expert_parallel requires --moe_experts > 1 "
+                             "(there must be experts to shard)")
+        if args.moe_experts % args.expert_parallel != 0:
+            raise SystemExit(f"--moe_experts {args.moe_experts} must be "
+                             f"divisible by --expert_parallel "
+                             f"{args.expert_parallel}")
+        if args.tensor_parallel > 1 or args.pipeline_parallel > 1:
+            raise SystemExit("--expert_parallel uses its own "
+                             "('data', 'expert') mesh and does not compose "
+                             "with --tensor_parallel/--pipeline_parallel")
+    if args.fsdp and (args.pipeline_parallel > 1
+                      or args.expert_parallel > 1):
+        raise SystemExit("--fsdp composes with --tensor_parallel only; "
+                         "pipeline/expert parallelism keep their own "
+                         "stacked param layouts (parallel/fsdp.py)")
+    if args.moe_experts > 1 and args.pipeline_parallel > 1:
+        raise SystemExit("--moe_experts does not compose with "
+                         "--pipeline_parallel: the GPipe stage scan "
+                         "requires identical per-block param structures "
+                         "(parallel/pipeline.py), and MoE blocks differ")
+    unported = [f for f, on in (
+        ("--pipeline_parallel", args.pipeline_parallel > 1),
+        ("--pipeline_microbatches", args.pipeline_microbatches is not None),
+        ("--expert_parallel", args.expert_parallel > 1)) if on]
+    if unported:
+        raise SystemExit(f"{', '.join(unported)}: not ported yet")
+    model_axes = (args.tensor_parallel * args.pipeline_parallel
+                  * args.expert_parallel)
+    if args.devices != -1 and args.devices % model_axes != 0:
+        # The floor-divides below would silently idle the remainder.
+        raise SystemExit(
+            f"--devices {args.devices} is not divisible by "
+            f"pipeline*tensor*expert parallel = {model_axes}; "
+            f"{args.devices % model_axes} device(s) would sit idle")
+
+
+def make_run_mesh(args: argparse.Namespace):
+    """This process's mesh: the 2-D data x model mesh under
+    ``--tensor_parallel`` (``--devices`` counting every process), else the
+    data mesh."""
+    from rovit_kan_tpu_torch.parallel.mesh import make_2d_mesh, make_mesh
+    device = "cpu" if args.cpu else None
+    if args.tensor_parallel > 1:
+        data = (-1 if args.devices == -1
+                else args.devices // args.tensor_parallel)
+        mesh = make_2d_mesh(data, args.tensor_parallel, device=device)
+        print(f"Mesh: data={mesh.size} x model={mesh.model_size} (tensor "
+              f"parallel)")
+        return mesh
+    return make_mesh(args.devices, device=device)
 
 
 def build_config(args: argparse.Namespace):
@@ -188,12 +284,14 @@ def build_config(args: argparse.Namespace):
 def run_one(config, seed: int, out_dir: Path, aug_root: Path,
             orig_root: Path, device: str, resume: bool, device_cache: bool,
             profile_dir: Path = None, mesh=None,
-            device_cache_sharded: bool = False, fsdp: bool = False):
+            device_cache_sharded: bool = False, fsdp: bool = False,
+            sequence_parallel: bool = False):
     """One training run and its test evaluation; returns the test metrics,
     or None when the run was preempted. With ``profile_dir`` the first
     epoch runs under a torch.profiler trace written there. ``mesh``: this
-    rank's data mesh (rank 0 writes the files); ``fsdp`` shards the state
-    over it."""
+    rank's data or data x model mesh (rank 0 writes the files); ``fsdp``
+    shards the state over its data axis, ``sequence_parallel`` the
+    residual stream's tokens over its model axis."""
     from rovit_kan_tpu_torch.data.dataset import create_dataloaders
     from rovit_kan_tpu_torch.evaluation.evaluator import (
         Evaluator,
@@ -236,31 +334,43 @@ def run_one(config, seed: int, out_dir: Path, aug_root: Path,
                  if train_l.sharded else ""))
 
     main = process_index() == 0
-    model = build_model(cfg, device=device, seed=seed)
+    tp = mesh is not None and "model" in mesh.axis_names
+    act_sharding = None
+    if sequence_parallel:
+        from rovit_kan_tpu_torch.parallel.tensor import seq_sharding
+        act_sharding = seq_sharding(mesh)
+        print("Sequence parallel: residual stream tokens sharded over "
+              f"model={mesh.model_size}")
+    model = build_model(cfg, device=device, seed=seed,
+                        act_sharding=act_sharding)
     n_params = count_parameters(model)["total"]
     logger = ExperimentLogger(cfg.paths.logs_dir, "train") if main else None
     if fsdp and (mesh is None or mesh.size == 1):
         print("FSDP: data axis has 1 device — nothing to shard over; "
-              "params stay replicated")
+              "params stay "
+              + ("tensor-parallel sharded (Megatron specs only)" if tp
+                 else "replicated"))
         fsdp = False
     elif fsdp:
         from rovit_kan_tpu_torch.parallel.fsdp import (
             fsdp_param_specs,
             sharded_size,
         )
+        from rovit_kan_tpu_torch.parallel.tensor import param_specs
         print(f"FSDP: params/grads/moments/EMA sharded over "
               f"data={mesh.size} (ZeRO-3)")
-        shard_mb = sharded_size(model, fsdp_param_specs(model, mesh),
-                                mesh) / 1e6
+        shard_mb = sharded_size(
+            model, fsdp_param_specs(model, mesh, tp=tp), mesh,
+            param_specs(model) if tp else None) / 1e6
         print(f"FSDP state/device: params {shard_mb:.1f} MB (replicated: "
               f"{sharded_size(model, {}, mesh) / 1e6:.1f} MB); AdamW "
               f"moments and EMA shard identically")
     trainer = Trainer(model, train_l, val_l, cfg, logger=logger,
                       focal_alpha=focal_alpha, seed=seed, mesh=mesh,
                       fsdp=fsdp)
-    # The model whole for a while (under FSDP its sharded leaves are
+    # The model whole for a while (under FSDP or TP its sharded leaves are
     # gathered): the merge and the final evaluation read it.
-    whole = (trainer.fsdp.full_module if trainer.fsdp is not None
+    whole = (trainer.sharded.full_module if trainer.sharded is not None
              else contextlib.nullcontext)
 
     start_epoch = 1
@@ -337,7 +447,7 @@ def run_one(config, seed: int, out_dir: Path, aug_root: Path,
             ck_dir / "best_model", cfg, device=device)
     else:
         eval_weights = trainer.eval_params(result["best_state"])
-        if trainer.fsdp is not None:
+        if trainer.sharded is not None:
             # This rank's shards: gathered into the model for the test.
             gathered, eval_weights = whole(eval_weights), None
     with gathered:
@@ -350,11 +460,11 @@ def main(argv=None):
     """Run the training; returns the test metrics (``--all_seeds``: the
     seed summary), or None when preempted."""
     args = parse_args(argv)
+    check_flags(args)
     mesh = None
     if args.multihost:
-        from rovit_kan_tpu_torch.parallel.mesh import make_mesh
-        mesh = make_mesh(args.devices, device="cpu" if args.cpu else None)
-        print(f"Multi-host: rank {mesh.rank} of {mesh.size} on "
+        mesh = make_run_mesh(args)
+        print(f"Multi-host: rank {mesh.global_rank} of {mesh.world} on "
               f"{mesh.device} ({mesh.backend or 'no process group'})")
     else:
         n = data_parallel_size(args.devices, args.cpu)
@@ -364,6 +474,8 @@ def main(argv=None):
                  *(sys.argv[1:] if argv is None else argv), "--multihost"],
                 n)
             return _rank0_result(args)
+        if args.tensor_parallel > 1:
+            mesh = make_run_mesh(args)   # one process: the JAX error
     set_matmul_precision(args.matmul_precision)
     import numpy as np
 
@@ -395,7 +507,8 @@ def main(argv=None):
     def run(seed, out_dir):
         return run_one(config, seed, out_dir, aug_root, orig_root, device,
                        args.resume, args.device_cache, args.profile_dir,
-                       mesh, args.device_cache_sharded, args.fsdp)
+                       mesh, args.device_cache_sharded, args.fsdp,
+                       args.sequence_parallel)
 
     if not args.all_seeds:
         metrics = run(args.seed, args.output_dir)

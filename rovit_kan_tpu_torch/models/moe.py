@@ -23,13 +23,15 @@ and no balancing loss is needed; the flagship stays dense
   ``b1 (E, H)``, ``w2 (E, H, D)`` and ``b2 (E, D)`` are the JAX leaves as
   they are. Tokens no expert picks get zero, and the residual stream
   carries them.
-
-The JAX module's ``n_valid`` (sequence-parallel filler tokens masked out of
-the gate) comes with the port of ``parallel/``.
+- **Sequence-parallel filler** (``n_valid``, ``models/vit.py``): tokens at
+  ``n_valid`` and after score ``-inf`` in the gate and the capacity comes
+  from ``n_valid``, so a filler token never takes a slot and the real
+  tokens' outputs do not depend on the padding.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -43,11 +45,17 @@ def expert_capacity(num_tokens: int, num_experts: int,
     return max(1, min(c, num_tokens))
 
 
-def route(x: torch.Tensor, gate_weight: torch.Tensor, capacity: int):
+def route(x: torch.Tensor, gate_weight: torch.Tensor, capacity: int,
+          n_valid: Optional[int] = None):
     """The expert-choice routing of ``x (B, S, D)``: each expert's chosen
-    token indices ``(B, E, C)`` and their fp32 gate probabilities."""
+    token indices ``(B, E, C)`` and their fp32 gate probabilities; tokens
+    at ``n_valid`` and after are never chosen."""
     probs = torch.softmax(F.linear(x.float(), gate_weight.float()), dim=-1)
     scores = probs.transpose(1, 2)                       # (B, E, S)
+    S = scores.shape[-1]
+    if n_valid is not None and n_valid < S:
+        valid = torch.arange(S, device=scores.device) < n_valid
+        scores = scores.masked_fill(~valid, float("-inf"))
     idx = torch.sort(scores, dim=-1, descending=True,
                      stable=True).indices[..., :capacity]
     return idx, torch.gather(scores, -1, idx)
@@ -72,11 +80,13 @@ class MoEMlp(nn.Module):
         self.w2 = nn.Parameter(torch.zeros(num_experts, hidden, dim))
         self.b2 = nn.Parameter(torch.zeros(num_experts, dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                n_valid: Optional[int] = None) -> torch.Tensor:
         B, S, D = x.shape
         E, dt = self.num_experts, self.dtype
-        C = expert_capacity(S, E, self.capacity_factor)
-        idx, w = route(x, self.gate.weight, C)
+        C = expert_capacity(S if n_valid is None else n_valid, E,
+                            self.capacity_factor)
+        idx, w = route(x, self.gate.weight, C, n_valid)
         disp = F.one_hot(idx, S).to(dt).reshape(B, E * C, S)
         xin = torch.bmm(disp, x.to(dt)).reshape(B, E, C, D)
         h = torch.einsum("becd,edh->bech", xin.float(),

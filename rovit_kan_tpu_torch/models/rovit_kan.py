@@ -224,16 +224,28 @@ def build_model(config: Config, *, with_ordinal: Optional[bool] = None,
                 with_uncertainty: Optional[bool] = None,
                 with_kan: Optional[bool] = None,
                 dtype: Optional[torch.dtype] = None, inference: bool = False,
-                device="cuda", seed: int = 0) -> RoViTKAN:
+                device="cuda", seed: int = 0,
+                act_sharding=None) -> RoViTKAN:
     """RoViTKAN from a Config, with weights drawn from ``seed``, in eval mode
     when ``inference``. Head toggles default to ``config.model.with_*``.
     Runs on the card unless ``device="cpu"``; raises when CUDA is asked for
     and absent. ``tpu.use_pallas_kan`` passes through as it is (no "auto"),
     as in the JAX ``build_model``: the KAN kernels when true; so do
     ``tpu.remat_backbone`` and ``model.moe_experts``, ``moe_every`` and
-    ``moe_capacity_factor`` (``models/vit.py``)."""
+    ``moe_capacity_factor`` (``models/vit.py``). ``act_sharding``: the
+    sequence-parallel layout (``parallel/tensor.py::seq_sharding``), taken
+    when the model is wrapped in ``TensorParallel``; a forced
+    ``use_pallas_block=True`` refuses it, since the whole-block kernels
+    take a whole block."""
     dev = resolve_device(device)
     m, tpu = config.model, config.tpu
+    if act_sharding is not None and tpu.use_pallas_block is True:
+        raise ValueError(
+            "use_pallas_block=True forces the whole-block kernels (#1-#4), "
+            "which take a whole block; under sequence parallelism each rank "
+            "holds a shard of the block's weights and tokens. Leave it "
+            '"auto": the sharded block runs its heads\' attention core '
+            "through #5/#6")
     if dtype is None:
         dtype = (torch.bfloat16 if config.flags.mixed_precision
                  else torch.float32)
@@ -259,6 +271,7 @@ def build_model(config: Config, *, with_ordinal: Optional[bool] = None,
         use_pallas_kan=tpu.use_pallas_kan, remat=tpu.remat_backbone,
         moe_experts=m.moe_experts, moe_every=m.moe_every,
         moe_capacity_factor=m.moe_capacity_factor)
+    model.backbone.model.act_sharding = act_sharding
     init_weights(model, seed)
     model.train(not inference)
     return model.to(dev)

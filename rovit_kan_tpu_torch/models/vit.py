@@ -43,6 +43,19 @@ in the JAX ``Block``. ``remat`` recomputes each plain block in the backward
 that record gradients and ask for no tap; a fused block is left alone, since
 its backward already keeps only the block's input and recomputes the rest.
 Gradients are the same bits with remat on and off.
+
+Under tensor parallelism (``parallel/tensor.py::TensorParallel``) the trunk
+and every block hold the mesh's ``ModelAxis`` as ``tp``, and the blocks hold
+their rank's shards of the four Megatron layers. A block then runs sharded
+(``Block._tp_forward``): qkv and fc1 on its columns, one all-gather of qkv,
+the attention core on the heads its row slice of proj reads (through
+``fused_attention`` where the block would run fused or with fused
+attention), proj and fc2 as fp32 partials summed over ``"model"`` and
+rounded once. A MoE block's FFN stays replicated. Under sequence
+parallelism (``act_sharding``, which ``build_model`` sets) ``embed`` pads
+the stream to a multiple of the model axis and keeps the rank's tokens,
+and ``features`` gathers the real tokens back. The explainability taps are
+not ported under tensor or sequence parallelism and raise.
 """
 from __future__ import annotations
 
@@ -115,6 +128,33 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
+    def sharded_core(self, qkv: torch.Tensor, tp, fused: bool
+                     ) -> torch.Tensor:
+        """This rank's columns ``[r*D/t, (r+1)*D/t)`` of the attention
+        output, in ``dtype``, from the whole ``qkv (B, N, 3D)``: the core
+        runs on the heads those columns cross, over the first ``n_valid``
+        tokens where filler pads the stream (the filler rows get zeros)."""
+        B, N, D3 = qkv.shape
+        D, h = D3 // 3, self.num_heads
+        hd = D // h
+        lo, hi = tp.cols(D)
+        h0, h1 = lo // hd, -(-hi // hd)
+        n = tp.n_valid or N
+        q, k, v = qkv.reshape(B, N, 3, h, hd)[:, :n, :, h0:h1].permute(
+            2, 0, 3, 1, 4)
+        if fused:
+            out = self.attn_fn(q * hd ** -0.5, k, v)
+        else:
+            logits = torch.matmul((q * hd ** -0.5).float(),
+                                  k.float().transpose(-1, -2))
+            weights = torch.softmax(logits, dim=-1)
+            out = torch.matmul(weights.to(v.dtype).float(), v.float())
+        out = out.to(self.dtype).transpose(1, 2).reshape(
+            B, n, (h1 - h0) * hd)[..., lo - h0 * hd:hi - h0 * hd]
+        if n < N:
+            out = torch.cat([out, out.new_zeros(B, N - n, hi - lo)], 1)
+        return out
+
     def forward(self, x: torch.Tensor, return_weights: bool = False):
         """The attention output; with ``return_weights``, also the fp32
         softmax weights ``(B, heads, N, N)`` from the plain path, taken
@@ -150,6 +190,23 @@ class Mlp(nn.Module):
         return _linear(x, self.fc2, self.dtype)
 
 
+def _row_partial(x: torch.Tensor, layer: nn.Linear,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """A row-parallel layer's partial ``x W^T`` in fp32, without the bias:
+    the operands rounded to ``dtype`` and multiplied and summed in fp32, so
+    the sum over the ranks rounds once, as the one-card GEMM does."""
+    return F.linear(x.to(dtype).float(), layer.weight.to(dtype).float())
+
+
+def _row_output(tp, partial: torch.Tensor, layer: nn.Linear,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The partials summed over the model axis (this rank's tokens of the
+    sum under sequence parallelism), plus the bias, rounded to ``dtype``
+    once."""
+    out = tp.row_output(partial)
+    return (out + layer.bias.to(dtype).float()).to(dtype)
+
+
 class Block(nn.Module):
     """Pre-LN transformer block: x += MHA(LN(x)); x += MLP(LN(x)).
 
@@ -180,6 +237,14 @@ class Block(nn.Module):
             self.mlp = Mlp(dim, hidden, dtype)
         self._kernel_params: Optional[Dict[str, torch.Tensor]] = None
         self._kernel_key: Optional[Tuple] = None
+        #: The model axis under tensor parallelism (``parallel/tensor.py``).
+        self.tp = None
+
+    @property
+    def runs_fused(self) -> bool:
+        """Whether a call without taps runs the whole-block kernels: not on
+        a tensor-parallel shard."""
+        return self.use_fused_block and self.tp is None
 
     def block_params(self) -> Dict[str, torch.Tensor]:
         """The block's fp32 parameters under the kernel's names."""
@@ -216,6 +281,13 @@ class Block(nn.Module):
         weights, tap)``: the fp32 softmax weights (None unless asked for)
         and the fp32 ``norm1`` output plus the perturbation."""
         taps = return_weights or norm1_perturbation is not None
+        if self.tp is not None:
+            if taps:
+                raise NotImplementedError(
+                    "the explainability taps are not ported under tensor "
+                    "or sequence parallelism: run them on the model whole "
+                    "(TensorParallel.full_module)")
+            return self._tp_forward(x)
         if self.use_fused_block and not taps:
             return self.block_fn(x.to(self.dtype), self.block_params(),
                                  self.num_heads,
@@ -234,6 +306,29 @@ class Block(nn.Module):
         else:
             out = x + self.mlp(z.to(self.dtype))
         return (out, weights, tap) if taps else out
+
+    def _tp_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The block on this rank's shards (``parallel/tensor.py``): ``x``
+        is the whole stream, or this rank's tokens of it under sequence
+        parallelism."""
+        tp, dt = self.tp, self.dtype
+        fused = self.use_fused_block or self.attn.use_fused
+        y = _layer_norm(x, self.norm1).to(dt)
+        qkv = tp.gather_columns(tp.column_linear(y, self.attn.qkv, dt))
+        a = self.attn.sharded_core(qkv, tp, fused)
+        x = x + _row_output(tp, _row_partial(a, self.attn.proj, dt),
+                            self.attn.proj, dt)
+        z = _layer_norm(x, self.norm2)
+        if hasattr(self, "moe"):
+            # The FFN is replicated; under sequence parallelism it routes
+            # over the whole sequence, filler masked out of the gate.
+            if tp.seq:
+                y = self.moe(tp.gather_tokens(z), n_valid=tp.n_valid)
+                return x + tp.own_tokens(y)
+            return x + self.moe(z)
+        h = F.gelu(tp.column_linear(z.to(dt), self.mlp.fc1, dt))  # erf
+        return x + _row_output(tp, _row_partial(h, self.mlp.fc2, dt),
+                               self.mlp.fc2, dt)
 
 
 class VisionTransformer(nn.Module):
@@ -265,20 +360,31 @@ class VisionTransformer(nn.Module):
                   moe_capacity_factor=moe_capacity_factor)
             for i in range(depth)])
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        #: The model axis under tensor parallelism, and the sequence-
+        #: parallel layout ``build_model`` was given (``parallel/tensor.py``).
+        self.tp = None
+        self.act_sharding = None
 
     def embed(self, x: torch.Tensor) -> torch.Tensor:
         """The tokens the first block takes: the patches embedded, the CLS
         token before them and the position embeddings added, in the
-        compute dtype."""
+        compute dtype; under sequence parallelism, padded and cut to this
+        rank's tokens."""
         B = x.shape[0]
         x = self.patch_embed(x)
         cls = self.cls_token.expand(B, -1, -1).to(x.dtype)
         x = torch.cat([cls, x], dim=1)
-        return x + self.pos_embed.to(x.dtype)
+        x = x + self.pos_embed.to(x.dtype)
+        if self.tp is not None and self.tp.seq:
+            x = self.tp.split_tokens(x)
+        return x
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """The fp32 CLS feature of the last block's tokens (the final
-        norm)."""
+        norm); under sequence parallelism the real tokens are gathered
+        first."""
+        if self.tp is not None and self.tp.seq:
+            x = self.tp.gather_replicated(x)
         return _layer_norm(x, self.norm)[:, 0]
 
     def forward(self, x: torch.Tensor, return_attention: bool = False,
@@ -291,13 +397,19 @@ class VisionTransformer(nn.Module):
         respect to it), returns a dict of ``features`` and what was asked
         for: ``attention`` ``(depth, B, heads, N, N)`` fp32, ``norm1_tap``
         ``(B, N, D)`` fp32."""
+        taps = return_attention or gradcam_perturbation is not None
+        if taps and self.tp is not None:
+            raise NotImplementedError(
+                "the explainability taps are not ported under tensor or "
+                "sequence parallelism: run them on the model whole "
+                "(TensorParallel.full_module)")
         x = self.embed(x)
-        if return_attention or gradcam_perturbation is not None:
+        if taps:
             return self._forward_taps(x, return_attention,
                                       gradcam_perturbation)
         remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            if remat and not blk.use_fused_block:
+            if remat and not blk.runs_fused:
                 x = checkpoint(blk, x, use_reentrant=False)
             else:
                 x = blk(x)

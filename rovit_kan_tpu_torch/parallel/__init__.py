@@ -1,12 +1,14 @@
-"""Data parallelism over ``torch.distributed``: one process per card.
+"""Parallelism over ``torch.distributed``: one process per card.
 
-The ported part of ``rovit_kan_tpu/parallel``: the 1-D data mesh, its
-multi-host glue and FSDP over it (``parallel/fsdp.py``). Tensor and
-sequence parallelism, expert parallelism and the GPipe pipeline are not
-ported.
+The ported part of ``rovit_kan_tpu/parallel``: the 1-D data mesh and the
+2-D data x model mesh (``mesh.py``), their multi-host glue, FSDP
+(``fsdp.py``) and tensor and sequence parallelism (``tensor.py``). Not
+ported: expert parallelism (``make_moe_mesh``, ``moe_param_specs``) and the
+GPipe pipeline (``pipeline.py``).
 """
 from rovit_kan_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
+    make_2d_mesh,
     make_mesh,
     replicate,
     shard_batch,

@@ -35,13 +35,22 @@ from put back first), so that only the unit's input is kept between the
 two.
 
 Whole leaves keep data parallelism's ``all_reduce`` of their gradient
-(``training/trainer.py``). With ``tp=True`` the JAX rule composes with the
-Megatron specs of a ``"model"`` axis, which the port's mesh does not have.
+(``training/trainer.py``).
+
+FSDP+TP (``fsdp_param_specs(..., tp=True)`` on a 2-D mesh, ``FSDP(model,
+mesh, specs, tp=TensorParallel(...))``): the Megatron rule of
+``parallel/tensor.py`` claims its dimension first, and the JAX rule then
+shards the largest dimension left over the data axis (its sizes read on the
+whole leaf). The units gather and reduce-scatter over ``"data"`` only, each
+on the leaf that is already this rank's tensor-parallel shard; a block unit
+then runs the sharded block (``models/vit.py``) with its collectives over
+``"model"``, never the fused block. ``local``, ``gather_full`` and
+``full_module`` go through both axes.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator, List, Optional, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -58,6 +67,12 @@ from rovit_kan_tpu_torch.ops.block_kernel import (
     plain_vit_block,
 )
 from rovit_kan_tpu_torch.parallel.mesh import Mesh
+from rovit_kan_tpu_torch.parallel.tensor import (
+    ShardedState,
+    flat_order,
+    jax_spec,
+    shapes_of,
+)
 
 MIN_SIZE = 4096
 
@@ -71,19 +86,22 @@ Specs = Dict[str, Optional[int]]
 def _tree(model_or_state) -> Dict[str, torch.Tensor]:
     if isinstance(model_or_state, nn.Module):
         return dict(model_or_state.named_parameters())
+    if hasattr(model_or_state, "state_tensors"):
+        return model_or_state.state_tensors()
     return dict(model_or_state)
 
 
-def _jax_rule(shape: Tuple[int, ...], n: int, min_size: int
-              ) -> Optional[int]:
+def _jax_rule(shape: Tuple[int, ...], n: int, min_size: int,
+              claimed: Optional[int] = None) -> Optional[int]:
     """The JAX ``fsdp_param_specs`` rule on a JAX-layout shape: the dim to
-    shard, or None."""
+    shard, or None; ``claimed``: a dim the Megatron rule took."""
     numel = 1
     for s in shape:
         numel *= s
     if numel < min_size or n == 1:
         return None
-    free = [(s, d) for d, s in enumerate(shape) if s % n == 0 and s >= n]
+    free = [(s, d) for d, s in enumerate(shape)
+            if d != claimed and s % n == 0 and s >= n]
     return max(free)[1] if free else None
 
 
@@ -91,28 +109,41 @@ def fsdp_param_specs(model_or_state, mesh: Mesh, *,
                      min_size: int = MIN_SIZE, tp: bool = False) -> Specs:
     """Each parameter's name -> the port dimension sharded over the data
     axis, or None where the leaf stays whole. ``model_or_state``: a
-    ``RoViTKAN`` or its state_dict (shapes are all that is read)."""
+    ``RoViTKAN``, its state_dict or its ``TensorParallel`` wrapper (the
+    whole shapes are all that is read). ``tp``: the Megatron rule claims
+    its dimension first."""
     if tp and "model" not in mesh.axis_names:
         raise ValueError(
             f"tp=True needs a 'model' axis on the mesh (got "
             f"{mesh.axis_names}); the Megatron rules would emit specs "
             f"referencing a missing axis")
     specs = {}
-    for name, t in _tree(model_or_state).items():
-        _, transpose = _jax_path(name, t.dim())
-        shape = tuple(t.shape)
+    for name, shape in shapes_of(model_or_state).items():
+        ndim = len(shape)
+        _, transpose = _jax_path(name, ndim)
+        spec = jax_spec(name, ndim) if tp else ()
+        claimed = spec.index("model") if "model" in spec else None
         d = _jax_rule(shape[::-1] if transpose else shape, mesh.size,
-                      min_size)
+                      min_size, claimed)
         specs[name] = None if d is None else (
-            t.dim() - 1 - d if transpose else d)
+            ndim - 1 - d if transpose else d)
     return specs
 
 
-def sharded_size(model_or_state, specs: Specs, mesh: Mesh) -> int:
-    """Per-rank bytes of ``model_or_state``'s leaves under ``specs``."""
-    return sum(t.numel() * t.element_size()
-               // (mesh.size if specs.get(k) is not None else 1)
-               for k, t in _tree(model_or_state).items())
+def sharded_size(model_or_state, specs: Specs, mesh: Mesh,
+                 model_specs: Optional[Specs] = None) -> int:
+    """Per-rank bytes of ``model_or_state``'s whole leaves under ``specs``
+    (each sharded leaf divided by the data axis) and ``model_specs`` (by
+    the model axis, ``parallel/tensor.py``): the JAX ``sharded_size``."""
+    model_specs = model_specs or {}
+    sizes = {k: t.element_size() for k, t in _tree(model_or_state).items()}
+    total = 0
+    for k, shape in shapes_of(model_or_state).items():
+        n = int(torch.Size(shape).numel()) * sizes[k]
+        n //= mesh.size if specs.get(k) is not None else 1
+        n //= mesh.model_size if model_specs.get(k) is not None else 1
+        total += n
+    return total
 
 
 def _rng_of(generator, device: torch.device) -> torch.Generator:
@@ -202,9 +233,11 @@ class _UnitFunction(torch.autograd.Function):
         return (None,) * 4 + (dx,) + (None,) * n_params
 
 
-class FSDP:
+class FSDP(ShardedState):
     """A ``RoViTKAN`` whose parameters are sharded over ``mesh`` by
-    ``specs`` (default: ``fsdp_param_specs(model, mesh)``).
+    ``specs`` (default: ``fsdp_param_specs(model, mesh)``); with ``tp``, a
+    ``TensorParallel`` wrapper of ``model``, the leaves it holds are its
+    shards (module docstring).
 
     It stands where the model stands in ``make_train_step``,
     ``make_eval_step`` and ``build_optimizer``: ``fsdp(x, generator)``,
@@ -226,13 +259,18 @@ class FSDP:
     MAX_LIVE = 1
 
     def __init__(self, model: nn.Module, mesh: Mesh,
-                 specs: Optional[Specs] = None):
-        self.model, self.mesh = model, mesh
-        self.specs = (fsdp_param_specs(model, mesh) if specs is None
-                      else dict(specs))
+                 specs: Optional[Specs] = None, tp=None):
+        self.model, self.mesh, self.tp = model, mesh, tp
+        self.specs = (fsdp_param_specs(tp or model, mesh, tp=tp is not None)
+                      if specs is None else dict(specs))
         self.device = next(model.parameters()).device
         self._params = dict(model.named_parameters())
         self.shapes = {k: tuple(p.shape) for k, p in self._params.items()}
+        self.full_shapes = self.shapes if tp is None else tp.full_shapes
+        #: The leaves sharded over "model", and those whose gradients are
+        #: partial over it (``parallel/tensor.py``).
+        self.model_sharded = frozenset() if tp is None else tp.model_sharded
+        self.partial = frozenset() if tp is None else tp.partial
         self.shards: Dict[str, nn.Parameter] = {}
         self._empty = {}
         with torch.no_grad():
@@ -250,14 +288,9 @@ class FSDP:
 
     # -- the model's interface ---------------------------------------------
     def named_parameters(self) -> List[Tuple[str, torch.Tensor]]:
-        items = list(self.state_tensors().items())
-        bb = [kv for kv in items if kv[0].startswith("backbone.")]
-        heads = [kv for kv in items if not kv[0].startswith("backbone.")]
-
-        def part(kvs, sharded):
-            return [kv for kv in kvs if (kv[0] in self.shards) == sharded]
-        return (part(bb, True) + part(bb, False) + part(heads, False)
-                + part(heads, True))
+        items = self.state_tensors()
+        return [(k, items[k]) for k in flat_order(
+            list(items), frozenset(self.shards), self.model_sharded)]
 
     def state_tensors(self) -> Dict[str, torch.Tensor]:
         """The trained tensors in the model's order: shards and whole
@@ -307,7 +340,7 @@ class FSDP:
                        lambda x, g: vit.embed(x))]
         for i, blk in enumerate(vit.blocks):
             mine = under(f"{pre}blocks.{i}.")
-            if blk.use_fused_block:
+            if blk.runs_fused:
                 full = {id(p): k for k, p in self._params.items()}
                 bp = blk.block_params()
                 mine = [full[id(bp[key])] for key in PKEYS]
@@ -389,6 +422,8 @@ class FSDP:
               ) -> Dict[str, torch.Tensor]:
         """This rank's part of each tensor of a full state_dict (no
         collective)."""
+        if self.tp is not None:
+            full = self.tp.local(full)
         n, r = self.mesh.size, self.mesh.rank
         return {k: (v.chunk(n, self.specs[k])[r] if k in self.shards else v)
                 for k, v in full.items()}
@@ -402,11 +437,13 @@ class FSDP:
         so the other ranks hold one leaf at a time."""
         if state is None:
             return None
-        keep = self.mesh.rank == 0
+        keep = self.mesh.global_rank == 0
         out = {}
         for k, v in state.items():
             if k in self.shards:
                 v = self._full(k, v.to(self.device))
+            if self.tp is not None:
+                v = self.tp.full_leaf(k, v.to(self.device))
             if keep:
                 out[k] = v.detach().to("cpu", copy=True)
         return out if keep else None
@@ -419,7 +456,9 @@ class FSDP:
         shards else) and each whole leaf from ``weights`` where given. With
         ``keep``, the module's weights at the exit become the shards' (and
         the whole leaves stay as they were left). The module is as before
-        at the exit, its fused blocks' weight caches cleared."""
+        at the exit, its fused blocks' weight caches cleared. Under FSDP+TP
+        the module is also gathered over "model" and unsharded meanwhile
+        (``TensorParallel.full_module``)."""
         src = self.state_dict() if weights is None else weights
         kept = {}
         try:
@@ -429,73 +468,16 @@ class FSDP:
                     p.data = self._full(k, src[k].to(self.device))
                 elif weights is not None:
                     p.data = weights[k].to(self.device, copy=True)
-            yield self.model
+            with (contextlib.nullcontext(self.model) if self.tp is None
+                  else self.tp.full_module(keep=keep)) as model:
+                yield model
             if keep:
                 with torch.no_grad():
                     for k, s in self.shards.items():
-                        s.copy_(self.local({k: self._params[k].data})[k])
+                        s.copy_(self._params[k].data.chunk(
+                            self.mesh.size, self.specs[k])[self.mesh.rank])
         finally:
             for k, p in self._params.items():
                 p.data = kept[k]
             for blk in self.model.backbone.model.blocks:
                 blk._kernel_params = blk._kernel_key = None
-
-    # -- optimizer state ---------------------------------------------------
-    def full_order(self) -> List[str]:
-        """The one-process ``FlatAdamW``'s parameter order."""
-        names = list(self._params)
-        return sorted(names, key=lambda k: not k.startswith("backbone."))
-
-    def _split(self, flat: torch.Tensor, names: List[str],
-               shapes: Dict[str, Tuple[int, ...]]
-               ) -> Dict[str, torch.Tensor]:
-        sizes = [int(torch.Size(shapes[k]).numel()) for k in names]
-        return {k: t.view(shapes[k])
-                for k, t in zip(names, torch.split(flat, sizes))}
-
-    def gather_flat(self, flat: torch.Tensor) -> Optional[torch.Tensor]:
-        """A buffer in the layout of the optimizer over this wrapper (its
-        parameters, moments or gradients) whole, in the one-process
-        optimizer's layout, on the host of rank 0; None on the others.
-        Collective, as ``gather_full``."""
-        names = [k for k, _ in self.named_parameters()]
-        local = {k: tuple(v.shape) for k, v in self.state_tensors().items()}
-        full = self.gather_full(self._split(flat, names, local))
-        return None if full is None else torch.cat(
-            [full[k].reshape(-1) for k in self.full_order()])
-
-    def full_opt_state(self, state: Dict) -> Optional[Dict]:
-        """The optimizer's state (``FlatAdamW.state_dict`` over this
-        wrapper) in the one-process optimizer's layout, on rank 0; None on
-        the others. Collective, as ``gather_full``."""
-        out = {**state, "names": self.full_order()}
-        for key in ("mu", "nu", "acc"):
-            if state.get(key) is not None:
-                out[key] = self.gather_flat(state[key])
-        return out if self.mesh.rank == 0 else None
-
-    def local_opt_state(self, state: Dict) -> Dict:
-        """A one-process optimizer state cut to this rank's layout; raises
-        ValueError where it was written for other parameters."""
-        order = self.full_order()
-        if list(state["names"]) != order or state["mu"].numel() != sum(
-                int(torch.Size(s).numel()) for s in self.shapes.values()):
-            raise ValueError("optimizer state of another structure: other "
-                             "parameters")
-        names = [k for k, _ in self.named_parameters()]
-        out = {**state, "names": names}
-        for key in ("mu", "nu", "acc"):
-            if state.get(key) is None:
-                continue
-            part = self.local(self._split(state[key], order, self.shapes))
-            out[key] = torch.cat([part[k].reshape(-1) for k in names])
-        return out
-
-
-def make_fsdp(model: nn.Module, mesh: Optional[Mesh],
-              specs: Optional[Specs] = None) -> Union[FSDP, nn.Module]:
-    """``FSDP(model, mesh)`` over a mesh of N > 1 ranks; the model itself
-    on a mesh of 1 (nothing to shard over)."""
-    if mesh is None or mesh.size == 1:
-        return model
-    return FSDP(model, mesh, specs)

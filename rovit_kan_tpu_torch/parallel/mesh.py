@@ -1,11 +1,22 @@
-"""The data-parallel mesh: one process per card on ``torch.distributed``.
+"""The device mesh: one process per card on ``torch.distributed``.
 
-Counterpart of ``rovit_kan_tpu/parallel/mesh.py``. The JAX package runs one
-SPMD program over a 1-D ``"data"`` mesh; the port runs one process per card
-(rank r on ``cuda:r``, or on the CPU) in one process group, and a ``Mesh``
-is that process's view of it: its rank, the world's size, its device and
-the group's collectives. A step over N ranks computes the same step as one
-device on the whole global batch (``training/trainer.py``).
+Counterpart of ``rovit_kan_tpu/parallel/mesh.py`` and of the 2-D mesh of
+``rovit_kan_tpu/parallel/tensor.py``. The JAX package runs one SPMD program
+over a 1-D ``"data"`` mesh or a 2-D ``("data", "model")`` one; the port runs
+one process per card (rank r on ``cuda:r``, or on the CPU) in one process
+group, and a ``Mesh`` is that process's view of it: its coordinates, the
+axes' sizes, its device and the collectives over each axis. A step over N
+ranks computes the same step as one device on the whole global batch
+(``training/trainer.py``).
+
+``size`` and ``rank`` are always the data axis: the number of data indices
+and this process's. ``make_mesh`` gives the 1-D mesh, whose model axis has
+size 1; ``make_2d_mesh(data, model)`` lays the job's ranks out as JAX lays
+devices out, ``(data, model)`` row-major: global rank ``d * model + m`` sits
+at data index d and model index m. Each data row and each model column is a
+process group (``dist.new_group``); a collective names its axis, ``"data"``
+by default, so every caller written for the 1-D mesh works over the data
+axis of a 2-D one. ``broadcast_`` spans every rank of the job.
 
 The backend is NCCL for a card and gloo for the CPU. gloo with tensors on
 a card is taken only when the caller names it (two ranks sharing one card,
@@ -38,20 +49,46 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
 
 
 class Mesh:
-    """This process's place in a 1-D data mesh of ``size`` ranks."""
+    """This process's place in a mesh of ``size`` data indices (and
+    ``model_size`` model indices on a 2-D mesh)."""
 
-    #: The mesh's one axis, the JAX package's data axis.
+    #: The 1-D mesh's one axis, the JAX package's data axis; a 2-D mesh
+    #: has ``("data", "model")``.
     axis_names = ("data",)
 
     def __init__(self, size: int, rank: int, device: torch.device,
-                 backend: Optional[str]):
+                 backend: Optional[str], model_size: int = 1,
+                 model_rank: int = 0, groups: Optional[dict] = None,
+                 axis_names=None):
         self.size = size
         self.rank = rank
+        self.model_size = model_size
+        self.model_rank = model_rank
         self.device = device
         self.backend = backend
+        #: Each axis's process group (absent: the default group).
+        self.groups = dict(groups or {})
+        if axis_names is not None:
+            self.axis_names = tuple(axis_names)
+
+    @property
+    def world(self) -> int:
+        """Every rank of the mesh: data x model."""
+        return self.size * self.model_size
+
+    @property
+    def global_rank(self) -> int:
+        """This process's rank in the job."""
+        return self.rank * self.model_size + self.model_rank
+
+    def axis_size(self, axis: str) -> int:
+        return self.size if axis == "data" else self.model_size
 
     def __repr__(self) -> str:
-        return (f"Mesh(size={self.size}, rank={self.rank}, "
+        model = (f", model_size={self.model_size}, "
+                 f"model_rank={self.model_rank}"
+                 if "model" in self.axis_names else "")
+        return (f"Mesh(size={self.size}, rank={self.rank}{model}, "
                 f"device={self.device}, backend={self.backend})")
 
     def rows(self, global_batch: int) -> slice:
@@ -62,45 +99,53 @@ class Mesh:
     def _staged(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.device.type != "cpu"
 
-    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the ranks, in place; returns ``t``."""
-        if self.size == 1:
+    def all_reduce_(self, t: torch.Tensor, axis: str = "data"
+                    ) -> torch.Tensor:
+        """Sum ``t`` over the ranks of ``axis``, in place; returns ``t``."""
+        if self.axis_size(axis) == 1:
             return t
+        group = self.groups.get(axis)
         if self._staged(t):
             host = t.cpu()
-            dist.all_reduce(host)
+            dist.all_reduce(host, group=group)
             t.copy_(host)
         else:
-            dist.all_reduce(t)
+            dist.all_reduce(t, group=group)
         return t
 
-    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        """Every rank's ``t`` concatenated along ``dim``, in rank order."""
-        if self.size == 1:
+    def all_gather(self, t: torch.Tensor, dim: int = 0,
+                   axis: str = "data") -> torch.Tensor:
+        """Every rank's ``t`` (over ``axis``) concatenated along ``dim``, in
+        rank order."""
+        n = self.axis_size(axis)
+        if n == 1:
             return t
         src = t.movedim(dim, 0)
         src = src.cpu() if self._staged(t) else src.contiguous()
-        out = src.new_empty((self.size * src.shape[0], *src.shape[1:]))
-        _ALL_GATHER(out, src)
+        out = src.new_empty((n * src.shape[0], *src.shape[1:]))
+        _ALL_GATHER(out, src, group=self.groups.get(axis))
         return out.to(t.device).movedim(0, dim)
 
-    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        """``t`` summed over the ranks and split into ``size`` equal chunks
-        along ``dim``; returns this rank's chunk."""
-        if self.size == 1:
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0,
+                       axis: str = "data") -> torch.Tensor:
+        """``t`` summed over the ranks of ``axis`` and split into as many
+        equal chunks along ``dim``; returns this rank's chunk."""
+        n = self.axis_size(axis)
+        if n == 1:
             return t
         src = t.movedim(dim, 0)
         src = src.cpu() if self._staged(t) else src.contiguous()
-        if src.shape[0] % self.size:
+        if src.shape[0] % n:
             raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)}"
-                             f" is not divisible by {self.size} ranks")
-        out = src.new_empty((src.shape[0] // self.size, *src.shape[1:]))
-        _REDUCE_SCATTER(out, src)
+                             f" is not divisible by {n} ranks")
+        out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+        _REDUCE_SCATTER(out, src, group=self.groups.get(axis))
         return out.to(t.device).movedim(0, dim)
 
     def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """Rank ``src``'s ``t`` on every rank, in place; returns ``t``."""
-        if self.size == 1:
+        """Global rank ``src``'s ``t`` on every rank of the job, in place;
+        returns ``t``."""
+        if self.world == 1:
             return t
         if self._staged(t):
             host = t.cpu()
@@ -141,9 +186,63 @@ def make_mesh(n_devices: int = -1, backend: Optional[str] = None,
     return Mesh(world, dist.get_rank(), device, backend)
 
 
+def make_2d_mesh(data: int = -1, model: int = 1,
+                 backend: Optional[str] = None, device=None) -> Mesh:
+    """The ``("data", "model")`` mesh over every process of the job, with
+    the JAX ``make_2d_mesh``'s errors: ``data=-1`` takes the ranks the model
+    axis leaves. Rank ``d * model + m`` is at data index d, model index m
+    (module docstring); its device and backend are ``make_mesh``'s."""
+    if device is None:
+        device = (f"cuda:{local_rank()}" if torch.cuda.is_available()
+                  else "cpu")
+    device = resolve_device(device)
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    maybe_initialize_distributed(backend=backend)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if data == -1:
+        data = world // model
+    if data < 1:
+        raise ValueError(
+            f"2-D mesh needs at least model = {model} devices "
+            f"(data axis resolved to {data} from {world} device(s))")
+    n = data * model
+    if n > world:
+        raise ValueError(f"need {n} devices, have {world}")
+    if n != world:
+        raise ValueError(
+            f"a mesh of {n} devices needs {n} processes, one per device; "
+            f"this job has {world} (start one process per device: "
+            f"cli.train --devices N, or torchrun)")
+    names = ("data", "model")
+    if world == 1:
+        return Mesh(1, 0, device, None, axis_names=names)
+    if dist.get_backend() != backend:
+        raise ValueError(f"the process group runs {dist.get_backend()}, "
+                         f"the mesh asked for {backend}")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    rank = dist.get_rank()
+    groups = {}
+    # Every rank makes every group, in one order (dist.new_group's rule);
+    # an axis that spans the job keeps the default group.
+    for axis, members in (
+            ("data", [[d * model + m for d in range(data)]
+                      for m in range(model)]),
+            ("model", [[d * model + m for m in range(model)]
+                       for d in range(data)])):
+        if len(members[0]) in (1, world):
+            continue
+        for ranks in members:
+            g = dist.new_group(ranks, backend=backend)
+            if rank in ranks:
+                groups[axis] = g
+    return Mesh(data, rank // model, device, backend, model_size=model,
+                model_rank=rank % model, groups=groups, axis_names=names)
+
+
 def shard_batch(batch: Any, mesh: Mesh) -> Any:
     """This rank's rows of a global batch (a tensor, an array or a dict of
-    them)."""
+    them): its data index's, which every model index of it shares."""
     if mesh is None or mesh.size == 1:
         return batch
     if isinstance(batch, dict):
@@ -154,8 +253,8 @@ def shard_batch(batch: Any, mesh: Mesh) -> Any:
 @torch.no_grad()
 def replicate(tensors, mesh: Mesh):
     """Broadcast rank 0's tensors (a module's state or a dict of tensors)
-    to every rank, in place; returns them."""
-    if mesh is None or mesh.size == 1:
+    to every rank of the job, in place; returns them."""
+    if mesh is None or mesh.world == 1:
         return tensors
     items = (tensors.state_dict().values()
              if isinstance(tensors, torch.nn.Module) else tensors.values())

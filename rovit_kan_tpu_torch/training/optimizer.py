@@ -33,6 +33,14 @@ moments, the accumulator and the EMA shrink with it. The update is the same
 per element; only the global norm changes: the squares of the sharded part
 are summed over the ranks (one ``all_reduce``) and the whole leaves' added
 once.
+
+Under tensor parallelism (``parallel/tensor.py``) the buffer holds this
+rank's shards of the leaves sharded over ``"model"`` (``model_sharded``):
+their squares are summed over ``"model"`` (over both axes for a leaf FSDP
+also shards over ``"data"``), and each replicated leaf counts once. The
+leaves whose gradients are partial over ``"model"`` under sequence
+parallelism (``partial``) are summed over it by ``reduce_grads``, before the
+data axis's reduce.
 """
 from __future__ import annotations
 
@@ -52,7 +60,7 @@ class FlatAdamW:
                  backbone_scale: float = 0.1, *, weight_decay: float = 1e-4,
                  clip: float = 1.0, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, accum_steps: int = 1,
-                 mesh=None, sharded=()):
+                 mesh=None, sharded=(), model_sharded=(), partial=()):
         named: List[Tuple[str, nn.Parameter]] = [
             (k, p) for k, p in model.named_parameters() if p.requires_grad]
         # Backbone first, so its grads are one leading slice.
@@ -62,15 +70,44 @@ class FlatAdamW:
         #: which this buffer holds a shard (None: every leaf is whole).
         self.replicated = None
         self.mesh = mesh
+        offs = [0]
+        for _, p in named:
+            offs.append(offs[-1] + p.numel())
+
+        def runs(pred) -> List[slice]:
+            """The flat slices of the leaves ``pred`` takes, adjacent
+            leaves merged."""
+            out = []
+            for i, k in enumerate(self.names):
+                if not pred(k):
+                    continue
+                if out and out[-1].stop == offs[i]:
+                    out[-1] = slice(out[-1].start, offs[i + 1])
+                else:
+                    out.append(slice(offs[i], offs[i + 1]))
+            return out
+
         if sharded:
             whole = [i for i, k in enumerate(self.names) if k not in sharded]
             if whole != list(range(whole[0], whole[-1] + 1)):
                 raise ValueError("the whole leaves must be one run of the "
                                  "parameter order")
-            offs = [0]
-            for _, p in named:
-                offs.append(offs[-1] + p.numel())
             self.replicated = slice(offs[whole[0]], offs[whole[-1] + 1])
+        #: The norm's sharded slices by the axes they are summed over, and
+        #: the slices of whole leaves (``step``).
+        self._norm_groups = [
+            (axes, runs(pred)) for axes, pred in (
+                (("data", "model"),
+                 lambda k: k in sharded and k in model_sharded),
+                (("data",),
+                 lambda k: k in sharded and k not in model_sharded),
+                (("model",),
+                 lambda k: k not in sharded and k in model_sharded))]
+        self._norm_groups = [(a, r) for a, r in self._norm_groups if r]
+        self._whole_runs = runs(lambda k: k not in sharded
+                                and k not in model_sharded)
+        #: The slices ``reduce_grads`` sums over "model" first.
+        self.partial_runs = runs(lambda k: k in partial)
         self.n_backbone = sum(p.numel() for k, p in named
                               if k.startswith("backbone."))
         with torch.no_grad():
@@ -162,13 +199,17 @@ class FlatAdamW:
             g = self.acc.clone()
             self.acc.zero_()
         sq = g * g
-        r = self.replicated
-        if r is None:
+        if not self._norm_groups:
             gnorm = torch.sqrt(torch.sum(sq))
         else:
-            shards = self.mesh.all_reduce_(torch.sum(sq[:r.start])
-                                           + torch.sum(sq[r.stop:]))
-            gnorm = torch.sqrt(shards + torch.sum(sq[r]))
+            shards = None
+            for axes, slices in self._norm_groups:
+                part = sum(torch.sum(sq[sl]) for sl in slices)
+                for axis in axes:
+                    self.mesh.all_reduce_(part, axis)
+                shards = part if shards is None else shards + part
+            whole = sum(torch.sum(sq[sl]) for sl in self._whole_runs)
+            gnorm = torch.sqrt(shards + whole)
         g = g * (self.clip / torch.clamp(gnorm, min=self.clip))
         self.count += 1
         self.mu.mul_(self.b1).add_((1.0 - self.b1) * g)
@@ -194,18 +235,26 @@ def build_optimizer(model: nn.Module, config: Config) -> FlatAdamW:
     accumulation over ``train.accum_steps`` micro-batches. ``model`` may be
     an ``FSDP`` wrapper: the buffer then holds its shards."""
     shards = getattr(model, "shards", None)
+    model_sharded = getattr(model, "model_sharded", frozenset())
     return FlatAdamW(model, config.train.learning_rate, 0.1,
                      weight_decay=config.train.weight_decay,
                      clip=config.flags.gradient_clip,
                      accum_steps=getattr(config.train, "accum_steps", 1),
-                     mesh=model.mesh if shards else None,
-                     sharded=frozenset(shards or ()))
+                     mesh=(model.mesh if shards or model_sharded
+                           else None),
+                     sharded=frozenset(shards or ()),
+                     model_sharded=model_sharded,
+                     partial=getattr(model, "partial", frozenset()))
 
 
 def reduce_grads(optimizer: FlatAdamW, mesh) -> None:
-    """Sum over the ranks the gradients every rank holds whole: the whole
-    buffer under data parallelism, the whole leaves' slice under FSDP
-    (whose shards were reduce-scattered in the backward)."""
+    """Sum the gradients over the ranks: the leaves partial over "model"
+    (sequence parallelism) over it first; then, over "data", what every
+    data index holds whole: the whole buffer under data parallelism, the
+    whole leaves' slice under FSDP (whose shards were reduce-scattered in
+    the backward)."""
+    for sl in optimizer.partial_runs:
+        mesh.all_reduce_(optimizer.grad[sl], "model")
     r = optimizer.replicated
     mesh.all_reduce_(optimizer.grad if r is None else optimizer.grad[r])
 

@@ -44,8 +44,18 @@ are reduce-scattered in the backward and only the whole leaves' slice of
 the flat gradient is all-reduced. The state the trainer hands out
 (``TrainState``) then holds this rank's shards; a checkpoint is written
 whole, in the one-process layout (every rank joins the gathers, rank 0
-writes), and a checkpoint of either kind loads under either. Tensor,
-sequence, expert and pipeline parallelism are not ported.
+writes), and a checkpoint of either kind loads under either.
+
+Tensor and sequence parallelism (``mesh=``, a 2-D ``("data", "model")``
+mesh from ``parallel.make_2d_mesh``): the ``Trainer`` wraps the model in
+``parallel.tensor.TensorParallel`` (the JAX ``Trainer(param_specs=...)``),
+and the steps run over it as over ``FSDP``: the ranks of one data index
+take the same rows and the same draws, each holds its shards of the
+Megatron layers, and the data axis reduces as above. The parameters, the
+AdamW moments and the EMA are sharded alike; ``fsdp=True`` composes both
+(FSDP+TP). A checkpoint is gathered over "model" (and over "data" under
+FSDP+TP) into the one-process file. Expert and pipeline parallelism are not
+ported.
 """
 from __future__ import annotations
 
@@ -68,8 +78,9 @@ from rovit_kan_tpu_torch.ops.augment_kernel import (
 )
 from rovit_kan_tpu_torch.ops.mixing import cutmix_or_mixup, draw_mix
 from rovit_kan_tpu_torch.ops.preprocess import augment_batch, eval_batch
-from rovit_kan_tpu_torch.parallel.fsdp import make_fsdp
+from rovit_kan_tpu_torch.parallel.fsdp import FSDP, fsdp_param_specs
 from rovit_kan_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
+from rovit_kan_tpu_torch.parallel.tensor import TensorParallel
 from rovit_kan_tpu_torch.parallel.multihost import (
     any_process,
     broadcast_one_to_all,
@@ -116,7 +127,7 @@ def use_fused_augment(model: nn.Module, config: Config) -> bool:
 
 def _data_parallel(mesh: Optional[Mesh]) -> Optional[Mesh]:
     """``mesh`` where it has more than one rank, else None."""
-    return mesh if mesh is not None and mesh.size > 1 else None
+    return mesh if mesh is not None and mesh.world > 1 else None
 
 
 def _reduce_metrics(mesh: Mesh, metrics: Dict[str, torch.Tensor]
@@ -138,9 +149,10 @@ class TrainStep:
     step's own).
 
     With a ``mesh`` of N > 1 ranks, ``batch`` and ``draws`` are the global
-    batch's and the step is this rank's share of it (module docstring).
-    ``model`` may be an ``FSDP`` wrapper over that mesh, with the optimizer
-    built over it."""
+    batch's and the step is this rank's share of it (module docstring):
+    the rows of its data index. ``model`` may be an ``FSDP`` or
+    ``TensorParallel`` wrapper over that mesh, with the optimizer built
+    over it."""
 
     def __init__(self, model: nn.Module, optimizer: FlatAdamW,
                  config: Config, focal_alpha=None,
@@ -312,12 +324,16 @@ class Trainer:
     ``DeviceLoader``) and must drop its last partial batch; ``val_loader``
     may pad it and mark it in ``valid``.
 
-    ``mesh``: the data mesh (``parallel.make_mesh``); every rank builds a
-    ``Trainer`` over the same loaders (a sharded ``DeviceLoader`` on this
-    same mesh) and calls the same methods in the same order. Its collectives
-    and the checkpoints' barriers pair up across the ranks. ``fsdp``: shard
-    the state over that mesh (``self.fsdp``, the ``FSDP`` wrapper; None on
-    a mesh of 1, where there is nothing to shard over)."""
+    ``mesh``: the data mesh (``parallel.make_mesh``) or the 2-D mesh
+    (``parallel.make_2d_mesh``); every rank builds a ``Trainer`` over the
+    same loaders (a sharded ``DeviceLoader`` on this same mesh) and calls
+    the same methods in the same order. Its collectives and the
+    checkpoints' barriers pair up across the ranks. A model axis of t > 1
+    shards the blocks (``self.tp``, the ``TensorParallel`` wrapper; the
+    model's ``act_sharding`` turns on sequence parallelism). ``fsdp``:
+    shard the state over the data axis (``self.fsdp``, the ``FSDP``
+    wrapper; None on a data axis of 1, where there is nothing to shard
+    over). ``self.sharded`` is the wrapper the steps run, or None."""
 
     def __init__(self, model: nn.Module, train_loader, val_loader,
                  config: Config, logger=None, focal_alpha=None,
@@ -336,9 +352,23 @@ class Trainer:
         if mesh is not None and mesh.device != self.device:
             raise ValueError(f"the model is on {self.device}, the mesh's "
                              f"rank on {mesh.device}")
-        # What the steps run: the model, or its FSDP wrapper.
-        self.net = make_fsdp(model, self._dp) if fsdp else model
-        self.fsdp = self.net if self.net is not model else None
+        # What the steps run: the model, or its TP and/or FSDP wrapper.
+        self.tp = (TensorParallel(model, mesh)
+                   if mesh is not None and mesh.model_size > 1 else None)
+        if self.tp is not None and config.tpu.use_pallas_block is True:
+            raise ValueError(
+                "use_pallas_block=True forces the whole-block kernels "
+                "(#1-#4), which take a whole block; under tensor "
+                "parallelism each rank holds a shard of the block. Leave it "
+                '"auto": the sharded block runs its heads\' attention core '
+                "through #5/#6")
+        if fsdp and mesh is not None and mesh.size > 1:
+            self.net = FSDP(model, mesh, fsdp_param_specs(
+                self.tp or model, mesh, tp=self.tp is not None), tp=self.tp)
+        else:
+            self.net = self.tp or model
+        self.fsdp = self.net if isinstance(self.net, FSDP) else None
+        self.sharded = self.net if self.net is not model else None
         self.optimizer = build_optimizer(self.net, config)
         self.train_step = make_train_step(
             self.net, self.optimizer, config, focal_alpha,
@@ -386,12 +416,12 @@ class Trainer:
                    ) -> TrainState:
         """Fresh training from ``params`` (a state_dict), or from weights
         drawn from the trainer's seed: fresh optimizer, the EMA seeded with
-        the parameters, the step's generators reseeded. Under FSDP
+        the parameters, the step's generators reseeded. Under FSDP or TP
         ``params`` is whole (a checkpoint's) and each rank keeps its
         shards."""
         from rovit_kan_tpu_torch.models.rovit_kan import init_weights
-        whole = (self.fsdp.full_module(keep=True) if self.fsdp is not None
-                 else contextlib.nullcontext())
+        whole = (self.sharded.full_module(keep=True)
+                 if self.sharded is not None else contextlib.nullcontext())
         with torch.no_grad(), whole:
             if params is None:
                 init_weights(self.model, self.seed)
@@ -573,8 +603,8 @@ class Trainer:
         try:
             if opt_state is None:
                 raise ValueError("no optimizer state")
-            if self.fsdp is not None:
-                opt_state = self.fsdp.local_opt_state(opt_state)
+            if self.sharded is not None:
+                opt_state = self.sharded.local_opt_state(opt_state)
             self.optimizer.load_state_dict(opt_state)
         except ValueError:
             print("resume: optimizer state structure mismatch; restoring "
@@ -585,8 +615,8 @@ class Trainer:
                       "from the restored params")
             else:
                 ema = ck["ema_params"]
-                if self.fsdp is not None:
-                    ema = self.fsdp.local(ema)
+                if self.sharded is not None:
+                    ema = self.sharded.local(ema)
                 self.train_step.ema = {
                     k: v.to(self.device, torch.float32, copy=True)
                     for k, v in ema.items()}
@@ -744,10 +774,10 @@ class Trainer:
         from rovit_kan_tpu_torch.utils.checkpoint import save_checkpoint
         params, opt_state, ema = (state.params, state.opt_state,
                                   state.ema_params)
-        if self.fsdp is not None:
+        if self.sharded is not None:
             # Whole, in the one-process layout, on rank 0 (which writes).
-            params, ema = map(self.fsdp.gather_full, (params, ema))
-            opt_state = self.fsdp.full_opt_state(opt_state)
+            params, ema = map(self.sharded.gather_full, (params, ema))
+            opt_state = self.sharded.full_opt_state(opt_state)
         save_checkpoint(self._ckpt_dir() / name, params,
                         opt_state=opt_state, epoch=epoch,
                         best_val_loss=self.best_val_loss, metrics=metrics,

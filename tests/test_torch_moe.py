@@ -174,6 +174,41 @@ def test_forward_matches_jax_bf16(B, S, D, H, E, cf):
                                rtol=0)
 
 
+N_VALID = [(2, 8, 16, 32, 4, 2.0, 6), (2, 198, 192, 768, 8, 2.0, 197)]
+
+
+@pytest.mark.parametrize("B,S,D,H,E,cf,n_valid", N_VALID,
+                         ids=["8-of-6", "198-of-197"])
+def test_n_valid_matches_jax(B, S, D, H, E, cf, n_valid):
+    """Sequence-parallel filler (``n_valid``): the chosen sets exactly the
+    JAX layer's (its ``top_k`` over the gate scores with the filler at
+    -inf), no filler token chosen, the outputs 1e-5 of their largest, and
+    the real rows the layer's outputs without the filler (the JAX test's
+    contract, ``tests/test_moe.py``)."""
+    p = _layer_params(D, H, E, seed=S)
+    x = _x(B, S, D, seed=S + 1)
+    x[:, n_valid:] = 3.0
+    C = expert_capacity(n_valid, E, cf)
+    probs = jax.nn.softmax(jnp.asarray(x) @ jnp.asarray(p["gate"]["kernel"]),
+                           axis=-1).transpose(0, 2, 1)
+    masked = jnp.where(jnp.arange(S) < n_valid, probs, -jnp.inf)
+    want_idx = np.asarray(jax.lax.top_k(masked, C)[1])
+    gate = torch.from_numpy(p["gate"]["kernel"].T)
+    idx, w = route(torch.from_numpy(x), gate, C, n_valid)
+    np.testing.assert_array_equal(np.sort(idx.numpy(), -1),
+                                  np.sort(want_idx, -1))
+    assert int(idx.max()) < n_valid and torch.isfinite(w).all()
+    m = JaxMoEMlp(D, H, num_experts=E, capacity_factor=cf)
+    want = np.asarray(m.apply({"params": p}, jnp.asarray(x), n_valid))
+    layer = _port_layer(p, cf)
+    got = layer(torch.from_numpy(x), n_valid=n_valid).detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    alone = layer(torch.from_numpy(x[:, :n_valid])).detach().numpy()
+    np.testing.assert_allclose(got[:, :n_valid], alone, rtol=0,
+                               atol=1e-6 * np.abs(alone).max())
+
+
 def test_single_expert_full_capacity_is_the_dense_mlp():
     p = _layer_params(16, 32, 1, seed=5)
     x = torch.from_numpy(_x(2, 6, 16, seed=6))

@@ -317,22 +317,52 @@ exits non-zero:
    768, 12 heads, the plain block and attention core) at batch 8 under TP
    and TP + SP: 175,988,584 B of parameters a rank, peak memory, step ms.
 
+24. ep: the same two ranks on a data 1 x expert 2 mesh
+   (``parallel.make_moe_mesh``): phase 20's steps on the MoE flagship
+   (``moe_experts=8``, blocks 1, 3, ..., 11 sparse) under expert
+   parallelism (``parallel.tensor.ExpertParallel``: each rank 4 experts of
+   every MoE block, the gate and the dense leaves whole), held by
+   ``hold_dp``'s rules for another route against the one-process MoE
+   steps in bf16 and fp32 of the same call (the first loss, and every
+   step's whole gradient in L2 within twice the bf16 step's distance from
+   fp32, the first within ``EP_FIRST_GRAD`` of its norm; gaps on an
+   "ep_readings" line); 6 #1, 6 #2 (the dense blocks), 1
+   #7 and no other launch a step on each rank; the replicated leaves equal
+   bit for bit; each rank's parameter, moment and EMA bytes equal to
+   ``sharded_size`` under ``moe_param_specs``; peak memory and step ms
+   beside the "dp" ranks'. Then a two-epoch ``Trainer.fit`` on the mesh
+   whose ``best_model`` holds the ranks' gathered best weights bit for
+   bit, loads into a one-process ``Trainer`` with the same bits and is
+   served by ``load_engine`` (6 #1).
+25. pp: the same two ranks on a data 1 x pipe 2 mesh
+   (``parallel.pipeline.make_pipeline_mesh``): phase 20's steps on the
+   flagship at full depth under the GPipe pipeline
+   (``parallel.pipeline.Pipeline``: 6 blocks a stage, 4 microbatches of
+   16 rows), held by ``hold_dp``'s data rules (per leaf at the first step)
+   against the one-process #1/#2 steps (gaps on a "pp_readings" line); 24 #1, 24 #2 (6 blocks x 4
+   microbatches) and 1 #7 a step on each rank; a stage's bytes, peak
+   memory and step ms beside the "dp" ranks'; the fit, its checkpoint
+   resumed and served (12 #1) as the "ep" fit's.
+
 ``chip_smoke.py --nccl`` (a host with two cards or more) builds the kernels
-and runs phases 20-23 alone over NCCL, rank r on cuda:r, on "dp_nccl",
-"fsdp_nccl", "baselines_dp_nccl" and "tp_nccl" lines: the same steps,
-checks and fit, then ``cli.train --devices 2`` beside ``cli.train
---devices 1`` (both ranks on NCCL, one epoch CSV, its checkpoint served by
-``load_engine``) in place of the world-1 run. With four cards visible it
-also runs FSDP+TP on data 2 x model 2 (``--tp4-worker``, an
-"fsdp_tp_nccl" line): the flagship's steps held as phase 23's, 24 #5 (a
-unit's forward runs again in its backward), 12 #6 and 1 #7 a step, and
-6,139,112 B of parameters a rank.
+and runs phases 20-25 alone over NCCL, rank r on cuda:r, on "dp_nccl",
+"fsdp_nccl", "baselines_dp_nccl", "tp_nccl", "ep_nccl" and "pp_nccl"
+lines: the same steps, checks and fit, then ``cli.train --devices 2``
+beside ``cli.train --devices 1`` (both ranks on NCCL, one epoch CSV, its
+checkpoint served by ``load_engine``) in place of the world-1 run. With
+four cards visible it also runs FSDP+TP on data 2 x model 2
+(``--tp4-worker``, an "fsdp_tp_nccl" line): the flagship's steps held as
+phase 23's, 24 #5 (a unit's forward runs again in its backward), 12 #6
+and 1 #7 a step, and 6,139,112 B of parameters a rank; and, in the same
+four ranks, the "ep" and "pp" steps on data 2 x expert 2 and data 2 x
+pipe 2, held as phases 24 and 25 hold theirs ("ep_nccl4" and "pp_nccl4"
+lines).
 
 The kernels line gives each kernel's launches on the export, serve CLI,
 bench, explain, explain_384, visualize, ablation, baselines, pretrained,
-moe and (each rank's) dp, fsdp, baselines_dp, tp and sp paths in its
-``launches_by_path`` (sp: phase 23's TP + SP steps and fit). The line
-before the last is
+moe and (each rank's) dp, fsdp, baselines_dp, tp, sp, ep and pp paths in
+its ``launches_by_path`` (sp: phase 23's TP + SP steps and fit; ep and
+pp: phases 24 and 25's steps and fit). The line before the last is
 ``nvidia-smi``'s name and power limit; the last is ``{"ok": true,
 "device": {...}}``. Imports torch and the port only.
 """
@@ -4932,7 +4962,7 @@ def state_bytes(net, opt, ema) -> dict:
 
 
 def dp_steps(mesh, stage: int, fp32: bool = False, fsdp: bool = False,
-             route: bool = False):
+             route: bool = False, moe: bool = False):
     """``DP_STEPS`` flagship steps at ``stage`` with mixing on, bf16 (or
     the fp32 model with ``fp32``), from the seed-0 weights on the global
     batches ``train_batch(cfg, 300 + i)``: each step's loss, accuracy and
@@ -4943,7 +4973,9 @@ def dp_steps(mesh, stage: int, fp32: bool = False, fsdp: bool = False,
     whole in the one-process layout on rank 0 (None on the other ranks),
     and each rank's state bytes sit beside ``sharded_size`` and the
     replicated figure. ``route``: the tensor-parallel block's route in one
-    process, the blocks unfused and their attention core through #5/#6."""
+    process, the blocks unfused and their attention core through #5/#6.
+    ``moe``: the MoE flagship (``MOE_EXPERTS`` experts in every second
+    block), the one-process step the "ep" ranks are held against."""
     from rovit_kan_tpu_torch.config import Config
     from rovit_kan_tpu_torch.models.rovit_kan import build_model
     from rovit_kan_tpu_torch.parallel.fsdp import (
@@ -4957,6 +4989,8 @@ def dp_steps(mesh, stage: int, fp32: bool = False, fsdp: bool = False,
     cfg = Config()
     cfg.flags.mixed_precision = not fp32
     cfg.train.ema_decay = 0.999      # the EMA's bytes in both memories
+    if moe:
+        cfg.model.moe_experts = MOE_EXPERTS
     if route:
         cfg.tpu.use_pallas_block, cfg.tpu.use_pallas_attention = False, True
     dev = "cuda" if mesh is None else mesh.device
@@ -5321,6 +5355,135 @@ def tp_worker(mesh, root) -> dict:
     return out
 
 
+PP_MICRO = 4              # the pipeline's microbatches of a local batch
+
+
+def axis_config(axis: str, cfg=None):
+    """``cfg`` (default: the flagship ``Config()``) for ``axis``: the MoE
+    flagship under expert parallelism, ``PP_MICRO`` microbatches for the
+    pipeline."""
+    from rovit_kan_tpu_torch.config import Config
+    cfg = cfg or Config()
+    if axis == "expert":
+        cfg.model.moe_experts = MOE_EXPERTS
+    else:
+        cfg.tpu.pipeline_microbatches = PP_MICRO
+    return cfg
+
+
+def axis_steps(mesh, stage: int, axis: str) -> dict:
+    """``dp_steps``'s steps (the seed-0 bf16 flagship, or its MoE twin
+    under expert parallelism, the global batches and the EMA) on a data x
+    ``axis`` mesh under ``parallel.tensor.ExpertParallel`` or
+    ``parallel.pipeline.Pipeline``: the losses, the gradients and
+    parameters gathered whole in the one-process layout on rank 0 (None on
+    the others), the launches, step ms and peak memory, each rank's
+    replicated leaves and state bytes beside ``sharded_size``, and what the
+    rank holds (its experts of block 1, or its stage's blocks)."""
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.parallel.fsdp import sharded_size
+    from rovit_kan_tpu_torch.parallel.mesh import replicate
+    from rovit_kan_tpu_torch.parallel.pipeline import Pipeline
+    from rovit_kan_tpu_torch.parallel.tensor import ExpertParallel
+    from rovit_kan_tpu_torch.training.optimizer import build_optimizer
+    from rovit_kan_tpu_torch.training.trainer import make_train_step
+    cfg = axis_config(axis)
+    cfg.train.ema_decay = 0.999
+    dev = mesh.device
+    base = memory_base(dev)
+    model = build_model(cfg, device=dev, seed=0)
+    replicate(model, mesh)           # rank 0's weights, as Trainer does
+    net = (ExpertParallel(model, mesh) if axis == "expert"
+           else Pipeline(model, mesh, PP_MICRO))
+    opt = build_optimizer(net, cfg)
+    step = make_train_step(net, opt, cfg,
+                           generator=torch.Generator(dev).manual_seed(0),
+                           mesh=mesh)
+    batches = [{k: v.to(dev) for k, v in train_batch(cfg, 300 + i).items()}
+               for i in range(DP_STEPS)]
+    out = {"loss": [], "accuracy": [], "grads": [], "ms": []}
+    reset, read = all_counters()
+    torch.cuda.synchronize()
+    reset()
+    for b in batches:
+        t0 = time.perf_counter()
+        m = step(b, stage, 1.0, 1)
+        out["loss"].append(float(m["total_loss"]))
+        torch.cuda.synchronize()
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        out["accuracy"].append(float(m["accuracy"]))
+        out["grads"].append(net.gather_flat(opt.grad))
+    out["launches"] = read()
+    out["params"] = net.gather_flat(opt.flat)
+    out["replicated"] = {k: v.detach().cpu().clone()
+                         for k, v in net.state_dict().items()
+                         if k not in net.model_sharded}
+    out["state_bytes"] = state_bytes(net, opt, step.ema)
+    out["sharded_size"] = sharded_size(net, {}, mesh, net.specs)
+    out["replicated_bytes"] = sharded_size(net, {}, mesh)
+    out["holds"] = (int(net.state_dict()[
+        "backbone.model.blocks.1.moe.w1"].shape[0]) if axis == "expert"
+        else [net.axis.lo, net.axis.hi])
+    out["names"] = net.full_order()
+    out["sizes"] = [int(np.prod(net.full_shapes[k])) for k in out["names"]]
+    out["peak_mib"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+    return out
+
+
+def axis_fit(mesh, root, axis: str) -> dict:
+    """``dp_fit``'s two-epoch fit on a data x ``axis`` mesh (the ``Trainer``
+    wraps the model): its launches and history, the best state's
+    parameters whole on rank 0 (None on the others) and its
+    ``best_model``."""
+    from rovit_kan_tpu_torch.data.dataset import Subset
+    from rovit_kan_tpu_torch.data.device_cache import DeviceLoader
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.training.trainer import Trainer
+    cfg = axis_config(axis, dp_config(Path(root) / axis))
+    leaves = LeafSet(DP_PER_CLASS, 224, seed=20)
+    order = np.random.RandomState(20).permutation(len(leaves))
+    train = DeviceLoader(Subset(leaves, order[:128]), BATCH, shuffle=True,
+                         drop_last=True, seed=0, mesh=mesh, shard_data=True)
+    val = DeviceLoader(Subset(leaves, order[128:]), BATCH, mesh=mesh,
+                       shard_data=True)
+    tr = Trainer(build_model(cfg, device=mesh.device, seed=1), train, val,
+                 cfg, seed=0, mesh=mesh)
+    if tr.sharded is None or tr.pipelined != (axis == "pipe"):
+        raise RuntimeError(f"{axis} fit: the trainer did not shard")
+    reset, read = all_counters()
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    res = tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read()
+    epochs = len(res["history"]["train"])
+    steps, vals = epochs * len(train), epochs * len(val)
+    per = 6 if axis == "expert" else 6 * PP_MICRO
+    only(launches, vit_block_fwd=per * (steps + vals),
+         vit_block_bwd=per * steps, augment=steps)
+    best = tr.sharded.gather_full(tr.eval_params(res["best_state"]))
+    return {"history": {p: [{k: m[k] for k in ("total_loss", "accuracy")}
+                            for m in res["history"][p]]
+                        for p in ("train", "val")},
+            "fit_seconds": fit_s, "launches": launches, "steps": steps,
+            "val_batches": vals, "best_params": best,
+            "n_micro": tr.n_micro,
+            "best_model": str(cfg.paths.checkpoints_dir / "best_model")}
+
+
+def axis_worker(mesh, root, axis: str, fit: bool = True) -> dict:
+    """The "ep" or "pp" phase on one rank of a data x ``axis`` mesh."""
+    t0 = time.perf_counter()
+    out = {"steps": {s: axis_steps(mesh, s, axis) for s in DP_STAGES},
+           "mesh": repr(mesh)}
+    if fit:
+        out["fit"] = axis_fit(mesh, root, axis)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 BASELINE_DP_MODELS = ("resnet50", "deit_tiny")
 
 
@@ -5452,19 +5615,38 @@ def dp_worker(root: str, backend: str) -> int:
     tp_mesh = (make_2d_mesh(1, DP_RANKS, backend="gloo", device="cuda:0")
                if backend == "gloo" else make_2d_mesh(1, DP_RANKS))
     out["tp"] = tp_worker(tp_mesh, Path(root))
+    from rovit_kan_tpu_torch.parallel.mesh import (
+        make_moe_mesh,
+        make_pipeline_mesh,
+    )
+    for name, make, axis in (("ep", make_moe_mesh, "expert"),
+                             ("pp", make_pipeline_mesh, "pipe")):
+        axis_mesh = (make(1, DP_RANKS, backend="gloo", device="cuda:0")
+                     if backend == "gloo" else make(1, DP_RANKS))
+        out[name] = axis_worker(axis_mesh, Path(root), axis)
     torch.save(out, Path(root) / f"rank{mesh.rank}.pt")
     return 0
 
 
 def tp4_worker(root: str, backend: str) -> int:
-    """One rank of the four-card FSDP+TP run (``--nccl`` with four cards
-    visible): data 2 x model 2, rank r on cuda:r."""
-    from rovit_kan_tpu_torch.parallel.mesh import make_2d_mesh
+    """One rank of the four-card runs (``--nccl`` with four cards
+    visible), rank r on cuda:r: FSDP+TP on data 2 x model 2, then the "ep"
+    and "pp" steps on data 2 x expert 2 and data 2 x pipe 2."""
+    from rovit_kan_tpu_torch.parallel.mesh import (
+        make_2d_mesh,
+        make_moe_mesh,
+        make_pipeline_mesh,
+    )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_2d_mesh(2, 2, backend=backend)
-    out = {"steps": {s: tp_steps(mesh, s, sp=False, fsdp=True)
-                     for s in DP_STAGES}, "mesh": repr(mesh)}
+    out = {"mesh": repr(mesh),
+           "steps": {s: tp_steps(mesh, s, sp=False, fsdp=True)
+                     for s in DP_STAGES}}
+    for name, make, axis in (("ep", make_moe_mesh, "expert"),
+                             ("pp", make_pipeline_mesh, "pipe")):
+        out[name] = axis_worker(make(2, 2, backend=backend), Path(root),
+                                axis, fit=False)
     torch.save(out, Path(root) / f"rank{mesh.global_rank}.pt")
     return 0
 
@@ -5557,7 +5739,8 @@ DP_BF16_GRAD_LEAVES = ("backbone.model.patch_embed.",
                        "backbone.model.pos_embed", "backbone.model.cls_token")
 
 
-def hold_dp(gaps, ranks, what: str = "dp", route: bool = False) -> None:
+def hold_dp(gaps, ranks, what: str = "dp", route: bool = False,
+            first_grad: float | None = None) -> None:
     """Raise unless the ranks' steps agree with the one-process steps.
 
     The first step (the same weights on both sides): at stages 3 and 4 the
@@ -5593,9 +5776,17 @@ def hold_dp(gaps, ranks, what: str = "dp", route: bool = False) -> None:
     the fp32 loss's distance (floor 1e-4). The later losses are read, not
     held: after one update on gradients that part as bf16's part from
     fp32's, a loss moves as much as bf16's does, and a 2x bound on one
-    sample of that is a coin (``tp_ranks_hold``)."""
+    sample of that is a coin (``tp_ranks_hold``). ``first_grad``, with
+    ``route``: the first step's whole gradient also within this fraction of
+    its L2 norm at every stage, where twice bf16's distance from fp32 is
+    too wide to tell a wrong gradient (a zeroed or doubled one parts by 1,
+    one in a random direction by about 1.4) from a right one."""
     for stage, g in gaps.items():
         if route:
+            if first_grad is not None and g["grad_norm_rel"][0] > first_grad:
+                raise RuntimeError(
+                    f"{what} stage {stage} first gradient: whole "
+                    f"{g['grad_norm_rel'][0]:.2e}, limit {first_grad}")
             for i in range(DP_STEPS):
                 limit = 2 * max(g["fp32_loss_rel"][i], 1e-4)
                 if i == 0 and g["loss_rel"][i] > limit:
@@ -5999,14 +6190,182 @@ def tp_line(smi, root, backend, one, ranks) -> dict:
             "launches": launches, "card": smi}
 
 
-def fsdp_tp_phase(smi: str, root: Path, one) -> dict:
-    """FSDP+TP on four cards (``--nccl`` with four visible): data 2 x
-    model 2, the flagship's steps held as the "tp" phase's (24 #5 a step:
-    a unit's forward runs again in its backward; 12 #6, 1 #7), each rank's
-    6,139,112 B of parameters."""
+#: The EP ranks' first gradient, whole, within this fraction of its L2 norm
+#: of the one-process step's: twice the largest reading (0.114, stage 4, on
+#: an H100 80GB HBM3 at 700 W), and below the 1 that a zeroed or doubled
+#: gradient parts by.
+EP_FIRST_GRAD = 0.25
+
+
+def axis_ranks_hold(what, single, exact, ranks, per_step: dict,
+                    axis: str) -> dict:
+    """Hold the ranks' EP or PP steps (``ranks``: each rank's
+    ``axis_steps`` results by stage) against the one-process bf16 steps
+    ``single``, beside the fp32 steps ``exact``. The stages (``axis``
+    "pipe") run the one-process blocks on microbatches and sum #2's weight
+    gradients over them in another order, a change at fp32's rounding (the
+    first gradient 1.5e-6 of its L2 norm on the card): ``hold_dp``'s data
+    rules, per leaf at the first step. The expert ranks run each expert's
+    GEMMs on their own slots and sum the combine's fp32 partials, a change
+    the stage-4 gradient amplifies to 0.114 of its norm: ``hold_dp``'s
+    rules for another route (the first loss and every step's whole
+    gradient in L2), with the first gradient within ``EP_FIRST_GRAD``.
+    Then the launches a step (``per_step``); every rank's replicated leaves
+    equal bit for bit; each rank's parameter, moment and EMA bytes equal to
+    ``sharded_size``. Returns the gaps."""
+    gaps = {s: dp_gaps(single[s], exact[s], [ranks[0][s]])
+            for s in DP_STAGES}
+    emit({"phase": f"{what}_readings", "gaps": gaps})
+    if axis == "pipe":
+        hold_dp(gaps, None, what)
+    else:
+        hold_dp(gaps, None, what, route=True, first_grad=EP_FIRST_GRAD)
+    for r in ranks:
+        for s in DP_STAGES:
+            st = r[s]
+            only(st["launches"], **{k: n * DP_STEPS
+                                    for k, n in per_step.items()})
+            if st["state_bytes"] != dict.fromkeys(
+                    ("params", "mu", "nu", "ema"), st["sharded_size"]) \
+                    or st["sharded_size"] >= st["replicated_bytes"]:
+                raise RuntimeError(f"{what} state: {st['state_bytes']}, "
+                                   f"sharded_size {st['sharded_size']}")
+            for k, v in ranks[0][s]["replicated"].items():
+                if not torch.equal(st["replicated"][k], v):
+                    raise RuntimeError(f"{what} stage {s}: the ranks' "
+                                       f"replicated {k} differ")
+    return gaps
+
+
+def axis_line(smi, root, backend, single, exact, ranks, axis: str) -> dict:
+    """The "ep" or "pp" phase from the ranks' runs (module docstring,
+    phases 24 and 25): the steps held against the one-process steps
+    (``axis_ranks_hold``), each rank's experts or blocks, the fit's
+    checkpoint loaded by a one-process ``Trainer`` with the ranks' bits
+    and served; each rank's peak memory and step ms beside its "dp"
+    figures."""
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.serving import load_engine
+    from rovit_kan_tpu_torch.training.trainer import Trainer
+    from rovit_kan_tpu_torch.utils.checkpoint import load_checkpoint
+    name = "ep" if axis == "expert" else "pp"
+    runs = [r[name] for r in ranks]
+    per = 6 if axis == "expert" else 6 * PP_MICRO
+    gaps = axis_ranks_hold(name, single, exact,
+                           [x["steps"] for x in runs],
+                           {"vit_block_fwd": per, "vit_block_bwd": per,
+                            "augment": 1}, axis)
+    last = DP_STAGES[-1]
+    holds = [x["steps"][last]["holds"] for x in runs]
+    want = ([MOE_EXPERTS // DP_RANKS] * DP_RANKS if axis == "expert"
+            else [[r * 6, r * 6 + 6] for r in range(DP_RANKS)])
+    if holds != want:
+        raise RuntimeError(f"{name}: the ranks hold {holds}, want {want}")
+    fits = [x["fit"] for x in runs]
+    if fits[0]["history"] != fits[1]["history"]:
+        raise RuntimeError(f"{name} fit: the ranks' histories differ: "
+                           f"{[f['history'] for f in fits]}")
+    for part in ("train", "val"):
+        for m in fits[0]["history"][part]:
+            if not np.isfinite(m["total_loss"]):
+                raise RuntimeError(f"{name} fit: non-finite {part} {m}")
+    best = Path(fits[0]["best_model"])
+    ck = load_checkpoint(best)
+    cfg = axis_config(axis, dp_config(root / axis))
+    tr = Trainer(build_model(cfg, device="cuda", seed=1), None, None, cfg,
+                 seed=0)
+    tr.resume("best_model")
+    loaded = tr.model.state_dict()
+    if list(ck["params"]) != list(loaded):
+        raise RuntimeError(f"{name} checkpoint: not the one-process "
+                           f"layout")
+    for k, v in fits[0]["best_params"].items():
+        if not (torch.equal(ck["params"][k], v)
+                and torch.equal(loaded[k].cpu(), v)):
+            raise RuntimeError(f"{name} checkpoint: {k} is not the ranks' "
+                               f"gathered best weights")
+    reset, read = all_counters()
+    engine = load_engine(best, device="cuda")
+    torch.cuda.synchronize()
+    reset()
+    probs = engine.predict(uint8_batch(26, BATCH))["cls_probs"]
+    only(read(), vit_block_fwd=6 if axis == "expert" else 12)
+    if not np.isfinite(probs).all() or probs.shape != (BATCH, 4):
+        raise RuntimeError(f"{name} checkpoint serves {probs}")
+    launches = {f"rank{r}": {
+        k: sum(x["steps"][s]["launches"][k] for s in DP_STAGES)
+        + x["fit"]["launches"][k] for k in x["fit"]["launches"]}
+        for r, x in enumerate(runs)}
+    return {"phase": name if backend == "gloo" else f"{name}_nccl",
+            "ranks": DP_RANKS, "mesh": runs[0]["mesh"],
+            "batch_size": BATCH, "steps": DP_STEPS, "holds": holds,
+            **({"microbatches": PP_MICRO, "fit_microbatches":
+                fits[0]["n_micro"]} if axis == "pipe" else
+               {"experts": MOE_EXPERTS}),
+            "first_loss_rel": {s: g["loss_rel"][0] for s, g in gaps.items()},
+            "grad_norm_rel": {s: g["grad_norm_rel"] for s, g in gaps.items()},
+            "fp32_grad_norm_rel": {s: g["fp32_grad_norm_rel"]
+                                   for s, g in gaps.items()},
+            "state_bytes": {f"rank{r}": x["steps"][last]["state_bytes"]
+                            for r, x in enumerate(runs)},
+            "sharded_size": runs[0]["steps"][last]["sharded_size"],
+            "replicated_bytes": runs[0]["steps"][last]["replicated_bytes"],
+            "peak_mib": {f"rank{r}": {
+                "dp": ranks[r]["steps"][last]["peak_mib"],
+                name: x["steps"][last]["peak_mib"]}
+                for r, x in enumerate(runs)},
+            "single_peak_mib": single[last]["peak_mib"],
+            "rank_step_ms": {f"rank{r}": {
+                "dp": ranks[r]["steps"][last]["ms"],
+                name: x["steps"][last]["ms"]} for r, x in enumerate(runs)},
+            "single_step_ms": single[last]["ms"],
+            "losses": {"single": single[last]["loss"],
+                       "rank0": runs[0]["steps"][last]["loss"]},
+            "fit": {k: fits[0][k] for k in ("history", "fit_seconds",
+                                            "steps", "val_batches")},
+            "seconds": [x["seconds"] for x in runs],
+            "launches": launches, "card": smi}
+
+
+def four_card_phases(smi: str, root: Path, one) -> list:
+    """The four-card lines (``--nccl`` with four visible): FSDP+TP on data
+    2 x model 2, the flagship's steps held as the "tp" phase's (24 #5 a
+    step: a unit's forward runs again in its backward; 12 #6, 1 #7), each
+    rank's 6,139,112 B of parameters; then the "ep" and "pp" steps on data
+    2 x expert 2 and data 2 x pipe 2, held as phases 24 and 25 hold theirs
+    (``axis_ranks_hold``)."""
     root.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     ranks = run_ranks(root, 4, "nccl", worker="--tp4-worker")
+    lines = [fsdp_tp_line(smi, one, ranks, t0)]
+    for name, axis, (single, exact) in (
+            ("ep", "expert", (one["moe_single"], one["moe_exact"])),
+            ("pp", "pipe", (one["single"], one["exact"]))):
+        per = 6 if axis == "expert" else 6 * PP_MICRO
+        runs = [r[name]["steps"] for r in ranks]
+        gaps = axis_ranks_hold(f"{name}4", single, exact, runs,
+                               {"vit_block_fwd": per, "vit_block_bwd": per,
+                                "augment": 1}, axis)
+        last = DP_STAGES[-1]
+        lines.append({
+            "phase": f"{name}_nccl4", "ranks": 4,
+            "mesh": ranks[0][name]["mesh"],
+            "first_loss_rel": {s: g["loss_rel"][0] for s, g in gaps.items()},
+            "grad_norm_rel": {s: g["grad_norm_rel"]
+                              for s, g in gaps.items()},
+            "holds": [x[last]["holds"] for x in runs],
+            "state_bytes": {f"rank{r}": x[last]["state_bytes"]
+                            for r, x in enumerate(runs)},
+            "peak_mib": {f"rank{r}": x[last]["peak_mib"]
+                         for r, x in enumerate(runs)},
+            "rank_step_ms": {f"rank{r}": x[last]["ms"]
+                             for r, x in enumerate(runs)},
+            "seconds": [r[name]["seconds"] for r in ranks], "card": smi})
+    return lines
+
+
+def fsdp_tp_line(smi: str, one, ranks, t0: float) -> dict:
+    """The "fsdp_tp_nccl" line from the four ranks' FSDP+TP steps."""
     gaps = tp_ranks_hold("fsdp_tp", one, [r["steps"] for r in ranks],
                          {"attention_fwd": 24, "attention_bwd": 12,
                           "augment": 1}, FSDP_TP_PARAM_BYTES)
@@ -6123,9 +6482,10 @@ def baselines_dp_line(smi, root, backend, one, ranks) -> dict:
 def dp_phase(smi: str, root: Path, backend: str = "gloo"):
     """Data parallelism (module docstring, phase 20): two ranks on cuda:0
     through gloo, or with ``nccl`` on cuda:0 and cuda:1 (``--nccl``); the
-    same ranks run the "fsdp", "baselines_dp" and "tp" phases (21-23).
-    Returns the four phases' lines and the one-process steps the "tp" ranks
-    were held against (bf16 on #1/#2, bf16 on the TP route, fp32)."""
+    same ranks run the "fsdp", "baselines_dp", "tp", "ep" and "pp" phases
+    (21-25). Returns the six phases' lines and the one-process steps the
+    ranks were held against (bf16 on #1/#2, bf16 on the TP route, fp32;
+    the MoE flagship's bf16 and fp32)."""
     root.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     single = {s: dp_steps(None, s) for s in DP_STAGES}
@@ -6142,6 +6502,12 @@ def dp_phase(smi: str, root: Path, backend: str = "gloo"):
     one = {"single": single, "exact": exact,
            "routed": {s: dp_steps(None, s, route=True) for s in DP_STAGES}}
     tped = tp_line(smi, root, backend, one, ranks)
+    one["moe_single"] = {s: dp_steps(None, s, moe=True) for s in DP_STAGES}
+    one["moe_exact"] = {s: dp_steps(None, s, fp32=True, moe=True)
+                        for s in DP_STAGES}
+    eped = axis_line(smi, root, backend, one["moe_single"],
+                     one["moe_exact"], ranks, "expert")
+    pped = axis_line(smi, root, backend, single, exact, ranks, "pipe")
     baselined = baselines_dp_line(smi, root, backend, one_baselines, ranks)
     gaps = {s: dp_gaps(single[s], exact[s], [r["steps"][s] for r in ranks])
             for s in DP_STAGES}
@@ -6191,7 +6557,7 @@ def dp_phase(smi: str, root: Path, backend: str = "gloo"):
                                             "temperature")},
             "launches": launches, "cli": cli,
             "seconds": time.perf_counter() - t0, "card": smi}
-    return dped, fsdped, baselined, tped, one
+    return dped, fsdped, baselined, tped, eped, pped, one
 
 
 def main() -> int:
@@ -6282,11 +6648,14 @@ def main() -> int:
         moed = moe_phase(smi, root)
         emit(moed)
         emit(native_phase(smi, root))
-        dped, fsdped, bdped, tped, _ = dp_phase(smi, root / "dp")
+        dped, fsdped, bdped, tped, eped, pped, _ = dp_phase(smi,
+                                                            root / "dp")
         emit(dped)
         emit(fsdped)
         emit(bdped)
         emit(tped)
+        emit(eped)
+        emit(pped)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     benched = bench_phase(smi)
@@ -6458,7 +6827,8 @@ def main() -> int:
                  "moe": moed["launches"],
                  **{f"{name}_{r}": counts
                     for name, line in (("dp", dped), ("fsdp", fsdped),
-                                       ("baselines_dp", bdped))
+                                       ("baselines_dp", bdped),
+                                       ("ep", eped), ("pp", pped))
                     for r, counts in line["launches"].items()},
                  **tped["launches"]}
     for e in kernels:
@@ -6495,7 +6865,8 @@ def main_nccl() -> int:
         for line in lines:
             emit(line)
         if torch.cuda.device_count() >= 4:
-            emit(fsdp_tp_phase(smi, root / "fsdp_tp", one))
+            for line in four_card_phases(smi, root / "four", one):
+                emit(line)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(smi, flush=True)

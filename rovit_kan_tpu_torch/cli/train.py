@@ -8,7 +8,8 @@
         [--profile_dir DIR] [--matmul_precision P] [--pretrained_npz NPZ] \
         [--moe_experts E] [--devices N] [--multihost] \
         [--device_cache_sharded] [--fsdp] [--tensor_parallel T] \
-        [--sequence_parallel]
+        [--sequence_parallel] [--expert_parallel E] \
+        [--pipeline_parallel P [--pipeline_microbatches M]]
 
 The flow of the JAX package's ``scripts/train.py``. A run:
 dataloaders over ``DATA/Augmented Image`` (train and validation, a seeded
@@ -60,14 +61,22 @@ every process (data = N / T; a remainder is refused, as the JAX script
 refuses it) and shards each block's attention and MLP weights over the T
 ranks of a model column, Megatron-style; ``--sequence_parallel`` also
 shards the residual stream's tokens over them. ``--fsdp`` composes with
-both (FSDP+TP: the data axis shards what the Megatron rule leaves). The
-flag rules of the JAX script are checked before any data loads, with its
-messages. The checkpoints are the single-card files.
+both (FSDP+TP: the data axis shards what the Megatron rule leaves).
 
-Runs on the card unless ``--cpu`` is given. Not ported yet:
-``--pipeline_parallel``, ``--pipeline_microbatches`` and
-``--expert_parallel``: they are parsed for the JAX script's flag rules and
-refused above 1.
+Expert parallelism (``--expert_parallel E`` with ``--moe_experts``, which E
+must divide): a data x expert mesh, each rank holding E-th of every MoE
+block's experts (``parallel/tensor.py::ExpertParallel``). The pipeline
+(``--pipeline_parallel P``): a data x pipe mesh, each rank one stage of
+depth/P blocks, the GPipe schedule over ``--pipeline_microbatches``
+microbatches (default 4, fitted down to divide the local batch;
+``parallel/pipeline.py``). ``--devices`` counts every process for both.
+The final evaluation runs on the model whole, the stages' or the experts'
+weights gathered. The flag rules of the JAX script are checked before any
+data loads, with its messages; ``--tensor_parallel`` with
+``--pipeline_parallel`` (the JAX package's 3-D mesh) is refused as not
+ported yet. The checkpoints are the single-card files.
+
+Runs on the card unless ``--cpu`` is given.
 """
 from __future__ import annotations
 
@@ -163,18 +172,26 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "stream's token dim over the model axis "
                         "(parallel/tensor.py::seq_sharding)")
     p.add_argument("--pipeline_parallel", type=int, default=1,
-                   help="not ported: refused above 1")
+                   help="pipe-axis size of a (data x pipe) mesh: the "
+                        "blocks split into this many GPipe stages "
+                        "(parallel/pipeline.py). Total devices = data x "
+                        "pipe")
     p.add_argument("--pipeline_microbatches", type=int, default=None,
-                   help="not ported: refused")
+                   help="microbatches per local batch for the GPipe "
+                        "schedule (config.tpu.pipeline_microbatches, "
+                        "default 4)")
     p.add_argument("--expert_parallel", type=int, default=1,
-                   help="not ported: refused above 1")
+                   help="expert-axis size of a (data x expert) mesh: each "
+                        "device holds moe_experts / E experts of every MoE "
+                        "block (parallel/tensor.py::ExpertParallel)")
     return p.parse_args(argv)
 
 
 def check_flags(args: argparse.Namespace) -> None:
-    """The JAX script's flag rules, with its messages, then the flags the
-    port does not take and the remainder of ``--devices`` over the model
-    axes; raises SystemExit before any data loads."""
+    """The JAX script's flag rules, with its messages, then the
+    combination the port does not take (tensor parallelism with the
+    pipeline) and the remainder of ``--devices`` over the model axes;
+    raises SystemExit before any data loads."""
     if args.sequence_parallel:
         if args.tensor_parallel <= 1:
             raise SystemExit("--sequence_parallel requires "
@@ -207,12 +224,9 @@ def check_flags(args: argparse.Namespace) -> None:
                          "--pipeline_parallel: the GPipe stage scan "
                          "requires identical per-block param structures "
                          "(parallel/pipeline.py), and MoE blocks differ")
-    unported = [f for f, on in (
-        ("--pipeline_parallel", args.pipeline_parallel > 1),
-        ("--pipeline_microbatches", args.pipeline_microbatches is not None),
-        ("--expert_parallel", args.expert_parallel > 1)) if on]
-    if unported:
-        raise SystemExit(f"{', '.join(unported)}: not ported yet")
+    if args.tensor_parallel > 1 and args.pipeline_parallel > 1:
+        raise SystemExit("--tensor_parallel with --pipeline_parallel (the "
+                         "3-D data x pipe x model mesh): not ported yet")
     model_axes = (args.tensor_parallel * args.pipeline_parallel
                   * args.expert_parallel)
     if args.devices != -1 and args.devices % model_axes != 0:
@@ -224,18 +238,33 @@ def check_flags(args: argparse.Namespace) -> None:
 
 
 def make_run_mesh(args: argparse.Namespace):
-    """This process's mesh: the 2-D data x model mesh under
-    ``--tensor_parallel`` (``--devices`` counting every process), else the
-    data mesh."""
-    from rovit_kan_tpu_torch.parallel.mesh import make_2d_mesh, make_mesh
+    """This process's mesh, with the JAX script's mesh line: the 2-D data x
+    model mesh under ``--tensor_parallel``, data x pipe under
+    ``--pipeline_parallel``, data x expert under ``--expert_parallel``
+    (``--devices`` counting every process), else the data mesh."""
+    from rovit_kan_tpu_torch.config import TPUConfig
+    from rovit_kan_tpu_torch.parallel.mesh import (
+        make_2d_mesh,
+        make_mesh,
+        make_moe_mesh,
+        make_pipeline_mesh,
+    )
     device = "cpu" if args.cpu else None
-    if args.tensor_parallel > 1:
-        data = (-1 if args.devices == -1
-                else args.devices // args.tensor_parallel)
-        mesh = make_2d_mesh(data, args.tensor_parallel, device=device)
-        print(f"Mesh: data={mesh.size} x model={mesh.model_size} (tensor "
-              f"parallel)")
-        return mesh
+    micro = args.pipeline_microbatches or TPUConfig().pipeline_microbatches
+    for n, make, what in (
+            (args.tensor_parallel, make_2d_mesh, "tensor parallel"),
+            (args.pipeline_parallel, make_pipeline_mesh,
+             f"pipeline parallel, {micro} microbatches"),
+            (args.expert_parallel, make_moe_mesh,
+             f"expert parallel, {args.moe_experts} experts")):
+        if n > 1:
+            # --devices counts every device; the data axis is the rest.
+            data = -1 if args.devices == -1 else args.devices // n
+            mesh = make(data, n, device=device)
+            axis = mesh.second_axis
+            print(f"Mesh: data={mesh.size} x {axis}="
+                  f"{mesh.axis_size(axis)} ({what})")
+            return mesh
     return make_mesh(args.devices, device=device)
 
 
@@ -249,6 +278,8 @@ def build_config(args: argparse.Namespace):
         config.model.pretrained_npz = args.pretrained_npz
     if args.moe_experts > 1:
         config.model.moe_experts = args.moe_experts
+    if args.pipeline_parallel > 1 and args.pipeline_microbatches:
+        config.tpu.pipeline_microbatches = args.pipeline_microbatches
     config.paths.checkpoints_dir = args.output_dir / "checkpoints"
     config.paths.results_dir = args.output_dir / "results"
     config.paths.logs_dir = args.output_dir / "logs"
@@ -368,8 +399,9 @@ def run_one(config, seed: int, out_dir: Path, aug_root: Path,
     trainer = Trainer(model, train_l, val_l, cfg, logger=logger,
                       focal_alpha=focal_alpha, seed=seed, mesh=mesh,
                       fsdp=fsdp)
-    # The model whole for a while (under FSDP or TP its sharded leaves are
-    # gathered): the merge and the final evaluation read it.
+    # The model whole for a while (under FSDP, TP or EP its sharded leaves
+    # are gathered, under the pipeline every stage's blocks, as the JAX
+    # script's merge_params): the merge and the final evaluation read it.
     whole = (trainer.sharded.full_module if trainer.sharded is not None
              else contextlib.nullcontext)
 
@@ -474,7 +506,8 @@ def main(argv=None):
                  *(sys.argv[1:] if argv is None else argv), "--multihost"],
                 n)
             return _rank0_result(args)
-        if args.tensor_parallel > 1:
+        if max(args.tensor_parallel, args.pipeline_parallel,
+               args.expert_parallel) > 1:
             mesh = make_run_mesh(args)   # one process: the JAX error
     set_matmul_precision(args.matmul_precision)
     import numpy as np

@@ -22,14 +22,18 @@ Variants without a head are other modules (the ``with_*`` flags of
 ``RoViTKAN``); the curriculum toggle is a config flag the same train step
 reads. Runs on the card unless ``device="cpu"``.
 
-``mesh=`` (a data mesh, one process per card) goes through to every
-variant's ``Trainer``: every rank runs the same study over the same
-loaders, and rank 0 alone writes the files (the epoch CSV, the metrics,
-the curves, the summary), behind the checkpoints' barriers. The pipelined
-model is not ported.
+``mesh=`` (a data mesh, one process per card, or a 2-D mesh) goes through
+to every variant's ``Trainer``: every rank runs the same study over the
+same loaders, and rank 0 alone writes the files (the epoch CSV, the
+metrics, the curves, the summary), behind the checkpoints' barriers. Where
+the trainer holds a rank's stage or shards (a pipeline, expert or model
+axis), the selected weights are evaluated on the model whole
+(``full_module``), as the JAX harness merges the pipelined tree
+(``merge_params``).
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import csv
 import json
@@ -173,6 +177,7 @@ class AblationExperiment:
                 f"[{variant.name}] preempted mid-training — results NOT "
                 f"cached; re-run to continue")
 
+        whole = contextlib.nullcontext()
         if resumed and not fit["improved"] and promote_staging(ckpt):
             # No epoch after the resume beat the restored best loss: the
             # best weights are the ones on disk.
@@ -180,13 +185,20 @@ class AblationExperiment:
                 ckpt, cfg, device=self.device)
         else:
             eval_weights = trainer.eval_params(fit["best_state"])
-        evaluator = Evaluator(model, eval_weights, self.test_loader, cfg,
-                              output_dir=exp_dir)
-        metrics = evaluator.evaluate(
-            run_fps=self.run_fps, **({} if main else {"save": False}))
-        # The raw `ece` stays comparable with the reference's CSVs;
-        # `ece_calibrated` is what one validation-fitted scalar buys.
-        metrics.update(evaluator.calibrated_metrics(self.val_loader))
+            if trainer.sharded is not None:
+                # A rank's stage or shards (a pipeline or expert mesh):
+                # evaluated on the model whole, as the JAX harness merges
+                # the pipelined tree.
+                whole = trainer.sharded.full_module(eval_weights)
+                eval_weights = None
+        with whole:
+            evaluator = Evaluator(model, eval_weights, self.test_loader,
+                                  cfg, output_dir=exp_dir)
+            metrics = evaluator.evaluate(
+                run_fps=self.run_fps, **({} if main else {"save": False}))
+            # The raw `ece` stays comparable with the reference's CSVs;
+            # `ece_calibrated` is what one validation-fitted scalar buys.
+            metrics.update(evaluator.calibrated_metrics(self.val_loader))
         metrics["experiment"] = variant.name
         metrics["best_val_loss"] = fit["best_val_loss"]
         if main:

@@ -27,6 +27,18 @@ and no balancing loss is needed; the flagship stays dense
   ``n_valid`` and after score ``-inf`` in the gate and the capacity comes
   from ``n_valid``, so a filler token never takes a slot and the real
   tokens' outputs do not depend on the padding.
+- **Expert parallelism** (``parallel/tensor.py::ExpertParallel`` sets
+  ``ep``, an ``ExpertAxis``): rank r of ep on the ``"expert"`` axis holds
+  experts ``[r*E/ep, (r+1)*E/ep)`` of ``w1``, ``b1``, ``w2``, ``b2``, and
+  the gate whole. The batch is sharded over ``"data"`` only, so the expert
+  ranks of one data index see the same rows and route them alike with the
+  whole gate (the JAX layout under ``P("expert")`` weights). Each rank
+  dispatches to, runs and combines its own experts into an fp32 partial of
+  ``(B, S, D)``; the partials are summed over ``"expert"`` and rounded to
+  ``dtype`` once, the one-process rounding point. ``x`` and the gate
+  weight enter through ``ExpertAxis.input``, whose backward sums their
+  gradients over ``"expert"``: a rank's experts see only their slots, so
+  each rank's gradient of them is a partial.
 """
 from __future__ import annotations
 
@@ -79,14 +91,24 @@ class MoEMlp(nn.Module):
         self.b1 = nn.Parameter(torch.zeros(num_experts, hidden))
         self.w2 = nn.Parameter(torch.zeros(num_experts, hidden, dim))
         self.b2 = nn.Parameter(torch.zeros(num_experts, dim))
+        #: The expert axis under expert parallelism (``w1`` .. ``b2`` then
+        #: hold this rank's experts).
+        self.ep = None
 
     def forward(self, x: torch.Tensor,
                 n_valid: Optional[int] = None) -> torch.Tensor:
         B, S, D = x.shape
-        E, dt = self.num_experts, self.dtype
+        E, dt, ep = self.num_experts, self.dtype, self.ep
         C = expert_capacity(S if n_valid is None else n_valid, E,
                             self.capacity_factor)
-        idx, w = route(x, self.gate.weight, C, n_valid)
+        gate = self.gate.weight
+        if ep is not None:
+            x, gate = ep.input(x), ep.input(gate)
+        idx, w = route(x, gate, C, n_valid)
+        if ep is not None:
+            # This rank's experts: their slots of the whole routing.
+            lo, hi = ep.experts(E)
+            idx, w, E = idx[:, lo:hi], w[:, lo:hi], hi - lo
         disp = F.one_hot(idx, S).to(dt).reshape(B, E * C, S)
         xin = torch.bmm(disp, x.to(dt)).reshape(B, E, C, D)
         h = torch.einsum("becd,edh->bech", xin.float(),
@@ -98,4 +120,6 @@ class MoEMlp(nn.Module):
         # Token s sums every expert slot that chose it.
         y = torch.bmm(disp.float().transpose(1, 2),
                       out.reshape(B, E * C, D))
+        if ep is not None:
+            y = ep.combine(y)          # the fp32 partials summed
         return y.to(dt)

@@ -56,6 +56,13 @@ parallelism (``act_sharding``, which ``build_model`` sets) ``embed`` pads
 the stream to a multiple of the model axis and keeps the rank's tokens,
 and ``features`` gathers the real tokens back. The explainability taps are
 not ported under tensor or sequence parallelism and raise.
+
+Under the GPipe pipeline (``parallel/pipeline.py::Pipeline``) the trunk
+holds the mesh's ``PipeAxis`` as ``pipe`` and only its stage's blocks have
+weights: ``embed`` and ``features`` run on every pipe rank alike, and the
+block stack runs through ``PipeAxis.run``, each block of the stage through
+the ordinary ``Block.forward`` a microbatch at a time. The taps raise there
+too.
 """
 from __future__ import annotations
 
@@ -364,6 +371,8 @@ class VisionTransformer(nn.Module):
         #: parallel layout ``build_model`` was given (``parallel/tensor.py``).
         self.tp = None
         self.act_sharding = None
+        #: The pipe axis under the pipeline (``parallel/pipeline.py``).
+        self.pipe = None
 
     def embed(self, x: torch.Tensor) -> torch.Tensor:
         """The tokens the first block takes: the patches embedded, the CLS
@@ -403,10 +412,17 @@ class VisionTransformer(nn.Module):
                 "the explainability taps are not ported under tensor or "
                 "sequence parallelism: run them on the model whole "
                 "(TensorParallel.full_module)")
+        if taps and self.pipe is not None:
+            raise NotImplementedError(
+                "the explainability taps are not ported under the "
+                "pipeline: run them on the model whole "
+                "(Pipeline.full_module)")
         x = self.embed(x)
         if taps:
             return self._forward_taps(x, return_attention,
                                       gradcam_perturbation)
+        if self.pipe is not None:
+            return self.features(self.pipe.run(x, self.blocks, self.remat))
         remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
             if remat and not blk.runs_fused:

@@ -1,15 +1,17 @@
 """Parallelism over ``torch.distributed``: one process per card.
 
-The ported part of ``rovit_kan_tpu/parallel``: the 1-D data mesh and the
-2-D data x model mesh (``mesh.py``), their multi-host glue, FSDP
-(``fsdp.py``) and tensor and sequence parallelism (``tensor.py``). Not
-ported: expert parallelism (``make_moe_mesh``, ``moe_param_specs``) and the
-GPipe pipeline (``pipeline.py``).
+The port of ``rovit_kan_tpu/parallel``: the 1-D data mesh and the 2-D
+data x model, data x expert and data x pipe meshes (``mesh.py``), their
+multi-host glue, FSDP (``fsdp.py``), tensor, sequence and expert
+parallelism (``tensor.py``) and the GPipe pipeline (``pipeline.py``). Not
+ported yet: the 3-D data x pipe x model mesh.
 """
 from rovit_kan_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
     make_2d_mesh,
     make_mesh,
+    make_moe_mesh,
+    make_pipeline_mesh,
     replicate,
     shard_batch,
 )

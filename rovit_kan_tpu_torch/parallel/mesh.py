@@ -1,22 +1,30 @@
 """The device mesh: one process per card on ``torch.distributed``.
 
-Counterpart of ``rovit_kan_tpu/parallel/mesh.py`` and of the 2-D mesh of
-``rovit_kan_tpu/parallel/tensor.py``. The JAX package runs one SPMD program
-over a 1-D ``"data"`` mesh or a 2-D ``("data", "model")`` one; the port runs
-one process per card (rank r on ``cuda:r``, or on the CPU) in one process
-group, and a ``Mesh`` is that process's view of it: its coordinates, the
-axes' sizes, its device and the collectives over each axis. A step over N
-ranks computes the same step as one device on the whole global batch
+Counterpart of ``rovit_kan_tpu/parallel/mesh.py`` and of the 2-D meshes of
+``rovit_kan_tpu/parallel/tensor.py`` and ``pipeline.py``. The JAX package
+runs one SPMD program over a 1-D ``"data"`` mesh or a 2-D ``("data", X)``
+one, X being ``"model"`` (tensor parallelism), ``"expert"`` (expert
+parallelism) or ``"pipe"`` (the GPipe pipeline); the port runs one process
+per card (rank r on ``cuda:r``, or on the CPU) in one process group, and a
+``Mesh`` is that process's view of it: its coordinates, the axes' sizes, its
+device and the collectives over each axis. A step over N ranks computes the
+same step as one device on the whole global batch
 (``training/trainer.py``).
 
 ``size`` and ``rank`` are always the data axis: the number of data indices
-and this process's. ``make_mesh`` gives the 1-D mesh, whose model axis has
-size 1; ``make_2d_mesh(data, model)`` lays the job's ranks out as JAX lays
-devices out, ``(data, model)`` row-major: global rank ``d * model + m`` sits
-at data index d and model index m. Each data row and each model column is a
-process group (``dist.new_group``); a collective names its axis, ``"data"``
-by default, so every caller written for the 1-D mesh works over the data
-axis of a 2-D one. ``broadcast_`` spans every rank of the job.
+and this process's. ``axis_size(axis)`` and ``axis_rank(axis)`` answer for
+any axis by name: for the axes the mesh has, and 1 and 0 for any other, so
+a collective over an absent axis is a no-op; ``model_size`` and
+``model_rank`` are the ``"model"`` axis's alone (1 and 0 on an expert or
+pipeline mesh). ``make_mesh`` gives the 1-D mesh; ``make_2d_mesh(data, model)``,
+``make_moe_mesh(data, expert)`` and ``make_pipeline_mesh(data, pipe)`` lay
+the job's ranks out as JAX lays devices out, ``(data, X)`` row-major: global
+rank ``d * X + x`` sits at data index d and index x of the second axis. Each
+data row and each column of the second axis is a process group
+(``dist.new_group``); a collective names its axis, ``"data"`` by default, so
+every caller written for the 1-D mesh works over the data axis of a 2-D one.
+``broadcast_`` spans every rank of the job, or one axis; ``isend`` and
+``irecv`` reach a rank by its index on an axis (the pipeline's stages).
 
 The backend is NCCL for a card and gloo for the CPU. gloo with tensors on
 a card is taken only when the caller names it (two ranks sharing one card,
@@ -50,20 +58,20 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
 
 class Mesh:
     """This process's place in a mesh of ``size`` data indices (and
-    ``model_size`` model indices on a 2-D mesh)."""
+    ``second_size`` indices of the second axis on a 2-D mesh)."""
 
     #: The 1-D mesh's one axis, the JAX package's data axis; a 2-D mesh
-    #: has ``("data", "model")``.
+    #: has ``("data", X)``, X one of ``"model"``, ``"expert"``, ``"pipe"``.
     axis_names = ("data",)
 
     def __init__(self, size: int, rank: int, device: torch.device,
-                 backend: Optional[str], model_size: int = 1,
-                 model_rank: int = 0, groups: Optional[dict] = None,
+                 backend: Optional[str], second_size: int = 1,
+                 second_rank: int = 0, groups: Optional[dict] = None,
                  axis_names=None):
         self.size = size
         self.rank = rank
-        self.model_size = model_size
-        self.model_rank = model_rank
+        self.second_size = second_size
+        self.second_rank = second_rank
         self.device = device
         self.backend = backend
         #: Each axis's process group (absent: the default group).
@@ -73,22 +81,54 @@ class Mesh:
 
     @property
     def world(self) -> int:
-        """Every rank of the mesh: data x model."""
-        return self.size * self.model_size
+        """Every rank of the mesh: data x the second axis."""
+        return self.size * self.second_size
 
     @property
     def global_rank(self) -> int:
         """This process's rank in the job."""
-        return self.rank * self.model_size + self.model_rank
+        return self.rank * self.second_size + self.second_rank
+
+    @property
+    def second_axis(self) -> Optional[str]:
+        """The second axis's name, None on a 1-D mesh."""
+        return self.axis_names[1] if len(self.axis_names) > 1 else None
 
     def axis_size(self, axis: str) -> int:
-        return self.size if axis == "data" else self.model_size
+        """The size of ``axis``: 1 for an axis the mesh does not have."""
+        if axis == "data":
+            return self.size
+        return self.second_size if axis == self.second_axis else 1
+
+    def axis_rank(self, axis: str) -> int:
+        """This process's index on ``axis``: 0 for an axis the mesh does
+        not have."""
+        if axis == "data":
+            return self.rank
+        return self.second_rank if axis == self.second_axis else 0
+
+    @property
+    def model_size(self) -> int:
+        """The ``"model"`` axis's size (tensor parallelism)."""
+        return self.axis_size("model")
+
+    @property
+    def model_rank(self) -> int:
+        """This process's index on the ``"model"`` axis."""
+        return self.axis_rank("model")
+
+    def peer(self, axis: str, index: int) -> int:
+        """The global rank at ``index`` on ``axis`` that shares this
+        process's other coordinate."""
+        if axis == "data":
+            return index * self.second_size + self.second_rank
+        return self.rank * self.second_size + index
 
     def __repr__(self) -> str:
-        model = (f", model_size={self.model_size}, "
-                 f"model_rank={self.model_rank}"
-                 if "model" in self.axis_names else "")
-        return (f"Mesh(size={self.size}, rank={self.rank}{model}, "
+        axis = self.second_axis
+        second = (f", {axis}_size={self.second_size}, "
+                  f"{axis}_rank={self.second_rank}" if axis else "")
+        return (f"Mesh(size={self.size}, rank={self.rank}{second}, "
                 f"device={self.device}, backend={self.backend})")
 
     def rows(self, global_batch: int) -> slice:
@@ -142,18 +182,45 @@ class Mesh:
         _REDUCE_SCATTER(out, src, group=self.groups.get(axis))
         return out.to(t.device).movedim(0, dim)
 
-    def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+    def broadcast_(self, t: torch.Tensor, src: int = 0,
+                   axis: Optional[str] = None) -> torch.Tensor:
         """Global rank ``src``'s ``t`` on every rank of the job, in place;
-        returns ``t``."""
-        if self.world == 1:
+        with ``axis``, the ``t`` of index ``src`` on that axis on every
+        rank of this process's group of it. Returns ``t``."""
+        if axis is not None:
+            if self.axis_size(axis) == 1:
+                return t
+            group, src = self.groups.get(axis), self.peer(axis, src)
+        elif self.world == 1:
             return t
+        else:
+            group = None
         if self._staged(t):
             host = t.cpu()
-            dist.broadcast(host, src)
+            dist.broadcast(host, src, group=group)
             t.copy_(host)
         else:
-            dist.broadcast(t, src)
+            dist.broadcast(t, src, group=group)
         return t
+
+    def isend(self, t: torch.Tensor, axis: str, index: int):
+        """Send ``t`` to the rank at ``index`` on ``axis``; returns the
+        request (``wait()`` before ``t`` is reused: a staged send holds its
+        own host copy)."""
+        src = t.detach().cpu() if self._staged(t) else t.detach().contiguous()
+        return dist.isend(src, self.peer(axis, index))
+
+    def recv(self, like: torch.Tensor, axis: str, index: int
+             ) -> torch.Tensor:
+        """A tensor shaped and typed as ``like``, received from the rank at
+        ``index`` on ``axis`` (blocking)."""
+        if self._staged(like):
+            host = torch.empty(like.shape, dtype=like.dtype)
+            dist.recv(host, self.peer(axis, index))
+            return host.to(like.device)
+        out = torch.empty_like(like, memory_format=torch.contiguous_format)
+        dist.recv(out, self.peer(axis, index))
+        return out
 
 
 def make_mesh(n_devices: int = -1, backend: Optional[str] = None,
@@ -186,12 +253,13 @@ def make_mesh(n_devices: int = -1, backend: Optional[str] = None,
     return Mesh(world, dist.get_rank(), device, backend)
 
 
-def make_2d_mesh(data: int = -1, model: int = 1,
-                 backend: Optional[str] = None, device=None) -> Mesh:
-    """The ``("data", "model")`` mesh over every process of the job, with
-    the JAX ``make_2d_mesh``'s errors: ``data=-1`` takes the ranks the model
-    axis leaves. Rank ``d * model + m`` is at data index d, model index m
-    (module docstring); its device and backend are ``make_mesh``'s."""
+def _data_x_mesh(data: int, second: int, axis: str,
+                 backend: Optional[str], device, need: str) -> Mesh:
+    """The ``("data", axis)`` mesh over every process of the job, ``data=-1``
+    taking the ranks the second axis leaves; ``need`` opens the JAX error
+    for a data axis below 1. Rank ``d * second + x`` is at data index d,
+    index x of ``axis`` (module docstring); its device and backend are
+    ``make_mesh``'s."""
     if device is None:
         device = (f"cuda:{local_rank()}" if torch.cuda.is_available()
                   else "cpu")
@@ -200,12 +268,12 @@ def make_2d_mesh(data: int = -1, model: int = 1,
     maybe_initialize_distributed(backend=backend)
     world = dist.get_world_size() if dist.is_initialized() else 1
     if data == -1:
-        data = world // model
+        data = world // second
     if data < 1:
         raise ValueError(
-            f"2-D mesh needs at least model = {model} devices "
-            f"(data axis resolved to {data} from {world} device(s))")
-    n = data * model
+            f"{need} (data axis resolved to {data} from {world} "
+            f"device(s))")
+    n = data * second
     if n > world:
         raise ValueError(f"need {n} devices, have {world}")
     if n != world:
@@ -213,7 +281,7 @@ def make_2d_mesh(data: int = -1, model: int = 1,
             f"a mesh of {n} devices needs {n} processes, one per device; "
             f"this job has {world} (start one process per device: "
             f"cli.train --devices N, or torchrun)")
-    names = ("data", "model")
+    names = ("data", axis)
     if world == 1:
         return Mesh(1, 0, device, None, axis_names=names)
     if dist.get_backend() != backend:
@@ -225,24 +293,55 @@ def make_2d_mesh(data: int = -1, model: int = 1,
     groups = {}
     # Every rank makes every group, in one order (dist.new_group's rule);
     # an axis that spans the job keeps the default group.
-    for axis, members in (
-            ("data", [[d * model + m for d in range(data)]
-                      for m in range(model)]),
-            ("model", [[d * model + m for m in range(model)]
-                       for d in range(data)])):
+    for name, members in (
+            ("data", [[d * second + m for d in range(data)]
+                      for m in range(second)]),
+            (axis, [[d * second + m for m in range(second)]
+                    for d in range(data)])):
         if len(members[0]) in (1, world):
             continue
         for ranks in members:
             g = dist.new_group(ranks, backend=backend)
             if rank in ranks:
-                groups[axis] = g
-    return Mesh(data, rank // model, device, backend, model_size=model,
-                model_rank=rank % model, groups=groups, axis_names=names)
+                groups[name] = g
+    return Mesh(data, rank // second, device, backend, second_size=second,
+                second_rank=rank % second, groups=groups, axis_names=names)
+
+
+def make_2d_mesh(data: int = -1, model: int = 1,
+                 backend: Optional[str] = None, device=None) -> Mesh:
+    """The ``("data", "model")`` mesh of tensor parallelism, with the JAX
+    ``make_2d_mesh``'s errors."""
+    return _data_x_mesh(data, model, "model", backend, device,
+                        f"2-D mesh needs at least model = {model} devices")
+
+
+def make_moe_mesh(data: int = -1, expert: int = 1,
+                  backend: Optional[str] = None, device=None) -> Mesh:
+    """The ``("data", "expert")`` mesh of expert parallelism, with the JAX
+    ``make_moe_mesh``'s errors."""
+    return _data_x_mesh(data, expert, "expert", backend, device,
+                        f"2-D mesh needs at least expert = {expert} devices")
+
+
+def make_pipeline_mesh(data: int = -1, pipe: int = 2, model: int = 1,
+                       backend: Optional[str] = None, device=None) -> Mesh:
+    """The ``("data", "pipe")`` mesh of the GPipe pipeline, with the JAX
+    ``make_pipeline_mesh``'s errors. The JAX package's third axis
+    (``model > 1``: ``("data", "pipe", "model")``) is not ported yet."""
+    if model > 1:
+        raise ValueError("the 3-D ('data', 'pipe', 'model') mesh "
+                         "(pipeline with tensor parallelism): not ported "
+                         "yet")
+    return _data_x_mesh(
+        data, pipe, "pipe", backend, device,
+        f"pipeline mesh needs at least pipe*model = {pipe * model} devices")
 
 
 def shard_batch(batch: Any, mesh: Mesh) -> Any:
     """This rank's rows of a global batch (a tensor, an array or a dict of
-    them): its data index's, which every model index of it shares."""
+    them): its data index's, which every index of the second axis
+    shares."""
     if mesh is None or mesh.size == 1:
         return batch
     if isinstance(batch, dict):

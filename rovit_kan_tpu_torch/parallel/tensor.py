@@ -1,4 +1,5 @@
-"""Tensor and sequence parallelism over the 2-D ``("data", "model")`` mesh.
+"""Tensor and sequence parallelism over the 2-D ``("data", "model")`` mesh,
+and expert parallelism over the ``("data", "expert")`` mesh.
 
 Counterpart of ``rovit_kan_tpu/parallel/tensor.py``. The JAX package gives
 GSPMD a ``PartitionSpec`` per leaf and lets XLA insert the collectives; the
@@ -57,6 +58,20 @@ the data axis's reduce (``training/optimizer.py::reduce_grads``).
 Every collective's sum runs in fp32 and rounds to the compute dtype once,
 after the sum, where the one-process GEMM rounds: the row-parallel outputs
 in the forward and the column-parallel inputs' gradients in the backward.
+
+Expert parallelism (``make_moe_mesh``, ``moe_param_specs``,
+``ExpertParallel``): the JAX ``moe_param_specs`` shards the stacked expert
+leaves of every MoE block on their expert dim over ``"expert"``, the gate
+and every dense leaf replicated. ``ExpertParallel`` keeps rank r's experts
+and gives each ``MoEMlp`` an ``ExpertAxis``: the layer routes the rows of
+its data index with the whole gate, runs its own experts, and sums the
+ranks' fp32 partials of the combine over ``"expert"`` (``models/moe.py``).
+The layer's replicated inputs, ``x`` and the gate weight, enter through
+``_ExpertInput``, whose backward sums their partial gradients over
+``"expert"`` once; every other replicated leaf's gradient is whole and
+equal on the expert ranks, so the data axis alone reduces it. The JAX
+package lets GSPMD turn the dispatch and combine into all-to-alls; the
+port's one all-reduce of the combine a MoE layer computes the same sums.
 """
 from __future__ import annotations
 
@@ -68,7 +83,11 @@ import torch
 import torch.nn as nn
 
 from rovit_kan_tpu_torch.models.convert import _jax_path
-from rovit_kan_tpu_torch.parallel.mesh import Mesh, make_2d_mesh  # noqa: F401
+from rovit_kan_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh,
+    make_2d_mesh,
+    make_moe_mesh,
+)
 
 #: (JAX path suffix, JAX leaf name) -> the JAX spec, one entry a JAX dim.
 _RULES = (
@@ -129,24 +148,26 @@ def param_specs(model_or_state) -> Specs:
 
 
 def mesh_specs(shapes: Dict[str, Tuple[int, ...]], specs: Specs,
-               mesh: Mesh) -> Specs:
-    """``specs`` with the JAX per-axis fallback: a dimension the model axis
-    does not divide is replicated."""
-    t = mesh.model_size
+               mesh: Mesh, axis: str = "model") -> Specs:
+    """``specs`` with the JAX per-axis fallback: a dimension ``axis`` does
+    not divide is replicated."""
+    t = mesh.axis_size(axis)
     return {k: (d if d is not None and shapes[k][d] % t == 0 else None)
             for k, d in ((k, specs.get(k)) for k in shapes)}
 
 
-def shard_params(state, mesh: Mesh, specs: Optional[Specs] = None
-                 ) -> Dict[str, torch.Tensor]:
+def shard_params(state, mesh: Mesh, specs: Optional[Specs] = None,
+                 axis: str = "model") -> Dict[str, torch.Tensor]:
     """This rank's part of each tensor of a whole state_dict under
-    ``specs`` (default: ``param_specs``) with the per-axis fallback: a
-    contiguous chunk of each sharded leaf, the tensor itself otherwise."""
+    ``specs`` (default: ``param_specs``) over ``axis`` with the per-axis
+    fallback: a contiguous chunk of each sharded leaf, the tensor itself
+    otherwise."""
     shapes = shapes_of(state)
     eff = mesh_specs(shapes, param_specs(state) if specs is None else specs,
-                     mesh)
-    return {k: (v.chunk(mesh.model_size, eff[k])[mesh.model_rank]
-                if eff[k] is not None else v) for k, v in state.items()}
+                     mesh, axis)
+    n, r = mesh.axis_size(axis), mesh.axis_rank(axis)
+    return {k: (v.chunk(n, eff[k])[r] if eff[k] is not None else v)
+            for k, v in state.items()}
 
 
 def partial_leaf(name: str, model_sharded: Iterable[str]) -> bool:
@@ -354,10 +375,10 @@ class ModelAxis:
 
 class ShardedState:
     """The whole-state conversions a sharded wrapper shares (``FSDP``,
-    ``TensorParallel``): the one-process optimizer layout of its flat
-    buffers. A subclass gives ``mesh``, ``full_shapes``,
-    ``named_parameters``, ``state_tensors``, ``gather_full`` and
-    ``local``."""
+    ``TensorParallel``, ``ExpertParallel``, ``pipeline.Pipeline``): the
+    one-process optimizer layout of its flat buffers. A subclass gives
+    ``mesh``, ``full_shapes``, ``named_parameters``, ``state_tensors``,
+    ``gather_full`` and ``local``."""
 
     def full_order(self) -> List[str]:
         """The one-process ``FlatAdamW``'s parameter order."""
@@ -413,74 +434,19 @@ class ShardedState:
         return out
 
 
-class TensorParallel(ShardedState):
-    """A ``RoViTKAN`` whose blocks are sharded over the mesh's ``"model"``
-    axis by ``specs`` (default: ``param_specs`` with the fallback), with
-    sequence parallelism where ``seq`` (default: the model's
-    ``act_sharding``) is given.
+class ShardedModel(ShardedState):
+    """The model's interface of a wrapper that holds this rank's part of
+    the model over one axis of the mesh (``shard_axis``), where the train
+    and eval steps and the optimizer take the model (``TensorParallel``,
+    ``ExpertParallel``, ``pipeline.Pipeline``): ``_params``, this rank's
+    tensors by name, ``model_sharded`` those that are its own (the others
+    whole on every rank; the flat AdamW sums their squares over
+    ``shard_axis``). A subclass sets ``model``, ``mesh``, ``model_sharded``,
+    ``partial`` and ``_params``."""
 
-    It stands where the model stands in ``make_train_step``,
-    ``make_eval_step`` and ``build_optimizer``, as ``parallel/fsdp.py::
-    FSDP`` does: ``tp(x, generator)``, ``train()``, ``eval()``,
-    ``head_mask``, ``parameters()``. Built from a model whose weights are
-    the same on every rank, it replaces each sharded leaf's data with this
-    rank's contiguous chunk (the model's parameters are then the shards;
-    ``full_shapes`` keeps the whole shapes) and gives the trunk and its
-    blocks the ``ModelAxis``. ``named_parameters`` is ``flat_order``'s:
-    ``model_sharded`` names the sharded leaves, ``partial`` the leaves whose
-    gradients are partial under sequence parallelism. ``full_module``
-    gathers the model whole and unsharded for a while. The explainability
-    taps are not taken here."""
+    #: The mesh axis the leaves are sharded over.
+    shard_axis = "model"
 
-    def __init__(self, model: nn.Module, mesh: Mesh,
-                 specs: Optional[Specs] = None,
-                 seq: Optional[SeqSharding] = None):
-        if "model" not in mesh.axis_names:
-            raise ValueError(f"tensor parallelism needs a 'model' axis on "
-                             f"the mesh (got {mesh.axis_names})")
-        vit = model.backbone.model
-        seq = seq if seq is not None else getattr(vit, "act_sharding", None)
-        self.model, self.mesh, self.seq = model, mesh, seq
-        self._params = dict(model.named_parameters())
-        self.full_shapes = {k: tuple(p.shape)
-                            for k, p in self._params.items()}
-        self.specs = mesh_specs(self.full_shapes,
-                                param_specs(model) if specs is None
-                                else specs, mesh)
-        for i, blk in enumerate(vit.blocks):
-            pre = f"backbone.model.blocks.{i}."
-            dense = ("attn.qkv", "attn.proj") + (
-                () if hasattr(blk, "moe") else ("mlp.fc1", "mlp.fc2"))
-            off = [k for k in dense if self.specs[pre + k + ".weight"]
-                   is None]
-            if off:
-                raise ValueError(
-                    f"tensor parallelism over {mesh.model_size} ranks: "
-                    f"block {i}'s {off} do not divide (d = "
-                    f"{blk.norm1.normalized_shape[0]}); the sharded block "
-                    f"needs every Megatron pair sharded")
-        self.model_sharded = frozenset(
-            k for k, d in self.specs.items() if d is not None)
-        self.partial = (frozenset(k for k in self._params
-                                  if partial_leaf(k, self.model_sharded))
-                        if seq is not None else frozenset())
-        self.device = next(model.parameters()).device
-        with torch.no_grad():
-            for k in self.model_sharded:
-                p = self._params[k]
-                p.data = p.data.chunk(mesh.model_size, self.specs[k])[
-                    mesh.model_rank].clone()
-        self.axis = ModelAxis(mesh, seq is not None, vit.pos_embed.shape[1])
-        self._attach(self.axis)
-
-    def _attach(self, axis: Optional[ModelAxis]) -> None:
-        vit = self.model.backbone.model
-        vit.tp = axis
-        for blk in vit.blocks:
-            blk.tp = axis
-            blk._kernel_params = blk._kernel_key = None
-
-    # -- the model's interface ---------------------------------------------
     def named_parameters(self) -> List[Tuple[str, torch.Tensor]]:
         return [(k, self._params[k]) for k in
                 flat_order(list(self._params), (), self.model_sharded)]
@@ -496,11 +462,11 @@ class TensorParallel(ShardedState):
     def parameters(self):
         return iter(self._params.values())
 
-    def train(self, mode: bool = True) -> "TensorParallel":
+    def train(self, mode: bool = True) -> "AxisSharded":
         self.model.train(mode)
         return self
 
-    def eval(self) -> "TensorParallel":
+    def eval(self) -> "AxisSharded":
         return self.train(False)
 
     @property
@@ -511,20 +477,45 @@ class TensorParallel(ShardedState):
                  generator=None) -> Dict[str, torch.Tensor]:
         return self.model(x, generator=generator)
 
-    # -- whole tensors -----------------------------------------------------
+
+class AxisSharded(ShardedModel):
+    """A ``ShardedModel`` whose sharded leaves are each cut contiguously
+    along ``specs[name]`` over ``shard_axis``, and its whole-state
+    conversions. A subclass also sets ``specs`` and ``axis`` (what
+    ``_attach`` gives the modules) and gives ``_attach``."""
+
+    def _cut(self) -> None:
+        """Keep this rank's chunk of each sharded leaf (the model's
+        parameters are then the shards; ``full_shapes`` keeps the whole
+        shapes) and attach the axis."""
+        self.full_shapes = {k: tuple(p.shape)
+                            for k, p in self._params.items()}
+        self.device = next(self.model.parameters()).device
+        n = self.mesh.axis_size(self.shard_axis)
+        r = self.mesh.axis_rank(self.shard_axis)
+        with torch.no_grad():
+            for k in self.model_sharded:
+                p = self._params[k]
+                p.data = p.data.chunk(n, self.specs[k])[r].clone()
+        self._attach(self.axis)
+
+    def _attach(self, axis) -> None:
+        raise NotImplementedError
+
     def full_leaf(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """Leaf ``name`` whole from this rank's chunk ``t`` (collective
-        over ``"model"``; ``t`` itself for a replicated leaf)."""
+        over ``shard_axis``; ``t`` itself for a replicated leaf)."""
         d = self.specs.get(name)
         if d is None:
             return t
-        return self.mesh.all_gather(t, d, "model").contiguous()
+        return self.mesh.all_gather(t, d, self.shard_axis).contiguous()
 
     def local(self, full: Dict[str, torch.Tensor]
               ) -> Dict[str, torch.Tensor]:
         """This rank's part of each tensor of a whole state_dict (no
         collective)."""
-        n, r = self.mesh.model_size, self.mesh.model_rank
+        n = self.mesh.axis_size(self.shard_axis)
+        r = self.mesh.axis_rank(self.shard_axis)
         return {k: (v.chunk(n, self.specs[k])[r]
                     if k in self.model_sharded else v)
                 for k, v in full.items()}
@@ -576,9 +567,187 @@ class TensorParallel(ShardedState):
             self._attach(self.axis)
 
 
-def shard_state(state, tp: TensorParallel):
+class TensorParallel(AxisSharded):
+    """A ``RoViTKAN`` whose blocks are sharded over the mesh's ``"model"``
+    axis by ``specs`` (default: ``param_specs`` with the fallback), with
+    sequence parallelism where ``seq`` (default: the model's
+    ``act_sharding``) is given.
+
+    It stands where the model stands in ``make_train_step``,
+    ``make_eval_step`` and ``build_optimizer``, as ``parallel/fsdp.py::
+    FSDP`` does: ``tp(x, generator)``, ``train()``, ``eval()``,
+    ``head_mask``, ``parameters()``. Built from a model whose weights are
+    the same on every rank, it replaces each sharded leaf's data with this
+    rank's contiguous chunk (the model's parameters are then the shards;
+    ``full_shapes`` keeps the whole shapes) and gives the trunk and its
+    blocks the ``ModelAxis``. ``named_parameters`` is ``flat_order``'s:
+    ``model_sharded`` names the sharded leaves, ``partial`` the leaves whose
+    gradients are partial under sequence parallelism. ``full_module``
+    gathers the model whole and unsharded for a while. The explainability
+    taps are not taken here."""
+
+    shard_axis = "model"
+
+    def __init__(self, model: nn.Module, mesh: Mesh,
+                 specs: Optional[Specs] = None,
+                 seq: Optional[SeqSharding] = None):
+        if "model" not in mesh.axis_names:
+            raise ValueError(f"tensor parallelism needs a 'model' axis on "
+                             f"the mesh (got {mesh.axis_names})")
+        vit = model.backbone.model
+        seq = seq if seq is not None else getattr(vit, "act_sharding", None)
+        self.model, self.mesh, self.seq = model, mesh, seq
+        self._params = dict(model.named_parameters())
+        shapes = {k: tuple(p.shape) for k, p in self._params.items()}
+        self.specs = mesh_specs(shapes,
+                                param_specs(model) if specs is None
+                                else specs, mesh)
+        for i, blk in enumerate(vit.blocks):
+            pre = f"backbone.model.blocks.{i}."
+            dense = ("attn.qkv", "attn.proj") + (
+                () if hasattr(blk, "moe") else ("mlp.fc1", "mlp.fc2"))
+            off = [k for k in dense if self.specs[pre + k + ".weight"]
+                   is None]
+            if off:
+                raise ValueError(
+                    f"tensor parallelism over {mesh.model_size} ranks: "
+                    f"block {i}'s {off} do not divide (d = "
+                    f"{blk.norm1.normalized_shape[0]}); the sharded block "
+                    f"needs every Megatron pair sharded")
+        self.model_sharded = frozenset(
+            k for k, d in self.specs.items() if d is not None)
+        self.partial = (frozenset(k for k in self._params
+                                  if partial_leaf(k, self.model_sharded))
+                        if seq is not None else frozenset())
+        self.axis = ModelAxis(mesh, seq is not None, vit.pos_embed.shape[1])
+        self._cut()
+
+    def _attach(self, axis: Optional[ModelAxis]) -> None:
+        vit = self.model.backbone.model
+        vit.tp = axis
+        for blk in vit.blocks:
+            blk.tp = axis
+            blk._kernel_params = blk._kernel_key = None
+
+
+# -- expert parallelism -------------------------------------------------------
+
+def moe_param_specs(model_or_state) -> Specs:
+    """Each leaf's name -> the port dimension sharded over ``"expert"``, or
+    None: the JAX ``moe_param_specs``, ``w1``, ``b1``, ``w2`` and ``b2`` of
+    every MoE block on dim 0 (the experts, the same dim in both layouts),
+    the gate and every dense leaf replicated."""
+    return {k: (0 if ".moe." in f".{k}" and k.rsplit(".", 1)[-1] in
+                ("w1", "b1", "w2", "b2") else None)
+            for k in shapes_of(model_or_state)}
+
+
+class _ExpertInput(torch.autograd.Function):
+    """Identity forward on an input every expert rank holds whole (the MoE
+    layer's ``x`` and its gate weight); backward, this rank's gradient, a
+    partial since its experts see only their slots, summed over
+    ``"expert"`` in fp32."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = ctx.mesh.all_reduce_(g.to(torch.float32, copy=True)
+                                     .contiguous(), "expert")
+        return total.to(g.dtype), None
+
+
+class _ReduceFromExpert(torch.autograd.Function):
+    """The ranks' fp32 partials of the combine summed over ``"expert"``
+    forward; identity backward (every rank's output gradient is whole)."""
+
+    @staticmethod
+    def forward(ctx, partial, mesh):
+        return mesh.all_reduce_(partial.to(torch.float32, copy=True)
+                                .contiguous(), "expert")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class ExpertAxis:
+    """What a sharded ``MoEMlp`` needs of the ``"expert"`` axis: this
+    rank's experts and the two collectives (``models/moe.py``)."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.size = mesh.axis_size("expert")
+        self.rank = mesh.axis_rank("expert")
+
+    def experts(self, num_experts: int) -> Tuple[int, int]:
+        """This rank's contiguous experts ``[lo, hi)``."""
+        per = num_experts // self.size
+        return self.rank * per, (self.rank + 1) * per
+
+    def input(self, t: torch.Tensor) -> torch.Tensor:
+        return _ExpertInput.apply(t, self.mesh)
+
+    def combine(self, partial: torch.Tensor) -> torch.Tensor:
+        return _ReduceFromExpert.apply(partial, self.mesh)
+
+
+class ExpertParallel(AxisSharded):
+    """A MoE ``RoViTKAN`` whose experts are sharded over the mesh's
+    ``"expert"`` axis by ``specs`` (default: ``moe_param_specs``): rank r
+    keeps experts ``[r*E/ep, (r+1)*E/ep)`` of every MoE block, the gate and
+    every dense leaf whole, and each ``MoEMlp`` gets the ``ExpertAxis``
+    (``models/moe.py``). The interface is ``TensorParallel``'s; the dense
+    leaves' gradients are whole and equal on every expert rank, so only
+    the data axis reduces them, and the experts' squares are summed over
+    ``"expert"`` in the flat AdamW's norm. Refuses a mesh without the axis,
+    a model without MoE blocks and an expert count the axis does not
+    divide."""
+
+    shard_axis = "expert"
+
+    def __init__(self, model: nn.Module, mesh: Mesh,
+                 specs: Optional[Specs] = None):
+        if "expert" not in mesh.axis_names:
+            raise ValueError(f"expert parallelism needs an 'expert' axis on "
+                             f"the mesh (got {mesh.axis_names})")
+        vit = model.backbone.model
+        self.model, self.mesh = model, mesh
+        self._params = dict(model.named_parameters())
+        shapes = {k: tuple(p.shape) for k, p in self._params.items()}
+        self.specs = mesh_specs(shapes,
+                                moe_param_specs(model) if specs is None
+                                else specs, mesh, "expert")
+        moes = [(i, blk.moe) for i, blk in enumerate(vit.blocks)
+                if hasattr(blk, "moe")]
+        if not moes:
+            raise ValueError("expert parallelism needs MoE blocks "
+                             "(moe_experts > 1)")
+        for i, moe in moes:
+            if self.specs[f"backbone.model.blocks.{i}.moe.w1"] is None:
+                raise ValueError(
+                    f"expert parallelism over {mesh.axis_size('expert')} "
+                    f"ranks: "
+                    f"block {i}'s {moe.num_experts} experts do not divide")
+        self.model_sharded = frozenset(
+            k for k, d in self.specs.items() if d is not None)
+        self.partial = frozenset()
+        self.axis = ExpertAxis(mesh)
+        self._cut()
+
+    def _attach(self, axis: Optional[ExpertAxis]) -> None:
+        for blk in self.model.backbone.model.blocks:
+            if hasattr(blk, "moe"):
+                blk.moe.ep = axis
+
+
+def shard_state(state, tp: ShardedState):
     """A whole ``training.trainer.TrainState`` (the one-process layout) cut
-    to ``tp``'s rank: the parameters and the EMA by ``local``, the flat
+    to the rank of ``tp`` (a ``TensorParallel``, ``ExpertParallel`` or
+    ``pipeline.Pipeline`` wrapper): the parameters and the EMA by ``local``, the flat
     AdamW's moments by ``local_opt_state``; the step count as it is."""
     return dataclasses.replace(
         state, params=tp.local(state.params),

@@ -41,6 +41,12 @@ also shards over ``"data"``), and each replicated leaf counts once. The
 leaves whose gradients are partial over ``"model"`` under sequence
 parallelism (``partial``) are summed over it by ``reduce_grads``, before the
 data axis's reduce.
+
+Under expert parallelism and the pipeline the second axis is ``"expert"`` or
+``"pipe"`` (the wrapper's ``shard_axis``): ``model_sharded`` then names the
+rank's experts (``parallel/tensor.py::ExpertParallel``) or its stage's
+blocks (``parallel/pipeline.py::Pipeline``), whose squares are summed over
+that axis, and every other leaf counts once.
 """
 from __future__ import annotations
 
@@ -60,7 +66,8 @@ class FlatAdamW:
                  backbone_scale: float = 0.1, *, weight_decay: float = 1e-4,
                  clip: float = 1.0, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, accum_steps: int = 1,
-                 mesh=None, sharded=(), model_sharded=(), partial=()):
+                 mesh=None, sharded=(), model_sharded=(), partial=(),
+                 shard_axis: str = "model"):
         named: List[Tuple[str, nn.Parameter]] = [
             (k, p) for k, p in model.named_parameters() if p.requires_grad]
         # Backbone first, so its grads are one leading slice.
@@ -70,6 +77,8 @@ class FlatAdamW:
         #: which this buffer holds a shard (None: every leaf is whole).
         self.replicated = None
         self.mesh = mesh
+        #: The axis ``model_sharded`` and ``partial`` refer to.
+        self.shard_axis = shard_axis
         offs = [0]
         for _, p in named:
             offs.append(offs[-1] + p.numel())
@@ -97,16 +106,16 @@ class FlatAdamW:
         #: the slices of whole leaves (``step``).
         self._norm_groups = [
             (axes, runs(pred)) for axes, pred in (
-                (("data", "model"),
+                (("data", shard_axis),
                  lambda k: k in sharded and k in model_sharded),
                 (("data",),
                  lambda k: k in sharded and k not in model_sharded),
-                (("model",),
+                ((shard_axis,),
                  lambda k: k not in sharded and k in model_sharded))]
         self._norm_groups = [(a, r) for a, r in self._norm_groups if r]
         self._whole_runs = runs(lambda k: k not in sharded
                                 and k not in model_sharded)
-        #: The slices ``reduce_grads`` sums over "model" first.
+        #: The slices ``reduce_grads`` sums over ``shard_axis`` first.
         self.partial_runs = runs(lambda k: k in partial)
         self.n_backbone = sum(p.numel() for k, p in named
                               if k.startswith("backbone."))
@@ -233,7 +242,8 @@ def build_optimizer(model: nn.Module, config: Config) -> FlatAdamW:
     """The flat AdamW with the config's learning rate, weight decay and
     clip, the backbone at 0.1 of the learning rate, and gradient
     accumulation over ``train.accum_steps`` micro-batches. ``model`` may be
-    an ``FSDP`` wrapper: the buffer then holds its shards."""
+    a sharded wrapper (``FSDP``, ``TensorParallel``, ``ExpertParallel``,
+    ``Pipeline``): the buffer then holds its shards."""
     shards = getattr(model, "shards", None)
     model_sharded = getattr(model, "model_sharded", frozenset())
     return FlatAdamW(model, config.train.learning_rate, 0.1,
@@ -244,17 +254,18 @@ def build_optimizer(model: nn.Module, config: Config) -> FlatAdamW:
                            else None),
                      sharded=frozenset(shards or ()),
                      model_sharded=model_sharded,
-                     partial=getattr(model, "partial", frozenset()))
+                     partial=getattr(model, "partial", frozenset()),
+                     shard_axis=getattr(model, "shard_axis", "model"))
 
 
 def reduce_grads(optimizer: FlatAdamW, mesh) -> None:
-    """Sum the gradients over the ranks: the leaves partial over "model"
-    (sequence parallelism) over it first; then, over "data", what every
+    """Sum the gradients over the ranks: the leaves partial over the second
+    axis (sequence parallelism) over it first; then, over "data", what every
     data index holds whole: the whole buffer under data parallelism, the
     whole leaves' slice under FSDP (whose shards were reduce-scattered in
     the backward)."""
     for sl in optimizer.partial_runs:
-        mesh.all_reduce_(optimizer.grad[sl], "model")
+        mesh.all_reduce_(optimizer.grad[sl], optimizer.shard_axis)
     r = optimizer.replicated
     mesh.all_reduce_(optimizer.grad if r is None else optimizer.grad[r])
 

@@ -54,8 +54,23 @@ take the same rows and the same draws, each holds its shards of the
 Megatron layers, and the data axis reduces as above. The parameters, the
 AdamW moments and the EMA are sharded alike; ``fsdp=True`` composes both
 (FSDP+TP). A checkpoint is gathered over "model" (and over "data" under
-FSDP+TP) into the one-process file. Expert and pipeline parallelism are not
-ported.
+FSDP+TP) into the one-process file.
+
+Expert parallelism (``mesh=``, a ``("data", "expert")`` mesh from
+``parallel.make_moe_mesh``): the ``Trainer`` wraps a MoE model in
+``parallel.tensor.ExpertParallel`` (the JAX ``Trainer(param_specs=
+moe_param_specs(...))``): each rank holds its experts of every MoE block
+and the dense leaves whole; the ranks of one data index take the same rows
+and draws. The pipeline (``mesh=``, a ``("data", "pipe")`` mesh from
+``parallel.pipeline.make_pipeline_mesh``): the ``Trainer`` wraps the model
+in ``parallel.pipeline.Pipeline`` (``self.pipelined``), each rank holding
+its stage's blocks, and the forward runs the GPipe schedule over
+``tpu.pipeline_microbatches`` microbatches of the local batch, fitted down
+to the largest count that divides it. Under both the data axis reduces the
+gradients as above, the AdamW moments and the EMA are sharded as the
+parameters are, and a checkpoint is the one-process file, gathered over
+the second axis; either kind of checkpoint resumes under either. FSDP
+composes with neither, as the JAX script rules.
 """
 from __future__ import annotations
 
@@ -80,7 +95,12 @@ from rovit_kan_tpu_torch.ops.mixing import cutmix_or_mixup, draw_mix
 from rovit_kan_tpu_torch.ops.preprocess import augment_batch, eval_batch
 from rovit_kan_tpu_torch.parallel.fsdp import FSDP, fsdp_param_specs
 from rovit_kan_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
-from rovit_kan_tpu_torch.parallel.tensor import TensorParallel
+from rovit_kan_tpu_torch.parallel.pipeline import (
+    Pipeline,
+    fit_microbatches,
+    is_pipeline_mesh,
+)
+from rovit_kan_tpu_torch.parallel.tensor import ExpertParallel, TensorParallel
 from rovit_kan_tpu_torch.parallel.multihost import (
     any_process,
     broadcast_one_to_all,
@@ -150,9 +170,9 @@ class TrainStep:
 
     With a ``mesh`` of N > 1 ranks, ``batch`` and ``draws`` are the global
     batch's and the step is this rank's share of it (module docstring):
-    the rows of its data index. ``model`` may be an ``FSDP`` or
-    ``TensorParallel`` wrapper over that mesh, with the optimizer built
-    over it."""
+    the rows of its data index. ``model`` may be an ``FSDP``,
+    ``TensorParallel``, ``ExpertParallel`` or ``Pipeline`` wrapper over that
+    mesh, with the optimizer built over it."""
 
     def __init__(self, model: nn.Module, optimizer: FlatAdamW,
                  config: Config, focal_alpha=None,
@@ -324,16 +344,20 @@ class Trainer:
     ``DeviceLoader``) and must drop its last partial batch; ``val_loader``
     may pad it and mark it in ``valid``.
 
-    ``mesh``: the data mesh (``parallel.make_mesh``) or the 2-D mesh
-    (``parallel.make_2d_mesh``); every rank builds a ``Trainer`` over the
-    same loaders (a sharded ``DeviceLoader`` on this same mesh) and calls
-    the same methods in the same order. Its collectives and the
-    checkpoints' barriers pair up across the ranks. A model axis of t > 1
-    shards the blocks (``self.tp``, the ``TensorParallel`` wrapper; the
-    model's ``act_sharding`` turns on sequence parallelism). ``fsdp``:
-    shard the state over the data axis (``self.fsdp``, the ``FSDP``
-    wrapper; None on a data axis of 1, where there is nothing to shard
-    over). ``self.sharded`` is the wrapper the steps run, or None."""
+    ``mesh``: the data mesh (``parallel.make_mesh``) or a 2-D mesh
+    (``parallel.make_2d_mesh``, ``make_moe_mesh``, ``make_pipeline_mesh``);
+    every rank builds a ``Trainer`` over the same loaders (a sharded
+    ``DeviceLoader`` on this same mesh) and calls the same methods in the
+    same order. Its collectives and the checkpoints' barriers pair up
+    across the ranks. A model axis of t > 1 shards the blocks (``self.tp``,
+    the ``TensorParallel`` wrapper; the model's ``act_sharding`` turns on
+    sequence parallelism); an ``"expert"`` axis shards the experts
+    (``ExpertParallel``); a ``"pipe"`` axis pipelines the blocks
+    (``Pipeline``, ``self.pipelined``, ``self.n_micro`` microbatches).
+    ``fsdp``: shard the state over the data axis (``self.fsdp``, the
+    ``FSDP`` wrapper; None on a data axis of 1, where there is nothing to
+    shard over). ``self.sharded`` is the wrapper the steps run, or
+    None."""
 
     def __init__(self, model: nn.Module, train_loader, val_loader,
                  config: Config, logger=None, focal_alpha=None,
@@ -352,9 +376,16 @@ class Trainer:
         if mesh is not None and mesh.device != self.device:
             raise ValueError(f"the model is on {self.device}, the mesh's "
                              f"rank on {mesh.device}")
-        # What the steps run: the model, or its TP and/or FSDP wrapper.
+        # What the steps run: the model, or its TP and/or FSDP wrapper, or
+        # its EP or pipeline wrapper.
+        axis = mesh.second_axis if mesh is not None else None
+        self.pipelined = is_pipeline_mesh(mesh)
+        if fsdp and axis in ("expert", "pipe") and mesh.size > 1:
+            raise ValueError("fsdp composes with tensor parallelism only; "
+                             "pipeline/expert parallelism keep their own "
+                             "param layouts")
         self.tp = (TensorParallel(model, mesh)
-                   if mesh is not None and mesh.model_size > 1 else None)
+                   if axis == "model" and mesh.model_size > 1 else None)
         if self.tp is not None and config.tpu.use_pallas_block is True:
             raise ValueError(
                 "use_pallas_block=True forces the whole-block kernels "
@@ -362,7 +393,15 @@ class Trainer:
                 "parallelism each rank holds a shard of the block. Leave it "
                 '"auto": the sharded block runs its heads\' attention core '
                 "through #5/#6")
-        if fsdp and mesh is not None and mesh.size > 1:
+        self.n_micro = None
+        if self.pipelined:
+            self.n_micro = fit_microbatches(
+                getattr(config.tpu, "pipeline_microbatches", 4),
+                max(config.train.batch_size // mesh.size, 1))
+            self.net = Pipeline(model, mesh, self.n_micro)
+        elif axis == "expert":
+            self.net = ExpertParallel(model, mesh)
+        elif fsdp and mesh is not None and mesh.size > 1:
             self.net = FSDP(model, mesh, fsdp_param_specs(
                 self.tp or model, mesh, tp=self.tp is not None), tp=self.tp)
         else:
@@ -416,9 +455,9 @@ class Trainer:
                    ) -> TrainState:
         """Fresh training from ``params`` (a state_dict), or from weights
         drawn from the trainer's seed: fresh optimizer, the EMA seeded with
-        the parameters, the step's generators reseeded. Under FSDP or TP
-        ``params`` is whole (a checkpoint's) and each rank keeps its
-        shards."""
+        the parameters, the step's generators reseeded. Under a sharded
+        wrapper (FSDP, TP, EP, the pipeline) ``params`` is whole (a
+        checkpoint's) and each rank keeps its shards."""
         from rovit_kan_tpu_torch.models.rovit_kan import init_weights
         whole = (self.sharded.full_module(keep=True)
                  if self.sharded is not None else contextlib.nullcontext())

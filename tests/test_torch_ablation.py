@@ -134,6 +134,7 @@ class Standins:
 
         class Trainer:
             pipelined = False
+            sharded = None
 
             def __init__(self, model, train, val, cfg, logger=None,
                          focal_alpha=None, seed=42, **kw):

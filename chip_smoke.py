@@ -231,7 +231,7 @@ exits non-zero:
    g++ on the card's host (seconds), its uint8 bits against
    ``data/resize.py`` on 384 -> 224, 100 -> 224, 333 x 500 and 1 x 57
    images at 1, 2 and 8 threads; ``cli.bench_host_pipeline`` over a
-   4,000-image JPEG tree at 384 px, written and built on one thread per
+   2,000-image JPEG tree at 384 px, written and built on one thread per
    CPU (as ``DeviceLoader`` fills its cache): the cache build's wall time
    and img/s through the engine and through the numpy copy, in turns,
    twice, the resize's share of each build's thread time, the micro
@@ -343,11 +343,33 @@ exits non-zero:
    microbatches) and 1 #7 a step on each rank; a stage's bytes, peak
    memory and step ms beside the "dp" ranks'; the fit, its checkpoint
    resumed and served (12 #1) as the "ep" fit's.
+26. serve_mesh: the same two ranks on their data mesh serve the "dp" fit's
+   ``best_model`` through ``load_engine(mesh=)`` (the flagship, batch 64,
+   bf16, 32 rows a rank): rank 0 serves 20 requests of 1 to 130 images
+   through ``predict`` and a ``MicroBatcher`` with a client thread each,
+   rank 1 follows (``InferenceEngine.follow``) until rank 0 closes the
+   engine; every output held by ``hold_served``'s rule against the
+   one-process engine on the same checkpoint and requests (the fp32
+   model's engine as the exact reference), whether the bits are equal; 12
+   #1 a batch on each rank and no other launch; served img/s and p50/p95
+   beside the one-process engine's.
+27. pp_tp: four more ranks on the card (``--pp-tp-worker``, gloo) on a
+   data 1 x pipe 2 x model 2 mesh (``make_pipeline_mesh(1, 2, model=2)``):
+   phase 25's steps with each stage's six blocks Megatron-sharded over the
+   model axis, held by ``hold_dp``'s rules for another route against the
+   one-process bf16 steps on #1/#2 and on the TP route and the fp32 steps
+   (``tp_ranks_hold``; gaps on a "pp_tp_readings" line); 24 #5, 24 #6, 1
+   #7 and no other launch a rank step; each rank's blocks, parameter,
+   moment and EMA bytes equal to ``sharded_size`` (6,824,296 B of
+   parameters); peak memory and step ms beside the "pp" and "tp" ranks';
+   the fit, its checkpoint resumed in one process with the ranks' bits and
+   served (12 #1).
 
 ``chip_smoke.py --nccl`` (a host with two cards or more) builds the kernels
-and runs phases 20-25 alone over NCCL, rank r on cuda:r, on "dp_nccl",
-"fsdp_nccl", "baselines_dp_nccl", "tp_nccl", "ep_nccl" and "pp_nccl"
-lines: the same steps, checks and fit, then ``cli.train --devices 2``
+and runs phases 20-26 alone over NCCL, rank r on cuda:r, on "dp_nccl",
+"fsdp_nccl", "baselines_dp_nccl", "tp_nccl", "ep_nccl", "pp_nccl" and
+"serve_mesh_nccl" lines: the same steps, checks and fit, then
+``cli.train --devices 2``
 beside ``cli.train --devices 1`` (both ranks on NCCL, one epoch CSV, its
 checkpoint served by ``load_engine``) in place of the world-1 run. With
 four cards visible it also runs FSDP+TP on data 2 x model 2
@@ -356,13 +378,16 @@ phase 23's, 24 #5 (a unit's forward runs again in its backward), 12 #6
 and 1 #7 a step, and 6,139,112 B of parameters a rank; and, in the same
 four ranks, the "ep" and "pp" steps on data 2 x expert 2 and data 2 x
 pipe 2, held as phases 24 and 25 hold theirs ("ep_nccl4" and "pp_nccl4"
-lines).
+lines), the "pp_tp" steps on data 1 x pipe 2 x model 2 held as phase 27
+holds them ("pp_tp_nccl4"), and the "dp" fit served over data 4, 16 rows
+a rank, as phase 26 serves it ("serve_mesh_nccl4").
 
 The kernels line gives each kernel's launches on the export, serve CLI,
 bench, explain, explain_384, visualize, ablation, baselines, pretrained,
-moe and (each rank's) dp, fsdp, baselines_dp, tp, sp, ep and pp paths in
-its ``launches_by_path`` (sp: phase 23's TP + SP steps and fit; ep and
-pp: phases 24 and 25's steps and fit). The line before the last is
+moe and (each rank's) dp, fsdp, baselines_dp, tp, sp, ep, pp,
+serve_mesh and pp_tp paths in its ``launches_by_path`` (sp: phase 23's TP +
+SP steps and fit; ep, pp and pp_tp: phases 24, 25 and 27's steps and fit;
+serve_mesh: phase 26's batches). The line before the last is
 ``nvidia-smi``'s name and power limit; the last is ``{"ok": true,
 "device": {...}}``. Imports torch and the port only.
 """
@@ -4870,12 +4895,12 @@ def moe_phase(smi: str, root):
 
 NATIVE_SHAPES = (((384, 384), 224), ((100, 100), 224), ((333, 500), 224),
                  ((1, 57), 224))
-HOST_PIPELINE_IMAGES = 4000
+HOST_PIPELINE_IMAGES = 2000   # halved from 4,000: the smoke's time limit
 
 
 def native_phase(smi: str, root):
     """The C++ resize engine built with g++ on the card's host, its bits
-    against ``data/resize.py``, and ``cli.bench_host_pipeline`` at 4,000
+    against ``data/resize.py``, and ``cli.bench_host_pipeline`` at 2,000
     images, the engine and the numpy copy in turns, twice (module
     docstring, phase 19)."""
     from rovit_kan_tpu_torch import native
@@ -5461,8 +5486,11 @@ def axis_fit(mesh, root, axis: str) -> dict:
     epochs = len(res["history"]["train"])
     steps, vals = epochs * len(train), epochs * len(val)
     per = 6 if axis == "expert" else 6 * PP_MICRO
-    only(launches, vit_block_fwd=per * (steps + vals),
-         vit_block_bwd=per * steps, augment=steps)
+    # The 3-D mesh's stages run the sharded block: its heads' core on #5/#6.
+    fwd, bwd = (("attention_fwd", "attention_bwd") if mesh.model_size > 1
+                else ("vit_block_fwd", "vit_block_bwd"))
+    only(launches, **{fwd: per * (steps + vals), bwd: per * steps},
+         augment=steps)
     best = tr.sharded.gather_full(tr.eval_params(res["best_state"]))
     return {"history": {p: [{k: m[k] for k in ("total_loss", "accuracy")}
                             for m in res["history"][p]]
@@ -5482,6 +5510,86 @@ def axis_worker(mesh, root, axis: str, fit: bool = True) -> dict:
         out["fit"] = axis_fit(mesh, root, axis)
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+#: "serve_mesh"'s 20 requests of mixed sizes: ten through ``predict``
+#: (full, partial and oversize batches of 64), ten through ``MicroBatcher``
+#: from a client thread each.
+SERVE_MESH_PREDICT = (64, 1, 17, 64, 130, 5, 33, 64, 2, 100)
+SERVE_MESH_BATCHED = (1, 3, 8, 16, 7, 40, 2, 64, 9, 12)
+
+
+def dp_best(root: Path) -> Path:
+    """The "dp" fit's ``best_model`` under the "dp" phase's root."""
+    return Path(root) / "fit" / "checkpoints" / "best_model"
+
+
+def serve_mesh_run(engine) -> dict:
+    """The "serve_mesh" requests on ``engine`` (rank 0 of a mesh engine,
+    or one process), counters reset first: the outputs in request order,
+    the launches, the engine's stats and the wall seconds."""
+    from rovit_kan_tpu_torch.serving import MicroBatcher
+    direct = [uint8_batch(70 + i, n) for i, n in enumerate(SERVE_MESH_PREDICT)]
+    batched = [uint8_batch(90 + i, n)
+               for i, n in enumerate(SERVE_MESH_BATCHED)]
+    reset, read = all_counters()
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    outs = [engine.predict(x) for x in direct]
+    batcher = MicroBatcher(engine, window_ms=2.0)
+    got = [None] * len(batched)
+
+    def client(i):
+        got[i] = batcher.predict(batched[i])
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(batched))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if any(t.is_alive() for t in threads):
+        raise RuntimeError("serve_mesh: MicroBatcher clients did not finish")
+    batcher.close()
+    torch.cuda.synchronize()
+    return {"outputs": outs + got, "launches": read(),
+            "stats": engine.stats(), "seconds": time.perf_counter() - t0,
+            "microbatcher_batches": batcher.batches_run}
+
+
+def serve_mesh_worker(mesh, best: Path) -> dict:
+    """One rank of "serve_mesh": ``load_engine(mesh=)`` on ``best``; rank 0
+    serves the requests (``serve_mesh_run``) and closes the engine, every
+    other rank follows; each rank's launches."""
+    from rovit_kan_tpu_torch.serving import load_engine
+    engine = load_engine(best, batch_size=BATCH, mesh=mesh)
+    engine.warmup()
+    if engine.leader:
+        out = serve_mesh_run(engine)
+        engine.close()
+    else:
+        reset, read = all_counters()
+        torch.cuda.synchronize()
+        reset()
+        engine.follow()
+        torch.cuda.synchronize()
+        out = {"launches": read()}
+    return {**out, "mesh": repr(mesh), "temperature": engine.temperature}
+
+
+def pp_tp_worker(root: str, backend: str) -> int:
+    """One rank of "pp_tp" (``--pp-tp-worker``): the "pp" phase's steps and
+    fit on a data 1 x pipe 2 x model 2 mesh, four ranks on cuda:0 through
+    gloo."""
+    from rovit_kan_tpu_torch.parallel.mesh import make_pipeline_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_pipeline_mesh(1, 2, model=2, backend=backend,
+                              device="cuda:0" if backend == "gloo" else None)
+    out = {"pp_tp": axis_worker(mesh, Path(root), "pipe")}
+    torch.save(out, Path(root) / f"rank{mesh.global_rank}.pt")
+    return 0
 
 
 BASELINE_DP_MODELS = ("resnet50", "deit_tiny")
@@ -5600,6 +5708,7 @@ def dp_worker(root: str, backend: str) -> int:
         raise RuntimeError(f"dp rank {mesh.rank}: {mesh}, want {backend}")
     out = {"steps": {s: dp_steps(mesh, s) for s in DP_STAGES},
            "fit": dp_fit(mesh, Path(root)), "mesh": repr(mesh)}
+    out["serve_mesh"] = serve_mesh_worker(mesh, dp_best(root))
     out["fsdp"] = {"steps": {s: dp_steps(mesh, s, fsdp=True)
                              for s in DP_STAGES},
                    "fit": fsdp_fit(mesh, Path(root)),
@@ -5630,10 +5739,12 @@ def dp_worker(root: str, backend: str) -> int:
 
 def tp4_worker(root: str, backend: str) -> int:
     """One rank of the four-card runs (``--nccl`` with four cards
-    visible), rank r on cuda:r: FSDP+TP on data 2 x model 2, then the "ep"
-    and "pp" steps on data 2 x expert 2 and data 2 x pipe 2."""
+    visible), rank r on cuda:r: FSDP+TP on data 2 x model 2, the "ep" and
+    "pp" steps on data 2 x expert 2 and data 2 x pipe 2, the "pp_tp" steps
+    on data 1 x pipe 2 x model 2, and "serve_mesh" over data 4."""
     from rovit_kan_tpu_torch.parallel.mesh import (
         make_2d_mesh,
+        make_mesh,
         make_moe_mesh,
         make_pipeline_mesh,
     )
@@ -5647,6 +5758,12 @@ def tp4_worker(root: str, backend: str) -> int:
                              ("pp", make_pipeline_mesh, "pipe")):
         out[name] = axis_worker(make(2, 2, backend=backend), Path(root),
                                 axis, fit=False)
+    out["pp_tp"] = axis_worker(make_pipeline_mesh(1, 2, model=2,
+                                                  backend=backend),
+                               Path(root), "pipe", fit=False)
+    # The "dp" phase's fit, served over data 4 (``main_nccl``'s layout).
+    out["serve_mesh"] = serve_mesh_worker(
+        make_mesh(-1, backend=backend), dp_best(Path(root).parent / "dp"))
     torch.save(out, Path(root) / f"rank{mesh.global_rank}.pt")
     return 0
 
@@ -6053,17 +6170,19 @@ def fsdp_line(smi, root, backend, single, exact, ranks) -> dict:
             "card": smi}
 
 
-def tp_ranks_hold(what, one, ranks, per_step: dict,
-                  want_bytes: int) -> dict:
+def tp_ranks_hold(what, one, ranks, per_step: dict, want_bytes: int,
+                  line: str = "tp_readings",
+                  first_routed: float | None = 1e-4) -> dict:
     """Hold the ranks' TP steps (``ranks``: each rank's ``tp_steps``
     results by stage) against the one-process steps ``one`` (``single``:
     bf16 through #1/#2, ``routed``: bf16 on the TP block's route, unfused
     with #5/#6, ``exact``: fp32), against each by ``hold_dp``'s rules for
-    another route, and the first stage-3 loss within 1e-4 (relative) of the
-    routed step's; the launches a step (``per_step``); every rank's
+    another route, and the first stage-3 loss within ``first_routed``
+    (relative; None: not held) of the routed step's; the launches a step
+    (``per_step``); every rank's
     replicated leaves equal bit for bit; each rank's parameter, moment and
     EMA bytes equal to ``sharded_size``, which must be ``want_bytes``.
-    Returns the gaps.
+    The gaps go on a ``line`` line; returns them.
 
     Why not ``hold_dp``'s own rules, which hold the "dp" ranks: a DP rank
     computes each of its rows with the one-process step's bits, so only
@@ -6075,9 +6194,9 @@ def tp_ranks_hold(what, one, ranks, per_step: dict,
     mine = {s: [ranks[0][s]] for s in DP_STAGES}
     gaps = {ref: {s: dp_gaps(one[ref][s], one["exact"][s], mine[s])
                   for s in DP_STAGES} for ref in ("routed", "single")}
-    emit({"phase": "tp_readings", "what": what, "gaps": gaps})
+    emit({"phase": line, "what": what, "gaps": gaps})
     first = gaps["routed"][DP_STAGES[0]]["loss_rel"][0]
-    if first > 1e-4:
+    if first_routed is not None and first > first_routed:
         raise RuntimeError(f"{what}: first stage-{DP_STAGES[0]} loss "
                            f"{first:.2e} off the routed step's")
     for ref in ("routed", "single"):
@@ -6237,32 +6356,17 @@ def axis_ranks_hold(what, single, exact, ranks, per_step: dict,
     return gaps
 
 
-def axis_line(smi, root, backend, single, exact, ranks, axis: str) -> dict:
-    """The "ep" or "pp" phase from the ranks' runs (module docstring,
-    phases 24 and 25): the steps held against the one-process steps
-    (``axis_ranks_hold``), each rank's experts or blocks, the fit's
-    checkpoint loaded by a one-process ``Trainer`` with the ranks' bits
-    and served; each rank's peak memory and step ms beside its "dp"
-    figures."""
+def axis_fit_hold(name: str, axis: str, root: Path, fits: list) -> None:
+    """Raise unless the ranks' ``axis_fit`` runs (under ``root``) agree:
+    their histories equal and finite, the ``best_model`` holding rank 0's
+    gathered best weights bit for bit in the one-process layout, loaded by
+    a one-process ``Trainer`` (``resume``) with the same bits and served by
+    ``load_engine`` (12 #1 a batch, 6 on the MoE flagship)."""
     from rovit_kan_tpu_torch.models.rovit_kan import build_model
     from rovit_kan_tpu_torch.serving import load_engine
     from rovit_kan_tpu_torch.training.trainer import Trainer
     from rovit_kan_tpu_torch.utils.checkpoint import load_checkpoint
-    name = "ep" if axis == "expert" else "pp"
-    runs = [r[name] for r in ranks]
-    per = 6 if axis == "expert" else 6 * PP_MICRO
-    gaps = axis_ranks_hold(name, single, exact,
-                           [x["steps"] for x in runs],
-                           {"vit_block_fwd": per, "vit_block_bwd": per,
-                            "augment": 1}, axis)
-    last = DP_STAGES[-1]
-    holds = [x["steps"][last]["holds"] for x in runs]
-    want = ([MOE_EXPERTS // DP_RANKS] * DP_RANKS if axis == "expert"
-            else [[r * 6, r * 6 + 6] for r in range(DP_RANKS)])
-    if holds != want:
-        raise RuntimeError(f"{name}: the ranks hold {holds}, want {want}")
-    fits = [x["fit"] for x in runs]
-    if fits[0]["history"] != fits[1]["history"]:
+    if any(f["history"] != fits[0]["history"] for f in fits[1:]):
         raise RuntimeError(f"{name} fit: the ranks' histories differ: "
                            f"{[f['history'] for f in fits]}")
     for part in ("train", "val"):
@@ -6292,6 +6396,30 @@ def axis_line(smi, root, backend, single, exact, ranks, axis: str) -> dict:
     only(read(), vit_block_fwd=6 if axis == "expert" else 12)
     if not np.isfinite(probs).all() or probs.shape != (BATCH, 4):
         raise RuntimeError(f"{name} checkpoint serves {probs}")
+
+
+def axis_line(smi, root, backend, single, exact, ranks, axis: str) -> dict:
+    """The "ep" or "pp" phase from the ranks' runs (module docstring,
+    phases 24 and 25): the steps held against the one-process steps
+    (``axis_ranks_hold``), each rank's experts or blocks, the fit's
+    checkpoint loaded by a one-process ``Trainer`` with the ranks' bits
+    and served; each rank's peak memory and step ms beside its "dp"
+    figures."""
+    name = "ep" if axis == "expert" else "pp"
+    runs = [r[name] for r in ranks]
+    per = 6 if axis == "expert" else 6 * PP_MICRO
+    gaps = axis_ranks_hold(name, single, exact,
+                           [x["steps"] for x in runs],
+                           {"vit_block_fwd": per, "vit_block_bwd": per,
+                            "augment": 1}, axis)
+    last = DP_STAGES[-1]
+    holds = [x["steps"][last]["holds"] for x in runs]
+    want = ([MOE_EXPERTS // DP_RANKS] * DP_RANKS if axis == "expert"
+            else [[r * 6, r * 6 + 6] for r in range(DP_RANKS)])
+    if holds != want:
+        raise RuntimeError(f"{name}: the ranks hold {holds}, want {want}")
+    fits = [x["fit"] for x in runs]
+    axis_fit_hold(name, axis, root, fits)
     launches = {f"rank{r}": {
         k: sum(x["steps"][s]["launches"][k] for s in DP_STAGES)
         + x["fit"]["launches"][k] for k in x["fit"]["launches"]}
@@ -6327,13 +6455,149 @@ def axis_line(smi, root, backend, single, exact, ranks, axis: str) -> dict:
             "launches": launches, "card": smi}
 
 
+#: Parameter bytes a rank on data x pipe 2 x model 2: the "pp" stage's
+#: 12,148,840 less half of each of its six blocks' 443,712 Megatron-sharded
+#: bytes (the JAX ``sharded_size`` under ``pipeline_param_specs(tp=True)``,
+#: tests/test_torch_pipeline_tp.py).
+PP_TP_PARAM_BYTES = 6_824_296
+PP_TP_RANKS = 4
+
+
+def served_cat(outputs: list) -> dict:
+    """A list of served dicts as one dict, each output's rows in order."""
+    return {k: np.concatenate([o[k] for o in outputs]) for k in outputs[0]}
+
+
+def serve_mesh_line(smi, root, phase: str, ranks) -> dict:
+    """The "serve_mesh" phase (module docstring, phase 26) from the ranks'
+    ``serve_mesh_worker`` runs (``ranks[r]["serve_mesh"]``) over the "dp"
+    fit's checkpoint under ``root``, on a line named ``phase``: rank 0's
+    outputs held
+    against the one-process engine on the same checkpoint and requests by
+    ``hold_served``'s rule (the one-process bf16 engine as the plain
+    reference, the fp32 model's engine as the exact one), whether the bits
+    are equal, 12 #1 a batch on every rank and no other launch, and the
+    served img/s and latencies beside the one-process engine's."""
+    from rovit_kan_tpu_torch.evaluation.evaluator import \
+        load_model_for_evaluation
+    from rovit_kan_tpu_torch.serving import InferenceEngine, load_engine
+    runs = [r["serve_mesh"] for r in ranks]
+    lead = runs[0]
+    best = dp_best(root)
+    engine = load_engine(best, batch_size=BATCH, device="cuda")
+    engine.warmup()
+    one = serve_mesh_run(engine)
+    model32, _ = load_model_for_evaluation(best, device="cuda",
+                                           dtype=torch.float32)
+    exact = serve_mesh_run(InferenceEngine(
+        model32, batch_size=BATCH, temperature=engine.temperature,
+        device="cuda"))
+    got, want, ref = (served_cat(x["outputs"]) for x in (lead, one, exact))
+    sizes = SERVE_MESH_PREDICT + SERVE_MESH_BATCHED
+    if [o["cls_probs"].shape[0] for o in lead["outputs"]] != list(sizes):
+        raise RuntimeError(f"{phase}: served row counts differ from the "
+                           f"requests'")
+    checks, failed = hold_served(got, want, ref, keys=SERVED_KEYS[1:])
+    if failed or lead["temperature"] != engine.temperature:
+        raise RuntimeError(f"{phase}: {failed} out of tolerance ({checks}), "
+                           f"T {lead['temperature']} vs {engine.temperature}")
+    batches = lead["stats"]["requests"]
+    for r, x in enumerate(runs):
+        only(x["launches"], vit_block_fwd=12 * batches)
+    only(one["launches"], vit_block_fwd=12 * one["stats"]["requests"])
+    only(exact["launches"])
+    if lead["stats"]["images_served"] != sum(sizes):
+        raise RuntimeError(f"{phase}: stats count {lead['stats']} images, "
+                           f"the requests {sum(sizes)}")
+    rates = ("images_per_sec", "p50_latency_ms", "p95_latency_ms")
+    return {"phase": phase, "ranks": len(runs), "mesh": lead["mesh"],
+            "batch_size": BATCH,
+            "requests": list(sizes), "batches": batches,
+            "single_batches": one["stats"]["requests"],
+            "rows_per_rank": BATCH // len(runs),
+            "same_bits": all(np.array_equal(got[k], want[k]) for k in want),
+            "outputs": checks,
+            "mesh_served": {k: lead["stats"][k] for k in rates},
+            "single_served": {k: one["stats"][k] for k in rates},
+            "seconds": {"mesh": lead["seconds"], "single": one["seconds"]},
+            "temperature": lead["temperature"],
+            "launches": {f"rank{r}": x["launches"]
+                         for r, x in enumerate(runs)}, "card": smi}
+
+
+def pp_tp_line(smi, root, backend, one, runs, dp_ranks=None) -> dict:
+    """The "pp_tp" phase (module docstring, phase 27) from the four ranks'
+    ``axis_worker`` runs on data 1 x pipe 2 x model 2 (``runs``): the steps
+    held by ``hold_dp``'s rules for another route against the one-process
+    bf16 steps on #1/#2 and on the TP route and the fp32 steps
+    (``tp_ranks_hold``, gaps on a "pp_tp_readings" line), 24 #5, 24 #6 and
+    1 #7 a step, each rank's
+    blocks and ``PP_TP_PARAM_BYTES``; the fit checked as the "pp" fit
+    (``axis_fit_hold``); each rank's peak memory and step ms beside the "pp"
+    and "tp" ranks' (``dp_ranks``, the two "dp" ranks)."""
+    per = 6 * PP_MICRO
+    # Not the "tp" phase's first loss within 1e-4 of the routed step's: a
+    # stage's GEMMs run on microbatches of 16 rows, where cuBLAS may take
+    # other kernels than at 64 and round otherwise (3.5e-4 on the card,
+    # fp32's own 2.7e-4; the same bits in the CPU rehearsal).
+    gaps = tp_ranks_hold("pp_tp", one, [x["steps"] for x in runs],
+                         {"attention_fwd": per, "attention_bwd": per,
+                          "augment": 1}, PP_TP_PARAM_BYTES,
+                         line="pp_tp_readings", first_routed=None)
+    last = DP_STAGES[-1]
+    holds = [x["steps"][last]["holds"] for x in runs]
+    want = [[r // 2 * 6, r // 2 * 6 + 6] for r in range(PP_TP_RANKS)]
+    if holds != want:
+        raise RuntimeError(f"pp_tp: the ranks hold {holds}, want {want}")
+    fits = [x.get("fit") for x in runs]
+    if fits[0] is not None:
+        axis_fit_hold("pp_tp", "pipe", root, fits)
+    others = {}
+    for r, x in enumerate(dp_ranks or []):
+        others[f"rank{r}"] = {
+            "pp": {k: x["pp"]["steps"][last][k] for k in ("peak_mib", "ms")},
+            "tp": {k: x["tp"]["steps"]["tp"][last][k]
+                   for k in ("peak_mib", "ms")}}
+    launches = {f"rank{r}": {
+        k: sum(x["steps"][s]["launches"][k] for s in DP_STAGES)
+        + (x["fit"]["launches"][k] if fits[0] is not None else 0)
+        for k in x["steps"][last]["launches"]} for r, x in enumerate(runs)}
+    return {"phase": "pp_tp" if backend == "gloo" else "pp_tp_nccl4",
+            "ranks": len(runs), "mesh": runs[0]["mesh"],
+            "batch_size": BATCH, "steps": DP_STEPS, "holds": holds,
+            "microbatches": PP_MICRO,
+            "first_loss_rel": {ref: {s: g["loss_rel"][0]
+                                     for s, g in gaps[ref].items()}
+                               for ref in gaps},
+            "grad_norm_rel": {ref: {s: g["grad_norm_rel"]
+                                    for s, g in gaps[ref].items()}
+                              for ref in gaps},
+            "state_bytes": {f"rank{r}": x["steps"][last]["state_bytes"]
+                            for r, x in enumerate(runs)},
+            "sharded_size": runs[0]["steps"][last]["sharded_size"],
+            "peak_mib": {f"rank{r}": x["steps"][last]["peak_mib"]
+                         for r, x in enumerate(runs)},
+            "rank_step_ms": {f"rank{r}": x["steps"][last]["ms"]
+                             for r, x in enumerate(runs)},
+            "pp_and_tp_ranks": others,
+            "single_step_ms": one["single"][last]["ms"],
+            "routed_step_ms": one["routed"][last]["ms"],
+            **({"fit": {k: fits[0][k] for k in (
+                "history", "fit_seconds", "steps", "val_batches",
+                "n_micro")}} if fits[0] is not None else {}),
+            "seconds": [x["seconds"] for x in runs],
+            "launches": launches, "card": smi}
+
+
 def four_card_phases(smi: str, root: Path, one) -> list:
     """The four-card lines (``--nccl`` with four visible): FSDP+TP on data
     2 x model 2, the flagship's steps held as the "tp" phase's (24 #5 a
     step: a unit's forward runs again in its backward; 12 #6, 1 #7), each
     rank's 6,139,112 B of parameters; then the "ep" and "pp" steps on data
     2 x expert 2 and data 2 x pipe 2, held as phases 24 and 25 hold theirs
-    (``axis_ranks_hold``)."""
+    (``axis_ranks_hold``); the "pp_tp" steps on data 1 x pipe 2 x model 2
+    held as phase 27's; the "dp" fit served over data 4 as phase 26
+    serves it."""
     root.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     ranks = run_ranks(root, 4, "nccl", worker="--tp4-worker")
@@ -6361,6 +6625,10 @@ def four_card_phases(smi: str, root: Path, one) -> list:
             "rank_step_ms": {f"rank{r}": x[last]["ms"]
                              for r, x in enumerate(runs)},
             "seconds": [r[name]["seconds"] for r in ranks], "card": smi})
+    lines.append(pp_tp_line(smi, root, "nccl", one,
+                            [r["pp_tp"] for r in ranks]))
+    lines.append(serve_mesh_line(smi, root.parent / "dp", "serve_mesh_nccl4",
+                                 ranks))
     return lines
 
 
@@ -6482,8 +6750,9 @@ def baselines_dp_line(smi, root, backend, one, ranks) -> dict:
 def dp_phase(smi: str, root: Path, backend: str = "gloo"):
     """Data parallelism (module docstring, phase 20): two ranks on cuda:0
     through gloo, or with ``nccl`` on cuda:0 and cuda:1 (``--nccl``); the
-    same ranks run the "fsdp", "baselines_dp", "tp", "ep" and "pp" phases
-    (21-25). Returns the six phases' lines and the one-process steps the
+    same ranks run the "fsdp", "baselines_dp", "tp", "ep", "pp" and
+    "serve_mesh" phases (21-26); under gloo four more ranks on cuda:0 run
+    "pp_tp" (27). Returns the phases' lines and the one-process steps the
     ranks were held against (bf16 on #1/#2, bf16 on the TP route, fp32;
     the MoE flagship's bf16 and fp32)."""
     root.mkdir(parents=True, exist_ok=True)
@@ -6508,6 +6777,8 @@ def dp_phase(smi: str, root: Path, backend: str = "gloo"):
     eped = axis_line(smi, root, backend, one["moe_single"],
                      one["moe_exact"], ranks, "expert")
     pped = axis_line(smi, root, backend, single, exact, ranks, "pipe")
+    smed = serve_mesh_line(smi, root, "serve_mesh" if backend == "gloo"
+                           else "serve_mesh_nccl", ranks)
     baselined = baselines_dp_line(smi, root, backend, one_baselines, ranks)
     gaps = {s: dp_gaps(single[s], exact[s], [r["steps"][s] for r in ranks])
             for s in DP_STAGES}
@@ -6557,7 +6828,16 @@ def dp_phase(smi: str, root: Path, backend: str = "gloo"):
                                             "temperature")},
             "launches": launches, "cli": cli,
             "seconds": time.perf_counter() - t0, "card": smi}
-    return dped, fsdped, baselined, tped, eped, pped, one
+    lines = [dped, fsdped, baselined, tped, eped, pped, smed]
+    if backend == "gloo":
+        # Four ranks on the one card: the 3-D mesh (the four-card NCCL run
+        # takes it with --nccl).
+        pp_root = root / "pp_tp"
+        pp_root.mkdir(parents=True, exist_ok=True)
+        runs = [r["pp_tp"] for r in run_ranks(pp_root, PP_TP_RANKS, backend,
+                                              worker="--pp-tp-worker")]
+        lines.append(pp_tp_line(smi, pp_root, backend, one, runs, ranks))
+    return lines, one
 
 
 def main() -> int:
@@ -6648,14 +6928,10 @@ def main() -> int:
         moed = moe_phase(smi, root)
         emit(moed)
         emit(native_phase(smi, root))
-        dped, fsdped, bdped, tped, eped, pped, _ = dp_phase(smi,
-                                                            root / "dp")
-        emit(dped)
-        emit(fsdped)
-        emit(bdped)
-        emit(tped)
-        emit(eped)
-        emit(pped)
+        lines, _ = dp_phase(smi, root / "dp")
+        for line in lines:
+            emit(line)
+        dped, fsdped, bdped, tped, eped, pped, smed, ptd = lines
     finally:
         shutil.rmtree(root, ignore_errors=True)
     benched = bench_phase(smi)
@@ -6828,7 +7104,9 @@ def main() -> int:
                  **{f"{name}_{r}": counts
                     for name, line in (("dp", dped), ("fsdp", fsdped),
                                        ("baselines_dp", bdped),
-                                       ("ep", eped), ("pp", pped))
+                                       ("ep", eped), ("pp", pped),
+                                       ("serve_mesh", smed),
+                                       ("pp_tp", ptd))
                     for r, counts in line["launches"].items()},
                  **tped["launches"]}
     for e in kernels:
@@ -6861,7 +7139,7 @@ def main_nccl() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_nccl_"))
     try:
-        *lines, one = dp_phase(smi, root / "dp", backend="nccl")
+        lines, one = dp_phase(smi, root / "dp", backend="nccl")
         for line in lines:
             emit(line)
         if torch.cuda.device_count() >= 4:
@@ -6880,4 +7158,6 @@ if __name__ == "__main__":
         sys.exit(dp_worker(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--tp4-worker"]:
         sys.exit(tp4_worker(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--pp-tp-worker"]:
+        sys.exit(pp_tp_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main_nccl() if sys.argv[1:] == ["--nccl"] else main())

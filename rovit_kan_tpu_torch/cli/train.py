@@ -70,11 +70,12 @@ block's experts (``parallel/tensor.py::ExpertParallel``). The pipeline
 depth/P blocks, the GPipe schedule over ``--pipeline_microbatches``
 microbatches (default 4, fitted down to divide the local batch;
 ``parallel/pipeline.py``). ``--devices`` counts every process for both.
-The final evaluation runs on the model whole, the stages' or the experts'
-weights gathered. The flag rules of the JAX script are checked before any
-data loads, with its messages; ``--tensor_parallel`` with
-``--pipeline_parallel`` (the JAX package's 3-D mesh) is refused as not
-ported yet. The checkpoints are the single-card files.
+``--tensor_parallel T`` with ``--pipeline_parallel P``: the 3-D data x
+pipe x model mesh (data = N / (T * P)), each stage's blocks also sharded
+over the T ranks of its model line. The final evaluation runs on the model
+whole, the stages' or the experts' weights gathered. The flag rules of the
+JAX script are checked before any data loads, with its messages. The
+checkpoints are the single-card files.
 
 Runs on the card unless ``--cpu`` is given.
 """
@@ -188,10 +189,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def check_flags(args: argparse.Namespace) -> None:
-    """The JAX script's flag rules, with its messages, then the
-    combination the port does not take (tensor parallelism with the
-    pipeline) and the remainder of ``--devices`` over the model axes;
-    raises SystemExit before any data loads."""
+    """The JAX script's flag rules, with its messages, then the remainder
+    of ``--devices`` over the model axes; raises SystemExit before any data
+    loads."""
     if args.sequence_parallel:
         if args.tensor_parallel <= 1:
             raise SystemExit("--sequence_parallel requires "
@@ -224,9 +224,6 @@ def check_flags(args: argparse.Namespace) -> None:
                          "--pipeline_parallel: the GPipe stage scan "
                          "requires identical per-block param structures "
                          "(parallel/pipeline.py), and MoE blocks differ")
-    if args.tensor_parallel > 1 and args.pipeline_parallel > 1:
-        raise SystemExit("--tensor_parallel with --pipeline_parallel (the "
-                         "3-D data x pipe x model mesh): not ported yet")
     model_axes = (args.tensor_parallel * args.pipeline_parallel
                   * args.expert_parallel)
     if args.devices != -1 and args.devices % model_axes != 0:
@@ -238,10 +235,12 @@ def check_flags(args: argparse.Namespace) -> None:
 
 
 def make_run_mesh(args: argparse.Namespace):
-    """This process's mesh, with the JAX script's mesh line: the 2-D data x
-    model mesh under ``--tensor_parallel``, data x pipe under
-    ``--pipeline_parallel``, data x expert under ``--expert_parallel``
-    (``--devices`` counting every process), else the data mesh."""
+    """This process's mesh, with the JAX script's mesh line: the 3-D data x
+    pipe x model mesh under ``--tensor_parallel`` with
+    ``--pipeline_parallel``, the 2-D data x model mesh under
+    ``--tensor_parallel``, data x pipe under ``--pipeline_parallel``, data x
+    expert under ``--expert_parallel`` (``--devices`` counting every
+    process), else the data mesh."""
     from rovit_kan_tpu_torch.config import TPUConfig
     from rovit_kan_tpu_torch.parallel.mesh import (
         make_2d_mesh,
@@ -251,6 +250,15 @@ def make_run_mesh(args: argparse.Namespace):
     )
     device = "cpu" if args.cpu else None
     micro = args.pipeline_microbatches or TPUConfig().pipeline_microbatches
+    if args.tensor_parallel > 1 and args.pipeline_parallel > 1:
+        n = args.tensor_parallel * args.pipeline_parallel
+        data = -1 if args.devices == -1 else args.devices // n
+        mesh = make_pipeline_mesh(data, args.pipeline_parallel,
+                                  model=args.tensor_parallel, device=device)
+        print(f"Mesh: data={mesh.size} x pipe={mesh.axis_size('pipe')} x "
+              f"model={mesh.model_size} (pipeline + tensor parallel, "
+              f"{micro} microbatches)")
+        return mesh
     for n, make, what in (
             (args.tensor_parallel, make_2d_mesh, "tensor parallel"),
             (args.pipeline_parallel, make_pipeline_mesh,
@@ -261,7 +269,7 @@ def make_run_mesh(args: argparse.Namespace):
             # --devices counts every device; the data axis is the rest.
             data = -1 if args.devices == -1 else args.devices // n
             mesh = make(data, n, device=device)
-            axis = mesh.second_axis
+            axis, = mesh.inner_axes
             print(f"Mesh: data={mesh.size} x {axis}="
                   f"{mesh.axis_size(axis)} ({what})")
             return mesh

@@ -61,8 +61,9 @@ Under the GPipe pipeline (``parallel/pipeline.py::Pipeline``) the trunk
 holds the mesh's ``PipeAxis`` as ``pipe`` and only its stage's blocks have
 weights: ``embed`` and ``features`` run on every pipe rank alike, and the
 block stack runs through ``PipeAxis.run``, each block of the stage through
-the ordinary ``Block.forward`` a microbatch at a time. The taps raise there
-too.
+the ordinary ``Block.forward`` a microbatch at a time; on the 3-D mesh the
+stage's blocks also hold the ``ModelAxis`` as ``tp`` and their shards, and
+run sharded. The taps raise there too.
 """
 from __future__ import annotations
 

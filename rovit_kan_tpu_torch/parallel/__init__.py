@@ -1,10 +1,11 @@
 """Parallelism over ``torch.distributed``: one process per card.
 
-The port of ``rovit_kan_tpu/parallel``: the 1-D data mesh and the 2-D
-data x model, data x expert and data x pipe meshes (``mesh.py``), their
-multi-host glue, FSDP (``fsdp.py``), tensor, sequence and expert
-parallelism (``tensor.py``) and the GPipe pipeline (``pipeline.py``). Not
-ported yet: the 3-D data x pipe x model mesh.
+The port of ``rovit_kan_tpu/parallel``: the 1-D data mesh, the 2-D
+data x model, data x expert and data x pipe meshes and the 3-D data x pipe
+x model mesh (``mesh.py``), their multi-host glue, FSDP (``fsdp.py``),
+tensor, sequence and expert parallelism (``tensor.py``) and the GPipe
+pipeline, whose stages are tensor-parallel on the 3-D mesh
+(``pipeline.py``). Serving over a mesh is ``serving.py``'s.
 """
 from rovit_kan_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,

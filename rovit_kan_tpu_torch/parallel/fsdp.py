@@ -134,19 +134,24 @@ def sharded_size(model_or_state, specs: Specs, mesh: Mesh,
                  model_specs: Optional[Specs] = None) -> int:
     """Per-rank bytes of ``model_or_state``'s whole leaves under ``specs``
     (each sharded leaf divided by the data axis) and ``model_specs`` (by
-    the wrapper's ``shard_axis``: ``"model"``, ``"expert"`` or ``"pipe"``;
-    ``"model"`` for a module or a state_dict): the JAX ``sharded_size``."""
+    the axes the wrapper cuts the leaf over, its ``leaf_axes``: ``"model"``,
+    ``"expert"``, ``"pipe"``, or both ``"pipe"`` and ``"model"`` on the 3-D
+    mesh; ``"model"`` for a module or a state_dict): the JAX
+    ``sharded_size``."""
     model_specs = model_specs or {}
     # A wrapper's module holds every leaf (a pipeline stage's others
     # emptied): its dtypes give the element sizes.
     tree = getattr(model_or_state, "model", model_or_state)
-    second = mesh.axis_size(getattr(model_or_state, "shard_axis", "model"))
+    axis = getattr(model_or_state, "shard_axis", "model")
+    leaf_axes = getattr(model_or_state, "leaf_axes", {})
     sizes = {k: t.element_size() for k, t in _tree(tree).items()}
     total = 0
     for k, shape in shapes_of(model_or_state).items():
         n = int(torch.Size(shape).numel()) * sizes[k]
         n //= mesh.size if specs.get(k) is not None else 1
-        n //= second if model_specs.get(k) is not None else 1
+        if model_specs.get(k) is not None:
+            for a in leaf_axes.get(k, (axis,)):
+                n //= mesh.axis_size(a)
         total += n
     return total
 

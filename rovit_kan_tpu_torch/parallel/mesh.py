@@ -1,30 +1,34 @@
 """The device mesh: one process per card on ``torch.distributed``.
 
-Counterpart of ``rovit_kan_tpu/parallel/mesh.py`` and of the 2-D meshes of
-``rovit_kan_tpu/parallel/tensor.py`` and ``pipeline.py``. The JAX package
-runs one SPMD program over a 1-D ``"data"`` mesh or a 2-D ``("data", X)``
-one, X being ``"model"`` (tensor parallelism), ``"expert"`` (expert
-parallelism) or ``"pipe"`` (the GPipe pipeline); the port runs one process
-per card (rank r on ``cuda:r``, or on the CPU) in one process group, and a
-``Mesh`` is that process's view of it: its coordinates, the axes' sizes, its
-device and the collectives over each axis. A step over N ranks computes the
-same step as one device on the whole global batch
-(``training/trainer.py``).
+Counterpart of ``rovit_kan_tpu/parallel/mesh.py`` and of the 2-D and 3-D
+meshes of ``rovit_kan_tpu/parallel/tensor.py`` and ``pipeline.py``. The JAX
+package runs one SPMD program over a 1-D ``"data"`` mesh, a 2-D ``("data",
+X)`` one, X being ``"model"`` (tensor parallelism), ``"expert"`` (expert
+parallelism) or ``"pipe"`` (the GPipe pipeline), or the 3-D ``("data",
+"pipe", "model")`` one (the pipeline's stages tensor-parallel); the port
+runs one process per card (rank r on ``cuda:r``, or on the CPU) in one
+process group, and a ``Mesh`` is that process's view of it: its
+coordinates, the axes' sizes, its device and the collectives over each
+axis. A step over N ranks computes the same step as one device on the
+whole global batch (``training/trainer.py``).
 
 ``size`` and ``rank`` are always the data axis: the number of data indices
 and this process's. ``axis_size(axis)`` and ``axis_rank(axis)`` answer for
 any axis by name: for the axes the mesh has, and 1 and 0 for any other, so
 a collective over an absent axis is a no-op; ``model_size`` and
 ``model_rank`` are the ``"model"`` axis's alone (1 and 0 on an expert or
-pipeline mesh). ``make_mesh`` gives the 1-D mesh; ``make_2d_mesh(data, model)``,
-``make_moe_mesh(data, expert)`` and ``make_pipeline_mesh(data, pipe)`` lay
-the job's ranks out as JAX lays devices out, ``(data, X)`` row-major: global
-rank ``d * X + x`` sits at data index d and index x of the second axis. Each
-data row and each column of the second axis is a process group
-(``dist.new_group``); a collective names its axis, ``"data"`` by default, so
-every caller written for the 1-D mesh works over the data axis of a 2-D one.
-``broadcast_`` spans every rank of the job, or one axis; ``isend`` and
-``irecv`` reach a rank by its index on an axis (the pipeline's stages).
+pipeline mesh); ``inner_axes`` names the axes beside ``"data"``.
+``make_mesh`` gives the 1-D mesh; ``make_2d_mesh(data, model)``,
+``make_moe_mesh(data, expert)`` and ``make_pipeline_mesh(data, pipe,
+model)`` lay the job's ranks out as JAX lays devices out, row-major with
+the last axis innermost: global rank ``d * X + x`` sits at data index d and
+index x of the second axis, and on the 3-D mesh rank ``(d * P + p) * T +
+m`` at data index d, stage p and model index m. Each line of each axis
+(the ranks that share every other coordinate) is a process group
+(``dist.new_group``); a collective names its axis, ``"data"`` by default,
+so every caller written for the 1-D mesh works over the data axis of the
+others. ``broadcast_`` spans every rank of the job, or one axis; ``isend``
+and ``recv`` reach a rank by its index on an axis (the pipeline's stages).
 
 The backend is NCCL for a card and gloo for the CPU. gloo with tensors on
 a card is taken only when the caller names it (two ranks sharing one card,
@@ -36,7 +40,8 @@ group and runs no collective.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+import math
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -58,54 +63,66 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
 
 class Mesh:
     """This process's place in a mesh of ``size`` data indices (and
-    ``second_size`` indices of the second axis on a 2-D mesh)."""
+    ``second_size`` indices of the second axis, ``third_size`` of the third,
+    on a 2-D or 3-D mesh)."""
 
     #: The 1-D mesh's one axis, the JAX package's data axis; a 2-D mesh
-    #: has ``("data", X)``, X one of ``"model"``, ``"expert"``, ``"pipe"``.
+    #: has ``("data", X)``, X one of ``"model"``, ``"expert"``, ``"pipe"``;
+    #: the 3-D mesh ``("data", "pipe", "model")``.
     axis_names = ("data",)
 
     def __init__(self, size: int, rank: int, device: torch.device,
                  backend: Optional[str], second_size: int = 1,
                  second_rank: int = 0, groups: Optional[dict] = None,
-                 axis_names=None):
+                 axis_names=None, third_size: int = 1, third_rank: int = 0):
         self.size = size
         self.rank = rank
-        self.second_size = second_size
-        self.second_rank = second_rank
         self.device = device
         self.backend = backend
         #: Each axis's process group (absent: the default group).
         self.groups = dict(groups or {})
         if axis_names is not None:
             self.axis_names = tuple(axis_names)
+        n = len(self.axis_names)
+        #: Each axis's size and this process's index on it, in axis order.
+        self.shape = (size, second_size, third_size)[:n]
+        self.coords = (rank, second_rank, third_rank)[:n]
 
     @property
     def world(self) -> int:
-        """Every rank of the mesh: data x the second axis."""
-        return self.size * self.second_size
+        """Every rank of the mesh: the product of the axes' sizes."""
+        return math.prod(self.shape)
+
+    def _flat(self, coords) -> int:
+        """The global rank at ``coords``: row-major, the last axis
+        innermost, as JAX lays devices out."""
+        r = 0
+        for c, n in zip(coords, self.shape):
+            r = r * n + c
+        return r
 
     @property
     def global_rank(self) -> int:
         """This process's rank in the job."""
-        return self.rank * self.second_size + self.second_rank
+        return self._flat(self.coords)
 
     @property
-    def second_axis(self) -> Optional[str]:
-        """The second axis's name, None on a 1-D mesh."""
-        return self.axis_names[1] if len(self.axis_names) > 1 else None
+    def inner_axes(self) -> Tuple[str, ...]:
+        """The axes beside ``"data"``: none on a 1-D mesh."""
+        return self.axis_names[1:]
 
     def axis_size(self, axis: str) -> int:
         """The size of ``axis``: 1 for an axis the mesh does not have."""
-        if axis == "data":
-            return self.size
-        return self.second_size if axis == self.second_axis else 1
+        if axis not in self.axis_names:
+            return 1
+        return self.shape[self.axis_names.index(axis)]
 
     def axis_rank(self, axis: str) -> int:
         """This process's index on ``axis``: 0 for an axis the mesh does
         not have."""
-        if axis == "data":
-            return self.rank
-        return self.second_rank if axis == self.second_axis else 0
+        if axis not in self.axis_names:
+            return 0
+        return self.coords[self.axis_names.index(axis)]
 
     @property
     def model_size(self) -> int:
@@ -119,16 +136,16 @@ class Mesh:
 
     def peer(self, axis: str, index: int) -> int:
         """The global rank at ``index`` on ``axis`` that shares this
-        process's other coordinate."""
-        if axis == "data":
-            return index * self.second_size + self.second_rank
-        return self.rank * self.second_size + index
+        process's other coordinates."""
+        coords = list(self.coords)
+        coords[self.axis_names.index(axis)] = index
+        return self._flat(coords)
 
     def __repr__(self) -> str:
-        axis = self.second_axis
-        second = (f", {axis}_size={self.second_size}, "
-                  f"{axis}_rank={self.second_rank}" if axis else "")
-        return (f"Mesh(size={self.size}, rank={self.rank}{second}, "
+        inner = "".join(f", {a}_size={self.axis_size(a)}, "
+                        f"{a}_rank={self.axis_rank(a)}"
+                        for a in self.inner_axes)
+        return (f"Mesh(size={self.size}, rank={self.rank}{inner}, "
                 f"device={self.device}, backend={self.backend})")
 
     def rows(self, global_batch: int) -> slice:
@@ -253,13 +270,13 @@ def make_mesh(n_devices: int = -1, backend: Optional[str] = None,
     return Mesh(world, dist.get_rank(), device, backend)
 
 
-def _data_x_mesh(data: int, second: int, axis: str,
-                 backend: Optional[str], device, need: str) -> Mesh:
-    """The ``("data", axis)`` mesh over every process of the job, ``data=-1``
-    taking the ranks the second axis leaves; ``need`` opens the JAX error
-    for a data axis below 1. Rank ``d * second + x`` is at data index d,
-    index x of ``axis`` (module docstring); its device and backend are
-    ``make_mesh``'s."""
+def _axes_mesh(data: int, inner: Sequence[Tuple[str, int]],
+               backend: Optional[str], device, need: str) -> Mesh:
+    """The ``("data", *inner axes)`` mesh over every process of the job,
+    ``data=-1`` taking the ranks the inner axes leave; ``need`` opens the
+    JAX error for a data axis below 1. The global rank is row-major over
+    the axes, the last innermost (module docstring); the device and
+    backend are ``make_mesh``'s."""
     if device is None:
         device = (f"cuda:{local_rank()}" if torch.cuda.is_available()
                   else "cpu")
@@ -267,13 +284,15 @@ def _data_x_mesh(data: int, second: int, axis: str,
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     maybe_initialize_distributed(backend=backend)
     world = dist.get_world_size() if dist.is_initialized() else 1
+    names = ("data",) + tuple(a for a, _ in inner)
+    per = math.prod(n for _, n in inner)
     if data == -1:
-        data = world // second
+        data = world // per
     if data < 1:
         raise ValueError(
             f"{need} (data axis resolved to {data} from {world} "
             f"device(s))")
-    n = data * second
+    n = data * per
     if n > world:
         raise ValueError(f"need {n} devices, have {world}")
     if n != world:
@@ -281,7 +300,7 @@ def _data_x_mesh(data: int, second: int, axis: str,
             f"a mesh of {n} devices needs {n} processes, one per device; "
             f"this job has {world} (start one process per device: "
             f"cli.train --devices N, or torchrun)")
-    names = ("data", axis)
+    shape = (data,) + tuple(n for _, n in inner)
     if world == 1:
         return Mesh(1, 0, device, None, axis_names=names)
     if dist.get_backend() != backend:
@@ -291,50 +310,65 @@ def _data_x_mesh(data: int, second: int, axis: str,
         torch.cuda.set_device(device)
     rank = dist.get_rank()
     groups = {}
-    # Every rank makes every group, in one order (dist.new_group's rule);
-    # an axis that spans the job keeps the default group.
-    for name, members in (
-            ("data", [[d * second + m for d in range(data)]
-                      for m in range(second)]),
-            (axis, [[d * second + m for m in range(second)]
-                    for d in range(data)])):
-        if len(members[0]) in (1, world):
+    # Every rank makes every group, in one order (dist.new_group's rule):
+    # for each axis, one group a line of it (the ranks that share every
+    # other coordinate); an axis that spans the job keeps the default
+    # group.
+    for i, name in enumerate(names):
+        if shape[i] in (1, world):
             continue
-        for ranks in members:
-            g = dist.new_group(ranks, backend=backend)
-            if rank in ranks:
-                groups[name] = g
-    return Mesh(data, rank // second, device, backend, second_size=second,
-                second_rank=rank % second, groups=groups, axis_names=names)
+        lines: dict = {}
+        for g in range(world):
+            c = _coords(g, shape)
+            lines.setdefault(c[:i] + c[i + 1:], []).append(g)
+        for key in sorted(lines):
+            group = dist.new_group(lines[key], backend=backend)
+            if rank in lines[key]:
+                groups[name] = group
+    coords = _coords(rank, shape)
+    kw = {}
+    for prefix, size, c in zip(("second", "third"), shape[1:], coords[1:]):
+        kw[f"{prefix}_size"], kw[f"{prefix}_rank"] = size, c
+    return Mesh(shape[0], coords[0], device, backend, groups=groups,
+                axis_names=names, **kw)
+
+
+def _coords(rank: int, shape) -> Tuple[int, ...]:
+    """The coordinates of global ``rank`` on a row-major mesh of
+    ``shape``."""
+    out = []
+    for size in reversed(shape):
+        out.insert(0, rank % size)
+        rank //= size
+    return tuple(out)
 
 
 def make_2d_mesh(data: int = -1, model: int = 1,
                  backend: Optional[str] = None, device=None) -> Mesh:
     """The ``("data", "model")`` mesh of tensor parallelism, with the JAX
     ``make_2d_mesh``'s errors."""
-    return _data_x_mesh(data, model, "model", backend, device,
-                        f"2-D mesh needs at least model = {model} devices")
+    return _axes_mesh(data, [("model", model)], backend, device,
+                      f"2-D mesh needs at least model = {model} devices")
 
 
 def make_moe_mesh(data: int = -1, expert: int = 1,
                   backend: Optional[str] = None, device=None) -> Mesh:
     """The ``("data", "expert")`` mesh of expert parallelism, with the JAX
     ``make_moe_mesh``'s errors."""
-    return _data_x_mesh(data, expert, "expert", backend, device,
-                        f"2-D mesh needs at least expert = {expert} devices")
+    return _axes_mesh(data, [("expert", expert)], backend, device,
+                      f"2-D mesh needs at least expert = {expert} devices")
 
 
 def make_pipeline_mesh(data: int = -1, pipe: int = 2, model: int = 1,
                        backend: Optional[str] = None, device=None) -> Mesh:
     """The ``("data", "pipe")`` mesh of the GPipe pipeline, with the JAX
-    ``make_pipeline_mesh``'s errors. The JAX package's third axis
-    (``model > 1``: ``("data", "pipe", "model")``) is not ported yet."""
-    if model > 1:
-        raise ValueError("the 3-D ('data', 'pipe', 'model') mesh "
-                         "(pipeline with tensor parallelism): not ported "
-                         "yet")
-    return _data_x_mesh(
-        data, pipe, "pipe", backend, device,
+    ``make_pipeline_mesh``'s errors; with ``model > 1`` the 3-D ``("data",
+    "pipe", "model")`` mesh, "model" innermost: global rank ``(d * pipe +
+    p) * model + m`` (the pipeline's stages of Megatron-sharded blocks,
+    ``parallel/pipeline.py``)."""
+    inner = [("pipe", pipe)] + ([("model", model)] if model > 1 else [])
+    return _axes_mesh(
+        data, inner, backend, device,
         f"pipeline mesh needs at least pipe*model = {pipe * model} devices")
 
 

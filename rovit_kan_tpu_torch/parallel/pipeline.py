@@ -1,4 +1,5 @@
-"""Pipeline parallelism: the GPipe schedule over the ``("data", "pipe")`` mesh.
+"""Pipeline parallelism: the GPipe schedule over the ``("data", "pipe")`` mesh
+and the 3-D ``("data", "pipe", "model")`` one.
 
 Counterpart of ``rovit_kan_tpu/parallel/pipeline.py``. The depth blocks are
 split into S contiguous stages, one per index of the mesh's ``"pipe"``
@@ -41,6 +42,17 @@ every pipe rank.
   the port's stages run what the model's policy gives each block (the
   fused block #1/#2 at the flagship's width, which keeps only a block's
   input), a departure in route, not in results.
+- **The 3-D mesh** (``make_pipeline_mesh(data, pipe, model)``, "model"
+  innermost). The JAX package leaves "model" to GSPMD inside its
+  partial-manual ``shard_map``, so each stage runs Megatron tensor
+  parallelism from ``pipeline_param_specs(tp=True)`` alone, its blocks
+  still the plain ``_block_xla``. Here each rank keeps its stage's blocks
+  cut on its model index as ``TensorParallel`` cuts them, and the blocks
+  run ``Block._tp_forward`` over the model axis (``parallel/tensor.py``'s
+  operators; the heads' attention core through #5/#6 where the policy
+  would take the fused block). A sharded block's output is whole on every
+  model rank, so stage s at (d, s, m) sends to (d, s + 1, m), and the
+  broadcasts over ``"pipe"`` run on each model index's own line.
 
 Point-to-point sends on gloo take host tensors: on a card under gloo they
 are staged through the host, as ``Mesh``'s collectives are. A stage
@@ -50,7 +62,7 @@ send waits on a peer that is itself sending.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,9 +73,15 @@ from rovit_kan_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
     make_pipeline_mesh,
 )
-from rovit_kan_tpu_torch.parallel.tensor import ShardedModel
+from rovit_kan_tpu_torch.parallel.tensor import (
+    ModelAxis,
+    ShardedModel,
+    megatron_specs,
+    path_spec,
+)
 
 PIPE_AXIS = "pipe"
+MODEL_AXIS = "model"
 
 BLOCKS = "backbone.model.blocks."
 
@@ -127,18 +145,17 @@ def merge_params(split: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def pipeline_param_specs(split: Dict[str, Any], tp: bool = False) -> Any:
-    """The JAX spec tree of a split tree, one axis name (or None) a dim with
-    trailing Nones dropped, as ``PartitionSpec`` prints: ``("pipe",)`` for
-    every ``backbone/blocks`` leaf, ``()`` elsewhere. ``tp=True`` (the 3-D
-    mesh's Megatron rule on each stacked leaf) is not ported yet."""
-    if tp:
-        raise ValueError("pipeline_param_specs(tp=True), the 3-D "
-                         "('data', 'pipe', 'model') layout: not ported yet")
-
+    """The JAX spec tree of a split tree, one axis name (or None) a dim:
+    ``("pipe",)`` for every ``backbone/blocks`` leaf, ``()`` elsewhere. With
+    ``tp=True`` (the 3-D mesh) each stacked block leaf's trailing dims also
+    take the JAX Megatron rule (``parallel/tensor.py``), so the stacked qkv
+    kernel is ``("pipe", None, "model")``."""
     def spec(node, path):
         if isinstance(node, dict):
             return {k: spec(v, path + (k,)) for k, v in node.items()}
-        return (PIPE_AXIS,) if path[:2] == ("backbone", "blocks") else ()
+        if path[:2] != ("backbone", "blocks"):
+            return ()
+        return (PIPE_AXIS,) + (tuple(path_spec(path)) if tp else ())
     return spec(split, ())
 
 
@@ -300,9 +317,18 @@ class Pipeline(ShardedModel):
     eval steps and the optimizer; ``model_sharded`` names the stage's
     block leaves (the flat AdamW sums their squares over ``"pipe"``);
     ``specs`` gives each block leaf a dim for ``fsdp.sharded_size`` (a
-    stage holds 1/S of the blocks). Refuses a
-    mesh without the axis, a depth the axis does not divide and MoE blocks
-    (the stages need identical blocks, as the JAX stage scan does)."""
+    stage holds 1/S of the blocks).
+
+    On the 3-D ``("data", "pipe", "model")`` mesh the stage's blocks are
+    also Megatron-sharded on the rank's model index (``tp_specs``: qkv and
+    fc1 by column, proj and fc2 by row, as ``TensorParallel`` cuts them),
+    and each block runs ``Block._tp_forward`` with the mesh's
+    ``ModelAxis``: the activations the stages send are whole on both model
+    ranks of a stage. ``leaf_axes`` then puts a cut leaf on ``"pipe"`` and
+    ``"model"`` and the stage's other block leaves on ``"pipe"``. Refuses a
+    mesh without the axis, a depth the axis does not divide, MoE blocks
+    (the stages need identical blocks, as the JAX stage scan does) and a
+    width the model axis does not divide."""
 
     shard_axis = PIPE_AXIS
 
@@ -330,15 +356,34 @@ class Pipeline(ShardedModel):
         self.partial = frozenset()
         self.specs = {k: (0 if k in self.block_leaves else None)
                       for k in self._all}
+        #: The block leaves cut over "model" -> the dim (3-D mesh).
+        self.tp_specs: Dict[str, int] = {}
+        self.model_axis = None
+        if mesh.axis_size(MODEL_AXIS) > 1:
+            self.tp_specs = {k: d for k, d in
+                             megatron_specs(model, mesh).items()
+                             if d is not None}
+            self.model_axis = ModelAxis(mesh, False, vit.pos_embed.shape[1])
         self._params = {k: p for k, p in self._all.items()
                         if k not in self.block_leaves
                         or k in self.model_sharded}
         with torch.no_grad():
             for k in self.block_leaves - self.model_sharded:
                 self._all[k].data = self._all[k].data.new_empty(0)
+            cut = self.local({k: self._all[k].data for k in self.tp_specs
+                              if k in self.model_sharded})
+            for k, t in cut.items():
+                self._all[k].data = t.clone()
         self.axis = PipeAxis(mesh, self.stage * self.per,
                              (self.stage + 1) * self.per, n_micro)
         self._attach(self.axis)
+
+    @property
+    def leaf_axes(self) -> Dict[str, Tuple[str, ...]]:
+        """Every block leaf's axes: ``"pipe"``, and ``"model"`` where the
+        3-D mesh cuts it."""
+        return {k: ((PIPE_AXIS, MODEL_AXIS) if k in self.tp_specs
+                    else (PIPE_AXIS,)) for k in self.block_leaves}
 
     def stage_names(self, stage: int) -> List[str]:
         """Stage ``stage``'s block leaves, block by block in the model's
@@ -351,24 +396,34 @@ class Pipeline(ShardedModel):
         vit = self.model.backbone.model
         vit.pipe = axis
         for blk in vit.blocks:
+            blk.tp = self.model_axis if axis is not None else None
             blk._kernel_params = blk._kernel_key = None
 
     # -- whole tensors -----------------------------------------------------
     def local(self, full: Dict[str, torch.Tensor]
               ) -> Dict[str, torch.Tensor]:
-        """This stage's tensors of a whole state_dict (no collective)."""
-        return {k: v for k, v in full.items() if k in self._params}
+        """This rank's tensors of a whole state_dict: its stage's, cut on
+        its model index where the 3-D mesh shards them (no collective)."""
+        t, m = self.mesh.axis_size(MODEL_AXIS), self.mesh.axis_rank(
+            MODEL_AXIS)
+        return {k: (v.chunk(t, self.tp_specs[k])[m] if k in self.tp_specs
+                    else v) for k, v in full.items() if k in self._params}
 
     def _all_blocks(self, state: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
         """Every stage's block tensors on every pipe rank, from each
-        stage's ``state``: one all-gather over ``"pipe"`` of the stages'
-        flattened blocks (collective)."""
+        stage's ``state``: the model-cut leaves gathered over ``"model"``,
+        then one all-gather over ``"pipe"`` of the stages' flattened blocks
+        (collective)."""
         mine = self.stage_names(self.stage)
         sizes = [int(torch.Size(self.full_shapes[k]).numel()) for k in mine]
-        flat = torch.cat([state[k].to(self.device).reshape(-1)
-                          for k in mine])
-        every = self.mesh.all_gather(flat, 0, PIPE_AXIS)
+        parts = []
+        for k in mine:
+            v = state[k].to(self.device)
+            if k in self.tp_specs:
+                v = self.mesh.all_gather(v, self.tp_specs[k], MODEL_AXIS)
+            parts.append(v.reshape(-1))
+        every = self.mesh.all_gather(torch.cat(parts), 0, PIPE_AXIS)
         out = {}
         for j, part in enumerate(every.chunk(
                 self.mesh.axis_size(PIPE_AXIS))):
@@ -392,14 +447,14 @@ class Pipeline(ShardedModel):
     @contextlib.contextmanager
     def full_module(self, weights: Optional[Dict[str, torch.Tensor]] = None,
                     keep: bool = False):
-        """The model whole meanwhile, every block on every pipe rank and the
-        stack run block after block: the stages' blocks gathered (from
-        ``weights``, a ``state_dict``-layout dict of the stage, where given;
-        the live ones else) and each whole leaf from ``weights`` where
-        given. With ``keep``, the stage's blocks at the exit become the
-        live ones (and the whole leaves stay as they were left). At the
-        exit the module is pipelined again, its fused blocks' weight
-        caches cleared."""
+        """The model whole meanwhile, every block on every pipe rank, whole
+        on the model axis, and the stack run block after block: the stages'
+        blocks gathered (from ``weights``, a ``state_dict``-layout dict of
+        the rank, where given; the live ones else) and each whole leaf from
+        ``weights`` where given. With ``keep``, the rank's part of the
+        blocks at the exit becomes the live one (and the whole leaves stay
+        as they were left). At the exit the module is pipelined again, its
+        fused blocks' weight caches cleared."""
         src = self.state_dict() if weights is None else weights
         blocks = self._all_blocks(src)
         kept = {}
@@ -414,8 +469,10 @@ class Pipeline(ShardedModel):
             yield self.model
             if keep:
                 with torch.no_grad():
-                    for k in self.model_sharded:
-                        kept[k].copy_(self._all[k].data)
+                    mine = self.local({k: self._all[k].data
+                                       for k in self.model_sharded})
+                    for k, v in mine.items():
+                        kept[k].copy_(v)
         finally:
             for k, p in self._all.items():
                 p.data = kept[k]

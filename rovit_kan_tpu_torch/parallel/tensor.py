@@ -108,14 +108,19 @@ FINAL_NORM = "backbone.model.norm."
 Specs = Dict[str, Optional[int]]
 
 
-def jax_spec(name: str, ndim: int) -> Tuple[Optional[str], ...]:
-    """The JAX ``param_specs`` entry of a port leaf, one axis name (or None)
-    a JAX dim, with trailing Nones dropped as ``PartitionSpec`` prints."""
-    path, _ = _jax_path(name, ndim)
+def path_spec(path: Tuple[str, ...]) -> Tuple[Optional[str], ...]:
+    """The JAX Megatron rule of the leaf at a JAX ``path``: one axis name (or
+    None) a JAX dim, ``()`` for a replicated leaf."""
     for suffix, leaf, spec in _RULES:
         if path[-1] == leaf and path[-1 - len(suffix):-1] == suffix:
             return spec
     return ()
+
+
+def jax_spec(name: str, ndim: int) -> Tuple[Optional[str], ...]:
+    """The JAX ``param_specs`` entry of a port leaf, one axis name (or None)
+    a JAX dim, with trailing Nones dropped as ``PartitionSpec`` prints."""
+    return path_spec(_jax_path(name, ndim)[0])
 
 
 def _rule_dim(name: str, ndim: int) -> Optional[int]:
@@ -168,6 +173,28 @@ def shard_params(state, mesh: Mesh, specs: Optional[Specs] = None,
     n, r = mesh.axis_size(axis), mesh.axis_rank(axis)
     return {k: (v.chunk(n, eff[k])[r] if eff[k] is not None else v)
             for k, v in state.items()}
+
+
+def megatron_specs(model: nn.Module, mesh: Mesh,
+                   specs: Optional[Specs] = None) -> Specs:
+    """``specs`` (default: ``param_specs``) over the mesh's ``"model"`` axis
+    with the per-axis fallback; raises ValueError where a block's Megatron
+    pair fell back, since the sharded block needs all of them sharded."""
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    out = mesh_specs(shapes, param_specs(model) if specs is None else specs,
+                     mesh)
+    for i, blk in enumerate(model.backbone.model.blocks):
+        pre = f"backbone.model.blocks.{i}."
+        dense = ("attn.qkv", "attn.proj") + (
+            () if hasattr(blk, "moe") else ("mlp.fc1", "mlp.fc2"))
+        off = [k for k in dense if out[pre + k + ".weight"] is None]
+        if off:
+            raise ValueError(
+                f"tensor parallelism over {mesh.model_size} ranks: "
+                f"block {i}'s {off} do not divide (d = "
+                f"{blk.norm1.normalized_shape[0]}); the sharded block "
+                f"needs every Megatron pair sharded")
+    return out
 
 
 def partial_leaf(name: str, model_sharded: Iterable[str]) -> bool:
@@ -456,6 +483,14 @@ class ShardedModel(ShardedState):
         order."""
         return dict(self._params)
 
+    @property
+    def leaf_axes(self) -> Dict[str, Tuple[str, ...]]:
+        """Each of this rank's cut leaves -> the mesh axes beside the data
+        axis it is cut over (the flat AdamW sums its squares over them,
+        ``fsdp.sharded_size`` divides its bytes by them): ``shard_axis``
+        for each of ``model_sharded``."""
+        return {k: (self.shard_axis,) for k in self.model_sharded}
+
     def state_dict(self) -> Dict[str, torch.Tensor]:
         return {k: v.detach() for k, v in self._params.items()}
 
@@ -598,22 +633,7 @@ class TensorParallel(AxisSharded):
         seq = seq if seq is not None else getattr(vit, "act_sharding", None)
         self.model, self.mesh, self.seq = model, mesh, seq
         self._params = dict(model.named_parameters())
-        shapes = {k: tuple(p.shape) for k, p in self._params.items()}
-        self.specs = mesh_specs(shapes,
-                                param_specs(model) if specs is None
-                                else specs, mesh)
-        for i, blk in enumerate(vit.blocks):
-            pre = f"backbone.model.blocks.{i}."
-            dense = ("attn.qkv", "attn.proj") + (
-                () if hasattr(blk, "moe") else ("mlp.fc1", "mlp.fc2"))
-            off = [k for k in dense if self.specs[pre + k + ".weight"]
-                   is None]
-            if off:
-                raise ValueError(
-                    f"tensor parallelism over {mesh.model_size} ranks: "
-                    f"block {i}'s {off} do not divide (d = "
-                    f"{blk.norm1.normalized_shape[0]}); the sharded block "
-                    f"needs every Megatron pair sharded")
+        self.specs = megatron_specs(model, mesh, specs)
         self.model_sharded = frozenset(
             k for k, d in self.specs.items() if d is not None)
         self.partial = (frozenset(k for k in self._params

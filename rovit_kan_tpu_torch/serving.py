@@ -19,6 +19,33 @@ Counterpart of ``rovit_kan_tpu/serving.py``, with the same semantics:
 ``MicroBatcher`` is copied from the JAX package (it is NumPy and threads
 only). ``load_engine`` builds an engine from a checkpoint of the port's
 ``Trainer`` (``utils/checkpoint.py``).
+
+Serving over a mesh (``mesh=``, any ``parallel.mesh.Mesh``): the JAX engine
+is one process that replicates the parameters over the mesh's devices and
+shards each padded batch over its data axis (``shard_batch``). The port
+runs one process per card, so rank 0 leads and every other rank follows:
+
+- the weights are broadcast from rank 0 (``parallel.mesh.replicate``), and
+  so is the temperature;
+- rank 0 alone calls ``predict``, ``dispatch``/``fetch``,
+  ``predict_stream`` and ``MicroBatcher``, whose batches depend on arrival
+  times; every other rank calls ``follow()``, which returns once rank 0's
+  engine is closed;
+- for each ``dispatch`` rank 0 broadcasts an op-code (dispatch, with the
+  handle's number) and the padded uint8 batch; each rank runs the serving
+  forward on its data index's rows (``Mesh.rows``), so the ranks that
+  share a data index compute the same rows, as the JAX engine replicates
+  over every other axis;
+- for each ``fetch`` rank 0 broadcasts an op-code (fetch, with the handle's
+  number) and the ranks all-gather the packed ``(rows, K)`` fp32 outputs
+  over ``"data"`` in rank order, so rank 0 returns the whole batch's dict;
+- ``close()`` broadcasts the stop op-code.
+
+The followers run the collectives in the order rank 0 issues them, which
+NCCL requires: ``MicroBatcher``'s depth-2 loop dispatches batch k+1 before
+it fetches batch k, and a follower keeps each dispatched batch's outputs by
+number until rank 0 fetches it. ``batch_size`` must be divisible by the
+data axis.
 """
 from __future__ import annotations
 
@@ -38,6 +65,7 @@ from rovit_kan_tpu_torch.ops.ordinal import (
     ordinal_expected_severity,
 )
 from rovit_kan_tpu_torch.ops.preprocess import eval_batch
+from rovit_kan_tpu_torch.parallel.mesh import replicate
 
 
 def build_serving_forward(model, temperature: float = 1.0):
@@ -89,15 +117,44 @@ def serving_layout(model) -> List[Tuple[str, int, np.dtype, int]]:
     return [(name, *widths[name]) for name in sorted(widths)]
 
 
+#: The op-codes rank 0 broadcasts to the followers of a mesh engine.
+_CLOSE, _DISPATCH, _FETCH = 0, 1, 2
+
+
 class InferenceEngine:
-    """Serves a model at a fixed ``batch_size`` on ``device``."""
+    """Serves a model at a fixed ``batch_size`` on ``device``; with a
+    ``mesh`` of more than one rank, on the mesh's device of each rank,
+    rank 0 leading and the others in ``follow()`` (module docstring)."""
 
     def __init__(self, model, batch_size: int = 64, temperature: float = 1.0,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        if self.mesh is not None:
+            if self.device.type != mesh.device.type:
+                raise ValueError(f"the engine asked for {self.device}, the "
+                                 f"mesh's rank is on {mesh.device}")
+            self.device = mesh.device
+            if batch_size % mesh.size:
+                raise ValueError(
+                    f"batch_size {batch_size} is not divisible by the "
+                    f"mesh's data axis ({mesh.size}): each data index "
+                    f"serves an equal share of every padded batch")
         self.model = model.to(self.device).eval()
         self.batch_size = batch_size
+        if self.mesh is not None:
+            replicate(self.model, self.mesh)      # rank 0's weights
+            # On the device: NCCL's collectives take no host tensor.
+            t = torch.tensor(float(temperature), dtype=torch.float64,
+                             device=self.device)
+            temperature = float(replicate({"t": t}, self.mesh)["t"])
         self.temperature = float(temperature)
+        #: This rank's rows of a padded batch.
+        self._rows = (slice(None) if self.mesh is None
+                      else self.mesh.rows(batch_size))
+        self.leader = self.mesh is None or self.mesh.global_rank == 0
+        self._seq = 0
+        self._closed = False
         # Rolling windows (bounded); request/image totals stay exact.
         self._latencies: deque = deque(maxlen=10_000)
         self._request_sizes: deque = deque(maxlen=10_000)
@@ -111,16 +168,88 @@ class InferenceEngine:
         self._named = build_serving_forward(model, self.temperature)
         self._layout = serving_layout(model)
         size = model.image_size
-        shape = (batch_size, size, size, 3)
+        self._shape = (batch_size, size, size, 3)
         on_card = self.device.type == "cuda"
         # Two pinned staging buffers, used in turn: a dispatch may refill one
         # while the previous batch's copy still reads the other. Each copy
         # records an event, and a buffer is rewritten only after it fires.
-        self._staging = [torch.empty(shape, dtype=torch.uint8,
+        self._staging = [torch.empty(self._shape, dtype=torch.uint8,
                                      pin_memory=on_card) for _ in range(2)]
         self._copied = [None, None]
         self._turn = 0
+        # Orders the staging buffers and, on a mesh, each op-code with its
+        # collectives, whichever thread calls.
         self._lock = threading.Lock()
+
+    # -- the mesh's protocol (module docstring) ------------------------------
+    def _nccl(self) -> bool:
+        return self.mesh.backend == "nccl"
+
+    def _signal(self, op: int, seq: int = 0) -> None:
+        code = torch.tensor([op, seq], dtype=torch.int64)
+        self.mesh.broadcast_(code.to(self.device) if self._nccl() else code)
+
+    def _receive(self) -> Tuple[int, int]:
+        code = torch.zeros(2, dtype=torch.int64,
+                           device=self.device if self._nccl() else "cpu")
+        op, seq = self.mesh.broadcast_(code).tolist()
+        return op, seq
+
+    def _share(self, buf: torch.Tensor) -> torch.Tensor:
+        """Rank 0's padded uint8 batch on every rank's device: ``buf`` is
+        rank 0's host staging buffer, or a follower's buffer to receive
+        into (on the device under NCCL, whose collectives take device
+        tensors; on the host under gloo)."""
+        if self._nccl():
+            return self.mesh.broadcast_(buf.to(self.device,
+                                               non_blocking=True))
+        self.mesh.broadcast_(buf)
+        images = buf.to(self.device, non_blocking=True)
+        return images.clone() if images is buf else images
+
+    def _gather(self, flat: torch.Tensor) -> torch.Tensor:
+        """The ranks' packed rows over ``"data"``, in rank order."""
+        return self.mesh.all_gather(flat, 0, "data")
+
+    def _lead(self, what: str) -> None:
+        if not self.leader:
+            raise RuntimeError(f"{what}: rank {self.mesh.global_rank} "
+                               f"follows rank 0 (call follow())")
+        if self._closed:
+            raise RuntimeError(f"{what}: the engine is closed")
+
+    def follow(self) -> None:
+        """A follower's loop (every rank of the mesh but 0): mirror rank 0's
+        dispatches and fetches until rank 0's engine is closed. Each
+        dispatched batch's outputs are kept by number until fetched."""
+        if self.leader:
+            raise RuntimeError("follow(): rank 0 leads; it calls predict, "
+                               "dispatch/fetch or MicroBatcher")
+        pending = {}
+        while True:
+            op, seq = self._receive()
+            if op == _CLOSE:
+                self._closed = True
+                return
+            if op == _DISPATCH:
+                images = self._share(torch.empty(
+                    self._shape, dtype=torch.uint8,
+                    device=self.device if self._nccl() else "cpu"))
+                pending[seq] = self._packed(images[self._rows])
+            elif op == _FETCH:
+                self._gather(pending.pop(seq))
+            else:
+                raise RuntimeError(f"follow(): unknown op-code {op}")
+
+    def close(self) -> None:
+        """Rank 0: release the followers (their ``follow()`` returns).
+        Idempotent; the engine serves no more after it."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            if self.mesh is not None and self.leader:
+                self._signal(_CLOSE)
 
     def _packed(self, images: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
@@ -149,12 +278,16 @@ class InferenceEngine:
 
     def dispatch(self, images_u8: np.ndarray):
         """Async half of ``predict``: pad, stage, enqueue the copy and the
-        forward, and return a handle without waiting for the card."""
+        forward, and return a handle without waiting for the card. On a
+        mesh, rank 0 only: the batch goes to every rank and each runs its
+        rows."""
         n = images_u8.shape[0]
         if n > self.batch_size:
             raise ValueError(f"dispatch takes <= batch_size={self.batch_size}"
                              f" images, got {n}; use predict() to split")
+        self._lead("dispatch")
         t0 = time.perf_counter()
+        seq = None
         with self._lock:
             i = self._turn
             self._turn ^= 1
@@ -164,18 +297,29 @@ class InferenceEngine:
             host = buf.numpy()
             host[:n] = images_u8
             host[n:] = 0
-            images = buf.to(self.device, non_blocking=True)
+            if self.mesh is not None:
+                seq, self._seq = self._seq, self._seq + 1
+                self._signal(_DISPATCH, seq)
+                images = self._share(buf)
+            else:
+                images = buf.to(self.device, non_blocking=True)
+                if images is buf:
+                    images = images.clone()  # to() returned the buffer
             if self.device.type == "cuda":
                 ev = torch.cuda.Event()
                 ev.record()
                 self._copied[i] = ev
-            else:
-                images = images.clone()     # to() returned the buffer itself
-        return self._packed(images), n, t0
+        return self._packed(images[self._rows]), n, t0, seq
 
     def fetch(self, handle) -> Dict[str, np.ndarray]:
-        """Blocking half of ``predict``: device->host copy, unpack, stats."""
-        flat, n, t0 = handle
+        """Blocking half of ``predict``: device->host copy, unpack, stats.
+        On a mesh the ranks' rows are gathered first."""
+        flat, n, t0, seq = handle
+        if self.mesh is not None:
+            self._lead("fetch")
+            with self._lock:
+                self._signal(_FETCH, seq)
+                flat = self._gather(flat)
         out = self._unpack(flat.cpu().numpy()[:n])
         end = time.perf_counter()
         self._latencies.append(end - t0)
@@ -413,13 +557,16 @@ class MicroBatcher:
 
 def load_engine(checkpoint_path, batch_size: int = 64, config=None,
                 image_size: int = None, temperature: float = None,
-                device="cuda") -> InferenceEngine:
-    """Checkpoint -> engine on ``device``. ``image_size`` serves at another
-    resolution than trained (``transfer_resolution``; at >= 512 tokens in
-    bf16 on the card the "auto" policy picks the attention kernels for an
-    unfused block). ``temperature=None`` adopts the calibration temperature
-    recorded in the checkpoint's sidecar, when there is one; pass a float to
-    override it, or 1.0 to serve raw confidences."""
+                device="cuda", mesh=None) -> InferenceEngine:
+    """Checkpoint -> engine on ``device`` (with a ``mesh``, every rank
+    loads it and serves on the mesh's device of that type; rank 0 leads,
+    ``InferenceEngine``).
+    ``image_size`` serves at another resolution than trained
+    (``transfer_resolution``; at >= 512 tokens in bf16 on the card the
+    "auto" policy picks the attention kernels for an unfused block).
+    ``temperature=None`` adopts the calibration temperature recorded in the
+    checkpoint's sidecar, when there is one; pass a float to override it,
+    or 1.0 to serve raw confidences."""
     from rovit_kan_tpu_torch.evaluation.evaluator import \
         load_model_for_evaluation
     from rovit_kan_tpu_torch.utils.checkpoint import load_meta
@@ -429,4 +576,4 @@ def load_engine(checkpoint_path, batch_size: int = 64, config=None,
         temperature = float(load_meta(checkpoint_path).get("temperature",
                                                            1.0))
     return InferenceEngine(model, batch_size=batch_size,
-                           temperature=temperature, device=device)
+                           temperature=temperature, device=device, mesh=mesh)

@@ -46,7 +46,12 @@ Under expert parallelism and the pipeline the second axis is ``"expert"`` or
 ``"pipe"`` (the wrapper's ``shard_axis``): ``model_sharded`` then names the
 rank's experts (``parallel/tensor.py::ExpertParallel``) or its stage's
 blocks (``parallel/pipeline.py::Pipeline``), whose squares are summed over
-that axis, and every other leaf counts once.
+that axis, and every other leaf counts once. On the 3-D ``("data", "pipe",
+"model")`` mesh a stage's Megatron-sharded block leaves are summed over
+``"pipe"`` and ``"model"``, its block leaves whole on the model axis
+(LayerNorms, proj and fc2 biases) over ``"pipe"`` only. Each wrapper says
+which axes each of its leaves is cut over (``leaf_axes``); the data axis
+alone reduces the gradients.
 """
 from __future__ import annotations
 
@@ -66,7 +71,7 @@ class FlatAdamW:
                  backbone_scale: float = 0.1, *, weight_decay: float = 1e-4,
                  clip: float = 1.0, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, accum_steps: int = 1,
-                 mesh=None, sharded=(), model_sharded=(), partial=(),
+                 mesh=None, sharded=(), leaf_axes=None, partial=(),
                  shard_axis: str = "model"):
         named: List[Tuple[str, nn.Parameter]] = [
             (k, p) for k, p in model.named_parameters() if p.requires_grad]
@@ -77,8 +82,9 @@ class FlatAdamW:
         #: which this buffer holds a shard (None: every leaf is whole).
         self.replicated = None
         self.mesh = mesh
-        #: The axis ``model_sharded`` and ``partial`` refer to.
+        #: The axis ``partial`` refers to.
         self.shard_axis = shard_axis
+        leaf_axes = dict(leaf_axes or {})
         offs = [0]
         for _, p in named:
             offs.append(offs[-1] + p.numel())
@@ -102,19 +108,16 @@ class FlatAdamW:
                 raise ValueError("the whole leaves must be one run of the "
                                  "parameter order")
             self.replicated = slice(offs[whole[0]], offs[whole[-1] + 1])
-        #: The norm's sharded slices by the axes they are summed over, and
-        #: the slices of whole leaves (``step``).
-        self._norm_groups = [
-            (axes, runs(pred)) for axes, pred in (
-                (("data", shard_axis),
-                 lambda k: k in sharded and k in model_sharded),
-                (("data",),
-                 lambda k: k in sharded and k not in model_sharded),
-                ((shard_axis,),
-                 lambda k: k not in sharded and k in model_sharded))]
-        self._norm_groups = [(a, r) for a, r in self._norm_groups if r]
-        self._whole_runs = runs(lambda k: k not in sharded
-                                and k not in model_sharded)
+        #: The norm's slices by the axes their squares are summed over
+        #: (``"data"`` for the ``sharded`` leaves, then each leaf's
+        #: ``leaf_axes``), and the slices of whole leaves (``step``).
+        axes_of = {k: (("data",) if k in sharded else ())
+                   + tuple(leaf_axes.get(k, ())) for k in self.names}
+        groups = sorted({a for a in axes_of.values() if a},
+                        key=lambda a: ("data" not in a, -len(a), a))
+        self._norm_groups = [(a, runs(lambda k, a=a: axes_of[k] == a))
+                             for a in groups]
+        self._whole_runs = runs(lambda k: not axes_of[k])
         #: The slices ``reduce_grads`` sums over ``shard_axis`` first.
         self.partial_runs = runs(lambda k: k in partial)
         self.n_backbone = sum(p.numel() for k, p in named
@@ -245,17 +248,19 @@ def build_optimizer(model: nn.Module, config: Config) -> FlatAdamW:
     a sharded wrapper (``FSDP``, ``TensorParallel``, ``ExpertParallel``,
     ``Pipeline``): the buffer then holds its shards."""
     shards = getattr(model, "shards", None)
-    model_sharded = getattr(model, "model_sharded", frozenset())
+    shard_axis = getattr(model, "shard_axis", "model")
+    leaf_axes = getattr(model, "leaf_axes", None)
+    if leaf_axes is None:
+        leaf_axes = {k: (shard_axis,)
+                     for k in getattr(model, "model_sharded", ())}
     return FlatAdamW(model, config.train.learning_rate, 0.1,
                      weight_decay=config.train.weight_decay,
                      clip=config.flags.gradient_clip,
                      accum_steps=getattr(config.train, "accum_steps", 1),
-                     mesh=(model.mesh if shards or model_sharded
-                           else None),
-                     sharded=frozenset(shards or ()),
-                     model_sharded=model_sharded,
+                     mesh=model.mesh if shards or leaf_axes else None,
+                     sharded=frozenset(shards or ()), leaf_axes=leaf_axes,
                      partial=getattr(model, "partial", frozenset()),
-                     shard_axis=getattr(model, "shard_axis", "model"))
+                     shard_axis=shard_axis)
 
 
 def reduce_grads(optimizer: FlatAdamW, mesh) -> None:

@@ -70,7 +70,10 @@ to the largest count that divides it. Under both the data axis reduces the
 gradients as above, the AdamW moments and the EMA are sharded as the
 parameters are, and a checkpoint is the one-process file, gathered over
 the second axis; either kind of checkpoint resumes under either. FSDP
-composes with neither, as the JAX script rules.
+composes with neither, as the JAX script rules. On the 3-D ``("data",
+"pipe", "model")`` mesh (``make_pipeline_mesh(data, pipe, model)``) the
+``Pipeline`` also cuts its stage's blocks on the model axis, the combined
+specs of the JAX ``_place_state`` (``pipeline_param_specs(tp=True)``).
 """
 from __future__ import annotations
 
@@ -344,8 +347,9 @@ class Trainer:
     ``DeviceLoader``) and must drop its last partial batch; ``val_loader``
     may pad it and mark it in ``valid``.
 
-    ``mesh``: the data mesh (``parallel.make_mesh``) or a 2-D mesh
-    (``parallel.make_2d_mesh``, ``make_moe_mesh``, ``make_pipeline_mesh``);
+    ``mesh``: the data mesh (``parallel.make_mesh``), a 2-D mesh
+    (``parallel.make_2d_mesh``, ``make_moe_mesh``, ``make_pipeline_mesh``)
+    or the 3-D one (``make_pipeline_mesh(data, pipe, model)``);
     every rank builds a ``Trainer`` over the same loaders (a sharded
     ``DeviceLoader`` on this same mesh) and calls the same methods in the
     same order. Its collectives and the checkpoints' barriers pair up
@@ -353,7 +357,8 @@ class Trainer:
     the ``TensorParallel`` wrapper; the model's ``act_sharding`` turns on
     sequence parallelism); an ``"expert"`` axis shards the experts
     (``ExpertParallel``); a ``"pipe"`` axis pipelines the blocks
-    (``Pipeline``, ``self.pipelined``, ``self.n_micro`` microbatches).
+    (``Pipeline``, ``self.pipelined``, ``self.n_micro`` microbatches), and
+    a ``"model"`` axis beside it shards each stage's blocks.
     ``fsdp``: shard the state over the data axis (``self.fsdp``, the
     ``FSDP`` wrapper; None on a data axis of 1, where there is nothing to
     shard over). ``self.sharded`` is the wrapper the steps run, or
@@ -378,15 +383,16 @@ class Trainer:
                              f"rank on {mesh.device}")
         # What the steps run: the model, or its TP and/or FSDP wrapper, or
         # its EP or pipeline wrapper.
-        axis = mesh.second_axis if mesh is not None else None
+        inner = mesh.inner_axes if mesh is not None else ()
         self.pipelined = is_pipeline_mesh(mesh)
-        if fsdp and axis in ("expert", "pipe") and mesh.size > 1:
+        if fsdp and ("expert" in inner or self.pipelined) and mesh.size > 1:
             raise ValueError("fsdp composes with tensor parallelism only; "
                              "pipeline/expert parallelism keep their own "
                              "param layouts")
         self.tp = (TensorParallel(model, mesh)
-                   if axis == "model" and mesh.model_size > 1 else None)
-        if self.tp is not None and config.tpu.use_pallas_block is True:
+                   if inner == ("model",) and mesh.model_size > 1 else None)
+        if (self.tp is not None or (self.pipelined and mesh.model_size > 1)) \
+                and config.tpu.use_pallas_block is True:
             raise ValueError(
                 "use_pallas_block=True forces the whole-block kernels "
                 "(#1-#4), which take a whole block; under tensor "
@@ -399,7 +405,7 @@ class Trainer:
                 getattr(config.tpu, "pipeline_microbatches", 4),
                 max(config.train.batch_size // mesh.size, 1))
             self.net = Pipeline(model, mesh, self.n_micro)
-        elif axis == "expert":
+        elif "expert" in inner:
             self.net = ExpertParallel(model, mesh)
         elif fsdp and mesh is not None and mesh.size > 1:
             self.net = FSDP(model, mesh, fsdp_param_specs(

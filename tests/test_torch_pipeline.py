@@ -108,9 +108,10 @@ def test_split_merge_round_trip_as_jax():
 
 
 def test_pipeline_specs_and_subtree_map_as_jax():
-    """``pipeline_param_specs`` against the JAX spec tree, leaf for leaf;
-    ``tp=True`` (the 3-D mesh) refused as not ported; ``map_param_subtrees``
-    splits an optax AdamW state's moments as the JAX function does."""
+    """``pipeline_param_specs`` against the JAX spec tree, leaf for leaf,
+    with and without ``tp=True`` (the 3-D mesh's Megatron rule on each
+    stacked block leaf); ``map_param_subtrees`` splits an optax AdamW
+    state's moments as the JAX function does."""
     import jax
     import optax
 
@@ -132,8 +133,17 @@ def test_pipeline_specs_and_subtree_map_as_jax():
         assert tuple(spec) == g, path
         n_pipe += g == ("pipe",)
     assert n_pipe == 12
-    with pytest.raises(ValueError, match="not ported yet"):
-        pipeline_param_specs(split, tp=True)
+    want = jax_specs(jax_split(params), tp=True)
+    got = pipeline_param_specs(split, tp=True)
+    n_model = 0
+    for (path, spec), g in zip(
+            jax.tree_util.tree_leaves_with_path(
+                want, is_leaf=lambda x: isinstance(
+                    x, jax.sharding.PartitionSpec)),
+            jax.tree.leaves(got, is_leaf=lambda x: isinstance(x, tuple))):
+        assert tuple(spec) == g, path
+        n_model += "model" in g
+    assert n_model == 6
     state = jax.tree.map(np.asarray, optax.adamw(1e-3).init(params))
     got = map_param_subtrees(state, params, split_params)
     want = jax_map(state, params, jax_split)
@@ -218,8 +228,17 @@ def test_meshes_and_refusals_as_jax():
         make_pipeline_mesh(-1, 4, device="cpu")
     with pytest.raises(ValueError, match="need 4 devices, have 1"):
         make_pipeline_mesh(2, 2, device="cpu")
-    with pytest.raises(ValueError, match="not ported yet"):
-        make_pipeline_mesh(1, 1, model=2, device="cpu")
+    # The 3-D mesh's errors are the JAX ones too; its layouts and ranks are
+    # tests/test_torch_pipeline_tp.py's.
+    import jax
+
+    from rovit_kan_tpu.parallel.pipeline import make_pipeline_mesh as jmake
+    for model in (2, 3):
+        msg = f"need {model} devices, have 1"
+        with pytest.raises(ValueError, match=msg):
+            make_pipeline_mesh(1, 1, model=model, device="cpu")
+        with pytest.raises(ValueError, match=msg):
+            jmake(1, 1, model=model, devices=jax.devices()[:1])
     one = make_pipeline_mesh(1, 1, device="cpu")
     assert one.axis_names == ("data", "pipe") and one.world == 1
     with pytest.raises(ValueError, match="'pipe' axis"):
@@ -287,22 +306,18 @@ def test_ablation_evaluates_the_model_whole(tmp_path, monkeypatch):
 
 # -- the ranks ----------------------------------------------------------------
 
-def _jax_runs(ranks: dict, jax_params) -> dict:
-    """The JAX pipelined ``Trainer`` on ``make_pipeline_mesh(2, 2)``, and
-    the JAX ``pipelined_forward`` and ``jax.grad`` of the JAX pipeline
-    test's loss on it (2 microbatches of the local batch)."""
+def jax_forward_grads(x: np.ndarray, jax_params, jmesh) -> dict:
+    """The JAX ``pipelined_forward`` and ``jax.grad`` of the JAX pipeline
+    test's loss on it (2 microbatches of the local batch) on ``jmesh``."""
     import jax
     import jax.numpy as jnp
     import optax
 
     from rovit_kan_tpu.models.rovit_kan import RoViTKAN as JaxRoViTKAN
-    from rovit_kan_tpu.parallel.pipeline import make_pipeline_mesh as jmake
     from rovit_kan_tpu.parallel.pipeline import merge_params as jax_merge
     from rovit_kan_tpu.parallel.pipeline import \
         pipelined_forward as jax_forward
     from rovit_kan_tpu.parallel.pipeline import split_params as jax_split
-    jmesh = jmake(DATA, PIPE)
-    out = {"steps": run_jax_steps(ranks["jaxdraws"], jax_params, jmesh)}
     model = JaxRoViTKAN(**TOY, dropout=0.0, use_pallas_block=False,
                         use_pallas_kan=False, use_pallas_attention=False)
     labels = jnp.asarray(LABELS)
@@ -316,10 +331,19 @@ def _jax_runs(ranks: dict, jax_params) -> dict:
 
     (_, fwd), (g, gx) = jax.jit(jax.value_and_grad(
         loss, argnums=(0, 1), has_aux=True))(
-        jax_split(jax_params), jnp.asarray(ranks["grads"]["x"]))
-    out["forward"] = jax.tree.map(np.asarray, fwd)
-    out["grads"] = jax.tree.map(np.asarray, jax_merge(g))
-    out["x_grad"] = np.asarray(gx)
+        jax_split(jax_params), jnp.asarray(x))
+    return {"forward": jax.tree.map(np.asarray, fwd),
+            "grads": jax.tree.map(np.asarray, jax_merge(g)),
+            "x_grad": np.asarray(gx)}
+
+
+def _jax_runs(ranks: dict, jax_params) -> dict:
+    """The JAX pipelined ``Trainer`` on ``make_pipeline_mesh(2, 2)``, and
+    ``jax_forward_grads`` on it."""
+    from rovit_kan_tpu.parallel.pipeline import make_pipeline_mesh as jmake
+    jmesh = jmake(DATA, PIPE)
+    out = {"steps": run_jax_steps(ranks["jaxdraws"], jax_params, jmesh)}
+    out.update(jax_forward_grads(ranks["grads"]["x"], jax_params, jmesh))
     return out
 
 

@@ -936,9 +936,9 @@ def _message(fn, args):
 def test_cli_flag_rules_are_the_jax_scripts():
     """Over a grid of the parallelism flags: where the JAX script refuses
     before any data loads, the port refuses with its message; where it
-    does not, the port refuses what it has not ported (tensor parallelism
-    with the pipeline, the JAX package's 3-D mesh), and the ``--devices``
-    remainder as the JAX script does."""
+    does not, the port refuses the ``--devices`` remainder as the JAX script
+    does, and takes the rest (tensor parallelism with the pipeline builds
+    the 3-D mesh, as the JAX script's ``run_one`` does)."""
     from rovit_kan_tpu_torch.cli.train import check_flags, parse_args
     rules, remainder = _jax_rules()
     seen = set()
@@ -959,14 +959,11 @@ def test_cli_flag_rules_are_the_jax_scripts():
                                     + ["--fsdp"] * fsdp)
                                 got = _message(check_flags, args)
                                 want = _message(rules, args)
-                                if want is None and tp > 1 and pp > 1:
-                                    assert got.endswith("not ported yet")
-                                    continue
                                 if want is None:
                                     want = _message(remainder, args)
                                 assert got == want, argv
                                 seen.add(want)
-    assert len(seen) == 9          # eight rules and no refusal
+    assert len(seen) == 10   # seven rules, two remainders, no refusal
 
 
 def test_flag_errors_before_data(tmp_path):

@@ -39,7 +39,12 @@ exits non-zero:
    as ``call_ms`` and ``plain_call_ms``), #9 also at 16, 32 and 64 rows a
    group by graph replay; then, on a line of its own
    ("kan_layer_widths"), #8/#9 checked and timed the same way at the
-   trajectory's other layers, 64 -> 16 and 16 -> 1;
+   trajectory's other layers, 64 -> 16 and 16 -> 1; then, on a line of its
+   own ("preset_kernels"), bf16 #1 and #3 at (64, 197, 384), 6 heads, and
+   (64, 197, 768), 12 heads, and #2 and #4 at (64, 197, 384), against
+   their plain versions at the flagship shapes' tolerances and timed beside
+   their bounds, the plain versions and ``TransformerEncoderLayer``
+   (``check_preset_blocks``);
 4. serve: the full-width DeiT-Tiny RoViT-KAN (seeded random weights) built
    with ``build_model`` and served through ``InferenceEngine`` and
    ``MicroBatcher``; the launch counters are set to 0 just before and read
@@ -123,12 +128,19 @@ exits non-zero:
    bs=1 FPS, which must be finite and positive. The phase's directory
    (and its ``best_model``) serves phases 10-15, its JPEG tree phases
    17-18;
-10. wide: F3's repair. bf16 ``get_config("small")`` (d = 384) saved as a
-   checkpoint, served one 224-px batch of 64 through ``load_engine`` and
-   trained one step, both on the plain block (no #1 or #2 launch, finite
-   outputs and loss); a forced ``use_pallas_block=True`` at d = 384 raises
-   the wrapper's ValueError naming the bf16 widths, before any launch; the
-   flagship still takes 12 #1 launches a batch;
+10. presets: the small and base presets on the fused block. bf16
+   ``get_config("small")`` (d = 384) and ``get_config("base")`` (d = 768),
+   each saved as a checkpoint and served one 224-px batch of 64 through
+   ``load_engine`` between a counter reset and a read (12 #1 launches and
+   nothing else), the outputs held by ``hold_served`` against the same
+   engine on the plain block and the fp32 model; one small train step (12
+   #1, 12 #2, one #7) and one base step (no #1 or #2: the JAX rule trains
+   d > 512 on the plain block; one #7), finite losses, and one small step
+   held against its plain versions and the fp32 model by
+   ``hold_train_step``, as "train" holds the flagship's; a forced
+   ``use_pallas_block=True`` training forward at d = 768 raises the
+   wrapper's ValueError naming the bf16 backward widths, before any
+   launch; the flagship still takes 12 #1 launches a batch;
 11. export: ``cli.export_model --verify`` on ``best_model``; then three
    artifacts, each saved, loaded afresh by ``load_exported`` and held
    against its ``InferenceEngine`` bit for bit on a full batch and on a
@@ -387,7 +399,9 @@ bench, explain, explain_384, visualize, ablation, baselines, pretrained,
 moe and (each rank's) dp, fsdp, baselines_dp, tp, sp, ep, pp,
 serve_mesh and pp_tp paths in its ``launches_by_path`` (sp: phase 23's TP +
 SP steps and fit; ep, pp and pp_tp: phases 24, 25 and 27's steps and fit;
-serve_mesh: phase 26's batches). The line before the last is
+serve_mesh: phase 26's batches; presets_serve_* and presets_train_*: phase
+10's counted batch and step of each preset), and #1-#4 their
+"preset_kernels" readings under ``presets``. The line before the last is
 ``nvidia-smi``'s name and power limit; the last is ``{"ok": true,
 "device": {...}}``. Imports torch and the port only.
 """
@@ -463,7 +477,8 @@ def time_ms(fn, reps: int = 15, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def block_inputs(dtype, seed: int, batch: int = BATCH, tokens: int = TOKENS):
+def block_inputs(dtype, seed: int, batch: int = BATCH, tokens: int = TOKENS,
+                 dim: int = DIM, hidden: int = HIDDEN):
     from rovit_kan_tpu_torch.ops.block_kernel import prepare_block_params
     rng = np.random.RandomState(seed)
 
@@ -471,26 +486,27 @@ def block_inputs(dtype, seed: int, batch: int = BATCH, tokens: int = TOKENS):
         return torch.tensor(center + rng.normal(0, scale, shape),
                             dtype=torch.float32)
 
-    raw = {"ln1_scale": t(DIM, scale=0.02, center=1.0),
-           "ln1_bias": t(DIM, scale=0.02),
-           "wqkv": t(3 * DIM, DIM), "bqkv": t(3 * DIM, scale=0.02),
-           "wproj": t(DIM, DIM), "bproj": t(DIM, scale=0.02),
-           "ln2_scale": t(DIM, scale=0.02, center=1.0),
-           "ln2_bias": t(DIM, scale=0.02),
-           "w1": t(HIDDEN, DIM), "b1": t(HIDDEN, scale=0.02),
-           "w2": t(DIM, HIDDEN), "b2": t(DIM, scale=0.02)}
-    x = t(batch, tokens, DIM, scale=1.0).to("cuda", dtype)
+    raw = {"ln1_scale": t(dim, scale=0.02, center=1.0),
+           "ln1_bias": t(dim, scale=0.02),
+           "wqkv": t(3 * dim, dim), "bqkv": t(3 * dim, scale=0.02),
+           "wproj": t(dim, dim), "bproj": t(dim, scale=0.02),
+           "ln2_scale": t(dim, scale=0.02, center=1.0),
+           "ln2_bias": t(dim, scale=0.02),
+           "w1": t(hidden, dim), "b1": t(hidden, scale=0.02),
+           "w2": t(dim, hidden), "b2": t(dim, scale=0.02)}
+    x = t(batch, tokens, dim, scale=1.0).to("cuda", dtype)
     params = prepare_block_params({k: v.cuda() for k, v in raw.items()},
                                   dtype)
     return x, params
 
 
-def library_layer(params, dtype):
+def library_layer(params, dtype, heads: int = HEADS):
     """``nn.TransformerEncoderLayer`` computing the same pre-LN block with the
     same weights: the library yardstick, never called by the port."""
+    hidden, dim = params["w1"].shape
     layer = torch.nn.TransformerEncoderLayer(
-        DIM, HEADS, HIDDEN, dropout=0.0, activation="gelu", batch_first=True,
-        norm_first=True, layer_norm_eps=1e-6).eval()
+        dim, heads, hidden, dropout=0.0, activation="gelu",
+        batch_first=True, norm_first=True, layer_norm_eps=1e-6).eval()
     with torch.no_grad():
         layer.self_attn.in_proj_weight.copy_(params["wqkv"].float())
         layer.self_attn.in_proj_bias.copy_(params["bqkv"])
@@ -837,6 +853,167 @@ def check_block_bwd(dtype, seed: int, batch: int = BATCH,
                                 "10 calls, per call",
             "bound_ms": 1e3 * max(flops / peak, nbytes / PEAK_BYTES_PER_S),
             "bound_by": "operations"}
+
+
+# The small and base presets' blocks (d, heads): the bf16 wide stages.
+PRESET_BLOCKS = {"small": (384, 6), "base": (768, 12)}
+
+
+def top_ops(ops: dict, n: int = 8) -> dict:
+    """The ``n`` device operations of ``device_ops`` that took most time,
+    with the total."""
+    top = sorted(ops.items(), key=lambda kv: -kv[1])[:n]
+    return {"all": sum(ops.values()), **{k[:110]: v for k, v in top}}
+
+
+def check_preset_blocks(preset: str, seed: int) -> dict:
+    """#1 and #3 (and, where the bf16 backward takes the width, #2 and #4)
+    at (64, 197, d) of a preset, bf16, against their plain versions with the
+    flagship shapes' tolerances (``bf16_tol``, ``bwd_tol``): #1 and #2 the
+    same bits on a repeated call, #3's output #1's bits, #4 from #3's
+    residuals the same bits on repeat. Each timed by CUDA events beside its
+    bound, its plain version and ``TransformerEncoderLayer`` (the forward
+    for #1 and #3, the forward + backward for #2 and #4), with the device
+    operations of one call by profiler device time."""
+    from rovit_kan_tpu_torch.ops import block_kernel as bk
+    D, heads = PRESET_BLOCKS[preset]
+    dtype, H = torch.bfloat16, 4 * D
+    x, params = block_inputs(dtype, seed, dim=D, hidden=H)
+    g = torch.tensor(np.random.RandomState(seed + 10).normal(
+        0, 1, x.shape), dtype=torch.float32, device="cuda")
+    B, N, _ = x.shape
+    M, hd = B * N, D // heads
+    what = f"preset {preset} block {list(x.shape)}"
+    fwd_flops = 2 * M * D * (4 * D + 2 * H) + 4 * B * heads * N * N * hd
+    wbytes = sum(p.numel() * p.element_size() for p in params.values())
+    wcount = sum(p.numel() for p in params.values())
+    io = 2 * x.numel() * x.element_size()
+    res_bytes = M * (4 * D + H) * x.element_size()
+
+    def bound(flops, nbytes):
+        t = {"operations": flops / PEAK_BF16_FLOPS,
+             "bytes": nbytes / PEAK_BYTES_PER_S}
+        by = max(t, key=t.get)
+        return {"bound_ms": 1e3 * t[by], "bound_by": by, "flops": flops,
+                "bytes": nbytes}
+
+    def held(pairs, tol_of):
+        errs, failed = {}, []
+        for name, a, b in pairs:
+            if not torch.isfinite(a.float()).all():
+                raise RuntimeError(f"{what} {name}: non-finite values")
+            err = float((a.float() - b.float()).abs().max())
+            errs[name] = {"max_abs_err": err, "tolerance": tol_of(b)}
+            if not err <= errs[name]["tolerance"]:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f"{what} out of tolerance: "
+                               f"{ {k: errs[k] for k in failed} }")
+        return errs
+
+    with torch.inference_mode():
+        out1 = bk.fused_vit_block(x, params, heads)
+        again1 = bk.fused_vit_block(x, params, heads)
+        ref1 = bk.block_reference(x, params, heads)
+        res = bk._launch_res(x, params, heads)
+        res_again = bk._launch_res(x, params, heads)
+        ref3 = bk.block_residual_reference(x, params, heads)
+        torch.cuda.synchronize()
+    if not torch.equal(again1, out1):
+        raise RuntimeError(f"{what}: a repeated #1 call gave other bits")
+    if not torch.equal(res[0], out1):
+        raise RuntimeError(f"{what}: #3's output is not #1's bits")
+    if not all(torch.equal(a, b) for a, b in zip(res_again, res)):
+        raise RuntimeError(f"{what}: a repeated #3 call gave other bits")
+    errs1 = held([("out", out1, ref1)], bf16_tol)
+    errs3 = held(list(zip(("out", "qkv", "attn", "a1"), res, ref3)),
+                 bf16_tol)
+    layer = library_layer(params, dtype, heads)
+    with torch.inference_mode():
+        ms1 = time_ms(lambda: bk.fused_vit_block(x, params, heads))
+        plain1 = time_ms(lambda: bk.block_reference(x, params, heads),
+                         reps=5, inner=3)
+        ms3 = time_ms(lambda: bk._launch_res(x, params, heads))
+        plain3 = time_ms(lambda: bk.block_residual_reference(
+            x, params, heads), reps=5, inner=3)
+        lib_fwd = time_ms(lambda: layer(x))
+        ops1 = top_ops(device_ops(lambda: bk.fused_vit_block(x, params,
+                                                             heads)))
+    common = {"preset": preset, "dtype": "bfloat16", "shape": list(x.shape),
+              "heads": heads, "identical_bits_on_repeat": True}
+    out = {"vit_block_fwd": {
+        **common, "outputs": errs1, "max_abs_err": errs1["out"]["max_abs_err"],
+        "kernel_ms": ms1, "plain_ms": plain1, "library_ms": lib_fwd,
+        "library": "nn.TransformerEncoderLayer forward",
+        "device_ms_by_kernel": ops1, **bound(fwd_flops, io + wbytes)},
+        "vit_block_res_fwd": {
+        **common, "outputs": errs3, "out_bits_equal_to_vit_block_fwd": True,
+        "max_abs_err": max(e["max_abs_err"] for e in errs3.values()),
+        "kernel_ms": ms3, "plain_ms": plain3, "library_ms": lib_fwd,
+        "library": "nn.TransformerEncoderLayer forward (timed once for #1 "
+                   "and #3)",
+        **bound(fwd_flops, io + res_bytes + wbytes)}}
+    if D not in bk.BLOCK_BWD_WIDTHS[dtype]:
+        return out
+
+    with torch.no_grad():
+        dx, grads = bk._launch_bwd(x, g, params, heads)
+        dx_again, grads_again = bk._launch_bwd(x, g, params, heads)
+        ref_dx, ref_g = bk.block_backward_reference(x, g, params, heads)
+        saved = res[1:]
+        dx4, grads4 = bk._launch_bwd_res(x, g, *saved, params, heads)
+        dx4_again, grads4_again = bk._launch_bwd_res(x, g, *saved, params,
+                                                     heads)
+        ref_dx4, ref_g4 = bk.block_backward_residual_reference(
+            x, g, *saved, params, heads)
+        torch.cuda.synchronize()
+    for name, a, b, c, d in (("#2", dx, dx_again, grads, grads_again),
+                             ("#4", dx4, dx4_again, grads4, grads4_again)):
+        if not (torch.equal(a, b) and all(torch.equal(c[k], d[k])
+                                          for k in bk.PKEYS)):
+            raise RuntimeError(f"{what}: a repeated {name} call gave other "
+                               f"bits")
+    tol = functools.partial(bwd_tol, dtype=dtype)
+    errs2 = held([("dx", dx, ref_dx)] + [(k, grads[k], ref_g[k])
+                                          for k in bk.PKEYS], tol)
+    errs4 = held([("dx", dx4, ref_dx4)] + [(k, grads4[k], ref_g4[k])
+                                            for k in bk.PKEYS], tol)
+    with torch.no_grad():
+        ms2 = time_ms(lambda: bk._launch_bwd(x, g, params, heads), reps=9)
+        plain2 = time_ms(lambda: bk.block_backward_reference(
+            x, g, params, heads), reps=5, inner=3)
+        ms4 = time_ms(lambda: bk._launch_bwd_res(x, g, *saved, params,
+                                                 heads), reps=9)
+        plain4 = time_ms(lambda: bk.block_backward_residual_reference(
+            x, g, *saved, params, heads), reps=5, inner=3)
+        ops2 = top_ops(device_ops(lambda: bk._launch_bwd(x, g, params,
+                                                         heads), calls=10))
+    xg = x.detach().clone().requires_grad_()
+    gx = g.to(dtype)
+    layer.train()
+    lib_fwd_bwd = time_ms(lambda: layer(xg).backward(gx), reps=9)
+    grad_bytes = 4 * wcount + 4 * x.numel() + io + wbytes
+    flops2 = 3 * fwd_flops - 2 * M * D * H
+    flops4 = 2 * fwd_flops + 2 * M * D * D + 2 * B * heads * N * N * hd
+    worst = {n: max(e["max_abs_err"] / max(e["tolerance"], 1e-30)
+                    for e in errs.values()) for n, errs in (("#2", errs2),
+                                                            ("#4", errs4))}
+    out["vit_block_bwd"] = {
+        **common, "outputs": errs2,
+        "max_abs_err": max(e["max_abs_err"] for e in errs2.values()),
+        "worst_err_over_tolerance": worst["#2"],
+        "kernel_ms": ms2, "plain_ms": plain2, "library_ms": lib_fwd_bwd,
+        "library": "nn.TransformerEncoderLayer forward + backward",
+        "device_ms_by_kernel": ops2, **bound(flops2, grad_bytes)}
+    out["vit_block_bwd_res"] = {
+        **common, "outputs": errs4,
+        "max_abs_err": max(e["max_abs_err"] for e in errs4.values()),
+        "worst_err_over_tolerance": worst["#4"],
+        "kernel_ms": ms4, "plain_ms": plain4, "library_ms": lib_fwd_bwd,
+        "library": "nn.TransformerEncoderLayer forward + backward (timed "
+                   "once for #2 and #4)",
+        **bound(flops4, grad_bytes + res_bytes)}
+    return out
 
 
 def augment_tol(compute) -> float:
@@ -3272,62 +3449,118 @@ def uint8_batch(seed: int, n: int, size: int = 224) -> np.ndarray:
         0, 256, (n, size, size, 3)).astype(np.uint8)
 
 
-def wide_phase(smi: str, root):
-    """F3's repair on the card (module docstring, phase 10)."""
-    from rovit_kan_tpu_torch.config import Config, get_config
+def serve_preset(preset: str, root, images, reset, read) -> dict:
+    """A preset saved as a checkpoint and served one batch through
+    ``load_engine`` between a counter reset and a read (12 #1 launches),
+    its outputs held by ``hold_served`` against the same engine on the plain
+    block and the fp32 model."""
+    from rovit_kan_tpu_torch.config import get_config
     from rovit_kan_tpu_torch.models.rovit_kan import build_model
     from rovit_kan_tpu_torch.ops import block_kernel as bk
     from rovit_kan_tpu_torch.serving import InferenceEngine, load_engine
-    from rovit_kan_tpu_torch.training.trainer import make_train_step
-    from rovit_kan_tpu_torch.training.optimizer import build_optimizer
     from rovit_kan_tpu_torch.utils.checkpoint import save_checkpoint
-
-    reset, read = all_counters()
-    cfg = get_config("small")
-    model = build_model(cfg, device="cuda", seed=0)
-    ck = root / "small" / "best_model"
-    save_checkpoint(ck, model.state_dict(), config=cfg)
+    cfg = get_config(preset)
+    ck = root / preset / "best_model"
+    save_checkpoint(ck, build_model(cfg, device="cuda", seed=0).state_dict(),
+                    config=cfg)
     engine = load_engine(ck, batch_size=BATCH, device="cuda")
-    if any(b.use_fused_block for b in engine.model.backbone.model.blocks):
-        raise RuntimeError("'auto' sent d=384 to the fused block")
-    images = uint8_batch(20, BATCH)
+    blocks = engine.model.backbone.model.blocks
+    if not all(b.use_fused_block for b in blocks):
+        raise RuntimeError(f"'auto' did not send the {preset} preset to the "
+                           f"fused block")
+    engine.predict(images)                     # first call: the build
+    torch.cuda.synchronize()
     reset()
+    t0 = time.perf_counter()
     served = engine.predict(images)
     torch.cuda.synchronize()
-    serve_launches = read()
-    only(serve_launches)
-    if not all(np.isfinite(v).all() for v in served.values()):
-        raise RuntimeError("small preset served non-finite outputs")
+    batch_ms = 1e3 * (time.perf_counter() - t0)
+    launches = read()
+    only(launches, vit_block_fwd=len(blocks))
+    served["features"] = features(engine.model, images)
+    for b in blocks:
+        b.block_fn = bk.plain_vit_block
+    plain = engine.predict(images)
+    plain["features"] = features(engine.model, images)
+    for b in blocks:
+        b.block_fn = bk.fused_vit_block
+    model32 = build_model(cfg, dtype=torch.float32, inference=True,
+                          device="cuda", seed=0)
+    exact = InferenceEngine(model32, batch_size=BATCH,
+                            device="cuda").predict(images)
+    exact["features"] = features(model32, images)
+    checks, failed = hold_served(served, plain, exact)
+    if failed:
+        emit({"phase": "presets", "preset": preset, "outputs": checks})
+        raise RuntimeError(f"{preset} preset's served outputs out of "
+                           f"tolerance: {failed}")
+    return {"launches": launches, "batch_ms": batch_ms, "outputs": checks}
 
-    opt = build_optimizer(model, cfg)
-    step = make_train_step(model, opt, cfg,
-                           generator=torch.Generator("cuda").manual_seed(0))
-    if any(b.use_fused_block for b in model.backbone.model.blocks):
-        raise RuntimeError("'auto' sent d=384 to the fused block in training")
-    reset()
-    metrics = step(train_batch(cfg, 21), 4, 1.0, 1)
-    loss = float(metrics["total_loss"])
-    train_launches = read()
-    only(train_launches, augment=1 if step.fused_augment else 0)
-    if not np.isfinite(loss):
-        raise RuntimeError(f"small preset train loss {loss}")
 
-    forced = copy.deepcopy(cfg)
+def presets_phase(smi: str, root):
+    """The presets on the fused block (module docstring, phase 10)."""
+    from rovit_kan_tpu_torch.config import Config, get_config
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.ops import augment_kernel as ak
+    from rovit_kan_tpu_torch.ops.mixing import draw_mix
+    from rovit_kan_tpu_torch.serving import InferenceEngine
+    from rovit_kan_tpu_torch.training.optimizer import build_optimizer
+    from rovit_kan_tpu_torch.training.trainer import make_train_step
+
+    reset, read = all_counters()
+    images = uint8_batch(20, BATCH)
+    served = {p: serve_preset(p, root, images, reset, read)
+              for p in ("small", "base")}
+
+    trained = {}
+    for preset, fused in (("small", True), ("base", False)):
+        cfg = get_config(preset)
+        model = build_model(cfg, device="cuda", seed=0)
+        blocks = model.backbone.model.blocks
+        if not all(b.use_fused_block == fused for b in blocks):
+            raise RuntimeError(f"'auto' trains the {preset} preset on the "
+                               f"wrong block")
+        step = make_train_step(model, build_optimizer(model, cfg), cfg,
+                               generator=torch.Generator("cuda").manual_seed(0))
+        batch = train_batch(cfg, 21)
+        torch.cuda.synchronize()
+        reset()
+        loss = float(step(batch, 4, 1.0, 1)["total_loss"])
+        launches = read()
+        n = len(blocks) if fused else 0
+        only(launches, vit_block_fwd=n, vit_block_bwd=n,
+             augment=1 if step.fused_augment else 0)
+        if not np.isfinite(loss):
+            raise RuntimeError(f"{preset} preset train loss {loss}")
+        trained[preset] = {"launches": launches, "loss": loss}
+        del model, step
+    # The small step held against its plain versions and the fp32 model,
+    # as the "train" phase holds the flagship's.
+    small = get_config("small")
+    trained["small"]["held"] = hold_train_step(
+        small, train_batch(small, 22), {
+            "factors": ak.draw_factors(
+                torch.Generator("cuda").manual_seed(3), BATCH),
+            "mix": draw_mix(torch.Generator().manual_seed(4), BATCH,
+                            small.data.image_size, small.data.image_size)})
+
+    # A forced fused block at d = 768 refuses the backward's width in its
+    # training forward, before any launch.
+    forced = get_config("base")
     forced.tpu.use_pallas_block = True
-    fmodel = build_model(forced, inference=True, device="cuda", seed=0)
-    x = torch.zeros((2, 224, 224, 3), dtype=torch.uint8, device="cuda")
+    fmodel = build_model(forced, device="cuda", seed=0)
+    x = torch.zeros((2, 224, 224, 3), device="cuda")
     reset()
     try:
-        with torch.inference_mode():
-            fmodel(x.float())
-        raise RuntimeError("a forced fused block ran at d=384")
+        fmodel(x)
+        raise RuntimeError("a forced fused block trained at d=768")
     except ValueError as e:
         refused = str(e)
-    if "D=384" not in refused or str(bk.BLOCK_WIDTHS[torch.bfloat16]) \
-            not in refused:
-        raise RuntimeError(f"d=384 refused with {refused!r}")
+    if "D=768" not in refused or "backward" not in refused:
+        raise RuntimeError(f"d=768 refused with {refused!r}")
     torch.cuda.synchronize()
     only(read())
+    del fmodel
 
     flagship = InferenceEngine(build_model(Config(), inference=True,
                                            device="cuda", seed=0),
@@ -3336,10 +3569,12 @@ def wide_phase(smi: str, root):
     flagship.predict(images)
     flagship_launches = read()
     only(flagship_launches, vit_block_fwd=12)
-    return {"phase": "wide", "model": "get_config('small'): d=384 depth=12 "
-            "heads=6 224px bf16, batch 64", "serve_launches": serve_launches,
-            "train_launches": train_launches, "train_loss": loss,
-            "forced_fused_refused": refused,
+    return {"phase": "presets",
+            "model": "get_config('small') d=384 heads=6 and "
+                     "get_config('base') d=768 heads=12, depth 12, 224px "
+                     "bf16, batch 64",
+            "serve": served, "train": trained,
+            "forced_base_training_refused": refused,
             "flagship_launches_per_batch": flagship_launches["vit_block_fwd"],
             "card": smi}
 
@@ -5170,9 +5405,10 @@ FSDP_BASE_BATCH = 8       # the base preset's one step under DP and FSDP
 
 def base_memory(mesh, fsdp: bool) -> dict:
     """One bf16 stage-4 step of the base preset (d = 768, 12 blocks, the
-    plain block: F3) at global batch ``FSDP_BASE_BATCH``, under data
-    parallelism or FSDP: the step's ms, each rank's state bytes and the
-    card's peak memory above what was allocated before."""
+    plain block: the JAX rule trains d > 512 plain) at global batch
+    ``FSDP_BASE_BATCH``, under data parallelism or FSDP: the step's ms,
+    each rank's state bytes and the card's peak memory above what was
+    allocated before."""
     from rovit_kan_tpu_torch.config import get_config
     from rovit_kan_tpu_torch.models.rovit_kan import build_model
     from rovit_kan_tpu_torch.parallel.fsdp import FSDP
@@ -6887,6 +7123,9 @@ def main() -> int:
           "augment": [aug16, aug32, aug["n384"], *aug["odd"]], **kan,
           "card": smi})
     emit({"phase": "kan_layer_widths", "layers": kan_widths, "card": smi})
+    preset_kernels = {p: check_preset_blocks(p, seed=30 + i)
+                      for i, p in enumerate(PRESET_BLOCKS)}
+    emit({"phase": "preset_kernels", **preset_kernels, "card": smi})
 
     result = serve(smi)
     emit(result)
@@ -6903,7 +7142,8 @@ def main() -> int:
         evaled = eval_phase(smi, root)
         emit(evaled)
         best = root / "train" / "checkpoints" / "best_model"
-        emit(wide_phase(smi, root))
+        presets = presets_phase(smi, root)
+        emit(presets)
         exported = export_phase(smi, root, best)
         emit(exported)
         served = serve_cli_phase(smi, best)
@@ -7108,7 +7348,17 @@ def main() -> int:
                                        ("serve_mesh", smed),
                                        ("pp_tp", ptd))
                     for r, counts in line["launches"].items()},
-                 **tped["launches"]}
+                 **tped["launches"],
+                 **{f"presets_{kind}_{p}": r["launches"]
+                    for kind in ("serve", "train")
+                    for p, r in presets[kind].items()}}
+    # #1-#4 at the small and base presets' widths (phase "preset_kernels").
+    for e in kernels:
+        by_preset = {p: {k: r[e["name"]][k] for k in keys + (
+                         "bound_by", "shape", "heads")}
+                     for p, r in preset_kernels.items() if e["name"] in r}
+        if by_preset:
+            e["presets"] = by_preset
     for e in kernels:
         e.setdefault("launches_by_path", {}).update(
             {path: counts[e["name"]] for path, counts in new_paths.items()})

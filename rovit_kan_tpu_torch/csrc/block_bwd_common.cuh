@@ -45,9 +45,12 @@ __host__ __device__ constexpr int round_up(int v, int m) {
 
 // A backward's shape, and its stages' tile counts and row splits (set by
 // each route's sizes_of).
+// wide: the bf16 route's wide stages (block_wide_bwd_mma.cuh), which take
+// an fp32 (M, D) scratch for dz and dy.
 struct Sizes {
   int B, N, D, heads, H, M, hd, mlp_tiles, qkv_tiles, attn_tiles, splits,
       rows_per_split;
+  bool wide;
 };
 inline Sizes base_sizes(int B, int N, int D, int heads, int H) {
   Sizes s = {};
@@ -70,7 +73,7 @@ inline void set_splits(Sizes& s, int splits, int depth) {
 template <typename T>
 struct Work {
   T *qkv, *attn, *y, *z, *h1, *gb, *da1, *dx1b, *go, *dqkv;
-  float *dx1, *stats, *part_mlp, *part_qkv, *part_attn, *part_w;
+  float *dx1, *dz, *stats, *part_mlp, *part_qkv, *part_attn, *part_w;
   size_t total;
 };
 
@@ -101,6 +104,8 @@ Work<T> carve(char* base, const Sizes& s, bool residual) {
   w.go = reinterpret_cast<T*>(take(sizeof(T) * M * D));
   w.dqkv = reinterpret_cast<T*>(take(sizeof(T) * M * 3 * D));
   w.dx1 = reinterpret_cast<float*>(take(sizeof(float) * M * D));
+  w.dz = s.wide ? reinterpret_cast<float*>(take(sizeof(float) * M * D))
+                : nullptr;
   w.stats = reinterpret_cast<float*>(take(sizeof(float) * 3 * M * s.heads));
   w.part_mlp = reinterpret_cast<float*>(
       take(sizeof(float) * s.mlp_tiles * (4 * D + H)));

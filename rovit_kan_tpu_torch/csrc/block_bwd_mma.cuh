@@ -741,12 +741,20 @@ constexpr int kWgTile = 64;       // output rows of a tile (fp32: square)
 constexpr int kWgDepth = 64;      // rows per ring stage
 constexpr int kWgThreads = 256;   // 8 warps: 2 x 4, 32 x D / 4 outputs each
 constexpr int kWgCtas = 252;      // seven splits of 36 tiles at D = 192
+// At D = 384 (72 tiles): 32-deep stages, 58 KB where 64-deep ones took
+// 116 KB, so two CTAs fit an SM, and row splits to at most 264 CTAs (two
+// an SM on 132 SMs): three splits, one wave. On an H100 SXM this was the
+// fastest of 32- and 64-deep stages over 2 to 11 splits.
+constexpr int kWgWideDepth = 32;
+constexpr int kWgWideCtas = 264;
 
-template <int D>
+// kDepth: rows per ring stage (kWgDepth but where a width's launch picks
+// another).
+template <int D, int kDepth = kWgDepth>
 struct WgPlan {
   static constexpr int kLdA = kWgTile + 8;
   static constexpr int kLdB = D + 8;
-  static constexpr int kStage = kWgDepth * (kLdA + kLdB);
+  static constexpr int kStage = kDepth * (kLdA + kLdB);
   static constexpr size_t kSmem = 2 * sizeof(bf16) * kStage;
 };
 
@@ -755,14 +763,14 @@ struct WgPlan {
 // model reads each row of the A operand's 64 columns and the B operand's D
 // columns once for 64 x D outputs: at D = 192 the four grads' 36 tiles read
 // 232 MB from L2 where 64 x 64 tiles read 348 MB.
-template <int D>
+template <int D, int kDepth = kWgDepth>
 __global__ void __launch_bounds__(kWgThreads) wgrad_mma_kernel(WgJobs jobs) {
-  using P = WgPlan<D>;
+  using P = WgPlan<D, kDepth>;
   constexpr int NB = D / 32;                 // 8-column blocks per warp
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   auto sA = [&](int s) { return ring + (s & 1) * P::kStage; };
-  auto sB = [&](int s) { return sA(s) + kWgDepth * P::kLdA; };
+  auto sB = [&](int s) { return sA(s) + kDepth * P::kLdA; };
   int jb = 0;
   while (jb + 1 < jobs.count && jobs.job[jb + 1].tile_begin <= blockIdx.x) {
     ++jb;
@@ -774,20 +782,20 @@ __global__ void __launch_bounds__(kWgThreads) wgrad_mma_kernel(WgJobs jobs) {
   const int ti = local - to * tiles_in;
   const int m_begin = blockIdx.y * jobs.rows_per_split;
   const int m_end = min(jobs.M, m_begin + jobs.rows_per_split);
-  const int steps = (m_end - m_begin + kWgDepth - 1) / kWgDepth;
+  const int steps = (m_end - m_begin + kDepth - 1) / kDepth;
   const bf16* A = static_cast<const bf16*>(J.a) + to * kWgTile;
   const bf16* Bm = static_cast<const bf16*>(J.b) + ti * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, t = lane & 3;
   const int wo = (warp >> 2) * 32, wi = (warp & 3) * (D / 4);
   auto load = [&](int s) {
-    const int m0 = m_begin + s * kWgDepth;
-    const int rows = min(kWgDepth, m_end - m0);
+    const int m0 = m_begin + s * kDepth;
+    const int rows = min(kDepth, m_end - m0);
     load_tile_async<kWgTile, P::kLdA, kWgThreads>(
-        sA(s), A + static_cast<size_t>(m0) * J.n_out, J.n_out, kWgDepth,
+        sA(s), A + static_cast<size_t>(m0) * J.n_out, J.n_out, kDepth,
         rows);
     load_tile_async<D, P::kLdB, kWgThreads>(
-        sB(s), Bm + static_cast<size_t>(m0) * J.n_in, J.n_in, kWgDepth,
+        sB(s), Bm + static_cast<size_t>(m0) * J.n_in, J.n_in, kDepth,
         rows);
     cp_async_commit();
   };
@@ -801,7 +809,7 @@ __global__ void __launch_bounds__(kWgThreads) wgrad_mma_kernel(WgJobs jobs) {
     __syncthreads();           // step s landed; step s - 1's stage is free
     if (s + 1 < steps) load(s + 1);
 #pragma unroll
-    for (int kk = 0; kk < kWgDepth / 16; ++kk) {
+    for (int kk = 0; kk < kDepth / 16; ++kk) {
       uint32_t a[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -840,9 +848,12 @@ __global__ void __launch_bounds__(kWgThreads) wgrad_mma_kernel(WgJobs jobs) {
 
 // ---- launches ---------------------------------------------------------------
 
-// The widths the bf16 stages take; any other returns cudaErrorInvalidValue
-// before any launch.
-inline bool bwd_mma_width_ok(int D) { return D == 64 || D == 128 || D == 192; }
+// The widths the bf16 backward takes: these stages at 64, 128 and 192,
+// block_wide_bwd_mma.cuh's at 384 (with this file's wgrad); any other
+// returns cudaErrorInvalidValue before any launch.
+inline bool bwd_mma_width_ok(int D) {
+  return D == 64 || D == 128 || D == 192 || D == 384;
+}
 
 template <int D, bool kResidual>
 cudaError_t launch_mlp_bwd_mma_d(const bf16* x, const bf16* attn,
@@ -879,24 +890,28 @@ cudaError_t launch_qkv_bwd_mma_d(const bf16* x, const bf16* dqkv,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int kDepth = kWgDepth>
 cudaError_t launch_wgrad_mma_d(const WgJobs& jobs, int tiles, int splits,
                                cudaStream_t stream) {
-  using P = WgPlan<D>;
-  const auto kernel = wgrad_mma_kernel<D>;
+  using P = WgPlan<D, kDepth>;
+  const auto kernel = wgrad_mma_kernel<D, kDepth>;
   cudaError_t e;
   if ((e = set_smem(kernel, P::kSmem)) != cudaSuccess) return e;
   kernel<<<dim3(tiles, splits), kWgThreads, P::kSmem, stream>>>(jobs);
   return cudaGetLastError();
 }
 
-// The weight grads' tiles: 64 x D each (D divides every n_in).
+// The weight grads' tiles: 64 x D each (D divides every n_in). At D = 384
+// a CTA holds 2 x 12 accumulator blocks a warp and a 58 KB ring.
 inline cudaError_t launch_wgrad_mma(const WgJobs& jobs, int tiles,
                                     int splits, int D, cudaStream_t stream) {
   switch (D) {
     case 64: return launch_wgrad_mma_d<64>(jobs, tiles, splits, stream);
     case 128: return launch_wgrad_mma_d<128>(jobs, tiles, splits, stream);
     case 192: return launch_wgrad_mma_d<192>(jobs, tiles, splits, stream);
+    case 384:
+      return launch_wgrad_mma_d<384, kWgWideDepth>(jobs, tiles, splits,
+                                                   stream);
     default: return cudaErrorInvalidValue;
   }
 }

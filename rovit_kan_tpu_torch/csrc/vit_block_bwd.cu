@@ -31,7 +31,9 @@
 // partials in a fixed order. There are no atomics, so two runs give the
 // same bits. Eight launches.
 //
-// bf16 (D of 64, 128 or 192; any other width returns cudaErrorInvalidValue
+// bf16 (D of 64, 128 or 192 on the stages below; 384, the small preset's
+// width, with block_wide_bwd_mma.cuh's mlp and qkv stages in place of 3 and
+// 6, whose note says why; any other width returns cudaErrorInvalidValue
 // before any launch), mma.sync with register accumulators throughout:
 //   1-2. ln_qkv and attention of the forward (vit_block_common.cuh:
 //        block_mma.cuh's ln_qkv and attention_mma.cuh's forward), which
@@ -82,18 +84,24 @@
 
 #include "vit_block_common.cuh"
 #include "block_bwd_mma.cuh"
+#include "block_wide_bwd_mma.cuh"
 
 namespace {
 
-// The mma.sync stages' row tiles and attention tiles, and row splits that
-// give the weight grads about kWgCtas CTAs.
+// The mma.sync stages' row tiles (the wide stages' 128-row partial tiles
+// at D = 384) and attention tiles, and row splits that give the weight
+// grads about kWgCtas CTAs.
 Sizes sizes_of(int B, int N, int D, int heads, int H) {
   Sizes s = base_sizes(B, N, D, heads, H);
-  s.mlp_tiles = (s.M + 16 * kMlpBwdPairs - 1) / (16 * kMlpBwdPairs);
-  s.qkv_tiles = (s.M + 16 * kQkvBwdWarps - 1) / (16 * kQkvBwdWarps);
+  s.wide = bwd_wide_width(D);
+  const int mlp_rows = s.wide ? kWideTileRows : 16 * kMlpBwdPairs;
+  const int qkv_rows = s.wide ? kWideTileRows : 16 * kQkvBwdWarps;
+  s.mlp_tiles = (s.M + mlp_rows - 1) / mlp_rows;
+  s.qkv_tiles = (s.M + qkv_rows - 1) / qkv_rows;
   s.attn_tiles = (N + kMmaRows - 1) / kMmaRows;
   const int tiles = (4 * D * D + 2 * H * D) / (kWgTile * D);
-  set_splits(s, (kWgCtas + tiles - 1) / tiles, kWgDepth);
+  set_splits(s, s.wide ? kWgWideCtas / tiles : (kWgCtas + tiles - 1) / tiles,
+             kWgDepth);
   return s;
 }
 
@@ -148,10 +156,15 @@ int run_bwd(const void* x_, const void* g_, const void* qkv_in,
   }
 
   // 3. MLP, LN2 and proj.
-  e = launch_mlp_bwd_mma(x, attn, g, wproj, bproj, ln2g, ln2b, w1, b1, w2,
-                         static_cast<const T*>(a1_in), w.z, w.h1, w.gb,
-                         w.da1, w.dx1, w.dx1b, w.go, w.part_mlp, s.M, D, H,
-                         stream);
+  const T* a1 = static_cast<const T*>(a1_in);
+  e = s.wide ? launch_mlp_bwd_wide(x, attn, g, wproj, bproj, ln2g, ln2b, w1,
+                                   b1, w2, a1, w.z, w.h1, w.gb, w.da1, w.dx1,
+                                   w.dx1b, w.go, w.dz, w.part_mlp, s.M, D, H,
+                                   stream)
+             : launch_mlp_bwd_mma(x, attn, g, wproj, bproj, ln2g, ln2b, w1,
+                                  b1, w2, a1, w.z, w.h1, w.gb, w.da1, w.dx1,
+                                  w.dx1b, w.go, w.part_mlp, s.M, D, H,
+                                  stream);
   if (e != cudaSuccess) return e;
 
   // 4-5. attention, query side then key side: attention_mma.cuh's backward
@@ -167,9 +180,12 @@ int run_bwd(const void* x_, const void* g_, const void* qkv_in,
   if (e != cudaSuccess) return e;
 
   // 6. qkv, LN1 and dx (and, for #4, the LN1 output).
-  e = launch_qkv_bwd_mma(x, w.dqkv, w.dx1, ln1g, ln1b, wqkv,
-                         static_cast<T*>(dx_), residual ? w.y : nullptr,
-                         w.part_qkv, s.M, D, stream);
+  T* dx = static_cast<T*>(dx_);
+  T* y_out = residual ? w.y : nullptr;
+  e = s.wide ? launch_qkv_bwd_wide(x, w.dqkv, w.dx1, ln1g, ln1b, wqkv, dx,
+                                   y_out, w.dz, w.part_qkv, s.M, D, stream)
+             : launch_qkv_bwd_mma(x, w.dqkv, w.dx1, ln1g, ln1b, wqkv, dx,
+                                  y_out, w.part_qkv, s.M, D, stream);
   if (e != cudaSuccess) return e;
 
   // 7. weight grads, split over rows, 64 x D tiles.

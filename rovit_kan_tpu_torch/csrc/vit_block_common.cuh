@@ -4,8 +4,10 @@
 // backward runs again to recompute what the forward does not keep. The
 // route is chosen by the compute type:
 //   bf16: block_mma.cuh's ln_qkv (mma.sync from registers, a cp.async ring
-//         of Wqkv tiles), then attention_mma.cuh's forward with the block's
-//         scale folded into its exp2 FMA and the output rounded to bf16;
+//         of Wqkv tiles; at D = 384 and 768 block_wide_mma.cuh's LN1 row
+//         kernel and qkv GEMM), then attention_mma.cuh's forward with the
+//         block's scale folded into its exp2 FMA and the output rounded to
+//         bf16;
 //   fp32: block_tf32.cuh's ln_qkv (3xTF32 mma.sync, a cp.async ring of
 //         Wqkv pieces), then attention_tf32.cuh's forward with the block's
 //         scale folded into its exp2 FMA, the output stored once in fp32.
@@ -22,6 +24,7 @@
 #include "attention_tf32.cuh"
 #include "block_mma.cuh"
 #include "block_tf32.cuh"
+#include "block_wide_mma.cuh"
 
 namespace {
 
@@ -37,7 +40,9 @@ HeadView<E> block_heads(E* base, int N, int D, int hd, int which) {
 
 // The first two forward stages, as both the forward and the backward launch
 // them: x -> qkv (and the LN1 output where y_out is given) -> attn. A width
-// the route does not take returns cudaErrorInvalidValue, unlaunched.
+// the route does not take returns cudaErrorInvalidValue, unlaunched. At the
+// bf16 route's wide widths (block_wide_mma.cuh) y_out is required: LN1's
+// output passes through it to the qkv product.
 template <typename T>
 cudaError_t launch_qkv_attention(const T* x, const float* ln1g,
                                  const float* ln1b, const T* wqkv,
@@ -51,8 +56,10 @@ cudaError_t launch_qkv_attention(const T* x, const float* ln1g,
   const T* cq = qkv;
   cudaError_t e;
   if constexpr (std::is_same<T, bf16>::value) {
-    e = launch_ln_qkv_mma(x, ln1g, ln1b, wqkv, bqkv, qkv, y_out, M, D,
-                          stream);
+    e = wide_width(D) ? launch_ln_qkv_wide(x, ln1g, ln1b, wqkv, bqkv, qkv,
+                                           y_out, M, D, stream)
+                      : launch_ln_qkv_mma(x, ln1g, ln1b, wqkv, bqkv, qkv,
+                                          y_out, M, D, stream);
     if (e != cudaSuccess) return e;
     return launch_attention_fwd_mma<bf16, true>(
         block_heads(cq, N, D, hd, 0), block_heads(cq, N, D, hd, 1),

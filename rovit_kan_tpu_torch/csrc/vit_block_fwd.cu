@@ -39,9 +39,12 @@
 // 195 and 366 us); by stage at (64, 197) ln_qkv 16.9 us, attention 11.6
 // (its 38.7 MB of fp32 bytes take 11.6 too) and proj_mlp 50.7 us.
 //
-// Three launches per block call. The route is chosen by the compute type.
+// Three launches per block call (seven at the bf16 wide widths). The route
+// is chosen by the compute type.
 //
-// bf16 (D of 64, 128 or 192; any other width returns
+// bf16 (D of 64, 128 or 192 on the stages below; 384 and 768, the small and
+// base presets' widths, on block_wide_mma.cuh's seven launches, whose note
+// says why and what bounds them; any other width returns
 // cudaErrorInvalidValue before any launch):
 //   1. ln_qkv:    block_mma.cuh, 96 rows per CTA of 6 warps: LN1 into mma
 //                 A fragments in registers, then qkv over 64-column tiles
@@ -120,16 +123,20 @@
 // Interface: plain C, loaded with ctypes. Each entry returns the first
 // CUDA error (0 = success), checked with cudaGetLastError after every
 // launch, so a launch refused for its resources is reported and never
-// silently skipped. Nothing is allocated here and nothing synchronises.
+// silently skipped. Nothing is allocated here and nothing synchronises: the
+// caller gives the wide stages' scratch (vit_block_fwd_workspace_bf16
+// bytes).
 
 #include "vit_block_common.cuh"
 
 namespace {
 
 // qkv, attn: the first two stages' outputs (scratch for #1, returned by
-// #3); a1: the fc1 pre-activation, stored only when given (#3).
+// #3); a1: the fc1 pre-activation, stored only when given (#3); work: the
+// wide bf16 stages' scratch (workspace_bytes), unread elsewhere.
 template <typename T>
 int run_block(const void* x, void* out, void* qkv, void* attn, void* a1,
+              void* work,
               const void* ln1g, const void* ln1b, const void* wqkv,
               const void* bqkv, const void* wproj, const void* bproj,
               const void* ln2g, const void* ln2b, const void* w1,
@@ -140,6 +147,26 @@ int run_block(const void* x, void* out, void* qkv, void* attn, void* a1,
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int M = B * N;
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (wide_width(D)) {
+      const WideFwdWork w =
+          carve_wide_fwd(static_cast<char*>(work), M, D, H);
+      cudaError_t e = launch_qkv_attention<T>(
+          static_cast<const T*>(x), static_cast<const float*>(ln1g),
+          static_cast<const float*>(ln1b), static_cast<const T*>(wqkv),
+          static_cast<const float*>(bqkv), static_cast<T*>(qkv),
+          static_cast<T*>(attn), w.y, B, N, D, heads, stream);
+      if (e != cudaSuccess) return e;
+      return static_cast<int>(launch_proj_mlp_wide(
+          static_cast<const T*>(x), static_cast<const T*>(attn),
+          static_cast<const T*>(wproj), static_cast<const float*>(bproj),
+          static_cast<const float*>(ln2g), static_cast<const float*>(ln2b),
+          static_cast<const T*>(w1), static_cast<const float*>(b1),
+          static_cast<const T*>(w2), static_cast<const float*>(b2),
+          static_cast<T*>(out), static_cast<T*>(a1), w.x1, w.z, w.h, M, D,
+          H, stream));
+    }
+  }
   cudaError_t e = launch_qkv_attention<T>(
       static_cast<const T*>(x), static_cast<const float*>(ln1g),
       static_cast<const float*>(ln1b), static_cast<const T*>(wqkv),
@@ -169,7 +196,8 @@ int run_block(const void* x, void* out, void* qkv, void* attn, void* a1,
 }  // namespace
 
 #define VIT_BLOCK_ARGS                                                      \
-  const void *x, void *out, void *qkv, void *attn, const void *ln1g,        \
+  const void *x, void *out, void *qkv, void *attn, void *work,              \
+      const void *ln1g,                                                     \
       const void *ln1b, const void *wqkv, const void *bqkv,                 \
       const void *wproj, const void *bproj, const void *ln2g,               \
       const void *ln2b, const void *w1, const void *b1, const void *w2,     \
@@ -179,20 +207,29 @@ int run_block(const void* x, void* out, void* qkv, void* attn, void* a1,
       heads, H, stream
 
 extern "C" int vit_block_fwd_bf16(VIT_BLOCK_ARGS) {
-  return run_block<bf16>(x, out, qkv, attn, nullptr, VIT_BLOCK_PARAMS);
+  return run_block<bf16>(x, out, qkv, attn, nullptr, work, VIT_BLOCK_PARAMS);
 }
 
 extern "C" int vit_block_fwd_f32(VIT_BLOCK_ARGS) {
-  return run_block<float>(x, out, qkv, attn, nullptr, VIT_BLOCK_PARAMS);
+  return run_block<float>(x, out, qkv, attn, nullptr, work,
+                          VIT_BLOCK_PARAMS);
 }
 
 // #3: as vit_block_fwd_*, plus the fc1 pre-activation a1 (B*N, H) in T.
 extern "C" int vit_block_res_fwd_bf16(void* a1, VIT_BLOCK_ARGS) {
-  return run_block<bf16>(x, out, qkv, attn, a1, VIT_BLOCK_PARAMS);
+  return run_block<bf16>(x, out, qkv, attn, a1, work, VIT_BLOCK_PARAMS);
 }
 
 extern "C" int vit_block_res_fwd_f32(void* a1, VIT_BLOCK_ARGS) {
-  return run_block<float>(x, out, qkv, attn, a1, VIT_BLOCK_PARAMS);
+  return run_block<float>(x, out, qkv, attn, a1, work, VIT_BLOCK_PARAMS);
+}
+
+// Bytes of the scratch `work` that #1 and #3 take in bf16: y, x1, z and h
+// at the wide widths, none at the others (nor in fp32).
+extern "C" size_t vit_block_fwd_workspace_bf16(int B, int N, int D,
+                                               int heads, int H) {
+  if (!block_shape_ok(B, N, D, heads, H) || !wide_width(D)) return 0;
+  return carve_wide_fwd(nullptr, B * N, D, H).total;
 }
 
 extern "C" const char* vit_block_error_string(int code) {

@@ -28,7 +28,10 @@ from rovit_kan_tpu_torch.models.heads import (
 from rovit_kan_tpu_torch.models.kan import KANLayer, KANSeverityModule
 from rovit_kan_tpu_torch.models.moe import MoEMlp
 from rovit_kan_tpu_torch.models.vit import DeiTTinyBackbone
-from rovit_kan_tpu_torch.ops.block_kernel import BLOCK_WIDTHS
+from rovit_kan_tpu_torch.ops.block_kernel import (
+    BLOCK_BWD_WIDTHS,
+    BLOCK_WIDTHS,
+)
 from rovit_kan_tpu_torch.ops.ordinal import (
     cumulative_to_class_probs,
     ordinal_expected_severity,
@@ -153,16 +156,19 @@ def _resolve_fused_attention(setting, *, image_size: int, patch_size: int,
 def _resolve_fused_block(setting, *, inference: bool, dtype: torch.dtype,
                          embed_dim: int, device: torch.device) -> bool:
     """Block-kernel policy: ``rovit_kan_tpu``'s ``_resolve_pallas_block``
-    with "tpu" read as "cuda" (bf16 on the card, for inference, or for
-    training at d <= 512, where the backward kernel runs too), taken only
-    at a width the bf16 stages take (``BLOCK_WIDTHS``, 192 at most, forward
-    and backward alike). So "auto" runs the small and base presets (d = 384,
-    768) on the plain block, where the JAX rule takes its kernel. True/False
-    force one implementation; a forced kernel refuses a width it does not
-    take."""
+    with "tpu" read as "cuda": bf16 on the card, for inference at any
+    preset width (192, 384, 768), and for training at d <= 512 (192, 384),
+    where the backward kernel runs too. At every preset "auto" so returns
+    what the JAX rule returns. It also asks that the bf16 stages take the
+    width (``BLOCK_WIDTHS`` for the forward, ``BLOCK_BWD_WIDTHS`` for
+    training), which every preset width does, so a non-preset width such
+    as 256 stays on the plain block. True/False force one implementation;
+    a forced kernel refuses a width it does not take, before any launch."""
     if setting == "auto":
+        widths = (BLOCK_WIDTHS if inference else BLOCK_BWD_WIDTHS)[
+            torch.bfloat16]
         return (dtype == torch.bfloat16 and device.type == "cuda"
-                and embed_dim in BLOCK_WIDTHS[torch.bfloat16]
+                and embed_dim in widths
                 and (bool(inference) or embed_dim <= 512))
     return bool(setting)
 

@@ -56,12 +56,17 @@ PKEYS = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wproj", "bproj",
          "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
 WEIGHT_KEYS = ("wqkv", "wproj", "w1", "w2")
 LN_EPS = 1e-6
-#: The widths D that each route's stages take, forward and backward: the
-#: bf16 mma.sync stages (``csrc/block_mma.cuh``, ``block_bwd_mma.cuh``
-#: ``bwd_mma_width_ok``) and the fp32 ones (``block_tf32.cuh``
-#: ``tf32_block_width_ok``, ``block_bwd_fma.cuh`` ``bwd_fma_width_ok``).
-BLOCK_WIDTHS = {torch.bfloat16: (64, 128, 192),
+#: The widths D that each route's forward (#1, #3) takes: the bf16
+#: mma.sync stages (``csrc/block_mma.cuh`` at 64-192, ``block_wide_mma.cuh``
+#: at the small and base presets' 384 and 768) and the fp32 ones
+#: (``block_tf32.cuh`` ``tf32_block_width_ok``).
+BLOCK_WIDTHS = {torch.bfloat16: (64, 128, 192, 384, 768),
                 torch.float32: (64, 128, 192, 256, 320)}
+#: The widths each route's backward (#2, #4) takes: bf16
+#: ``block_bwd_mma.cuh`` ``bwd_mma_width_ok`` (``block_wide_bwd_mma.cuh`` at
+#: 384), fp32 ``block_bwd_fma.cuh`` ``bwd_fma_width_ok``.
+BLOCK_BWD_WIDTHS = {torch.bfloat16: (64, 128, 192, 384),
+                    torch.float32: (64, 128, 192, 256, 320)}
 
 #: Launches of the CUDA block forward since import (one per wrapper call on
 #: a CUDA tensor). The CPU path never touches it.
@@ -281,21 +286,29 @@ def param_shapes(D: int, hidden: int) -> Dict[str, Tuple[int, ...]]:
             "b1": (hidden,), "w2": (D, hidden), "b2": (D,)}
 
 
-def _check_cuda_args(x: torch.Tensor, params: Dict[str, torch.Tensor],
-                     heads: int) -> None:
+def _check_width(x: torch.Tensor, backward: bool) -> None:
+    """A width the route's forward (or ``backward``) does not take raises a
+    ValueError naming the widths it takes."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"fused_vit_block takes bf16 or fp32, got {x.dtype}")
+    D = x.shape[-1]
+    widths = (BLOCK_BWD_WIDTHS if backward else BLOCK_WIDTHS)[x.dtype]
+    if D not in widths:
+        raise ValueError(
+            f"unsupported block width D={D} in {x.dtype}: the "
+            f"{str(x.dtype).replace('torch.', '')} "
+            f"{'backward' if backward else 'forward'} stages take D in "
+            f"{widths}")
+
+
+def _check_cuda_args(x: torch.Tensor, params: Dict[str, torch.Tensor],
+                     heads: int, backward: bool = False) -> None:
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous (B, N, D) tensor, got "
                          f"shape {tuple(x.shape)}")
     B, N, D = x.shape
     hidden = params["w1"].shape[0]
-    widths = BLOCK_WIDTHS[x.dtype]
-    if D not in widths:
-        raise ValueError(
-            f"unsupported block width D={D} in {x.dtype}: the "
-            f"{str(x.dtype).replace('torch.', '')} stages take D in "
-            f"{widths}")
+    _check_width(x, backward)
     if heads < 1 or D % heads or (D // heads) % 16 \
             or D // heads > 128 or hidden % D or min(B, N) < 1:
         raise ValueError(
@@ -316,9 +329,10 @@ def _check_cuda_args(x: torch.Tensor, params: Dict[str, torch.Tensor],
 
 def _check_bwd_args(x: torch.Tensor, g: torch.Tensor,
                     params: Dict[str, torch.Tensor], heads: int) -> None:
-    """What the backward kernel takes: the forward's arguments, plus an fp32
-    contiguous gradient of x's shape on x's device."""
-    _check_cuda_args(x, params, heads)
+    """What the backward kernel takes: the forward's arguments at a width
+    the backward takes (``BLOCK_BWD_WIDTHS``), plus an fp32 contiguous
+    gradient of x's shape on x's device."""
+    _check_cuda_args(x, params, heads, backward=True)
     if g.dtype != torch.float32 or g.shape != x.shape \
             or g.device != x.device or not g.is_contiguous():
         raise ValueError(
@@ -341,7 +355,7 @@ def _check_residuals(x: torch.Tensor, qkv: torch.Tensor, attn: torch.Tensor,
                 f"{t.device}")
 
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _WS_ARGTYPES = [ctypes.c_int] * 5
 
@@ -355,6 +369,8 @@ def _library():
             fn = getattr(lib, f"{name}_{suffix}")
             fn.argtypes = [ctypes.c_void_p] * extra + _FWD_ARGTYPES
             fn.restype = ctypes.c_int
+    lib.vit_block_fwd_workspace_bf16.argtypes = _WS_ARGTYPES
+    lib.vit_block_fwd_workspace_bf16.restype = ctypes.c_size_t
     lib.vit_block_error_string.argtypes = [ctypes.c_int]
     lib.vit_block_error_string.restype = ctypes.c_char_p
     return lib
@@ -402,9 +418,13 @@ def _run_fwd(x: torch.Tensor, params: Dict[str, torch.Tensor], heads: int,
         attn = torch.empty((B * N, D), dtype=x.dtype, device=x.device)
         a1 = (torch.empty((B * N, hidden), dtype=x.dtype, device=x.device)
               if residual else None)
+        # The wide bf16 stages' scratch (none at the other widths).
+        nbytes = (lib.vit_block_fwd_workspace_bf16(B, N, D, heads, hidden)
+                  if suffix == "bf16" else 0)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         args = (x.data_ptr(), out.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
-                *(params[k].data_ptr() for k in PKEYS),
+                work.data_ptr(), *(params[k].data_ptr() for k in PKEYS),
                 B, N, D, heads, hidden, stream)
         rc = (getattr(lib, f"vit_block_res_fwd_{suffix}")(a1.data_ptr(), *args)
               if residual else getattr(lib, f"vit_block_fwd_{suffix}")(*args))
@@ -559,6 +579,11 @@ class FusedViTBlock(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, heads, kernel_params, plain, *params):
+        if not _runs_plain(x, plain):
+            # A width the backward does not take is refused here, before
+            # the forward launches (bf16 d = 768 runs #1 only without
+            # grad, as the JAX "auto" trains it on the plain block).
+            _check_width(x, backward=True)
         kp = kernel_params
         if kp is None:
             raw = dict(zip(PKEYS, params))

@@ -117,7 +117,10 @@ def _worker(task_path: str) -> None:
     register(PB)
     task = torch.load(task_path, weights_only=False)
     mesh = make_mesh(-1, device="cpu")
-    out = {name: run_steps(case, mesh) for name, case in task.items()}
+    out = {}
+    for name, case in task.items():
+        out[name] = run_steps(case, mesh)
+        print(f"rank {mesh.rank}: {name} done", flush=True)
     torch.save(out, Path(task_path).parent / f"out{mesh.rank}.pt")
 
 

@@ -15,7 +15,10 @@ import torch
 from rovit_kan_tpu.ops.block_kernel import fused_vit_block as jax_block
 from rovit_kan_tpu_torch.ops import block_kernel as bk
 
-CASES = [(2, 17, 64, 2), (2, 197, 192, 3)]
+# The earlier shapes, then the small and base presets' widths (6 and 12
+# heads of 64), which the bf16 wide stages run on the card.
+CASES = [(2, 17, 64, 2), (2, 197, 192, 3), (2, 17, 384, 6),
+         (1, 17, 768, 12)]
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4, 0.0),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 5e-2, 5e-2)}
 

@@ -22,8 +22,9 @@ from rovit_kan_tpu.ops.block_kernel import fused_vit_block as jax_block
 from rovit_kan_tpu_torch.ops import block_kernel as bk
 
 # The earlier shapes, then one whose last 64-row tile of the CUDA stages is
-# ragged (65 tokens) at a head width other than 64 (48).
-CASES = [(2, 17, 64, 2), (2, 197, 192, 3), (1, 65, 192, 4)]
+# ragged (65 tokens) at a head width other than 64 (48), then the small
+# preset's width (6 heads of 64), which the bf16 wide backward runs.
+CASES = [(2, 17, 64, 2), (2, 197, 192, 3), (1, 65, 192, 4), (1, 17, 384, 6)]
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-3),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 1e-2)}
 

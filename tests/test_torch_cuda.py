@@ -1,13 +1,15 @@
 """Port tests that need an NVIDIA GPU: the CUDA kernels (block forward #1,
 block backward #2 and the residual forward #3 from one row to 1,024 tokens
 at head widths 16-128, the fp32 #1 and #3 also at the edges of their 3xTF32
-tiles and refusing D past 320 (the bf16 ones past 192) before any launch,
+tiles and refusing D past 320 (the bf16 ones past 768, the bf16 backward
+past 384) before any launch,
 the residual backward #4, attention forward #5 and backward #6 at every
 head width they take and on the model's strided qkv
 views, augment #7, the KAN kernels #8-#11) against their plain versions,
 with the same bits on a repeated call, the served model through the block
 kernel, small train steps through #1, #2 and #7 and through #5, #6 and
-#7, the small preset on the plain block, an exported artifact through
+#7, the small and base presets on the fused block (the base preset's
+training on the plain block, as the JAX rule), an exported artifact through
 the kernels' custom ops, one MoE layer against the CPU and a MoE train step
 with remat on and off. They skip where ``torch.cuda.is_available()`` is
 False. This file imports neither jax nor
@@ -21,6 +23,7 @@ differ only where an fp32 sum crosses a rounding boundary). The backward's
 and the augment's tolerances are stated beside their tests.
 """
 import ctypes
+import re
 
 import numpy as np
 import pytest
@@ -74,12 +77,26 @@ def _tol(ref, dtype):
 
 
 # (B, N, D, heads) of the block kernels: earlier slices' shapes, then one
-# row (head width 16), head widths 48, 96 and 128, and a row count below
-# one CTA's 48 rows and under any tile.
+# row (head width 16), head widths 48, 96 and 128, a row count below one
+# CTA's 48 rows and under any tile, and the small and base presets' widths
+# (the bf16 wide stages; fp32 refuses both, the bf16 backward 768).
 BLOCK_SHAPES = [(3, 37, 64, 2), (2, 197, 192, 3), (1, 5, 128, 4),
                 (2, 577, 192, 3), (1, 1024, 128, 2), (1, 1, 64, 4),
                 (3, 129, 192, 4), (2, 65, 192, 2), (1, 200, 128, 1),
-                (1, 3, 192, 3)]
+                (1, 3, 192, 3), (2, 197, 384, 6), (1, 197, 768, 12)]
+
+
+def _refused(run, D, widths, counter):
+    """True (after checking it) where the route does not take D: ``run``
+    raises the ValueError naming the widths, and ``counter()`` is
+    unchanged, so nothing launched."""
+    if D in widths:
+        return False
+    before = counter()
+    with pytest.raises(ValueError, match=rf"D={D}.*{re.escape(str(widths))}"):
+        run()
+    assert counter() == before
+    return True
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -94,6 +111,10 @@ def test_kernel_matches_plain(cuda, shape, dtype):
     p = _params(rng, D, 4 * D, dtype, cuda)
     x = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32)
     x = x.to(cuda, dtype)
+    with torch.inference_mode():
+        if _refused(lambda: bk.fused_vit_block(x, p, heads), D,
+                    bk.BLOCK_WIDTHS[dtype], lambda: bk.LAUNCHES):
+            return
     before = bk.LAUNCHES
     with torch.inference_mode():
         got = bk.fused_vit_block(x, p, heads)
@@ -136,9 +157,9 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
 
 
 def test_backward_kernels_refuse_what_the_bf16_stages_do_not_take(cuda):
-    """The bf16 backwards' mma.sync stages take D of 64, 128 and 192; the
-    wrapper's checks refuse D = 256 with a ValueError naming those widths
-    (``BLOCK_WIDTHS``), unlaunched, not run on other stages. fp32 still
+    """The bf16 backwards take D of 64, 128, 192 and 384; the wrapper's
+    checks refuse D = 256 with a ValueError naming those widths
+    (``BLOCK_BWD_WIDTHS``), unlaunched, not run on other stages. fp32 still
     takes it."""
     rng = np.random.RandomState(5)
     B, N, D, heads = 1, 9, 256, 2
@@ -150,9 +171,9 @@ def test_backward_kernels_refuse_what_the_bf16_stages_do_not_take(cuda):
     saved = tuple(torch.zeros(B, N, w, dtype=torch.bfloat16, device=cuda)
                   for w in (3 * D, D, 4 * D))
     before = (bk.BWD_LAUNCHES, bk.BWD_RES_LAUNCHES)
-    with pytest.raises(ValueError, match=r"D=256.*\(64, 128, 192\)"):
+    with pytest.raises(ValueError, match=r"D=256.*\(64, 128, 192, 384\)"):
         bk._launch_bwd(x16, g, p16, heads)
-    with pytest.raises(ValueError, match=r"D=256.*\(64, 128, 192\)"):
+    with pytest.raises(ValueError, match=r"D=256.*\(64, 128, 192, 384\)"):
         bk._launch_bwd_res(x16, g, *saved, p16, heads)
     assert (bk.BWD_LAUNCHES, bk.BWD_RES_LAUNCHES) == before
     p32 = _params(rng, D, 4 * D, torch.float32, cuda)
@@ -195,6 +216,9 @@ def test_backward_kernel_matches_plain(cuda, shape, dtype):
     x = x.to(cuda, dtype)
     g = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32,
                      device=cuda)
+    if _refused(lambda: bk._launch_bwd(x, g, p, heads), D,
+                bk.BLOCK_BWD_WIDTHS[dtype], lambda: bk.BWD_LAUNCHES):
+        return
     before = bk.BWD_LAUNCHES
     dx, grads = bk._launch_bwd(x, g, p, heads)
     torch.cuda.synchronize()
@@ -219,6 +243,9 @@ def test_residual_forward_kernel_matches_plain(cuda, shape, dtype):
     p = _params(rng, D, 4 * D, dtype, cuda)
     x = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32)
     x = x.to(cuda, dtype)
+    if _refused(lambda: bk._launch_res(x, p, heads), D,
+                bk.BLOCK_WIDTHS[dtype], lambda: bk.RES_LAUNCHES):
+        return
     before = (bk.LAUNCHES, bk.RES_LAUNCHES)
     with torch.no_grad():
         got = bk._launch_res(x, p, heads)
@@ -252,8 +279,16 @@ def test_residual_backward_kernel_matches_plain(cuda, shape, dtype):
     x = x.to(cuda, dtype)
     g = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32,
                      device=cuda)
+    if _refused(lambda: bk._launch_res(x, p, heads), D,
+                bk.BLOCK_WIDTHS[dtype], lambda: bk.RES_LAUNCHES):
+        return
     with torch.no_grad():
         _, qkv, attn, a1 = bk._launch_res(x, p, heads)
+        if _refused(lambda: bk._launch_bwd_res(x, g, qkv, attn, a1, p,
+                                               heads),
+                    D, bk.BLOCK_BWD_WIDTHS[dtype],
+                    lambda: bk.BWD_RES_LAUNCHES):
+            return
         before = (bk.BWD_LAUNCHES, bk.BWD_RES_LAUNCHES)
         dx, grads = bk._launch_bwd_res(x, g, qkv, attn, a1, p, heads)
         torch.cuda.synchronize()
@@ -687,18 +722,24 @@ def test_served_model_through_the_kernel(cuda):
                                atol=2e-2)
 
 
-def test_small_preset_serves_and_trains_on_the_plain_block(cuda):
-    """F3: bf16 ``get_config("small")`` (d = 384) is sent to the plain block
-    by "auto", serves a batch and trains a step with no #1 or #2 launch;
-    a forced fused block refuses the width before any launch."""
+@pytest.mark.parametrize("preset", ["small", "base"])
+def test_preset_serves_and_trains_on_the_fused_block(cuda, preset):
+    """The small (d = 384) and base (d = 768) presets in bf16 take the
+    fused block under "auto" as the JAX rule does: a served batch launches
+    #1 once a block; a small train step launches #1 and #2 once a block,
+    a base one neither (the JAX rule trains d > 512 on the plain block);
+    a forced fused block at d = 768 refuses the backward's width in its
+    training forward, before any launch."""
     from rovit_kan_tpu_torch.config import get_config
     from rovit_kan_tpu_torch.models.rovit_kan import build_model
-    cfg = get_config("small")
+    cfg = get_config(preset)
     cfg.data.image_size = 64
+    depth, trains_fused = cfg.model.depth, preset == "small"
     model = build_model(cfg, device="cuda", seed=0)
     served_model = build_model(cfg, inference=True, device="cuda", seed=0)
-    for m in (model, served_model):
-        assert not any(b.use_fused_block for b in m.backbone.model.blocks)
+    assert all(b.use_fused_block for b in served_model.backbone.model.blocks)
+    assert all(b.use_fused_block == trains_fused
+               for b in model.backbone.model.blocks)
     rng = np.random.RandomState(8)
     imgs = rng.randint(0, 256, (4, 64, 64, 3)).astype(np.uint8)
     labels = torch.tensor(rng.randint(0, 4, 4), device=cuda)
@@ -707,18 +748,25 @@ def test_small_preset_serves_and_trains_on_the_plain_block(cuda):
     counts = (bk.LAUNCHES, bk.BWD_LAUNCHES)
     served = InferenceEngine(served_model, batch_size=4,
                              device="cuda").predict(imgs)
+    torch.cuda.synchronize()
+    assert (bk.LAUNCHES, bk.BWD_LAUNCHES) == (counts[0] + depth, counts[1])
+    assert all(np.isfinite(v).all() for v in served.values())
     step = make_train_step(model, build_optimizer(model, cfg), cfg,
                            generator=torch.Generator("cuda").manual_seed(0))
+    counts = (bk.LAUNCHES, bk.BWD_LAUNCHES)
     loss = float(step(batch, 4, 1.0, 1)["total_loss"])
     torch.cuda.synchronize()
-    assert (bk.LAUNCHES, bk.BWD_LAUNCHES) == counts
+    per_step = depth if trains_fused else 0
+    assert (bk.LAUNCHES, bk.BWD_LAUNCHES) == (counts[0] + per_step,
+                                              counts[1] + per_step)
     assert np.isfinite(loss)
-    assert all(np.isfinite(v).all() for v in served.values())
-    cfg.tpu.use_pallas_block = True
-    forced = build_model(cfg, inference=True, device="cuda", seed=0)
-    with torch.inference_mode(), pytest.raises(ValueError, match="D=384"):
-        forced(torch.zeros((1, 64, 64, 3), device=cuda))
-    assert bk.LAUNCHES == counts[0]
+    if preset == "base":
+        cfg.tpu.use_pallas_block = True
+        forced = build_model(cfg, device="cuda", seed=0)
+        x = torch.zeros((1, 64, 64, 3), device=cuda)
+        with pytest.raises(ValueError, match=r"D=768.*backward"):
+            forced(x)
+        assert (bk.LAUNCHES, bk.BWD_LAUNCHES) == (counts[0], counts[1])
 
 
 def test_export_artifact_through_the_kernel_ops(cuda, tmp_path):

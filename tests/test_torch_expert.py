@@ -369,33 +369,13 @@ def _worker(task_path: str) -> None:
 
 def start_ranks(script: str, task: dict, tmp: Path, n: int):
     """``python script TASK`` as ``n`` gloo ranks of one job."""
-    from test_torch_parallel import _free_port
-    path = tmp / "task.pt"
-    torch.save(task, path)
-    env = dict(os.environ, WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(_free_port()), OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join([str(ROOT), str(ROOT / "tests")]))
-    return [subprocess.Popen(
-        [sys.executable, script, str(path)], cwd=ROOT,
-        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(n)]
+    from test_torch_parallel import start_ranks as start
+    return start(script, task, tmp, n)
 
 
 def join(procs, tmp: Path) -> list:
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=TIMEOUT)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r}:\n{logs[r][-4000:]}"
-    return [torch.load(tmp / f"out{r}.pt", weights_only=False)
-            for r in range(len(procs))]
+    from test_torch_parallel import join_ranks
+    return join_ranks(procs, tmp)
 
 
 def cli_train(out: Path, *flags):

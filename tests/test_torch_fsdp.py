@@ -25,7 +25,6 @@ from __future__ import annotations
 import copy
 import gc
 import os
-import subprocess
 import sys
 from pathlib import Path
 
@@ -52,7 +51,6 @@ KW = dict(embed_dim=32, depth=1, num_heads=2, image_size=32, patch_size=16,
 ALPHA = np.asarray([1.1, 0.9, 1.0, 1.2], np.float32)
 LR = 5e-4
 MIN_SIZE = 256          # the JAX test's, so the tiny model shards 10 leaves
-TIMEOUT = 240
 QKV = "backbone.model.blocks.0.attn.qkv.weight"
 FLAGSHIP_BYTES = {2: 11_479_784, 4: 5_806_888, 8: 2_970_440}
 
@@ -167,30 +165,8 @@ def run_ranks(task: dict, tmp: Path, n: int = 2, script: str = __file__
               ) -> list:
     """Run ``task`` on ``n`` gloo ranks of ``script``'s worker; returns
     each rank's result."""
-    from test_torch_parallel import _free_port
-    path = tmp / "task.pt"
-    torch.save(task, path)
-    env = dict(os.environ, WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(_free_port()), OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join([str(ROOT), str(ROOT / "tests")]))
-    procs = [subprocess.Popen(
-        [sys.executable, script, str(path)], cwd=ROOT,
-        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(n)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=TIMEOUT)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r}:\n{logs[r][-4000:]}"
-    return [torch.load(tmp / f"out{r}.pt", weights_only=False)
-            for r in range(n)]
+    from test_torch_parallel import join_ranks, start_ranks
+    return join_ranks(start_ranks(script, task, tmp, n), tmp)
 
 
 def _config(**train) -> Config:
@@ -361,6 +337,7 @@ def _worker(task_path: str) -> None:
     for name in list(task):
         out[name] = (run_fit if name == "fit" else run_steps)(task.pop(name),
                                                                mesh)
+        print(f"rank {mesh.rank}: {name} done", flush=True)
     torch.save(out, Path(task_path).parent / f"out{mesh.rank}.pt")
 
 

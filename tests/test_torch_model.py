@@ -5,11 +5,13 @@ every leaf perturbed off its init so biases and LayerNorms are not trivial)
 go through ``load_jax_params``; all six outputs must match at 2e-5 in fp32
 (the JAX converter's precedent, tests/test_convert.py), and at 5e-2 in bf16
 against the JAX model with the fused block kernel (interpret mode here).
-The block policy against the JAX rule (F3: the port's "auto" takes the fused
-block only at the bf16 stages' widths), ``build_model`` with remat and with
+The block policy against the JAX rule (the port's "auto" takes what the
+JAX rule takes at every preset width), ``build_model`` with remat and with
 MoE (the fused block on the dense blocks only), and the wrapper's refusal
 of other widths before any launch.
 """
+import re
+import types
 from unittest import mock
 
 import jax
@@ -184,26 +186,28 @@ def test_block_policy_and_unported_options():
                                     embed_dim=768, device=cuda)
     assert _resolve_fused_block(True, inference=False, dtype=bf16,
                                 embed_dim=768, device=cpu)
-    # The small and base presets (d = 384, 768): the JAX rule takes its
-    # kernel for bf16 inference at any width and for training at d <= 512;
-    # the port's "auto" takes the fused block only at widths its bf16
-    # stages take (64, 128, 192), so these run on the plain block.
+    # At every preset width (tiny 192, small 384, base 768) "auto" takes
+    # what the JAX rule takes: its kernel for bf16 inference at any width
+    # and for training at d <= 512.
     with mock.patch.object(jax, "default_backend", lambda: "tpu"):
-        for d in (384, 768):
+        for d in (192, 384, 768):
             for inference in (True, False):
                 jax_rule = _resolve_pallas_block(
                     "auto", inference=inference, dtype=jnp.bfloat16,
                     embed_dim=d)
                 assert jax_rule == (inference or d <= 512)
-                assert not _resolve_fused_block(
+                assert _resolve_fused_block(
                     "auto", inference=inference, dtype=bf16, embed_dim=d,
-                    device=cuda)
+                    device=cuda) == jax_rule, (d, inference)
                 assert _resolve_fused_block(True, inference=inference,
                                             dtype=bf16, embed_dim=d,
                                             device=cuda)
-        for d in bk.BLOCK_WIDTHS[bf16]:
+        for d in bk.BLOCK_BWD_WIDTHS[bf16]:
             assert _resolve_fused_block("auto", inference=False, dtype=bf16,
                                         embed_dim=d, device=cuda)
+        # A width the bf16 stages do not take stays on the plain block.
+        assert not _resolve_fused_block("auto", inference=True, dtype=bf16,
+                                        embed_dim=256, device=cuda)
     cfg = Config()
     cfg.tpu.use_pallas_attention = True          # kernels #5/#6
     cfg.tpu.use_pallas_block = False
@@ -226,37 +230,60 @@ def test_block_policy_and_unported_options():
                                                    for i in range(12)]
 
 
-@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 384),
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 832),
+                                     (torch.bfloat16, 768),
                                      (torch.bfloat16, 256),
                                      (torch.float32, 384)])
 def test_block_kernel_refuses_unsupported_widths(dtype, D):
     """A width the route's stages do not take is refused by the wrapper's
     checks, naming the widths, before anything is launched (no card is
-    needed to reach the check)."""
+    needed to reach the check): the forward's (``BLOCK_WIDTHS``) and the
+    backward's (``BLOCK_BWD_WIDTHS``). bf16 d = 768 (the base preset) runs
+    the forward and refuses the backward, also in the training forward of
+    ``FusedViTBlock``, before its launch."""
     heads = D // 64
     params = bk.prepare_block_params(
         {k: torch.zeros(s) for k, s in bk.param_shapes(D, 4 * D).items()},
         dtype)
     x = torch.zeros(2, 5, D, dtype=dtype)
-    widths = str(bk.BLOCK_WIDTHS[dtype])
-    with pytest.raises(ValueError, match=f"D={D}.*{widths}"):
+    fwd_widths = str(bk.BLOCK_WIDTHS[dtype])
+    bwd_widths = str(bk.BLOCK_BWD_WIDTHS[dtype])
+    takes_fwd = D in bk.BLOCK_WIDTHS[dtype]
+    assert D not in bk.BLOCK_BWD_WIDTHS[dtype]
+    if takes_fwd:
         bk._check_cuda_args(x, params, heads)
+    else:
+        with pytest.raises(ValueError,
+                           match=rf"D={D}.*forward.*{re.escape(fwd_widths)}"):
+            bk._check_cuda_args(x, params, heads)
     g = torch.zeros(2, 5, D)
-    with pytest.raises(ValueError, match=f"D={D}.*{widths}"):
+    with pytest.raises(ValueError,
+                       match=rf"D={D}.*backward.*{re.escape(bwd_widths)}"):
         bk._check_bwd_args(x, g, params, heads)
-    # The forced kernel's op refuses it the same way while export traces.
+    # The forced kernel's op refuses a forward width the same way while
+    # export traces; the training forward refuses the backward's width.
     from torch._subclasses.fake_tensor import FakeTensorMode
     with FakeTensorMode():
         fx = torch.empty((2, 5, D), dtype=dtype, device="cuda")
         fp = [torch.empty(t.shape, dtype=t.dtype, device="cuda")
               for t in (params[k] for k in bk.PKEYS)]
-        with pytest.raises(ValueError, match=f"D={D}"):
-            bk._VIT_BLOCK_FWD(fx, fp, heads)
-    for d in bk.BLOCK_WIDTHS[dtype]:             # the widths it takes pass
-        p = bk.prepare_block_params(
-            {k: torch.zeros(s) for k, s in bk.param_shapes(d, 4 * d).items()},
-            dtype)
-        bk._check_cuda_args(torch.zeros(1, 3, d, dtype=dtype), p, d // 64)
+        if takes_fwd:
+            assert bk._VIT_BLOCK_FWD(fx, fp, heads).shape == fx.shape
+        else:
+            with pytest.raises(ValueError, match=f"D={D}"):
+                bk._VIT_BLOCK_FWD(fx, fp, heads)
+        with pytest.raises(ValueError, match=rf"D={D}.*backward"):
+            bk.FusedViTBlock.forward(types.SimpleNamespace(), fx, heads,
+                                     dict(zip(bk.PKEYS, fp)), False, *fp)
+    for widths, check in ((bk.BLOCK_WIDTHS, bk._check_cuda_args),
+                          (bk.BLOCK_BWD_WIDTHS,
+                           lambda xx, p, h: bk._check_bwd_args(
+                               xx, torch.zeros(xx.shape), p, h))):
+        for d in widths[dtype]:                   # the widths it takes pass
+            p = bk.prepare_block_params(
+                {k: torch.zeros(s)
+                 for k, s in bk.param_shapes(d, 4 * d).items()}, dtype)
+            check(torch.zeros(1, 3, d, dtype=dtype), p, d // 64)
 
 
 def test_config_dict_saved_by_jax_loads():

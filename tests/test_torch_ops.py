@@ -109,10 +109,11 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
     block = ["vit_block_common.cuh", "attention_common.cuh",
              "tile_common.cuh", "attention_mma.cuh", "mma_common.cuh",
              "attention_tf32.cuh", "tf32_common.cuh", "block_mma.cuh",
-             "block_tf32.cuh"]
+             "block_tf32.cuh", "block_wide_mma.cuh"]
     assert [h.name for h in _build._headers(real / "vit_block_fwd.cu",
                                             [])] == block
-    bwd = block + ["block_bwd_mma.cuh", "block_bwd_common.cuh"]
+    bwd = block + ["block_bwd_mma.cuh", "block_bwd_common.cuh",
+                   "block_wide_bwd_mma.cuh"]
     assert [h.name for h in _build._headers(real / "vit_block_bwd.cu",
                                             [])] == bwd
     bwd32 = block + ["attention_fma.cuh", "fma_common.cuh",

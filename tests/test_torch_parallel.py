@@ -25,9 +25,12 @@ saved. Every start has a time limit, so a hung collective fails its test.
 from __future__ import annotations
 
 import os
+import random
+import re
 import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -53,38 +56,123 @@ TIMEOUT = 240
 
 # -- the ranks ---------------------------------------------------------------
 
+def _ephemeral_floor() -> int:
+    """The lowest port the kernel gives an outgoing connection."""
+    try:
+        return int(Path("/proc/sys/net/ipv4/ip_local_port_range")
+                   .read_text().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A port for rank 0's store, free when it is drawn. It is drawn at
+    random below the ephemeral range: a port that ``bind(0)`` hands out and
+    the caller releases is free for the kernel to give again, to another
+    launch's ``bind(0)`` or to any outgoing connection (each pair of gloo
+    ranks running beside it opens some), before rank 0 binds it seconds
+    later. Below that range only another explicit bind can take it, and
+    ``join_ranks`` starts a job whose store found its port taken again on
+    a fresh one."""
+    rng = random.SystemRandom()
+    top = _ephemeral_floor()
+    while True:
+        port = rng.randrange(max(1024, top - 16384), top)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+
+
+#: What a rank's log says when rank 0's store found its port taken.
+_ADDR_IN_USE = re.compile(r"EADDRINUSE|address already in use", re.I)
+
+
+class RankProcs(list):
+    """The ``n`` processes of one gloo job, ``cmd`` with torchrun's
+    variables set, each logging to ``rank{r}.log`` in ``log_dir``."""
+
+    def __init__(self, cmd: list, n: int, log_dir: Path):
+        super().__init__()
+        self.cmd, self.n, self.log_dir = cmd, n, Path(log_dir)
+        self.start()
+
+    def start(self) -> None:
+        """Starts the ranks, on a fresh port."""
+        env = dict(os.environ, WORLD_SIZE=str(self.n),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                   OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.pathsep.join([str(ROOT),
+                                               str(ROOT / "tests")]))
+        self[:] = []
+        for r in range(self.n):
+            with open(self.log_dir / f"rank{r}.log", "w") as log:
+                self.append(subprocess.Popen(
+                    self.cmd, cwd=ROOT,
+                    env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                    stdout=log, stderr=subprocess.STDOUT))
+
+    def logs(self) -> list:
+        return [(self.log_dir / f"rank{r}.log").read_text(errors="replace")
+                for r in range(self.n)]
+
+
+def start_ranks(script, task: dict, tmp: Path, n: int) -> RankProcs:
+    """``python script TASK`` as ``n`` gloo ranks of one job, started; the
+    task is saved in ``tmp``, where each rank writes ``out{r}.pt``."""
+    path = tmp / "task.pt"
+    torch.save(task, path)
+    return RankProcs([sys.executable, str(script), str(path)], n, tmp)
+
+
+def join_ranks(procs: RankProcs, tmp: Path, tries: int = 3) -> list:
+    """Each rank's result, once every rank has exited 0. The ranks are
+    stopped when none of their logs has grown for ``TIMEOUT`` seconds, so a
+    hung collective fails while a job that prints as it goes (a line a case)
+    may take longer under load; when one rank fails, the others, which
+    would wait for it in a collective, are stopped at once. Where a log
+    shows that rank 0's store found its port taken (``_free_port``), the
+    job starts again on a fresh port, up to ``tries`` starts in all."""
+    def logged() -> int:
+        return sum((procs.log_dir / f"rank{r}.log").stat().st_size
+                   for r in range(procs.n))
+
+    for attempt in range(tries):
+        seen, deadline = -1, 0.0
+        while (any(p.poll() is None for p in procs)
+               and not any(p.poll() for p in procs)):
+            size = logged()
+            if size != seen:
+                seen, deadline = size, time.monotonic() + TIMEOUT
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        late = [r for r, p in enumerate(procs) if p.poll() is None]
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        logs = procs.logs()
+        if all(p.returncode == 0 for p in procs):
+            return [torch.load(tmp / f"out{r}.pt", weights_only=False)
+                    for r in range(procs.n)]
+        if (late or attempt + 1 == tries
+                or not any(_ADDR_IN_USE.search(log) for log in logs)):
+            break
+        procs.start()
+    failed = "\n".join(
+        f"rank {r}: exit {p.returncode}"
+        + (f" (stopped: no log line for {TIMEOUT} s)" if r in late else "")
+        + f"\n{logs[r][-4000:]}" for r, p in enumerate(procs)
+        if p.returncode != 0)
+    raise AssertionError(failed)
 
 
 def run_ranks(task: dict, tmp: Path, n: int = 2) -> list:
     """Run ``task`` on ``n`` gloo ranks; returns each rank's result."""
-    path = tmp / "task.pt"
-    torch.save(task, path)
-    port = _free_port()
-    env = dict(os.environ, WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(port), OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join([str(ROOT), str(ROOT / "tests")]))
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, str(path)], cwd=ROOT,
-        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(n)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=TIMEOUT)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r}:\n{logs[r][-4000:]}"
-    return [torch.load(tmp / f"out{r}.pt", weights_only=False)
-            for r in range(n)]
+    return join_ranks(start_ranks(__file__, task, tmp, n), tmp)
 
 
 def _config(**train) -> Config:

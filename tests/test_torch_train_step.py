@@ -92,12 +92,14 @@ def assert_grads_match(model, jgrads, step):
             err_msg=f"step {step}: {name}")
 
 
-def run_pair(n_steps, fused, kan=False, attention=False, model_kw=None):
+def run_pair(n_steps, fused, kan=False, attention=False, model_kw=None,
+             live_from=2):
     """Take ``n_steps`` on both sides, holding every step's gradients;
     ``fused`` routes both through the block kernel, ``kan`` through the KAN
     kernels, ``attention`` through the attention-only kernels; ``model_kw``
-    overrides the model's settings on both sides. Returns (jax losses, port
-    losses, jax params, port model)."""
+    overrides the model's settings on both sides; the backbone is frozen
+    before step ``live_from``. Returns (jax losses, port losses, jax
+    params, port model)."""
     jcfg = JaxConfig()
     jcfg.flags.mixed_precision = False
     jcfg.train.learning_rate = LR
@@ -125,7 +127,7 @@ def run_pair(n_steps, fused, kan=False, attention=False, model_kw=None):
 
     jlosses, tlosses = [], []
     for i, stage in zip(range(n_steps), STAGES):
-        live = 1.0 if i >= 2 else 0.0
+        live = 1.0 if i >= live_from else 0.0
         images, labels, sev = _batch(i)
         _, k_aug, k_mix, _ = jax.random.split(state.rng, 4)
         draws = {"factors": torch.from_numpy(np.array(

@@ -41,10 +41,12 @@ exits non-zero:
    ("kan_layer_widths"), #8/#9 checked and timed the same way at the
    trajectory's other layers, 64 -> 16 and 16 -> 1; then, on a line of its
    own ("preset_kernels"), bf16 #1 and #3 at (64, 197, 384), 6 heads, and
-   (64, 197, 768), 12 heads, and #2 and #4 at (64, 197, 384), against
-   their plain versions at the flagship shapes' tolerances and timed beside
-   their bounds, the plain versions and ``TransformerEncoderLayer``
-   (``check_preset_blocks``);
+   (64, 197, 768), 12 heads, the presets' widths, and at d = 256, 320, 448
+   and 512 (4, 5, 7 and 8 heads of 64), widths the JAX rule sends to its
+   kernel that no preset has, and #2 and #4 at d = 256, 384, 512 and 768,
+   against their plain versions at the flagship shapes' tolerances and
+   timed beside their bounds, the plain versions and
+   ``TransformerEncoderLayer`` (``check_preset_blocks``);
 4. serve: the full-width DeiT-Tiny RoViT-KAN (seeded random weights) built
    with ``build_model`` and served through ``InferenceEngine`` and
    ``MicroBatcher``; the launch counters are set to 0 just before and read
@@ -138,9 +140,9 @@ exits non-zero:
    d > 512 on the plain block; one #7), finite losses, and one small step
    held against its plain versions and the fp32 model by
    ``hold_train_step``, as "train" holds the flagship's; a forced
-   ``use_pallas_block=True`` training forward at d = 768 raises the
-   wrapper's ValueError naming the bf16 backward widths, before any
-   launch; the flagship still takes 12 #1 launches a batch;
+   ``use_pallas_block=True`` base step at d = 768 on the wide backward (12
+   #1, 12 #2, one #7), its loss finite; the flagship still takes 12 #1
+   launches a batch;
 11. export: ``cli.export_model --verify`` on ``best_model``; then three
    artifacts, each saved, loaded afresh by ``load_exported`` and held
    against its ``InferenceEngine`` bit for bit on a full batch and on a
@@ -237,8 +239,11 @@ exits non-zero:
    with ``use_pallas_attention=True`` (6 x #5 and #6 in the MoE blocks,
    6 x #1 and #2 in the dense ones, 1 x #7) held against #6's plain version
    by ``hold_attention_step``'s rule, and read against plain attention;
-   the MoE and dense flagships' train step ms at batch 64, served img/s and
-   bs=1 FPS in turns.
+   the MoE model's ``torch.export`` artifact (``export_case``: 6
+   ``vit_block_fwd`` nodes and launches a call, the MoE blocks plain, the
+   engine's bits on a full and a padded batch); the MoE and dense
+   flagships' train step ms at batch 64, served img/s and bs=1 FPS in
+   turns.
 19. native: the host resize engine (``native/preprocess.cpp``) built with
    g++ on the card's host (seconds), its uint8 bits against
    ``data/resize.py`` on 384 -> 224, 100 -> 224, 333 x 500 and 1 x 57
@@ -328,6 +333,10 @@ exits non-zero:
    ``load_engine`` (12 #1). Last, one bf16 step of the base preset (d =
    768, 12 heads, the plain block and attention core) at batch 8 under TP
    and TP + SP: 175,988,584 B of parameters a rank, peak memory, step ms.
+   The explainability taps under TP and TP + SP (``tp_taps``): the fp32
+   flagship's attention maps (12, 8, 3, 197, 197), norm1 tap and its
+   gradient, ``ViTAttentionRollout`` and ``GradCAMPlusPlus`` maps on each
+   rank against one process (``TAPS_TOL``).
 
 24. ep: the same two ranks on a data 1 x expert 2 mesh
    (``parallel.make_moe_mesh``): phase 20's steps on the MoE flagship
@@ -438,7 +447,13 @@ BATCH, TOKENS, DIM, HEADS, HIDDEN = 64, 197, 192, 3, 768
 FP32_TOL = 1e-4     # fp32 sums in another order; K <= 768
 
 
+#: The run's start on the host clock; each phase line carries its offset.
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -855,8 +870,12 @@ def check_block_bwd(dtype, seed: int, batch: int = BATCH,
             "bound_by": "operations"}
 
 
-# The small and base presets' blocks (d, heads): the bf16 wide stages.
-PRESET_BLOCKS = {"small": (384, 6), "base": (768, 12)}
+# The blocks the bf16 wide stages are held at (d, heads, whether #2 and #4
+# run too): the small and base presets', and widths no preset has that the
+# JAX rule sends to its kernel (256 and 512 also in training).
+PRESET_BLOCKS = {"small": (384, 6, True), "base": (768, 12, True),
+                 "d256": (256, 4, True), "d320": (320, 5, False),
+                 "d448": (448, 7, False), "d512": (512, 8, True)}
 
 
 def top_ops(ops: dict, n: int = 8) -> dict:
@@ -867,16 +886,16 @@ def top_ops(ops: dict, n: int = 8) -> dict:
 
 
 def check_preset_blocks(preset: str, seed: int) -> dict:
-    """#1 and #3 (and, where the bf16 backward takes the width, #2 and #4)
-    at (64, 197, d) of a preset, bf16, against their plain versions with the
-    flagship shapes' tolerances (``bf16_tol``, ``bwd_tol``): #1 and #2 the
-    same bits on a repeated call, #3's output #1's bits, #4 from #3's
-    residuals the same bits on repeat. Each timed by CUDA events beside its
+    """#1 and #3 (and, where ``PRESET_BLOCKS`` asks, #2 and #4) at
+    (64, 197, d) of a preset or width, bf16, against their plain versions
+    with the flagship shapes' tolerances (``bf16_tol``, ``bwd_tol``): #1
+    and #2 the same bits on a repeated call, #3's output #1's bits, #4 from
+    #3's residuals the same bits on repeat. Each timed by CUDA events beside its
     bound, its plain version and ``TransformerEncoderLayer`` (the forward
     for #1 and #3, the forward + backward for #2 and #4), with the device
     operations of one call by profiler device time."""
     from rovit_kan_tpu_torch.ops import block_kernel as bk
-    D, heads = PRESET_BLOCKS[preset]
+    D, heads, backward = PRESET_BLOCKS[preset]
     dtype, H = torch.bfloat16, 4 * D
     x, params = block_inputs(dtype, seed, dim=D, hidden=H)
     g = torch.tensor(np.random.RandomState(seed + 10).normal(
@@ -953,7 +972,7 @@ def check_preset_blocks(preset: str, seed: int) -> dict:
         "library": "nn.TransformerEncoderLayer forward (timed once for #1 "
                    "and #3)",
         **bound(fwd_flops, io + res_bytes + wbytes)}}
-    if D not in bk.BLOCK_BWD_WIDTHS[dtype]:
+    if not backward:
         return out
 
     with torch.no_grad():
@@ -3512,14 +3531,20 @@ def presets_phase(smi: str, root):
     served = {p: serve_preset(p, root, images, reset, read)
               for p in ("small", "base")}
 
+    # "auto" trains small on #1/#2 and base on the plain block, as the JAX
+    # rule does; a forced fused block trains base on #1/#2 too (the wide
+    # backward takes 768).
     trained = {}
-    for preset, fused in (("small", True), ("base", False)):
+    for label, preset, fused in (("small", "small", True),
+                                 ("base", "base", False),
+                                 ("base_forced", "base", True)):
         cfg = get_config(preset)
+        if label == "base_forced":
+            cfg.tpu.use_pallas_block = True
         model = build_model(cfg, device="cuda", seed=0)
         blocks = model.backbone.model.blocks
         if not all(b.use_fused_block == fused for b in blocks):
-            raise RuntimeError(f"'auto' trains the {preset} preset on the "
-                               f"wrong block")
+            raise RuntimeError(f"{label} trains on the wrong block")
         step = make_train_step(model, build_optimizer(model, cfg), cfg,
                                generator=torch.Generator("cuda").manual_seed(0))
         batch = train_batch(cfg, 21)
@@ -3531,8 +3556,8 @@ def presets_phase(smi: str, root):
         only(launches, vit_block_fwd=n, vit_block_bwd=n,
              augment=1 if step.fused_augment else 0)
         if not np.isfinite(loss):
-            raise RuntimeError(f"{preset} preset train loss {loss}")
-        trained[preset] = {"launches": launches, "loss": loss}
+            raise RuntimeError(f"{label} train loss {loss}")
+        trained[label] = {"launches": launches, "loss": loss}
         del model, step
     # The small step held against its plain versions and the fp32 model,
     # as the "train" phase holds the flagship's.
@@ -3543,24 +3568,6 @@ def presets_phase(smi: str, root):
                 torch.Generator("cuda").manual_seed(3), BATCH),
             "mix": draw_mix(torch.Generator().manual_seed(4), BATCH,
                             small.data.image_size, small.data.image_size)})
-
-    # A forced fused block at d = 768 refuses the backward's width in its
-    # training forward, before any launch.
-    forced = get_config("base")
-    forced.tpu.use_pallas_block = True
-    fmodel = build_model(forced, device="cuda", seed=0)
-    x = torch.zeros((2, 224, 224, 3), device="cuda")
-    reset()
-    try:
-        fmodel(x)
-        raise RuntimeError("a forced fused block trained at d=768")
-    except ValueError as e:
-        refused = str(e)
-    if "D=768" not in refused or "backward" not in refused:
-        raise RuntimeError(f"d=768 refused with {refused!r}")
-    torch.cuda.synchronize()
-    only(read())
-    del fmodel
 
     flagship = InferenceEngine(build_model(Config(), inference=True,
                                            device="cuda", seed=0),
@@ -3574,7 +3581,6 @@ def presets_phase(smi: str, root):
                      "get_config('base') d=768 heads=12, depth 12, 224px "
                      "bf16, batch 64",
             "serve": served, "train": trained,
-            "forced_base_training_refused": refused,
             "flagship_launches_per_batch": flagship_launches["vit_block_fwd"],
             "card": smi}
 
@@ -5024,6 +5030,14 @@ def moe_phase(smi: str, root):
         emit({"phase": "moe", "outputs": checks, "selection_flips": flips})
         raise RuntimeError(f"MoE served outputs out of tolerance: {failed}")
 
+    # The MoE model's torch.export artifact: 6 #1 nodes and launches a call
+    # (the dense blocks), the MoE blocks plain; the engine's bits.
+    exported = export_case(
+        "moe", model, engine, batches[0], (reset, read),
+        ("vit_block_fwd", 6),
+        {"vit_block_fwd": 6, "attention_fwd": 0, "kan_module_fwd": 0}, work,
+        engine.temperature)
+
     # Remat on and off: the same losses and gradients, bit for bit.
     train_cfg = copy.deepcopy(cfg)
     step_batches = [train_batch(train_cfg, 400 + i)
@@ -5120,10 +5134,12 @@ def moe_phase(smi: str, root):
                              "temperature": ev.temperature},
             "serve_launches": serve_launches,
             "held_vs_plain_block": checks, "selection_flips": flips,
+            "export": exported,
             "remat": remat_out, "attention_step": attention,
             "speed_in_turns": speed, "train_step_profiles": profiles,
             "launches": add_launches(train_launches, eval_launches,
-                                     serve_launches, attention_launches),
+                                     serve_launches, exported["launches"],
+                                     attention_launches),
             "card": smi}
 
 
@@ -5603,6 +5619,88 @@ def tp_base(mesh, sp: bool) -> dict:
             / 2**20}
 
 
+#: The taps' images under TP and TP + SP, and their holds against one
+#: process (``tests/test_torch_explainability.py``'s: maps and tap 2e-5,
+#: the tap's gradient 1e-4 of its largest; the rollout and Grad-CAM++ maps,
+#: min-max normalized into [0, 1], by their mean absolute distance at
+#: ``hold_gradcam``'s 1e-3, since a map moves by up to 1 where its top
+#: patch changes).
+TAPS_BATCH = 8
+TAPS_TOL = {"attention": 2e-5, "tap": 2e-5, "grad": 1e-4, "rollout": 1e-3,
+            "gradcam": 1e-3}
+TAPS_MAPS = ("rollout", "gradcam")
+
+
+def tp_taps(mesh, sp: bool) -> dict:
+    """The explainability taps of the fp32 flagship (seed 0, every weight
+    moved by N(0, 0.05) from seed 7, so Grad-CAM++ is not the rounding
+    noise of LayerNorm's identity init) on ``TAPS_BATCH`` images: first in
+    one process on the model whole, then under ``TensorParallel`` over the
+    mesh's model axis (``sp``: with sequence parallelism, 197 tokens padded
+    to 198), through ``ViTAttentionRollout`` and ``GradCAMPlusPlus`` and
+    ``gradcam_taps``. Each output's largest gap to one process (and the
+    maps' mean gap, which ``TAPS_TOL`` holds), beside ``TAPS_TOL``."""
+    from rovit_kan_tpu_torch.config import Config
+    from rovit_kan_tpu_torch.explainability.attention_maps import \
+        ViTAttentionRollout
+    from rovit_kan_tpu_torch.explainability.gradcam import (
+        GradCAMPlusPlus,
+        gradcam_taps,
+    )
+    from rovit_kan_tpu_torch.models.rovit_kan import build_model
+    from rovit_kan_tpu_torch.parallel.tensor import (
+        TensorParallel,
+        seq_sharding,
+    )
+    cfg = Config()
+    cfg.flags.mixed_precision = False
+    dev = mesh.device
+    model = build_model(cfg, inference=True, device=dev, seed=0)
+    rng = np.random.RandomState(7)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.from_numpy(rng.normal(0, 0.05, tuple(p.shape))
+                                    .astype(np.float32)).to(dev))
+    size = cfg.data.image_size
+    x = torch.from_numpy(np.random.RandomState(8).normal(
+        0, 1, (TAPS_BATCH, size, size, 3)).astype(np.float32)).to(dev)
+    classes = torch.full((TAPS_BATCH,), -1, device=dev)
+
+    def taps(net):
+        with torch.no_grad():
+            attention = net(x, return_attention=True)["attention"]
+        tap, grad, idx = gradcam_taps(net, x, classes)
+        return {"attention": attention, "tap": tap, "grad": grad,
+                "idx": idx,
+                "rollout": ViTAttentionRollout(net, device=dev).maps(x),
+                "gradcam": GradCAMPlusPlus(net, device=dev).maps(x)}
+
+    one = taps(model)
+    t0 = time.perf_counter()
+    got = taps(TensorParallel(model, mesh,
+                              seq=seq_sharding(mesh) if sp else None))
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    if not torch.equal(got["idx"], one["idx"]):
+        raise RuntimeError(f"tp taps ({'sp' if sp else 'tp'}): the "
+                           f"predicted classes differ")
+    gaps = {}
+    for k, tol in TAPS_TOL.items():
+        a, b = got[k].float(), one[k].float()
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise RuntimeError(f"tp taps: {k} {tuple(a.shape)} against "
+                               f"{tuple(b.shape)}, or non-finite")
+        scale = float(b.abs().max()) if k == "grad" else 1.0
+        gap = (a - b).abs()
+        gaps[k] = {"max_abs_err": float(gap.max()), "tolerance": tol * scale}
+        if k in TAPS_MAPS:
+            gaps[k]["held"] = gaps[k]["mean_abs_err"] = float(gap.mean())
+        else:
+            gaps[k]["held"] = gaps[k]["max_abs_err"]
+    return {"gaps": gaps, "attention_shape": list(got["attention"].shape),
+            "seconds": seconds}
+
+
 def tp_worker(mesh, root) -> dict:
     """The "tp" phase on one rank of a data 1 x model 2 mesh."""
     t0 = time.perf_counter()
@@ -5610,6 +5708,8 @@ def tp_worker(mesh, root) -> dict:
                             for s in DP_STAGES} for mode in ("tp", "sp")},
            "fit": tp_fit(mesh, root),
            "base": {mode: tp_base(mesh, mode == "sp")
+                    for mode in ("tp", "sp")},
+           "taps": {mode: tp_taps(mesh, mode == "sp")
                     for mode in ("tp", "sp")},
            "mesh": repr(mesh)}
     out["seconds"] = time.perf_counter() - t0
@@ -6504,6 +6604,15 @@ def tp_line(smi, root, backend, one, ranks) -> dict:
             if b["state_bytes"]["params"] != b["sharded_size"] \
                     or b["sharded_size"] != TP_PARAM_BYTES["base"]:
                 raise RuntimeError(f"tp base preset {mode}: {b}")
+    taps = {f"{mode}_rank{r}": t["taps"][mode]
+            for mode in ("tp", "sp") for r, t in enumerate(tps)}
+    for where, t in taps.items():
+        out = {k: g for k, g in t["gaps"].items()
+               if not g["held"] <= g["tolerance"]}
+        if out or t["attention_shape"] != [12, TAPS_BATCH, 3, TOKENS,
+                                           TOKENS]:
+            raise RuntimeError(f"tp taps {where} against one process: "
+                               f"{out or t['attention_shape']}")
     last = DP_STAGES[-1]
     launches = {f"{mode}_rank{r}": {
         k: sum(t["steps"][mode][s]["launches"][k] for s in DP_STAGES)
@@ -6541,6 +6650,10 @@ def tp_line(smi, root, backend, one, ranks) -> dict:
             "base_preset": {f"rank{r}": t["base"]
                             for r, t in enumerate(tps)},
             "base_batch": FSDP_BASE_BATCH,
+            "taps": {"model": "the fp32 flagship, seed-0 weights moved by "
+                              "N(0, 0.05), 224 px", "batch": TAPS_BATCH,
+                     "held_against": "one process, the model whole",
+                     **taps},
             "seconds": [t["seconds"] for t in tps],
             "launches": launches, "card": smi}
 

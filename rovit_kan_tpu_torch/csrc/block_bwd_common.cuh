@@ -46,10 +46,12 @@ __host__ __device__ constexpr int round_up(int v, int m) {
 // A backward's shape, and its stages' tile counts and row splits (set by
 // each route's sizes_of).
 // wide: the bf16 route's wide stages (block_wide_bwd_mma.cuh), which take
-// an fp32 (M, D) scratch for dz and dy.
+// an fp32 (M, D) scratch for dz and dy. wg_cols: the columns of a weight
+// grad's output tile (64 rows by wg_cols, wg_cols dividing D): D itself
+// unless a route's sizes_of picks fewer.
 struct Sizes {
   int B, N, D, heads, H, M, hd, mlp_tiles, qkv_tiles, attn_tiles, splits,
-      rows_per_split;
+      rows_per_split, wg_cols;
   bool wide;
 };
 inline Sizes base_sizes(int B, int N, int D, int heads, int H) {
@@ -57,6 +59,7 @@ inline Sizes base_sizes(int B, int N, int D, int heads, int H) {
   s.B = B; s.N = N; s.D = D; s.heads = heads; s.H = H;
   s.M = B * N;
   s.hd = D / heads;
+  s.wg_cols = D;
   return s;
 }
 // About `splits` row splits of the weight grads, each a multiple of `depth`
@@ -198,9 +201,9 @@ struct Partials {
   int mlp_tiles, qkv_tiles, attn_parts, splits;
 };
 
-// The four weight-grad jobs over 64 x D output tiles (D divides every
-// n_in), their partials carved from part_w (recorded in p). Returns the
-// tile count.
+// The four weight-grad jobs over 64 x wg_cols output tiles (wg_cols
+// divides every n_in), their partials carved from part_w (recorded in p).
+// Returns the tile count.
 inline int wgrad_jobs(WgJobs& jobs, const Sizes& s, const WgOperands& o,
                       float* part_w, Partials& p) {
   const size_t D = s.D, H = s.H;
@@ -223,7 +226,7 @@ inline int wgrad_jobs(WgJobs& jobs, const Sizes& s, const WgOperands& o,
   for (int i = 0; i < 4; ++i) {
     jobs.job[i] = list[i];
     jobs.job[i].tile_begin = tiles;
-    tiles += (list[i].n_out / 64) * (list[i].n_in / s.D);
+    tiles += (list[i].n_out / 64) * (list[i].n_in / s.wg_cols);
   }
   return tiles;
 }

@@ -58,6 +58,7 @@
 
 #include "block_bwd_common.cuh"
 #include "block_mma.cuh"
+#include "block_wide_mma.cuh"
 
 namespace {
 
@@ -849,10 +850,21 @@ __global__ void __launch_bounds__(kWgThreads) wgrad_mma_kernel(WgJobs jobs) {
 // ---- launches ---------------------------------------------------------------
 
 // The widths the bf16 backward takes: these stages at 64, 128 and 192,
-// block_wide_bwd_mma.cuh's at 384 (with this file's wgrad); any other
-// returns cudaErrorInvalidValue before any launch.
+// block_wide_bwd_mma.cuh's past 192 up to 768 (with this file's wgrad);
+// any other returns cudaErrorInvalidValue before any launch.
 inline bool bwd_mma_width_ok(int D) {
-  return D == 64 || D == 128 || D == 192 || D == 384;
+  return D == 64 || D == 128 || D == 192 || wide_width(D);
+}
+
+// The columns of the weight grads' output tiles at width D: D up to 192 and
+// at 384 (64 x 384, the design measured there), else 128 where it divides D
+// and 64 elsewhere. A 64 x D tile at D = 768 would take about 232 KB of
+// shared memory, over the 227 KB a block can have; the narrower tiles keep
+// each CTA's sum over its row split, so the partials and their ordered
+// reduce are as before.
+inline int wgrad_cols(int D) {
+  if (D <= 192 || D == 384) return D;
+  return D % 128 == 0 ? 128 : 64;
 }
 
 template <int D, bool kResidual>
@@ -901,11 +913,13 @@ cudaError_t launch_wgrad_mma_d(const WgJobs& jobs, int tiles, int splits,
   return cudaGetLastError();
 }
 
-// The weight grads' tiles: 64 x D each (D divides every n_in). At D = 384
-// a CTA holds 2 x 12 accumulator blocks a warp and a 58 KB ring.
+// The weight grads' tiles: 64 x cols each (cols = wgrad_cols(D) divides
+// every n_in). At 384 columns a CTA holds 2 x 12 accumulator blocks a warp
+// and a 58 KB ring.
 inline cudaError_t launch_wgrad_mma(const WgJobs& jobs, int tiles,
-                                    int splits, int D, cudaStream_t stream) {
-  switch (D) {
+                                    int splits, int cols,
+                                    cudaStream_t stream) {
+  switch (cols) {
     case 64: return launch_wgrad_mma_d<64>(jobs, tiles, splits, stream);
     case 128: return launch_wgrad_mma_d<128>(jobs, tiles, splits, stream);
     case 192: return launch_wgrad_mma_d<192>(jobs, tiles, splits, stream);

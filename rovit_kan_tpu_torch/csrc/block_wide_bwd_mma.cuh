@@ -1,10 +1,13 @@
-// The bf16 stages of the ViT-block backwards #2 and #4 at the small
-// preset's width, D = 384 (6 heads of 64, hidden 4D), on Hopper (sm_90a):
-// the wide counterparts of block_bwd_mma.cuh's mlp_bwd and qkv_bwd, on
-// block_wide_mma.cuh's GEMM and row kernels. The attention backward
-// (attention_mma.cuh), the weight grads (block_bwd_mma.cuh's wgrad, 64 x D
-// tiles over row splits) and the ordered reduce (block_bwd_common.cuh) are
-// the narrow route's, at this width.
+// The bf16 stages of the ViT-block backwards #2 and #4 at every width
+// block_wide_mma.cuh's forward takes (D past 192, a multiple of 64 up to
+// 768: the small and base presets' 384 and 768 among them), on Hopper
+// (sm_90a): the wide counterparts of block_bwd_mma.cuh's mlp_bwd and
+// qkv_bwd, on block_wide_mma.cuh's GEMM and row kernels. The attention
+// backward (attention_mma.cuh), the weight grads (block_bwd_mma.cuh's
+// wgrad over row splits: 64 x 384 tiles at D = 384 as before, 64 x 128
+// tiles where 128 divides D, 64 x 64 tiles elsewhere, so no tile outgrows
+// shared memory at 768) and the ordered reduce (block_bwd_common.cuh) are
+// the narrow route's.
 //
 // Why split. mlp_bwd keeps dz (16 x D / 2 fp32 a warp) and qkv_bwd keeps dy
 // (16 x D a warp) in registers across their products, and mlp_bwd already
@@ -153,47 +156,50 @@ mlp_grad_wide_kernel(MlpGradArgs g) {
 // The LN2 backward over a tile of 128 rows, 16 a warp, a row at a time:
 // x1 (fp32) read from x1dx1 and overwritten by dx1; dx1b = round(dx1). The
 // tile's partials [b2 (D) | - (H) | ln2 scale | ln2 bias | bproj] into
-// part's row blockIdx.x.
-template <int D>
+// part's row blockIdx.x. A row's columns are held as ln_rows_kernel holds
+// them; each warp adds its rows' column sums in its own rows of shared
+// memory, in row order, then the warps are added in index order. One
+// instance takes every D (a multiple of 64 up to kWideMaxD).
 __global__ void __launch_bounds__(32 * kRowWarps)
 ln2_bwd_rows_kernel(float* __restrict__ x1dx1, const float* __restrict__ dz,
                     const float* __restrict__ g,
                     const float* __restrict__ ln2g, bf16* __restrict__ dx1b,
-                    float* __restrict__ part, int M, int H) {
-  constexpr int V = D / 128;
+                    float* __restrict__ part, int M, int D, int H) {
   constexpr int kRowsPerWarp = kWideTileRows / kRowWarps;
   extern __shared__ __align__(16) float sW[];             // [warps][4][D]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float acc[4][V][4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int i = 0; i < V; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[k][i][e] = 0.f;
+  float* sAcc = sW + warp * 4 * D;
+  for (int i = lane; i < 4 * D; i += 32) sAcc[i] = 0.f;
+  __syncwarp();
   const int r0 = blockIdx.x * kWideTileRows + kRowsPerWarp * warp;
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int row = r0 + rr;
     if (row >= M) break;
     const size_t base = static_cast<size_t>(row) * D;
-    float xv[V][4], dv[V][4], gv[V][4], gs[V][4];
+    float xv[kRowV][4], dv[kRowV][4];
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const int c = 4 * (lane + 32 * i);
-      load4(x1dx1 + base + c, xv[i]);
-      load4(dz + base + c, dv[i]);
-      load4(g + base + c, gv[i]);
-      load4(ln2g + c, gs[i]);
+    for (int i = 0; i < kRowV; ++i) {
+      if (row_has(D, lane, i)) {
+        const int c = 4 * (lane + 32 * i);
+        load4(x1dx1 + base + c, xv[i]);
+        load4(dz + base + c, dv[i]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xv[i][e] = dv[i][e] = 0.f;
+      }
     }
     float mean, rstd;
-    row_stats<D>(xv, mean, rstd);
+    wide_row_stats(xv, D, mean, rstd);
     float m1 = 0.f, m2 = 0.f;
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
+    for (int i = 0; i < kRowV; ++i) {
+      if (!row_has(D, lane, i)) continue;
+      float gs[4];
+      load4(ln2g + 4 * (lane + 32 * i), gs);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         xv[i][e] = (xv[i][e] - mean) * rstd;             // xhat
-        const float d = dv[i][e] * gs[i][e];
+        const float d = dv[i][e] * gs[e];
         m1 += d;
         m2 += d * xv[i][e];
       }
@@ -201,88 +207,84 @@ ln2_bwd_rows_kernel(float* __restrict__ x1dx1, const float* __restrict__ dz,
     m1 = warp_sum(m1) / D;
     m2 = warp_sum(m2) / D;
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
+    for (int i = 0; i < kRowV; ++i) {
+      if (!row_has(D, lane, i)) continue;
       const int c = 4 * (lane + 32 * i);
-      float o[4];
+      float gv[4], gs[4], o[4];
+      load4(g + base + c, gv);
+      load4(ln2g + c, gs);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        o[e] = gv[i][e] +
-               rstd * (dv[i][e] * gs[i][e] - m1 - xv[i][e] * m2);
-        acc[0][i][e] += gv[i][e];
-        acc[1][i][e] += dv[i][e] * xv[i][e];
-        acc[2][i][e] += dv[i][e];
-        acc[3][i][e] += o[e];
+        o[e] = gv[e] + rstd * (dv[i][e] * gs[e] - m1 - xv[i][e] * m2);
+        sAcc[c + e] += gv[e];
+        sAcc[D + c + e] += dv[i][e] * xv[i][e];
+        sAcc[2 * D + c + e] += dv[i][e];
+        sAcc[3 * D + c + e] += o[e];
       }
       *reinterpret_cast<float4*>(x1dx1 + base + c) =
           make_float4(o[0], o[1], o[2], o[3]);
       store4_bf16(dx1b + base + c, o[0], o[1], o[2], o[3]);
     }
   }
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      *reinterpret_cast<float4*>(sW + (warp * 4 + k) * D +
-                                 4 * (lane + 32 * i)) =
-          make_float4(acc[k][i][0], acc[k][i][1], acc[k][i][2],
-                      acc[k][i][3]);
-    }
   __syncthreads();
   float* pt = part + static_cast<size_t>(blockIdx.x) * (4 * D + H);
-  const int off[4] = {0, D + H, 2 * D + H, 3 * D + H};
   for (int i = threadIdx.x; i < 4 * D; i += 32 * kRowWarps) {
     const int k = i / D, c = i % D;
+    const int off = k == 0 ? 0 : k * D + H;   // b2 | ln2 scale | bias | bproj
     float s = 0.f;
 #pragma unroll
     for (int w = 0; w < kRowWarps; ++w) s += sW[(w * 4 + k) * D + c];
-    pt[off[k] + c] = s;
+    pt[off + c] = s;
   }
 }
 
 // The LN1 backward over a tile of 128 rows: dx = round(dx1 + LN1's input
 // grad of dy); (#4) y = round(LN1(x)). The tile's partials [ln1 scale (D) |
-// ln1 bias (D)] into part's row blockIdx.x.
-template <int D, bool kResidual>
+// ln1 bias (D)] into part's row blockIdx.x, summed as ln2_bwd_rows_kernel
+// sums its own.
+template <bool kResidual>
 __global__ void __launch_bounds__(32 * kRowWarps)
 ln1_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
                     const float* __restrict__ dx1,
                     const float* __restrict__ ln1g,
                     const float* __restrict__ ln1b, bf16* __restrict__ dx,
                     bf16* __restrict__ y_out, float* __restrict__ part,
-                    int M) {
-  constexpr int V = D / 128;
+                    int M, int D) {
   constexpr int kRowsPerWarp = kWideTileRows / kRowWarps;
   extern __shared__ __align__(16) float sW[];             // [warps][2][D]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float acc[2][V][4];
-#pragma unroll
-  for (int k = 0; k < 2; ++k)
-#pragma unroll
-    for (int i = 0; i < V; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[k][i][e] = 0.f;
+  float* sAcc = sW + warp * 2 * D;
+  for (int i = lane; i < 2 * D; i += 32) sAcc[i] = 0.f;
+  __syncwarp();
   const int r0 = blockIdx.x * kWideTileRows + kRowsPerWarp * warp;
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int row = r0 + rr;
     if (row >= M) break;
     const size_t base = static_cast<size_t>(row) * D;
-    float xv[V][4], dv[V][4], gs[V][4];
+    float xv[kRowV][4], dv[kRowV][4];
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const int c = 4 * (lane + 32 * i);
-      load4(x + base + c, xv[i]);
-      load4(dy + base + c, dv[i]);
-      load4(ln1g + c, gs[i]);
+    for (int i = 0; i < kRowV; ++i) {
+      if (row_has(D, lane, i)) {
+        const int c = 4 * (lane + 32 * i);
+        load4(x + base + c, xv[i]);
+        load4(dy + base + c, dv[i]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xv[i][e] = dv[i][e] = 0.f;
+      }
     }
     float mean, rstd;
-    row_stats<D>(xv, mean, rstd);
+    wide_row_stats(xv, D, mean, rstd);
     float m1 = 0.f, m2 = 0.f;
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
+    for (int i = 0; i < kRowV; ++i) {
+      if (!row_has(D, lane, i)) continue;
+      float gs[4];
+      load4(ln1g + 4 * (lane + 32 * i), gs);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         xv[i][e] = (xv[i][e] - mean) * rstd;             // xhat
-        const float d = dv[i][e] * gs[i][e];
+        const float d = dv[i][e] * gs[e];
         m1 += d;
         m2 += d * xv[i][e];
       }
@@ -290,34 +292,27 @@ ln1_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
     m1 = warp_sum(m1) / D;
     m2 = warp_sum(m2) / D;
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
+    for (int i = 0; i < kRowV; ++i) {
+      if (!row_has(D, lane, i)) continue;
       const int c = 4 * (lane + 32 * i);
-      float d1[4], o[4];
+      float d1[4], gs[4], o[4];
       load4(dx1 + base + c, d1);
+      load4(ln1g + c, gs);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        o[e] = d1[e] + rstd * (dv[i][e] * gs[i][e] - m1 - xv[i][e] * m2);
-        acc[0][i][e] += dv[i][e] * xv[i][e];
-        acc[1][i][e] += dv[i][e];
+        o[e] = d1[e] + rstd * (dv[i][e] * gs[e] - m1 - xv[i][e] * m2);
+        sAcc[c + e] += dv[i][e] * xv[i][e];
+        sAcc[D + c + e] += dv[i][e];
       }
       store4_bf16(dx + base + c, o[0], o[1], o[2], o[3]);
       if constexpr (kResidual) {
         const float4 bb = *reinterpret_cast<const float4*>(ln1b + c);
-        store4_bf16(y_out + base + c, xv[i][0] * gs[i][0] + bb.x,
-                    xv[i][1] * gs[i][1] + bb.y, xv[i][2] * gs[i][2] + bb.z,
-                    xv[i][3] * gs[i][3] + bb.w);
+        store4_bf16(y_out + base + c, xv[i][0] * gs[0] + bb.x,
+                    xv[i][1] * gs[1] + bb.y, xv[i][2] * gs[2] + bb.z,
+                    xv[i][3] * gs[3] + bb.w);
       }
     }
   }
-#pragma unroll
-  for (int k = 0; k < 2; ++k)
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      *reinterpret_cast<float4*>(sW + (warp * 2 + k) * D +
-                                 4 * (lane + 32 * i)) =
-          make_float4(acc[k][i][0], acc[k][i][1], acc[k][i][2],
-                      acc[k][i][3]);
-    }
   __syncthreads();
   float* pt = part + static_cast<size_t>(blockIdx.x) * 2 * D;
   for (int i = threadIdx.x; i < 2 * D; i += 32 * kRowWarps) {
@@ -331,8 +326,8 @@ ln1_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
 
 // ---- launches ---------------------------------------------------------------
 
-// The backward's wide width.
-inline bool bwd_wide_width(int D) { return D == 384; }
+// The backward's wide widths: the forward's.
+inline bool bwd_wide_width(int D) { return wide_width(D); }
 
 template <bool kResidual>
 cudaError_t launch_mlp_grad_wide(const MlpGradArgs& a, cudaStream_t stream) {
@@ -371,11 +366,11 @@ inline cudaError_t launch_mlp_bwd_wide(
   d.M = M; d.N = D; d.K = H; d.out = dz;
   e = launch_gemm<true, kEpiF32>(d, stream);
   if (e != cudaSuccess) return e;
-  const auto rows = ln2_bwd_rows_kernel<384>;
-  const size_t smem = sizeof(float) * kRowWarps * 4 * 384;
+  const auto rows = ln2_bwd_rows_kernel;
+  const size_t smem = sizeof(float) * kRowWarps * 4 * D;
   if ((e = set_smem(rows, smem)) != cudaSuccess) return e;
   rows<<<(M + kWideTileRows - 1) / kWideTileRows, 32 * kRowWarps, smem,
-         stream>>>(dx1, dz, g, ln2g, dx1b, part, M, H);
+         stream>>>(dx1, dz, g, ln2g, dx1b, part, M, D, H);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   GemmArgs o = {};
   o.a = dx1b; o.lda = D; o.b = wproj; o.ldb = D;
@@ -397,18 +392,18 @@ inline cudaError_t launch_qkv_bwd_wide(const bf16* x, const bf16* dqkv,
   d.M = M; d.N = D; d.K = 3 * D; d.out = dy;
   cudaError_t e = launch_gemm<true, kEpiF32>(d, stream);
   if (e != cudaSuccess) return e;
-  const size_t smem = sizeof(float) * kRowWarps * 2 * 384;
+  const size_t smem = sizeof(float) * kRowWarps * 2 * D;
   const dim3 grid((M + kWideTileRows - 1) / kWideTileRows);
   if (y_out != nullptr) {
-    const auto rows = ln1_bwd_rows_kernel<384, true>;
+    const auto rows = ln1_bwd_rows_kernel<true>;
     if ((e = set_smem(rows, smem)) != cudaSuccess) return e;
     rows<<<grid, 32 * kRowWarps, smem, stream>>>(x, dy, dx1, ln1g, ln1b, dx,
-                                                 y_out, part, M);
+                                                 y_out, part, M, D);
   } else {
-    const auto rows = ln1_bwd_rows_kernel<384, false>;
+    const auto rows = ln1_bwd_rows_kernel<false>;
     if ((e = set_smem(rows, smem)) != cudaSuccess) return e;
     rows<<<grid, 32 * kRowWarps, smem, stream>>>(x, dy, dx1, ln1g, ln1b, dx,
-                                                 y_out, part, M);
+                                                 y_out, part, M, D);
   }
   return cudaGetLastError();
 }

@@ -1,7 +1,8 @@
-// The bf16 stages of the ViT-block forward at the small and base presets'
-// widths, D = 384 and 768 (6 and 12 heads of 64, hidden 4D), on Hopper
-// (sm_90a): a tiled mma.sync GEMM with the block's epilogues, and a
-// LayerNorm over rows. vit_block_fwd.cu runs them for #1 and #3, and the
+// The bf16 stages of the ViT-block forward at every width past 192 up to
+// 768 that block_shape_ok admits (D a multiple of 64: the small and base
+// presets' 384 and 768, and 256, 320, 448, 512, ...; hidden H a multiple of
+// D), on Hopper (sm_90a): a tiled mma.sync GEMM with the block's
+// epilogues, and a LayerNorm over rows. vit_block_fwd.cu runs them for #1 and #3, and the
 // backward vit_block_bwd.cu for its recompute (block_wide_bwd_mma.cuh
 // holds the backward's own wide stages).
 //
@@ -28,7 +29,9 @@
 // out = round(x1 + (acc + b2))).
 //
 // The GEMM (gemm_tile, gemm_mma_kernel): a CTA of 8 warps owns a 128 x 128
-// output tile, each warp 64 x 32 with every accumulator in registers;
+// output tile (128 x 64 where the product's N is not a multiple of 128:
+// qkv at D = 320, 448, ... and every N = D there), each warp 64 x 32 (or
+// 64 x 16) with every accumulator in registers;
 // A [rows][K] and B ([N][K], a Linear weight, or [K][N], read through
 // ldmatrix.trans) stream through a three-stage cp.async ring of 64-deep
 // tiles (108 KB, two CTAs an SM), one __syncthreads a step;
@@ -37,6 +40,9 @@
 // are zero-filled in and skipped out. Every element's sum runs over K in
 // the same order whatever the tiling, so the tiling changes no bit. wgmma
 // and TMA are later work.
+//
+// At D = 384 and 768 the stages keep PR 25's tiles and sums (a LayerNorm
+// row's lanes add their groups in the same order), so their bits stay.
 //
 // What bounds it: at (64, 197, 384) one #1 does 2 M D 12 D = 4.46e10 FLOP
 // in the four products plus 4 B N^2 D = 3.82e9 in attention, 4.84e10 in
@@ -195,15 +201,15 @@ struct GemmArgs {
   bf16* a1;               // kEpiFc1's a1 (#3), or null
 };
 
-template <bool kKN, int kEpi>
+template <int BN, bool kKN, int kEpi>
 __global__ void __launch_bounds__(kGmThreads, 2) gemm_mma_kernel(GemmArgs g) {
-  using P = GmPlan<kGmCols, kKN>;
+  using P = GmPlan<BN, kKN>;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int n0 = blockIdx.x * kGmCols, m0 = blockIdx.y * kGmRows;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kGmRows;
   float acc[P::MI][P::NI][4];
   zero_tile(acc);
-  gemm_tile<kGmCols, kKN>(acc, reinterpret_cast<bf16*>(smem), g.a, g.lda,
-                          g.b, g.ldb, g.M, g.K, m0, n0);
+  gemm_tile<BN, kKN>(acc, reinterpret_cast<bf16*>(smem), g.a, g.lda, g.b,
+                     g.ldb, g.M, g.K, m0, n0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, t = lane & 3;
   const int wm = (warp >> 2) * P::WM, wn = (warp & 3) * P::WN;
@@ -251,19 +257,27 @@ __global__ void __launch_bounds__(kGmThreads, 2) gemm_mma_kernel(GemmArgs g) {
 // presets on an H100 SXM, of the tilings tried: 128 x 64 and 128 x 256
 // tiles, 4 or 8 warps, 32-deep stages in a ring of four. A 128 x 128 tile
 // does 64 FLOP a byte it brings from L2, which caps these products well
-// under the tensor cores' rate.
-template <bool kKN, int kEpi>
-cudaError_t launch_gemm(const GemmArgs& g, cudaStream_t stream) {
-  using P = GmPlan<kGmCols, kKN>;
-  if (g.M < 1 || g.N % kGmCols != 0 || g.K % kGmBK != 0) {
-    return cudaErrorInvalidValue;
-  }
-  const auto kernel = gemm_mma_kernel<kKN, kEpi>;
+// under the tensor cores' rate. An N that 128 does not divide (any D an
+// odd multiple of 64) takes 128 x 64 tiles; the sum over K runs in the same
+// order either way, so the tile width changes no bit.
+template <int BN, bool kKN, int kEpi>
+cudaError_t launch_gemm_bn(const GemmArgs& g, cudaStream_t stream) {
+  using P = GmPlan<BN, kKN>;
+  const auto kernel = gemm_mma_kernel<BN, kKN, kEpi>;
   cudaError_t e;
   if ((e = set_smem(kernel, P::kSmem)) != cudaSuccess) return e;
-  kernel<<<dim3(g.N / kGmCols, (g.M + kGmRows - 1) / kGmRows), kGmThreads,
+  kernel<<<dim3(g.N / BN, (g.M + kGmRows - 1) / kGmRows), kGmThreads,
            P::kSmem, stream>>>(g);
   return cudaGetLastError();
+}
+
+template <bool kKN, int kEpi>
+cudaError_t launch_gemm(const GemmArgs& g, cudaStream_t stream) {
+  if (g.M < 1 || g.N % 64 != 0 || g.K % kGmBK != 0) {
+    return cudaErrorInvalidValue;
+  }
+  return g.N % kGmCols == 0 ? launch_gemm_bn<kGmCols, kKN, kEpi>(g, stream)
+                            : launch_gemm_bn<64, kKN, kEpi>(g, stream);
 }
 
 // ---- LayerNorm over rows ---------------------------------------------------
@@ -286,21 +300,36 @@ __device__ __forceinline__ void store4_bf16(bf16* p, float a, float b,
   *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(a, b), pack_bf16(c, d));
 }
 
-// Two-pass fp32 mean and 1 / sqrt(var + eps) of a row held as v[V][4] by
-// the 32 lanes of a warp.
-template <int D, int V>
-__device__ __forceinline__ void row_stats(const float (&v)[V][4],
-                                          float& mean, float& rstd) {
+// The widest D of the wide stages, and the 4-column groups a lane holds of
+// a row at most: lane l holds columns 4 (l + 32 i) .. + 3 for the i with
+// 4 (l + 32 i) < D, so a D that 128 does not divide leaves the upper lanes
+// of the last group idle.
+constexpr int kWideMaxD = 768;
+constexpr int kRowV = kWideMaxD / 128;
+
+// Whether lane `lane` holds group i of a row of D.
+__device__ __forceinline__ bool row_has(int D, int lane, int i) {
+  return 4 * (lane + 32 * i) < D;
+}
+
+// Two-pass fp32 mean and 1 / sqrt(var + eps) of a row of D held as
+// v[kRowV][4] by the 32 lanes of a warp (groups a lane does not hold are
+// zero, and add nothing to either sum).
+__device__ __forceinline__ void wide_row_stats(const float (&v)[kRowV][4],
+                                               int D, float& mean,
+                                               float& rstd) {
+  const int lane = threadIdx.x & 31;
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < V; ++i) {
+  for (int i = 0; i < kRowV; ++i) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) s += v[i][e];
   }
   mean = warp_sum(s) / D;
   float q = 0.f;
 #pragma unroll
-  for (int i = 0; i < V; ++i) {
+  for (int i = 0; i < kRowV; ++i) {
+    if (!row_has(D, lane, i)) continue;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float d = v[i][e] - mean;
@@ -313,24 +342,31 @@ __device__ __forceinline__ void row_stats(const float (&v)[V][4],
 // y = round(LN(x) * g + b) for rows of D (x bf16, or the fp32 x1), a row a
 // warp, lane l holding columns 4 (l + 32 i) .. + 3. Where cp_dst is given,
 // the fp32 rows cp_src are also copied to it rounded (the backward's gb).
-template <int D, typename In>
+// One instance a type takes every D (a multiple of 64 up to kWideMaxD).
+template <typename In>
 __global__ void __launch_bounds__(32 * kRowWarps)
 ln_rows_kernel(const In* __restrict__ x, const float* __restrict__ g,
                const float* __restrict__ b, bf16* __restrict__ y,
                const float* __restrict__ cp_src, bf16* __restrict__ cp_dst,
-               int M) {
-  constexpr int V = D / 128;
+               int M, int D) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
   if (row >= M) return;
   const size_t base = static_cast<size_t>(row) * D;
-  float v[V][4];
+  float v[kRowV][4];
 #pragma unroll
-  for (int i = 0; i < V; ++i) load4(x + base + 4 * (lane + 32 * i), v[i]);
+  for (int i = 0; i < kRowV; ++i) {
+    if (row_has(D, lane, i)) {
+      load4(x + base + 4 * (lane + 32 * i), v[i]);
+    } else {
+      v[i][0] = v[i][1] = v[i][2] = v[i][3] = 0.f;
+    }
+  }
   float mean, rstd;
-  row_stats<D>(v, mean, rstd);
+  wide_row_stats(v, D, mean, rstd);
 #pragma unroll
-  for (int i = 0; i < V; ++i) {
+  for (int i = 0; i < kRowV; ++i) {
+    if (!row_has(D, lane, i)) continue;
     const int c = 4 * (lane + 32 * i);
     const float4 gg = *reinterpret_cast<const float4*>(g + c);
     const float4 bb = *reinterpret_cast<const float4*>(b + c);
@@ -345,26 +381,20 @@ ln_rows_kernel(const In* __restrict__ x, const float* __restrict__ g,
   }
 }
 
-// The widths the wide stages take.
-inline bool wide_width(int D) { return D == 384 || D == 768; }
+// The widths the wide stages take: past block_mma.cuh's 192, a multiple of
+// 64 up to kWideMaxD (block_shape_ok checks the rest of the shape).
+inline bool wide_width(int D) {
+  return D > 192 && D <= kWideMaxD && D % 64 == 0;
+}
 
 template <typename In>
 cudaError_t launch_ln_rows(const In* x, const float* g, const float* b,
                            bf16* y, const float* cp_src, bf16* cp_dst, int M,
                            int D, cudaStream_t stream) {
+  if (D % 64 != 0 || D > kWideMaxD) return cudaErrorInvalidValue;
   const dim3 grid((M + kRowWarps - 1) / kRowWarps);
-  switch (D) {
-    case 384:
-      ln_rows_kernel<384, In><<<grid, 32 * kRowWarps, 0, stream>>>(
-          x, g, b, y, cp_src, cp_dst, M);
-      break;
-    case 768:
-      ln_rows_kernel<768, In><<<grid, 32 * kRowWarps, 0, stream>>>(
-          x, g, b, y, cp_src, cp_dst, M);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
+  ln_rows_kernel<In><<<grid, 32 * kRowWarps, 0, stream>>>(
+      x, g, b, y, cp_src, cp_dst, M, D);
   return cudaGetLastError();
 }
 

@@ -31,10 +31,11 @@
 // partials in a fixed order. There are no atomics, so two runs give the
 // same bits. Eight launches.
 //
-// bf16 (D of 64, 128 or 192 on the stages below; 384, the small preset's
-// width, with block_wide_bwd_mma.cuh's mlp and qkv stages in place of 3 and
-// 6, whose note says why; any other width returns cudaErrorInvalidValue
-// before any launch), mma.sync with register accumulators throughout:
+// bf16 (D of 64, 128 or 192 on the stages below; past 192, every multiple
+// of 64 up to 768 (the small and base presets' 384 and 768 among them) with
+// block_wide_bwd_mma.cuh's mlp and qkv stages in place of 3 and 6, whose
+// note says why; any other width returns cudaErrorInvalidValue before any
+// launch), mma.sync with register accumulators throughout:
 //   1-2. ln_qkv and attention of the forward (vit_block_common.cuh:
 //        block_mma.cuh's ln_qkv and attention_mma.cuh's forward), which
 //        also store the LN1 output for the qkv weight grad;
@@ -89,8 +90,9 @@
 namespace {
 
 // The mma.sync stages' row tiles (the wide stages' 128-row partial tiles
-// at D = 384) and attention tiles, and row splits that give the weight
-// grads about kWgCtas CTAs.
+// past D = 192) and attention tiles, and row splits that give the weight
+// grads about kWgCtas CTAs (at most kWgWideCtas past 192: one split where
+// the narrower tiles alone outnumber them, as at 768's 864).
 Sizes sizes_of(int B, int N, int D, int heads, int H) {
   Sizes s = base_sizes(B, N, D, heads, H);
   s.wide = bwd_wide_width(D);
@@ -99,7 +101,8 @@ Sizes sizes_of(int B, int N, int D, int heads, int H) {
   s.mlp_tiles = (s.M + mlp_rows - 1) / mlp_rows;
   s.qkv_tiles = (s.M + qkv_rows - 1) / qkv_rows;
   s.attn_tiles = (N + kMmaRows - 1) / kMmaRows;
-  const int tiles = (4 * D * D + 2 * H * D) / (kWgTile * D);
+  s.wg_cols = wgrad_cols(D);
+  const int tiles = (4 * D * D + 2 * H * D) / (kWgTile * s.wg_cols);
   set_splits(s, s.wide ? kWgWideCtas / tiles : (kWgCtas + tiles - 1) / tiles,
              kWgDepth);
   return s;
@@ -188,12 +191,12 @@ int run_bwd(const void* x_, const void* g_, const void* qkv_in,
                                   y_out, w.part_qkv, s.M, D, stream);
   if (e != cudaSuccess) return e;
 
-  // 7. weight grads, split over rows, 64 x D tiles.
+  // 7. weight grads, split over rows, 64 x wg_cols tiles.
   Partials p;
   WgJobs jobs;
   const int tiles = wgrad_jobs(jobs, s, {w.dqkv, w.y, w.dx1b, attn, w.da1,
                                          w.z, w.gb, w.h1}, w.part_w, p);
-  e = launch_wgrad_mma(jobs, tiles, s.splits, D, stream);
+  e = launch_wgrad_mma(jobs, tiles, s.splits, s.wg_cols, stream);
   if (e != cudaSuccess) return e;
 
   // 8. every partial, in order.

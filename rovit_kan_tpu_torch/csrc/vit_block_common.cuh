@@ -4,7 +4,7 @@
 // backward runs again to recompute what the forward does not keep. The
 // route is chosen by the compute type:
 //   bf16: block_mma.cuh's ln_qkv (mma.sync from registers, a cp.async ring
-//         of Wqkv tiles; at D = 384 and 768 block_wide_mma.cuh's LN1 row
+//         of Wqkv tiles; past D = 192 block_wide_mma.cuh's LN1 row
 //         kernel and qkv GEMM), then attention_mma.cuh's forward with the
 //         block's scale folded into its exp2 FMA and the output rounded to
 //         bf16;

@@ -42,10 +42,10 @@
 // Three launches per block call (seven at the bf16 wide widths). The route
 // is chosen by the compute type.
 //
-// bf16 (D of 64, 128 or 192 on the stages below; 384 and 768, the small and
-// base presets' widths, on block_wide_mma.cuh's seven launches, whose note
-// says why and what bounds them; any other width returns
-// cudaErrorInvalidValue before any launch):
+// bf16 (D of 64, 128 or 192 on the stages below; past 192, every multiple
+// of 64 up to 768 (the small and base presets' 384 and 768 among them) on
+// block_wide_mma.cuh's seven launches, whose note says why and what bounds
+// them; any other width returns cudaErrorInvalidValue before any launch):
 //   1. ln_qkv:    block_mma.cuh, 96 rows per CTA of 6 warps: LN1 into mma
 //                 A fragments in registers, then qkv over 64-column tiles
 //                 of Wqkv that a two-stage cp.async ring brings in under

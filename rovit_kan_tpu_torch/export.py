@@ -18,6 +18,12 @@ kernels as custom ops: ``rovit_kan_torch::vit_block_fwd`` (#1),
 ``ops.kan_kernel`` registers; ``load_serving`` imports them. A model on the
 CPU exports its plain path, which calls no op.
 
+A MoE model (``moe_experts > 1``, any ``moe_every``) exports the same way:
+its routing (a stable sort of each expert's scores, one-hot dispatch and
+combine, ``models/moe.py``) traces at the fixed shape, and its MoE blocks
+run plain as they do in the engine, while its dense blocks call #1 (or #5
+and #10 where the model's flags take them), as in a dense artifact.
+
 Fixed shapes are deliberate (the ``InferenceEngine`` contract): another
 batch size fails the artifact's shape guard, so a partial batch is padded
 at the call site. The artifact runs on the device of the model it was

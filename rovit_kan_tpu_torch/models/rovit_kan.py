@@ -28,10 +28,7 @@ from rovit_kan_tpu_torch.models.heads import (
 from rovit_kan_tpu_torch.models.kan import KANLayer, KANSeverityModule
 from rovit_kan_tpu_torch.models.moe import MoEMlp
 from rovit_kan_tpu_torch.models.vit import DeiTTinyBackbone
-from rovit_kan_tpu_torch.ops.block_kernel import (
-    BLOCK_BWD_WIDTHS,
-    BLOCK_WIDTHS,
-)
+from rovit_kan_tpu_torch.ops.block_kernel import block_width_ok
 from rovit_kan_tpu_torch.ops.ordinal import (
     cumulative_to_class_probs,
     ordinal_expected_severity,
@@ -154,21 +151,22 @@ def _resolve_fused_attention(setting, *, image_size: int, patch_size: int,
 
 
 def _resolve_fused_block(setting, *, inference: bool, dtype: torch.dtype,
-                         embed_dim: int, device: torch.device) -> bool:
+                         embed_dim: int, device: torch.device,
+                         num_heads: Optional[int] = None) -> bool:
     """Block-kernel policy: ``rovit_kan_tpu``'s ``_resolve_pallas_block``
-    with "tpu" read as "cuda": bf16 on the card, for inference at any
-    preset width (192, 384, 768), and for training at d <= 512 (192, 384),
-    where the backward kernel runs too. At every preset "auto" so returns
-    what the JAX rule returns. It also asks that the bf16 stages take the
-    width (``BLOCK_WIDTHS`` for the forward, ``BLOCK_BWD_WIDTHS`` for
-    training), which every preset width does, so a non-preset width such
-    as 256 stays on the plain block. True/False force one implementation;
-    a forced kernel refuses a width it does not take, before any launch."""
+    with "tpu" read as "cuda": bf16 on the card, for inference at any width
+    and for training at d <= 512, where the backward kernel runs too. It
+    returns that rule wherever the bf16 kernels take the width
+    (``block_width_ok``: D a multiple of 64 up to 768, with ``num_heads``
+    where given a head width that is a multiple of 16 up to 128), which
+    every preset and every width the JAX rule sends to its kernel up to
+    768 does, and stays on the plain block where they do not (D past 768,
+    or a shape ``block_shape_ok`` refuses). True/False force one
+    implementation; a forced kernel refuses a width it does not take,
+    before any launch."""
     if setting == "auto":
-        widths = (BLOCK_WIDTHS if inference else BLOCK_BWD_WIDTHS)[
-            torch.bfloat16]
         return (dtype == torch.bfloat16 and device.type == "cuda"
-                and embed_dim in widths
+                and block_width_ok(embed_dim, torch.bfloat16, num_heads)
                 and (bool(inference) or embed_dim <= 512))
     return bool(setting)
 
@@ -273,7 +271,7 @@ def build_model(config: Config, *, with_ordinal: Optional[bool] = None,
             device=dev),
         use_pallas_block=_resolve_fused_block(
             tpu.use_pallas_block, inference=inference, dtype=dtype,
-            embed_dim=m.embed_dim, device=dev),
+            embed_dim=m.embed_dim, device=dev, num_heads=m.num_heads),
         use_pallas_kan=tpu.use_pallas_kan, remat=tpu.remat_backbone,
         moe_experts=m.moe_experts, moe_every=m.moe_every,
         moe_capacity_factor=m.moe_capacity_factor)

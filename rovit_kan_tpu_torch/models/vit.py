@@ -54,8 +54,13 @@ attention), proj and fc2 as fp32 partials summed over ``"model"`` and
 rounded once. A MoE block's FFN stays replicated. Under sequence
 parallelism (``act_sharding``, which ``build_model`` sets) ``embed`` pads
 the stream to a multiple of the model axis and keeps the rank's tokens,
-and ``features`` gathers the real tokens back. The explainability taps are
-not ported under tensor or sequence parallelism and raise.
+and ``features`` gathers the real tokens back. The explainability taps
+run there too: each rank computes its heads' softmax weights on the plain
+core and the ranks sum them, zeros elsewhere, into every head's maps over
+the real tokens; the norm1 tap is the replicated fp32 ``norm1`` output plus
+the perturbation, and under sequence parallelism the perturbation is cut to
+the rank's tokens (its gradient gathered back whole) and the tap gathered
+and cut at the real tokens, as the JAX model slices at ``n_valid``.
 
 Under the GPipe pipeline (``parallel/pipeline.py::Pipeline``) the trunk
 holds the mesh's ``PipeAxis`` as ``pipe`` and only its stage's blocks have
@@ -63,7 +68,8 @@ weights: ``embed`` and ``features`` run on every pipe rank alike, and the
 block stack runs through ``PipeAxis.run``, each block of the stage through
 the ordinary ``Block.forward`` a microbatch at a time; on the 3-D mesh the
 stage's blocks also hold the ``ModelAxis`` as ``tp`` and their shards, and
-run sharded. The taps raise there too.
+run sharded. The taps raise there, as the JAX ``pipelined_forward``
+takes none.
 """
 from __future__ import annotations
 
@@ -136,12 +142,17 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def sharded_core(self, qkv: torch.Tensor, tp, fused: bool
-                     ) -> torch.Tensor:
+    def sharded_core(self, qkv: torch.Tensor, tp, fused: bool,
+                     return_weights: bool = False):
         """This rank's columns ``[r*D/t, (r+1)*D/t)`` of the attention
         output, in ``dtype``, from the whole ``qkv (B, N, 3D)``: the core
         runs on the heads those columns cross, over the first ``n_valid``
-        tokens where filler pads the stream (the filler rows get zeros)."""
+        tokens where filler pads the stream (the filler rows get zeros).
+        With ``return_weights`` the core runs plain and also returns every
+        head's fp32 softmax weights ``(B, heads, n, n)`` over the real
+        tokens: each head's from the rank whose columns hold its first
+        column, zeros elsewhere, summed over ``"model"`` (a sum with
+        zeros, so the bits are the owner's)."""
         B, N, D3 = qkv.shape
         D, h = D3 // 3, self.num_heads
         hd = D // h
@@ -150,7 +161,7 @@ class Attention(nn.Module):
         n = tp.n_valid or N
         q, k, v = qkv.reshape(B, N, 3, h, hd)[:, :n, :, h0:h1].permute(
             2, 0, 3, 1, 4)
-        if fused:
+        if fused and not return_weights:
             out = self.attn_fn(q * hd ** -0.5, k, v)
         else:
             logits = torch.matmul((q * hd ** -0.5).float(),
@@ -161,7 +172,12 @@ class Attention(nn.Module):
             B, n, (h1 - h0) * hd)[..., lo - h0 * hd:hi - h0 * hd]
         if n < N:
             out = torch.cat([out, out.new_zeros(B, N - n, hi - lo)], 1)
-        return out
+        if not return_weights:
+            return out
+        owned = -(-lo // hd)                # the first head starting here
+        whole = weights.new_zeros(B, h, n, n)
+        whole[:, owned:h1] = weights.detach()[:, owned - h0:]
+        return out, tp.mesh.all_reduce_(whole, "model")
 
     def forward(self, x: torch.Tensor, return_weights: bool = False):
         """The attention output; with ``return_weights``, also the fp32
@@ -290,12 +306,7 @@ class Block(nn.Module):
         and the fp32 ``norm1`` output plus the perturbation."""
         taps = return_weights or norm1_perturbation is not None
         if self.tp is not None:
-            if taps:
-                raise NotImplementedError(
-                    "the explainability taps are not ported under tensor "
-                    "or sequence parallelism: run them on the model whole "
-                    "(TensorParallel.full_module)")
-            return self._tp_forward(x)
+            return self._tp_forward(x, return_weights, norm1_perturbation)
         if self.use_fused_block and not taps:
             return self.block_fn(x.to(self.dtype), self.block_params(),
                                  self.num_heads,
@@ -315,15 +326,26 @@ class Block(nn.Module):
             out = x + self.mlp(z.to(self.dtype))
         return (out, weights, tap) if taps else out
 
-    def _tp_forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _tp_forward(self, x: torch.Tensor, return_weights: bool = False,
+                    norm1_perturbation: Optional[torch.Tensor] = None):
         """The block on this rank's shards (``parallel/tensor.py``): ``x``
         is the whole stream, or this rank's tokens of it under sequence
-        parallelism."""
+        parallelism. The taps are ``forward``'s: the weights of every head
+        (``Attention.sharded_core``), and the fp32 ``norm1`` output plus
+        the perturbation (both this rank's tokens under sequence
+        parallelism); the tap's gradient is ``column_linear``'s, the
+        ranks' fp32 partials summed once and rounded where the one-card
+        GEMM rounds."""
         tp, dt = self.tp, self.dtype
+        taps = return_weights or norm1_perturbation is not None
         fused = self.use_fused_block or self.attn.use_fused
-        y = _layer_norm(x, self.norm1).to(dt)
+        tap = _layer_norm(x, self.norm1)
+        if norm1_perturbation is not None:
+            tap = tap + norm1_perturbation
+        y = tap.to(dt)
         qkv = tp.gather_columns(tp.column_linear(y, self.attn.qkv, dt))
-        a = self.attn.sharded_core(qkv, tp, fused)
+        a = self.attn.sharded_core(qkv, tp, fused, return_weights)
+        a, weights = a if return_weights else (a, None)
         x = x + _row_output(tp, _row_partial(a, self.attn.proj, dt),
                             self.attn.proj, dt)
         z = _layer_norm(x, self.norm2)
@@ -332,11 +354,14 @@ class Block(nn.Module):
             # over the whole sequence, filler masked out of the gate.
             if tp.seq:
                 y = self.moe(tp.gather_tokens(z), n_valid=tp.n_valid)
-                return x + tp.own_tokens(y)
-            return x + self.moe(z)
-        h = F.gelu(tp.column_linear(z.to(dt), self.mlp.fc1, dt))  # erf
-        return x + _row_output(tp, _row_partial(h, self.mlp.fc2, dt),
-                               self.mlp.fc2, dt)
+                out = x + tp.own_tokens(y)
+            else:
+                out = x + self.moe(z)
+        else:
+            h = F.gelu(tp.column_linear(z.to(dt), self.mlp.fc1, dt))  # erf
+            out = x + _row_output(tp, _row_partial(h, self.mlp.fc2, dt),
+                                  self.mlp.fc2, dt)
+        return (out, weights, tap) if taps else out
 
 
 class VisionTransformer(nn.Module):
@@ -408,11 +433,6 @@ class VisionTransformer(nn.Module):
         for: ``attention`` ``(depth, B, heads, N, N)`` fp32, ``norm1_tap``
         ``(B, N, D)`` fp32."""
         taps = return_attention or gradcam_perturbation is not None
-        if taps and self.tp is not None:
-            raise NotImplementedError(
-                "the explainability taps are not ported under tensor or "
-                "sequence parallelism: run them on the model whole "
-                "(TensorParallel.full_module)")
         if taps and self.pipe is not None:
             raise NotImplementedError(
                 "the explainability taps are not ported under the "
@@ -437,6 +457,9 @@ class VisionTransformer(nn.Module):
                       ) -> Dict[str, torch.Tensor]:
         maps, out = [], {}
         last = len(self.blocks) - 1
+        seq = self.tp is not None and self.tp.seq
+        if seq and perturbation is not None:
+            perturbation = self.tp.split_tap(perturbation)
         for i, blk in enumerate(self.blocks):
             perturb = perturbation if i == last else None
             if return_attention or perturb is not None:
@@ -444,7 +467,9 @@ class VisionTransformer(nn.Module):
                 if return_attention:
                     maps.append(weights)
                 if perturb is not None:
-                    out["norm1_tap"] = tap
+                    # Every rank's real tokens under sequence parallelism.
+                    out["norm1_tap"] = (self.tp.gather_replicated(tap)
+                                        if seq else tap)
             else:
                 # Before the tap: nothing here depends on the perturbation.
                 with torch.no_grad():

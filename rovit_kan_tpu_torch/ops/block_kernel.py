@@ -56,17 +56,30 @@ PKEYS = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wproj", "bproj",
          "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
 WEIGHT_KEYS = ("wqkv", "wproj", "w1", "w2")
 LN_EPS = 1e-6
-#: The widths D that each route's forward (#1, #3) takes: the bf16
-#: mma.sync stages (``csrc/block_mma.cuh`` at 64-192, ``block_wide_mma.cuh``
-#: at the small and base presets' 384 and 768) and the fp32 ones
-#: (``block_tf32.cuh`` ``tf32_block_width_ok``).
-BLOCK_WIDTHS = {torch.bfloat16: (64, 128, 192, 384, 768),
-                torch.float32: (64, 128, 192, 256, 320)}
-#: The widths each route's backward (#2, #4) takes: bf16
-#: ``block_bwd_mma.cuh`` ``bwd_mma_width_ok`` (``block_wide_bwd_mma.cuh`` at
-#: 384), fp32 ``block_bwd_fma.cuh`` ``bwd_fma_width_ok``.
-BLOCK_BWD_WIDTHS = {torch.bfloat16: (64, 128, 192, 384),
-                    torch.float32: (64, 128, 192, 256, 320)}
+#: The widest D each route's kernels take, forward (#1, #3) and backward
+#: (#2, #4) alike: bf16 ``csrc/block_mma.cuh`` up to 192 and
+#: ``block_wide_mma.cuh`` / ``block_wide_bwd_mma.cuh`` past it
+#: (``wide_width``, ``bwd_mma_width_ok``), fp32 ``block_tf32.cuh``
+#: ``tf32_block_width_ok`` and ``block_bwd_fma.cuh`` ``bwd_fma_width_ok``.
+BLOCK_MAX_WIDTH = {torch.bfloat16: 768, torch.float32: 320}
+
+
+def block_width_ok(D: int, dtype: torch.dtype,
+                   heads: Optional[int] = None) -> bool:
+    """Whether the block kernels take width ``D`` in ``dtype`` (and, where
+    given, ``heads`` heads): the C++ checks, ``block_shape_ok``'s D a
+    multiple of 64 and a head width that is a multiple of 16 up to 128, and
+    the route's widest D."""
+    if D % 64 or not 64 <= D <= BLOCK_MAX_WIDTH.get(dtype, 0):
+        return False
+    return heads is None or (heads >= 1 and D % heads == 0
+                             and (D // heads) % 16 == 0
+                             and D // heads <= 128)
+
+
+#: Every width ``block_width_ok`` takes, by dtype.
+BLOCK_WIDTHS = {dt: tuple(range(64, top + 1, 64))
+                for dt, top in BLOCK_MAX_WIDTH.items()}
 
 #: Launches of the CUDA block forward since import (one per wrapper call on
 #: a CUDA tensor). The CPU path never touches it.
@@ -292,13 +305,12 @@ def _check_width(x: torch.Tensor, backward: bool) -> None:
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"fused_vit_block takes bf16 or fp32, got {x.dtype}")
     D = x.shape[-1]
-    widths = (BLOCK_BWD_WIDTHS if backward else BLOCK_WIDTHS)[x.dtype]
-    if D not in widths:
+    if not block_width_ok(D, x.dtype):
         raise ValueError(
             f"unsupported block width D={D} in {x.dtype}: the "
             f"{str(x.dtype).replace('torch.', '')} "
-            f"{'backward' if backward else 'forward'} stages take D in "
-            f"{widths}")
+            f"{'backward' if backward else 'forward'} stages take D a "
+            f"multiple of 64 from 64 to {BLOCK_MAX_WIDTH[x.dtype]}")
 
 
 def _check_cuda_args(x: torch.Tensor, params: Dict[str, torch.Tensor],
@@ -330,7 +342,7 @@ def _check_cuda_args(x: torch.Tensor, params: Dict[str, torch.Tensor],
 def _check_bwd_args(x: torch.Tensor, g: torch.Tensor,
                     params: Dict[str, torch.Tensor], heads: int) -> None:
     """What the backward kernel takes: the forward's arguments at a width
-    the backward takes (``BLOCK_BWD_WIDTHS``), plus an fp32 contiguous
+    the backward takes (``block_width_ok``), plus an fp32 contiguous
     gradient of x's shape on x's device."""
     _check_cuda_args(x, params, heads, backward=True)
     if g.dtype != torch.float32 or g.shape != x.shape \
@@ -581,8 +593,7 @@ class FusedViTBlock(torch.autograd.Function):
     def forward(ctx, x, heads, kernel_params, plain, *params):
         if not _runs_plain(x, plain):
             # A width the backward does not take is refused here, before
-            # the forward launches (bf16 d = 768 runs #1 only without
-            # grad, as the JAX "auto" trains it on the plain block).
+            # the forward launches.
             _check_width(x, backward=True)
         kp = kernel_params
         if kp is None:

@@ -332,6 +332,24 @@ class _GatherReplicated(torch.autograd.Function):
                 None, None)
 
 
+class _SplitTap(torch.autograd.Function):
+    """The whole ``(B, N, D)`` Grad-CAM perturbation padded with zero
+    filler and cut to this rank's tokens forward; backward, every rank's
+    gradient of its tokens gathered over ``"model"`` and cut back to the
+    real tokens, so each rank holds the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, p, axis):
+        ctx.axis = axis
+        return axis.split_tokens(p).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        ax = ctx.axis
+        whole = ax.mesh.all_gather(g.contiguous(), 1, "model")
+        return whole[:, :ax.n_tokens].contiguous(), None
+
+
 class ModelAxis:
     """What a sharded block and the trunk need of the model axis: this
     rank's place on it, whether the residual stream is token-sharded
@@ -383,6 +401,11 @@ class ModelAxis:
         if pad:
             x = torch.cat([x, x.new_zeros(x.shape[0], pad, x.shape[2])], 1)
         return x.chunk(self.size, 1)[self.rank]
+
+    def split_tap(self, p: torch.Tensor) -> torch.Tensor:
+        """This rank's tokens of the whole perturbation ``p``, whose
+        gradient comes back whole (``_SplitTap``)."""
+        return _SplitTap.apply(p, self)
 
     def gather_tokens(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's tokens, for a layer that needs the whole sequence
@@ -508,9 +531,22 @@ class ShardedModel(ShardedState):
     def head_mask(self) -> Dict[str, bool]:
         return self.model.head_mask
 
-    def __call__(self, x: torch.Tensor,
-                 generator=None) -> Dict[str, torch.Tensor]:
-        return self.model(x, generator=generator)
+    @property
+    def backbone(self) -> nn.Module:
+        return self.model.backbone
+
+    @property
+    def image_size(self) -> int:
+        return self.model.image_size
+
+    def modules(self):
+        return self.model.modules()
+
+    def __call__(self, x: torch.Tensor, generator=None,
+                 **taps) -> Dict[str, torch.Tensor]:
+        """The model's outputs; ``taps`` (``return_attention``,
+        ``gradcam_perturbation``) as ``RoViTKAN.forward`` takes them."""
+        return self.model(x, generator=generator, **taps)
 
 
 class AxisSharded(ShardedModel):
@@ -619,7 +655,8 @@ class TensorParallel(AxisSharded):
     ``model_sharded`` names the sharded leaves, ``partial`` the leaves whose
     gradients are partial under sequence parallelism. ``full_module``
     gathers the model whole and unsharded for a while. The explainability
-    taps are not taken here."""
+    taps run on it as on the model (``models/vit.py``), so
+    ``explainability/`` takes it as it takes a model."""
 
     shard_axis = "model"
 

@@ -1,8 +1,8 @@
 """Port tests that need an NVIDIA GPU: the CUDA kernels (block forward #1,
 block backward #2 and the residual forward #3 from one row to 1,024 tokens
 at head widths 16-128, the fp32 #1 and #3 also at the edges of their 3xTF32
-tiles and refusing D past 320 (the bf16 ones past 768, the bf16 backward
-past 384) before any launch,
+tiles and refusing D past 320 (the bf16 ones, forward and backward, past
+768) before any launch,
 the residual backward #4, attention forward #5 and backward #6 at every
 head width they take and on the model's strided qkv
 views, augment #7, the KAN kernels #8-#11) against their plain versions,
@@ -23,7 +23,6 @@ differ only where an fp32 sum crosses a rounding boundary). The backward's
 and the augment's tolerances are stated beside their tests.
 """
 import ctypes
-import re
 
 import numpy as np
 import pytest
@@ -83,17 +82,21 @@ def _tol(ref, dtype):
 BLOCK_SHAPES = [(3, 37, 64, 2), (2, 197, 192, 3), (1, 5, 128, 4),
                 (2, 577, 192, 3), (1, 1024, 128, 2), (1, 1, 64, 4),
                 (3, 129, 192, 4), (2, 65, 192, 2), (1, 200, 128, 1),
-                (1, 3, 192, 3), (2, 197, 384, 6), (1, 197, 768, 12)]
+                (1, 3, 192, 3), (2, 197, 384, 6), (1, 197, 768, 12),
+                (2, 197, 320, 5), (1, 77, 448, 7), (1, 50, 256, 2),
+                (1, 130, 512, 8)]
 
 
-def _refused(run, D, widths, counter):
-    """True (after checking it) where the route does not take D: ``run``
-    raises the ValueError naming the widths, and ``counter()`` is
-    unchanged, so nothing launched."""
-    if D in widths:
+def _refused(run, D, dtype, counter):
+    """True (after checking it) where the route does not take D
+    (``block_width_ok``): ``run`` raises the ValueError naming the widths,
+    and ``counter()`` is unchanged, so nothing launched."""
+    if bk.block_width_ok(D, dtype):
         return False
     before = counter()
-    with pytest.raises(ValueError, match=rf"D={D}.*{re.escape(str(widths))}"):
+    top = bk.BLOCK_MAX_WIDTH[dtype]
+    with pytest.raises(ValueError,
+                       match=rf"D={D}.*multiple of 64 from 64 to {top}"):
         run()
     assert counter() == before
     return True
@@ -113,7 +116,7 @@ def test_kernel_matches_plain(cuda, shape, dtype):
     x = x.to(cuda, dtype)
     with torch.inference_mode():
         if _refused(lambda: bk.fused_vit_block(x, p, heads), D,
-                    bk.BLOCK_WIDTHS[dtype], lambda: bk.LAUNCHES):
+                    dtype, lambda: bk.LAUNCHES):
             return
     before = bk.LAUNCHES
     with torch.inference_mode():
@@ -157,12 +160,13 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
 
 
 def test_backward_kernels_refuse_what_the_bf16_stages_do_not_take(cuda):
-    """The bf16 backwards take D of 64, 128, 192 and 384; the wrapper's
-    checks refuse D = 256 with a ValueError naming those widths
-    (``BLOCK_BWD_WIDTHS``), unlaunched, not run on other stages. fp32 still
-    takes it."""
+    """The bf16 backwards take D a multiple of 64 up to 768; the wrapper's
+    checks refuse D = 832 with a ValueError naming those widths
+    (``block_width_ok``), unlaunched, not run on other stages. fp32 takes
+    D = 256 (and refuses past 320)."""
     rng = np.random.RandomState(5)
-    B, N, D, heads = 1, 9, 256, 2
+    B, N, heads = 1, 9, 2
+    D = 832
     x = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32)
     g = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32,
                      device=cuda)
@@ -171,11 +175,15 @@ def test_backward_kernels_refuse_what_the_bf16_stages_do_not_take(cuda):
     saved = tuple(torch.zeros(B, N, w, dtype=torch.bfloat16, device=cuda)
                   for w in (3 * D, D, 4 * D))
     before = (bk.BWD_LAUNCHES, bk.BWD_RES_LAUNCHES)
-    with pytest.raises(ValueError, match=r"D=256.*\(64, 128, 192, 384\)"):
+    with pytest.raises(ValueError, match=r"D=832.*from 64 to 768"):
         bk._launch_bwd(x16, g, p16, heads)
-    with pytest.raises(ValueError, match=r"D=256.*\(64, 128, 192, 384\)"):
+    with pytest.raises(ValueError, match=r"D=832.*from 64 to 768"):
         bk._launch_bwd_res(x16, g, *saved, p16, heads)
     assert (bk.BWD_LAUNCHES, bk.BWD_RES_LAUNCHES) == before
+    D = 256
+    x = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32)
+    g = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32,
+                     device=cuda)
     p32 = _params(rng, D, 4 * D, torch.float32, cuda)
     x32 = x.to(cuda)
     dx, grads = bk._launch_bwd(x32, g, p32, heads)
@@ -217,7 +225,7 @@ def test_backward_kernel_matches_plain(cuda, shape, dtype):
     g = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32,
                      device=cuda)
     if _refused(lambda: bk._launch_bwd(x, g, p, heads), D,
-                bk.BLOCK_BWD_WIDTHS[dtype], lambda: bk.BWD_LAUNCHES):
+                dtype, lambda: bk.BWD_LAUNCHES):
         return
     before = bk.BWD_LAUNCHES
     dx, grads = bk._launch_bwd(x, g, p, heads)
@@ -244,7 +252,7 @@ def test_residual_forward_kernel_matches_plain(cuda, shape, dtype):
     x = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32)
     x = x.to(cuda, dtype)
     if _refused(lambda: bk._launch_res(x, p, heads), D,
-                bk.BLOCK_WIDTHS[dtype], lambda: bk.RES_LAUNCHES):
+                dtype, lambda: bk.RES_LAUNCHES):
         return
     before = (bk.LAUNCHES, bk.RES_LAUNCHES)
     with torch.no_grad():
@@ -280,13 +288,13 @@ def test_residual_backward_kernel_matches_plain(cuda, shape, dtype):
     g = torch.tensor(rng.normal(0, 1, (B, N, D)), dtype=torch.float32,
                      device=cuda)
     if _refused(lambda: bk._launch_res(x, p, heads), D,
-                bk.BLOCK_WIDTHS[dtype], lambda: bk.RES_LAUNCHES):
+                dtype, lambda: bk.RES_LAUNCHES):
         return
     with torch.no_grad():
         _, qkv, attn, a1 = bk._launch_res(x, p, heads)
         if _refused(lambda: bk._launch_bwd_res(x, g, qkv, attn, a1, p,
                                                heads),
-                    D, bk.BLOCK_BWD_WIDTHS[dtype],
+                    D, dtype,
                     lambda: bk.BWD_RES_LAUNCHES):
             return
         before = (bk.BWD_LAUNCHES, bk.BWD_RES_LAUNCHES)
@@ -728,8 +736,8 @@ def test_preset_serves_and_trains_on_the_fused_block(cuda, preset):
     fused block under "auto" as the JAX rule does: a served batch launches
     #1 once a block; a small train step launches #1 and #2 once a block,
     a base one neither (the JAX rule trains d > 512 on the plain block);
-    a forced fused block at d = 768 refuses the backward's width in its
-    training forward, before any launch."""
+    a forced fused block at d = 768 trains on #1 and #2 (the wide backward
+    takes 768), once a block each."""
     from rovit_kan_tpu_torch.config import get_config
     from rovit_kan_tpu_torch.models.rovit_kan import build_model
     cfg = get_config(preset)
@@ -763,10 +771,15 @@ def test_preset_serves_and_trains_on_the_fused_block(cuda, preset):
     if preset == "base":
         cfg.tpu.use_pallas_block = True
         forced = build_model(cfg, device="cuda", seed=0)
-        x = torch.zeros((1, 64, 64, 3), device=cuda)
-        with pytest.raises(ValueError, match=r"D=768.*backward"):
-            forced(x)
-        assert (bk.LAUNCHES, bk.BWD_LAUNCHES) == (counts[0], counts[1])
+        step = make_train_step(forced, build_optimizer(forced, cfg), cfg,
+                               generator=torch.Generator("cuda")
+                               .manual_seed(0))
+        counts = (bk.LAUNCHES, bk.BWD_LAUNCHES)
+        loss = float(step(batch, 4, 1.0, 1)["total_loss"])
+        torch.cuda.synchronize()
+        assert (bk.LAUNCHES, bk.BWD_LAUNCHES) == (counts[0] + depth,
+                                                  counts[1] + depth)
+        assert np.isfinite(loss)
 
 
 def test_export_artifact_through_the_kernel_ops(cuda, tmp_path):

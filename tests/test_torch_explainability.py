@@ -86,7 +86,9 @@ def jax_taps(params, images):
 
 
 def _jax_taps(params, images, **kw):
-    model = JaxRoViTKAN(**KW, **kw)
+    """The JAX model's attention, tap and tap gradient: ``KW`` with ``kw``
+    over it (flags, or another width at 32 px)."""
+    model = JaxRoViTKAN(**{**KW, **kw})
 
     x = jnp.asarray(images)
 
@@ -97,7 +99,7 @@ def _jax_taps(params, images, **kw):
         idx = jnp.argmax(logits, axis=-1)
         return jnp.take_along_axis(logits, idx[:, None], -1).sum(), out
 
-    zeros = jnp.zeros((images.shape[0], N_TOKENS, KW["embed_dim"]))
+    zeros = jnp.zeros((images.shape[0], N_TOKENS, model.embed_dim))
     (_, out), grads = jax.jit(jax.value_and_grad(target, has_aux=True))(
         zeros)
     attention = jax.jit(lambda: model.apply(

@@ -37,7 +37,7 @@ from rovit_kan_tpu_torch.ops import attention as at
 from rovit_kan_tpu_torch.ops import block_kernel as bk
 from rovit_kan_tpu_torch.ops import kan_kernel as kk
 from rovit_kan_tpu_torch.ops.spline import make_knots
-from rovit_kan_tpu_torch.serving import build_serving_forward
+from rovit_kan_tpu_torch.serving import InferenceEngine, build_serving_forward
 
 ROOT = Path(__file__).resolve().parent.parent
 KW = dict(embed_dim=32, depth=1, num_heads=2, image_size=32, patch_size=16,
@@ -106,6 +106,52 @@ def test_platforms_refused(pair, tmp_path):
     with pytest.raises(ValueError, match="device"):
         save_exported(tmp_path / "x.pt2", model, platforms=["tpu"])
     assert not (tmp_path / "x.pt2").exists()
+
+
+MOE_KW = dict(KW, depth=2, moe_experts=4)
+
+
+@pytest.fixture(scope="module", params=[2, 1], ids=["every2", "every1"])
+def moe_pair(request):
+    """A MoE model (4 experts on block 1, or on both blocks) from perturbed
+    JAX initial weights, and its artifact."""
+    kw = dict(MOE_KW, moe_every=request.param)
+    jm = JaxRoViTKAN(**kw)
+    params = jm.init(jax.random.PRNGKey(6),
+                     np.zeros((1, 32, 32, 3), np.float32))["params"]
+    rng = np.random.RandomState(6)
+    params = jax.tree.map(lambda a: np.asarray(a) + rng.normal(
+        0, 0.05, a.shape).astype(np.float32), params)
+    model = load_jax_params(RoViTKAN(**kw), params, device="cpu").eval()
+    assert [hasattr(b, "moe") for b in model.backbone.model.blocks] == (
+        [False, True] if request.param == 2 else [True, True])
+    blob = export_serving(model, batch_size=BATCH, temperature=TEMPERATURE)
+    return jm, params, model, blob
+
+
+def test_moe_artifact_matches_engine_and_jax(moe_pair):
+    """The artifact's outputs: the eager MoE engine's bits on a full batch,
+    and the JAX serving forward's within 2e-5 on a padded partial one."""
+    jm, params, model, blob = moe_pair
+    serve = load_serving(blob)
+    assert sum("sort" in str(n.target)
+               for n in serve.program.graph.nodes) == sum(
+        hasattr(b, "moe") for b in model.backbone.model.blocks)
+    imgs = _imgs(BATCH, seed=2)
+    want = InferenceEngine(model, batch_size=BATCH, temperature=TEMPERATURE,
+                           device="cpu").predict(imgs)
+    got = serve(imgs)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert np.array_equal(got[k].numpy(), v), k
+    padded = np.zeros((BATCH, 32, 32, 3), np.uint8)
+    padded[:5] = imgs[:5]
+    got = serve(padded)
+    want = jax_forward(jm, temperature=TEMPERATURE)(params,
+                                                    jnp.asarray(imgs[:5]))
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k].numpy()[:5], np.asarray(v),
+                                   atol=2e-5, rtol=0, err_msg=k)
 
 
 # Shapes of the fake-CUDA graph: a block at D = 64 (2 heads of 32, hidden

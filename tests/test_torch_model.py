@@ -202,12 +202,17 @@ def test_block_policy_and_unported_options():
                 assert _resolve_fused_block(True, inference=inference,
                                             dtype=bf16, embed_dim=d,
                                             device=cuda)
-        for d in bk.BLOCK_BWD_WIDTHS[bf16]:
+        for d in bk.BLOCK_WIDTHS[bf16]:
             assert _resolve_fused_block("auto", inference=False, dtype=bf16,
-                                        embed_dim=d, device=cuda)
-        # A width the bf16 stages do not take stays on the plain block.
+                                        embed_dim=d, device=cuda) == (
+                d <= 512)
+        # A width the bf16 stages do not take stays on the plain block: past
+        # 768, or a head width the kernels refuse (256 in one head).
         assert not _resolve_fused_block("auto", inference=True, dtype=bf16,
-                                        embed_dim=256, device=cuda)
+                                        embed_dim=832, device=cuda)
+        assert not _resolve_fused_block("auto", inference=True, dtype=bf16,
+                                        embed_dim=256, device=cuda,
+                                        num_heads=1)
     cfg = Config()
     cfg.tpu.use_pallas_attention = True          # kernels #5/#6
     cfg.tpu.use_pallas_block = False
@@ -236,50 +241,53 @@ def test_block_policy_and_unported_options():
                                      (torch.float32, 384)])
 def test_block_kernel_refuses_unsupported_widths(dtype, D):
     """A width the route's stages do not take is refused by the wrapper's
-    checks, naming the widths, before anything is launched (no card is
-    needed to reach the check): the forward's (``BLOCK_WIDTHS``) and the
-    backward's (``BLOCK_BWD_WIDTHS``). bf16 d = 768 (the base preset) runs
-    the forward and refuses the backward, also in the training forward of
-    ``FusedViTBlock``, before its launch."""
+    checks, naming the widths (``block_width_ok``: a multiple of 64 up to
+    768 in bf16, 320 in fp32), before anything is launched (no card is
+    needed to reach the check): the forward's, the backward's, the op's
+    while export traces and the training forward of ``FusedViTBlock``'s,
+    before its launch. bf16 d = 768 (the base preset) and 256 are taken by
+    both directions since the wide stages take every width up to 768."""
     heads = D // 64
     params = bk.prepare_block_params(
         {k: torch.zeros(s) for k, s in bk.param_shapes(D, 4 * D).items()},
         dtype)
     x = torch.zeros(2, 5, D, dtype=dtype)
-    fwd_widths = str(bk.BLOCK_WIDTHS[dtype])
-    bwd_widths = str(bk.BLOCK_BWD_WIDTHS[dtype])
-    takes_fwd = D in bk.BLOCK_WIDTHS[dtype]
-    assert D not in bk.BLOCK_BWD_WIDTHS[dtype]
-    if takes_fwd:
+    takes = bk.block_width_ok(D, dtype, heads)
+    assert takes == (D in bk.BLOCK_WIDTHS[dtype])
+    assert takes == (dtype == torch.bfloat16 and D <= 768)
+    top = bk.BLOCK_MAX_WIDTH[dtype]
+    g = torch.zeros(2, 5, D)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    if takes:
         bk._check_cuda_args(x, params, heads)
+        bk._check_bwd_args(x, g, params, heads)
     else:
         with pytest.raises(ValueError,
-                           match=rf"D={D}.*forward.*{re.escape(fwd_widths)}"):
+                           match=rf"D={D}.*forward.*multiple of 64 from 64 "
+                                 rf"to {top}"):
             bk._check_cuda_args(x, params, heads)
-    g = torch.zeros(2, 5, D)
-    with pytest.raises(ValueError,
-                       match=rf"D={D}.*backward.*{re.escape(bwd_widths)}"):
-        bk._check_bwd_args(x, g, params, heads)
+        with pytest.raises(ValueError,
+                           match=rf"D={D}.*backward.*multiple of 64 from 64 "
+                                 rf"to {top}"):
+            bk._check_bwd_args(x, g, params, heads)
     # The forced kernel's op refuses a forward width the same way while
     # export traces; the training forward refuses the backward's width.
-    from torch._subclasses.fake_tensor import FakeTensorMode
     with FakeTensorMode():
         fx = torch.empty((2, 5, D), dtype=dtype, device="cuda")
         fp = [torch.empty(t.shape, dtype=t.dtype, device="cuda")
               for t in (params[k] for k in bk.PKEYS)]
-        if takes_fwd:
+        if takes:
             assert bk._VIT_BLOCK_FWD(fx, fp, heads).shape == fx.shape
         else:
             with pytest.raises(ValueError, match=f"D={D}"):
                 bk._VIT_BLOCK_FWD(fx, fp, heads)
-        with pytest.raises(ValueError, match=rf"D={D}.*backward"):
-            bk.FusedViTBlock.forward(types.SimpleNamespace(), fx, heads,
-                                     dict(zip(bk.PKEYS, fp)), False, *fp)
-    for widths, check in ((bk.BLOCK_WIDTHS, bk._check_cuda_args),
-                          (bk.BLOCK_BWD_WIDTHS,
-                           lambda xx, p, h: bk._check_bwd_args(
-                               xx, torch.zeros(xx.shape), p, h))):
-        for d in widths[dtype]:                   # the widths it takes pass
+            with pytest.raises(ValueError, match=rf"D={D}.*backward"):
+                bk.FusedViTBlock.forward(types.SimpleNamespace(), fx, heads,
+                                         dict(zip(bk.PKEYS, fp)), False, *fp)
+    for check in (bk._check_cuda_args,
+                  lambda xx, p, h: bk._check_bwd_args(
+                      xx, torch.zeros(xx.shape), p, h)):
+        for d in bk.BLOCK_WIDTHS[dtype]:          # the widths it takes pass
             p = bk.prepare_block_params(
                 {k: torch.zeros(s)
                  for k, s in bk.param_shapes(d, 4 * d).items()}, dtype)

@@ -23,7 +23,12 @@ process and the JAX ``Trainer`` on a 2-D mesh.
   model ranks (equal bit for bit under TP, partial under SP); each rank's
   state bytes; a TP + SP fit whose checkpoint is the single-card file, a
   one-process checkpoint resumed under TP + SP, and a fit over the sharded
-  ``DeviceLoader``;
+  ``DeviceLoader``; the explainability taps under TP and TP + SP (both
+  toys at depth 2, perturbed weights): every head's attention maps, the
+  norm1 tap and its Grad-CAM gradient against one process and the JAX
+  model's taps (2e-5, and 1e-4 of the gradient's largest, the bounds of
+  ``tests/test_torch_explainability.py``), and ``ViTAttentionRollout`` and
+  ``GradCAMPlusPlus`` run on the ``TensorParallel`` model;
 - ``cli.train --cpu --devices 2 --tensor_parallel 2 --sequence_parallel``,
   started beside the launch, and the JAX script's flag rules read by
   ``ast``.
@@ -425,6 +430,29 @@ def forward_grads(case: dict, mesh) -> dict:
     return res
 
 
+def run_taps(case: dict, mesh) -> dict:
+    """The explainability taps of ``case``'s model on ``mesh`` (eval): the
+    attention maps, the norm1 tap and its gradient for the predicted
+    classes, and the rollout and Grad-CAM++ maps of the classes that wrap
+    the model."""
+    from rovit_kan_tpu_torch.explainability.attention_maps import \
+        ViTAttentionRollout
+    from rovit_kan_tpu_torch.explainability.gradcam import (
+        GradCAMPlusPlus,
+        gradcam_taps,
+    )
+    model = RoViTKAN(**case["model_kw"])
+    model.load_state_dict(case["state_dict"])
+    net = build_net(model, mesh, case["mode"]).eval()
+    x = torch.from_numpy(case["x"])
+    with torch.no_grad():
+        attention = net(x, return_attention=True)["attention"]
+    tap, grad, idx = gradcam_taps(net, x, torch.full((len(x),), -1))
+    return {"attention": attention, "tap": tap, "grad": grad, "idx": idx,
+            "rollout": ViTAttentionRollout(net, device="cpu").maps(x),
+            "gradcam": GradCAMPlusPlus(net, device="cpu").maps(x)}
+
+
 def run_fit(case: dict, mesh) -> dict:
     """A 2-epoch ``Trainer.fit`` of the toy (TP + SP on a mesh), its last
     state saved as ``last`` and returned whole; on the mesh also a
@@ -534,7 +562,7 @@ def _worker(task_path: str) -> None:
     for name, case in task["ranks"].items():
         kind = case.get("kind", "steps")
         fn = {"steps": run_steps, "grads": forward_grads,
-              "fit": run_fit}[kind]
+              "fit": run_fit, "taps": run_taps}[kind]
         out[name] = fn(case, mesh)
     # The JAX runs, spread over the ranks (they need no collective).
     for i, (name, case) in enumerate(task["jax"].items()):
@@ -587,6 +615,7 @@ def launched(tmp_path_factory):
     """The one launch of four ranks (and the JAX runs in them), the CLI run
     beside it, and the one-process runs meanwhile."""
     from rovit_kan_tpu_torch.models.convert import to_jax_params
+    from test_torch_explainability import _jax_taps
     tmp = tmp_path_factory.mktemp("tensor")
     batches = [_batch(i) for i in range(len(STAGES))]
     jdraws = _jax_draws(len(STAGES))
@@ -622,6 +651,25 @@ def launched(tmp_path_factory):
         ranks_task[f"grads_h3_{mode}"] = {
             "kind": "grads", "model_kw": model_kw("h3", mode, 0.0),
             "state_dict": starts["h3", "tp"], "mode": mode, "x": x}
+    tap_start, jax_tap_params = {}, {}
+    for toy in TOYS:
+        kw = dict(TOYS[toy], depth=2, dropout=0.0)
+        torch.manual_seed(2)
+        sd = RoViTKAN(**kw).state_dict()
+        # Away from LayerNorm's identity init, where Grad-CAM++ on the
+        # norm1 tap is rounding noise.
+        rng = np.random.RandomState(8)
+        sd = {k: v + torch.from_numpy(rng.normal(0, 0.05, tuple(v.shape))
+                                      .astype(np.float32))
+              for k, v in sd.items()}
+        model0 = RoViTKAN(**kw)
+        model0.load_state_dict(sd)
+        jax_tap_params[toy] = to_jax_params(model0)
+        tap_start[toy] = sd
+        for mode in ("tp", "sp"):
+            ranks_task[f"taps_{toy}_{mode}"] = {
+                "kind": "taps", "model_kw": kw, "state_dict": sd,
+                "mode": mode, "x": x}
     single_dir = tmp / "single"
     ranks_task["fit"] = {"kind": "fit", "dir": str(tmp / "ranks"),
                          "resume": str(single_dir / "checkpoints")}
@@ -640,6 +688,13 @@ def launched(tmp_path_factory):
                 single[k] = run_steps(c, None)
         single["grads"] = forward_grads(ranks_task["grads_tp_0"], None)
         single["grads_h3"] = forward_grads(ranks_task["grads_h3_tp"], None)
+        for toy in TOYS:
+            single[f"taps_{toy}"] = run_taps(ranks_task[f"taps_{toy}_tp"],
+                                             None)
+            kw = dict(TOYS[toy], depth=2)
+            single[f"jax_taps_{toy}"] = dict(zip(
+                ("attention", "tap", "grad"),
+                _jax_taps(jax_tap_params[toy], x, **kw)))
         ranks = _join(procs, tmp)
         cli_log = cli.communicate(timeout=TIMEOUT)[0]
     finally:
@@ -766,6 +821,41 @@ def test_sp_forward_matches_the_unsharded_forward(launched):
         for case in ("grads_tp_0", "grads_sp_0"):
             np.testing.assert_allclose(r[case]["cls_logits"].numpy(),
                                        want.numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("toy", list(TOYS))
+@pytest.mark.parametrize("mode", ["tp", "sp"])
+def test_taps_under_tp_and_sp(launched, mode, toy):
+    """The attention maps ``(depth, B, heads, 5, 5)``, the norm1 tap and
+    its gradient on every rank against one process and the JAX model's
+    taps (maps and tap 2e-5, the gradient 1e-4 of its largest magnitude);
+    the predicted classes equal; the rollout and Grad-CAM++ classes give
+    what their functions give on the rank's taps."""
+    from rovit_kan_tpu_torch.explainability.attention_maps import \
+        attention_rollout
+    from rovit_kan_tpu_torch.explainability.gradcam import _cam_from_grads
+    one = {k: v.numpy() for k, v in launched["single"][f"taps_{toy}"].items()}
+    ref = launched["single"][f"jax_taps_{toy}"]
+    heads = TOYS[toy]["num_heads"]
+    assert one["attention"].shape == (2, 8, heads, 5, 5)
+    for want in (one, ref):
+        np.testing.assert_allclose(want["attention"], ref["attention"],
+                                   atol=2e-5, rtol=0)
+    for r in launched["ranks"]:
+        got = r[f"taps_{toy}_{mode}"]
+        assert torch.equal(got["idx"], torch.from_numpy(one["idx"]))
+        for want in (one, ref):
+            for k in ("attention", "tap"):
+                np.testing.assert_allclose(got[k].numpy(), want[k],
+                                           atol=2e-5, rtol=0, err_msg=k)
+            np.testing.assert_allclose(
+                got["grad"].numpy(), want["grad"], rtol=0,
+                atol=1e-4 * float(np.abs(want["grad"]).max()))
+        assert torch.equal(got["rollout"], attention_rollout(
+            got["attention"], image_size=32, discard_ratio=0.9,
+            apply_discard=False))
+        assert torch.equal(got["gradcam"],
+                           _cam_from_grads(got["tap"], got["grad"], 32))
 
 
 def test_sp_with_remat_gives_the_same_gradients(launched):

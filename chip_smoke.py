@@ -374,7 +374,8 @@ exits non-zero:
    model's engine as the exact reference), whether the bits are equal; 12
    #1 a batch on each rank and no other launch; served img/s and p50/p95
    beside the one-process engine's.
-27. pp_tp: four more ranks on the card (``--pp-tp-worker``, gloo) on a
+27. pp_tp: four more ranks on the card (``--pp-tp-worker``, gloo; started
+   with phase 20 and running beside phases 20-26) on a
    data 1 x pipe 2 x model 2 mesh (``make_pipeline_mesh(1, 2, model=2)``):
    phase 25's steps with each stage's six blocks Megatron-sharded over the
    model axis, held by ``hold_dp``'s rules for another route against the
@@ -416,6 +417,7 @@ serve_mesh: phase 26's batches; presets_serve_* and presets_train_*: phase
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import functools
@@ -3774,9 +3776,9 @@ def served_rates(model=None, n_batches: int = 20) -> dict:
             "fps_bs1": fps_benchmark(build_serving_forward(model), one)}
 
 
-def serving_speed(rounds: int = 4) -> dict:
+def serving_speed(rounds: int = 2) -> dict:
     """``served_rates`` through the op and with the block forward on the
-    ctypes launch alone, in turns (op, ctypes, ctypes, op, ...)."""
+    ctypes launch alone, in turns (op, ctypes, ctypes, op)."""
     from rovit_kan_tpu_torch.config import Config
     from rovit_kan_tpu_torch.models.rovit_kan import build_model
 
@@ -7101,11 +7103,21 @@ def dp_phase(smi: str, root: Path, backend: str = "gloo"):
     through gloo, or with ``nccl`` on cuda:0 and cuda:1 (``--nccl``); the
     same ranks run the "fsdp", "baselines_dp", "tp", "ep", "pp" and
     "serve_mesh" phases (21-26); under gloo four more ranks on cuda:0 run
-    "pp_tp" (27). Returns the phases' lines and the one-process steps the
-    ranks were held against (bf16 on #1/#2, bf16 on the TP route, fp32;
-    the MoE flagship's bf16 and fp32)."""
+    "pp_tp" (27), started first and alongside the rest, since they need
+    nothing of it (their step ms are read on a card and host shared with
+    the two ranks and this process). Returns the phases' lines and the
+    one-process steps the ranks were held against (bf16 on #1/#2, bf16 on
+    the TP route, fp32; the MoE flagship's bf16 and fp32)."""
     root.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
+    pp_tp = None
+    if backend == "gloo":
+        pp_root = root / "pp_tp"
+        pp_root.mkdir(parents=True, exist_ok=True)
+        # A worker thread: the interpreter waits for it at exit, so its
+        # ranks end (or time out) before this process does.
+        pp_tp = concurrent.futures.ThreadPoolExecutor(1).submit(
+            run_ranks, pp_root, PP_TP_RANKS, backend, "--pp-tp-worker")
     single = {s: dp_steps(None, s) for s in DP_STAGES}
     exact = {s: dp_steps(None, s, fp32=True) for s in DP_STAGES}
     # The baselines' one-process runs first: the sweep writes the tree the
@@ -7178,13 +7190,10 @@ def dp_phase(smi: str, root: Path, backend: str = "gloo"):
             "launches": launches, "cli": cli,
             "seconds": time.perf_counter() - t0, "card": smi}
     lines = [dped, fsdped, baselined, tped, eped, pped, smed]
-    if backend == "gloo":
+    if pp_tp is not None:
         # Four ranks on the one card: the 3-D mesh (the four-card NCCL run
         # takes it with --nccl).
-        pp_root = root / "pp_tp"
-        pp_root.mkdir(parents=True, exist_ok=True)
-        runs = [r["pp_tp"] for r in run_ranks(pp_root, PP_TP_RANKS, backend,
-                                              worker="--pp-tp-worker")]
+        runs = [r["pp_tp"] for r in pp_tp.result()]
         lines.append(pp_tp_line(smi, pp_root, backend, one, runs, ranks))
     return lines, one
 

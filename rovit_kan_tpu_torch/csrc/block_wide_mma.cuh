@@ -41,8 +41,9 @@
 // the same order whatever the tiling, so the tiling changes no bit. wgmma
 // and TMA are later work.
 //
-// At D = 384 and 768 the stages keep PR 25's tiles and sums (a LayerNorm
-// row's lanes add their groups in the same order), so their bits stay.
+// At D = 384 and 768 every N is a multiple of 128 and every lane of a
+// LayerNorm row holds a group, so neither the 128 x 64 tiles nor the idle
+// lanes reach those widths.
 //
 // What bounds it: at (64, 197, 384) one #1 does 2 M D 12 D = 4.46e10 FLOP
 // in the four products plus 4 B N^2 D = 3.82e9 in attention, 4.84e10 in

@@ -8,13 +8,15 @@ process group from the variables torchrun sets (``RANK``, ``WORLD_SIZE``,
 ``WORLD_SIZE``, or 1) makes no group.
 
 - ``maybe_initialize_distributed``: the group, once, with a timeout, so a
-  rank that dies does not leave the others waiting for ever;
+  rank that dies does not leave the others waiting for ever, destroyed at
+  exit;
 - ``local_batch_slice``: which rows of the global batch this process feeds;
 - ``global_mesh``: the mesh over every process of the job;
 - ``make_global_array``: the global batch from every rank's rows.
 """
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 from typing import Any, Optional
@@ -51,7 +53,18 @@ def maybe_initialize_distributed(backend: Optional[str] = None,
     dist.init_process_group(
         backend=backend, world_size=world, rank=int(os.environ["RANK"]),
         timeout=datetime.timedelta(seconds=timeout_s))
+    atexit.register(_destroy_at_exit)
     return True
+
+
+def _destroy_at_exit() -> None:
+    """Destroy the process group and every group made from it before the
+    interpreter's own teardown: left to that, gloo's threads can outlive
+    their objects and abort a rank (SIGABRT, "terminate called without an
+    active exception") after its work is done, in about half of the
+    launches of eight CPU ranks."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def process_count() -> int:

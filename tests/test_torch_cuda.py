@@ -1175,17 +1175,39 @@ def test_kan_module_kernels_walk_row_groups_at_the_widest_shape(cuda):
         assert torch.isfinite(a).all() and torch.equal(a, b), i
 
 
-def _kernels_of_one_call(fn):
-    """The device kernels one call of ``fn`` launches, by profiler name."""
-    from torch.profiler import ProfilerActivity, profile
+def _kernels_of_one_call(fn, calls: int = 10, takes: int = 6):
+    """The device kernels one call of ``fn`` launches, by profiler name,
+    from whole profiles of ``calls`` calls after a warm-up call. The
+    profiler traces and discards one round of ``calls`` first (its
+    schedule's warm-up), since a trace can lose its first operations; a
+    profile whose counts are not multiples of ``calls`` lost some and is
+    taken again (``cli/bench.py::device_ops``). A trace can also lose
+    records in whole multiples of ``calls``, so two whole profiles in a
+    row must agree."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            for _ in range(e.count)]
+    seen, last = [], None
+    for _ in range(takes):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        counts = {e.key: e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")}
+        seen.append(counts)
+        whole = counts and all(n % calls == 0 for n in counts.values())
+        if whole and counts == last:
+            return [k for k, n in counts.items() for _ in range(n // calls)]
+        last = counts if whole else None
+    raise AssertionError(f"no two whole profiles of {calls} calls in a row "
+                         f"in {takes} takes: {seen}")
 
 
 @pytest.mark.parametrize("B", [1, 64, 65, 1000])

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import random
 import signal
 import socket
 import subprocess
@@ -52,10 +53,31 @@ def data_parallel_size(devices: int, cpu: bool) -> int:
     return max(n, 1)
 
 
+def _ephemeral_floor() -> int:
+    """The lowest port the kernel gives an outgoing connection."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A port for rank 0's store, free when it is drawn, at random below
+    the ephemeral range: a port that ``bind(0)`` hands out and the caller
+    releases is free for the kernel to give again, to any outgoing
+    connection (each pair of gloo ranks opens some), before rank 0 binds
+    it; below that range only another explicit bind can take it."""
+    rng = random.SystemRandom()
+    top = _ephemeral_floor()
+    while True:
+        port = rng.randrange(max(1024, top - 16384), top)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
 
 
 def spawn_workers(cmd, n: int, log_dir=None, timeout=None) -> None:

@@ -857,11 +857,13 @@ inline bool bwd_mma_width_ok(int D) {
 }
 
 // The columns of the weight grads' output tiles at width D: D up to 192 and
-// at 384 (64 x 384, the design measured there), else 128 where it divides D
-// and 64 elsewhere. A 64 x D tile at D = 768 would take about 232 KB of
-// shared memory, over the 227 KB a block can have; the narrower tiles keep
-// each CTA's sum over its row split, so the partials and their ordered
-// reduce are as before.
+// at 384, else 128 where it divides D and 64 elsewhere. At (64, 197, 384)
+// on an H100 64 x 128 tiles (216 in one row split) took #4 1-3% and #2
+// about 1% longer than 64 x 384 tiles (72 over three splits), so 384 keeps
+// its instance. A 64 x D tile at D = 768 would take about 232 KB of shared
+// memory, over the 227 KB a block can have; the narrower tiles keep each
+// CTA's sum over its row split, so the partials and their ordered reduce
+// are as before.
 inline int wgrad_cols(int D) {
   if (D <= 192 || D == 384) return D;
   return D % 128 == 0 ? 128 : 64;

@@ -153,13 +153,29 @@ mlp_grad_wide_kernel(MlpGradArgs g) {
   }
 }
 
+// A warp's K column sums, acc[k] held as a row's columns (row_has), into
+// its rows [K][D] of shared memory.
+template <int K>
+__device__ __forceinline__ void store_row_sums(const float (&acc)[K][kRowV][4],
+                                               float* sAcc, int D, int lane) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < kRowV; ++i) {
+      if (!row_has(D, lane, i)) continue;
+      *reinterpret_cast<float4*>(sAcc + k * D + 4 * (lane + 32 * i)) =
+          make_float4(acc[k][i][0], acc[k][i][1], acc[k][i][2],
+                      acc[k][i][3]);
+    }
+}
+
 // The LN2 backward over a tile of 128 rows, 16 a warp, a row at a time:
 // x1 (fp32) read from x1dx1 and overwritten by dx1; dx1b = round(dx1). The
 // tile's partials [b2 (D) | - (H) | ln2 scale | ln2 bias | bproj] into
 // part's row blockIdx.x. A row's columns are held as ln_rows_kernel holds
-// them; each warp adds its rows' column sums in its own rows of shared
-// memory, in row order, then the warps are added in index order. One
-// instance takes every D (a multiple of 64 up to kWideMaxD).
+// them, and so are each lane's column sums, in registers, added in row
+// order; the warps' sums then meet in shared memory and are added in index
+// order. One instance takes every D (a multiple of 64 up to kWideMaxD).
 __global__ void __launch_bounds__(32 * kRowWarps)
 ln2_bwd_rows_kernel(float* __restrict__ x1dx1, const float* __restrict__ dz,
                     const float* __restrict__ g,
@@ -168,9 +184,13 @@ ln2_bwd_rows_kernel(float* __restrict__ x1dx1, const float* __restrict__ dz,
   constexpr int kRowsPerWarp = kWideTileRows / kRowWarps;
   extern __shared__ __align__(16) float sW[];             // [warps][4][D]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* sAcc = sW + warp * 4 * D;
-  for (int i = lane; i < 4 * D; i += 32) sAcc[i] = 0.f;
-  __syncwarp();
+  float acc[4][kRowV][4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int i = 0; i < kRowV; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[k][i][e] = 0.f;
   const int r0 = blockIdx.x * kWideTileRows + kRowsPerWarp * warp;
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int row = r0 + rr;
@@ -216,16 +236,17 @@ ln2_bwd_rows_kernel(float* __restrict__ x1dx1, const float* __restrict__ dz,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         o[e] = gv[e] + rstd * (dv[i][e] * gs[e] - m1 - xv[i][e] * m2);
-        sAcc[c + e] += gv[e];
-        sAcc[D + c + e] += dv[i][e] * xv[i][e];
-        sAcc[2 * D + c + e] += dv[i][e];
-        sAcc[3 * D + c + e] += o[e];
+        acc[0][i][e] += gv[e];
+        acc[1][i][e] += dv[i][e] * xv[i][e];
+        acc[2][i][e] += dv[i][e];
+        acc[3][i][e] += o[e];
       }
       *reinterpret_cast<float4*>(x1dx1 + base + c) =
           make_float4(o[0], o[1], o[2], o[3]);
       store4_bf16(dx1b + base + c, o[0], o[1], o[2], o[3]);
     }
   }
+  store_row_sums<4>(acc, sW + warp * 4 * D, D, lane);
   __syncthreads();
   float* pt = part + static_cast<size_t>(blockIdx.x) * (4 * D + H);
   for (int i = threadIdx.x; i < 4 * D; i += 32 * kRowWarps) {
@@ -253,9 +274,13 @@ ln1_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
   constexpr int kRowsPerWarp = kWideTileRows / kRowWarps;
   extern __shared__ __align__(16) float sW[];             // [warps][2][D]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* sAcc = sW + warp * 2 * D;
-  for (int i = lane; i < 2 * D; i += 32) sAcc[i] = 0.f;
-  __syncwarp();
+  float acc[2][kRowV][4];
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int i = 0; i < kRowV; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[k][i][e] = 0.f;
   const int r0 = blockIdx.x * kWideTileRows + kRowsPerWarp * warp;
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int row = r0 + rr;
@@ -301,8 +326,8 @@ ln1_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         o[e] = d1[e] + rstd * (dv[i][e] * gs[e] - m1 - xv[i][e] * m2);
-        sAcc[c + e] += dv[i][e] * xv[i][e];
-        sAcc[D + c + e] += dv[i][e];
+        acc[0][i][e] += dv[i][e] * xv[i][e];
+        acc[1][i][e] += dv[i][e];
       }
       store4_bf16(dx + base + c, o[0], o[1], o[2], o[3]);
       if constexpr (kResidual) {
@@ -313,6 +338,7 @@ ln1_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
       }
     }
   }
+  store_row_sums<2>(acc, sW + warp * 2 * D, D, lane);
   __syncthreads();
   float* pt = part + static_cast<size_t>(blockIdx.x) * 2 * D;
   for (int i = threadIdx.x; i < 2 * D; i += 32 * kRowWarps) {

@@ -77,10 +77,6 @@ def block_width_ok(D: int, dtype: torch.dtype,
                              and D // heads <= 128)
 
 
-#: Every width ``block_width_ok`` takes, by dtype.
-BLOCK_WIDTHS = {dt: tuple(range(64, top + 1, 64))
-                for dt, top in BLOCK_MAX_WIDTH.items()}
-
 #: Launches of the CUDA block forward since import (one per wrapper call on
 #: a CUDA tensor). The CPU path never touches it.
 LAUNCHES = 0

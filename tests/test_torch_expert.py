@@ -230,9 +230,51 @@ def make_net(model, mesh, axis: str, n_micro: int = 2):
     return Pipeline(model, mesh, n_micro)
 
 
+def load_when_written(path) -> object:
+    """``torch.load`` of ``path`` once another process has written it."""
+    deadline = time.monotonic() + TIMEOUT
+    while not Path(path).exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"nothing written at {path}")
+        time.sleep(0.1)
+    return torch.load(path, weights_only=False)
+
+
+def save_for_ranks(obj, path) -> None:
+    """``torch.save`` to ``path`` whole or not at all (for
+    ``load_when_written``)."""
+    tmp = Path(f"{path}.part")
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def _step_on(opt, net, taught: str, out: dict) -> None:
+    """Each of ``opt``'s updates from one process's gradient of that step
+    (a list of whole gradients by step, which the test process writes to
+    ``taught``) in place of the mesh's own, which is gathered whole into
+    ``out["grads"]`` first (rank 0; None on the others)."""
+    shapes = {k: p.shape for k, p in net.named_parameters()}
+    own_step, teacher = opt.step, []
+
+    def step():
+        mine = dict(zip(opt.names, torch.split(opt.grad, opt._sizes)))
+        out["grads"].append(net.gather_full(
+            {k: g.view(shapes[k]) for k, g in mine.items()}))
+        if not teacher:
+            teacher.extend(load_when_written(taught))
+        want = net.local(teacher[len(out["grads"]) - 1])
+        for k, g in mine.items():
+            g.copy_(want[k].reshape(-1))
+        return own_step()
+    opt.step = step
+
+
 def run_steps(case: dict, mesh) -> dict:
     """``case``'s steps from its weights, on ``mesh`` under its axis's
-    wrapper (None: one process)."""
+    wrapper (None: one process). With ``case["taught"]`` (a path), each
+    step's gradient is kept in ``out["grads"]``, and on the mesh each
+    update takes one process's gradient instead (``_step_on``), so every
+    step's gradient is the mesh's on one process's weights."""
     cfg = _config(fused_augment=case["fused_augment"],
                   ema_decay=case.get("ema_decay", 0.0))
     model = RoViTKAN(**case["model_kw"])
@@ -243,15 +285,19 @@ def run_steps(case: dict, mesh) -> dict:
                            generator=torch.Generator().manual_seed(3),
                            mesh=mesh)
     out = {"losses": []}
+    taught = case.get("taught")
+    if taught is not None:
+        out["grads"] = []
+        if mesh is not None:
+            _step_on(opt, net, taught, out)
     for i, (stage, live) in enumerate(STAGES):
         topt.set_hyperparams(opt, LR, 0.1 * live)
         draws = case["draws"][i] if case["draws"] else None
         m = step(case["batches"][i], stage, live, 1, draws=draws)
         out["losses"].append(float(m["total_loss"]))
-        if i == 0 and mesh is None:
-            out["first_grad"] = {k: g.clone().view_as(p) for (k, p), g in zip(
-                model.named_parameters(),
-                torch.split(opt.grad, opt._sizes))}
+        if taught is not None and mesh is None:
+            out["grads"].append({k: g.clone().view_as(p) for (k, p), g in zip(
+                model.named_parameters(), torch.split(opt.grad, opt._sizes))})
     if mesh is None:
         out["params"] = {k: v.clone() for k, v in model.state_dict().items()}
         out["ema"] = step.ema
@@ -509,8 +555,7 @@ def launched(tmp_path_factory):
 NOISE_STEPS = 2 * 0.1 * LR
 
 
-def close_but_key_bias(got: dict, want: dict, atol: float,
-                       noisy: dict = None) -> None:
+def close_but_key_bias(got: dict, want: dict, atol: float) -> None:
     """``_close``, but each block's key bias (the middle third of
     ``attn.qkv.bias``) within two of Adam's largest moves: softmax does not
     change when one vector is added to every key, so that bias's gradient
@@ -518,19 +563,10 @@ def close_but_key_bias(got: dict, want: dict, atol: float,
     (eps 1e-8) moves it by an amount the rounding sets. Any other
     summation order of the same sums moves it differently (the MoE toy's
     data-parallel step parts there by 1.96e-6, its expert-parallel one by
-    3.6e-6). ``noisy``: name -> each element's extra tolerance
-    (``rounding_level``), added to ``atol``."""
-    noisy = noisy or {}
-    _close({k: v for k, v in got.items()
-            if not k.endswith("qkv.bias") and k not in noisy},
-           {k: v for k, v in want.items()
-            if not k.endswith("qkv.bias") and k not in noisy}, atol)
-    for k, extra in noisy.items():
-        if k.endswith("qkv.bias"):
-            continue
-        gap = (got[k] - want[k]).abs()
-        assert bool((gap <= atol + extra).all()), (
-            k, float((gap - atol - extra).max()))
+    3.6e-6)."""
+    _close({k: v for k, v in got.items() if not k.endswith("qkv.bias")},
+           {k: v for k, v in want.items() if not k.endswith("qkv.bias")},
+           atol)
     for k, v in want.items():
         if k.endswith("qkv.bias"):
             d = v.shape[0] // 3
@@ -540,34 +576,6 @@ def close_but_key_bias(got: dict, want: dict, atol: float,
                 np.testing.assert_allclose(got[k][part].numpy(),
                                            v[part].numpy(), atol=tol,
                                            err_msg=k)
-
-
-def rounding_level(first_grad: dict, spread: float = 1e-6) -> dict:
-    """name -> each element's extra tolerance for the parameters after the
-    steps: twice the shift of its first Adam move (``u = g_c / (|g_c| +
-    eps)`` of the clipped gradient, times the learning rate) when its
-    gradient moves by ``spread`` of its leaf's largest magnitude either
-    way (the whole first gradients of a mesh and of one process part by up
-    to 1.0e-6 of a leaf's largest). It is sizeable only where the clipped
-    gradient lies within some tens of eps of zero, where rounding sets the
-    move."""
-    eps = 1e-8
-    gnorm = float(torch.sqrt(sum((g.double() ** 2).sum()
-                                 for g in first_grad.values())))
-    clip = 1.0 / max(gnorm, 1.0)
-
-    def u(t):
-        return t / (t.abs() + eps)
-
-    out = {}
-    for k, g in first_grad.items():
-        lr = LR * (0.1 if k.startswith("backbone.") else 1.0)
-        gc = g.double() * clip
-        shift = spread * float(g.abs().max()) * clip
-        extra = (2 * lr * (u(gc + shift) - u(gc - shift)).abs()).float()
-        if bool((extra > 1e-7).any()):
-            out[k] = extra
-    return out
 
 
 def test_steps_equal_one_process(launched):

@@ -172,6 +172,12 @@ def test_ablation_heads_fixed_shapes():
     assert out["mu"].shape == (3, 1)
 
 
+def _widths(dtype) -> list:
+    """Every width of a multiple of 64 up to 1,024 that
+    ``block_width_ok`` takes in ``dtype``."""
+    return [d for d in range(64, 1025, 64) if bk.block_width_ok(d, dtype)]
+
+
 def test_block_policy_and_unported_options():
     bf16, cuda, cpu = torch.bfloat16, torch.device("cuda"), torch.device(
         "cpu")
@@ -202,7 +208,7 @@ def test_block_policy_and_unported_options():
                 assert _resolve_fused_block(True, inference=inference,
                                             dtype=bf16, embed_dim=d,
                                             device=cuda)
-        for d in bk.BLOCK_WIDTHS[bf16]:
+        for d in _widths(bf16):
             assert _resolve_fused_block("auto", inference=False, dtype=bf16,
                                         embed_dim=d, device=cuda) == (
                 d <= 512)
@@ -253,7 +259,6 @@ def test_block_kernel_refuses_unsupported_widths(dtype, D):
         dtype)
     x = torch.zeros(2, 5, D, dtype=dtype)
     takes = bk.block_width_ok(D, dtype, heads)
-    assert takes == (D in bk.BLOCK_WIDTHS[dtype])
     assert takes == (dtype == torch.bfloat16 and D <= 768)
     top = bk.BLOCK_MAX_WIDTH[dtype]
     g = torch.zeros(2, 5, D)
@@ -287,7 +292,7 @@ def test_block_kernel_refuses_unsupported_widths(dtype, D):
     for check in (bk._check_cuda_args,
                   lambda xx, p, h: bk._check_bwd_args(
                       xx, torch.zeros(xx.shape), p, h)):
-        for d in bk.BLOCK_WIDTHS[dtype]:          # the widths it takes pass
+        for d in _widths(dtype):                  # the widths it takes pass
             p = bk.prepare_block_params(
                 {k: torch.zeros(s)
                  for k, s in bk.param_shapes(d, 4 * d).items()}, dtype)

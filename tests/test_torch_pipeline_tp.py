@@ -15,10 +15,11 @@ package's pipeline on ``make_pipeline_mesh(2, 2, model=2)``.
   ``test_torch_expert.py``), at the JAX toy (d = 32, depth 4, 2 heads,
   32 px, 2 microbatches) and a 3-head toy at d = 48 (t = 2 does not divide
   its heads: one head runs on both model ranks): the steps with dropout,
-  CutMix/MixUp and the EMA against one process (loss 1e-5 relative,
-  parameters and EMA 2e-6), the same with the JAX draws against the JAX
-  ``Trainer`` on the 3-D mesh, which the main process runs meanwhile
-  (losses 1e-4, parameters 2e-5); the forward against the JAX
+  CutMix/MixUp and the EMA, each update from one process's gradient,
+  against one process (loss 1e-5 relative, each step's gradient 1e-4 of
+  each leaf's largest, parameters and EMA 2e-6), the same with the JAX
+  draws against the JAX ``Trainer`` on the 3-D mesh, which the main
+  process runs meanwhile (losses 1e-4, parameters 2e-5); the forward against the JAX
   ``pipelined_forward`` and its gradient against ``jax.grad`` of it (1e-5
   of each leaf's largest), and both toys' against one process; the
   replicated leaves bit-equal on every rank, and their gradients on the
@@ -55,10 +56,10 @@ from test_torch_expert import (
     close_but_key_bias,
     jax_images,
     join,
-    rounding_level,
     run_case,
     run_fit,
     run_jax_steps,
+    save_for_ranks,
     start_ranks,
 )
 from test_torch_pipeline import TOY, _jax_toy, jax_forward_grads
@@ -308,9 +309,11 @@ def launched(tmp_path_factory):
     steps = {"axis": "pipe", "fused_augment": True, "ema_decay": 0.9,
              "draws": None, "batches": batches}
     ranks = {
-        "steps": dict(steps, model_kw=dict(TOY, dropout=0.3), state_dict=sd),
+        "steps": dict(steps, model_kw=dict(TOY, dropout=0.3), state_dict=sd,
+                      taught=str(tmp / "steps_grads.pt")),
         "steps_h3": dict(steps, model_kw=dict(TOY3, dropout=0.3),
-                         state_dict=sd3),
+                         state_dict=sd3,
+                         taught=str(tmp / "steps_h3_grads.pt")),
         "jaxdraws": {"model_kw": dict(TOY, dropout=0.0), "axis": "pipe",
                      "state_dict": sd, "fused_augment": "auto",
                      "draws": _jax_draws(len(STAGES)), "batches": batches},
@@ -326,10 +329,16 @@ def launched(tmp_path_factory):
     clis = [cli_train(tmp / "cli", "--devices", str(RANKS), *flags),
             cli_train(tmp / "cli1", "--devices", "1")]
     try:
-        single = {"fit": run_fit({"dir": str(tmp / "single"),
-                                  "axis": "pipe"}, None)}
+        # The ranks' steps wait for these gradients; their fit resumes the
+        # one-process checkpoint once "done" marks it.
+        single = {}
+        for k in ("steps", "steps_h3"):
+            single[k] = run_case(ranks[k], None)
+            save_for_ranks(single[k]["grads"], ranks[k]["taught"])
+        single["fit"] = run_fit({"dir": str(tmp / "single"), "axis": "pipe"},
+                                None)
         (tmp / "single" / "done").touch()
-        for k in ("steps", "steps_h3", "jaxdraws", "grads", "grads_h3"):
+        for k in ("jaxdraws", "grads", "grads_h3"):
             single[k] = run_case(ranks[k], None)
         jax_out = _jax_runs(ranks, to_jax_params(model0))
         out = join(procs, tmp)
@@ -346,35 +355,42 @@ def launched(tmp_path_factory):
 @pytest.mark.parametrize("case", ["steps", "steps_h3"])
 def test_steps_equal_one_process(launched, case):
     """Dropout, CutMix/MixUp, the EMA and the fused augment's plain version
-    on; stage 4, stage 2 frozen, stage 4: every rank's losses, and rank 0's
-    gathered parameters and EMA, against one process; each block's key
-    bias, whose gradient is zero but for rounding, as
-    ``close_but_key_bias`` says (the sharded qkv sums its gradient's
-    partials in another order: 2.2e-6 on one element of the toy's); each
-    element also within twice the shift of its first Adam move that the
-    fp32 spread of the first gradient gives (``rounding_level``). The step
-    clips the gradient by
-    its global norm (152 for the 3-head toy), so an element at a few 1e-6
-    of its leaf's largest has a clipped gradient near Adam's eps, where
-    ``u = g / (|g| + eps)`` follows its rounding: the 3-head toy's block-1
-    fc2 weight [25, 12] has a first gradient of 5.24e-6 in one float32
-    process and 4.82e-6 in float64 (the leaf's largest is 1.63), its u
-    0.775 and 0.760, and its parameter after the steps 7.5e-7 apart; the
-    mesh lands 1.7e-6 from float64 there, 2.5e-6 from one process. The
-    toy's block-1 qkv weight [5, 24] (-3.04e-7 in float64 against 0.76)
-    and the 3-head toy's block-0 fc2 weight [25, 129] (7.67e-7 against
-    1.98; 7.89e-7 in one process, 4.99e-7 on the mesh) part by 2.6e-6 and
-    4.7e-6. Their float64 gradients are not zero; the whole first
-    gradients of the mesh and one process agree within 1.0e-6 of each
-    leaf's largest."""
+    on; stage 4, stage 2 frozen, stage 4, each update of the mesh from one
+    process's gradient of that step (``run_steps``' ``taught``), so each
+    step runs on one process's weights: every rank's losses (1e-5
+    relative); each step's gradient, gathered whole on rank 0, within 1e-4
+    of each leaf's largest magnitude of one process's (the baseline
+    harness's first-step limit: one float32 process itself lies up to
+    8.8e-6 of the leaf's largest from float64 on the 3-head toy's KAN
+    linear weight, where the mesh lies 8.5e-6 from one process); rank 0's
+    gathered parameters and EMA after the steps within 2e-6, each block's
+    key bias as ``close_but_key_bias`` says.
+
+    The mesh's own updates are not held here: the step clips the gradient
+    by its global norm (152 on the 3-head toy), which puts many elements'
+    clipped gradients within some tens of Adam's eps, where the first
+    update ``g / (|g| + eps)`` turns a rounding-sized change of the
+    gradient into a sizeable share of the learning rate. Any other
+    summation order of the same sums lands elsewhere there: the mesh's
+    first gradient and one process's lie as far from a float64 run of one
+    process, yet free-running parameters parted by up to 4.7e-6 after the
+    three steps (the 3-head toy's block-0 fc2 weight [25, 129], whose
+    gradient is 7.67e-7 of the leaf's 1.98 in float64)."""
     single = launched["single"][case]
     for got in launched["ranks"]:
         np.testing.assert_allclose(got[case]["losses"], single["losses"],
                                    rtol=1e-5)
     got = launched["ranks"][0][case]
-    noisy = rounding_level(single["first_grad"])
-    close_but_key_bias(got["params"], single["params"], 2e-6, noisy)
-    close_but_key_bias(got["ema"], single["ema"], 2e-6, noisy)
+    assert len(got["grads"]) == len(single["grads"]) == len(STAGES)
+    for i, (mesh, one) in enumerate(zip(got["grads"], single["grads"])):
+        assert mesh.keys() == one.keys()
+        for k, v in one.items():
+            np.testing.assert_allclose(
+                mesh[k].numpy(), v.numpy(), rtol=0,
+                atol=1e-4 * max(float(v.abs().max()), 1e-30),
+                err_msg=f"step {i} {k}")
+    close_but_key_bias(got["params"], single["params"], 2e-6)
+    close_but_key_bias(got["ema"], single["ema"], 2e-6)
     assert all(r[case]["params"] is None for r in launched["ranks"][1:])
 
 
